@@ -3,14 +3,17 @@
 
 Builds the CUDA kernels from the sources in this checkout, holds every
 kernel against its plain PyTorch version, and drives the port's main path
-— ``Driver(device="cuda").schedule_once`` per cycle — at full size:
+at full size both ways: ``Driver(device="cuda").schedule_once`` per cycle
+and ``Driver.schedule_burst``, K cycles per launch:
 
 1. device: name, count and ``nvidia-smi`` name/power limit;
 2. build: nvcc of every kernel source (in parallel) into one library;
 3. kernels: each CUDA kernel against its plain version on the CPU over a
-   seeded sweep (kueue_tpu_torch.testing.kernel_cases) and over the
-   inputs captured from the first cycles of phases 4 and 5 — exact
-   equality (tolerance 0: every output is bool);
+   seeded sweep (kueue_tpu_torch.testing.kernel_cases and burst_cases)
+   and over the inputs captured from the first calls of phases 4, 5, 7
+   and 8 (for the burst also up to two windows with a preempting head) —
+   exact equality (tolerance 0: every output is bool or int32, the
+   burst's carry included);
 4. the reference perf scenario: 5 cohorts x 6 CQs, 15,000 workloads in
    staggered waves, drained per cycle; all drained, preemptions > 0, no
    host-fallback cycle, and admit_scan, admit_scan_preempt and
@@ -18,12 +21,19 @@ kernel against its plain PyTorch version, and drives the port's main path
 5. the north-star shape: 1,000 CQs in cohorts of 5, 100,000 workloads,
    30 per-cycle cycles with a preemptor wave; admit_scan_forests launched;
 6. card against CPU: the perf scenario at 3,000 workloads on "cuda" and
-   on "cpu" must give the same decision digest.
+   on "cpu" must give the same decision digest;
+7. the perf scenario drained through the fused burst: all 15,000
+   drained with burst_cycles launched and cycles decided in bursts
+   (dirty cycles by reason and per-cycle fallbacks printed); then at
+   3,000 workloads on "cuda" and "cpu", equal decision digests;
+8. the north-star shape through the fused burst at full width: 30
+   cycles, the preemptor wave, burst_cycles launched, preemptions > 0.
 
-Launch counts are zeroed just before phase 4 and phase 5 and read just
-after each.  Prints a ``kernels`` JSON line, the nvidia-smi line, and as
-its last line ``{"ok": true, "device": {...}}``.  Exits non-zero, with no
-result line, when there is no CUDA device or no kueue_tpu_torch beside it.
+Launch counts are zeroed just before phases 4, 5, 7 and 8 and read just
+after each.  Prints a ``kernels`` JSON line (per kernel: its launches on
+its main path and in each phase), the nvidia-smi line, and as its last
+line ``{"ok": true, "device": {...}}``.  Exits non-zero, with no result
+line, when there is no CUDA device or no kueue_tpu_torch beside it.
 
     python3 chip_smoke.py
 """
@@ -45,6 +55,7 @@ TPU_KERNEL = {   # the jitted JAX program each kernel replaces
     "admit_scan_preempt": "kueue_tpu/ops/cycle.py:380",
     "admit_scan_forests": "kueue_tpu/ops/cycle.py:597",
     "minimal_preemptions_batch": "kueue_tpu/ops/preemption_kernel.py:135",
+    "burst_cycles": "kueue_tpu/ops/burst.py:110",
 }
 SOURCE = {
     "admit_scan": "kueue_tpu_torch/kernels/admit_scan.cu",
@@ -52,9 +63,11 @@ SOURCE = {
     "admit_scan_forests": "kueue_tpu_torch/kernels/admit_scan_forests.cu",
     "minimal_preemptions_batch":
         "kueue_tpu_torch/kernels/minimal_preemptions.cu",
+    "burst_cycles": "kueue_tpu_torch/kernels/burst_cycles.cu",
 }
 BENCH_WORKLOADS = 15_000
 NORTHSTAR = dict(n_cqs=1000, n_wl=100_000, cycles=30)
+KIND_PREEMPT = 4            # ops/burst.py decision code
 PARITY_SCALE = 0.2          # 3,000 workloads
 
 
@@ -85,9 +98,13 @@ class Capture:
 
         def wrapped(*args, **kw):
             calls = self.calls.setdefault((self.phase, name), [])
+            out = fn(*args, **kw)
             if len(calls) < self.keep:
                 calls.append((args, kw))
-            return fn(*args, **kw)
+            elif (name == "burst_cycles" and len(calls) < self.keep + 2
+                  and bool((out[1] == KIND_PREEMPT).any())):
+                calls.append((args, kw))    # a window with preemption
+            return out
 
         setattr(module, attr, wrapped)
         self._undo.append((module, attr, fn))
@@ -104,11 +121,14 @@ def install_capture(cap: Capture) -> None:
         cap.install(solver, name, name)
     cap.install(preemption_solver, "minimal_preemptions_batch",
                 "minimal_preemptions_batch")
+    from kueue_tpu_torch.ops import burst
+    cap.install(burst, "burst_cycles", "burst_cycles")
 
 
 def plain_fns():
-    from kueue_tpu_torch.ops import cycle, preemption_kernel
+    from kueue_tpu_torch.ops import burst, cycle, preemption_kernel
     return {
+        "burst_cycles": burst.burst_cycles_plain,
         "admit_scan": cycle.admit_scan_plain,
         "admit_scan_forests": cycle.admit_scan_forests_plain,
         "admit_scan_preempt": cycle.admit_scan_preempt_plain,
@@ -123,14 +143,25 @@ def cuda_fns():
 
 
 def as_tuple(x):
-    return x if isinstance(x, tuple) else (x,)
+    """Outputs as a flat tuple of tensors (the burst's carry flattened)."""
+    if not isinstance(x, tuple):
+        return (x,)
+    return tuple(t for y in x for t in as_tuple(y))
+
+
+def on_cpu(args):
+    return [a.cpu() if hasattr(a, "cpu") else a for a in args]
+
+
+def plain_kw(kw):
+    return {k: v for k, v in kw.items() if k != "node_table"}
 
 
 def compare(name, args, kw, stats) -> None:
     """One CUDA launch against the plain version on CPU copies."""
     import torch
     cuda = as_tuple(cuda_fns()[name](*args, **kw))
-    plain = as_tuple(plain_fns()[name](*[a.cpu() for a in args], **kw))
+    plain = as_tuple(plain_fns()[name](*on_cpu(args), **plain_kw(kw)))
     torch.cuda.synchronize()
     err = 0
     for c, p in zip(cuda, plain):
@@ -146,7 +177,8 @@ def compare(name, args, kw, stats) -> None:
 
 
 def io_bytes(args, outs) -> int:
-    return sum(t.numel() * t.element_size() for t in list(args) + list(outs)
+    return sum(t.numel() * t.element_size()
+               for t in list(args) + list(as_tuple(tuple(outs)))
                if hasattr(t, "numel"))
 
 
@@ -156,6 +188,14 @@ def op_count(name, args, kw) -> int:
     plus the target removals and the check-plane copy; search: valid
     searches x real candidates x the forward and reverse steps)."""
     depth = kw["depth"]
+    if name == "burst_cycles":
+        # per cycle: the heads' argmin and the end-of-cycle transitions
+        # over every row, the classify over [C, S, R], and the forest
+        # scan's chain walks (~12 ops per column per chain step)
+        C, M, R = args[0].shape
+        F = args[17].shape[1]
+        return int(kw["K"] * (C * M * 8 + C * kw["S"] * R * depth * 12
+                              + C * F * 2 * depth * 12 * 2))
     if name == "minimal_preemptions_batch":
         S, NL, F = args[0].shape
         valid = int((args[6] >= 0).sum())
@@ -199,10 +239,10 @@ def time_kernel(name, args, kw, reps: int = 50) -> dict:
     ms = start.elapsed_time(end) / reps
     kernels.collect()
     plain = plain_fns()[name]
-    plain(*args, **kw)
+    plain(*args, **plain_kw(kw))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    plain(*args, **kw)
+    plain(*args, **plain_kw(kw))
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
     bytes_ms = io_bytes(args, outs) / PEAK_BYTES_PER_S * 1e3
@@ -221,6 +261,32 @@ def largest(calls):
     return max(calls, key=size)
 
 
+def burst_window(calls):
+    """The captured burst window to time: the last one kept, which is a
+    window with preemption whenever the phase had one."""
+    return calls[-1]
+
+
+def burst_line(tag, d, r, launches) -> None:
+    from kueue_tpu_torch import scenarios
+    bs = d._burst_solver.stats
+    ss = d.scheduler.solver.stats
+    log(f"[{tag}] burst_cycles launches {launches['burst_cycles']}, "
+        f"cycles decided {bs['burst_cycles_decided']}, dispatches "
+        f"{bs['burst_dispatches']} (spec {bs['burst_spec_dispatches']}, "
+        f"overlapped {bs['burst_overlapped_packs']}, cancelled "
+        f"{bs['burst_spec_cancelled']}), preempt cycles in bursts "
+        f"{bs['burst_preempt_cycles']}, dirty cycles "
+        f"{bs['burst_dirty_cycles']} (preempt {bs['burst_dirty_preempt']}, "
+        f"scalar {bs['burst_dirty_scalar']}), suppressed "
+        f"{bs['burst_suppressed_cycles']}, target divergences "
+        f"{bs['burst_target_divergences']}; per-cycle fallbacks: full "
+        f"{ss['full_cycles']} classify {ss['classify_cycles']} host "
+        f"{ss['host_cycles']}; boundary "
+        f"{json.dumps(scenarios.burst_boundary_report(bs))}; launches "
+        f"{json.dumps(launches)}")
+
+
 def main() -> int:
     try:
         import torch
@@ -233,6 +299,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     try:
+        import numpy as np
         from kueue_tpu_torch import kernels, scenarios, testing
     except ImportError as e:
         print(f"chip_smoke: kueue_tpu_torch not found beside the script "
@@ -265,6 +332,10 @@ def main() -> int:
         for name, arrays, kw in testing.kernel_cases(seed):
             args = [torch.from_numpy(a).cuda() for a in arrays]
             compare(name, args, kw, stats)
+        for _, arrays, kw in testing.burst_cases(seed):
+            args = [torch.from_numpy(a).cuda() if isinstance(a, np.ndarray)
+                    else int(a) for a in arrays]
+            compare("burst_cycles", args, kw, stats)
     log(f"[3 kernels, sweep] {json.dumps(stats)}")
 
     cap = Capture()
@@ -344,21 +415,131 @@ def main() -> int:
         check(r6["finished"] == total, f"{dev}: not drained")
     check(digests["cuda"] == digests["cpu"], digests)
 
+    # -- 7. the perf scenario through the fused burst -------------------------
+    install_capture(cap)
+    cap.phase = "bench_burst"
+    d, clock, total, waves = scenarios.build_bench(
+        BENCH_WORKLOADS / 15_000, device="cuda")
+    d.scheduler.solver.warmup(d.cache.snapshot(),
+                              len(d.cache.cluster_queue_names()))
+    kernels.reset_counts()
+    r7 = scenarios.drain_bench_burst(d, clock, total, waves)
+    torch.cuda.synchronize()
+    launches7 = dict(kernels.LAUNCHES)
+    device_ms7 = kernels.collect()
+    log(f"[7 bench burst] drained {r7['finished']}/{r7['total']} in "
+        f"{r7['cycles']} cycles, {r7['wall']:.2f}s wall, "
+        f"{r7['finished'] / r7['wall']:.1f} admissions/s, cycle p50 "
+        f"{scenarios.percentile(r7['cycle_times'], 0.5) * 1e3:.3f}ms p99 "
+        f"{scenarios.percentile(r7['cycle_times'], 0.99) * 1e3:.3f}ms, "
+        f"preempted {r7['preempted']}, digest "
+        f"{scenarios.decision_digest(d, r7['decisions'])}; device_ms "
+        f"{json.dumps(device_ms7)}")
+    burst_line("7 bench burst", d, r7, launches7)
+    check(r7["finished"] == r7["total"] == BENCH_WORKLOADS, r7["finished"])
+    check(launches7["burst_cycles"] > 0, launches7)
+    check(d._burst_solver.stats["burst_cycles_decided"] > 0, "no burst")
+    del d, waves
+    cap.uninstall()
+
+    # -- 7b. the burst on the card against the CPU --------------------------
+    digests = {}
+    for dev in ("cuda", "cpu"):
+        d, clock, total, waves = scenarios.build_bench(PARITY_SCALE,
+                                                       device=dev)
+        r = scenarios.drain_bench_burst(d, clock, total, waves)
+        digests[dev] = scenarios.decision_digest(d, r["decisions"])
+        log(f"[7 burst parity] {dev}: {r['finished']}/{total} drained, "
+            f"{r['preempted']} preempted, "
+            f"{d._burst_solver.stats['burst_cycles_decided']} cycles "
+            f"decided in bursts, digest {digests[dev]}")
+        check(r["finished"] == total, f"{dev}: not drained")
+    check(digests["cuda"] == digests["cpu"], digests)
+
+    # -- 8. the north-star shape through the fused burst ---------------------
+    install_capture(cap)
+    cap.phase = "northstar_burst"
+    t0 = time.perf_counter()
+    d, clock, total, wave = scenarios.build_northstar(
+        NORTHSTAR["n_cqs"], NORTHSTAR["n_wl"], device="cuda")
+    d.scheduler.solver.warmup(d.cache.snapshot(), NORTHSTAR["n_cqs"])
+    build_s = time.perf_counter() - t0
+    kernels.reset_counts()
+    r8 = scenarios.northstar_burst(d, clock, wave,
+                                   cycles=NORTHSTAR["cycles"])
+    torch.cuda.synchronize()
+    launches8 = dict(kernels.LAUNCHES)
+    device_ms8 = kernels.collect()
+    log(f"[8 northstar burst] {NORTHSTAR['n_cqs']} CQs, {total} workloads "
+        f"(built in {build_s:.1f}s), {r8['cycles']} cycles in "
+        f"{r8['wall']:.2f}s, cycle p50 "
+        f"{scenarios.percentile(r8['cycle_times'], 0.5) * 1e3:.3f}ms p99 "
+        f"{scenarios.percentile(r8['cycle_times'], 0.99) * 1e3:.3f}ms, "
+        f"admitted {r8['admitted']}, preempted {r8['preempted']}, digest "
+        f"{scenarios.decision_digest(d, r8['decisions'])}; device_ms "
+        f"{json.dumps(device_ms8)}")
+    burst_line("8 northstar burst", d, r8, launches8)
+    check(r8["cycles"] == NORTHSTAR["cycles"], r8["cycles"])
+    check(launches8["burst_cycles"] > 0, launches8)
+    check(r8["preempted"] > 0, "no preemption in the north-star wave")
+    del d
+    cap.uninstall()
+
+    # -- 3c. the burst kernel on the windows captured in phases 7 and 8 ------
+    n_pre = 0
+    for phase in ("bench_burst", "northstar_burst"):
+        for name in kernels.KERNELS:
+            for args, kw in cap.calls.get((phase, name), []):
+                compare(name, args, kw, stats)
+                if name == "burst_cycles":
+                    out = plain_fns()[name](*on_cpu(args), **plain_kw(kw))
+                    n_pre += int(bool((out[1] == KIND_PREEMPT).any()))
+    for name, s in stats.items():
+        check(s["mismatches"] == 0, (name, s))
+    check(n_pre > 0, "no captured burst window with a preempting head")
+    log(f"[3 kernels, captured bursts] {n_pre} windows with preemption; "
+        f"{json.dumps(stats)}")
+
     # -- the kernels line ----------------------------------------------------
+    by_phase = {"4": launches4, "5": launches5, "7": launches7,
+                "8": launches8}
     rows = []
     for name in kernels.KERNELS:
-        phase = "northstar" if name == "admit_scan_forests" else "bench"
+        phase = {"admit_scan_forests": "northstar",
+                 "burst_cycles": "northstar_burst"}.get(name, "bench")
         calls = cap.calls.get((phase, name))
         check(calls, f"{name}: no captured {phase} call")
-        args, kw = largest(calls)
+        args, kw = (burst_window(calls) if name == "burst_cycles"
+                    else largest(calls))
         t = time_kernel(name, args, kw)
-        launches = (launches5 if phase == "northstar" else launches4)[name]
+        launches = {"northstar": launches5, "bench": launches4,
+                    "northstar_burst": launches8}[phase][name]
+        extra = {}
+        if name == "burst_cycles":
+            # the same timing on a perf-scenario window (5 forests)
+            b_args, b_kw = burst_window(cap.calls[("bench_burst", name)])
+            tb = time_kernel(name, b_args, b_kw)
+            extra["bench_burst"] = dict(
+                ms=tb["ms"], plain_ms=tb["plain_ms"],
+                bound_ms=tb["bound_ms"], bound_by=tb["bound_by"],
+                dependent_steps=b_kw["K"] * b_kw["L"],
+                shape=dict(C=int(b_args[0].shape[0]),
+                           M=int(b_args[0].shape[1]), KC=b_kw["KC"],
+                           K=b_kw["K"], L=b_kw["L"]))
+            # the dependent chain of one launch: K cycles of L scan steps
+            # (plus the candidates each search walks, data-dependent)
+            extra["dependent_steps"] = kw["K"] * kw["L"]
+            extra["timed_shape"] = dict(C=int(args[0].shape[0]),
+                                        M=int(args[0].shape[1]),
+                                        KC=kw["KC"], K=kw["K"], L=kw["L"])
         rows.append(dict(
             name=name, route="cuda", source=SOURCE[name],
             replaces=TPU_KERNEL[name], launches=launches,
             max_abs_err=stats[name]["max_abs_err"], **t,
             cases=stats[name]["cases"],
-            mismatches=stats[name]["mismatches"], path=phase))
+            mismatches=stats[name]["mismatches"], path=phase,
+            launches_by_phase={k: v[name] for k, v in by_phase.items()},
+            **extra))
     print(json.dumps({"kernels": rows}), flush=True)
     log(f"total {time.perf_counter() - t_start:.1f}s")
     print(smi_line, flush=True)

@@ -57,6 +57,15 @@ from ..workload import (
 from .. import metrics
 
 
+def _unpack_target_rows(words, cand_rows_g):
+    """Bit-packed candidate-slot words -> flattened row ids."""
+    import numpy as np
+    w = np.asarray(words, dtype=np.uint32)
+    set_bits = ((w[:, None] >> np.arange(32, dtype=np.uint32)) & 1) > 0
+    wi, bi = np.nonzero(set_bits)
+    return cand_rows_g[wi * 32 + bi]
+
+
 @dataclass
 class WaitForPodsReadyConfig:
     """reference apis/config/v1beta1 WaitForPodsReady (:216)."""
@@ -85,6 +94,7 @@ class Driver:
             raise NotImplementedError(
                 "fair sharing is not ported yet (ROADMAP Queue 1 item 7)")
         self.clock = clock
+        self.device = str(device)
         self.wait_for_pods_ready = wait_for_pods_ready or WaitForPodsReadyConfig()
         ordering = Ordering(
             pods_ready_requeuing_timestamp=self.wait_for_pods_ready.requeuing_timestamp)
@@ -867,11 +877,491 @@ class Driver:
                        on_cycle_start: Optional[Callable] = None,
                        backend: str = "auto",
                        pipeline: Optional[bool] = None) -> list:
-        """The fused multi-cycle burst path is not ported yet: drive the
-        per-cycle path with ``schedule_once``."""
-        raise NotImplementedError(
-            "schedule_burst (the fused burst) is not ported yet "
-            "(ROADMAP Queue 1 item 6)")
+        """Run up to ``max_cycles`` cycles, fusing runs of clean cycles
+        into single launches on the Driver's device (ops/burst.py) and falling
+        back to the normal per-cycle path whenever a cycle needs host
+        semantics (preemption, scalar heads) or the modeled heads diverge
+        from the live queues.
+
+        ``runtime`` > 0 models fake execution: a workload admitted at
+        applied-cycle j is finished at cycle j+runtime (the perf
+        harness's contract — reference runner/controller/controller.go
+        :113).  ``external_finishes`` maps cycle offsets (relative to
+        this call) to workload keys admitted BEFORE the call that finish
+        at that offset; the driver performs both kinds of finishes
+        itself.  ``on_cycle_start(k)`` / ``on_cycle(k, stats)`` bracket
+        each applied cycle (clock advancement, bookkeeping).
+
+        ``pipeline`` (default on; KUEUE_BURST_PIPELINE=0 disables)
+        double-buffers the burst boundary: after a window with no
+        modeled-dirty cycle is fetched, the NEXT window is dispatched
+        speculatively off the kernel's final carry — device-resident,
+        no host re-pack — before this window's apply loop starts, so
+        pack+dispatch overlap apply instead of landing serially in one
+        cycle.  A speculative window is only ever consumed when every
+        cycle of the window it chained from applied exactly as modeled
+        and the structure generation is unchanged; anything else
+        (dirty truncation, heads divergence, clock-order violation,
+        vanished preempt target, structure drift) discards it unused
+        and the serial pack path decides — decisions are bit-identical
+        to pipeline-off by construction.
+
+        Returns the list of per-cycle CycleStats actually applied."""
+        import os
+        import numpy as np
+        from ..ops.burst import (BurstSolver, pack_burst_cached,
+                                 K_BURST_LADDER)
+
+        ext = {int(k): list(v) for k, v in
+               (external_finishes or {}).items()}
+        out: list = []
+        burst_ineligible = (
+            self.scheduler.fair_sharing
+            or (self.wait_for_pods_ready.enable
+                and self.wait_for_pods_ready.block_admission))
+        # ``backend`` is kept for call compatibility: the burst runs on
+        # the Driver's device and nowhere else
+        if backend not in ("auto", self.device, self.device.split(":")[0]):
+            raise ValueError(
+                f"backend={backend!r}: the burst runs on the Driver's "
+                f"device ({self.device!r}); pass 'auto'")
+        if self._burst_solver is None:
+            self._burst_solver = BurstSolver(device=self.device)
+            shards = self._env_shards()
+            if shards > 1:
+                self._burst_solver.set_shards(shards)
+        solver = self.scheduler.solver
+        normal_streak = 0   # cycles to run normally before re-bursting
+
+        from ..api.types import WL_QUOTA_RESERVED
+
+        def _reservation_ts(key):
+            wl = self.workloads.get(key)
+            if wl is None or not wl.has_quota_reservation:
+                return None
+            c = wl.conditions.get(WL_QUOTA_RESERVED)
+            return c.last_transition_time if c is not None else None
+
+        # a finish obligation is bound to the ADMISSION that scheduled
+        # it: a workload preempted and re-admitted in between must get a
+        # full new run, not a truncated one (the host harness prunes
+        # stale entries the moment the reservation drops)
+        sched_ts: dict = {key: _reservation_ts(key)
+                          for keys in ext.values() for key in keys}
+
+        def finish_cycle(stats) -> None:
+            """Record one applied cycle + its end-of-cycle finishes.
+
+            Finish time is tracked separately on the stats
+            (``finish_s``): it is workload-controller work, not
+            scheduler-cycle latency — per-cycle benchmarks exclude it
+            the same way the per-cycle harness loop does."""
+            import time as _time
+            k = len(out)
+            out.append(stats)
+            for key in stats.admitted:
+                sched_ts[key] = _reservation_ts(key)
+            due = list(ext.pop(k, []))
+            if runtime > 0 and k - runtime >= 0:
+                due.extend(out[k - runtime].admitted)
+            t0 = _time.perf_counter()
+            batch = [key for key in due
+                     if (wl := self.workloads.get(key)) is not None
+                     and wl.has_quota_reservation
+                     and _reservation_ts(key) == sched_ts.get(key)]
+            if batch:
+                self.finish_workloads(batch)
+            stats.finish_s = _time.perf_counter() - t0
+            if self._wal is not None:
+                self.host_pool.commit_wal(self._wal)
+            self.obs.record_cycle(stats)
+            if on_cycle is not None:
+                on_cycle(k, stats)
+
+        def quiescent() -> bool:
+            """Nothing can make further cycles non-empty: no eligible
+            heads now, no pending backoff timer, and no future finish
+            (external or modeled-runtime) that could unpark work."""
+            if any(off >= len(out) for off in ext):
+                return False
+            if runtime > 0 and any(
+                    out[j].admitted for j in
+                    range(max(0, len(out) - runtime), len(out))):
+                return False
+            for name in self.queues.cluster_queue_names():
+                q = self.queues.queue_for(name)
+                if q is None or not q.active:
+                    continue
+                if len(q.heap):
+                    return False     # a head exists right now
+                for info in q.inadmissible.values():
+                    rs = info.obj.requeue_state
+                    if rs is not None and rs.requeue_at is not None:
+                        return False  # a backoff timer will fire
+            return True
+
+        def normal_cycle(heads=None, advance=True) -> bool:
+            """One normal-path cycle; False when the queues were empty."""
+            if advance and on_cycle_start is not None:
+                on_cycle_start(len(out))
+            if heads is None:
+                stats = self.schedule_once()
+            else:
+                stats = self.scheduler.schedule(heads=heads)
+                self.metrics.admission_attempt(bool(stats.admitted),
+                                               stats.duration_s)
+            finish_cycle(stats)
+            return bool(stats.admitted or stats.skipped
+                        or stats.inadmissible or stats.preempting)
+
+        dirty_backoff = 0
+        bstats = self._burst_solver.stats
+        if pipeline is None:
+            pipeline = os.environ.get("KUEUE_BURST_PIPELINE", "1") != "0"
+        spec = None          # speculative BurstHandle for the next window
+        last_adm_clock = None
+        clock_monotone = True
+
+        def cancel_spec(h, why=""):
+            """Discard an in-flight speculative window unfetched — its
+            assumptions were invalidated; it must never be applied."""
+            if h is not None:
+                bstats["burst_spec_cancelled"] += 1
+                if os.environ.get("KUEUE_BURST_DEBUG"):
+                    import sys as _sys
+                    print(f"spec cancel: {why}", file=_sys.stderr)
+            return None
+
+        while len(out) < max_cycles:
+            if _chaos.ACTIVE is not None:
+                _chaos.ACTIVE.crashpoint("burst.window_boundary")
+                if (spec is not None and _chaos.ACTIVE.hit(
+                        "burst.force_spec_divergence") is not None):
+                    # chaos forces the pipeline cancel path: the
+                    # speculative window is discarded unconsumed and the
+                    # serial pack decides — bit-identical by the same
+                    # argument as every organic cancel
+                    bstats["burst_chaos_divergences"] = (
+                        bstats.get("burst_chaos_divergences", 0) + 1)
+                    spec = cancel_spec(spec, "chaos")
+            if (burst_ineligible or solver is None or normal_streak > 0
+                    or self._resume_mask):
+                # a pending resume mask routes the first post-recovery
+                # cycle through schedule_once, which completes the
+                # WAL-interrupted cycle before bursting resumes
+                spec = cancel_spec(spec, "ineligible/streak/resume")
+                if normal_streak > 0 and not burst_ineligible:
+                    bstats["burst_suppressed_cycles"] += 1
+                normal_streak = max(0, normal_streak - 1)
+                if not normal_cycle() and quiescent():
+                    break
+                continue
+            st = solver._structure
+            if (st is None
+                    or st.generation != self.cache.structure_generation):
+                # structure drifted: one snapshot rebuilds the cached
+                # tensors; steady-state re-packs skip the snapshot cost
+                st = solver._structure_for(self.cache.snapshot(), [])
+                spec = cancel_spec(spec, "structure-drift")
+            remaining = max_cycles - len(out)
+            if spec is not None:
+                # pipelined boundary: this window's pack+dispatch
+                # already ran, overlapped with the previous apply loop
+                handle, spec = spec, None
+                plan, K = handle.plan, handle.K
+                st = plan.structure
+                bstats["burst_overlapped_packs"] += 1
+            else:
+                K = next((r for r in K_BURST_LADDER if r >= min(
+                    remaining, K_BURST_LADDER[-1])), K_BURST_LADDER[-1])
+                _t_pack = time.perf_counter()
+                with _span("burst.pack"):
+                    plan, self._burst_pack_state, _ = pack_burst_cached(
+                        st, self.queues, self.cache, self.scheduler,
+                        self.clock, state=self._burst_pack_state,
+                        min_m=self._burst_m, window=K, stats=bstats)
+                bstats["burst_pack_s"] += time.perf_counter() - _t_pack
+                bstats["burst_packs"] += 1
+                if plan is None:
+                    if not normal_cycle() and quiescent():
+                        break
+                    continue
+                self._burst_m = max(self._burst_m, plan.M)
+                F = max(1, len(st.fr_index))
+                ext_release = np.zeros((K, plan.C, F), dtype=np.int32)
+                ext_unpark = np.zeros((K, plan.G), dtype=bool)
+                # the kernel must model EVERY release during its window:
+                # the caller's external schedule plus the still-pending
+                # modeled finishes of cycles applied earlier in this
+                # call (a re-pack after truncation starts a fresh
+                # release ring)
+                sched = {k: list(v) for k, v in ext.items()}
+                if runtime > 0:
+                    for j in range(max(0, len(out) - runtime), len(out)):
+                        due = j + runtime
+                        keys = [key for key in out[j].admitted
+                                if _reservation_ts(key) is not None
+                                and _reservation_ts(key)
+                                == sched_ts.get(key)]
+                        if keys:
+                            sched.setdefault(due, []).extend(keys)
+                if not self._fill_burst_finishes(st, plan, sched,
+                                                 len(out), K,
+                                                 ext_release, ext_unpark):
+                    if not normal_cycle() and quiescent():
+                        break
+                    continue
+                with _span("burst.dispatch"):
+                    handle = self._burst_solver.dispatch(
+                        plan, K, runtime, ext_release, ext_unpark)
+                # a fresh pack re-read the live reservation timestamps;
+                # candidate ordering inside the kernel assumes they
+                # strictly increase across applied cycles (and past
+                # every pre-burst reservation) — track it and refuse to
+                # apply modeled preempt cycles if violated
+                last_adm_clock = plan.max_res_ts
+                clock_monotone = True
+            # flags-first fetch: block only on the tiny replicated dirty
+            # flags (the spec gate's whole input) and park the carry, so
+            # the chained next-window dispatch is issued BEFORE the full
+            # decision planes are assembled — each shard's decision
+            # transfer then overlaps the chained kernel and this
+            # window's apply loop instead of serializing ahead of them
+            with _span("burst.fetch"):
+                dirty, dirty_reason = self._burst_solver.fetch_flags(handle)
+            base = len(out)
+            # two-slot pipeline: chain the NEXT window off this one's
+            # final carry before applying, so its kernel computes while
+            # the host applies this window.  Only windows whose model is
+            # fully clean can seed a chain, and finish events the carry
+            # cannot represent force the serial path: external finishes
+            # inside or past the next window, or runtime > K (a PRE-pack
+            # admission's finish could then land past this window — the
+            # carry only models finishes of in-kernel admissions).
+            if os.environ.get("KUEUE_BURST_DEBUG"):
+                import sys as _sys
+                print(f"spec gate @cycle {base}: remaining={remaining} "
+                      f"K={K} runtime={runtime} "
+                      f"dirty={bool(np.asarray(dirty).any())} "
+                      f"ext_late={any(off >= base + K for off in ext)}",
+                      file=_sys.stderr)
+            if (pipeline and remaining > K and runtime <= K
+                    and not bool(np.asarray(dirty).any())
+                    and not any(off >= base + K for off in ext)):
+                F = max(1, len(st.fr_index))
+                with _span("burst.dispatch"):
+                    spec = self._burst_solver.dispatch_next(
+                        handle,
+                        np.zeros((K, plan.C, F), dtype=np.int32),
+                        np.zeros((K, plan.G), dtype=bool))
+            with _span("burst.fetch"):
+                (head_row, kind, slot, borrows, tgt_words, dirty,
+                 dirty_reason) = self._burst_solver.fetch(handle)
+            from ..ops import burst as _b
+            kind_name = {_b.KIND_ADMIT: "admit", _b.KIND_SKIP: "skip",
+                         _b.KIND_PARK: "park", _b.KIND_PREEMPT: "preempt",
+                         _b.KIND_RESERVE: "reserve",
+                         _b.KIND_OVERLAP_SKIP: "overlap_skip",
+                         _b.KIND_PRE_NOFIT: "pre_nofit"}
+            cand_rows = plan.arrays["cand_rows"]
+            forest_of_cq = plan.arrays["forest_of_cq"]
+            st_names = st.cq_names
+            applied = 0
+            drained = False
+            window_complete = False
+            for k in range(K):
+                if len(out) >= max_cycles:
+                    break
+                modeled: dict = {}
+                has_pre_kind = False
+                for ci in np.nonzero(head_row[k] >= 0)[0]:
+                    ci = int(ci)
+                    key = plan.keys[ci][int(head_row[k, ci])]
+                    kd = kind_name.get(int(kind[k, ci]), "park")
+                    targets = None
+                    if kd == "preempt":
+                        rows = _unpack_target_rows(
+                            tgt_words[k, ci], cand_rows[forest_of_cq[ci]])
+                        targets = []
+                        for r in rows:
+                            tci, tmi = divmod(int(r), plan.M)
+                            targets.append((plan.keys[tci][tmi],
+                                            st_names[tci]))
+                    if kd in ("preempt", "reserve", "overlap_skip",
+                              "pre_nofit"):
+                        has_pre_kind = True
+                    modeled[key] = (kd, int(slot[k, ci]),
+                                    bool(borrows[k, ci]), targets)
+                if not dirty[k] and not modeled and quiescent():
+                    drained = True
+                    if os.environ.get("KUEUE_BURST_DEBUG"):
+                        import sys as _sys
+                        print(f"win break @k={k}: drained",
+                              file=_sys.stderr)
+                    break
+                # the cycle boundary in schedule_once order: advance the
+                # caller's clock FIRST, then fire deadline/backoff timers
+                # at the new time, then pop heads
+                if on_cycle_start is not None:
+                    on_cycle_start(len(out))
+                if self.wait_for_pods_ready.enable:
+                    self.enforce_wait_for_pods_ready()
+                self.queues.wake_expired_backoffs()
+                heads = self.queues.heads_nonblocking()
+                if dirty[k]:
+                    bstats["burst_dirty_cycles"] += 1
+                    r = int(dirty_reason[k])
+                    if r & _b.DIRTY_PREEMPT:
+                        bstats["burst_dirty_preempt"] += 1
+                    if r & _b.DIRTY_SCALAR:
+                        bstats["burst_dirty_scalar"] += 1
+                    if r & _b.DIRTY_RESUME:
+                        bstats["burst_dirty_resume"] += 1
+                    normal_cycle(heads=heads, advance=False)
+                    if applied == 0:
+                        dirty_backoff = min(8, max(1, 2 * dirty_backoff))
+                        normal_streak = dirty_backoff
+                    break   # kernel state is stale past a host cycle
+                if has_pre_kind and not clock_monotone:
+                    # modeled candidate order may diverge from the host's
+                    # reservation-timestamp order: decide on the host
+                    if os.environ.get("KUEUE_BURST_DEBUG"):
+                        import sys as _sys
+                        print(f"win break @k={k}: clock-monotone",
+                              file=_sys.stderr)
+                    normal_cycle(heads=heads, advance=False)
+                    break
+                if {h.key for h in heads} != set(modeled):
+                    # unmodeled divergence: decide this cycle normally
+                    if os.environ.get("KUEUE_BURST_DEBUG"):
+                        import sys as _sys
+                        print(f"win break @k={k}: heads-mismatch",
+                              file=_sys.stderr)
+                    normal_cycle(heads=heads, advance=False)
+                    break
+                if not modeled:
+                    # empty cycle: pending finishes may unpark work
+                    normal_cycle(heads=[], advance=False)
+                    continue
+                # one settle per cycle: evict/finish wakeups inside the
+                # block collapse into a single deduped requeue pass at
+                # exit — before the next heads read, so the observable
+                # order matches the eager path decision-for-decision
+                with self.cycle_apply():
+                    with _span("burst.apply"):
+                        stats = self.scheduler.apply_burst_cycle(heads,
+                                                                 modeled)
+                    if stats is not None:
+                        if has_pre_kind:
+                            bstats["burst_preempt_cycles"] += 1
+                        self.metrics.admission_attempt(
+                            bool(stats.admitted), stats.duration_s)
+                        if stats.admitted:
+                            # the ACTUAL reservation timestamps just
+                            # recorded — a resampled clock could tick
+                            # between two same-ts admissions and hide
+                            # the tie
+                            cycle_ts = [
+                                t for k2 in stats.admitted
+                                if (t := _reservation_ts(k2)) is not None]
+                            lo = min(cycle_ts, default=None)
+                            if (lo is not None
+                                    and last_adm_clock is not None
+                                    and lo <= last_adm_clock):
+                                clock_monotone = False
+                            if len(set(cycle_ts)) > 1:
+                                # >1 distinct timestamp inside ONE
+                                # cycle: the clock ticked mid-admission,
+                                # so modeled preempt ordering can no
+                                # longer mirror the host's
+                                # candidatesOrdering tie-break
+                                clock_monotone = False
+                            hi = max(cycle_ts, default=None)
+                            if hi is not None:
+                                last_adm_clock = (
+                                    hi if last_adm_clock is None
+                                    else max(last_adm_clock, hi))
+                        finish_cycle(stats)
+                if stats is None:
+                    # a modeled preempt target has no live admitted
+                    # counterpart: the model and the real state diverged
+                    # — abandon the window and re-decide on the host
+                    # (outside cycle_apply: the host cycle must see the
+                    # eagerly-settled queue state)
+                    bstats["burst_target_divergences"] += 1
+                    normal_cycle(heads=heads, advance=False)
+                    break
+                applied += 1
+                normal_streak = 0
+                dirty_backoff = 0
+                if _chaos.ACTIVE is not None:
+                    _chaos.ACTIVE.crashpoint("burst.mid_window")
+            else:
+                window_complete = True
+            if spec is not None and not window_complete:
+                # the window was truncated (dirty / divergence / clock):
+                # live state no longer matches the carry the speculative
+                # window chained from — it must never be applied
+                spec = cancel_spec(spec, "window-truncated")
+            if drained:
+                spec = cancel_spec(spec, "drained")
+                break
+        spec = cancel_spec(spec, "end-of-call")
+        return out
+
+    def _fill_burst_finishes(self, st, plan, ext: dict, base: int, K: int,
+                             ext_release, ext_unpark) -> bool:
+        """Feed the external finish schedule to the kernel: row-backed
+        workloads get their ``death0`` cycle set (the kernel releases
+        their exact usage and frees the row — preemption-aware), keys
+        without rows fall back to the aggregated [K, C, F] release
+        tensors.  False when a fallback release isn't representable
+        (run normal cycles instead).  Release vectors are cached per
+        admission (an Info build + usage walk per workload is too hot
+        for re-packs)."""
+        from ..workload import Info
+        from ..ops.burst import admitted_usage_vec
+        death = plan.arrays["death0"]
+        row_of_key = plan.row_of_key or {}
+        scale_of = {r: int(st.resource_scale[i])
+                    for i, r in enumerate(st.resource_names)}
+        F = ext_release.shape[2]
+        for off, keys in ext.items():
+            k = off - base
+            if k < 0 or k >= K:
+                continue
+            for key in keys:
+                wl = self.workloads.get(key)
+                if wl is None or wl.admission is None:
+                    continue
+                loc = row_of_key.get(key)
+                if loc is not None and plan.arrays["adm0"][loc]:
+                    death[loc] = min(int(death[loc]), k)
+                    continue
+                ci = st.cq_index.get(wl.admission.cluster_queue)
+                if ci is None:
+                    return False
+                # the live cache Info carries the per-Info usage cache
+                # (a throwaway Info would rebuild the usage walk every
+                # re-pack)
+                cq_live = self.cache.cluster_queue(
+                    wl.admission.cluster_queue)
+                info = (cq_live.workloads.get(key)
+                        if cq_live is not None else None)
+                if info is None:
+                    info = Info(wl, self.cache.info_options)
+                uv = admitted_usage_vec(info, st, scale_of, F)
+                if uv is None:
+                    return False
+                ext_release[k, ci] += uv[0]
+                if uv[0].any():
+                    # zero-usage finishes release nothing the kernel
+                    # can observe (matches the death-row path, which
+                    # only unparks on released usage); their wakeup
+                    # reaches the host through the heads-mismatch break
+                    ext_unpark[k,
+                               int(plan.arrays["forest_of_cq"][ci])] = True
+        return True
 
     def run(self, stop_event, heads_timeout: float = 0.2) -> None:
         """Daemon mode: the long-running admission loop over blocking

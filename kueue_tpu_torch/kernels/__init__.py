@@ -35,9 +35,9 @@ from pathlib import Path
 import torch
 
 KERNELS = ("admit_scan", "admit_scan_preempt", "admit_scan_forests",
-           "minimal_preemptions_batch")
+           "minimal_preemptions_batch", "burst_cycles")
 SOURCES = ("admit_scan.cu", "admit_scan_preempt.cu", "admit_scan_forests.cu",
-           "minimal_preemptions.cu")
+           "minimal_preemptions.cu", "burst_cycles.cu")
 HEADERS = ("quota.cuh", "admit_entry.cuh")
 MAX_DEPTH = 16          # KQ_MAX_DEPTH in quota.cuh
 MAX_THREADS = 1024
@@ -112,6 +112,7 @@ _ARGTYPES = {
     "kq_admit_scan_forests": [_P] * 20 + [_I] * 9 + [_P],
     "kq_admit_scan_preempt": [_P] * 28 + [_I] * 11 + [_P],
     "kq_minimal_preemptions": [_P] * 18 + [_I] * 7 + [_P],
+    "kq_burst_cycles": [_P, _P, _P],
 }
 
 
@@ -368,3 +369,145 @@ def minimal_preemptions_batch(usage0, subtree, guaranteed, borrow_cap,
                          mask),
             S, NL, F, K, depth, _threads(F), smem)
     return fitted, mask
+
+
+# -- the fused burst ---------------------------------------------------------
+
+BURST_THREADS = 256
+_BURST_Q_N = 6          # Q_N in burst_cycles.cu: per-CQ ints of a cycle
+_BURST_BOOL = ("vec_ok", "elig0", "parked0", "adm0", "adm_uses0",
+               "has_blim", "slot_valid", "cq_can_preempt_borrow",
+               "cq_wcb_borrow", "cq_wcp_preempt", "strict_cq", "wcq_lower",
+               "rwc_enabled", "rwc_only_lower", "preempt_ok", "ext_unpark")
+# the launch's input order (BurstArgs in burst_cycles.cu)
+_BURST_INPUTS = ("wl_req", "wl_rank", "wl_cycle_rank", "wl_prio",
+                 "wl_uidrank", "vec_ok", "potential0", "subtree",
+                 "guaranteed", "borrow_cap", "has_blim", "parent",
+                 "node_level", "nominal_cq", "npb_cq", "slot_fr",
+                 "slot_valid", "cq_can_preempt_borrow", "cq_wcb_borrow",
+                 "cq_wcp_preempt", "strict_cq", "wcq_lower", "rwc_enabled",
+                 "rwc_only_lower", "preempt_ok", "members", "cand_rows",
+                 "cand_lmem", "self_lmem", "ext_release", "ext_unpark")
+
+
+def burst_node_table(parent, node_level, forest_of_cq, G: int, device):
+    """The burst kernel's per-forest node table: ``(nodes [G, NN] int32,
+    count [G] int32)`` on ``device`` — every node of each cohort forest
+    (the trees holding that forest's CQs), deepest level first, -1 pad.
+    Derived on the host from the structure planes (numpy or tensors)."""
+    import numpy as np
+
+    def host(x):
+        if isinstance(x, torch.Tensor):
+            x = x.cpu().numpy()
+        return np.asarray(x).astype(np.int64)
+
+    parent, level, fcq = host(parent), host(node_level), host(forest_of_cq)
+    N, C = len(parent), len(fcq)
+    root = np.arange(N)
+    for _ in range(N):
+        up = parent[root]
+        nxt = np.where(up >= 0, up, root)
+        if np.array_equal(nxt, root):
+            break
+        root = nxt
+    forest_of_root = np.full(N, -1, dtype=np.int64)
+    forest_of_root[root[:C]] = fcq
+    fo = forest_of_root[root]
+    nodes = np.nonzero(fo >= 0)[0]
+    nodes = nodes[np.lexsort((nodes, -level[nodes], fo[nodes]))]
+    f = fo[nodes]
+    count = np.bincount(f, minlength=G).astype(np.int32)
+    NN = max(1, int(count.max(initial=0)))
+    table = np.full((G, NN), -1, dtype=np.int32)
+    starts = np.concatenate([[0], np.cumsum(count)[:-1]])
+    table[f, np.arange(len(nodes)) - starts[f]] = nodes
+    return (torch.from_numpy(table).to(device),
+            torch.from_numpy(count).to(device))
+
+
+def burst_cycles(*args, K, depth, L, S, KC, n_levels, G, runtime,
+                 node_table=None):
+    """CUDA burst_cycles (kernels/burst_cycles.cu): K fused admission
+    cycles, one block per cohort forest.  Arguments and outputs as
+    ``ops.burst.burst_cycles_plain``; ``node_table`` as
+    ``burst_node_table`` (derived here when not given)."""
+    from ..ops.burst import ARG_NAMES, NARROW_ARGS, STATE_NAMES
+    if len(args) != len(ARG_NAMES):
+        raise ValueError(f"burst_cycles takes {len(ARG_NAMES)} arguments, "
+                         f"got {len(args)}")
+    a = dict(zip(ARG_NAMES, args))
+    dev = a["wl_req"].device
+    if dev.type != "cuda":
+        raise ValueError(f"wl_req on {dev}: the kernels need CUDA tensors")
+    i32, b = torch.int32, torch.bool
+    for name in NARROW_ARGS:
+        t = a[name]
+        if isinstance(t, torch.Tensor) and t.dtype in (torch.int8,
+                                                       torch.int16):
+            a[name] = t.to(i32)    # planes narrowed for the transfer
+    C, M, R = a["wl_req"].shape
+    N, F = a["subtree"].shape
+    shapes = {
+        "wl_req": (C, M, R), "potential0": (N, F), "subtree": (N, F),
+        "guaranteed": (N, F), "borrow_cap": (N, F), "has_blim": (N, F),
+        "parent": (N,), "node_level": (N,), "nominal_cq": (C, F),
+        "npb_cq": (C, F), "slot_fr": (C, S, R), "slot_valid": (C, S),
+        "members": (G, L), "cand_rows": (G, KC), "cand_lmem": (G, KC),
+        "ext_release": (K, C, F), "ext_unpark": (K, G),
+        "adm_usage0": (C, M, F), "adm_uses0": (C, M, F), "u_cq0": (C, F)}
+    for name in ARG_NAMES:
+        if name == "seq_base":
+            continue
+        shape = shapes.get(name)
+        if shape is None:
+            shape = (C,) if name in ("cq_can_preempt_borrow",
+                                     "cq_wcb_borrow", "cq_wcp_preempt",
+                                     "forest_of_cq", "strict_cq",
+                                     "wcq_lower", "rwc_enabled",
+                                     "rwc_only_lower", "preempt_ok",
+                                     "self_lmem") else (C, M)
+        _check(name, a[name], b if name in _BURST_BOOL else i32, shape, dev)
+    if KC < 32 or KC % 32 or KC > 1 << 16:
+        raise ValueError(f"KC={KC}: a positive multiple of 32 up to 65536")
+    if min(C, M, R, F, S, L, G, K) < 1:
+        raise ValueError("burst_cycles needs non-empty planes")
+    _check_depth(depth)
+    kcp = 1 << (KC - 1).bit_length()
+    if kcp * 12 + 2 * (KC // 32) * 4 > SMEM_LIMIT:
+        raise ValueError(f"KC={KC} exceeds shared memory")
+    if node_table is None:
+        node_table = burst_node_table(a["parent"], a["node_level"],
+                                      a["forest_of_cq"], G, dev)
+    fnodes, fcount = node_table
+    _check("fnodes", fnodes, i32, (G, fnodes.shape[1]), dev)
+    _check("fcount", fcount, i32, (G,), dev)
+    lib = load()
+    KCW = KC // 32
+    carry = [a[n].clone() for n in STATE_NAMES]
+    head_row = torch.empty((K, C), dtype=i32, device=dev)
+    kind = torch.empty((K, C), dtype=i32, device=dev)
+    slot = torch.empty((K, C), dtype=i32, device=dev)
+    borrows = torch.empty((K, C), dtype=b, device=dev)
+    tgt_words = torch.zeros((K, C, KCW), dtype=i32, device=dev)
+    dflags = torch.zeros((K, 4), dtype=i32, device=dev)
+
+    def scratch(*shape):
+        return torch.empty(shape, dtype=i32, device=dev)
+
+    scr = [scratch(N, F)] + [scratch(C, F) for _ in range(7)] + [
+        scratch(C, _BURST_Q_N), scratch(G, L), scratch(G, L),
+        scratch(G, KCW), scratch(G, 2, L, F)]
+    tensors = ([a[n] for n in _BURST_INPUTS] + [fnodes, fcount] + carry
+               + [head_row, kind, slot, borrows, tgt_words, dflags] + scr)
+    ptrs = (ctypes.c_void_p * len(tensors))(
+        *[t.data_ptr() for t in tensors])
+    dims = (ctypes.c_int * 16)(
+        C, M, R, N, F, S, L, KC, K, G, depth, n_levels, fnodes.shape[1],
+        max(0, runtime), int(a["seq_base"]), BURST_THREADS)
+    _launch("burst_cycles", lib.kq_burst_cycles, ptrs, dims)
+    dirty = dflags[:, 0] > 0
+    dirty_reason = ((dflags[:, 1] > 0).to(i32) * 1
+                    + (dflags[:, 2] > 0).to(i32) * 2)
+    return (head_row, kind, slot, borrows, tgt_words, dirty, dirty_reason,
+            tuple(carry))

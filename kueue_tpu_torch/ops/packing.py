@@ -634,3 +634,14 @@ def planes_to_torch(packed_or_arrays, device) -> dict:
         if a.dtype != object:
             out[name] = torch.from_numpy(a.copy()).to(device)
     return out
+
+
+def plan_to_torch(plan_or_arrays, device) -> dict:
+    """A burst plan's arrays → ``{name: torch.Tensor}`` on ``device``,
+    same dtypes: the tensors ``ops.burst.burst_cycles`` takes.
+
+    Takes a ``BurstPlan`` (its ``arrays``) or a dict of arrays, from this
+    package's packer or from the JAX package's (the same plan layout), so
+    both packages' kernels compute on identical inputs."""
+    arrays = getattr(plan_or_arrays, "arrays", plan_or_arrays)
+    return planes_to_torch(dict(arrays), device)

@@ -245,3 +245,168 @@ def decision_digest(d: Driver, decisions=None) -> str:
 def percentile(times: list, q: float) -> float:
     s = sorted(times)
     return s[min(len(s) - 1, int(len(s) * q))] if s else 0.0
+
+
+# ----------------------------------------------------------------------
+# The fused burst path (Driver.schedule_burst)
+# ----------------------------------------------------------------------
+
+def _carry_finishes(d: Driver, all_stats: list, runtime: int) -> dict:
+    """Finish schedule (offset from the next cycle → keys) of admissions
+    from earlier calls that still hold quota."""
+    base = len(all_stats)
+    ext: dict = {}
+    for j, s in enumerate(all_stats):
+        fin = j + runtime
+        if fin >= base:
+            keys = [k for k in s.admitted
+                    if (wl := d.workloads.get(k)) is not None
+                    and wl.has_quota_reservation]
+            if keys:
+                ext[fin - base] = keys
+    return ext
+
+
+def drain_bench_burst(d: Driver, clock: VirtualClock, total: int, waves,
+                      runtime_cycles: int = RUNTIME_CYCLES) -> dict:
+    """Drain the perf scenario through ``Driver.schedule_burst`` (the
+    JAX package's bench.py ``run_burst``): each call runs up to the next
+    wave, finishes run inside the burst (``runtime`` plus the carried
+    finish schedule of earlier calls).  Per-cycle times are measured
+    between applied-cycle boundaries, finish work excluded."""
+    cycle_times: list = []
+    decisions: list = []
+    preempted = 0
+    all_stats: list = []
+    pending = sorted(waves.items(), key=lambda kv: WAVE_AT_CYCLE[kv[0]])
+    last_t = time.perf_counter()
+
+    def on_cycle_start(_k):
+        clock.t += 1.0
+
+    def on_cycle(_k, stats):
+        nonlocal last_t, preempted
+        now = time.perf_counter()
+        cycle_times.append(max(0.0, now - last_t - stats.finish_s))
+        last_t = now
+        preempted += len(stats.preempted_targets)
+        decisions.append([_admission_record(d, k)
+                          for k in sorted(stats.admitted)])
+
+    t0 = time.perf_counter()
+    finished = 0
+    while True:
+        finished = sum(1 for wl in d.workloads.values() if wl.is_finished)
+        if finished >= total and not pending:
+            break
+        cycle = len(cycle_times)
+        for cls, wls in list(pending):
+            if cycle >= WAVE_AT_CYCLE[cls]:
+                for wl in wls:
+                    d.create_workload(wl)
+                pending.remove((cls, wls))
+        next_wave = min((WAVE_AT_CYCLE[c] for c, _ in pending),
+                        default=None)
+        base = len(all_stats)
+        target = max(base + 1,
+                     next_wave if next_wave is not None else base + 64)
+        ext = _carry_finishes(d, all_stats, runtime_cycles)
+        last_t = time.perf_counter()
+        stats = d.schedule_burst(target - base, runtime=runtime_cycles,
+                                 external_finishes=ext, on_cycle=on_cycle,
+                                 on_cycle_start=on_cycle_start)
+        all_stats.extend(stats)
+        if not stats and pending:
+            # quiet cycles until the next wave arrives
+            while len(cycle_times) < next_wave:
+                clock.t += 1.0
+                cycle_times.append(0.0)
+                decisions.append([])
+            continue
+        if len(all_stats) > total * 4 + 1000:
+            break
+    return dict(wall=time.perf_counter() - t0, cycles=len(cycle_times),
+                cycle_times=cycle_times, finished=finished, total=total,
+                preempted=preempted, decisions=decisions)
+
+
+def northstar_burst(d: Driver, clock: VirtualClock, preemptor_wave,
+                    cycles: int = 30, runtime: int = 4,
+                    inject_at: int = -1, pipeline: bool = True) -> dict:
+    """The north-star run through ``Driver.schedule_burst`` (the main
+    phase of the JAX package's scripts/northstar_e2e.py
+    ``run_burst_path``): windows of clean cycles decided in single
+    launches, the preemptor wave injected at ``inject_at`` (default a
+    third of the way in)."""
+    inject_at = inject_at if inject_at >= 0 else cycles // 3
+    cycle_times: list = []
+    decisions: list = []
+    admitted = preempted = 0
+    all_stats: list = []
+    last_t = time.perf_counter()
+
+    def on_cycle_start(_k):
+        clock.t += 1.0
+
+    def on_cycle(_k, stats):
+        nonlocal last_t, admitted, preempted
+        now = time.perf_counter()
+        cycle_times.append(max(0.0, now - last_t - stats.finish_s))
+        last_t = now
+        admitted += len(stats.admitted)
+        preempted += len(stats.preempted_targets)
+        decisions.append([_admission_record(d, k)
+                          for k in sorted(stats.admitted)])
+
+    t0 = time.perf_counter()
+    injected = False
+    while len(all_stats) < cycles:
+        if not injected and len(all_stats) >= inject_at:
+            preemptor_wave(clock.t)
+            injected = True
+        target = cycles if injected else inject_at
+        base = len(all_stats)
+        ext = _carry_finishes(d, all_stats, runtime)
+        last_t = time.perf_counter()
+        stats = d.schedule_burst(target - base, runtime=runtime,
+                                 external_finishes=ext, on_cycle=on_cycle,
+                                 on_cycle_start=on_cycle_start,
+                                 pipeline=pipeline)
+        all_stats.extend(stats)
+        if not stats:
+            if injected:
+                break
+            from .scheduler.scheduler import CycleStats
+            while len(all_stats) < inject_at:
+                clock.t += 1.0
+                all_stats.append(CycleStats())
+                cycle_times.append(0.0)
+                decisions.append([])
+    return dict(wall=time.perf_counter() - t0, cycles=len(all_stats),
+                cycle_times=cycle_times, admitted=admitted,
+                preempted=preempted, decisions=decisions)
+
+
+def burst_boundary_report(bstats: dict) -> dict:
+    """The burst boundary pipeline from ``BurstSolver.stats``: window
+    boundaries whose pack + launch overlapped the previous apply,
+    speculations discarded, serial windows, and the delta-pack reuse."""
+    overlapped = bstats.get("burst_overlapped_packs", 0)
+    packs = bstats.get("burst_packs", 0)
+    return {
+        "overlapped_packs": overlapped,
+        "spec_dispatches": bstats.get("burst_spec_dispatches", 0),
+        "spec_cancelled": bstats.get("burst_spec_cancelled", 0),
+        "serial_windows": bstats.get("burst_serial_windows", 0),
+        "serial_pack_s": round(bstats.get("burst_pack_s", 0.0), 4),
+        "boundary_overlap_share": round(
+            overlapped / max(1, overlapped + packs), 3),
+        "spec_fetch_wait_s": round(
+            bstats.get("burst_spec_fetch_wait_s", 0.0), 4),
+        "target_divergences": bstats.get("burst_target_divergences", 0),
+        "delta_packs": bstats.get("burst_delta_packs", 0),
+        "full_packs": bstats.get("burst_full_packs", 0),
+        "rows_reused": bstats.get("rows_reused", 0),
+        "rows_repacked": bstats.get("rows_repacked", 0),
+        "delta_pack_s": round(bstats.get("delta_pack_s", 0.0), 4),
+    }

@@ -276,3 +276,160 @@ def kernel_cases(seed: int = 0):
                                 n_cohorts=n_coh, depth=depth, F=F)
         yield "minimal_preemptions_batch", search_args(c), dict(
             depth=c["depth"])
+
+
+# ----------------------------------------------------------------------
+# The fused burst (ops/burst.py burst_cycles)
+# ----------------------------------------------------------------------
+
+def burst_synthetic(rng: np.random.Generator, *, C: int = 12, M: int = 16,
+                    R: int = 1, S: int = 1, K: int = 8, per: int = 4,
+                    runtime: int = 3, ties: bool = False,
+                    deep: bool = False):
+    """A seeded synthetic burst window: ``(args, kw)`` in
+    ``ops.burst.ARG_NAMES`` order.  CQs sit in cohorts of ``per`` (one
+    cohort node each; ``deep`` adds a root above every two cohorts, a
+    depth the preemption envelope excludes), with pending and admitted
+    rows, usage consistent with the admitted rows, low nominal quota so
+    heads need preemption, finishes and external release / unpark events
+    inside the window, a few heads outside the vectorized coverage, and
+    StrictFIFO CQs.  ``ties`` gives candidates equal ordering keys and
+    heads equal cycle ranks, so only the stable sorts' index order
+    separates them."""
+    from .ops.burst import build_candidate_tables, build_members
+    from .ops.cycle import available_all_np
+    G0 = -(-C // per)
+    n_top = -(-G0 // 2) if deep else 0
+    N = C + G0 + n_top
+    F = S * R
+    parent = np.full(N, -1, dtype=np.int32)
+    parent[:C] = C + np.arange(C) // per
+    if deep:
+        parent[C:C + G0] = C + G0 + np.arange(G0) // 2
+    level = np.zeros(N, dtype=np.int32)
+    for n in range(N):
+        p = parent[n]
+        while p >= 0:
+            level[n] += 1
+            p = parent[p]
+    depth = int(level.max()) + 1
+    root = np.arange(N)
+    for _ in range(depth):
+        root = np.where(parent[root] >= 0, parent[root], root)
+    _, forest_of_cq = np.unique(root[:C], return_inverse=True)
+    forest_of_cq = forest_of_cq.astype(np.int32)
+    G = int(forest_of_cq.max()) + 1
+    L = int(np.bincount(forest_of_cq).max())
+    members = build_members(forest_of_cq, G, L)
+    KC = min(4096, ((L * M + 31) // 32) * 32)
+    cand_rows, cand_lmem, self_lmem = build_candidate_tables(
+        forest_of_cq, members, M, KC)
+
+    unit = 1000
+    guaranteed = np.zeros((N, F), np.int32)
+    nominal = rng.integers(2, 6, (C, F)).astype(np.int32) * unit
+    guaranteed[:C] = nominal
+    has_blim = np.zeros((N, F), bool)
+    has_blim[:C] = rng.random((C, F)) < 0.5
+    blim = rng.integers(1, 8, (C, F)).astype(np.int32) * unit
+    borrow_cap = np.full((N, F), I32_LIMIT, np.int32)
+    borrow_cap[:C] = np.where(has_blim[:C], blim, I32_LIMIT)
+    subtree = np.zeros((N, F), np.int64)
+    subtree[:C] = nominal
+    for n in np.argsort(-level, kind="stable"):
+        if parent[n] >= 0:
+            subtree[parent[n]] += subtree[n]
+    subtree = subtree.astype(np.int32)
+    npb = np.where(has_blim[:C], nominal + blim, I32_LIMIT).astype(np.int32)
+    slot_fr = (np.arange(S)[:, None] * R + np.arange(R)[None, :])
+    slot_fr = np.broadcast_to(slot_fr, (C, S, R)).astype(np.int32).copy()
+    slot_valid = np.ones((C, S), bool)
+    potential0 = np.minimum(available_all_np(
+        np.zeros((N, F), np.int64), subtree, guaranteed, borrow_cap,
+        has_blim, parent, depth), I32_LIMIT).astype(np.int32)
+
+    n_rows = rng.integers(M // 2, M + 1, C)
+    live = np.arange(M)[None, :] < n_rows[:, None]
+    wl_req = (rng.integers(1, 5, (C, M, R)) * unit // 2).astype(np.int32)
+    wl_req[~live] = 0
+    wl_rank = np.where(live, np.argsort(rng.random((C, M)), axis=1),
+                       INF_I32).astype(np.int32)
+    wl_cycle_rank = rng.permutation(C * M).reshape(C, M).astype(np.int32)
+    wl_prio = np.where(live, rng.choice([0, 50, 100, 200], (C, M)),
+                       0).astype(np.int32)
+    wl_uidrank = rng.permutation(C * M).reshape(C, M).astype(np.int32)
+    huge = live & (rng.random((C, M)) < 0.05)
+    wl_req[huge] = 50 * unit                    # never fits: parks
+    # admitted rows fill each CQ to 0.6-1.6x its nominal quota
+    adm = np.zeros((C, M), bool)
+    for c in range(C):
+        room = int(nominal[c, 0] * rng.uniform(0.6, 1.6))
+        for m in rng.permutation(int(n_rows[c])):
+            q = int(wl_req[c, m, 0])
+            if 0 < q <= room and not huge[c, m] and rng.random() < 0.6:
+                adm[c, m] = True
+                room -= q
+    adm_seq = np.where(adm, rng.integers(1, 40, (C, M)), 0).astype(np.int32)
+    adm_usage = np.zeros((C, M, F), np.int32)
+    adm_uses = np.zeros((C, M, F), bool)
+    adm_usage[:, :, :R] = np.where(adm[:, :, None], wl_req, 0)
+    adm_uses[:, :, :R] = adm[:, :, None] & (wl_req > 0)
+    u_cq = adm_usage.sum(1, dtype=np.int64).astype(np.int32)
+    parked = live & ~adm & (rng.random((C, M)) < 0.15)
+    elig = live & ~adm & ~parked
+    resume = np.where(rng.random((C, M)) < 0.2,
+                      rng.integers(0, S, (C, M)), 0).astype(np.int32)
+    death = np.where(adm & (rng.random((C, M)) < 0.3),
+                     rng.integers(0, K, (C, M)), INF_I32).astype(np.int32)
+    vec_ok = live & (rng.random((C, M)) < 0.97)
+    if ties:
+        # equal candidate keys (priority, reservation seq, uid) and equal
+        # head cycle ranks inside every forest
+        wl_prio[:] = np.where(live, 0, 0)
+        wl_prio[np.arange(C), 0] = 100
+        adm_seq[adm] = 7
+        wl_uidrank[:] = 3
+        wl_cycle_rank[:] = np.arange(M)[None, :]
+    ext_release = np.zeros((K, C, F), np.int32)
+    hits = rng.random((K, C)) < 0.05
+    ext_release[hits] = unit // 2
+    ext_unpark = rng.random((K, G)) < 0.1
+
+    cq_flags = [rng.random(C) < p for p in (0.3, 0.5, 0.5, 0.2)]
+    preempt_ok = np.ones(C, bool) if not deep else np.zeros(C, bool)
+    args = (wl_req, wl_rank, wl_cycle_rank, wl_prio, wl_uidrank, vec_ok,
+            elig, parked, resume, adm, adm_seq, adm_usage, adm_uses, death,
+            np.int32(45), u_cq, potential0, subtree, guaranteed, borrow_cap,
+            has_blim, parent, level, nominal, npb, slot_fr, slot_valid,
+            cq_flags[0], cq_flags[1], cq_flags[2], forest_of_cq, cq_flags[3],
+            np.ones(C, bool), np.ones(C, bool), rng.random(C) < 0.3,
+            preempt_ok, members, cand_rows, cand_lmem, self_lmem,
+            ext_release, ext_unpark)
+    kw = dict(K=K, depth=depth, L=L, S=S, KC=KC, n_levels=depth, G=G,
+              runtime=runtime)
+    return args, kw
+
+
+INF_I32 = 2**31 - 1
+
+
+def burst_cases(seed: int = 0):
+    """The standard burst sweep: ``(label, args, kw)`` windows of
+    ``burst_synthetic`` at several shapes (multi-flavor, two resources,
+    runtime 0, ties, a deeper forest) and the probe shape of
+    ``ops.burst.burst_probe``."""
+    from .ops.burst import burst_probe_args
+    rng = np.random.default_rng(seed)
+    shapes = [
+        ("base", dict()),
+        ("flavors", dict(S=2, M=8, C=10, per=5)),
+        ("two-res", dict(R=2, M=32, C=8, per=4, runtime=0)),
+        ("ties", dict(ties=True, C=8, per=4)),
+        ("deep", dict(deep=True, C=16, per=3, M=8)),
+        ("wide", dict(C=30, per=6, M=64, K=4)),
+    ]
+    for label, kw in shapes:
+        args, size = burst_synthetic(rng, **kw)
+        yield label, args, size
+    args, size = burst_probe_args(10, 16, 1, 8)
+    yield "probe", args, size

@@ -32,11 +32,12 @@ VERBATIM = (
     "utils/parallel_host.py",
     "webhooks/__init__.py", "webhooks/validation.py",
     "controller/__init__.py",
+    "ops/aggregate.py", "ops/stream_pack.py", "cache/arena.py",
 )
 # copies that begin with the original file and only append to it
 APPENDED = ("ops/packing.py",)
 # copies edited where they reached JAX or ops/ (CHANGES.md lists each)
-EDITED = ("controller/driver.py", "ops/preemption_solver.py")
+EDITED = ("controller/driver.py", "ops/preemption_solver.py", "ops/burst.py")
 
 
 def _read(path):
@@ -133,8 +134,6 @@ def test_unported_paths_raise(monkeypatch):
     from kueue_tpu_torch.controller.driver import Driver
     with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
         Driver(device="cpu", fair_sharing=True)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        Driver(device="cpu").schedule_burst(4)
     monkeypatch.setenv("KUEUE_TPU_SHARDS", "2")
     with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
         Driver(device="cpu")
@@ -153,3 +152,33 @@ def test_cpu_tensors_never_reach_the_kernels():
     assert kernels.LAUNCHES == before
     with pytest.raises(ValueError, match="CUDA tensors"):
         kernels.admit_scan(*args, depth=c["depth"])
+
+
+def test_burst_runs_on_the_drivers_device_only():
+    """schedule_burst runs on the Driver's device: on "cuda" without a
+    GPU it raises (the Driver cannot even be built), its BurstSolver
+    never selects the CPU, and a ``backend`` naming another device
+    raises instead of moving the burst."""
+    from kueue_tpu_torch.controller.driver import Driver
+    from kueue_tpu_torch.ops.burst import BurstSolver
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA GPU"):
+            Driver(device="cuda").schedule_burst(4)
+        with pytest.raises(RuntimeError, match="no CUDA GPU"):
+            BurstSolver(device="cuda")
+    else:
+        assert BurstSolver(device="cuda").device.type == "cuda"
+    from kueue_tpu_torch.api import types as t
+    d = Driver(device="cpu")
+    d.apply_resource_flavor(t.ResourceFlavor(name="default"))
+    d.apply_cluster_queue(t.ClusterQueue(
+        name="cq", resource_groups=[t.ResourceGroup(
+            covered_resources=["cpu"],
+            flavors=[t.FlavorQuotas(name="default", resources={
+                "cpu": t.ResourceQuota(nominal=1000)})])]))
+    # nothing to schedule: one empty cycle, then quiescent
+    assert [s.admitted for s in d.schedule_burst(2)] == [[]]
+    assert d._burst_solver.device.type == "cpu"
+    with pytest.raises(ValueError, match="Driver's"):
+        d.schedule_burst(2, backend="accel")
+    assert len(d.schedule_burst(1, backend="cpu")) == 1

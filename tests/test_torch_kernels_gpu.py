@@ -1,6 +1,6 @@
 """Each CUDA kernel of kueue_tpu_torch against its plain PyTorch version
-on the same seeded inputs (kueue_tpu_torch.testing.kernel_cases): exact
-equality, as every output is bool.  Needs a CUDA GPU — the kernels have
+on the same seeded inputs (kueue_tpu_torch.testing.kernel_cases and
+burst_cases): exact equality, as every output is bool or int32.  Needs a CUDA GPU — the kernels have
 no CPU mode — and skips without one.  This file imports no JAX, so it
 also runs on a machine with only PyTorch:
 
@@ -12,7 +12,7 @@ import pytest
 import torch
 
 from kueue_tpu_torch import testing as tt
-from kueue_tpu_torch.ops import cycle, preemption_kernel
+from kueue_tpu_torch.ops import burst, cycle, preemption_kernel
 
 PLAIN = {
     "admit_scan": cycle.admit_scan_plain,
@@ -49,7 +49,7 @@ def test_cuda_kernels_match_plain(seed):
             assert c.dtype == p.dtype and c.shape == p.shape, name
             assert np.array_equal(c.cpu().numpy(), p.numpy()), name
         seen.add(name)
-    assert seen == set(kernels.KERNELS)
+    assert seen == set(PLAIN)
 
 
 @pytest.mark.gpu
@@ -69,3 +69,27 @@ def test_cuda_launcher_rejects_bad_inputs():
         kernels.admit_scan(*bad, **kw)
     with pytest.raises(ValueError):
         kernels.admit_scan(*good, depth=kernels.MAX_DEPTH + 1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("seed", [0, 1])
+def test_cuda_burst_matches_plain(seed):
+    """burst_cycles on the card against burst_cycles_plain on the CPU:
+    the seven outputs and the nine carry planes, exactly."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernels have no CPU mode")
+    from kueue_tpu_torch import kernels
+    for label, args, kw in tt.burst_cases(seed):
+        cpu = [torch.from_numpy(np.ascontiguousarray(a))
+               if isinstance(a, np.ndarray) else int(a) for a in args]
+        before = kernels.LAUNCHES["burst_cycles"]
+        plain = burst.burst_cycles_plain(*cpu, **kw)
+        cuda = burst.burst_cycles(*[a.cuda() if isinstance(a, torch.Tensor)
+                                    else a for a in cpu], **kw)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["burst_cycles"] == before + 1, label
+        flat_p = list(plain[:7]) + list(plain[7])
+        flat_c = list(cuda[:7]) + list(cuda[7])
+        for i, (p, c) in enumerate(zip(flat_p, flat_c)):
+            assert c.dtype == p.dtype and c.shape == p.shape, (label, i)
+            assert torch.equal(c.cpu(), p), (label, i)
