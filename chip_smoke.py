@@ -4,14 +4,16 @@
 Builds the CUDA kernels from the sources in this checkout, holds every
 kernel against its plain PyTorch version, and drives the port's main path
 at full size both ways: ``Driver(device="cuda").schedule_once`` per cycle
-and ``Driver.schedule_burst``, K cycles per launch:
+and ``Driver.schedule_burst``, K cycles per launch; then fair-sharing
+admission, ``Driver(device="cuda", fair_sharing=True).schedule_once``:
 
 1. device: name, count and ``nvidia-smi`` name/power limit;
 2. build: nvcc of every kernel source (in parallel) into one library;
 3. kernels: each CUDA kernel against its plain version on the CPU over a
-   seeded sweep (kueue_tpu_torch.testing.kernel_cases and burst_cases)
-   and over the inputs captured from the first calls of phases 4, 5, 7
-   and 8 (for the burst also up to two windows with a preempting head) —
+   seeded sweep (kueue_tpu_torch.testing.kernel_cases, burst_cases and
+   fs_cases) and over the inputs captured from the first calls of phases
+   4, 5, 7, 8, 9 and 9b (for the burst also up to two windows with a
+   preempting head) —
    exact equality (tolerance 0: every output is bool or int32, the
    burst's carry included);
 4. the reference perf scenario: 5 cohorts x 6 CQs, 15,000 workloads in
@@ -27,10 +29,18 @@ and ``Driver.schedule_burst``, K cycles per launch:
    (dirty cycles by reason and per-cycle fallbacks printed); then at
    3,000 workloads on "cuda" and "cpu", equal decision digests;
 8. the north-star shape through the fused burst at full width: 30
-   cycles, the preemptor wave, burst_cycles launched, preemptions > 0.
+   cycles, the preemptor wave, burst_cycles launched, preemptions > 0;
+9. fair sharing at the north-star size (scripts/northstar_e2e.py
+   ``--fair-sharing``): 1,000 weighted CQs in cohorts of 5, 100,000
+   workloads, 30 per-cycle cycles on the card; fs_admit_scan launched and
+   cycles decided by it; then ``compute_all_drs`` on the final snapshot
+   (drs_components launched) must equal the host DRS of every node,
+   and again (9b) on two small clusters that borrow;
+10. the same fair-sharing run on "cpu", at full size: its decision digest
+   must equal the card's, and it launches no kernel.
 
-Launch counts are zeroed just before phases 4, 5, 7 and 8 and read just
-after each.  Prints a ``kernels`` JSON line (per kernel: its launches on
+Launch counts are zeroed just before phases 4, 5, 7, 8, 9 and 9b and
+read just after each.  Prints a ``kernels`` JSON line (per kernel: its launches on
 its main path and in each phase), the nvidia-smi line, and as its last
 line ``{"ok": true, "device": {...}}``.  Exits non-zero, with no result
 line, when there is no CUDA device or no kueue_tpu_torch beside it.
@@ -56,6 +66,8 @@ TPU_KERNEL = {   # the jitted JAX program each kernel replaces
     "admit_scan_forests": "kueue_tpu/ops/cycle.py:597",
     "minimal_preemptions_batch": "kueue_tpu/ops/preemption_kernel.py:135",
     "burst_cycles": "kueue_tpu/ops/burst.py:110",
+    "fs_admit_scan": "kueue_tpu/ops/fs_scan.py:163",
+    "drs_components": "kueue_tpu/ops/fairsharing_kernel.py:33",
 }
 SOURCE = {
     "admit_scan": "kueue_tpu_torch/kernels/admit_scan.cu",
@@ -64,6 +76,8 @@ SOURCE = {
     "minimal_preemptions_batch":
         "kueue_tpu_torch/kernels/minimal_preemptions.cu",
     "burst_cycles": "kueue_tpu_torch/kernels/burst_cycles.cu",
+    "fs_admit_scan": "kueue_tpu_torch/kernels/fs_admit_scan.cu",
+    "drs_components": "kueue_tpu_torch/kernels/drs_components.cu",
 }
 BENCH_WORKLOADS = 15_000
 NORTHSTAR = dict(n_cqs=1000, n_wl=100_000, cycles=30)
@@ -125,9 +139,20 @@ def install_capture(cap: Capture) -> None:
     cap.install(burst, "burst_cycles", "burst_cycles")
 
 
+def install_fs_capture(cap: Capture) -> None:
+    # dispatch_fs imports fs_admit_scan from its module at each call and
+    # compute_all_drs calls its module's drs_components
+    from kueue_tpu_torch.ops import fairsharing_kernel, fs_scan
+    cap.install(fs_scan, "fs_admit_scan", "fs_admit_scan")
+    cap.install(fairsharing_kernel, "drs_components", "drs_components")
+
+
 def plain_fns():
-    from kueue_tpu_torch.ops import burst, cycle, preemption_kernel
+    from kueue_tpu_torch.ops import (burst, cycle, fairsharing_kernel,
+                                     fs_scan, preemption_kernel)
     return {
+        "fs_admit_scan": fs_scan.fs_admit_scan_plain,
+        "drs_components": fairsharing_kernel.drs_components_plain,
         "burst_cycles": burst.burst_cycles_plain,
         "admit_scan": cycle.admit_scan_plain,
         "admit_scan_forests": cycle.admit_scan_forests_plain,
@@ -188,6 +213,11 @@ def op_count(name, args, kw) -> int:
     plus the target removals and the check-plane copy; search: valid
     searches x real candidates x the forward and reverse steps)."""
     depth = kw["depth"]
+    if name == "fs_admit_scan":
+        return fs_op_count(args, kw)
+    if name == "drs_components":
+        N, F = args[0].shape
+        return int(N * F * (4 + depth * 12))
     if name == "burst_cycles":
         # per cycle: the heads' argmin and the end-of-cycle transitions
         # over every row, the classify over [C, S, R], and the forest
@@ -210,6 +240,35 @@ def op_count(name, args, kw) -> int:
         mt = args[19].shape[1]
         ops += pre * (N * F + mt * depth * F * 12)
     return int(ops)
+
+
+def fs_forest_work(args):
+    """(live rounds, entry-rounds, node-rounds) of an fs_admit_scan call
+    on its data: every round removes one entry of its first remaining
+    entry's forest, so a forest with k heads runs k rounds over k, k-1,
+    ..., 1 remaining entries and its n nodes k times."""
+    import numpy as np
+    wl_cq = args[12].cpu().numpy()
+    valid = args[17].cpu().numpy()
+    fon = args[18].cpu().numpy()
+    k = np.bincount(fon[np.maximum(wl_cq, 0)][valid],
+                    minlength=int(fon.max()) + 1).astype(np.int64)
+    n = np.bincount(fon, minlength=len(k)).astype(np.int64)
+    return int(k.sum()), int((k * (k + 1) // 2).sum()), int((k * n).sum())
+
+
+def fs_op_count(args, kw) -> int:
+    """int32 operations of an fs_admit_scan call on its data: per
+    entry-round the DRS walk (~8 per column and resource, ~16 per
+    column and level), per node-round the five key passes of each
+    tournament level (~8 each), per round the fit and charge walks."""
+    N, F = args[0].shape
+    R = args[9].shape[1]
+    L, n_levels = kw["depth"], kw["n_levels"]
+    rounds, entry_rounds, node_rounds = fs_forest_work(args)
+    return int(entry_rounds * L * (8 * F * R + 16 * F)
+               + node_rounds * (n_levels - 1) * 5 * 8
+               + rounds * 2 * L * F * 12)
 
 
 def time_kernel(name, args, kw, reps: int = 50) -> dict:
@@ -250,6 +309,20 @@ def time_kernel(name, args, kw, reps: int = 50) -> dict:
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=max(bytes_ms, ops_ms),
                 bound_by="bytes" if bytes_ms >= ops_ms else "operations",
                 library_ms=None)
+
+
+def host_drs(snapshot) -> dict:
+    """cache.state.dominant_resource_share of every CQ and cohort."""
+    from kueue_tpu_torch.cache.state import dominant_resource_share
+    from kueue_tpu_torch.ops.packing import _iter_nodes
+    cq_names, cohorts = _iter_nodes(snapshot)
+    nodes = [snapshot.cluster_queues[n] for n in cq_names] + cohorts
+    return {n.name: dominant_resource_share(n)[0] for n in nodes}
+
+
+def most_heads(calls):
+    """The captured fs_admit_scan call with the most valid heads."""
+    return max(calls, key=lambda call: int(call[0][17].sum()))
 
 
 def largest(calls):
@@ -336,6 +409,9 @@ def main() -> int:
             args = [torch.from_numpy(a).cuda() if isinstance(a, np.ndarray)
                     else int(a) for a in arrays]
             compare("burst_cycles", args, kw, stats)
+        for name, arrays, kw in testing.fs_cases(seed):
+            compare(name, [torch.from_numpy(a).cuda() for a in arrays], kw,
+                    stats)
     log(f"[3 kernels, sweep] {json.dumps(stats)}")
 
     cap = Capture()
@@ -500,21 +576,131 @@ def main() -> int:
     log(f"[3 kernels, captured bursts] {n_pre} windows with preemption; "
         f"{json.dumps(stats)}")
 
+    # -- 9. fair sharing at the north-star size, on the card ------------------
+    from kueue_tpu_torch.ops.fairsharing_kernel import compute_all_drs
+    install_fs_capture(cap)
+    cap.phase = "northstar_fs"
+    t0 = time.perf_counter()
+    d, clock, total = scenarios.build_northstar_fs(
+        NORTHSTAR["n_cqs"], NORTHSTAR["n_wl"], device="cuda")
+    d.scheduler.solver.warmup(d.cache.snapshot(), NORTHSTAR["n_cqs"])
+    build_s = time.perf_counter() - t0
+    kernels.reset_counts()
+    r9 = scenarios.run_northstar_fs(d, clock, cycles=NORTHSTAR["cycles"])
+    snapshot = d.cache.snapshot()
+    t_drs = time.perf_counter()
+    drs = compute_all_drs(snapshot, device="cuda")
+    drs_s = time.perf_counter() - t_drs
+    torch.cuda.synchronize()
+    launches9 = dict(kernels.LAUNCHES)
+    device_ms9 = kernels.collect()
+    ss = d.scheduler.solver.stats
+    digest9 = scenarios.decision_digest(d, r9["decisions"])
+    log(f"[9 northstar fs] {NORTHSTAR['n_cqs']} CQs, {total} workloads "
+        f"(built in {build_s:.1f}s), {r9['cycles']} cycles in "
+        f"{r9['wall']:.2f}s, cycle p50 "
+        f"{scenarios.percentile(r9['cycle_times'], 0.5) * 1e3:.3f}ms p99 "
+        f"{scenarios.percentile(r9['cycle_times'], 0.99) * 1e3:.3f}ms, "
+        f"admitted {r9['admitted']}, skipped {r9['skipped']}, "
+        f"fs_full_cycles {ss['fs_full_cycles']}, fs_noop_skips "
+        f"{ss['fs_noop_skips']}, fs_noop_reuses {ss['fs_noop_reuses']}, "
+        f"classify_cycles {ss['classify_cycles']}, host_cycles "
+        f"{ss['host_cycles']}; digest {digest9}; launches "
+        f"{json.dumps(launches9)}; device_ms {json.dumps(device_ms9)}")
+    check(launches9["fs_admit_scan"] > 0, launches9)
+    check(ss["fs_full_cycles"] > 0, ss)
+    check(r9["admitted"] > 0, "nothing admitted")
+    host = host_drs(snapshot)
+    log(f"[9 compute_all_drs] {len(drs)} nodes in {drs_s * 1e3:.3f}ms, "
+        f"{sum(v > 0 for v in host.values())} borrowing, equal to the "
+        f"host: {drs == host}")
+    check(drs == host, "compute_all_drs differs from the host DRS")
+    check(launches9["drs_components"] > 0, launches9)
+    del d, snapshot
+
+    # -- 9b. compute_all_drs on a cluster that borrows ----------------------
+    # (the north-star CQs fill their cohort's quota and never borrow)
+    from kueue_tpu_torch.api import types as api_types
+    from kueue_tpu_torch.controller.driver import Driver
+    cap.phase = "fs_borrowing"
+    kernels.reset_counts()
+    for nested in (False, True):
+        clock = scenarios.VirtualClock()
+        d = Driver(clock=clock, fair_sharing=True, device="cuda")
+        testing.fs_borrowing_cluster(api_types, d, clock, nested)
+        snapshot = d.cache.snapshot()
+        drs = compute_all_drs(snapshot, device="cuda")
+        host = host_drs(snapshot)
+        n_borrow = sum(v > 0 for v in host.values())
+        log(f"[9b compute_all_drs] nested={nested}: {len(drs)} nodes, "
+            f"{n_borrow} borrowing, DRS {sorted(host.values())}, equal to "
+            f"the host: {drs == host}")
+        check(drs == host, "compute_all_drs differs from the host DRS")
+        check(n_borrow > 0, "no borrowing node")
+    torch.cuda.synchronize()
+    launches9b = dict(kernels.LAUNCHES)
+    check(launches9b["drs_components"] == 2, launches9b)
+    kernels.collect()
+    cap.uninstall()
+
+    # -- 10. the same fair-sharing run on the CPU ------------------------------
+    before = dict(kernels.LAUNCHES)
+    d, clock, total = scenarios.build_northstar_fs(
+        NORTHSTAR["n_cqs"], NORTHSTAR["n_wl"], device="cpu")
+    r10 = scenarios.run_northstar_fs(d, clock, cycles=NORTHSTAR["cycles"])
+    digest10 = scenarios.decision_digest(d, r10["decisions"])
+    log(f"[10 fs parity] cpu: {total} workloads, {r10['cycles']} cycles in "
+        f"{r10['wall']:.2f}s, admitted {r10['admitted']}, skipped "
+        f"{r10['skipped']}, fs_full_cycles "
+        f"{d.scheduler.solver.stats['fs_full_cycles']}, digest {digest10}")
+    check(digest10 == digest9, {"cuda": digest9, "cpu": digest10})
+    check(kernels.LAUNCHES == before, "the CPU run launched a kernel")
+    del d
+
+    # -- 3d. the fair-sharing kernels on the calls captured in 9 and 9b ------
+    for name in ("fs_admit_scan", "drs_components"):
+        for phase in ("northstar_fs", "fs_borrowing"):
+            for args, kw in cap.calls.get((phase, name), []):
+                compare(name, args, kw, stats)
+    for name, s in stats.items():
+        check(s["mismatches"] == 0, (name, s))
+    log(f"[3 kernels, captured fair sharing] {json.dumps(stats)}")
+
     # -- the kernels line ----------------------------------------------------
     by_phase = {"4": launches4, "5": launches5, "7": launches7,
-                "8": launches8}
+                "8": launches8, "9": launches9, "9b": launches9b}
     rows = []
     for name in kernels.KERNELS:
         phase = {"admit_scan_forests": "northstar",
-                 "burst_cycles": "northstar_burst"}.get(name, "bench")
+                 "burst_cycles": "northstar_burst",
+                 "fs_admit_scan": "northstar_fs",
+                 "drs_components": "northstar_fs"}.get(name, "bench")
         calls = cap.calls.get((phase, name))
         check(calls, f"{name}: no captured {phase} call")
         args, kw = (burst_window(calls) if name == "burst_cycles"
+                    else most_heads(calls) if name == "fs_admit_scan"
+                    else calls[0] if name == "drs_components"
                     else largest(calls))
         t = time_kernel(name, args, kw)
         launches = {"northstar": launches5, "bench": launches4,
-                    "northstar_burst": launches8}[phase][name]
+                    "northstar_burst": launches8,
+                    "northstar_fs": launches9}[phase][name]
         extra = {}
+        if name == "fs_admit_scan":
+            # the dependent chain: every live round is 5 + 7 (n_levels - 1)
+            # block barriers (fs_admit_scan.cu)
+            rounds, entry_rounds, node_rounds = fs_forest_work(args)
+            extra["dependent_steps"] = rounds * (
+                5 + 7 * (kw["n_levels"] - 1))
+            extra["timed_shape"] = dict(
+                N=int(args[0].shape[0]), F=int(args[0].shape[1]),
+                W=int(args[12].shape[0]), heads=rounds,
+                depth=kw["depth"], n_levels=kw["n_levels"])
+        if name == "drs_components":
+            extra["timed_shape"] = dict(N=int(args[0].shape[0]),
+                                        F=int(args[0].shape[1]),
+                                        R=kw["n_resources"],
+                                        depth=kw["depth"])
         if name == "burst_cycles":
             # the same timing on a perf-scenario window (5 forests)
             b_args, b_kw = burst_window(cap.calls[("bench_burst", name)])

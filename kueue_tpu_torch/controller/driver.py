@@ -90,9 +90,6 @@ class Driver:
                  use_device_solver: bool = True,
                  device: str = "cuda",
                  validate: bool = True):
-        if fair_sharing:
-            raise NotImplementedError(
-                "fair sharing is not ported yet (ROADMAP Queue 1 item 7)")
         self.clock = clock
         self.device = str(device)
         self.wait_for_pods_ready = wait_for_pods_ready or WaitForPodsReadyConfig()

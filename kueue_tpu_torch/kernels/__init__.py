@@ -35,9 +35,11 @@ from pathlib import Path
 import torch
 
 KERNELS = ("admit_scan", "admit_scan_preempt", "admit_scan_forests",
-           "minimal_preemptions_batch", "burst_cycles")
+           "minimal_preemptions_batch", "burst_cycles", "fs_admit_scan",
+           "drs_components")
 SOURCES = ("admit_scan.cu", "admit_scan_preempt.cu", "admit_scan_forests.cu",
-           "minimal_preemptions.cu", "burst_cycles.cu")
+           "minimal_preemptions.cu", "burst_cycles.cu", "fs_admit_scan.cu",
+           "drs_components.cu")
 HEADERS = ("quota.cuh", "admit_entry.cuh")
 MAX_DEPTH = 16          # KQ_MAX_DEPTH in quota.cuh
 MAX_THREADS = 1024
@@ -113,6 +115,8 @@ _ARGTYPES = {
     "kq_admit_scan_preempt": [_P] * 28 + [_I] * 11 + [_P],
     "kq_minimal_preemptions": [_P] * 18 + [_I] * 7 + [_P],
     "kq_burst_cycles": [_P, _P, _P],
+    "kq_fs_admit_scan": [_P, _P, _P],
+    "kq_drs_components": [_P] * 11 + [_I] * 4 + [_P],
 }
 
 
@@ -511,3 +515,108 @@ def burst_cycles(*args, K, depth, L, S, KC, n_levels, G, runtime,
                     + (dflags[:, 2] > 0).to(i32) * 2)
     return (head_row, kind, slot, borrows, tgt_words, dirty, dirty_reason,
             tuple(carry))
+
+
+# -- fair sharing --------------------------------------------------------------
+
+FS_MAX_F = 64           # FS_MAX_F in fs_admit_scan.cu: per-thread carry
+FS_MAX_THREADS = 256
+
+
+def fs_admit_scan(usage0, subtree, sq_mask, guaranteed, borrow_cap,
+                  has_blim, parent, node_level, weights, lendable_r, onehot,
+                  child_order, wl_cq, u_e, nofit, prio, ts_rank, valid,
+                  forest_of_node, *, depth, n_levels):
+    """CUDA fs_admit_scan (kernels/fs_admit_scan.cu) → (order [W] int32,
+    admitted [W] bool, processed [W] bool); arguments as
+    ``ops.fs_scan.fs_admit_scan_plain``."""
+    dev = usage0.device
+    if dev.type != "cuda":
+        raise ValueError(f"usage0 on {dev}: the kernels need CUDA tensors")
+    N, F = usage0.shape
+    R = lendable_r.shape[1] if lendable_r.dim() == 2 else -1
+    W = wl_cq.shape[0]
+    i32, b = torch.int32, torch.bool
+    for nm, t in (("usage0", usage0), ("subtree", subtree),
+                  ("guaranteed", guaranteed), ("borrow_cap", borrow_cap)):
+        _check(nm, t, i32, (N, F), dev)
+    _check("sq_mask", sq_mask, b, (N, F), dev)
+    _check("has_blim", has_blim, b, (N, F), dev)
+    for nm, t in (("parent", parent), ("node_level", node_level),
+                  ("weights", weights), ("child_order", child_order),
+                  ("forest_of_node", forest_of_node)):
+        _check(nm, t, i32, (N,), dev)
+    _check("lendable_r", lendable_r, i32, (N, R), dev)
+    _check("onehot", onehot, i32, (F, R), dev)
+    for nm, t in (("wl_cq", wl_cq), ("prio", prio), ("ts_rank", ts_rank)):
+        _check(nm, t, i32, (W,), dev)
+    _check("u_e", u_e, i32, (W, F), dev)
+    _check("nofit", nofit, b, (W,), dev)
+    _check("valid", valid, b, (W,), dev)
+    _check_depth(depth)
+    if not 1 <= n_levels <= depth:
+        raise ValueError(f"n_levels={n_levels} outside [1, depth={depth}]")
+    if not 1 <= F <= FS_MAX_F or R < 1 or N < 1:
+        raise ValueError(f"F={F} must be in [1, {FS_MAX_F}], R={R} and "
+                         f"N={N} at least 1")
+    order = torch.empty(W, dtype=i32, device=dev)
+    admitted = torch.empty(W, dtype=b, device=dev)
+    processed = torch.empty(W, dtype=b, device=dev)
+    if W == 0:
+        return order, admitted, processed
+    lib = load()
+    # F <= FS_MAX_F <= FS_MAX_THREADS: a thread for each column
+    threads = max(32, -(-min(max(W, N, F), FS_MAX_THREADS) // 32) * 32)
+    # usage [N, F], node winners [N], four key minima and the promotion
+    # slots [N + 1] each, DRS [W, depth], remaining [W], two scalars
+    ints = N * F + N + 5 * (N + 1) + W * depth + W + 2
+    smem = ints * 4
+    if smem > SMEM_LIMIT:
+        smem = 0
+        scratch = torch.empty(ints, dtype=i32, device=dev)
+    else:
+        scratch = torch.empty(1, dtype=i32, device=dev)
+    tensors = (usage0, subtree, sq_mask, guaranteed, borrow_cap, has_blim,
+               parent, node_level, weights, lendable_r, onehot, child_order,
+               wl_cq, u_e, nofit, prio, ts_rank, valid, forest_of_node,
+               scratch, order, admitted, processed)
+    ptrs = (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
+    dims = (ctypes.c_int * 8)(N, F, R, W, depth, n_levels, threads, smem)
+    _launch("fs_admit_scan", lib.kq_fs_admit_scan, ptrs, dims)
+    return order, admitted, processed
+
+
+def drs_components(usage, subtree, guaranteed, borrow_cap, has_blim, parent,
+                   fr_to_resource, wl_req=None, *, n_resources, depth):
+    """CUDA drs_components (kernels/drs_components.cu) → (borrowing
+    [N, R] int32, lendable [N, R] int32); arguments as
+    ``ops.fairsharing_kernel.drs_components_plain``."""
+    dev = usage.device
+    if dev.type != "cuda":
+        raise ValueError(f"usage on {dev}: the kernels need CUDA tensors")
+    N, F = usage.shape
+    R = int(n_resources)
+    i32 = torch.int32
+    for nm, t in (("usage", usage), ("subtree", subtree),
+                  ("guaranteed", guaranteed), ("borrow_cap", borrow_cap)):
+        _check(nm, t, i32, (N, F), dev)
+    _check("has_blim", has_blim, torch.bool, (N, F), dev)
+    _check("parent", parent, i32, (N,), dev)
+    _check("fr_to_resource", fr_to_resource, i32, (F,), dev)
+    if wl_req is not None:
+        _check("wl_req", wl_req, i32, (N, F), dev)
+    _check_depth(depth)
+    if R < 1:
+        raise ValueError(f"n_resources={R} must be at least 1")
+    borrowing = torch.empty((N, R), dtype=i32, device=dev)
+    lendable = torch.empty((N, R), dtype=i32, device=dev)
+    if N == 0:
+        return borrowing, lendable
+    lib = load()
+    zeros = torch.zeros((N, F), dtype=i32, device=dev)
+    _launch("drs_components", lib.kq_drs_components,
+            *_cycle_ptrs(usage, subtree, guaranteed, borrow_cap, has_blim,
+                         parent, fr_to_resource),
+            _P(wl_req.data_ptr() if wl_req is not None else None),
+            *_cycle_ptrs(zeros, borrowing, lendable), N, F, R, depth)
+    return borrowing, lendable

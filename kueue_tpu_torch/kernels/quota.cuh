@@ -25,6 +25,19 @@ __device__ __forceinline__ int kq_sub(int a, int b) {
   return static_cast<int>(static_cast<unsigned>(a) - static_cast<unsigned>(b));
 }
 
+// Wrapping int32 product (XLA's int32 multiply wraps).
+__device__ __forceinline__ int kq_mul(int a, int b) {
+  return static_cast<int>(static_cast<unsigned>(a) * static_cast<unsigned>(b));
+}
+
+// jnp ``//``: floor division.  C++ ``/`` truncates toward zero, so a
+// negative quotient with a remainder is one too large (-1000 / 4000 is 0,
+// -1000 // 4000 is -1).  b != 0; the callers divide by max(x, 1).
+__device__ __forceinline__ int kq_floordiv(int a, int b) {
+  const int q = a / b;
+  return (a % b != 0 && ((a < 0) != (b < 0))) ? q - 1 : q;
+}
+
 // Static quota planes of one node forest: [N, F] row-major, parent [N].
 struct KqTree {
   const int* subtree;

@@ -29,8 +29,13 @@ inexact int32 scaling, unrepresentable packs and scalar assignments
 whose usage can't be encoded exactly — the host path then runs, keeping
 decisions bit-identical.
 
-Not in this package yet (ROADMAP Queue 1): the fair-sharing scan
-(``dispatch_fs``), the mesh route and the native C++ route.
+Fair-sharing cycles whose heads are all vector-classified and none
+preempt-capable run the whole tournament + admit loop as one
+``fs_admit_scan`` launch (``dispatch_fs``; the CUDA kernel
+``kernels/fs_admit_scan.cu`` on "cuda").
+
+Not in this package yet (ROADMAP Queue 1): the mesh route and the
+native C++ route.
 """
 
 from __future__ import annotations
@@ -171,6 +176,11 @@ class CycleSolver:
         # one of full/classify/host (the scheduler increments them).
         self.stats = {
             "full_cycles": 0,         # fully device-decided cycles
+            "fs_full_cycles": 0,      # fair-sharing cycles decided in-scan
+            "fs_noop_skips": 0,       # FS cycles with no fit head: the
+                                      # tournament dispatch was skipped
+            "fs_noop_reuses": 0,      # no-op FS cycles whose per-head
+                                      # walks were fingerprint-reused
             "classify_cycles": 0,     # device nominate + host admit loop
             "host_cycles": 0,         # pure host fallback (classify=None)
             "reserve_entries": 0,
@@ -203,6 +213,18 @@ class CycleSolver:
             planes = planes_to_torch(
                 {k: getattr(st, k) for k in _STATIC_PLANES}, self.device)
             st._device_planes = planes
+        return planes
+
+    def _fs_planes(self, st: PackedStructure, statics) -> dict:
+        """The fair-sharing statics and weights on the solver's device
+        (cached on the structure, like ``_device_planes``)."""
+        planes = getattr(st, "_fs_device_planes", None)
+        if planes is None:
+            from .fs_scan import fs_statics_to_torch
+            planes = fs_statics_to_torch(statics, self.device)
+            planes["weights"] = torch.from_numpy(
+                np.ascontiguousarray(st.fair_weight_milli)).to(self.device)
+            st._fs_device_planes = planes
         return planes
 
     def _to_device(self, *arrays) -> list:
@@ -648,8 +670,80 @@ class CycleSolver:
                 handle.pending = admit_scan(*args, t_order, depth=st.depth)
         return handle
 
+    def dispatch_fs(self, cls: ClassifiedCycle) -> Optional[DispatchHandle]:
+        """Dispatch a fair-sharing cycle's tournament + admit loop as one
+        ``fs_admit_scan`` launch (ops/fs_scan.py) — FULL-mode FS.
+
+        Returns None when the FS statics can't be built or the scaled
+        DRS math could overflow (host tournament runs instead).  The
+        caller guarantees: no scalar heads, no preempt-capable heads, no
+        admission-block gate.  The statics are uploaded once per
+        structure; each cycle uploads usage and the per-head tensors."""
+        from .fs_scan import build_fs_statics, fs_admit_scan, fs_bounds_ok
+        packed = cls.packed
+        st = packed.structure
+        statics = getattr(st, "_fs_statics", "unset")
+        if isinstance(statics, str):
+            statics = build_fs_statics(cls.snapshot, st)
+            st._fs_statics = statics
+        if statics is None:
+            return None
+        W = packed.wl_cq.shape[0]
+        F = packed.usage0.shape[1]
+        dec_fr, dec_amt, fit_mask = decision_pairs_from_slots(
+            st.slot_fr, packed.wl_cq, packed.wl_requests, cls.fit_slot0)
+        u_e = np.zeros((W, F), dtype=np.int32)
+        rows, cols = np.nonzero(dec_fr >= 0)
+        np.add.at(u_e, (rows, dec_fr[rows, cols]), dec_amt[rows, cols])
+        if not fs_bounds_ok(statics, packed.usage0, u_e):
+            return None
+        valid = packed.wl_cq >= 0
+        nofit = ~fit_mask
+        # equality-preserving timestamp rank (ties must stay ties for
+        # entryComparer.less parity)
+        _, ts_rank = np.unique(packed.wl_timestamp, return_inverse=True)
+        ts_rank = ts_rank.astype(np.int32)
+        handle = DispatchHandle(order=np.arange(W, dtype=np.int32),
+                                rmask=np.zeros(W, dtype=bool), n=cls.n)
+        handle.fit_mask = fit_mask
+        handle.route = self.device.type
+        self.stats[f"{self.device.type}_dispatches"] += 1
+        planes = self._device_planes(st)
+        fs = self._fs_planes(st, statics)
+        usage0, wl_cq, t_u_e, t_nofit, prio, t_ts, t_valid = self._to_device(
+            packed.usage0, packed.wl_cq, u_e, nofit, packed.wl_priority,
+            ts_rank, valid)
+        from ..profiling import annotation
+        with annotation("fs_admit_scan"):
+            handle.pending = ("fs", fs_admit_scan(
+                usage0, planes["subtree_quota"], fs["sq_mask"],
+                planes["guaranteed"], planes["borrow_cap"],
+                planes["has_borrow_limit"], planes["parent"],
+                fs["node_level"], fs["weights"], fs["lendable_r"],
+                fs["onehot"], fs["child_order"], wl_cq, t_u_e, t_nofit,
+                prio, t_ts, t_valid, planes["forest_of_node"],
+                depth=st.depth, n_levels=statics.n_levels))
+        return handle
+
     def fetch(self, handle: DispatchHandle) -> DeviceCycleFinal:
         """Block for an in-flight scan's decisions (head order)."""
+        if (handle.admitted is None and isinstance(handle.pending, tuple)
+                and handle.pending[0] == "fs"):
+            order, admitted, _ = (t.cpu().numpy()
+                                  for t in handle.pending[1])
+            handle.pending = None
+            W = len(handle.rmask)
+            handle.admitted = admitted
+            handle.preempting = np.zeros(W, dtype=bool)
+            handle.overlap_skip = np.zeros(W, dtype=bool)
+            handle.order = order
+            self._collect_kernel_stats()
+            n = handle.n
+            return DeviceCycleFinal(
+                order=order[(order >= 0) & (order < n)],
+                admitted=admitted[:n], reserve_mask=handle.rmask[:n],
+                preempting=handle.preempting[:n],
+                overlap_skip=handle.overlap_skip[:n])
         if handle.admitted is None:
             out = handle.pending
             handle.pending = None

@@ -13,6 +13,10 @@ the north-star shape, driven per cycle through ``Driver.schedule_once``.
   100,000 pending workloads and a high-priority preemptor wave injected
   a third of the way in (the JAX package's scripts/northstar_e2e.py
   ``build`` and per-cycle ``run_path``).
+- ``build_northstar_fs``/``run_northstar_fs``: fair sharing at the
+  north-star size — 1,000 weighted CQs in cohorts of 5 contending for
+  cohort quota, 100,000 workloads (scripts/northstar_e2e.py
+  ``run_fs_path``, ``--fair-sharing``).
 
 Every workload is generated from the scenario's parameters alone, so two
 runs (two devices, or this package and the JAX package) see the same
@@ -25,6 +29,7 @@ import hashlib
 import json
 import time
 
+from .api import types as api_types
 from .api.types import (
     ClusterQueue,
     FlavorQuotas,
@@ -229,6 +234,80 @@ def run_northstar(d: Driver, clock: VirtualClock, preemptor_wave,
     return dict(wall=time.perf_counter() - t0, cycles=cycles,
                 cycle_times=cycle_times, admitted=admitted,
                 preempted=preempted, decisions=decisions)
+
+
+FS_WEIGHTS = (1.0, 2.0, 4.0, 1.0, 0.5)
+
+
+def northstar_fs_spec(t, d, n_cqs: int = 1000, n_wl: int = 100_000) -> int:
+    """Populate driver ``d`` (of either package, ``t`` its api.types
+    module) with the fair-sharing north-star cluster: CQs in cohorts of
+    5 with fair-sharing weights cycling (1, 2, 4, 1, 0.5), one flavor
+    with cpu nominal 4,000 and borrowingLimit 80,000 per CQ, and
+    ``n_wl // n_cqs`` workloads of 2,000 mCPU at priority 50 per CQ.
+    Per-CQ demand is far above nominal, but the five CQs of a cohort
+    fill its whole quota at nominal, so no CQ ever borrows: every DRS in
+    the tournament is 0 and timestamps decide.  Returns the workload
+    count."""
+    d.apply_resource_flavor(t.ResourceFlavor(name="default"))
+    per_cq = max(1, n_wl // n_cqs)
+    for i in range(n_cqs):
+        d.apply_cluster_queue(t.ClusterQueue(
+            name=f"cq-{i}", cohort=f"cohort-{i // 5}",
+            fair_sharing=t.FairSharing(weight=FS_WEIGHTS[i % 5]),
+            resource_groups=[t.ResourceGroup(
+                covered_resources=["cpu"],
+                flavors=[t.FlavorQuotas(name="default", resources={
+                    "cpu": t.ResourceQuota(nominal=4_000,
+                                           borrowing_limit=80_000)})])]))
+        d.apply_local_queue(t.LocalQueue(name=f"lq-{i}",
+                                         cluster_queue=f"cq-{i}"))
+    total = 0
+    for i in range(n_cqs):
+        for k in range(per_cq):
+            total += 1
+            d.create_workload(t.Workload(
+                name=f"wl-{i}-{k}", queue_name=f"lq-{i}", priority=50,
+                creation_time=float(total),
+                pod_sets=[t.PodSet(name="main", count=1,
+                                   requests={"cpu": 2_000})]))
+    return total
+
+
+def build_northstar_fs(n_cqs: int = 1000, n_wl: int = 100_000,
+                       device: str = "cuda"):
+    """The fair-sharing north-star run's cluster on a
+    ``Driver(fair_sharing=True)`` → (driver, clock, total)."""
+    clock = VirtualClock()
+    d = Driver(clock=clock, fair_sharing=True, device=device)
+    total = northstar_fs_spec(api_types, d, n_cqs, n_wl)
+    return d, clock, total
+
+
+def run_northstar_fs(d, clock: VirtualClock, cycles: int = 30,
+                     runtime: int = 4) -> dict:
+    """``cycles`` per-cycle ``schedule_once`` calls; each admission
+    finishes ``runtime`` cycles later (scripts/northstar_e2e.py
+    ``run_fs_path``).  Works on either package's Driver."""
+    cycle_times = []
+    admitted = skipped = 0
+    running: list[tuple[int, str]] = []
+    decisions = []
+    t0 = time.perf_counter()
+    for cycle in range(cycles):
+        clock.t += 1.0
+        c0 = time.perf_counter()
+        stats = d.schedule_once()
+        cycle_times.append(time.perf_counter() - c0)
+        admitted += len(stats.admitted)
+        skipped += len(stats.skipped)
+        decisions.append([_admission_record(d, k) for k in stats.admitted])
+        for key in stats.admitted:
+            running.append((cycle + runtime, key))
+        running, _ = _finish_due(d, running, cycle)
+    return dict(wall=time.perf_counter() - t0, cycles=cycles,
+                cycle_times=cycle_times, admitted=admitted,
+                skipped=skipped, decisions=decisions)
 
 
 def decision_digest(d: Driver, decisions=None) -> str:

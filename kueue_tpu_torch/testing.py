@@ -433,3 +433,202 @@ def burst_cases(seed: int = 0):
         yield label, args, size
     args, size = burst_probe_args(10, 16, 1, 8)
     yield "probe", args, size
+
+
+# ----------------------------------------------------------------------
+# Fair sharing (ops/fs_scan.py fs_admit_scan, ops/fairsharing_kernel.py
+# drs_components)
+# ----------------------------------------------------------------------
+
+FS_WEIGHTS = (0, 500, 1000, 2000, 3000, 4000)
+
+
+def _levels_and_order(rng, parent: np.ndarray):
+    """node_level [N] (roots 0) and child_order [N] (a distinct rank
+    among each parent's children, shuffled)."""
+    N = len(parent)
+    level = np.zeros(N, dtype=np.int32)
+    for n in range(N):
+        p = parent[n]
+        while p >= 0:
+            level[n] += 1
+            p = parent[p]
+    child_order = np.zeros(N, dtype=np.int32)
+    for p in np.unique(parent[parent >= 0]):
+        kids = np.nonzero(parent == p)[0]
+        child_order[kids] = rng.permutation(len(kids))
+    return level, child_order
+
+
+def fs_cycle(rng: np.random.Generator, *, n_cqs: int = 8, n_cohorts: int = 3,
+             depth: int = 2, F: int = 2, R: int = 1, W: int = 16,
+             n_valid: int | None = None, weights=FS_WEIGHTS,
+             zero_lend: float = 0.2, ties: bool = False) -> dict:
+    """Inputs of fs_admit_scan (``ops.fs_scan.FS_ARGS`` plus ``depth`` and
+    ``n_levels``) as numpy arrays: a cohort forest of up to ``depth``
+    levels, usage that borrows above subtree quota, lendable capacity
+    that is zero at roots and at a ``zero_lend`` share of the other nodes
+    (the floor-division case), one head per CQ in the first ``n_valid``
+    rows and padding after, NoFit heads, and with ``ties`` equal
+    priorities and timestamp ranks."""
+    parent, forest_of, _, true_depth = forest(rng, n_cqs, n_cohorts, depth)
+    N = n_cqs + n_cohorts
+    q = quota_planes(rng, N, F)
+    sq_mask = rng.random((N, F)) < 0.85
+    fr_to_r = np.arange(F) % R
+    rng.shuffle(fr_to_r)
+    onehot = (fr_to_r[:, None] == np.arange(R)[None, :]).astype(np.int32)
+    lendable_r = rng.integers(1, 80, (N, R)).astype(np.int32)
+    lendable_r[rng.random((N, R)) < zero_lend] = 0
+    lendable_r[parent < 0] = 0
+    level, child_order = _levels_and_order(rng, parent)
+    w = np.asarray(weights, dtype=np.int32)
+    n_valid = min(W, n_cqs) if n_valid is None else n_valid
+    wl_cq = np.full(W, -1, dtype=np.int32)
+    wl_cq[:n_valid] = rng.choice(n_cqs, n_valid, replace=False)
+    valid = wl_cq >= 0
+    u_e = np.where(valid[:, None], rng.integers(0, 25, (W, F)),
+                   0).astype(np.int32)
+    hi = 3 if ties else 1000
+    return dict(
+        q, sq_mask=sq_mask, parent=parent, node_level=level,
+        weights=w[rng.integers(0, len(w), N)], lendable_r=lendable_r,
+        onehot=onehot, child_order=child_order, wl_cq=wl_cq, u_e=u_e,
+        nofit=(rng.random(W) < 0.2) & valid,
+        prio=rng.integers(0, hi, W).astype(np.int32) * 10,
+        ts_rank=rng.integers(0, hi, W).astype(np.int32), valid=valid,
+        forest_of_node=forest_of, depth=max(depth, true_depth),
+        n_levels=int(level.max()) + 1)
+
+
+def fs_args(case: dict) -> tuple:
+    """fs_admit_scan's positional arrays (``ops.fs_scan.FS_ARGS``)."""
+    from .ops.fs_scan import FS_ARGS
+    return tuple(case[k] for k in FS_ARGS)
+
+
+def fs_floor_case() -> dict:
+    """Two CQs of one cohort, where only floor division orders them: A
+    borrows a resource that has no lendable capacity (ratio -1) at weight
+    4,000, so its DRS is -1000 // 4000 = -1 (truncation: 0); B does not
+    borrow (DRS 0) and has the higher priority.  Floor: A wins round 0;
+    truncation: a tie on DRS, and B would win on priority."""
+    parent = np.array([2, 2, -1], dtype=np.int32)
+    z = np.zeros((3, 1), dtype=np.int32)
+    usage0 = np.array([[5], [0], [5]], dtype=np.int32)
+    subtree = np.array([[4], [10], [20]], dtype=np.int32)
+    return dict(
+        usage0=usage0, subtree=subtree, sq_mask=np.ones((3, 1), bool),
+        guaranteed=z.copy(), borrow_cap=np.full((3, 1), I32_LIMIT, np.int32),
+        has_blim=np.zeros((3, 1), bool), parent=parent,
+        node_level=np.array([1, 1, 0], np.int32),
+        weights=np.array([4000, 3000, 1000], np.int32),
+        lendable_r=np.zeros((3, 1), np.int32),
+        onehot=np.ones((1, 1), np.int32),
+        child_order=np.array([0, 1, 0], np.int32),
+        wl_cq=np.array([1, 0, -1, -1], np.int32),
+        u_e=np.array([[1], [1], [0], [0]], np.int32),
+        nofit=np.zeros(4, bool),
+        prio=np.array([100, 0, 0, 0], np.int32),
+        ts_rank=np.array([0, 1, 0, 0], np.int32),
+        valid=np.array([True, True, False, False]),
+        forest_of_node=np.zeros(3, np.int32), depth=2, n_levels=2)
+
+
+# (n_cqs, n_cohorts, depth, F, R, W, n_valid, ties, weights, zero_lend)
+FS_SHAPES = [
+    (6, 2, 2, 1, 1, 8, 6, False, FS_WEIGHTS, 0.2),         # flat
+    (8, 3, 2, 2, 2, 16, 7, True, FS_WEIGHTS, 0.2),         # ties, padding
+    (10, 4, 3, 3, 2, 16, 10, False, FS_WEIGHTS, 0.2),      # nested
+    (12, 4, 3, 1, 1, 16, 12, True, (0, 1000), 0.0),        # MAX_DRS
+    (9, 3, 2, 1, 1, 16, 9, False, (3000, 4000), 1.0),      # floor division
+    (10, 4, 3, 2, 2, 16, 10, True, (3000, 4000), 0.5),
+    (60, 20, 3, 2, 1, 64, 50, False, FS_WEIGHTS, 0.2),     # N > 64
+    (60, 20, 2, 2, 2, 64, 60, True, FS_WEIGHTS, 0.3),
+    (1000, 200, 2, 1, 1, 1024, 1000, False, FS_WEIGHTS, 0.2),  # north star
+]
+# (n_cqs, n_cohorts, depth, F, R, with wl_req)
+DRS_SHAPES = [
+    (6, 3, 2, 1, 1, False),
+    (8, 4, 3, 3, 2, True),
+    (60, 20, 3, 4, 2, False),
+    (60, 20, 3, 2, 2, True),
+    (1000, 200, 2, 1, 1, False),
+]
+
+
+def drs_case(rng: np.random.Generator, *, n_cqs: int, n_cohorts: int,
+             depth: int, F: int, R: int, wl_req: bool) -> tuple:
+    """(positional arrays, keywords) of drs_components."""
+    parent, _, _, true_depth = forest(rng, n_cqs, n_cohorts, depth)
+    N = n_cqs + n_cohorts
+    q = quota_planes(rng, N, F)
+    fr = (np.arange(F) % R).astype(np.int32)
+    rng.shuffle(fr)
+    args = (q["usage0"], q["subtree"], q["guaranteed"], q["borrow_cap"],
+            q["has_blim"], parent, fr)
+    if wl_req:
+        args += (rng.integers(0, 30, (N, F)).astype(np.int32),)
+    return args, dict(n_resources=R, depth=max(depth, true_depth))
+
+
+def fs_cases(seed: int = 0):
+    """The fair-sharing sweep a CUDA kernel is held to against its plain
+    version: ``(name, positional arrays, keywords)`` for fs_admit_scan
+    over ``FS_SHAPES`` plus ``fs_floor_case``, and for drs_components over
+    ``DRS_SHAPES``."""
+    rng = np.random.default_rng(seed)
+    for n_cqs, n_coh, depth, F, R, W, n_valid, ties, w, zl in FS_SHAPES:
+        c = fs_cycle(rng, n_cqs=n_cqs, n_cohorts=n_coh, depth=depth, F=F,
+                     R=R, W=W, n_valid=n_valid, ties=ties, weights=w,
+                     zero_lend=zl)
+        yield "fs_admit_scan", fs_args(c), dict(depth=c["depth"],
+                                                n_levels=c["n_levels"])
+    c = fs_floor_case()
+    yield "fs_admit_scan", fs_args(c), dict(depth=c["depth"],
+                                            n_levels=c["n_levels"])
+    for n_cqs, n_coh, depth, F, R, wl_req in DRS_SHAPES:
+        args, kw = drs_case(rng, n_cqs=n_cqs, n_cohorts=n_coh, depth=depth,
+                            F=F, R=R, wl_req=wl_req)
+        yield "drs_components", args, kw
+
+
+def fs_borrowing_cluster(t, d, clock, nested: bool = False,
+                         cycles: int = 3) -> None:
+    """Populate a ``Driver(fair_sharing=True)`` ``d`` of either package
+    (``t`` its api.types module, ``clock`` its settable clock) with a
+    small fair-sharing cluster that borrows — two cohorts of three CQs
+    with weights 0.5-4 (one zero), lending limits, cpu and memory,
+    optionally under a common parent cohort — submit 40 seeded workloads
+    and run ``cycles`` cycles."""
+    d.apply_resource_flavor(t.ResourceFlavor(name="default"))
+    if nested:
+        for c in range(2):
+            d.apply_cohort(t.Cohort(name=f"co-{c}", parent_name="org"))
+    weights = (0.5, 1.0, 2.0, 0.0, 3.0, 4.0)
+    for c in range(2):
+        for q in range(3):
+            d.apply_cluster_queue(t.ClusterQueue(
+                name=f"cq-{c}-{q}", cohort=f"co-{c}",
+                fair_sharing=t.FairSharing(weight=weights[c * 3 + q]),
+                resource_groups=[t.ResourceGroup(
+                    covered_resources=["cpu", "memory"],
+                    flavors=[t.FlavorQuotas(name="default", resources={
+                        "cpu": t.ResourceQuota(
+                            nominal=2000, borrowing_limit=6000,
+                            lending_limit=1000 if q == 1 else None),
+                        "memory": t.ResourceQuota(nominal=4000)})])]))
+            d.apply_local_queue(t.LocalQueue(name=f"lq-{c}-{q}",
+                                             cluster_queue=f"cq-{c}-{q}"))
+    rng = np.random.default_rng(7)
+    for k in range(40):
+        c, q = int(rng.integers(2)), int(rng.integers(3))
+        d.create_workload(t.Workload(
+            name=f"w-{k}", queue_name=f"lq-{c}-{q}",
+            priority=int(rng.choice([0, 10])), creation_time=float(k + 1),
+            pod_sets=[t.PodSet(name="main", count=1, requests={
+                "cpu": int(rng.choice([500, 1500, 2500])),
+                "memory": int(rng.choice([500, 1000]))})]))
+    for _ in range(cycles):
+        clock.t += 1.0
+        d.schedule_once()

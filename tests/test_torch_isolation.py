@@ -70,6 +70,7 @@ def test_every_port_module_is_accounted_for():
     one of the port's own rewritten modules."""
     own = {"__init__.py", "ops/__init__.py", "ops/quota_kernel.py",
            "ops/cycle.py", "ops/preemption_kernel.py", "ops/solver.py",
+           "ops/fs_scan.py", "ops/fairsharing_kernel.py",
            "profiling.py", "kernels/__init__.py", "scenarios.py",
            "testing.py"}
     rels = {os.path.relpath(p, PORT) for p in _port_files()}
@@ -127,13 +128,37 @@ def test_driver_defaults_to_the_card():
             Driver()
         with pytest.raises(RuntimeError):
             Driver(device="cuda")
+        with pytest.raises(RuntimeError, match="no CUDA GPU"):
+            Driver(fair_sharing=True)
     assert Driver(device="cpu").scheduler.solver.device.type == "cpu"
+    d = Driver(device="cpu", fair_sharing=True)
+    assert d.scheduler.fair_sharing and d.scheduler.solver.device.type == "cpu"
+
+
+def test_fair_sharing_drain_in_a_fresh_process():
+    """A fair-sharing drain on "cpu" (the north-star FS scenario, small)
+    decides cycles in the fs_admit_scan path and loads neither jax nor
+    kueue_tpu."""
+    code = (
+        "import sys\n"
+        "from kueue_tpu_torch import scenarios\n"
+        "d, c, total = scenarios.build_northstar_fs(20, 400, device='cpu')\n"
+        "r = scenarios.run_northstar_fs(d, c, cycles=12)\n"
+        "assert r['admitted'] > 0, r\n"
+        "assert d.scheduler.solver.stats['fs_full_cycles'] > 0\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'kueue_tpu'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.strip().endswith("ok")
 
 
 def test_unported_paths_raise(monkeypatch):
     from kueue_tpu_torch.controller.driver import Driver
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        Driver(device="cpu", fair_sharing=True)
     monkeypatch.setenv("KUEUE_TPU_SHARDS", "2")
     with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
         Driver(device="cpu")
@@ -182,3 +207,29 @@ def test_burst_runs_on_the_drivers_device_only():
     with pytest.raises(ValueError, match="Driver's"):
         d.schedule_burst(2, backend="accel")
     assert len(d.schedule_burst(1, backend="cpu")) == 1
+
+
+def test_fs_kernels_run_plain_on_cpu_tensors():
+    """fs_admit_scan and drs_components on CPU tensors run their plain
+    versions and launch nothing; their launchers refuse CPU tensors."""
+    import numpy as np
+    from kueue_tpu_torch import kernels, testing
+    from kueue_tpu_torch.ops import fairsharing_kernel, fs_scan
+    before = dict(kernels.LAUNCHES)
+    c = testing.fs_floor_case()
+    args = [torch.from_numpy(a) for a in testing.fs_args(c)]
+    kw = dict(depth=c["depth"], n_levels=c["n_levels"])
+    order, admitted, processed = fs_scan.fs_admit_scan(*args, **kw)
+    assert order.dtype == torch.int32 and admitted.dtype == torch.bool
+    d_args, d_kw = testing.drs_case(np.random.default_rng(0), n_cqs=4,
+                                    n_cohorts=2, depth=2, F=2, R=1,
+                                    wl_req=False)
+    b, lend = fairsharing_kernel.drs_components(
+        *[torch.from_numpy(a) for a in d_args], **d_kw)
+    assert b.dtype == lend.dtype == torch.int32
+    assert kernels.LAUNCHES == before
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        kernels.fs_admit_scan(*args, **kw)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        kernels.drs_components(*[torch.from_numpy(a) for a in d_args],
+                               **d_kw)

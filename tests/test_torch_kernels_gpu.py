@@ -12,7 +12,8 @@ import pytest
 import torch
 
 from kueue_tpu_torch import testing as tt
-from kueue_tpu_torch.ops import burst, cycle, preemption_kernel
+from kueue_tpu_torch.ops import (burst, cycle, fairsharing_kernel, fs_scan,
+                                 preemption_kernel)
 
 PLAIN = {
     "admit_scan": cycle.admit_scan_plain,
@@ -93,3 +94,31 @@ def test_cuda_burst_matches_plain(seed):
         for i, (p, c) in enumerate(zip(flat_p, flat_c)):
             assert c.dtype == p.dtype and c.shape == p.shape, (label, i)
             assert torch.equal(c.cpu(), p), (label, i)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("seed", [0, 1])
+def test_cuda_fair_sharing_kernels_match_plain(seed):
+    """fs_admit_scan and drs_components on the card against their plain
+    versions on the CPU (kueue_tpu_torch.testing.fs_cases: nested
+    cohorts, N on both sides of 64, ties, zero weights, NoFit heads,
+    padding, the floor-division cycle, the north-star width)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernels have no CPU mode")
+    from kueue_tpu_torch import kernels
+    plain = {"fs_admit_scan": fs_scan.fs_admit_scan_plain,
+             "drs_components": fairsharing_kernel.drs_components_plain}
+    routed = {"fs_admit_scan": fs_scan.fs_admit_scan,
+              "drs_components": fairsharing_kernel.drs_components}
+    seen = set()
+    for name, args, kw in tt.fs_cases(seed):
+        before = kernels.LAUNCHES[name]
+        p = plain[name](*[torch.from_numpy(a) for a in args], **kw)
+        c = routed[name](*[torch.from_numpy(a).cuda() for a in args], **kw)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES[name] == before + 1, name
+        for x, y in zip(p, c):
+            assert y.dtype == x.dtype and y.shape == x.shape, name
+            assert torch.equal(y.cpu(), x), name
+        seen.add(name)
+    assert seen == set(plain)
