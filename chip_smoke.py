@@ -5,7 +5,9 @@ Builds the CUDA kernels from the sources in this checkout, holds every
 kernel against its plain PyTorch version, and drives the port's main path
 at full size both ways: ``Driver(device="cuda").schedule_once`` per cycle
 and ``Driver.schedule_burst``, K cycles per launch; then fair-sharing
-admission, ``Driver(device="cuda", fair_sharing=True).schedule_once``:
+admission, ``Driver(device="cuda", fair_sharing=True).schedule_once``;
+then topology-aware scheduling, ``Driver(device="cuda")`` with the TAS
+gates on:
 
 1. device: name, count and ``nvidia-smi`` name/power limit;
 2. build: nvcc of every kernel source (in parallel) into one library;
@@ -37,9 +39,23 @@ admission, ``Driver(device="cuda", fair_sharing=True).schedule_once``:
    (drs_components launched) must equal the host DRS of every node,
    and again (9b) on two small clusters that borrow;
 10. the same fair-sharing run on "cpu", at full size: its decision digest
-   must equal the card's, and it launches no kernel.
+   must equal the card's, and it launches no kernel;
+11. tas-4k (kueue_tpu_torch.scenarios.build_tas): 8 blocks x 16
+   subblocks x 32 hosts of 8 GPUs, 32 CQs in 4 cohorts, 6,400 gang
+   workloads, 60 per-cycle cycles on the card; fill_counts,
+   best_fit_descend and split_across_roots launched (once per call),
+   every branch of TASFlavorSnapshot._find_device taken, the host tree
+   walk never;
+12. the same 60 cycles on "cpu" with the plain TAS programs, and with
+   the host tree walk (TASDeviceKernel off): both digests, which cover
+   every admission's topology domains and counts, equal the card's;
+3e. the TAS kernels against their plain versions over a seeded sweep
+   (kueue_tpu_torch.testing.tas_cases: every profile and Mixed's
+   unconstrained variant, every request shape, 1-3 levels, a flat
+   4,096-root level, the sort in global memory) and the calls captured
+   in phase 11 — exact in values and dtypes.
 
-Launch counts are zeroed just before phases 4, 5, 7, 8, 9 and 9b and
+Launch counts are zeroed just before phases 4, 5, 7, 8, 9, 9b and 11 and
 read just after each.  Prints a ``kernels`` JSON line (per kernel: its launches on
 its main path and in each phase), the nvidia-smi line, and as its last
 line ``{"ok": true, "device": {...}}``.  Exits non-zero, with no result
@@ -68,6 +84,9 @@ TPU_KERNEL = {   # the jitted JAX program each kernel replaces
     "burst_cycles": "kueue_tpu/ops/burst.py:110",
     "fs_admit_scan": "kueue_tpu/ops/fs_scan.py:163",
     "drs_components": "kueue_tpu/ops/fairsharing_kernel.py:33",
+    "fill_counts": "kueue_tpu/ops/tas_kernel.py:78",
+    "best_fit_descend": "kueue_tpu/ops/tas_kernel.py:196",
+    "split_across_roots": "kueue_tpu/ops/tas_kernel.py:219",
 }
 SOURCE = {
     "admit_scan": "kueue_tpu_torch/kernels/admit_scan.cu",
@@ -78,11 +97,16 @@ SOURCE = {
     "burst_cycles": "kueue_tpu_torch/kernels/burst_cycles.cu",
     "fs_admit_scan": "kueue_tpu_torch/kernels/fs_admit_scan.cu",
     "drs_components": "kueue_tpu_torch/kernels/drs_components.cu",
+    "fill_counts": "kueue_tpu_torch/kernels/tas_fill_counts.cu",
+    "best_fit_descend": "kueue_tpu_torch/kernels/tas_descend.cu",
+    "split_across_roots": "kueue_tpu_torch/kernels/tas_descend.cu",
 }
+TAS_KERNELS = ("fill_counts", "best_fit_descend", "split_across_roots")
 BENCH_WORKLOADS = 15_000
 NORTHSTAR = dict(n_cqs=1000, n_wl=100_000, cycles=30)
 KIND_PREEMPT = 4            # ops/burst.py decision code
 PARITY_SCALE = 0.2          # 3,000 workloads
+TAS_CYCLES = 60             # tas-4k, on the card, on the CPU and walked
 
 
 def log(msg: str) -> None:
@@ -147,10 +171,20 @@ def install_fs_capture(cap: Capture) -> None:
     cap.install(fairsharing_kernel, "drs_components", "drs_components")
 
 
+def install_tas_capture(cap: Capture) -> None:
+    # TASFlavorSnapshot._find_device imports ops.tas_kernel at each query
+    from kueue_tpu_torch.ops import tas_kernel
+    for name in TAS_KERNELS:
+        cap.install(tas_kernel, name, name)
+
+
 def plain_fns():
     from kueue_tpu_torch.ops import (burst, cycle, fairsharing_kernel,
-                                     fs_scan, preemption_kernel)
+                                     fs_scan, preemption_kernel, tas_kernel)
     return {
+        "fill_counts": tas_kernel.fill_counts_plain,
+        "best_fit_descend": tas_kernel.best_fit_descend_plain,
+        "split_across_roots": tas_kernel.split_across_roots_plain,
         "fs_admit_scan": fs_scan.fs_admit_scan_plain,
         "drs_components": fairsharing_kernel.drs_components_plain,
         "burst_cycles": burst.burst_cycles_plain,
@@ -175,17 +209,32 @@ def as_tuple(x):
 
 
 def on_cpu(args):
-    return [a.cpu() if hasattr(a, "cpu") else a for a in args]
+    return [tuple(on_cpu(a)) if isinstance(a, tuple)
+            else a.cpu() if hasattr(a, "cpu") else a for a in args]
+
+
+def on_card(args):
+    """Seeded numpy inputs (tuples of arrays included) as CUDA tensors."""
+    import numpy as np
+    import torch
+    return [tuple(on_card(a)) if isinstance(a, tuple)
+            else torch.from_numpy(a).cuda() if isinstance(a, np.ndarray)
+            else a for a in args]
 
 
 def plain_kw(kw):
-    return {k: v for k, v in kw.items() if k != "node_table"}
+    return {k: v for k, v in kw.items()
+            if k not in ("node_table", "device")}
+
+
+def cuda_kw(kw):
+    return {k: v for k, v in kw.items() if k != "device"}
 
 
 def compare(name, args, kw, stats) -> None:
     """One CUDA launch against the plain version on CPU copies."""
     import torch
-    cuda = as_tuple(cuda_fns()[name](*args, **kw))
+    cuda = as_tuple(cuda_fns()[name](*args, **cuda_kw(kw)))
     plain = as_tuple(plain_fns()[name](*on_cpu(args), **plain_kw(kw)))
     torch.cuda.synchronize()
     err = 0
@@ -203,8 +252,52 @@ def compare(name, args, kw, stats) -> None:
 
 def io_bytes(args, outs) -> int:
     return sum(t.numel() * t.element_size()
-               for t in list(args) + list(as_tuple(tuple(outs)))
+               for t in as_tuple(tuple(args)) + as_tuple(tuple(outs))
                if hasattr(t, "numel"))
+
+
+def tas_levels(name, kw) -> list:
+    """The levels a TAS call sorts and walks (best_fit_descend: below
+    the chosen level; split_across_roots: all, the roots as one
+    segment)."""
+    sizes = kw["level_sizes"]
+    if name == "fill_counts":
+        return []
+    if name == "best_fit_descend":
+        return list(range(kw["level"] + 1, len(sizes)))
+    return list(range(len(sizes)))
+
+
+def tas_op_count(name, args, kw) -> int:
+    """int32 operations of a TAS call on its data: the fill (~4 per leaf
+    and resource, ~2 per domain), then per level walked a comparison
+    sort (~4 n log2 n) and a walk (~16 per child)."""
+    import math
+    sizes = kw["level_sizes"]
+    ops = args[0].numel() * 4 + sum(sizes) * 2
+    for d in tas_levels(name, kw):
+        n = sizes[d]
+        ops += int(4 * n * max(1.0, math.log2(n))) + 16 * n
+    return ops
+
+
+def tas_dependent_steps(name, args, kw) -> int:
+    """The launch's chain of dependent steps: the fill's L barriers, the
+    bitonic sort's log2(P) (log2(P) + 1) / 2 barriers and three more per
+    level walked, and each level's longest child walk (three passes
+    under BestFit)."""
+    import numpy as np
+    sizes = kw["level_sizes"]
+    steps = len(sizes)
+    for d in tas_levels(name, kw):
+        lg = max(0, (sizes[d] - 1).bit_length())
+        if d == 0:
+            seg = sizes[0]
+        else:
+            par = args[2][d - 1].cpu().numpy()
+            seg = int(np.bincount(par, minlength=sizes[d - 1]).max())
+        steps += lg * (lg + 1) // 2 + 3 + 3 * seg
+    return steps
 
 
 def op_count(name, args, kw) -> int:
@@ -212,6 +305,8 @@ def op_count(name, args, kw) -> int:
     step of each entry that runs (admit scans: valid heads; preempt:
     plus the target removals and the check-plane copy; search: valid
     searches x real candidates x the forward and reverse steps)."""
+    if name in TAS_KERNELS:
+        return tas_op_count(name, args, kw)
     depth = kw["depth"]
     if name == "fs_admit_scan":
         return fs_op_count(args, kw)
@@ -280,9 +375,10 @@ def time_kernel(name, args, kw, reps: int = 50) -> dict:
     import torch
     from kueue_tpu_torch import kernels
     fn = cuda_fns()[name]
-    outs = as_tuple(fn(*args, **kw))
+    kw_c = cuda_kw(kw)
+    outs = as_tuple(fn(*args, **kw_c))
     for _ in range(3):
-        fn(*args, **kw)
+        fn(*args, **kw_c)
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -292,7 +388,7 @@ def time_kernel(name, args, kw, reps: int = 50) -> dict:
     torch.cuda._sleep(200_000_000)
     start.record()
     for _ in range(reps):
-        fn(*args, **kw)
+        fn(*args, **kw_c)
     end.record()
     end.synchronize()
     ms = start.elapsed_time(end) / reps
@@ -332,6 +428,11 @@ def largest(calls):
         args = call[0]
         return args[0].shape[0] if args[0].dim() == 3 else args[8].shape[0]
     return max(calls, key=size)
+
+
+def deepest(calls):
+    """The captured best_fit_descend call that walks the most levels."""
+    return min(calls, key=lambda call: call[1]["level"])
 
 
 def burst_window(calls):
@@ -666,26 +767,125 @@ def main() -> int:
         check(s["mismatches"] == 0, (name, s))
     log(f"[3 kernels, captured fair sharing] {json.dumps(stats)}")
 
+    # -- 11. topology-aware scheduling at tas-4k, on the card -----------------
+    install_tas_capture(cap)
+    cap.phase = "tas"
+    with scenarios.tas_gates():
+        t0 = time.perf_counter()
+        d, clock, runtimes = scenarios.build_tas(device="cuda")
+        build_s = time.perf_counter() - t0
+        kernels.reset_counts()
+        with scenarios.TASBranches() as br11:
+            r11 = scenarios.run_tas(d, clock, runtimes, cycles=TAS_CYCLES)
+        torch.cuda.synchronize()
+        launches11 = dict(kernels.LAUNCHES)
+        device_ms11 = kernels.collect()
+    cap.uninstall()
+    digest11 = scenarios.tas_digest(d, r11)
+    ss = d.scheduler.solver.stats
+    wall11 = sum(r11["cycle_times"])
+    dev11 = sum(device_ms11.values()) / 1e3
+    log(f"[11 tas-4k] {len(d.cache.tas.nodes)} nodes, {len(runtimes)} "
+        f"workloads (built in {build_s:.1f}s), {r11['cycles']} cycles in "
+        f"{r11['wall']:.2f}s, cycle p50 "
+        f"{scenarios.percentile(r11['cycle_times'], 0.5) * 1e3:.3f}ms p99 "
+        f"{scenarios.percentile(r11['cycle_times'], 0.99) * 1e3:.3f}ms, "
+        f"admitted {r11['admitted']}; branches {json.dumps(br11.counts)}; "
+        f"full_cycles {ss['full_cycles']}, scalar_heads "
+        f"{ss['scalar_heads']}, host_cycles {ss['host_cycles']}; device "
+        f"{dev11 * 1e3:.3f}ms of {wall11 * 1e3:.3f}ms cycle wall (host "
+        f"share {1 - dev11 / wall11:.4f}); digest {digest11}; launches "
+        f"{json.dumps(launches11)}; device_ms {json.dumps(device_ms11)}")
+    check(r11["admitted"] > 0, "tas-4k admitted nothing")
+    for name in TAS_KERNELS:
+        check(launches11[name] > 0, (name, launches11))
+        check(launches11[name] == br11.counts[name],
+              (name, "launches differ from calls", launches11, br11.counts))
+    for branch in scenarios.TASBranches.BRANCHES:
+        check(br11.counts[branch] > 0, (branch, br11.counts))
+    check(br11.counts["scalar_walk"] == 0, "the host walk ran on the card")
+    check(launches11["admit_scan"] > 0, launches11)
+    del d
+
+    # -- 12. the same cycles on the CPU: plain programs, then the host walk --
+    before = dict(kernels.LAUNCHES)
+    for label, device_kernel in (("plain", True), ("host walk", False)):
+        with scenarios.tas_gates(device_kernel=device_kernel):
+            d, clock, runtimes = scenarios.build_tas(device="cpu")
+            with scenarios.TASBranches() as br:
+                r = scenarios.run_tas(d, clock, runtimes, cycles=TAS_CYCLES)
+        digest = scenarios.tas_digest(d, r)
+        log(f"[12 tas parity] cpu, {label}: {r['cycles']} cycles in "
+            f"{r['wall']:.2f}s, admitted {r['admitted']}, calls "
+            f"{json.dumps({k: br.counts[k] for k in br.CALLS})}, digest "
+            f"{digest}")
+        check(digest == digest11, {"cuda": digest11, label: digest})
+        if device_kernel:
+            check(br.counts["scalar_walk"] == 0, br.counts)
+        else:
+            check(br.counts["scalar_walk"] > 0, br.counts)
+            check(all(br.counts[k] == 0 for k in TAS_KERNELS), br.counts)
+        del d
+    check(kernels.LAUNCHES == before, "a CPU run launched a kernel")
+
+    # -- 3e. the TAS kernels: seeded sweep, global-memory sort, captured -----
+    for seed in (0, 1):
+        for name, arrays, kw in testing.tas_cases(
+                seed, testing.TAS_PARTS + ("tas4k",), flat=4096):
+            compare(name, on_card(arrays), kw, stats)
+    smem_sort = kernels.TAS_SMEM_SORT
+    kernels.TAS_SMEM_SORT = 0
+    try:
+        for name, arrays, kw in testing.tas_cases(0, ("three_levels",
+                                                      "flat")):
+            if name != "fill_counts":
+                compare(name, on_card(arrays), kw, stats)
+    finally:
+        kernels.TAS_SMEM_SORT = smem_sort
+    n_captured = 0
+    for name in TAS_KERNELS:
+        for args, kw in cap.calls.get(("tas", name), []):
+            compare(name, args, kw, stats)
+            n_captured += 1
+    for name, s in stats.items():
+        check(s["mismatches"] == 0, (name, s))
+    log(f"[3 kernels, TAS sweep + {n_captured} captured] "
+        f"{json.dumps({k: stats[k] for k in TAS_KERNELS})}")
+
     # -- the kernels line ----------------------------------------------------
     by_phase = {"4": launches4, "5": launches5, "7": launches7,
-                "8": launches8, "9": launches9, "9b": launches9b}
+                "8": launches8, "9": launches9, "9b": launches9b,
+                "11": launches11}
     rows = []
     for name in kernels.KERNELS:
         phase = {"admit_scan_forests": "northstar",
                  "burst_cycles": "northstar_burst",
                  "fs_admit_scan": "northstar_fs",
-                 "drs_components": "northstar_fs"}.get(name, "bench")
+                 "drs_components": "northstar_fs",
+                 **dict.fromkeys(TAS_KERNELS, "tas")}.get(name, "bench")
         calls = cap.calls.get((phase, name))
         check(calls, f"{name}: no captured {phase} call")
         args, kw = (burst_window(calls) if name == "burst_cycles"
                     else most_heads(calls) if name == "fs_admit_scan"
-                    else calls[0] if name == "drs_components"
+                    else deepest(calls) if name == "best_fit_descend"
+                    else calls[0] if name in ("drs_components",
+                                              "fill_counts",
+                                              "split_across_roots")
                     else largest(calls))
         t = time_kernel(name, args, kw)
         launches = {"northstar": launches5, "bench": launches4,
                     "northstar_burst": launches8,
-                    "northstar_fs": launches9}[phase][name]
+                    "northstar_fs": launches9, "tas": launches11}[phase][name]
         extra = {}
+        if name in TAS_KERNELS:
+            extra["dependent_steps"] = tas_dependent_steps(name, args, kw)
+            extra["timed_shape"] = dict(
+                level_sizes=list(kw["level_sizes"]),
+                R=int(args[0].shape[1]),
+                **{k: kw[k] for k in ("level", "profile", "descend_profile")
+                   if k in kw})
+            extra["device_ms_per_launch_on_path"] = (
+                device_ms11[name] / max(1, launches11[name]))
         if name == "fs_admit_scan":
             # the dependent chain: every live round is 5 + 7 (n_levels - 1)
             # block barriers (fs_admit_scan.cu)

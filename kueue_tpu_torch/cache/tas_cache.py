@@ -1,8 +1,8 @@
 """Topology-aware-scheduling cache: flavor → topology tree state.
 
 Capability parity with reference pkg/cache/tas_cache.go + tas_flavor.go.
-The full assignment algorithm lives in kueue_tpu.cache.tas_snapshot
-(reference tas_flavor_snapshot.go).
+The full assignment algorithm lives in kueue_tpu_torch.cache.tas_snapshot
+(reference tas_flavor_snapshot.go); its kernels run on ``device``.
 """
 
 from __future__ import annotations
@@ -39,6 +39,7 @@ class TASCache:
         self.nodes: dict[str, NodeInfo] = {}
         # usage per flavor per leaf-domain id, canonical ints
         self.usage: dict[str, dict[tuple, dict[str, int]]] = {}
+        self.device = "cuda"   # the Driver's; stamped on every snapshot
 
     def add_topology(self, topology: Topology) -> None:
         self.topologies[topology.name] = topology
@@ -92,4 +93,5 @@ class TASCache:
             out[fname] = TASFlavorSnapshot.build(
                 flavor=fname, levels=info.levels, nodes=nodes,
                 usage=self.usage.get(fname, {}))
+            out[fname].device = self.device
         return out

@@ -8,8 +8,9 @@ counts bottom-up; phase 2 picks the lowest level whose best domain fits all
 pods (falling back upward for `preferred`), then walks down level by level
 minimizing the number of domains (BestFit).
 
-The batched/TPU formulation of the same algorithm lives in
-kueue_tpu.ops.tas_kernel (segment reductions over a level-indexed CSR tree).
+The batched formulation of the same algorithm lives in
+kueue_tpu_torch.ops.tas_kernel (segment reductions over a level-indexed
+CSR tree, three CUDA kernels on the card), on the snapshot's ``device``.
 """
 
 from __future__ import annotations
@@ -39,6 +40,8 @@ class Domain:
 
 
 class TASFlavorSnapshot:
+    device = "cuda"    # where _find_device runs (TASCache.snapshot stamps it)
+
     def __init__(self, flavor: str, levels: list[str]):
         self.flavor = flavor
         self.levels = levels
@@ -196,13 +199,16 @@ class TASFlavorSnapshot:
         decision-identical to the scalar walk (tests/test_tas_kernel.py
         + test_tas_device_path)."""
         import numpy as np
+        import torch
         from ..ops import tas_kernel as tk
 
         packed = getattr(self, "_packed_tas", None)
         if packed is None:
             packed = self._packed_tas = tk.pack_tas(self)
+            # the static planes, uploaded once per snapshot
+            self._tas_planes = tk.tas_planes(packed, self.device)
         sizes = tuple(packed.level_sizes)
-        parents = tuple(packed.parents)
+        parents = self._tas_planes
         r_index = {r: i for i, r in enumerate(packed.resource_names)}
 
         per_pod_vec = np.zeros(max(1, len(packed.resource_names)),
@@ -228,11 +234,14 @@ class TASFlavorSnapshot:
                             leaf_free[i, ri] = max(0, leaf_free[i, ri] - v)
         if unknown_requested:
             leaf_free = np.zeros_like(packed.leaf_free)
+        # the query's inputs, uploaded once; results come back by .cpu()
+        leaf_free = torch.from_numpy(leaf_free).to(self.device)
+        per_pod_vec = torch.from_numpy(per_pod_vec).to(self.device)
 
         def level_states(level: int) -> np.ndarray:
             states = tk.fill_counts(leaf_free, per_pod_vec, parents,
-                                    level_sizes=sizes)
-            return np.asarray(states[level])
+                                    level_sizes=sizes, device=self.device)
+            return states[level].cpu().numpy()
 
         def total_fit() -> int:
             return int(level_states(0).sum())
@@ -242,7 +251,7 @@ class TASFlavorSnapshot:
                                                 count=int(c))
                        for did, c in sorted(
                            (packed.leaf_ids[i], int(c))
-                           for i, c in enumerate(np.asarray(leaf_counts))
+                           for i, c in enumerate(leaf_counts.cpu().numpy())
                            if c)]
             return TopologyAssignment(levels=list(self.levels),
                                       domains=domains)
@@ -252,7 +261,7 @@ class TASFlavorSnapshot:
             ok, counts = tk.split_across_roots(
                 leaf_free, per_pod_vec, parents, count, level_sizes=sizes,
                 profile=self._device_profile(True),
-                descend_profile=profile)
+                descend_profile=profile, device=self.device)
             if not bool(ok):
                 return None, self._fit_message(count, total_fit())
             return finish(counts), ""
@@ -260,7 +269,8 @@ class TASFlavorSnapshot:
         if required_idx is not None:
             ok, counts = tk.best_fit_descend(
                 leaf_free, per_pod_vec, parents, count,
-                level_sizes=sizes, level=required_idx, profile=profile)
+                level_sizes=sizes, level=required_idx, profile=profile,
+                device=self.device)
             if not bool(ok):
                 # host message reads Domain.state, unfilled on this path:
                 # compute the best single-domain fit from kernel states
@@ -276,12 +286,13 @@ class TASFlavorSnapshot:
         for lvl in range(start, -1, -1):
             ok, counts = tk.best_fit_descend(
                 leaf_free, per_pod_vec, parents, count,
-                level_sizes=sizes, level=lvl, profile=profile)
+                level_sizes=sizes, level=lvl, profile=profile,
+                device=self.device)
             if bool(ok):
                 return finish(counts), ""
         ok, counts = tk.split_across_roots(
             leaf_free, per_pod_vec, parents, count, level_sizes=sizes,
-            profile=profile)
+            profile=profile, device=self.device)
         if not bool(ok):
             return None, self._fit_message(count, total_fit())
         return finish(counts), ""

@@ -97,6 +97,7 @@ class Driver:
             pods_ready_requeuing_timestamp=self.wait_for_pods_ready.requeuing_timestamp)
         self.cache = Cache(info_options=info_options,
                            fair_sharing_enabled=fair_sharing)
+        self.cache.tas.device = self.device   # TAS queries run here too
         # parallel host apply/pack plane (utils/parallel_host.py):
         # KUEUE_TPU_HOST_WORKERS>=2 fans the post-cycle host work out by
         # cohort forest; the default (0) is the bit-identical serial arm

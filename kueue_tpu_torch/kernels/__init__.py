@@ -36,11 +36,12 @@ import torch
 
 KERNELS = ("admit_scan", "admit_scan_preempt", "admit_scan_forests",
            "minimal_preemptions_batch", "burst_cycles", "fs_admit_scan",
-           "drs_components")
+           "drs_components", "fill_counts", "best_fit_descend",
+           "split_across_roots")
 SOURCES = ("admit_scan.cu", "admit_scan_preempt.cu", "admit_scan_forests.cu",
            "minimal_preemptions.cu", "burst_cycles.cu", "fs_admit_scan.cu",
-           "drs_components.cu")
-HEADERS = ("quota.cuh", "admit_entry.cuh")
+           "drs_components.cu", "tas_fill_counts.cu", "tas_descend.cu")
+HEADERS = ("quota.cuh", "admit_entry.cuh", "tas.cuh")
 MAX_DEPTH = 16          # KQ_MAX_DEPTH in quota.cuh
 MAX_THREADS = 1024
 SMEM_LIMIT = 227 * 1024  # dynamic shared memory a block may use on H100
@@ -117,6 +118,9 @@ _ARGTYPES = {
     "kq_burst_cycles": [_P, _P, _P],
     "kq_fs_admit_scan": [_P, _P, _P],
     "kq_drs_components": [_P] * 11 + [_I] * 4 + [_P],
+    "kq_tas_fill_counts": [_P, _P, _P],
+    "kq_tas_best_fit_descend": [_P, _P, _P],
+    "kq_tas_split_across_roots": [_P, _P, _P],
 }
 
 
@@ -620,3 +624,124 @@ def drs_components(usage, subtree, guaranteed, borrow_cap, has_blim, parent,
             _P(wl_req.data_ptr() if wl_req is not None else None),
             *_cycle_ptrs(zeros, borrowing, lendable), N, F, R, depth)
     return borrowing, lendable
+
+
+# -- topology-aware scheduling ---------------------------------------------------
+
+TAS_MAX_LEVELS = 8      # TAS_MAX_LEVELS in tas.cuh (Kueue allows 8 levels)
+TAS_PROFILES = {"bestfit": 0, "mostfree": 1, "leastfree": 2}
+TAS_SMEM_SORT = 200 * 1024   # the sort's keys and ties in shared memory
+
+
+def _tas_checks(leaf_free, per_pod, parents, level_sizes):
+    """Checks one query's tensors and returns their device."""
+    dev = leaf_free.device
+    if dev.type != "cuda":
+        raise ValueError(f"leaf_free on {dev}: the kernels need CUDA tensors")
+    L = len(level_sizes)
+    if not 1 <= L <= TAS_MAX_LEVELS:
+        raise ValueError(f"{L} levels: the kernels take 1 to "
+                         f"{TAS_MAX_LEVELS}")
+    if min(level_sizes) < 1:
+        raise ValueError(f"level_sizes={level_sizes}: empty level")
+    if len(parents) != L - 1:
+        raise ValueError(f"{len(parents)} parent planes for {L} levels")
+    i32 = torch.int32
+    R = leaf_free.shape[1] if leaf_free.dim() == 2 else -1
+    _check("leaf_free", leaf_free, i32, (level_sizes[-1], R), dev)
+    _check("per_pod", per_pod, i32, (R,), dev)
+    if R < 1:
+        raise ValueError("leaf_free needs at least one resource column")
+    for lvl, par in enumerate(parents):
+        _check(f"parents[{lvl}]", par, i32, (level_sizes[lvl + 1],), dev)
+    return dev
+
+
+def _tas_tree(leaf_free, per_pod, parents, level_sizes):
+    """The tree's part of a launch's pointer and dimension arrays."""
+    ptrs = ([leaf_free.data_ptr(), per_pod.data_ptr()]
+            + [p.data_ptr() for p in parents]
+            + [None] * (TAS_MAX_LEVELS - len(parents)))
+    dims = ([len(level_sizes), leaf_free.shape[1]] + list(level_sizes)
+            + [0] * (TAS_MAX_LEVELS - len(level_sizes)))
+    return ptrs, dims
+
+
+def _tas_launch(name, fn, ptrs, dims) -> None:
+    _launch(name, fn, (ctypes.c_void_p * len(ptrs))(*ptrs),
+            (ctypes.c_int * len(dims))(*dims))
+
+
+def fill_counts(leaf_free, per_pod, parents, *, level_sizes):
+    """CUDA fill_counts (kernels/tas_fill_counts.cu) → per-level states,
+    a tuple of int32 tensors (top → bottom); arguments as
+    ``ops.tas_kernel.fill_counts_plain``."""
+    level_sizes = tuple(level_sizes)
+    dev = _tas_checks(leaf_free, per_pod, parents, level_sizes)
+    lib = load()
+    states = torch.empty(sum(level_sizes), dtype=torch.int32, device=dev)
+    ptrs, dims = _tas_tree(leaf_free, per_pod, parents, level_sizes)
+    _tas_launch("fill_counts", lib.kq_tas_fill_counts,
+                ptrs + [states.data_ptr()], dims)
+    return tuple(torch.split(states, list(level_sizes)))
+
+
+def _tas_query(name, entry, leaf_free, per_pod, parents, level_sizes, count,
+               level, profile, descend_profile, sorted_levels):
+    """One best_fit_descend / split_across_roots launch → (ok, counts)."""
+    for p in (profile, descend_profile):
+        if p not in TAS_PROFILES:
+            raise ValueError(f"profile {p!r}: one of {tuple(TAS_PROFILES)}")
+    if not -2**31 <= count < 2**31:
+        raise OverflowError(f"count={count} outside int32")
+    dev = _tas_checks(leaf_free, per_pod, parents, level_sizes)
+    fn = getattr(load(), entry)
+    n = max([level_sizes[d] for d in sorted_levels], default=1)
+    P = 1 << max(0, n - 1).bit_length()
+    # the largest parent level walked: its segment bounds follow the sort
+    Q = max([level_sizes[d - 1] for d in sorted_levels if d > 0], default=0)
+    total = sum(level_sizes)
+    states = torch.empty(total, dtype=torch.int32, device=dev)
+    counts = torch.empty(total, dtype=torch.int32, device=dev)
+    ok = torch.empty(1, dtype=torch.bool, device=dev)
+    out = torch.empty(level_sizes[-1], dtype=torch.int32, device=dev)
+    smem = 12 * P + 8 * Q
+    sort_global = None
+    if smem > TAS_SMEM_SORT:
+        sort_global = torch.empty(smem, dtype=torch.uint8, device=dev)
+        smem = 0
+    ptrs, dims = _tas_tree(leaf_free, per_pod, parents, level_sizes)
+    ptrs += [states.data_ptr(), counts.data_ptr(),
+             sort_global.data_ptr() if sort_global is not None else None,
+             ok.data_ptr(), out.data_ptr()]
+    dims += [count, level, TAS_PROFILES[profile],
+             TAS_PROFILES[descend_profile], P, smem]
+    _tas_launch(name, fn, ptrs, dims)
+    return ok[0], out
+
+
+def best_fit_descend(leaf_free, per_pod, parents, count, *, level_sizes,
+                     level, profile="bestfit"):
+    """CUDA best_fit_descend (kernels/tas_descend.cu) → (ok 0-dim bool,
+    leaf_counts [N_leaf] int32); arguments as
+    ``ops.tas_kernel.best_fit_descend_plain``."""
+    level_sizes = tuple(level_sizes)
+    if not 0 <= level < len(level_sizes):
+        raise ValueError(f"level={level} outside the {len(level_sizes)} "
+                         "levels")
+    return _tas_query("best_fit_descend", "kq_tas_best_fit_descend",
+                      leaf_free, per_pod, parents, level_sizes,
+                      int(count), level, profile, profile,
+                      range(level + 1, len(level_sizes)))
+
+
+def split_across_roots(leaf_free, per_pod, parents, count, *, level_sizes,
+                       profile="bestfit", descend_profile=None):
+    """CUDA split_across_roots (kernels/tas_descend.cu) → (ok 0-dim bool,
+    leaf_counts [N_leaf] int32); arguments as
+    ``ops.tas_kernel.split_across_roots_plain``."""
+    level_sizes = tuple(level_sizes)
+    return _tas_query("split_across_roots", "kq_tas_split_across_roots",
+                      leaf_free, per_pod, parents, level_sizes,
+                      int(count), 0, profile, descend_profile or profile,
+                      range(len(level_sizes)))

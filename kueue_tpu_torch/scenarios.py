@@ -17,6 +17,12 @@ the north-star shape, driven per cycle through ``Driver.schedule_once``.
   north-star size — 1,000 weighted CQs in cohorts of 5 contending for
   cohort quota, 100,000 workloads (scripts/northstar_e2e.py
   ``run_fs_path``, ``--fair-sharing``).
+- ``build_tas``/``run_tas``: topology-aware scheduling on a GPU cluster
+  (tas-4k) — 8 blocks x 16 subblocks x 32 hosts of 8 GPUs, 32 CQs in 4
+  cohorts, 6,400 gang workloads asking for a subblock or a block
+  (required or preferred) or for no topology, 60 cycles; the digest
+  covers every admission's topology domains.  ``TASBranches`` counts
+  which branch of ``TASFlavorSnapshot._find_device`` each query took.
 
 Every workload is generated from the scenario's parameters alone, so two
 runs (two devices, or this package and the JAX package) see the same
@@ -25,9 +31,12 @@ inputs; ``decision_digest`` hashes what a run decided.
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import json
 import time
+
+import numpy as np
 
 from .api import types as api_types
 from .api.types import (
@@ -489,3 +498,273 @@ def burst_boundary_report(bstats: dict) -> dict:
         "rows_repacked": bstats.get("rows_repacked", 0),
         "delta_pack_s": round(bstats.get("delta_pack_s", 0.0), 4),
     }
+
+
+# ----------------------------------------------------------------------
+# Topology-aware scheduling (tas-4k)
+# ----------------------------------------------------------------------
+
+# the level labels of Kueue's TAS documentation for GPU node pools
+TAS_LEVELS = ("cloud.google.com/gce-topology-block",
+              "cloud.google.com/gce-topology-subblock",
+              "kubernetes.io/hostname")
+TAS_GPU = "nvidia.com/gpu"
+TAS_NODE = {TAS_GPU: 8, "cpu": 192_000, "pods": 110}
+TAS_FLAVOR = "tas-gpu"
+TAS_8GPU_COUNTS = (1, 2, 4, 8, 16, 32, 64, 128)
+# (request, share): required subblock, preferred subblock (spilling to
+# the block), required block, unconstrained
+TAS_MIX = (("required", 1, 0.4), ("preferred", 1, 0.3),
+           ("required", 0, 0.2), ("unconstrained", None, 0.1))
+
+
+@contextlib.contextmanager
+def tas_gates(device_kernel: bool = True, **profiles):
+    """TopologyAwareScheduling on and TASDeviceKernel as given (plus any
+    ``TASProfile*`` gates) in this package's ``features`` for the
+    duration; every gate returns to what it was."""
+    from . import features
+    gates = {"TopologyAwareScheduling": True,
+             "TASDeviceKernel": device_kernel, **profiles}
+    with contextlib.ExitStack() as stack:
+        for name, value in gates.items():
+            stack.enter_context(
+                features.set_feature_gate_during_test(name, value))
+        yield
+
+
+def tas_spec(t, d, node_info, *, blocks: int = 8, subblocks: int = 16,
+             hosts: int = 32, n_cqs: int = 32, n_cohorts: int = 4,
+             per_cq: int = 200, seed: int = 0) -> dict:
+    """Populate driver ``d`` (of either package; ``t`` its api.types
+    module, ``node_info`` its ``cache.tas_cache.NodeInfo``) with the
+    tas-4k cluster: a three-level topology (block → subblock → host)
+    of ``blocks x subblocks x hosts`` nodes with 8 GPUs, 192 CPU and 110
+    pods each; one TAS flavor; ``n_cqs`` ClusterQueues in ``n_cohorts``
+    cohorts whose nominal quotas add up to the cluster (borrowing within
+    the cohort unlimited); ``per_cq`` single-PodSet workloads per CQ,
+    half of 8-GPU pods (one per host, 1-128 pods) and half of 1-GPU pods
+    (8-64), asking for a topology as ``TAS_MIX`` says.  Returns each
+    workload's runtime in cycles after admission (3-12)."""
+    rng = np.random.default_rng(seed)
+    d.apply_topology(t.Topology(name="gpu-topology", levels=list(TAS_LEVELS)))
+    d.apply_resource_flavor(t.ResourceFlavor(name=TAS_FLAVOR,
+                                             topology_name="gpu-topology"))
+    for b in range(blocks):
+        for sb in range(subblocks):
+            for h in range(hosts):
+                d.cache.tas.add_or_update_node(node_info(
+                    name=f"gpu-{b}-{sb}-{h}",
+                    labels=dict(zip(TAS_LEVELS, (
+                        f"block-{b}", f"subblock-{b}-{sb}",
+                        f"gpu-{b}-{sb}-{h}"))),
+                    capacity=dict(TAS_NODE)))
+    n_nodes = blocks * subblocks * hosts
+    per_cohort = max(1, n_cqs // n_cohorts)
+    for i in range(n_cqs):
+        d.apply_cluster_queue(t.ClusterQueue(
+            name=f"cq-{i}", cohort=f"cohort-{i // per_cohort}",
+            resource_groups=[t.ResourceGroup(
+                covered_resources=["cpu", TAS_GPU],
+                flavors=[t.FlavorQuotas(name=TAS_FLAVOR, resources={
+                    "cpu": t.ResourceQuota(
+                        nominal=n_nodes * TAS_NODE["cpu"] // n_cqs),
+                    TAS_GPU: t.ResourceQuota(
+                        nominal=n_nodes * TAS_NODE[TAS_GPU] // n_cqs)})])]))
+        d.apply_local_queue(t.LocalQueue(name=f"lq-{i}",
+                                         cluster_queue=f"cq-{i}"))
+    levels = {1: TAS_LEVELS[1], 0: TAS_LEVELS[0]}
+    shares = np.array([m[2] for m in TAS_MIX])
+    runtimes = {}
+    total = 0
+    for k in range(per_cq):
+        for i in range(n_cqs):
+            total += 1
+            kind, level, _ = TAS_MIX[int(rng.choice(len(TAS_MIX),
+                                                    p=shares))]
+            if kind == "unconstrained":
+                req = t.PodSetTopologyRequest(unconstrained=True)
+            else:
+                req = t.PodSetTopologyRequest(**{kind: levels[level]})
+            if k == 0 and i % per_cohort == 0:
+                # a gang of 1.5 blocks opens each cohort: it must split
+                # across blocks (preferred) or cannot fit (required)
+                req = t.PodSetTopologyRequest(
+                    **{("preferred", "required")[i // per_cohort % 2]:
+                       levels[1 - i // per_cohort % 2]})
+                count = subblocks * hosts * 3 // 2
+                per_pod = {TAS_GPU: 8, "cpu": 96_000}
+            elif rng.random() < 0.5:
+                counts = TAS_8GPU_COUNTS
+                if kind == "required" and level == 1:
+                    # a gang that requires a subblock fits in one
+                    counts = tuple(c for c in counts if c <= hosts)
+                count = int(rng.choice(counts))
+                per_pod = {TAS_GPU: 8, "cpu": 96_000}
+            else:
+                count = int(rng.integers(8, 65))
+                per_pod = {TAS_GPU: 1, "cpu": 12_000}
+            name = f"wl-{i}-{k}"
+            d.create_workload(t.Workload(
+                name=name, queue_name=f"lq-{i}", priority=50,
+                creation_time=float(total),
+                pod_sets=[t.PodSet(name="main", count=count,
+                                   requests=per_pod, topology_request=req)]))
+            runtimes[name] = int(rng.integers(3, 13))
+    return runtimes
+
+
+def build_tas(device: str = "cuda", **kw):
+    """The tas-4k cluster on this package's Driver → (driver, clock,
+    runtimes by workload name); keywords as ``tas_spec``.  The TAS gates
+    are the caller's to set (``tas_gates``)."""
+    from .cache.tas_cache import NodeInfo
+    clock = VirtualClock()
+    d = Driver(clock=clock, device=device)
+    runtimes = tas_spec(api_types, d, NodeInfo, **kw)
+    return d, clock, runtimes
+
+
+def _tas_admission_record(d, key: str) -> list:
+    """An admission's CQ, flavors and topology domains with counts."""
+    adm = d.workloads[key].admission
+    return [key, adm.cluster_queue, sorted(
+        (a.name, a.count, sorted(a.flavors.items()),
+         [[list(dom.values), dom.count]
+          for dom in a.topology_assignment.domains]
+         if a.topology_assignment else None)
+        for a in adm.pod_set_assignments)]
+
+
+def run_tas(d, clock: VirtualClock, runtimes: dict, cycles: int = 60) -> dict:
+    """``cycles`` per-cycle ``schedule_once`` calls on either package's
+    Driver; each admission finishes its runtime later.  ``events_at``
+    holds the event-log length after each cycle (``tas_digest`` of a
+    prefix)."""
+    cycle_times = []
+    admitted = 0
+    running: list[tuple[int, str]] = []
+    decisions = []
+    events_at = []
+    t0 = time.perf_counter()
+    for cycle in range(cycles):
+        clock.t += 1.0
+        c0 = time.perf_counter()
+        stats = d.schedule_once()
+        cycle_times.append(time.perf_counter() - c0)
+        admitted += len(stats.admitted)
+        decisions.append([_tas_admission_record(d, k)
+                          for k in sorted(stats.admitted)])
+        for key in stats.admitted:
+            running.append((cycle + runtimes[key.split("/")[-1]], key))
+        running, _ = _finish_due(d, running, cycle)
+        events_at.append(len(d.events))
+    return dict(wall=time.perf_counter() - t0, cycles=cycles,
+                cycle_times=cycle_times, admitted=admitted,
+                decisions=decisions, events_at=events_at)
+
+
+def tas_digest(d, r: dict, cycles: int | None = None) -> str:
+    """``decision_digest`` of the first ``cycles`` cycles of a
+    ``run_tas`` result (all when None): events and per-cycle admissions
+    with their topology assignments."""
+    n = r["cycles"] if cycles is None else cycles
+    h = hashlib.sha256()
+    h.update(json.dumps(d.events[:r["events_at"][n - 1]]).encode())
+    h.update(json.dumps(r["decisions"][:n]).encode())
+    return h.hexdigest()
+
+
+class TASBranches:
+    """While entered, counts (in ``counts``) the branch each query of this
+    package's ``TASFlavorSnapshot._find_device`` took — a required level
+    that fits or fails (the message path), a preferred level that fits
+    at once or after climbing, the root-split fallback, unconstrained —
+    the ``simulate_empty`` retries that follow a failed fit
+    (``FlavorAssigner._find_tas``), the calls of each ``ops.tas_kernel``
+    function, and the host scalar walk's ``_fill_in_counts``."""
+
+    BRANCHES = ("required_fit", "required_fail", "preferred_fit",
+                "preferred_climb", "root_split", "unconstrained",
+                "simulate_empty_after_failed_fit")
+    CALLS = ("fill_counts", "best_fit_descend", "split_across_roots",
+             "scalar_walk")
+
+    def __init__(self):
+        self.counts = dict.fromkeys(self.BRANCHES + self.CALLS, 0)
+        self._query = None
+        self._failed_fit = False
+        self._undo = []
+
+    def _patch(self, owner, attr, make):
+        orig = getattr(owner, attr)
+        setattr(owner, attr, make(orig))
+        self._undo.append((owner, attr, orig))
+
+    def __enter__(self):
+        from .cache.tas_snapshot import TASFlavorSnapshot
+        from .ops import tas_kernel
+        from .scheduler.flavorassigner import FlavorAssigner
+        counts = self.counts
+
+        def find_device(orig):
+            def wrapped(snap, count, per_pod, request, assumed,
+                        required_idx, preferred_idx):
+                self._query = query = dict.fromkeys(self.CALLS[:3], 0)
+                out = orig(snap, count, per_pod, request, assumed,
+                           required_idx, preferred_idx)
+                self._query = None
+                if request.unconstrained:
+                    key = "unconstrained"
+                elif required_idx is not None:
+                    key = ("required_fit" if out[0] is not None
+                           else "required_fail")
+                elif query["split_across_roots"]:
+                    key = "root_split"
+                elif query["best_fit_descend"] > 1:
+                    key = "preferred_climb"
+                else:
+                    key = "preferred_fit"
+                counts[key] += 1
+                return out
+            return wrapped
+
+        def kernel(name):
+            def make(orig):
+                def wrapped(*args, **kw):
+                    counts[name] += 1
+                    if self._query is not None:
+                        self._query[name] += 1
+                    return orig(*args, **kw)
+                return wrapped
+            return make
+
+        def find_tas(orig):
+            def wrapped(fa, assignment, requests, simulate_empty,
+                        record=True):
+                ok = orig(fa, assignment, requests, simulate_empty,
+                          record=record)
+                if simulate_empty and self._failed_fit:
+                    counts["simulate_empty_after_failed_fit"] += 1
+                self._failed_fit = not simulate_empty and not ok
+                return ok
+            return wrapped
+
+        def fill_in_counts(orig):
+            def wrapped(*args, **kw):
+                counts["scalar_walk"] += 1
+                return orig(*args, **kw)
+            return wrapped
+
+        self._patch(TASFlavorSnapshot, "_find_device", find_device)
+        self._patch(TASFlavorSnapshot, "_fill_in_counts", fill_in_counts)
+        self._patch(FlavorAssigner, "_find_tas", find_tas)
+        for name in self.CALLS[:3]:
+            self._patch(tas_kernel, name, kernel(name))
+        return self
+
+    def __exit__(self, *exc):
+        for owner, attr, orig in reversed(self._undo):
+            setattr(owner, attr, orig)
+        self._undo.clear()
+        return False

@@ -632,3 +632,181 @@ def fs_borrowing_cluster(t, d, clock, nested: bool = False,
     for _ in range(cycles):
         clock.t += 1.0
         d.schedule_once()
+
+
+# ----------------------------------------------------------------------
+# Topology-aware scheduling (ops/tas_kernel.py: fill_counts,
+# best_fit_descend, split_across_roots)
+# ----------------------------------------------------------------------
+
+TAS_LEVELS = ("block", "rack", "host")
+# split_across_roots (profile, descend_profile): the three profiles, and
+# the Mixed gate's unconstrained variant (roots least-free, descent
+# best-fit)
+TAS_SPLITS = (("bestfit", "bestfit"), ("mostfree", "mostfree"),
+              ("leastfree", "leastfree"), ("leastfree", "bestfit"))
+# per-pod requests of the sweep: two shapes, nothing requested, and a
+# resource no leaf has (the snapshot then zeroes every leaf's free)
+TAS_REQUESTS = ({"cpu": 2000}, {"cpu": 1000, "nvidia.com/gpu": 1}, {},
+                {"cpu": 1000, "example.com/fpga": 1})
+
+
+def tas_snapshot(rng: np.random.Generator, *, n_levels: int = 3,
+                 n_roots: int = 3, fanout: int = 4, ties: bool = False,
+                 used: float = 0.2):
+    """A seeded ``TASFlavorSnapshot`` (this package's) of ``n_levels``
+    (1-3) levels (the last of ``TAS_LEVELS``): ``n_roots`` roots, every inner
+    domain with 1..``fanout`` children (ragged), leaves with cpu, GPUs
+    and pods drawn from sets that hold 0 (some leaves lack a resource
+    altogether), and a ``used`` share of leaves charged above their
+    capacity in part (free clipped at 0).  With ``ties`` every leaf has
+    the same capacity."""
+    from .cache.tas_cache import NodeInfo
+    from .cache.tas_snapshot import TASFlavorSnapshot
+    levels = list(TAS_LEVELS[3 - n_levels:])
+    nodes = []
+    usage = {}
+
+    def grow(prefix: tuple, depth: int) -> None:
+        if depth == n_levels:
+            cap = ({"cpu": 8000, "nvidia.com/gpu": 8, "pods": 16} if ties
+                   else {"cpu": int(rng.choice([0, 4000, 8000, 16000])),
+                         "nvidia.com/gpu": int(rng.choice([0, 4, 8])),
+                         "pods": int(rng.choice([8, 16]))})
+            if not ties and rng.random() < 0.15:
+                del cap["nvidia.com/gpu"]
+            nodes.append(NodeInfo(name="n-" + "-".join(prefix),
+                                  labels=dict(zip(levels, prefix)),
+                                  capacity=cap))
+            if not ties and rng.random() < used:
+                usage[prefix] = {"cpu": int(rng.choice([1000, 20000])),
+                                 "nvidia.com/gpu": int(rng.integers(1, 9))}
+            return
+        n = n_roots if depth == 0 else int(rng.integers(1, fanout + 1))
+        for i in range(n):
+            name = f"{levels[depth]}{i}"
+            grow(prefix + (f"{prefix[-1]}.{name}" if prefix else name,),
+                 depth + 1)
+
+    grow((), 0)
+    return TASFlavorSnapshot.build("tas-flavor", levels, nodes, usage)
+
+
+def tas_query_inputs(packed, per_pod: dict) -> tuple:
+    """(leaf_free, per_pod vector) of one query as
+    ``TASFlavorSnapshot._find_device`` builds them (no assumed usage): a
+    requested resource that no leaf has zeroes every leaf's free."""
+    r_index = {r: i for i, r in enumerate(packed.resource_names)}
+    vec = np.zeros(max(1, len(packed.resource_names)), dtype=np.int32)
+    leaf_free = packed.leaf_free
+    for r, v in per_pod.items():
+        if r in r_index:
+            vec[r_index[r]] = v
+        else:
+            leaf_free = np.zeros_like(packed.leaf_free)
+    return leaf_free, vec
+
+
+def tas_sweep(leaf_free, per_pod, parents, level_sizes, counts):
+    """(name, positional arrays, keywords) of every TAS function on one
+    query's inputs: fill_counts, best_fit_descend at every level under
+    every profile, split_across_roots under ``TAS_SPLITS``, at each of
+    ``counts``."""
+    from .ops.tas_kernel import PROFILES
+    parents = tuple(parents)
+    sizes = tuple(int(s) for s in level_sizes)
+    yield "fill_counts", (leaf_free, per_pod, parents), dict(
+        level_sizes=sizes)
+    for count in counts:
+        for level in range(len(sizes)):
+            for profile in PROFILES:
+                yield "best_fit_descend", (
+                    leaf_free, per_pod, parents, int(count)), dict(
+                        level_sizes=sizes, level=level, profile=profile)
+        for profile, descend in TAS_SPLITS:
+            yield "split_across_roots", (
+                leaf_free, per_pod, parents, int(count)), dict(
+                    level_sizes=sizes, profile=profile,
+                    descend_profile=descend)
+
+
+def _tas_counts(leaf_free, per_pod, parents, sizes) -> list:
+    """0, 1, a count that fits some domains, the largest leaf state, the
+    total and one above it."""
+    import torch
+    from .ops.tas_kernel import fill_counts_plain
+    states = fill_counts_plain(
+        torch.from_numpy(leaf_free), torch.from_numpy(per_pod),
+        tuple(torch.from_numpy(p) for p in parents), level_sizes=sizes)
+    total = int(states[0].long().sum())
+    top = int(states[-1].max())
+    return sorted({0, 1, max(1, top // 2 + 1), top,
+                   min(total, 2**31 - 2), min(total, 2**31 - 2) + 1})
+
+
+def tas_wrap_case() -> tuple:
+    """Two roots whose sums wrap int32: leaves of 2**31 - 1 free at one
+    pod each, so root 0 sums to 3 and root 1 to -2**31 + 2 (XLA wraps).
+    Returns (leaf_free, per_pod, parents, level_sizes)."""
+    big = 2**31 - 1
+    leaf_free = np.array([[big], [big], [5], [big], [3], [0]], np.int32)
+    return (leaf_free, np.ones(1, np.int32),
+            (np.array([0, 0, 0, 1, 1, 1], np.int32),), (2, 6))
+
+
+def tas_flat_case(rng: np.random.Generator, n: int) -> tuple:
+    """One level of ``n`` roots (a hostname-only topology) with few
+    distinct capacities (many ties) and a per-pod request of the largest
+    int32 in a second column: (leaf_free, per_pod, parents, sizes)."""
+    leaf_free = np.stack([rng.choice([0, 8, 8, 16], n),
+                          rng.choice([0, 2**31 - 1], n)], 1).astype(np.int32)
+    return leaf_free, np.array([4, 0], np.int32), (), (n,)
+
+
+# (n_levels, n_roots, fanout, ties) by part name
+TAS_SHAPES = {
+    "three_levels": (3, 3, 4, False),
+    "ties": (3, 2, 3, True),      # id order decides (reversed: LeastFree)
+    "two_levels": (2, 4, 5, False),
+    "one_level": (1, 6, 1, False),
+    "wide": (3, 4, 6, False),
+    "tas4k": (3, 8, 32, False),   # the tas-4k cluster's shape, ragged
+}
+TAS_PARTS = ("three_levels", "ties", "two_levels", "one_level", "wide",
+             "wrap", "flat")
+
+
+def tas_cases(seed: int = 0, parts=TAS_PARTS, *, flat: int = 80):
+    """The TAS sweep a CUDA kernel is held to against its plain version,
+    and the plain version against the JAX programs: ``(name, positional
+    arrays, keywords)`` over the named ``parts`` — seeded snapshots of
+    ``TAS_SHAPES`` (1-3 levels, ragged, zero capacities, a resource no
+    leaf has) under every request of ``TAS_REQUESTS``, the wrapping case
+    (``wrap``) and a flat level of ``flat`` roots (``flat``).  Each part
+    draws from its own generator, so any subset gives the same cases."""
+    from .ops.tas_kernel import pack_tas
+    for j, part in enumerate(TAS_PARTS + ("tas4k",)):
+        if part not in parts:
+            continue
+        rng = np.random.default_rng([seed, j])
+        if part == "wrap":
+            leaf_free, per_pod, parents, sizes = tas_wrap_case()
+            yield from tas_sweep(leaf_free, per_pod, parents, sizes,
+                                 (0, 1, 2, 3, 4, 5, 6))
+            continue
+        if part == "flat":
+            leaf_free, per_pod, parents, sizes = tas_flat_case(rng, flat)
+            yield from tas_sweep(leaf_free, per_pod, parents, sizes,
+                                 _tas_counts(leaf_free, per_pod, parents,
+                                             sizes))
+            continue
+        n_levels, n_roots, fanout, ties = TAS_SHAPES[part]
+        packed = pack_tas(tas_snapshot(rng, n_levels=n_levels,
+                                       n_roots=n_roots, fanout=fanout,
+                                       ties=ties))
+        sizes = tuple(packed.level_sizes)
+        for request in TAS_REQUESTS:
+            leaf_free, per_pod = tas_query_inputs(packed, request)
+            counts = _tas_counts(leaf_free, per_pod, packed.parents, sizes)
+            yield from tas_sweep(leaf_free, per_pod, packed.parents, sizes,
+                                 counts)

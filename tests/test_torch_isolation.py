@@ -20,8 +20,7 @@ VERBATIM = (
     "features.py", "metrics.py", "wait.py",
     "api/__init__.py", "api/types.py", "api/quantity.py",
     "cache/__init__.py", "cache/cache.py", "cache/snapshot.py",
-    "cache/state.py", "cache/resource_node.py", "cache/tas_cache.py",
-    "cache/tas_snapshot.py",
+    "cache/state.py", "cache/resource_node.py",
     "chaos/__init__.py", "chaos/injector.py",
     "obs/__init__.py", "obs/trace.py", "obs/flight.py", "obs/events.py",
     "queue/__init__.py", "queue/manager.py", "queue/cluster_queue.py",
@@ -31,13 +30,14 @@ VERBATIM = (
     "utils/__init__.py", "utils/heap.py", "utils/journal.py",
     "utils/parallel_host.py",
     "webhooks/__init__.py", "webhooks/validation.py",
-    "controller/__init__.py",
+    "controller/__init__.py", "controller/tas_ungater.py",
     "ops/aggregate.py", "ops/stream_pack.py", "cache/arena.py",
 )
 # copies that begin with the original file and only append to it
 APPENDED = ("ops/packing.py",)
 # copies edited where they reached JAX or ops/ (CHANGES.md lists each)
-EDITED = ("controller/driver.py", "ops/preemption_solver.py", "ops/burst.py")
+EDITED = ("controller/driver.py", "ops/preemption_solver.py", "ops/burst.py",
+          "cache/tas_snapshot.py", "cache/tas_cache.py")
 
 
 def _read(path):
@@ -71,7 +71,7 @@ def test_every_port_module_is_accounted_for():
     own = {"__init__.py", "ops/__init__.py", "ops/quota_kernel.py",
            "ops/cycle.py", "ops/preemption_kernel.py", "ops/solver.py",
            "ops/fs_scan.py", "ops/fairsharing_kernel.py",
-           "profiling.py", "kernels/__init__.py", "scenarios.py",
+           "ops/tas_kernel.py", "profiling.py", "kernels/__init__.py", "scenarios.py",
            "testing.py"}
     rels = {os.path.relpath(p, PORT) for p in _port_files()}
     assert rels == set(VERBATIM) | set(APPENDED) | set(EDITED) | own
@@ -233,3 +233,98 @@ def test_fs_kernels_run_plain_on_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA tensors"):
         kernels.drs_components(*[torch.from_numpy(a) for a in d_args],
                                **d_kw)
+
+
+def test_tas_kernels_run_plain_on_cpu_tensors():
+    """fill_counts, best_fit_descend and split_across_roots on CPU
+    tensors run their plain versions and launch nothing; their launchers
+    refuse CPU tensors."""
+    from kueue_tpu_torch import kernels, testing
+    from kueue_tpu_torch.ops import tas_kernel
+    before = dict(kernels.LAUNCHES)
+    leaf_free, per_pod, parents, sizes = testing.tas_wrap_case()
+    args = [torch.from_numpy(leaf_free), torch.from_numpy(per_pod),
+            tuple(torch.from_numpy(p) for p in parents)]
+    states = tas_kernel.fill_counts(*args, level_sizes=sizes)
+    assert [s.dtype for s in states] == [torch.int32] * 2
+    ok, counts = tas_kernel.best_fit_descend(*args, 3, level_sizes=sizes,
+                                             level=0)
+    assert ok.dtype == torch.bool and counts.dtype == torch.int32
+    ok, counts = tas_kernel.split_across_roots(*args, 3, level_sizes=sizes)
+    assert ok.dtype == torch.bool and counts.dtype == torch.int32
+    assert kernels.LAUNCHES == before
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        kernels.split_across_roots(*args, 3, level_sizes=sizes)
+
+
+def test_tas_drain_in_a_fresh_process():
+    """A small tas-4k run on "cpu" with the TAS gates on takes the
+    device path's branches (no scalar walk) and loads neither jax nor
+    kueue_tpu."""
+    code = (
+        "import sys\n"
+        "from kueue_tpu_torch import scenarios\n"
+        "with scenarios.tas_gates():\n"
+        "    d, c, rt = scenarios.build_tas(device='cpu', blocks=2,\n"
+        "        subblocks=2, hosts=4, n_cqs=4, n_cohorts=2, per_cq=8)\n"
+        "    with scenarios.TASBranches() as br:\n"
+        "        r = scenarios.run_tas(d, c, rt, cycles=8)\n"
+        "assert r['admitted'] > 0, r\n"
+        "assert br.counts['best_fit_descend'] > 0, br.counts\n"
+        "assert br.counts['scalar_walk'] == 0, br.counts\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'kueue_tpu'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.strip().endswith("ok")
+
+
+class _FakePod:
+    def __init__(self, name, pod_set="main"):
+        self.name = name
+        self.pod_set = pod_set
+        self.annotations = {}
+        self.node_selector = {}
+        self.scheduling_gates = []
+        self.phase = "Pending"
+
+
+def test_port_ungater_rank_ordered_assignment():
+    """tests/test_tas_kernel.py's ungater test on the port's copy."""
+    from kueue_tpu_torch.api.types import (TopologyAssignment,
+                                           TopologyDomainAssignment)
+    from kueue_tpu_torch.controller.tas_ungater import (
+        TAS_SCHEDULING_GATE, assign_pods_to_domains)
+    ta = TopologyAssignment(
+        levels=["block", "rack"],
+        domains=[TopologyDomainAssignment(values=["b0", "r0"], count=2),
+                 TopologyDomainAssignment(values=["b0", "r1"], count=1)])
+    pods = [_FakePod("w-2"), _FakePod("w-0"), _FakePod("w-1")]
+    for p in pods:
+        p.scheduling_gates = [TAS_SCHEDULING_GATE]
+    decisions = assign_pods_to_domains(ta, pods)
+    assert [(d.pod_name, d.rank) for d in decisions] == [
+        ("w-0", 0), ("w-1", 1), ("w-2", 2)]
+    assert decisions[0].node_selector == {"block": "b0", "rack": "r0"}
+    assert decisions[1].node_selector == {"block": "b0", "rack": "r0"}
+    assert decisions[2].node_selector == {"block": "b0", "rack": "r1"}
+
+
+def test_port_ungater_excess_pods_stay_gated():
+    from kueue_tpu_torch.api.types import (TopologyAssignment,
+                                           TopologyDomainAssignment)
+    from kueue_tpu_torch.controller.tas_ungater import (
+        TAS_SCHEDULING_GATE, assign_pods_to_domains)
+    ta = TopologyAssignment(
+        levels=["host"],
+        domains=[TopologyDomainAssignment(values=["h0"], count=1)])
+    pods = [_FakePod("p-0"), _FakePod("p-1")]
+    for p in pods:
+        p.scheduling_gates = [TAS_SCHEDULING_GATE]
+    decisions = assign_pods_to_domains(ta, pods)
+    assert len(decisions) == 1
+    assert decisions[0].pod_name == "p-0"

@@ -1,7 +1,8 @@
 """Each CUDA kernel of kueue_tpu_torch against its plain PyTorch version
-on the same seeded inputs (kueue_tpu_torch.testing.kernel_cases and
-burst_cases): exact equality, as every output is bool or int32.  Needs a CUDA GPU — the kernels have
-no CPU mode — and skips without one.  This file imports no JAX, so it
+on the same seeded inputs (kueue_tpu_torch.testing.kernel_cases,
+burst_cases, fs_cases and tas_cases): exact equality, as every output
+is bool or int32.  Needs a CUDA GPU — the kernels have no CPU mode —
+and skips without one.  This file imports no JAX, so it
 also runs on a machine with only PyTorch:
 
     python -m pytest --noconftest -m gpu tests/test_torch_kernels_gpu.py
@@ -122,3 +123,64 @@ def test_cuda_fair_sharing_kernels_match_plain(seed):
             assert torch.equal(y.cpu(), x), name
         seen.add(name)
     assert seen == set(plain)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("seed", [0, 1])
+def test_cuda_tas_kernels_match_plain(seed):
+    """fill_counts, best_fit_descend and split_across_roots on the card
+    against their plain versions on the CPU
+    (kueue_tpu_torch.testing.tas_cases: 1-3 levels, ragged trees, ties,
+    every profile and Mixed's unconstrained variant, every request
+    shape, counts 0 to above the total, a wrapping sum, a flat level of
+    4,096 roots and a tree at the tas-4k shape): values and dtypes
+    exactly."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernels have no CPU mode")
+    from kueue_tpu_torch import kernels
+    from kueue_tpu_torch.ops import tas_kernel
+
+    def on(args, device):
+        return [tuple(torch.from_numpy(p).to(device) for p in a)
+                if isinstance(a, tuple) else
+                torch.from_numpy(a).to(device) if isinstance(a, np.ndarray)
+                else a for a in args]
+
+    seen = set()
+    for name, args, kw in tt.tas_cases(seed, tt.TAS_PARTS + ("tas4k",),
+                                       flat=4096):
+        before = kernels.LAUNCHES[name]
+        p = getattr(tas_kernel, name + "_plain")(*on(args, "cpu"), **kw)
+        c = getattr(tas_kernel, name)(*on(args, "cuda"), **kw)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES[name] == before + 1, name
+        assert len(p) == len(c), name
+        for x, y in zip(p, c):
+            assert y.dtype == x.dtype and y.shape == x.shape, (name, kw)
+            assert torch.equal(y.cpu(), x), (name, kw)
+        seen.add(name)
+    assert seen == {"fill_counts", "best_fit_descend", "split_across_roots"}
+
+
+@pytest.mark.gpu
+def test_cuda_tas_sort_in_global_memory(monkeypatch):
+    """With no shared memory allowed for the sort, the descent kernels
+    sort in global scratch and still equal their plain versions."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernels have no CPU mode")
+    from kueue_tpu_torch import kernels
+    from kueue_tpu_torch.ops import tas_kernel
+    monkeypatch.setattr(kernels, "TAS_SMEM_SORT", 0)
+    for name, args, kw in tt.tas_cases(0, ("three_levels", "flat")):
+        if name == "fill_counts":
+            continue
+        cpu = [tuple(torch.from_numpy(p) for p in a) if isinstance(a, tuple)
+               else torch.from_numpy(a) if isinstance(a, np.ndarray) else a
+               for a in args]
+        cuda = [tuple(p.cuda() for p in a) if isinstance(a, tuple)
+                else a.cuda() if isinstance(a, torch.Tensor) else a
+                for a in cpu]
+        p = getattr(tas_kernel, name + "_plain")(*cpu, **kw)
+        c = getattr(tas_kernel, name)(*cuda, **kw)
+        for x, y in zip(p, c):
+            assert y.dtype == x.dtype and torch.equal(y.cpu(), x), (name, kw)
