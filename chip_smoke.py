@@ -7,7 +7,9 @@ at full size both ways: ``Driver(device="cuda").schedule_once`` per cycle
 and ``Driver.schedule_burst``, K cycles per launch; then fair-sharing
 admission, ``Driver(device="cuda", fair_sharing=True).schedule_once``;
 then topology-aware scheduling, ``Driver(device="cuda")`` with the TAS
-gates on:
+gates on; then the one-call cycle solver behind the north-star probe
+(``python -m kueue_tpu_torch.probe``) and ``scenarios.entry()``, and
+``Driver(solver_backend="native")``:
 
 1. device: name, count and ``nvidia-smi`` name/power limit;
 2. build: nvcc of every kernel source (in parallel) into one library;
@@ -53,10 +55,29 @@ gates on:
    (kueue_tpu_torch.testing.tas_cases: every profile and Mixed's
    unconstrained variant, every request shape, 1-3 levels, a flat
    4,096-root level, the sort in global memory) and the calls captured
-   in phase 11 — exact in values and dtypes.
+   in phase 11 — exact in values and dtypes;
+13. the north-star probe at full size on the card
+   (``kueue_tpu_torch.probe.run``): ``solve_cycle`` with
+   ``run_scan=False`` over 100,000 heads x 1,000 CQs (S = 4, R = 3, 64
+   cohorts), then ``solve_cycle`` over 1,000 heads and
+   ``solve_cycle_forests`` over 64 forests, 20 timed calls each after a
+   warm-up; p50 and worst, the kernels' per-call device ms, and the
+   launches of kq_cq_avail, kq_classify_heads, kq_cycle_order, admit_scan
+   and admit_scan_forests (one each per call that runs them: the sort
+   only where the JAX program sorts, with the scan); every output equal
+   to the plain versions on the card's host CPU;
+3f. the three phase-1 kernels against their plain versions over a seeded
+   sweep (kueue_tpu_torch.testing.solve_cycle_cases: N on both sides of
+   64, padding, uncovered and invalid slots, int32 wraps, ties and
+   INT_MIN, 10,000 heads sorted in global scratch), the sort forced into
+   global scratch, and the calls captured in phase 13 — exact;
+14. ``entry(device="cuda")``'s step equal to ``entry(device="cpu")``'s;
+   then ``Driver(device="cuda", solver_backend="native")`` on the perf
+   scenario at 3,000 workloads: its decision digest equal to phase 6's
+   card digest, with cycles decided by the C++ admit loop.
 
-Launch counts are zeroed just before phases 4, 5, 7, 8, 9, 9b and 11 and
-read just after each.  Prints a ``kernels`` JSON line (per kernel: its launches on
+Launch counts are zeroed just before phases 4, 5, 7, 8, 9, 9b, 11, 13 and
+14 and read just after each.  Prints a ``kernels`` JSON line (per kernel: its launches on
 its main path and in each phase), the nvidia-smi line, and as its last
 line ``{"ok": true, "device": {...}}``.  Exits non-zero, with no result
 line, when there is no CUDA device or no kueue_tpu_torch beside it.
@@ -87,6 +108,9 @@ TPU_KERNEL = {   # the jitted JAX program each kernel replaces
     "fill_counts": "kueue_tpu/ops/tas_kernel.py:78",
     "best_fit_descend": "kueue_tpu/ops/tas_kernel.py:196",
     "split_across_roots": "kueue_tpu/ops/tas_kernel.py:219",
+    "kq_cq_avail": "kueue_tpu/ops/cycle.py:458",
+    "kq_classify_heads": "kueue_tpu/ops/cycle.py:463",
+    "kq_cycle_order": "kueue_tpu/ops/cycle.py:521",
 }
 SOURCE = {
     "admit_scan": "kueue_tpu_torch/kernels/admit_scan.cu",
@@ -100,6 +124,9 @@ SOURCE = {
     "fill_counts": "kueue_tpu_torch/kernels/tas_fill_counts.cu",
     "best_fit_descend": "kueue_tpu_torch/kernels/tas_descend.cu",
     "split_across_roots": "kueue_tpu_torch/kernels/tas_descend.cu",
+    "kq_cq_avail": "kueue_tpu_torch/kernels/solve_cycle.cu",
+    "kq_classify_heads": "kueue_tpu_torch/kernels/solve_cycle.cu",
+    "kq_cycle_order": "kueue_tpu_torch/kernels/solve_cycle.cu",
 }
 TAS_KERNELS = ("fill_counts", "best_fit_descend", "split_across_roots")
 BENCH_WORKLOADS = 15_000
@@ -107,6 +134,8 @@ NORTHSTAR = dict(n_cqs=1000, n_wl=100_000, cycles=30)
 KIND_PREEMPT = 4            # ops/burst.py decision code
 PARITY_SCALE = 0.2          # 3,000 workloads
 TAS_CYCLES = 60             # tas-4k, on the card, on the CPU and walked
+PHASE1 = ("kq_cq_avail", "kq_classify_heads", "kq_cycle_order")
+PROBE = dict(W=100_000, C=1_000, reps=20)   # scripts/northstar_probe.py
 
 
 def log(msg: str) -> None:
@@ -139,6 +168,10 @@ class Capture:
             out = fn(*args, **kw)
             if len(calls) < self.keep:
                 calls.append((args, kw))
+            elif (name in PHASE1 and len(calls) < 2 * self.keep
+                  and all(signature(a, k) != signature(args, kw)
+                          for a, k in calls)):
+                calls.append((args, kw))    # a call of another shape
             elif (name == "burst_cycles" and len(calls) < self.keep + 2
                   and bool((out[1] == KIND_PREEMPT).any())):
                 calls.append((args, kw))    # a window with preemption
@@ -151,6 +184,20 @@ class Capture:
         for module, attr, fn in reversed(self._undo):
             setattr(module, attr, fn)
         self._undo.clear()
+
+
+def signature(args, kw) -> tuple:
+    """A call's shapes and keyword arguments."""
+    return (tuple(tuple(a.shape) if hasattr(a, "shape") else a
+                  for a in args), tuple(sorted(kw.items())))
+
+
+def install_phase1_capture(cap: Capture) -> None:
+    # solve_cycle looks its phase-1 functions up in ops.cycle at each call
+    from kueue_tpu_torch.ops import cycle
+    for name, attr in zip(PHASE1, ("cq_avail", "classify_heads",
+                                   "cycle_order")):
+        cap.install(cycle, attr, name)
 
 
 def install_capture(cap: Capture) -> None:
@@ -193,6 +240,9 @@ def plain_fns():
         "admit_scan_preempt": cycle.admit_scan_preempt_plain,
         "minimal_preemptions_batch":
             preemption_kernel.minimal_preemptions_batch_plain,
+        "kq_cq_avail": cycle.cq_avail_plain,
+        "kq_classify_heads": cycle.classify_heads_plain,
+        "kq_cycle_order": cycle.cycle_order_plain,
     }
 
 
@@ -307,6 +357,8 @@ def op_count(name, args, kw) -> int:
     searches x real candidates x the forward and reverse steps)."""
     if name in TAS_KERNELS:
         return tas_op_count(name, args, kw)
+    if name in PHASE1:
+        return phase1_op_count(name, args, kw)
     depth = kw["depth"]
     if name == "fs_admit_scan":
         return fs_op_count(args, kw)
@@ -335,6 +387,24 @@ def op_count(name, args, kw) -> int:
         mt = args[19].shape[1]
         ops += pre * (N * F + mt * depth * F * 12)
     return int(ops)
+
+
+def phase1_op_count(name, args, kw) -> int:
+    """int32 operations of a phase-1 call: ~10 per chain step of each
+    (CQ, column) for both availabilities; ~16 per (head, slot, resource)
+    and ~12 per (head, slot) of the classify, ~4 per pair written; the
+    bitonic sort's log2(P) (log2(P) + 1) / 2 stages of P / 2
+    compare-exchanges of ~8 operations, padded to P = 2^k >= W."""
+    if name == "kq_cq_avail":
+        F = args[0].shape[1]
+        return int(kw["n_cqs"] * F * kw["depth"] * 2 * 10)
+    if name == "kq_classify_heads":
+        W = args[0].shape[0]
+        _, S, R = args[3].shape
+        return int(W * S * (R * 16 + 12) + (W * R * 4 if kw["pairs"] else 0))
+    W = args[0].shape[0]
+    lg = max(0, (W - 1).bit_length())
+    return int(lg * (lg + 1) // 2 * (1 << lg) // 2 * 8 + W * 12)
 
 
 def fs_forest_work(args):
@@ -428,6 +498,12 @@ def largest(calls):
         args = call[0]
         return args[0].shape[0] if args[0].dim() == 3 else args[8].shape[0]
     return max(calls, key=size)
+
+
+def widest(calls):
+    """The captured phase-1 call over the most heads (rows of its first
+    argument)."""
+    return max(calls, key=lambda call: call[0][0].shape[0])
 
 
 def deepest(calls):
@@ -591,6 +667,7 @@ def main() -> int:
             f"{r6['preempted']} preempted, digest {digests[dev]}")
         check(r6["finished"] == total, f"{dev}: not drained")
     check(digests["cuda"] == digests["cpu"], digests)
+    digest6 = digests["cuda"]
 
     # -- 7. the perf scenario through the fused burst -------------------------
     install_capture(cap)
@@ -852,22 +929,119 @@ def main() -> int:
     log(f"[3 kernels, TAS sweep + {n_captured} captured] "
         f"{json.dumps({k: stats[k] for k in TAS_KERNELS})}")
 
+    # -- 13. the north-star probe at full size, on the card ------------------
+    from kueue_tpu_torch import probe
+    from kueue_tpu_torch.ops import cycle
+    install_phase1_capture(cap)
+    cap.phase = "probe"
+    kernels.reset_counts()
+    r13 = probe.run(PROBE["W"], PROBE["C"], device="cuda",
+                    reps=PROBE["reps"])
+    torch.cuda.synchronize()
+    launches13 = dict(kernels.LAUNCHES)
+    device_ms13 = kernels.collect()
+    cap.uninstall()
+    calls13 = PROBE["reps"] + 1
+    path13 = PHASE1 + ("admit_scan", "admit_scan_forests")
+    log(f"[13 probe] {PROBE['W']} heads x {PROBE['C']} CQs: "
+        + "; ".join(f"{label} p50 {x['p50_ms']:.6f}ms worst "
+                    f"{x['worst_ms']:.6f}ms (device per call "
+                    f"{json.dumps(x['kernel_ms'])})"
+                    for label, x in r13.items())
+        + f"; launches {json.dumps({k: launches13[k] for k in path13})}"
+        f"; device_ms {json.dumps(device_ms13)}")
+    check(launches13["kq_cq_avail"] == 3 * calls13, launches13)
+    check(launches13["kq_classify_heads"] == 3 * calls13, launches13)
+    check(launches13["kq_cycle_order"] == 2 * calls13, launches13)
+    check(launches13["admit_scan"] == calls13, launches13)
+    check(launches13["admit_scan_forests"] == calls13, launches13)
+    t0 = time.perf_counter()
+    for label, name, args, kw in probe.probe_calls(PROBE["W"], PROBE["C"]):
+        want = getattr(cycle, name + "_plain")(
+            *[torch.from_numpy(np.ascontiguousarray(a)) for a in args],
+            **kw)
+        got = r13[label]["outputs"]
+        for w_, g in zip(want, got):
+            check(g.dtype == w_.dtype and torch.equal(g.cpu(), w_),
+                  f"probe {label}: the card differs from the plain version")
+        if label == "classify":
+            fits13 = int((want[4] >= 0).sum())
+        if label == "flat":
+            admitted13 = int(want[0].sum())
+    log(f"[13 probe] outputs equal to the plain versions on the host CPU "
+        f"({time.perf_counter() - t0:.1f}s): {fits13} fits of "
+        f"{PROBE['W']}, {admitted13} of {PROBE['C']} heads admitted")
+
+    # -- 3f. the phase-1 kernels: seeded sweep, global sort, captured --------
+    for seed in (0, 1):
+        for name, arrays, kw in testing.solve_cycle_cases(seed):
+            compare(name, on_card(arrays), kw, stats)
+    sort_smem = kernels.SORT_SMEM
+    kernels.SORT_SMEM = 0
+    try:
+        for W in (5, 1000):
+            compare("kq_cycle_order", on_card(testing.order_case(
+                np.random.default_rng(W), W)), {}, stats)
+    finally:
+        kernels.SORT_SMEM = sort_smem
+    n_captured = 0
+    for name in PHASE1:
+        for args, kw in cap.calls.get(("probe", name), []):
+            compare(name, args, kw, stats)
+            n_captured += 1
+    for name, s in stats.items():
+        check(s["mismatches"] == 0, (name, s))
+    log(f"[3 kernels, phase-1 sweep + {n_captured} captured] "
+        f"{json.dumps({k: stats[k] for k in PHASE1})}")
+
+    # -- 14. entry() on the card and the CPU; the native route ----------------
+    kernels.reset_counts()
+    step, args = scenarios.entry(device="cuda")
+    got = step(*args)
+    torch.cuda.synchronize()
+    step_cpu, args_cpu = scenarios.entry(device="cpu")
+    want = step_cpu(*args_cpu)
+    for w_, g in zip(want, got):
+        check(g.dtype == w_.dtype and torch.equal(g.cpu(), w_),
+              "entry(): the card differs from the CPU")
+    d, clock, total, waves = scenarios.build_bench(
+        PARITY_SCALE, device="cuda", solver_backend="native")
+    r14 = scenarios.run_bench(d, clock, total, waves)
+    torch.cuda.synchronize()
+    launches14 = dict(kernels.LAUNCHES)
+    kernels.collect()
+    digest14 = scenarios.decision_digest(d, r14["decisions"])
+    ss = d.scheduler.solver.stats
+    log(f"[14 entry] {len(got[0])} heads, {int(got[0].sum())} admitted, "
+        f"equal on the card and the CPU; [14 native] {r14['finished']}/"
+        f"{total} drained, {r14['preempted']} preempted, native_dispatches "
+        f"{ss['native_dispatches']}, cuda_dispatches "
+        f"{ss['cuda_dispatches']}, native_ff_fallbacks "
+        f"{ss['native_ff_fallbacks']}, digest {digest14} (phase 6: "
+        f"{digest6}); launches {json.dumps(launches14)}")
+    check(r14["finished"] == total, "native: not drained")
+    check(digest14 == digest6, {"native": digest14, "phase 6": digest6})
+    check(ss["native_dispatches"] > 0, ss)
+    del d, waves
+
     # -- the kernels line ----------------------------------------------------
     by_phase = {"4": launches4, "5": launches5, "7": launches7,
                 "8": launches8, "9": launches9, "9b": launches9b,
-                "11": launches11}
+                "11": launches11, "13": launches13, "14": launches14}
     rows = []
     for name in kernels.KERNELS:
         phase = {"admit_scan_forests": "northstar",
                  "burst_cycles": "northstar_burst",
                  "fs_admit_scan": "northstar_fs",
                  "drs_components": "northstar_fs",
-                 **dict.fromkeys(TAS_KERNELS, "tas")}.get(name, "bench")
+                 **dict.fromkeys(TAS_KERNELS, "tas"),
+                 **dict.fromkeys(PHASE1, "probe")}.get(name, "bench")
         calls = cap.calls.get((phase, name))
         check(calls, f"{name}: no captured {phase} call")
         args, kw = (burst_window(calls) if name == "burst_cycles"
                     else most_heads(calls) if name == "fs_admit_scan"
                     else deepest(calls) if name == "best_fit_descend"
+                    else widest(calls) if name in PHASE1
                     else calls[0] if name in ("drs_components",
                                               "fill_counts",
                                               "split_across_roots")
@@ -875,7 +1049,8 @@ def main() -> int:
         t = time_kernel(name, args, kw)
         launches = {"northstar": launches5, "bench": launches4,
                     "northstar_burst": launches8,
-                    "northstar_fs": launches9, "tas": launches11}[phase][name]
+                    "northstar_fs": launches9, "tas": launches11,
+                    "probe": launches13}[phase][name]
         extra = {}
         if name in TAS_KERNELS:
             extra["dependent_steps"] = tas_dependent_steps(name, args, kw)
@@ -896,6 +1071,27 @@ def main() -> int:
                 N=int(args[0].shape[0]), F=int(args[0].shape[1]),
                 W=int(args[12].shape[0]), heads=rounds,
                 depth=kw["depth"], n_levels=kw["n_levels"])
+        if name in PHASE1:
+            extra["timed_shape"] = {
+                "kq_cq_avail": lambda: dict(N=int(args[0].shape[0]),
+                                            F=int(args[0].shape[1]),
+                                            C=kw["n_cqs"]),
+                "kq_classify_heads": lambda: dict(
+                    W=int(args[0].shape[0]),
+                    C_S_R=list(args[3].shape), pairs=kw["pairs"]),
+                "kq_cycle_order": lambda: dict(W=int(args[0].shape[0])),
+            }[name]()
+            extra["device_ms_per_launch_on_path"] = (
+                device_ms13[name] / max(1, launches13[name]))
+            if name == "kq_classify_heads":
+                # the 1,000-head call of the scans, with the pairs
+                h_args, h_kw = min(cap.calls[("probe", name)],
+                                   key=lambda c: c[0][0].shape[0])
+                th = time_kernel(name, h_args, h_kw)
+                extra["heads_1000_with_pairs"] = dict(
+                    ms=th["ms"], plain_ms=th["plain_ms"],
+                    bound_ms=th["bound_ms"], bound_by=th["bound_by"],
+                    W=int(h_args[0].shape[0]))
         if name == "drs_components":
             extra["timed_shape"] = dict(N=int(args[0].shape[0]),
                                         F=int(args[0].shape[1]),

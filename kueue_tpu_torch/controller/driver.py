@@ -89,9 +89,17 @@ class Driver:
                  namespaces: Optional[dict[str, dict[str, str]]] = None,
                  use_device_solver: bool = True,
                  device: str = "cuda",
-                 validate: bool = True):
+                 validate: bool = True,
+                 solver_backend: str = "auto"):
         self.clock = clock
         self.device = str(device)
+        # "native": the C++ classify and admit loop (ops/solver.py);
+        # "auto" or the Driver's own device: the device kernels
+        if solver_backend not in ("auto", "native", self.device,
+                                  self.device.split(":")[0]):
+            raise ValueError(
+                f"solver_backend {solver_backend!r}: 'auto', 'native' or "
+                f"the Driver's device ({self.device!r})")
         self.wait_for_pods_ready = wait_for_pods_ready or WaitForPodsReadyConfig()
         ordering = Ordering(
             pods_ready_requeuing_timestamp=self.wait_for_pods_ready.requeuing_timestamp)
@@ -116,7 +124,9 @@ class Driver:
                     "KUEUE_TPU_SHARDS > 1 (multi-device dispatch) is not "
                     "ported yet (ROADMAP Queue 1 item 9)")
             from ..ops.solver import CycleSolver
-            self.scheduler.solver = CycleSolver(ordering, device=device)
+            self.scheduler.solver = CycleSolver(
+                ordering, device=device,
+                backend="native" if solver_backend == "native" else "auto")
         self.scheduler.apply_admission = self._apply_admission
         self.scheduler.preemptor.apply_preemption = self._apply_preemption
         if self.wait_for_pods_ready.enable and self.wait_for_pods_ready.block_admission:

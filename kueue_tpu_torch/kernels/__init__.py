@@ -37,10 +37,12 @@ import torch
 KERNELS = ("admit_scan", "admit_scan_preempt", "admit_scan_forests",
            "minimal_preemptions_batch", "burst_cycles", "fs_admit_scan",
            "drs_components", "fill_counts", "best_fit_descend",
-           "split_across_roots")
+           "split_across_roots", "kq_cq_avail", "kq_classify_heads",
+           "kq_cycle_order")
 SOURCES = ("admit_scan.cu", "admit_scan_preempt.cu", "admit_scan_forests.cu",
            "minimal_preemptions.cu", "burst_cycles.cu", "fs_admit_scan.cu",
-           "drs_components.cu", "tas_fill_counts.cu", "tas_descend.cu")
+           "drs_components.cu", "tas_fill_counts.cu", "tas_descend.cu",
+           "solve_cycle.cu")
 HEADERS = ("quota.cuh", "admit_entry.cuh", "tas.cuh")
 MAX_DEPTH = 16          # KQ_MAX_DEPTH in quota.cuh
 MAX_THREADS = 1024
@@ -121,6 +123,9 @@ _ARGTYPES = {
     "kq_tas_fill_counts": [_P, _P, _P],
     "kq_tas_best_fit_descend": [_P, _P, _P],
     "kq_tas_split_across_roots": [_P, _P, _P],
+    "kq_cq_avail": [_P, _P, _P],
+    "kq_classify_heads": [_P, _P, _P],
+    "kq_cycle_order": [_P, _P, _P],
 }
 
 
@@ -667,7 +672,11 @@ def _tas_tree(leaf_free, per_pod, parents, level_sizes):
     return ptrs, dims
 
 
-def _tas_launch(name, fn, ptrs, dims) -> None:
+def _array_launch(name, fn, ptrs, dims) -> None:
+    """A launch whose C function takes a pointer array and an int array
+    (ptrs: ints or None; tensors are passed by their data pointers)."""
+    ptrs = [p.data_ptr() if isinstance(p, torch.Tensor) else p
+            for p in ptrs]
     _launch(name, fn, (ctypes.c_void_p * len(ptrs))(*ptrs),
             (ctypes.c_int * len(dims))(*dims))
 
@@ -681,8 +690,8 @@ def fill_counts(leaf_free, per_pod, parents, *, level_sizes):
     lib = load()
     states = torch.empty(sum(level_sizes), dtype=torch.int32, device=dev)
     ptrs, dims = _tas_tree(leaf_free, per_pod, parents, level_sizes)
-    _tas_launch("fill_counts", lib.kq_tas_fill_counts,
-                ptrs + [states.data_ptr()], dims)
+    _array_launch("fill_counts", lib.kq_tas_fill_counts,
+                  ptrs + [states.data_ptr()], dims)
     return tuple(torch.split(states, list(level_sizes)))
 
 
@@ -716,7 +725,7 @@ def _tas_query(name, entry, leaf_free, per_pod, parents, level_sizes, count,
              ok.data_ptr(), out.data_ptr()]
     dims += [count, level, TAS_PROFILES[profile],
              TAS_PROFILES[descend_profile], P, smem]
-    _tas_launch(name, fn, ptrs, dims)
+    _array_launch(name, fn, ptrs, dims)
     return ok[0], out
 
 
@@ -745,3 +754,117 @@ def split_across_roots(leaf_free, per_pod, parents, count, *, level_sizes,
                       leaf_free, per_pod, parents, level_sizes,
                       int(count), 0, profile, descend_profile or profile,
                       range(len(level_sizes)))
+
+
+# -- the one-call cycle solver's phase 1 ----------------------------------
+
+SORT_SMEM = 128 * 1024      # the order's keys in shared memory up to here
+
+
+def kq_cq_avail(usage0, subtree, guaranteed, borrow_cap, has_blim, parent,
+                *, n_cqs, depth):
+    """CUDA available() of the CQ rows (kernels/solve_cycle.cu) →
+    (avail0 [C, F], potential0 [C, F]) int32; arguments as
+    ``ops.cycle.cq_avail_plain``."""
+    dev = usage0.device
+    if dev.type != "cuda":
+        raise ValueError(f"usage0 on {dev}: the kernels need CUDA tensors")
+    N, F = usage0.shape if usage0.dim() == 2 else (-1, -1)
+    i32 = torch.int32
+    for nm, t in (("usage0", usage0), ("subtree", subtree),
+                  ("guaranteed", guaranteed), ("borrow_cap", borrow_cap)):
+        _check(nm, t, i32, (N, F), dev)
+    _check("has_blim", has_blim, torch.bool, (N, F), dev)
+    _check("parent", parent, i32, (N,), dev)
+    _check_depth(depth)
+    C = int(n_cqs)
+    if not 0 <= C <= N:
+        raise ValueError(f"n_cqs={C} outside [0, N={N}]")
+    avail = torch.empty((C, F), dtype=i32, device=dev)
+    potential = torch.empty((C, F), dtype=i32, device=dev)
+    if C * F == 0:
+        return avail, potential
+    _array_launch("kq_cq_avail", load().kq_cq_avail,
+                     [usage0, subtree, guaranteed, borrow_cap, has_blim,
+                      parent, avail, potential], [N, F, C, depth])
+    return avail, potential
+
+
+def kq_classify_heads(wl_cq, wl_requests, start_slot, slot_fr, slot_valid,
+                      nominal_cq, usage0, subtree, parent,
+                      cq_can_preempt_borrow, cq_wcb_borrow, cq_wcp_preempt,
+                      avail0, potential0, *, pairs):
+    """CUDA per-head classify (kernels/solve_cycle.cu) → (fit_slot0 [W]
+    int32, borrows0 [W] bool, preempt0 [W] bool) and, with ``pairs``,
+    (dec_fr [W, R] int32, dec_amt [W, R] int32, fit_mask [W] bool);
+    arguments as ``ops.cycle.classify_heads_plain``."""
+    dev = wl_cq.device
+    if dev.type != "cuda":
+        raise ValueError(f"wl_cq on {dev}: the kernels need CUDA tensors")
+    i32, b = torch.int32, torch.bool
+    W = wl_cq.shape[0]
+    C, S, R = slot_fr.shape if slot_fr.dim() == 3 else (-1, -1, -1)
+    N, F = usage0.shape if usage0.dim() == 2 else (-1, -1)
+    _check("wl_cq", wl_cq, i32, (W,), dev)
+    _check("wl_requests", wl_requests, i32, (W, R), dev)
+    _check("start_slot", start_slot, i32, (W,), dev)
+    _check("slot_fr", slot_fr, i32, (C, S, R), dev)
+    _check("slot_valid", slot_valid, b, (C, S), dev)
+    _check("nominal_cq", nominal_cq, i32, (C, F), dev)
+    _check("usage0", usage0, i32, (N, F), dev)
+    _check("subtree", subtree, i32, (N, F), dev)
+    _check("parent", parent, i32, (N,), dev)
+    for nm, t in (("cq_can_preempt_borrow", cq_can_preempt_borrow),
+                  ("cq_wcb_borrow", cq_wcb_borrow),
+                  ("cq_wcp_preempt", cq_wcp_preempt)):
+        _check(nm, t, b, (C,), dev)
+    _check("avail0", avail0, i32, (C, F), dev)
+    _check("potential0", potential0, i32, (C, F), dev)
+    if min(C, S, R, F) < 1 or C > N:
+        raise ValueError(f"classify needs C, S, R, F >= 1 and C <= N "
+                         f"(C={C}, S={S}, R={R}, F={F}, N={N})")
+    fit_slot0 = torch.empty(W, dtype=i32, device=dev)
+    borrows0 = torch.empty(W, dtype=b, device=dev)
+    preempt0 = torch.empty(W, dtype=b, device=dev)
+    outs = [fit_slot0, borrows0, preempt0]
+    if pairs:
+        outs += [torch.empty((W, R), dtype=i32, device=dev),
+                 torch.empty((W, R), dtype=i32, device=dev),
+                 torch.empty(W, dtype=b, device=dev)]
+    if W == 0:
+        return tuple(outs)
+    _array_launch("kq_classify_heads", load().kq_classify_heads,
+                     [wl_cq, wl_requests, start_slot, slot_fr, slot_valid,
+                      nominal_cq, usage0, subtree, parent,
+                      cq_can_preempt_borrow, cq_wcb_borrow, cq_wcp_preempt,
+                      avail0, potential0, *outs]
+                     + [None] * (6 - len(outs)),
+                     [W, S, R, F])
+    return tuple(outs)
+
+
+def kq_cycle_order(borrows0, priority, timestamp):
+    """CUDA stable cycle order (kernels/solve_cycle.cu) → order [W] int32;
+    arguments as ``ops.cycle.cycle_order_plain`` (timestamp float32)."""
+    dev = borrows0.device
+    if dev.type != "cuda":
+        raise ValueError(f"borrows0 on {dev}: the kernels need CUDA tensors")
+    W = borrows0.shape[0]
+    _check("borrows0", borrows0, torch.bool, (W,), dev)
+    _check("priority", priority, torch.int32, (W,), dev)
+    _check("timestamp", timestamp, torch.float32, (W,), dev)
+    if W >= 2**31 - 1:
+        raise ValueError(f"W={W} heads: the sort's index is 32 bits")
+    order = torch.empty(W, dtype=torch.int32, device=dev)
+    if W == 0:
+        return order
+    P = 1 << max(0, W - 1).bit_length()
+    smem = 16 * P
+    scratch = None
+    if smem > SORT_SMEM:
+        scratch = torch.empty(2 * P, dtype=torch.int64, device=dev)
+        smem = 0
+    _array_launch("kq_cycle_order", load().kq_cycle_order,
+                     [borrows0, priority, timestamp, scratch, order],
+                     [W, P, smem])
+    return order

@@ -20,6 +20,13 @@ has a plain PyTorch version here and a CUDA kernel in ``kernels/``:
 
 The public function takes the kernel for CUDA tensors and the plain
 version for CPU tensors, and raises for any other device.
+
+The one-call solvers ``solve_cycle`` / ``solve_cycle_forests`` (the
+probe and entry-point surface) run phase 1 on the device too: the CQ
+rows' availability, the per-head classify with the FlavorFungibility
+walk and the stable cycle order, each a plain PyTorch version here and
+a kernel in ``kernels/solve_cycle.cu`` (``cq_avail``, ``classify_heads``,
+``cycle_order``), then one of the admit scans above.
 """
 
 from __future__ import annotations
@@ -27,7 +34,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .quota_kernel import add_usage_chain_, available_at, remove_usage_chain_
+from .quota_kernel import (add_usage_chain_, available_all, available_at,
+                           remove_usage_chain_)
 
 
 # ----------------------------------------------------------------------
@@ -179,10 +187,18 @@ def cycle_order_np(borrows, priority, timestamp) -> np.ndarray:
 
 
 def decision_pairs_from_slots(slot_fr, wl_cq, wl_requests, fit_slot0):
-    """Single-slot classifications → decision pairs (numpy).
+    """Single-slot classifications → decision pairs (numpy or tensors).
 
     dec_fr/dec_amt [W, R]: the chosen slot's flavor-resource per requested
     resource (-1 where not requested or not fit); fit_mask [W]."""
+    if isinstance(wl_cq, torch.Tensor):
+        frs = slot_fr[wl_cq.clamp(min=0).long(),
+                      fit_slot0.clamp(min=0).long()]           # [W, R]
+        fit_mask = (fit_slot0 >= 0) & (wl_cq >= 0)
+        relevant = (frs >= 0) & (wl_requests > 0) & fit_mask[:, None]
+        return (torch.where(relevant, frs, -1).to(torch.int32),
+                torch.where(relevant, wl_requests, 0).to(torch.int32),
+                fit_mask)
     cqs = np.maximum(wl_cq, 0)
     slots = np.maximum(fit_slot0, 0)
     frs = slot_fr[cqs, slots]                               # [W, R]
@@ -427,3 +443,311 @@ def admit_scan_preempt(*args, depth: int):
         from .. import kernels
         return kernels.admit_scan_preempt(*args, depth=depth)
     return admit_scan_preempt_plain(*args, depth=depth)
+
+
+# ----------------------------------------------------------------------
+# add_usage_chain_batched (the JAX package's cycle.py:553)
+# ----------------------------------------------------------------------
+
+def add_usage_chain_batched(usage, nodes, deltas, guaranteed, parent,
+                            depth: int) -> torch.Tensor:
+    """addUsage() up G disjoint ancestor chains at once: returns the new
+    usage [N, F].  nodes [G] int32 (-1 = no-op), deltas [G, F] int32.
+    The plain twin of the JAX function, whose only caller is the forest
+    scan: ``kernels/admit_scan_forests.cu`` does the same charge per
+    forest with ``quota.cuh``'s ``kq_add_usage_chain``."""
+    usage = usage.clone()
+    cur = nodes.to(torch.int64)
+    carry = deltas
+    for _ in range(depth):
+        valid = cur >= 0
+        safe = cur.clamp(min=0)
+        local_avail = (guaranteed[safe] - usage[safe]).clamp(min=0)
+        usage.index_add_(0, safe, torch.where(valid[:, None], carry, 0))
+        next_carry = (carry - local_avail).clamp(min=0)
+        cur = torch.where(valid, parent[safe].to(torch.int64), -1)
+        carry = torch.where(valid[:, None], next_carry, carry)
+    return usage
+
+
+# ----------------------------------------------------------------------
+# The one-call solvers: phase 1 on the device, then an admit scan
+# ----------------------------------------------------------------------
+
+def cq_avail_plain(usage0, subtree, guaranteed, borrow_cap, has_blim,
+                   parent, *, n_cqs: int, depth: int):
+    """available() of the CQ rows for ``usage0`` and for zero usage →
+    (avail0 [C, F], potential0 [C, F]) int32 — the JAX solve_cycle's two
+    ``available_all`` calls (cycle.py:458-461), of which the classify
+    reads the first ``n_cqs`` rows."""
+    avail = available_all(usage0, subtree, guaranteed, borrow_cap, has_blim,
+                          parent, depth)
+    potential = available_all(torch.zeros_like(usage0), subtree,
+                              guaranteed, borrow_cap, has_blim, parent,
+                              depth)
+    return avail[:n_cqs].contiguous(), potential[:n_cqs].contiguous()
+
+
+def _first_true(mask: torch.Tensor) -> torch.Tensor:
+    """jnp.argmax of a bool row: the first True index, 0 when none."""
+    S = mask.shape[1]
+    idx = torch.arange(S, device=mask.device).expand_as(mask)
+    first = torch.where(mask, idx, S).min(dim=1).values
+    return torch.where(first < S, first, 0)
+
+
+def classify_heads_plain(wl_cq, wl_requests, start_slot, slot_fr,
+                         slot_valid, nominal_cq, usage0, subtree, parent,
+                         cq_can_preempt_borrow, cq_wcb_borrow,
+                         cq_wcp_preempt, avail0, potential0, *,
+                         pairs: bool):
+    """The JAX solve_cycle's vmapped classify (cycle.py:463-514) as tensor
+    ops over [W, S, R], int32 wrapping as XLA wraps: each head against its
+    CQ's slots (fit / preempt / no-fit), the FlavorFungibility walk (the
+    first stop slot, else the first slot of the best mode) → (fit_slot0
+    [W] int32, borrows0 [W] bool, preempt0 [W] bool), plus the decision
+    pairs (dec_fr, dec_amt, fit_mask) with ``pairs``."""
+    S = slot_fr.shape[1]
+    cq = wl_cq.clamp(min=0).long()
+    req = wl_requests[:, None, :]                              # [W, 1, R]
+    frs = slot_fr[cq]                                          # [W, S, R]
+    frs_safe = frs.clamp(min=0).long()
+    covered = frs >= 0
+    needed = req > 0
+    missing = (needed & ~covered).any(dim=2)                   # [W, S]
+    cq3 = cq[:, None, None]
+    av = avail0[cq3, frs_safe]
+    pot = potential0[cq3, frs_safe]
+    nom = nominal_cq[cq3, frs_safe]
+    use = usage0[cq3, frs_safe]
+    sq = subtree[cq3, frs_safe]
+    relevant = covered & needed
+    fit_r = req <= av
+    nofit_r = req > pot
+    capable_r = (req <= nom) | cq_can_preempt_borrow[cq][:, None, None]
+    res_nofit = relevant & (nofit_r | (~fit_r & ~capable_r))
+    slot_ok = slot_valid[cq]
+    fit = torch.where(relevant, fit_r, True).all(dim=2) & ~missing & slot_ok
+    nofit = res_nofit.any(dim=2) | missing | ~slot_ok
+    preempt = ~fit & ~nofit
+    has_parent = parent[cq] >= 0
+    borrow_r = relevant & ((use + req) > sq)                   # int32 wraps
+    borrows_s = borrow_r.any(dim=2) & has_parent[:, None]
+
+    wcb = cq_wcb_borrow[cq][:, None]
+    wcp = cq_wcp_preempt[cq][:, None]
+    active = (torch.arange(S, device=wl_cq.device)[None, :]
+              >= start_slot[:, None])
+    stop = active & (fit | (preempt & wcp)) & (~borrows_s | wcb)
+    has_stop = stop.any(dim=1)
+    act_mode = torch.where(active, torch.where(
+        fit, 2, torch.where(preempt, 1, 0)), 0)
+    best_idx = _first_true(act_mode == act_mode.max(dim=1,
+                                                    keepdim=True).values)
+    chosen = torch.where(has_stop, _first_true(stop), best_idx)
+    chosen_mode = act_mode.gather(1, chosen[:, None])[:, 0]
+    has_fit = chosen_mode == 2
+    valid = wl_cq >= 0
+    fit_slot0 = torch.where(has_fit & valid, chosen, -1).to(torch.int32)
+    borrows0 = borrows_s.gather(1, chosen[:, None])[:, 0] & has_fit & valid
+    preempt0 = (chosen_mode == 1) & valid
+    if not pairs:
+        return fit_slot0, borrows0, preempt0
+    return (fit_slot0, borrows0, preempt0,
+            *decision_pairs_from_slots(slot_fr, wl_cq, wl_requests,
+                                       fit_slot0))
+
+
+def float32_sort_key(x: torch.Tensor) -> torch.Tensor:
+    """float32 → int32 keys in XLA's sort order: -0 sorts as +0, every NaN
+    as one NaN after +inf (lax.sort's canonicalized total order)."""
+    x = torch.where(x == 0, torch.zeros_like(x), x)
+    x = torch.where(torch.isnan(x), torch.full_like(x, float("nan")), x)
+    bits = x.view(torch.int32)
+    return torch.where(bits < 0, bits ^ 0x7fffffff, bits)
+
+
+def cycle_order_plain(borrows0, priority, timestamp) -> torch.Tensor:
+    """The JAX solve_cycle's ``jnp.lexsort((arange, timestamp, -priority,
+    borrows0))`` (cycle.py:521) → order [W] int32: successive stable
+    argsorts from the minor key up.  ``timestamp`` is float32 (the jit
+    boundary's cast); -priority wraps at INT_MIN as int32 does."""
+    neg_prio = -priority.to(torch.int64)
+    neg_prio = torch.where(neg_prio == 2**31, -2**31, neg_prio)
+    order = torch.arange(borrows0.shape[0], device=borrows0.device)
+    for key in (float32_sort_key(timestamp), neg_prio,
+                borrows0.to(torch.int32)):
+        order = order[torch.argsort(key[order], stable=True)]
+    return order.to(torch.int32)
+
+
+def cq_avail(*args, n_cqs: int, depth: int):
+    """(avail0, potential0); args as ``cq_avail_plain``."""
+    if _route(args[0]):
+        from .. import kernels
+        return kernels.kq_cq_avail(*args, n_cqs=n_cqs, depth=depth)
+    return cq_avail_plain(*args, n_cqs=n_cqs, depth=depth)
+
+
+def classify_heads(*args, pairs: bool):
+    """The per-head classify; args as ``classify_heads_plain``."""
+    if _route(args[0]):
+        from .. import kernels
+        return kernels.kq_classify_heads(*args, pairs=pairs)
+    return classify_heads_plain(*args, pairs=pairs)
+
+
+def cycle_order(borrows0, priority, timestamp) -> torch.Tensor:
+    """The stable cycle order; args as ``cycle_order_plain``."""
+    if _route(borrows0):
+        from .. import kernels
+        return kernels.kq_cycle_order(borrows0, priority, timestamp)
+    return cycle_order_plain(borrows0, priority, timestamp)
+
+
+def _phase1_fns(plain: bool):
+    """(cq_avail, classify_heads, cycle_order, admit_scan,
+    admit_scan_forests): the plain versions, or the routed functions,
+    looked up at call time."""
+    if plain:
+        return (cq_avail_plain, classify_heads_plain, cycle_order_plain,
+                admit_scan_plain, admit_scan_forests_plain)
+    return cq_avail, classify_heads, cycle_order, admit_scan, \
+        admit_scan_forests
+
+
+def _phase1(args, cq_wcb_borrow, cq_wcp_preempt, start_slot, depth, pairs,
+            plain):
+    """Phase 1 of both solvers → (fit_slot0, borrows0, preempt0[, dec_fr,
+    dec_amt, fit_mask]) and the float32 timestamp."""
+    (usage0, subtree, guaranteed, borrow_cap, has_blim, parent, nominal_cq,
+     slot_fr, slot_valid, cq_can_preempt_borrow, wl_cq, wl_requests,
+     _, wl_timestamp) = args
+    dev = usage0.device
+    C = slot_fr.shape[0]
+    W = wl_cq.shape[0]
+    if cq_wcb_borrow is None:
+        cq_wcb_borrow = torch.ones(C, dtype=torch.bool, device=dev)
+    if cq_wcp_preempt is None:
+        cq_wcp_preempt = torch.zeros(C, dtype=torch.bool, device=dev)
+    if start_slot is None:
+        start_slot = torch.zeros(W, dtype=torch.int32, device=dev)
+    cq_avail_fn, classify_fn = _phase1_fns(plain)[:2]
+    avail0, potential0 = cq_avail_fn(usage0, subtree, guaranteed,
+                                     borrow_cap, has_blim, parent,
+                                     n_cqs=C, depth=depth)
+    out = classify_fn(wl_cq, wl_requests, start_slot, slot_fr, slot_valid,
+                      nominal_cq, usage0, subtree, parent,
+                      cq_can_preempt_borrow, cq_wcb_borrow, cq_wcp_preempt,
+                      avail0, potential0, pairs=pairs)
+    # the jit boundary: JAX runs without x64, so float64 becomes float32
+    return out, wl_timestamp.to(torch.float32)
+
+
+def _scan_outputs(admitted, fit_slot0, borrows0, preempt0):
+    slots = torch.where(admitted, fit_slot0, -1).to(torch.int32)
+    return admitted, slots, borrows0 & admitted, preempt0, fit_slot0, \
+        borrows0
+
+
+def _solve_cycle(args, cq_wcb_borrow, cq_wcp_preempt, start_slot, depth,
+                 run_scan, plain):
+    if len(args) != 14:
+        raise TypeError(f"solve_cycle takes 14 positional planes, got "
+                        f"{len(args)}")
+    (fit_slot0, borrows0, preempt0, *pairs), ts = _phase1(
+        args, cq_wcb_borrow, cq_wcp_preempt, start_slot, depth, run_scan,
+        plain)
+    if not run_scan:
+        W = fit_slot0.shape[0]
+        zeros_b = torch.zeros(W, dtype=torch.bool, device=fit_slot0.device)
+        return (zeros_b, torch.full_like(fit_slot0, -1), zeros_b, preempt0,
+                fit_slot0, borrows0)
+    _, _, order_fn, scan_fn, _ = _phase1_fns(plain)
+    usage0, subtree, guaranteed, borrow_cap, has_blim, parent, nominal_cq = \
+        args[:7]
+    dec_fr, dec_amt, fit_mask = pairs
+    order = order_fn(borrows0, args[12], ts)
+    no_reserve = torch.zeros_like(fit_mask)
+    admitted = scan_fn(usage0, subtree, guaranteed, borrow_cap, has_blim,
+                       parent, nominal_cq, torch.zeros_like(nominal_cq),
+                       args[10], dec_fr, dec_amt, fit_mask,
+                       torch.full_like(dec_fr, -1), torch.zeros_like(dec_amt),
+                       no_reserve, no_reserve, order, depth=depth)
+    return _scan_outputs(admitted, fit_slot0, borrows0, preempt0)
+
+
+def _solve_cycle_forests(args, forest_of_node, depth, n_forests,
+                         max_forest_wl, plain):
+    if len(args) != 14:
+        raise TypeError(f"solve_cycle_forests takes 15 positional planes, "
+                        f"got {len(args) + 1}")
+    (fit_slot0, borrows0, preempt0, dec_fr, dec_amt, fit_mask), ts = _phase1(
+        args, None, None, None, depth, True, plain)
+    _, _, order_fn, _, forests_fn = _phase1_fns(plain)
+    order = order_fn(borrows0, args[12], ts)
+    no_reserve = torch.zeros_like(fit_mask)
+    nominal_cq = args[6]
+    admitted = forests_fn(*args[:7], torch.zeros_like(nominal_cq), args[10],
+                          dec_fr, dec_amt, fit_mask,
+                          torch.full_like(dec_fr, -1),
+                          torch.zeros_like(dec_amt), no_reserve, no_reserve,
+                          order, forest_of_node, depth=depth,
+                          n_forests=n_forests, max_forest_wl=max_forest_wl)
+    return _scan_outputs(admitted, fit_slot0, borrows0, preempt0)
+
+
+def solve_cycle_plain(*args, cq_wcb_borrow=None, cq_wcp_preempt=None,
+                      start_slot=None, depth: int, run_scan: bool = True):
+    """``solve_cycle`` through the plain versions only (any device)."""
+    args, fung = _split_fungibility(args, cq_wcb_borrow, cq_wcp_preempt,
+                                    start_slot)
+    return _solve_cycle(args, *fung, depth, run_scan, plain=True)
+
+
+def solve_cycle_forests_plain(*args, depth: int, n_forests: int,
+                              max_forest_wl: int):
+    """``solve_cycle_forests`` through the plain versions only."""
+    return _solve_cycle_forests(args[:-1], args[-1], depth, n_forests,
+                                max_forest_wl, plain=True)
+
+
+def _split_fungibility(args, cq_wcb_borrow, cq_wcp_preempt, start_slot):
+    """The JAX signature's optional 15th-17th positionals."""
+    extra = list(args[14:]) + [None] * 3
+    fung = [kw if kw is not None else pos for kw, pos in
+            zip((cq_wcb_borrow, cq_wcp_preempt, start_slot), extra[:3])]
+    return args[:14], fung
+
+
+def solve_cycle(*args, cq_wcb_borrow=None, cq_wcp_preempt=None,
+                start_slot=None, depth: int, run_scan: bool = True):
+    """The one-call cycle solver (the JAX package's cycle.py:429).
+
+    args: (usage0, subtree, guaranteed, borrow_cap, has_blim, parent,
+    nominal_cq, slot_fr, slot_valid, cq_can_preempt_borrow, wl_cq,
+    wl_requests, wl_priority, wl_timestamp[, cq_wcb_borrow,
+    cq_wcp_preempt, start_slot]) as tensors on one device (the
+    timestamp in any float dtype: it is cast to float32 first, as the JAX
+    jit boundary casts it).  Returns (admitted [W] bool, slot [W] int32,
+    borrows [W] bool, preempt_possible [W] bool, fit_slot0 [W] int32,
+    borrows0 [W] bool); with ``run_scan=False`` only phase 1 runs and the
+    first three are False / -1.  CUDA tensors launch ``kq_cq_avail``,
+    ``kq_classify_heads`` and, with the scan, ``kq_cycle_order`` and
+    ``admit_scan``; CPU tensors run the plain versions."""
+    _route(args[0])
+    args, fung = _split_fungibility(args, cq_wcb_borrow, cq_wcp_preempt,
+                                    start_slot)
+    return _solve_cycle(args, *fung, depth, run_scan, plain=False)
+
+
+def solve_cycle_forests(*args, depth: int, n_forests: int,
+                        max_forest_wl: int):
+    """Phase 1 + the forest-parallel admit scan (the JAX package's
+    cycle.py:649): args as ``solve_cycle``'s 14 planes plus
+    ``forest_of_node`` [N] int32; the six outputs of ``solve_cycle``.
+    CUDA tensors launch ``kq_cq_avail``, ``kq_classify_heads``,
+    ``kq_cycle_order`` and ``admit_scan_forests``."""
+    _route(args[0])
+    return _solve_cycle_forests(args[:-1], args[-1], depth, n_forests,
+                                max_forest_wl, plain=False)

@@ -34,8 +34,13 @@ preempt-capable run the whole tournament + admit loop as one
 ``fs_admit_scan`` launch (``dispatch_fs``; the CUDA kernel
 ``kernels/fs_admit_scan.cu`` on "cuda").
 
-Not in this package yet (ROADMAP Queue 1): the mesh route and the
-native C++ route.
+``backend="native"`` runs the classify (first-fit FlavorFungibility
+only; other policies and resumed walks take ``classify_np``, counted in
+``native_ff_fallbacks``) and the admit loop of cycles without preempting
+heads in the compiled C++ core (``kueue_tpu_torch/native``, host numpy);
+cycles with preempting heads keep the device's ``admit_scan_preempt``.
+
+Not in this package yet (ROADMAP Queue 1 item 9): the mesh route.
 """
 
 from __future__ import annotations
@@ -168,10 +173,15 @@ class CycleSolver:
     "cpu" runs the same function's plain PyTorch version.  Identical
     decisions on both."""
 
+    BACKENDS = ("auto", "native")
+
     def __init__(self, ordering: Ordering | None = None,
-                 device: str = "cuda"):
+                 device: str = "cuda", backend: str = "auto"):
+        if backend not in self.BACKENDS:
+            raise ValueError(f"backend {backend!r}: one of {self.BACKENDS}")
         self.ordering = ordering or Ordering()
         self.device = resolve_device(device)
+        self.backend = backend
         # Disjoint cycle counters: every cycle with heads lands in exactly
         # one of full/classify/host (the scheduler increments them).
         self.stats = {
@@ -187,6 +197,8 @@ class CycleSolver:
             # dispatch routing within full cycles (also disjoint):
             "cuda_dispatches": 0,     # admit kernel launched on the card
             "cpu_dispatches": 0,      # plain PyTorch scan on the CPU
+            "native_dispatches": 0,   # admit loop in the C++ core
+            "native_ff_fallbacks": 0,  # native classify → classify_np
             "skipped_dispatches": 0,  # no fit head -> scan provably no-op
             "singleton_dispatches": 0,  # <=1 entry/forest -> no contention
             "structure_rebuilds": 0,
@@ -367,8 +379,38 @@ class CycleSolver:
         W = packed.wl_cq.shape[0]
         start_pad = np.zeros(W, dtype=np.int32)
         start_pad[:len(heads)] = start
-        out = classify_np(packed, potential0=self._potential0,
-                          start_slot=start_pad)
+        # the C++ classify core is first-fit-only: any non-default
+        # fungibility policy or mid-list resume routes to classify_np
+        ff_default = (bool(st.cq_wcb_borrow.all())
+                      and not bool(st.cq_wcp_preempt.any()))
+        if self.backend == "native" and (not ff_default or start.any()):
+            self.stats["native_ff_fallbacks"] += 1
+        if self.backend == "native" and ff_default and not start.any():
+            from .. import native
+            fit_slot0, borrows0, preempt0 = native.classify_cycle(packed)
+            n = packed.wl_count
+            R = len(st.resource_names)
+            out = {
+                "fit_slot0": np.asarray(fit_slot0),
+                "borrows0": np.asarray(borrows0),
+                "preempt0": np.asarray(preempt0),
+                "preempt_slot0": np.full(W, -1, np.int32),
+                "preempt_borrows0": np.zeros(W, bool),
+                "preempt_res_fit": np.ones((W, R), bool),
+                "preempt_slot_count": np.zeros(W, np.int32),
+                "preempt_stopped0": np.zeros(W, bool),
+            }
+            if out["preempt0"][:n].any():
+                # the C++ core covers fit/borrow/preempt-possible; the
+                # preempt-slot details come from the numpy pass on demand
+                det = classify_np(packed, potential0=self._potential0)
+                for k in ("preempt_slot0", "preempt_borrows0",
+                          "preempt_res_fit", "preempt_slot_count",
+                          "preempt_stopped0"):
+                    out[k] = det[k]
+        else:
+            out = classify_np(packed, potential0=self._potential0,
+                              start_slot=start_pad)
         n = packed.wl_count
         # partial admission: a min_count head whose FULL counts fit is
         # decision-identical to a plain head; otherwise the host runs the
@@ -637,6 +679,18 @@ class CycleSolver:
                     return handle
 
         has_preempt = bool(pmask.any())
+        if self.backend == "native" and not has_preempt:
+            # the C++ core runs the admit loop synchronously on the host
+            # (cycles with preempting heads keep the device scan)
+            from .. import native
+            handle.admitted = native.admit_scan(
+                packed, dec_fr, dec_amt, fit_mask, res_fr, res_amt,
+                rmask, res_borrows, order)
+            handle.preempting = zeros
+            handle.overlap_skip = zeros
+            handle.route = "native"
+            self.stats["native_dispatches"] += 1
+            return handle
         mfw = self._forest_bucket(packed) if not has_preempt else None
         kernel = ("admit_scan_preempt" if has_preempt
                   else "admit_scan" if mfw is None else "admit_scan_forests")

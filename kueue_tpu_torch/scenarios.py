@@ -17,6 +17,13 @@ the north-star shape, driven per cycle through ``Driver.schedule_once``.
   north-star size — 1,000 weighted CQs in cohorts of 5 contending for
   cohort quota, 100,000 workloads (scripts/northstar_e2e.py
   ``run_fs_path``, ``--fair-sharing``).
+- ``build_entry_scenario``/``packed_cycle``/``entry``: the JAX package's
+  ``__graft_entry__`` scenario (2 cohorts x 2 CQs, 24 workloads, optional
+  contention and preemption), its packed first cycle, and the one-call
+  cycle solver as a step on those planes.
+- ``probe_synth``: the synthetic north-star cycle of
+  ``scripts/northstar_probe.py`` (100,000 heads x 1,000 CQs, no host
+  objects), driven by ``kueue_tpu_torch.probe``.
 - ``build_tas``/``run_tas``: topology-aware scheduling on a GPU cluster
   (tas-4k) — 8 blocks x 16 subblocks x 32 hosts of 8 GPUs, 32 CQs in 4
   cohorts, 6,400 gang workloads asking for a subblock or a block
@@ -85,10 +92,11 @@ def _preempting_cq(name: str, cohort: str, resources: dict) -> ClusterQueue:
             flavors=[FlavorQuotas(name="default", resources=resources)])])
 
 
-def build_bench(scale: float = 1.0, device: str = "cuda"):
+def build_bench(scale: float = 1.0, device: str = "cuda",
+                solver_backend: str = "auto"):
     """The perf scenario at ``scale`` → (driver, clock, total, waves)."""
     clock = VirtualClock()
-    d = Driver(clock=clock, device=device)
+    d = Driver(clock=clock, device=device, solver_backend=solver_backend)
     d.apply_resource_flavor(ResourceFlavor(name="default"))
     total = 0
     waves: dict[str, list[Workload]] = {c[0]: [] for c in CLASSES}
@@ -768,3 +776,138 @@ class TASBranches:
             setattr(owner, attr, orig)
         self._undo.clear()
         return False
+
+
+# ----------------------------------------------------------------------
+# The one-call cycle solver: entry() and the north-star probe
+# ----------------------------------------------------------------------
+
+def build_entry_scenario(n_cohorts=2, cqs_per_cohort=2, n_flavors=2,
+                         n_workloads=24, contended=False, preemption=False,
+                         use_device_solver=False, device: str = "cuda"):
+    """A deterministic borrowing-enabled scenario through the real driver
+    (the JAX package's ``__graft_entry__._build_scenario``).
+
+    ``contended=True`` gives flavor-0 a small nominal and mixes request
+    sizes so the first cycle exercises in-scan skips, borrowing and
+    slot-1 flavor fallback; ``preemption=True`` enables reclaim /
+    lower-priority preemption on every CQ.  ``device`` is the Driver's
+    (its solver's, with ``use_device_solver``)."""
+    t = [100.0]
+
+    def clock():
+        t[0] += 1.0
+        return t[0]
+
+    d = Driver(clock=clock, use_device_solver=use_device_solver,
+               device=device)
+    pre_policy = (PreemptionPolicy(
+        reclaim_within_cohort=ReclaimWithinCohort.ANY,
+        within_cluster_queue=WithinClusterQueue.LOWER_PRIORITY)
+        if preemption else PreemptionPolicy())
+    flavors = [f"flavor-{i}" for i in range(n_flavors)]
+    for f in flavors:
+        d.apply_resource_flavor(ResourceFlavor(name=f))
+    if contended:
+        cpu_quota = {flavors[0]: ResourceQuota(nominal=2000,
+                                               borrowing_limit=8000)}
+        for f in flavors[1:]:
+            cpu_quota[f] = ResourceQuota(nominal=8000, borrowing_limit=8000)
+        sizes = [1500, 2500, 6000, 12_000]
+    else:
+        cpu_quota = {f: ResourceQuota(nominal=8000, borrowing_limit=8000)
+                     for f in flavors}
+        sizes = [500, 750, 1000, 1250]
+    for c in range(n_cohorts):
+        d.apply_cohort(api_types.Cohort(name=f"cohort-{c}"))
+        for q in range(cqs_per_cohort):
+            name = f"cq-{c}-{q}"
+            d.apply_cluster_queue(ClusterQueue(
+                name=name, cohort=f"cohort-{c}",
+                preemption=pre_policy,
+                resource_groups=[ResourceGroup(
+                    covered_resources=["cpu", "memory"],
+                    flavors=[FlavorQuotas(name=f, resources={
+                        "cpu": cpu_quota[f],
+                        "memory": ResourceQuota(nominal=64 << 30)})
+                             for f in flavors])]))
+            d.apply_local_queue(LocalQueue(name=f"lq-{c}-{q}",
+                                           cluster_queue=name))
+    for i in range(n_workloads):
+        c = i % n_cohorts
+        q = (i // n_cohorts) % cqs_per_cohort
+        count = 1 if contended else 1 + i % 2
+        d.create_workload(Workload(
+            name=f"wl-{i}", queue_name=f"lq-{c}-{q}",
+            priority=(i * 7) % 3, creation_time=float(i + 1),
+            pod_sets=[PodSet(name="main", count=count,
+                             requests={"cpu": sizes[i % 4],
+                                       "memory": 1 << 30})]))
+    return d
+
+
+def packed_cycle(**kw):
+    """(driver, heads, snapshot, packed first cycle) of
+    ``build_entry_scenario(**kw)`` (``__graft_entry__._packed_cycle``)."""
+    from .ops.packing import pack_cycle
+    d = build_entry_scenario(**kw)
+    heads = d.queues.heads_nonblocking()
+    snapshot = d.cache.snapshot()
+    # nominate resolves each head's LocalQueue → ClusterQueue binding
+    # (reference scheduler.go:336); the packer needs it set
+    d.scheduler.nominate(heads, snapshot)
+    return d, heads, snapshot, pack_cycle(snapshot, heads)
+
+
+def entry(device: str = "cuda"):
+    """(step, example_args): the one-call cycle solver on the packed first
+    cycle of the entry scenario, its planes on ``device`` (the card by
+    default; raises without one).  ``step(*example_args)`` returns
+    ``ops.cycle.solve_cycle``'s six outputs."""
+    from .ops.cycle import solve_cycle
+    from .parallel import cycle_args
+
+    _, _, _, packed = packed_cycle(device="cpu")
+    depth = packed.depth
+
+    def step(*args):
+        return solve_cycle(*args, depth=depth)
+
+    return step, cycle_args(packed, device=device)
+
+
+def probe_synth(W=100_000, C=1_000, S=4, R=3, cohorts=64, seed=0):
+    """A synthetic packed cycle at north-star scale (no host objects: it
+    probes the device plane, not the packer) → (the 14 numpy planes of
+    ``solve_cycle``, depth).  ``scripts/northstar_probe.py`` ``synth``."""
+    rng = np.random.default_rng(seed)
+    N = C + cohorts
+    parent = np.full(N, -1, dtype=np.int32)
+    parent[:C] = C + rng.integers(0, cohorts, C)      # CQ → cohort
+    F = S * R
+    nominal = rng.integers(8, 64, (C, F)).astype(np.int32) * 1000
+    subtree = np.zeros((N, F), dtype=np.int32)
+    subtree[:C] = nominal
+    for c in range(C):                                # cohort subtree sums
+        subtree[parent[c]] += nominal[c]
+    guaranteed = subtree.copy()
+    usage0 = (nominal * rng.random((C, F)) * 0.8).astype(np.int32)
+    usage0 = np.concatenate([usage0, np.zeros((cohorts, F), np.int32)])
+    for c in range(C):
+        usage0[parent[c]] += usage0[c]
+    borrow_cap = np.full((N, F), 2**31 // 64, dtype=np.int32)
+    has_blim = np.zeros((N, F), dtype=bool)
+    slot_fr = np.zeros((C, S, R), dtype=np.int32)
+    for s in range(S):
+        for r in range(R):
+            slot_fr[:, s, r] = s * R + r
+    slot_valid = np.ones((C, S), dtype=bool)
+    can_preempt = np.zeros(C, dtype=bool)
+    wl_cq = rng.integers(0, C, W).astype(np.int32)
+    wl_requests = rng.integers(1, 16, (W, R)).astype(np.int32) * 500
+    wl_priority = rng.integers(0, 100, W).astype(np.int32)
+    wl_timestamp = rng.random(W).astype(np.float64)
+    depth = 2      # chain node count: CQ -> cohort
+    return (usage0, subtree, guaranteed, borrow_cap, has_blim, parent,
+            nominal, slot_fr, slot_valid, can_preempt,
+            wl_cq, wl_requests, wl_priority, wl_timestamp), depth

@@ -810,3 +810,150 @@ def tas_cases(seed: int = 0, parts=TAS_PARTS, *, flat: int = 80):
             counts = _tas_counts(leaf_free, per_pod, packed.parents, sizes)
             yield from tas_sweep(leaf_free, per_pod, packed.parents, sizes,
                                  counts)
+
+
+# ----------------------------------------------------------------------
+# The one-call cycle solver (ops/cycle.py solve_cycle)
+# ----------------------------------------------------------------------
+
+SOLVE_ARGS = ("usage0", "subtree", "guaranteed", "borrow_cap", "has_blim",
+              "parent", "nominal_cq", "slot_fr", "slot_valid",
+              "cq_can_preempt_borrow", "wl_cq", "wl_requests",
+              "wl_priority", "wl_timestamp")
+FUNGIBILITY_ARGS = ("cq_wcb_borrow", "cq_wcp_preempt", "start_slot")
+I32_MIN = -2**31
+
+
+def solve_cycle_planes(rng: np.random.Generator, *, n_cqs: int = 12,
+                       n_cohorts: int = 4, depth: int = 3, S: int = 3,
+                       R: int = 2, F: int = 6, W: int = 64,
+                       n_valid: int | None = None, ties: bool = True,
+                       big: bool = True, fungibility: bool = True) -> dict:
+    """The 14 planes of solve_cycle (``SOLVE_ARGS``) plus the optional
+    FlavorFungibility planes (``FUNGIBILITY_ARGS``), ``forest_of_node``,
+    ``n_forests``, ``max_forest_wl`` and the static ``depth``.
+
+    Slots name -1 (an uncovered resource) and some are invalid; heads
+    past ``n_valid`` are padding (``wl_cq = -1``); requests of 0 are not
+    needed.  ``ties``: priorities from {0, 5, INT_MIN} and float64
+    timestamps 1e9 + k that tie once cast to float32.  ``big``: a few CQ
+    usage cells near INT_MAX and requests near 2**30, so ``use + req``
+    and the quota recurrences wrap.  ``fungibility``: random
+    whenCanBorrow / whenCanPreempt per CQ and resume slots per head."""
+    parent, forest_of, n_forests, true_depth = forest(rng, n_cqs, n_cohorts,
+                                                      depth)
+    N = n_cqs + n_cohorts
+    q = quota_planes(rng, N, F)
+    nominal = rng.integers(0, 30, (n_cqs, F)).astype(np.int32)
+    slot_fr = rng.integers(0, F, (n_cqs, S, R)).astype(np.int32)
+    slot_fr[rng.random((n_cqs, S, R)) < 0.15] = -1
+    slot_valid = rng.random((n_cqs, S)) < 0.85
+    can_pb = rng.random(n_cqs) < 0.3
+    n_valid = W if n_valid is None else n_valid
+    wl_cq = np.full(W, -1, dtype=np.int32)
+    wl_cq[:n_valid] = rng.integers(0, n_cqs, n_valid)
+    req = rng.integers(0, 16, (W, R)).astype(np.int32)
+    req[rng.random((W, R)) < 0.2] = 0
+    if ties:
+        prio = rng.choice(np.array([0, 5, I32_MIN], dtype=np.int64),
+                          W).astype(np.int32)
+        ts = 1e9 + rng.integers(0, 4, W).astype(np.float64)
+    else:
+        prio = rng.integers(0, 100, W).astype(np.int32)
+        ts = rng.random(W)
+    usage = q["usage0"]
+    if big:
+        cells = rng.random((n_cqs, F)) < 0.1
+        usage[:n_cqs][cells] = (2**31 - 1 - rng.integers(
+            0, 1000, int(cells.sum()))).astype(np.int32)
+        heads = rng.random(W) < 0.1
+        req[heads] = rng.integers(2**30, 2**31 - 1,
+                                  (int(heads.sum()), R)).astype(np.int32)
+    if fungibility:
+        wcb = rng.random(n_cqs) < 0.7
+        wcp = rng.random(n_cqs) < 0.3
+        start = np.where(rng.random(W) < 0.3, rng.integers(0, S + 1, W),
+                         0).astype(np.int32)
+    else:
+        wcb = np.ones(n_cqs, dtype=bool)
+        wcp = np.zeros(n_cqs, dtype=bool)
+        start = np.zeros(W, dtype=np.int32)
+    f_w = forest_of[np.maximum(wl_cq, 0)][wl_cq >= 0]
+    mfw = int(np.bincount(f_w, minlength=n_forests).max()) if len(f_w) else 1
+    return dict(q, parent=parent, nominal_cq=nominal, slot_fr=slot_fr,
+                slot_valid=slot_valid, cq_can_preempt_borrow=can_pb,
+                wl_cq=wl_cq, wl_requests=req, wl_priority=prio,
+                wl_timestamp=ts, cq_wcb_borrow=wcb, cq_wcp_preempt=wcp,
+                start_slot=start, forest_of_node=forest_of,
+                n_forests=n_forests, max_forest_wl=mfw + 1,
+                depth=max(depth, true_depth))
+
+
+def solve_args(case: dict, fungibility: bool = False) -> tuple:
+    """solve_cycle's positional arrays (with the fungibility planes)."""
+    names = SOLVE_ARGS + (FUNGIBILITY_ARGS if fungibility else ())
+    return tuple(case[k] for k in names)
+
+
+def phase1_cases(case: dict):
+    """Yield (kernel name, numpy arrays, keyword arguments) for the three
+    phase-1 kernels on one solve_cycle case: ``kq_cq_avail`` on its quota
+    planes, ``kq_classify_heads`` (with and without the decision pairs)
+    on its heads and the CQ availability the plain version gives, and
+    ``kq_cycle_order`` on its priorities, float32 timestamps and random
+    borrows."""
+    import torch
+
+    from .ops.cycle import cq_avail_plain
+    quota = tuple(case[k] for k in SOLVE_ARGS[:6])
+    C = case["nominal_cq"].shape[0]
+    kw = dict(n_cqs=C, depth=case["depth"])
+    yield "kq_cq_avail", quota, kw
+    avail0, potential0 = (t.numpy() for t in cq_avail_plain(
+        *[torch.from_numpy(np.ascontiguousarray(a)) for a in quota], **kw))
+    heads = (case["wl_cq"], case["wl_requests"], case["start_slot"],
+             case["slot_fr"], case["slot_valid"], case["nominal_cq"],
+             case["usage0"], case["subtree"], case["parent"],
+             case["cq_can_preempt_borrow"], case["cq_wcb_borrow"],
+             case["cq_wcp_preempt"], avail0, potential0)
+    for pairs in (False, True):
+        yield "kq_classify_heads", heads, dict(pairs=pairs)
+    rng = np.random.default_rng(int(case["wl_cq"].shape[0]))
+    borrows = rng.random(case["wl_cq"].shape[0]) < 0.5
+    yield "kq_cycle_order", (borrows, case["wl_priority"],
+                             case["wl_timestamp"].astype(np.float32)), {}
+
+
+def order_case(rng: np.random.Generator, W: int) -> tuple:
+    """kq_cycle_order's inputs at W heads: borrows, priorities with
+    INT_MIN and ties, float32 timestamps with ties, -0.0, +0.0 and NaN."""
+    borrows = rng.random(W) < 0.5
+    prio = rng.choice(np.array([I32_MIN, -1, 0, 7, 2**31 - 1],
+                               dtype=np.int64), W).astype(np.int32)
+    ts = rng.choice(np.array([-0.0, 0.0, 1.5, np.nan, -np.inf, 1e9],
+                             dtype=np.float32), W)
+    return borrows, prio, ts
+
+
+# (n_cqs, n_cohorts, depth, S, R, F, W, n_valid)
+SOLVE_SHAPES = [
+    (12, 4, 3, 3, 2, 6, 64, 50),         # N <= 64: dense available_at
+    (80, 10, 3, 4, 3, 12, 256, 240),     # N > 64
+    (1, 1, 2, 1, 1, 1, 2, 2),
+]
+ORDER_WIDTHS = (1, 3, 1000, 8192, 10_000)   # 10,000: the global sort
+
+
+def solve_cycle_cases(seed: int = 0):
+    """Yield (kernel name, numpy arrays, keyword arguments) over the
+    standard sweep of the three phase-1 kernels (``phase1_cases`` of each
+    ``SOLVE_SHAPES`` case, then ``kq_cycle_order`` at every width of
+    ``ORDER_WIDTHS``: the shared-memory sort up to 8,192 heads, global
+    scratch beyond)."""
+    rng = np.random.default_rng(seed)
+    for n_cqs, n_coh, depth, S, R, F, W, n_valid in SOLVE_SHAPES:
+        yield from phase1_cases(solve_cycle_planes(
+            rng, n_cqs=n_cqs, n_cohorts=n_coh, depth=depth, S=S, R=R, F=F,
+            W=W, n_valid=n_valid))
+    for W in ORDER_WIDTHS:
+        yield "kq_cycle_order", order_case(rng, W), {}

@@ -58,6 +58,13 @@ def test_appended_copies(rel):
     assert port.startswith(orig) and len(port) > len(orig), rel
 
 
+def test_native_core_is_the_jax_packages_file():
+    """The C++ cycle core is carried over byte for byte."""
+    rel = "native/cycle_core.cpp"
+    assert _read(os.path.join(PORT, rel)) == _read(
+        os.path.join(ROOT, "kueue_tpu", rel))
+
+
 def _port_files():
     for dirpath, _, files in os.walk(PORT):
         for f in files:
@@ -72,7 +79,8 @@ def test_every_port_module_is_accounted_for():
            "ops/cycle.py", "ops/preemption_kernel.py", "ops/solver.py",
            "ops/fs_scan.py", "ops/fairsharing_kernel.py",
            "ops/tas_kernel.py", "profiling.py", "kernels/__init__.py", "scenarios.py",
-           "testing.py"}
+           "testing.py", "parallel/__init__.py", "parallel/sharded.py",
+           "probe.py", "native/__init__.py"}
     rels = {os.path.relpath(p, PORT) for p in _port_files()}
     assert rels == set(VERBATIM) | set(APPENDED) | set(EDITED) | own
 
@@ -328,3 +336,57 @@ def test_port_ungater_excess_pods_stay_gated():
     decisions = assign_pods_to_domains(ta, pods)
     assert len(decisions) == 1
     assert decisions[0].pod_name == "p-0"
+
+
+def test_solve_cycle_runs_plain_on_cpu_tensors():
+    """solve_cycle and solve_cycle_forests on CPU tensors run the plain
+    versions and launch nothing; the three phase-1 launchers refuse CPU
+    tensors."""
+    import numpy as np
+    from kueue_tpu_torch import kernels, scenarios, testing
+    from kueue_tpu_torch.ops import cycle
+    from kueue_tpu_torch.probe import probe_calls
+    before = dict(kernels.LAUNCHES)
+    for _, name, args, kw in probe_calls(64, 8, 4):
+        out = getattr(cycle, name)(*[torch.from_numpy(a) for a in args],
+                                   **kw)
+        assert [o.dtype for o in out] == [torch.bool, torch.int32,
+                                          torch.bool] * 2
+    assert kernels.LAUNCHES == before
+    for name, arrays, kw in testing.phase1_cases(testing.solve_cycle_planes(
+            np.random.default_rng(0), W=16, n_valid=12)):
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            getattr(kernels, name)(*[torch.from_numpy(a) for a in arrays],
+                                   **kw)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA GPU"):
+            scenarios.entry()
+
+
+def test_probe_in_a_fresh_process():
+    """``python -m kueue_tpu_torch.probe`` with ``--device cpu`` at a tiny
+    size loads neither jax nor kueue_tpu; without a GPU and without
+    ``--device cpu`` it raises."""
+    code = (
+        "import runpy, sys\n"
+        "sys.argv = ['probe', '64', '8', '--device', 'cpu', '--reps', '1']\n"
+        "try:\n"
+        "    runpy.run_module('kueue_tpu_torch.probe', run_name='__main__')\n"
+        "except SystemExit as e:\n"
+        "    assert not e.code, e.code\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'kueue_tpu'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "phase-1 classify 64x8" in out.stdout
+    assert out.stdout.strip().endswith("ok")
+    if not torch.cuda.is_available():
+        out = subprocess.run(
+            [sys.executable, "-m", "kueue_tpu_torch.probe", "64", "8"],
+            cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+        assert out.returncode != 0
+        assert "no CUDA GPU" in out.stderr

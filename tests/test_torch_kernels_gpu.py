@@ -1,6 +1,6 @@
 """Each CUDA kernel of kueue_tpu_torch against its plain PyTorch version
 on the same seeded inputs (kueue_tpu_torch.testing.kernel_cases,
-burst_cases, fs_cases and tas_cases): exact equality, as every output
+burst_cases, fs_cases, tas_cases and solve_cycle_cases): exact equality, as every output
 is bool or int32.  Needs a CUDA GPU — the kernels have no CPU mode —
 and skips without one.  This file imports no JAX, so it
 also runs on a machine with only PyTorch:
@@ -184,3 +184,92 @@ def test_cuda_tas_sort_in_global_memory(monkeypatch):
         c = getattr(tas_kernel, name)(*cuda, **kw)
         for x, y in zip(p, c):
             assert y.dtype == x.dtype and torch.equal(y.cpu(), x), (name, kw)
+
+
+PHASE1 = ("kq_cq_avail", "kq_classify_heads", "kq_cycle_order")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("seed", [0, 1])
+def test_cuda_solve_cycle_kernels_match_plain(seed):
+    """kq_cq_avail, kq_classify_heads and kq_cycle_order on the card
+    against their plain versions on the CPU
+    (kueue_tpu_torch.testing.solve_cycle_cases: N on both sides of 64,
+    padding heads, uncovered and invalid slots, int32 wraps, ties and
+    INT_MIN, the sort in shared memory and, past 8,192 heads, in global
+    scratch): values and dtypes exactly."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernels have no CPU mode")
+    from kueue_tpu_torch import kernels
+    plain = {"kq_cq_avail": cycle.cq_avail_plain,
+             "kq_classify_heads": cycle.classify_heads_plain,
+             "kq_cycle_order": cycle.cycle_order_plain}
+    routed = {"kq_cq_avail": cycle.cq_avail,
+              "kq_classify_heads": cycle.classify_heads,
+              "kq_cycle_order": cycle.cycle_order}
+    seen = set()
+    for name, args, kw in tt.solve_cycle_cases(seed):
+        before = kernels.LAUNCHES[name]
+        p = plain[name](*[torch.from_numpy(a) for a in args], **kw)
+        c = routed[name](*[torch.from_numpy(a).cuda() for a in args], **kw)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES[name] == before + 1, name
+        p = p if isinstance(p, tuple) else (p,)
+        c = c if isinstance(c, tuple) else (c,)
+        for x, y in zip(p, c):
+            assert y.dtype == x.dtype and y.shape == x.shape, (name, kw)
+            assert torch.equal(y.cpu(), x), (name, kw)
+        seen.add(name)
+    assert seen == set(PHASE1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fungibility", [False, True])
+def test_cuda_solve_cycle_matches_plain(fungibility):
+    """solve_cycle (with and without the scan) and solve_cycle_forests on
+    the card against their plain versions on the CPU; every call launches
+    kq_cq_avail and kq_classify_heads once, and kq_cycle_order once with
+    the scan."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernels have no CPU mode")
+    from kueue_tpu_torch import kernels
+    c = tt.solve_cycle_planes(np.random.default_rng(5), n_cqs=80,
+                              n_cohorts=10, S=4, R=3, F=12, W=256,
+                              n_valid=240, fungibility=fungibility)
+    args = tt.solve_args(c, fungibility)
+    for run_scan in (True, False):
+        before = dict(kernels.LAUNCHES)
+        got = cycle.solve_cycle(*[torch.from_numpy(a).cuda() for a in args],
+                                depth=c["depth"], run_scan=run_scan)
+        want = cycle.solve_cycle_plain(*[torch.from_numpy(a) for a in args],
+                                       depth=c["depth"], run_scan=run_scan)
+        torch.cuda.synchronize()
+        for x, y in zip(want, got):
+            assert y.dtype == x.dtype and torch.equal(y.cpu(), x)
+        grew = {k: kernels.LAUNCHES[k] - before[k] for k in before}
+        assert grew["kq_cq_avail"] == grew["kq_classify_heads"] == 1
+        assert grew["kq_cycle_order"] == grew["admit_scan"] == int(run_scan)
+    fargs = tt.solve_args(c) + (c["forest_of_node"],)
+    kw = dict(depth=c["depth"], n_forests=c["n_forests"],
+              max_forest_wl=c["max_forest_wl"])
+    got = cycle.solve_cycle_forests(*[torch.from_numpy(a).cuda()
+                                      for a in fargs], **kw)
+    want = cycle.solve_cycle_forests_plain(*[torch.from_numpy(a)
+                                             for a in fargs], **kw)
+    for x, y in zip(want, got):
+        assert y.dtype == x.dtype and torch.equal(y.cpu(), x)
+
+
+@pytest.mark.gpu
+def test_cuda_cycle_order_in_global_memory(monkeypatch):
+    """With no shared memory allowed, kq_cycle_order sorts in global
+    scratch and still equals its plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernels have no CPU mode")
+    from kueue_tpu_torch import kernels
+    monkeypatch.setattr(kernels, "SORT_SMEM", 0)
+    for W in (1, 5, 1000):
+        args = tt.order_case(np.random.default_rng(W), W)
+        p = cycle.cycle_order_plain(*[torch.from_numpy(a) for a in args])
+        c = cycle.cycle_order(*[torch.from_numpy(a).cuda() for a in args])
+        assert c.dtype == p.dtype and torch.equal(c.cpu(), p), W
