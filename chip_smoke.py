@@ -74,10 +74,43 @@ gates on; then the one-call cycle solver behind the north-star probe
 14. ``entry(device="cuda")``'s step equal to ``entry(device="cpu")``'s;
    then ``Driver(device="cuda", solver_backend="native")`` on the perf
    scenario at 3,000 workloads: its decision digest equal to phase 6's
-   card digest, with cycles decided by the C++ admit loop.
+   card digest, with cycles decided by the C++ admit loop;
+3h. the shapes past the launchers' old limits
+   (kueue_tpu_torch.testing.shape_cases): admit_scan,
+   admit_scan_preempt, admit_scan_forests, minimal_preemptions_batch,
+   burst_cycles, kq_cq_avail and drs_components on a cohort chain 17
+   levels deep, fs_admit_scan at F = 65 and 72, admit_scan at F = 1,025,
+   admit_scan_forests over one forest of 40,000 heads (its head list in
+   global scratch) — each equal to its plain version; then admit_scan
+   over 1,000 heads timed on a cohort chain 17 levels deep beside the
+   same heads on a chain of 2;
+15. the north-star shape through the forest-sharded burst at full width
+   (``KUEUE_TPU_SHARDS=4`` on a virtual mesh of four shards on this
+   card, one stream each): the same 30 cycles as phase 8, whose decision
+   digest it must equal; sharded dispatches > 0 and one
+   kq_reduce_dflags launch for each (phases 8 and 15 start from a
+   collected heap and print the full garbage collections that ran
+   inside them);
+15b. the sustained drain with a high-priority arrival at cycle 36 on 8
+   virtual shards with ``KUEUE_TPU_RESIDENT_VERIFY=1``: records equal to
+   the serial drain, resident hits > 0, rows scattered by
+   kq_scatter_rows, fewer boundary bytes than a full upload; then the
+   drain split in two with ``lose_devices(4)`` between the halves:
+   8 → 4 shards and records equal to the serial split drain;
+15c. the same drain at north-star width (scenarios.sustained_drain with
+   n_cqs=1,000: 1,000 CQs in cohorts of 5, 100 workloads queued in every
+   fifth, 40 reclaiming arrivals at cycle 36, runtime 30) on 4 virtual
+   shards with ``KUEUE_TPU_RESIDENT_VERIFY=1``: records equal to the
+   serial drain on the card, resident hits > 0 that scatter the busy
+   CQs' rows with kq_scatter_rows, fewer boundary bytes than a full
+   upload;
+3g. kq_scatter_rows and kq_reduce_dflags against their plain versions
+   over seeded cases (kueue_tpu_torch.testing.scatter_case,
+   dflags_blocks) and the calls captured in phases 15, 15b and 15c —
+   exact.
 
-Launch counts are zeroed just before phases 4, 5, 7, 8, 9, 9b, 11, 13 and
-14 and read just after each.  Prints a ``kernels`` JSON line (per kernel: its launches on
+Launch counts are zeroed just before phases 4, 5, 7, 8, 9, 9b, 11, 13,
+14, 15, 15b and 15c and read just after each.  Prints a ``kernels`` JSON line (per kernel: its launches on
 its main path and in each phase), the nvidia-smi line, and as its last
 line ``{"ok": true, "device": {...}}``.  Exits non-zero, with no result
 line, when there is no CUDA device or no kueue_tpu_torch beside it.
@@ -87,6 +120,7 @@ line, when there is no CUDA device or no kueue_tpu_torch beside it.
 
 from __future__ import annotations
 
+import gc
 import json
 import os
 import subprocess
@@ -111,6 +145,8 @@ TPU_KERNEL = {   # the jitted JAX program each kernel replaces
     "kq_cq_avail": "kueue_tpu/ops/cycle.py:458",
     "kq_classify_heads": "kueue_tpu/ops/cycle.py:463",
     "kq_cycle_order": "kueue_tpu/ops/cycle.py:521",
+    "kq_scatter_rows": "kueue_tpu/ops/burst.py:2309",
+    "kq_reduce_dflags": "kueue_tpu/ops/burst.py:789",
 }
 SOURCE = {
     "admit_scan": "kueue_tpu_torch/kernels/admit_scan.cu",
@@ -127,6 +163,8 @@ SOURCE = {
     "kq_cq_avail": "kueue_tpu_torch/kernels/solve_cycle.cu",
     "kq_classify_heads": "kueue_tpu_torch/kernels/solve_cycle.cu",
     "kq_cycle_order": "kueue_tpu_torch/kernels/solve_cycle.cu",
+    "kq_scatter_rows": "kueue_tpu_torch/kernels/scatter_rows.cu",
+    "kq_reduce_dflags": "kueue_tpu_torch/kernels/scatter_rows.cu",
 }
 TAS_KERNELS = ("fill_counts", "best_fit_descend", "split_across_roots")
 BENCH_WORKLOADS = 15_000
@@ -136,6 +174,10 @@ PARITY_SCALE = 0.2          # 3,000 workloads
 TAS_CYCLES = 60             # tas-4k, on the card, on the CPU and walked
 PHASE1 = ("kq_cq_avail", "kq_classify_heads", "kq_cycle_order")
 PROBE = dict(W=100_000, C=1_000, reps=20)   # scripts/northstar_probe.py
+SHARD_KERNELS = ("kq_scatter_rows", "kq_reduce_dflags")
+INPLACE = ("kq_scatter_rows",)   # writes its first argument's planes
+NORTHSTAR_SHARDS = 4
+RESIDENT_SHARDS = 8
 
 
 def log(msg: str) -> None:
@@ -150,9 +192,9 @@ def check(ok, what) -> None:
 
 class Capture:
     """Wraps the solver's kernel entry points to keep the inputs of the
-    first ``keep`` calls of each kernel in each phase (references only:
-    the kernels do not write their inputs).  The wrapped function itself
-    is called unchanged."""
+    first ``keep`` calls of each kernel in each phase (references, or
+    copies for a kernel that writes its inputs: ``INPLACE``).  The
+    wrapped function itself is called unchanged."""
 
     def __init__(self, keep: int = 4):
         self.keep = keep
@@ -165,9 +207,13 @@ class Capture:
 
         def wrapped(*args, **kw):
             calls = self.calls.setdefault((self.phase, name), [])
+            args = tuple(tuple(a) if isinstance(a, list) else a
+                         for a in args)
+            kept = (clone_args(args) if name in INPLACE
+                    and len(calls) < self.keep else args)
             out = fn(*args, **kw)
             if len(calls) < self.keep:
-                calls.append((args, kw))
+                calls.append((kept, kw))
             elif (name in PHASE1 and len(calls) < 2 * self.keep
                   and all(signature(a, k) != signature(args, kw)
                           for a, k in calls)):
@@ -184,6 +230,48 @@ class Capture:
         for module, attr, fn in reversed(self._undo):
             setattr(module, attr, fn)
         self._undo.clear()
+
+
+class GCWatch:
+    """Full (generation-2) garbage collections of the host's Python
+    while a phase runs: how many, their seconds, the longest — a pause
+    lands inside whichever cycle triggered it."""
+
+    def __enter__(self):
+        self.n, self.seconds, self.longest, self._t0 = 0, 0.0, 0.0, 0.0
+        gc.callbacks.append(self._cb)
+        return self
+
+    def _cb(self, phase, info):
+        if info.get("generation") != 2:
+            return
+        if phase == "start":
+            self._t0 = time.perf_counter()
+            return
+        dt = time.perf_counter() - self._t0
+        self.n += 1
+        self.seconds += dt
+        self.longest = max(self.longest, dt)
+
+    def __exit__(self, *exc):
+        gc.callbacks.remove(self._cb)
+
+    def line(self) -> str:
+        return (f"gen-2 GC {self.n} collections, {self.seconds:.3f}s, "
+                f"longest {self.longest:.3f}s")
+
+
+def clone_args(args):
+    """Copies of a call's tensors (tuples of them included)."""
+    return tuple(clone_args(a) if isinstance(a, tuple)
+                 else a.clone() if hasattr(a, "clone") else a for a in args)
+
+
+def install_shard_capture(cap: Capture) -> None:
+    # the sharded burst looks these up in parallel.sharded at each call
+    from kueue_tpu_torch.parallel import sharded
+    cap.install(sharded, "scatter_rows", "kq_scatter_rows")
+    cap.install(sharded, "reduce_dflags", "kq_reduce_dflags")
 
 
 def signature(args, kw) -> tuple:
@@ -228,7 +316,10 @@ def install_tas_capture(cap: Capture) -> None:
 def plain_fns():
     from kueue_tpu_torch.ops import (burst, cycle, fairsharing_kernel,
                                      fs_scan, preemption_kernel, tas_kernel)
+    from kueue_tpu_torch.parallel import sharded
     return {
+        "kq_scatter_rows": sharded.scatter_rows_plain,
+        "kq_reduce_dflags": sharded.reduce_dflags_plain,
         "fill_counts": tas_kernel.fill_counts_plain,
         "best_fit_descend": tas_kernel.best_fit_descend_plain,
         "split_across_roots": tas_kernel.split_across_roots_plain,
@@ -284,8 +375,13 @@ def cuda_kw(kw):
 def compare(name, args, kw, stats) -> None:
     """One CUDA launch against the plain version on CPU copies."""
     import torch
-    cuda = as_tuple(cuda_fns()[name](*args, **cuda_kw(kw)))
-    plain = as_tuple(plain_fns()[name](*on_cpu(args), **plain_kw(kw)))
+    if name in INPLACE:
+        args = clone_args(args)
+        plain = as_tuple(plain_fns()[name](*on_cpu(args), **plain_kw(kw)))
+        cuda = as_tuple(cuda_fns()[name](*args, **cuda_kw(kw)))
+    else:
+        cuda = as_tuple(cuda_fns()[name](*args, **cuda_kw(kw)))
+        plain = as_tuple(plain_fns()[name](*on_cpu(args), **plain_kw(kw)))
     torch.cuda.synchronize()
     err = 0
     for c, p in zip(cuda, plain):
@@ -357,6 +453,10 @@ def op_count(name, args, kw) -> int:
     searches x real candidates x the forward and reverse steps)."""
     if name in TAS_KERNELS:
         return tas_op_count(name, args, kw)
+    if name == "kq_scatter_rows":
+        return 0                      # a copy: no arithmetic
+    if name == "kq_reduce_dflags":
+        return len(args[0]) * args[0][0].numel()   # one add per input
     if name in PHASE1:
         return phase1_op_count(name, args, kw)
     depth = kw["depth"]
@@ -436,6 +536,59 @@ def fs_op_count(args, kw) -> int:
                + rounds * 2 * L * F * 12)
 
 
+def bound_bytes(name, args, outs) -> int:
+    """The bytes a call must move: each input read once, each output
+    written once — for the in-place row scatter only the distinct rows
+    it writes (2 x the distinct rows x the summed row bytes of its
+    planes: one value read and one row written each; a padded duplicate
+    row writes what its first copy wrote)."""
+    import torch
+    if name == "kq_scatter_rows":
+        planes, rows = args[0], args[1]
+        return 2 * int(torch.unique(rows).numel()) * sum(
+            p[0].numel() * p.element_size() for p in planes)
+    return io_bytes(args, outs)
+
+
+def library_call(name, args):
+    """The one PyTorch call that computes what the kernel computes on the
+    same inputs (timed beside it, never used by the port), or None:
+    ``index_put_`` per plane for the row scatter (one call per plane:
+    PyTorch has no call that writes 13 tensors), ``torch.sum(dim=0)``
+    over the stacked flag blocks for the reduction."""
+    import torch
+    if name == "kq_scatter_rows":
+        planes, rows, vals = args
+        planes = clone_args(planes)
+        idx = (rows.long(),)
+        return lambda: [p.index_put_(idx, v) for p, v in zip(planes, vals)]
+    if name == "kq_reduce_dflags":
+        stacked = torch.stack(tuple(args[0]))
+        return lambda: torch.sum(stacked, dim=0, dtype=torch.int32)
+    return None
+
+
+def event_ms(fn, reps: int) -> float:
+    """Mean device ms of ``fn`` over ``reps`` calls after three warm-up
+    calls (CUDA events around the run)."""
+    import torch
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    # hold the stream busy while the host enqueues every call, so the
+    # events bracket the kernels back to back and not the host's
+    # launch overhead between them
+    torch.cuda._sleep(200_000_000)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def time_kernel(name, args, kw, reps: int = 50) -> dict:
     """Mean device ms per launch (CUDA events around ``reps`` launches
     queued behind a busy stream), the plain version's ms on the same
@@ -447,21 +600,7 @@ def time_kernel(name, args, kw, reps: int = 50) -> dict:
     fn = cuda_fns()[name]
     kw_c = cuda_kw(kw)
     outs = as_tuple(fn(*args, **kw_c))
-    for _ in range(3):
-        fn(*args, **kw_c)
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    # hold the stream busy while the host enqueues every launch, so the
-    # events bracket the kernels back to back and not the host's
-    # launch overhead between them
-    torch.cuda._sleep(200_000_000)
-    start.record()
-    for _ in range(reps):
-        fn(*args, **kw_c)
-    end.record()
-    end.synchronize()
-    ms = start.elapsed_time(end) / reps
+    ms = event_ms(lambda: fn(*args, **kw_c), reps)
     kernels.collect()
     plain = plain_fns()[name]
     plain(*args, **plain_kw(kw))
@@ -470,11 +609,12 @@ def time_kernel(name, args, kw, reps: int = 50) -> dict:
     plain(*args, **plain_kw(kw))
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
-    bytes_ms = io_bytes(args, outs) / PEAK_BYTES_PER_S * 1e3
+    bytes_ms = bound_bytes(name, args, outs) / PEAK_BYTES_PER_S * 1e3
     ops_ms = op_count(name, args, kw) / PEAK_OPS_PER_S * 1e3
+    lib = library_call(name, args)
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=max(bytes_ms, ops_ms),
                 bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-                library_ms=None)
+                library_ms=event_ms(lib, reps) if lib is not None else None)
 
 
 def host_drs(snapshot) -> dict:
@@ -489,6 +629,11 @@ def host_drs(snapshot) -> dict:
 def most_heads(calls):
     """The captured fs_admit_scan call with the most valid heads."""
     return max(calls, key=lambda call: int(call[0][17].sum()))
+
+
+def most_rows(calls):
+    """The captured row scatter that writes the most rows."""
+    return max(calls, key=lambda call: int(call[0][1].shape[0]))
 
 
 def largest(calls):
@@ -718,20 +863,22 @@ def main() -> int:
         NORTHSTAR["n_cqs"], NORTHSTAR["n_wl"], device="cuda")
     d.scheduler.solver.warmup(d.cache.snapshot(), NORTHSTAR["n_cqs"])
     build_s = time.perf_counter() - t0
+    gc.collect()      # phases 8 and 15 start from a collected heap
     kernels.reset_counts()
-    r8 = scenarios.northstar_burst(d, clock, wave,
-                                   cycles=NORTHSTAR["cycles"])
+    with GCWatch() as gc8:
+        r8 = scenarios.northstar_burst(d, clock, wave,
+                                       cycles=NORTHSTAR["cycles"])
     torch.cuda.synchronize()
     launches8 = dict(kernels.LAUNCHES)
     device_ms8 = kernels.collect()
+    digest8 = scenarios.decision_digest(d, r8["decisions"])
     log(f"[8 northstar burst] {NORTHSTAR['n_cqs']} CQs, {total} workloads "
         f"(built in {build_s:.1f}s), {r8['cycles']} cycles in "
         f"{r8['wall']:.2f}s, cycle p50 "
         f"{scenarios.percentile(r8['cycle_times'], 0.5) * 1e3:.3f}ms p99 "
         f"{scenarios.percentile(r8['cycle_times'], 0.99) * 1e3:.3f}ms, "
         f"admitted {r8['admitted']}, preempted {r8['preempted']}, digest "
-        f"{scenarios.decision_digest(d, r8['decisions'])}; device_ms "
-        f"{json.dumps(device_ms8)}")
+        f"{digest8}; {gc8.line()}; device_ms {json.dumps(device_ms8)}")
     burst_line("8 northstar burst", d, r8, launches8)
     check(r8["cycles"] == NORTHSTAR["cycles"], r8["cycles"])
     check(launches8["burst_cycles"] > 0, launches8)
@@ -1024,10 +1171,196 @@ def main() -> int:
     check(ss["native_dispatches"] > 0, ss)
     del d, waves
 
+    # -- 3h. the shapes past the launchers' old limits ------------------------
+    t0 = time.perf_counter()
+    n3h = {}
+    for name, arrays, kw in testing.shape_cases(0, card=True):
+        compare(name, on_card(arrays), kw, stats)
+        shape = dict(depth=kw.get("depth"),
+                     F=int(arrays[0].shape[-1]) if name != "burst_cycles"
+                     else int(arrays[17].shape[1]))
+        n3h.setdefault(name, []).append(shape)
+    for name, s_ in stats.items():
+        check(s_["mismatches"] == 0, (name, s_))
+    log(f"[3h kernels past the old limits] {json.dumps(n3h)} in "
+        f"{time.perf_counter() - t0:.1f}s; "
+        f"{json.dumps({k: stats[k] for k in n3h})}")
+    # the cost of a deep chain: the same 1,000 heads over 6 CQs under a
+    # cohort chain of 16 levels (depth 17) and of 1 level (depth 2)
+    t3h = {}
+    for n_cohorts in (16, 1):
+        c = testing.admit_cycle(np.random.default_rng(1), n_cqs=6,
+                                n_cohorts=n_cohorts, depth=2, F=3,
+                                W=1000, R=2, chain=True)
+        args3h = on_card(testing.admit_args(c))
+        compare("admit_scan", args3h, dict(depth=c["depth"]), stats)
+        t3h[f"depth_{c['depth']}"] = {
+            k: v for k, v in time_kernel(
+                "admit_scan", args3h, dict(depth=c["depth"])).items()
+            if k in ("ms", "plain_ms")}
+    check(stats["admit_scan"]["mismatches"] == 0, stats["admit_scan"])
+    log(f"[3h admit_scan, 1,000 heads, by chain depth] {json.dumps(t3h)}")
+
+    # -- 15. the north-star shape through the forest-sharded burst ---------
+    from kueue_tpu_torch.parallel import sharded
+    install_shard_capture(cap)
+    cap.phase = "northstar_sharded"
+    os.environ["KUEUE_TPU_SHARDS"] = str(NORTHSTAR_SHARDS)
+    try:
+        with sharded.virtual_mesh("cuda:0", NORTHSTAR_SHARDS):
+            t0 = time.perf_counter()
+            d, clock, total, wave = scenarios.build_northstar(
+                NORTHSTAR["n_cqs"], NORTHSTAR["n_wl"], device="cuda")
+            d.scheduler.solver.warmup(d.cache.snapshot(), NORTHSTAR["n_cqs"])
+            build_s = time.perf_counter() - t0
+            gc.collect()
+            kernels.reset_counts()
+            with GCWatch() as gc15:
+                r15 = scenarios.northstar_burst(d, clock, wave,
+                                                cycles=NORTHSTAR["cycles"])
+            torch.cuda.synchronize()
+            launches15 = dict(kernels.LAUNCHES)
+            device_ms15 = kernels.collect()
+    finally:
+        del os.environ["KUEUE_TPU_SHARDS"]
+    cap.uninstall()
+    bs = d._burst_solver
+    digest15 = scenarios.decision_digest(d, r15["decisions"])
+    pct = scenarios.percentile
+    log(f"[15 northstar sharded burst] {bs.n_shards} virtual shards on "
+        f"cuda:0, {total} workloads (built in {build_s:.1f}s), "
+        f"{r15['cycles']} cycles in {r15['wall']:.2f}s, cycle p50 "
+        f"{pct(r15['cycle_times'], 0.5) * 1e3:.3f}ms p99 "
+        f"{pct(r15['cycle_times'], 0.99) * 1e3:.3f}ms (phase 8 serial: "
+        f"{r8['wall']:.2f}s, p50 {pct(r8['cycle_times'], 0.5) * 1e3:.3f}ms "
+        f"p99 {pct(r8['cycle_times'], 0.99) * 1e3:.3f}ms, {gc8.line()}), "
+        f"{gc15.line()}, admitted "
+        f"{r15['admitted']}, preempted {r15['preempted']}, digest "
+        f"{digest15} (phase 8: {digest8}); burst_shard_pack_s "
+        f"{json.dumps(bs.stats['burst_shard_pack_s'])}, "
+        f"burst_shard_fetch_s {json.dumps(bs.stats['burst_shard_fetch_s'])}"
+        f"; device_ms {json.dumps(device_ms15)}")
+    burst_line("15 northstar sharded burst", d, r15, launches15)
+    check(bs.n_shards == NORTHSTAR_SHARDS, bs.n_shards)
+    check(digest15 == digest8, {"sharded": digest15, "phase 8": digest8})
+    n_sharded = bs.stats["burst_sharded_dispatches"]
+    check(n_sharded >= 1, bs.stats)
+    check(launches15["kq_reduce_dflags"] == n_sharded,
+          (launches15, n_sharded))
+    check(launches15["burst_cycles"] == NORTHSTAR_SHARDS * n_sharded
+          + bs.stats["burst_dispatches"] - n_sharded, launches15)
+    del d, bs
+
+    # -- 15b. resident reuse on 8 virtual shards, then 8 → 4 ---------------
+    install_shard_capture(cap)
+    cap.phase = "resident"
+    os.environ["KUEUE_TPU_RESIDENT_VERIFY"] = "1"
+    try:
+        serial = scenarios.sustained_drain(device="cuda")
+        serial_split = scenarios.sustained_drain(device="cuda", lose=4)
+        with sharded.virtual_mesh("cuda:0", RESIDENT_SHARDS):
+            kernels.reset_counts()
+            r15b = scenarios.sustained_drain(device="cuda",
+                                             shards=RESIDENT_SHARDS)
+            torch.cuda.synchronize()
+            launches15b = dict(kernels.LAUNCHES)
+            kernels.collect()
+            r15c = scenarios.sustained_drain(
+                device="cuda", shards=RESIDENT_SHARDS, lose=4)
+    finally:
+        del os.environ["KUEUE_TPU_RESIDENT_VERIFY"]
+    cap.uninstall()
+    st = r15b["stats"]
+    log(f"[15b resident] {RESIDENT_SHARDS} virtual shards: "
+        f"{len(r15b['records'])} cycles, records equal to the serial "
+        f"drain: {r15b['records'] == serial['records']}; boundary "
+        f"{json.dumps(scenarios.burst_boundary_report(st))}; launches "
+        f"{json.dumps({k: launches15b[k] for k in ('burst_cycles',) + SHARD_KERNELS})}"
+        f"; after lose_devices(4): shards {r15c['shards']}, records equal "
+        f"to the serial split drain: "
+        f"{r15c['records'] == serial_split['records']}, resident misses "
+        f"{r15c['stats']['burst_resident_misses']}")
+    check(r15b["records"] == serial["records"], "15b: records differ")
+    check(st["burst_resident_hits"] >= 1, st)
+    check(st["burst_resident_scatter_rows"] >= 1, st)
+    check(launches15b["kq_scatter_rows"] >= 1, launches15b)
+    check(launches15b["kq_reduce_dflags"] == st["burst_sharded_dispatches"],
+          launches15b)
+    check(st["burst_boundary_bytes_h2d"] < st["burst_boundary_bytes_equiv"],
+          st)
+    check(r15c["shards"] == [RESIDENT_SHARDS, 4], r15c["shards"])
+    check(r15c["records"] == serial_split["records"],
+          "15b: records differ after lose_devices(4)")
+    check(r15c["stats"]["burst_shard_degradations"] == 1, r15c["stats"])
+
+    # -- 15c. resident reuse at north-star width on 4 virtual shards -------
+    install_shard_capture(cap)
+    cap.phase = "northstar_resident"
+    wide = dict(device="cuda", n_cqs=NORTHSTAR["n_cqs"], runtime=30)
+    os.environ["KUEUE_TPU_RESIDENT_VERIFY"] = "1"
+    try:
+        t0 = time.perf_counter()
+        serial_w = scenarios.sustained_drain(**wide)
+        serial_w_s = time.perf_counter() - t0
+        with sharded.virtual_mesh("cuda:0", NORTHSTAR_SHARDS):
+            kernels.reset_counts()
+            t0 = time.perf_counter()
+            r15w = scenarios.sustained_drain(shards=NORTHSTAR_SHARDS,
+                                             **wide)
+            torch.cuda.synchronize()
+            r15w_s = time.perf_counter() - t0
+            launches15w = dict(kernels.LAUNCHES)
+            device_ms15w = kernels.collect()
+    finally:
+        del os.environ["KUEUE_TPU_RESIDENT_VERIFY"]
+    cap.uninstall()
+    st = r15w["stats"]
+    log(f"[15c resident at north-star width] {NORTHSTAR['n_cqs']} CQs, "
+        f"{NORTHSTAR_SHARDS} virtual shards: {len(r15w['records'])} "
+        f"cycles in {r15w_s:.2f}s (serial on the card {serial_w_s:.2f}s; "
+        f"both with the VERIFY gathers), admitted "
+        f"{sum(len(r[0]) for r in r15w['records'])}, preempted "
+        f"{sum(len(r[3]) for r in r15w['records'])}, records equal to the "
+        f"serial drain: {r15w['records'] == serial_w['records']}; boundary "
+        f"{json.dumps(scenarios.burst_boundary_report(st))}; launches "
+        f"{json.dumps({k: launches15w[k] for k in ('burst_cycles',) + SHARD_KERNELS})}"
+        f"; device_ms "
+        f"{json.dumps({k: device_ms15w[k] for k in SHARD_KERNELS})}")
+    check(r15w["records"] == serial_w["records"], "15c: records differ")
+    check(st["burst_resident_hits"] >= 1, st)
+    check(st["burst_resident_scatter_rows"] >= 1, st)
+    check(launches15w["kq_scatter_rows"] >= 1, launches15w)
+    check(launches15w["kq_reduce_dflags"] == st["burst_sharded_dispatches"],
+          launches15w)
+    check(st["burst_boundary_bytes_h2d"] < st["burst_boundary_bytes_equiv"],
+          st)
+    check(any(r[3] for r in r15w["records"]), "15c: no preemption")
+
+    # -- 3g. the two sharded-burst kernels: seeded and captured -------------
+    for seed, D in ((0, 1), (1, 3), (2, 9), (3, 12)):
+        planes, rows, vals = testing.scatter_case(seed, D=D)
+        compare("kq_scatter_rows", [tuple(on_card(planes)),
+                                    torch.from_numpy(rows).cuda(),
+                                    tuple(on_card(vals))], {}, stats)
+    for S in (2, 4, 8):
+        compare("kq_reduce_dflags", [tuple(on_card(list(
+            testing.dflags_blocks(S, 32))))], {}, stats)
+    n_captured = 0
+    for phase in ("northstar_sharded", "resident", "northstar_resident"):
+        for name in SHARD_KERNELS:
+            for args, kw in cap.calls.get((phase, name), []):
+                compare(name, args, kw, stats)
+                n_captured += 1
+    for name in SHARD_KERNELS:
+        check(stats[name]["mismatches"] == 0, (name, stats[name]))
+    log(f"[3g sharded-burst kernels, seeded + {n_captured} captured] "
+        f"{json.dumps({k: stats[k] for k in SHARD_KERNELS})}")
+
     # -- the kernels line ----------------------------------------------------
     by_phase = {"4": launches4, "5": launches5, "7": launches7,
                 "8": launches8, "9": launches9, "9b": launches9b,
-                "11": launches11, "13": launches13, "14": launches14}
+                "11": launches11, "13": launches13, "14": launches14,
+                "15": launches15, "15b": launches15b, "15c": launches15w}
     rows = []
     for name in kernels.KERNELS:
         phase = {"admit_scan_forests": "northstar",
@@ -1035,23 +1368,38 @@ def main() -> int:
                  "fs_admit_scan": "northstar_fs",
                  "drs_components": "northstar_fs",
                  **dict.fromkeys(TAS_KERNELS, "tas"),
-                 **dict.fromkeys(PHASE1, "probe")}.get(name, "bench")
+                 **dict.fromkeys(PHASE1, "probe"),
+                 "kq_scatter_rows": "northstar_resident",
+                 "kq_reduce_dflags": "northstar_sharded"}.get(name, "bench")
         calls = cap.calls.get((phase, name))
         check(calls, f"{name}: no captured {phase} call")
         args, kw = (burst_window(calls) if name == "burst_cycles"
                     else most_heads(calls) if name == "fs_admit_scan"
                     else deepest(calls) if name == "best_fit_descend"
+                    else most_rows(calls) if name == "kq_scatter_rows"
                     else widest(calls) if name in PHASE1
                     else calls[0] if name in ("drs_components",
                                               "fill_counts",
-                                              "split_across_roots")
+                                              "split_across_roots",
+                                              "kq_reduce_dflags")
                     else largest(calls))
         t = time_kernel(name, args, kw)
         launches = {"northstar": launches5, "bench": launches4,
                     "northstar_burst": launches8,
                     "northstar_fs": launches9, "tas": launches11,
-                    "probe": launches13}[phase][name]
+                    "probe": launches13, "northstar_sharded": launches15,
+                    "northstar_resident": launches15w}[phase][name]
         extra = {}
+        if name == "kq_scatter_rows":
+            extra["timed_shape"] = dict(
+                planes=len(args[0]), rows=int(args[0][0].shape[0]),
+                Dp=int(args[1].shape[0]),
+                distinct=int(torch.unique(args[1]).numel()))
+            extra["device_ms_per_launch_on_path"] = (
+                device_ms15w[name] / max(1, launches15w[name]))
+        if name == "kq_reduce_dflags":
+            extra["timed_shape"] = dict(S=len(args[0]),
+                                        K=int(args[0][0].shape[0]))
         if name in TAS_KERNELS:
             extra["dependent_steps"] = tas_dependent_steps(name, args, kw)
             extra["timed_shape"] = dict(
@@ -1111,6 +1459,11 @@ def main() -> int:
             # the dependent chain of one launch: K cycles of L scan steps
             # (plus the candidates each search walks, data-dependent)
             extra["dependent_steps"] = kw["K"] * kw["L"]
+            extra["sharded_northstar"] = dict(
+                shards=NORTHSTAR_SHARDS,
+                launches=launches15["burst_cycles"],
+                device_ms_per_launch=device_ms15["burst_cycles"]
+                / max(1, launches15["burst_cycles"]))
             extra["timed_shape"] = dict(C=int(args[0].shape[0]),
                                         M=int(args[0].shape[1]),
                                         KC=kw["KC"], K=kw["K"], L=kw["L"])

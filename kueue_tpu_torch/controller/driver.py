@@ -119,10 +119,10 @@ class Driver:
             fs_preemption_strategies=fs_preemption_strategies,
             ordering=ordering, clock=clock, namespaces=namespaces)
         if use_device_solver:
-            if self._env_shards() > 1:
-                raise NotImplementedError(
-                    "KUEUE_TPU_SHARDS > 1 (multi-device dispatch) is not "
-                    "ported yet (ROADMAP Queue 1 item 9)")
+            # KUEUE_TPU_SHARDS > 1 shards the fused burst
+            # (schedule_burst → BurstSolver.set_shards); the per-cycle
+            # solver stays on one device, as the JAX Driver's does when
+            # make_mesh fails (CycleSolver.set_mesh is the next slice)
             from ..ops.solver import CycleSolver
             self.scheduler.solver = CycleSolver(
                 ordering, device=device,

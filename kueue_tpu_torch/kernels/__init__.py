@@ -38,15 +38,15 @@ KERNELS = ("admit_scan", "admit_scan_preempt", "admit_scan_forests",
            "minimal_preemptions_batch", "burst_cycles", "fs_admit_scan",
            "drs_components", "fill_counts", "best_fit_descend",
            "split_across_roots", "kq_cq_avail", "kq_classify_heads",
-           "kq_cycle_order")
+           "kq_cycle_order", "kq_scatter_rows", "kq_reduce_dflags")
 SOURCES = ("admit_scan.cu", "admit_scan_preempt.cu", "admit_scan_forests.cu",
            "minimal_preemptions.cu", "burst_cycles.cu", "fs_admit_scan.cu",
            "drs_components.cu", "tas_fill_counts.cu", "tas_descend.cu",
-           "solve_cycle.cu")
+           "solve_cycle.cu", "scatter_rows.cu")
 HEADERS = ("quota.cuh", "admit_entry.cuh", "tas.cuh")
-MAX_DEPTH = 16          # KQ_MAX_DEPTH in quota.cuh
 MAX_THREADS = 1024
 SMEM_LIMIT = 227 * 1024  # dynamic shared memory a block may use on H100
+FOREST_SMEM = 128 * 1024  # admit_scan_forests' head list in shared memory
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
@@ -114,7 +114,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _ARGTYPES = {
     "kq_admit_scan": [_P] * 19 + [_I] * 8 + [_P],
-    "kq_admit_scan_forests": [_P] * 20 + [_I] * 9 + [_P],
+    "kq_admit_scan_forests": [_P] * 21 + [_I] * 9 + [_P],
     "kq_admit_scan_preempt": [_P] * 28 + [_I] * 11 + [_P],
     "kq_minimal_preemptions": [_P] * 18 + [_I] * 7 + [_P],
     "kq_burst_cycles": [_P, _P, _P],
@@ -126,6 +126,8 @@ _ARGTYPES = {
     "kq_cq_avail": [_P, _P, _P],
     "kq_classify_heads": [_P, _P, _P],
     "kq_cycle_order": [_P, _P, _P],
+    "kq_scatter_rows": [_P, _P, _P],
+    "kq_reduce_dflags": [_P, _P, _P],
 }
 
 
@@ -176,14 +178,14 @@ def _check(name: str, t: torch.Tensor, dtype: torch.dtype,
 
 
 def _threads(F: int, minimum: int = 32) -> int:
-    if F > MAX_THREADS:
-        raise ValueError(f"F={F} columns exceed {MAX_THREADS} threads")
-    return max(minimum, -(-F // 32) * 32)
+    """A thread per column up to MAX_THREADS; past that each thread
+    strides over the columns f = tid, tid + threads, ..."""
+    return min(MAX_THREADS, max(minimum, -(-F // 32) * 32))
 
 
 def _check_depth(depth: int) -> None:
-    if not 1 <= depth <= MAX_DEPTH:
-        raise ValueError(f"depth={depth} outside [1, {MAX_DEPTH}]")
+    if depth < 1:
+        raise ValueError(f"depth={depth}: at least 1")
 
 
 def _launch(name: str, fn, *args) -> None:
@@ -280,14 +282,18 @@ def admit_scan_forests(usage0, subtree, guaranteed, borrow_cap, has_blim,
     if n_forests < 1 or max_forest_wl < 1:
         raise ValueError("n_forests and max_forest_wl must be >= 1")
     threads = _threads(F, minimum=128)
-    if (max_forest_wl + threads // 32) * 4 > SMEM_LIMIT:
-        raise ValueError(f"max_forest_wl={max_forest_wl} exceeds shared "
-                         "memory")
     lib = load()
     scratch = torch.empty((N, F), dtype=torch.int32, device=dev)
+    # each forest's head list in shared memory, or past FOREST_SMEM in a
+    # global [n_forests, max_forest_wl] scratch
+    list_global = None
+    if (max_forest_wl + threads // 32) * 4 > FOREST_SMEM:
+        list_global = torch.empty((n_forests, max_forest_wl),
+                                  dtype=torch.int32, device=dev)
     admitted = torch.empty(W, dtype=torch.bool, device=dev)
     _launch("admit_scan_forests", lib.kq_admit_scan_forests,
             *_cycle_ptrs(*args), _ptr(forest_of_node), _ptr(scratch),
+            _P(list_global.data_ptr() if list_global is not None else None),
             _ptr(admitted), N, F, W, rd, rr, depth, n_forests, max_forest_wl,
             threads)
     return admitted
@@ -440,12 +446,13 @@ def burst_node_table(parent, node_level, forest_of_cq, G: int, device):
 
 
 def burst_cycles(*args, K, depth, L, S, KC, n_levels, G, runtime,
-                 node_table=None):
+                 node_table=None, dflags_out=False):
     """CUDA burst_cycles (kernels/burst_cycles.cu): K fused admission
     cycles, one block per cohort forest.  Arguments and outputs as
-    ``ops.burst.burst_cycles_plain``; ``node_table`` as
-    ``burst_node_table`` (derived here when not given)."""
-    from ..ops.burst import ARG_NAMES, NARROW_ARGS, STATE_NAMES
+    ``ops.burst.burst_cycles_plain`` (with ``dflags_out`` the [K, 4]
+    int32 flag block in place of dirty and dirty_reason); ``node_table``
+    as ``burst_node_table`` (derived here when not given)."""
+    from ..ops.burst import ARG_NAMES, NARROW_ARGS, STATE_NAMES, dirty_flags
     if len(args) != len(ARG_NAMES):
         raise ValueError(f"burst_cycles takes {len(ARG_NAMES)} arguments, "
                          f"got {len(args)}")
@@ -519,16 +526,14 @@ def burst_cycles(*args, K, depth, L, S, KC, n_levels, G, runtime,
         C, M, R, N, F, S, L, KC, K, G, depth, n_levels, fnodes.shape[1],
         max(0, runtime), int(a["seq_base"]), BURST_THREADS)
     _launch("burst_cycles", lib.kq_burst_cycles, ptrs, dims)
-    dirty = dflags[:, 0] > 0
-    dirty_reason = ((dflags[:, 1] > 0).to(i32) * 1
-                    + (dflags[:, 2] > 0).to(i32) * 2)
-    return (head_row, kind, slot, borrows, tgt_words, dirty, dirty_reason,
-            tuple(carry))
+    flags = (dflags,) if dflags_out else dirty_flags(dflags)
+    return (head_row, kind, slot, borrows, tgt_words) + flags + (
+        tuple(carry),)
 
 
 # -- fair sharing --------------------------------------------------------------
 
-FS_MAX_F = 64           # FS_MAX_F in fs_admit_scan.cu: per-thread carry
+FS_MAX_F = 64           # FS_MAX_F in fs_admit_scan.cu: carry in registers
 FS_MAX_THREADS = 256
 
 
@@ -565,17 +570,19 @@ def fs_admit_scan(usage0, subtree, sq_mask, guaranteed, borrow_cap,
     _check_depth(depth)
     if not 1 <= n_levels <= depth:
         raise ValueError(f"n_levels={n_levels} outside [1, depth={depth}]")
-    if not 1 <= F <= FS_MAX_F or R < 1 or N < 1:
-        raise ValueError(f"F={F} must be in [1, {FS_MAX_F}], R={R} and "
-                         f"N={N} at least 1")
+    if min(F, R, N) < 1:
+        raise ValueError(f"F={F}, R={R} and N={N} must be at least 1")
     order = torch.empty(W, dtype=i32, device=dev)
     admitted = torch.empty(W, dtype=b, device=dev)
     processed = torch.empty(W, dtype=b, device=dev)
     if W == 0:
         return order, admitted, processed
     lib = load()
-    # F <= FS_MAX_F <= FS_MAX_THREADS: a thread for each column
+    # threads stride over entries, nodes and columns
     threads = max(32, -(-min(max(W, N, F), FS_MAX_THREADS) // 32) * 32)
+    # each thread's DRS carry row: registers up to FS_MAX_F columns
+    carry = (torch.empty((threads, F), dtype=i32, device=dev)
+             if F > FS_MAX_F else None)
     # usage [N, F], node winners [N], four key minima and the promotion
     # slots [N + 1] each, DRS [W, depth], remaining [W], two scalars
     ints = N * F + N + 5 * (N + 1) + W * depth + W + 2
@@ -588,8 +595,9 @@ def fs_admit_scan(usage0, subtree, sq_mask, guaranteed, borrow_cap,
     tensors = (usage0, subtree, sq_mask, guaranteed, borrow_cap, has_blim,
                parent, node_level, weights, lendable_r, onehot, child_order,
                wl_cq, u_e, nofit, prio, ts_rank, valid, forest_of_node,
-               scratch, order, admitted, processed)
-    ptrs = (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
+               scratch, carry, order, admitted, processed)
+    ptrs = (ctypes.c_void_p * len(tensors))(
+        *[t.data_ptr() if t is not None else None for t in tensors])
     dims = (ctypes.c_int * 8)(N, F, R, W, depth, n_levels, threads, smem)
     _launch("fs_admit_scan", lib.kq_fs_admit_scan, ptrs, dims)
     return order, admitted, processed
@@ -868,3 +876,61 @@ def kq_cycle_order(borrows0, priority, timestamp):
                      [borrows0, priority, timestamp, scratch, order],
                      [W, P, smem])
     return order
+
+
+# -- the forest-sharded burst: resident row scatter, dirty-flag reduction ---
+
+SCATTER_MAX_PLANES = 16     # KQ_SCATTER_MAX_PLANES in scatter_rows.cu
+REDUCE_MAX_SHARDS = 256     # KQ_REDUCE_MAX_SHARDS in scatter_rows.cu
+
+
+def kq_scatter_rows(planes, rows, vals):
+    """CUDA row scatter (kernels/scatter_rows.cu), in place:
+    ``planes[p][rows[i]] = vals[p][i]`` for every plane p, all planes in
+    one launch; returns ``planes`` as a tuple.  Arguments as
+    ``parallel.sharded.scatter_rows_plain``: planes [n, ...] of any dtype
+    on one CUDA device, rows int32 [Dp], vals[p] [Dp, ...] of its plane's
+    dtype and row shape."""
+    planes, vals = tuple(planes), tuple(vals)
+    dev = rows.device
+    if dev.type != "cuda":
+        raise ValueError(f"rows on {dev}: the kernels need CUDA tensors")
+    P = len(planes)
+    if not 1 <= P <= SCATTER_MAX_PLANES or len(vals) != P:
+        raise ValueError(f"{P} planes and {len(vals)} value planes: 1 to "
+                         f"{SCATTER_MAX_PLANES} of each, as many")
+    Dp = rows.shape[0] if rows.dim() == 1 else -1
+    _check("rows", rows, torch.int32, (Dp,), dev)
+    n = planes[0].shape[0]
+    row_bytes = []
+    for k, (pl, v) in enumerate(zip(planes, vals)):
+        _check(f"planes[{k}]", pl, pl.dtype, (n,) + tuple(pl.shape[1:]), dev)
+        _check(f"vals[{k}]", v, pl.dtype, (Dp,) + tuple(pl.shape[1:]), dev)
+        row_bytes.append(pl[0].numel() * pl.element_size() if n else 0)
+    if Dp == 0 or n == 0:
+        return planes
+    _array_launch("kq_scatter_rows", load().kq_scatter_rows,
+                  [*planes, *vals, rows], [P, Dp, n, *row_bytes])
+    return planes
+
+
+def kq_reduce_dflags(blocks):
+    """CUDA sum of S [K, 4] int32 dirty-flag blocks (kernels/
+    scatter_rows.cu) → [K, 4] int32 on the blocks' device; arguments as
+    ``parallel.sharded.reduce_dflags_plain``."""
+    blocks = tuple(blocks)
+    S = len(blocks)
+    if not 1 <= S <= REDUCE_MAX_SHARDS:
+        raise ValueError(f"{S} blocks: 1 to {REDUCE_MAX_SHARDS}")
+    dev = blocks[0].device
+    if dev.type != "cuda":
+        raise ValueError(f"blocks on {dev}: the kernels need CUDA tensors")
+    K = blocks[0].shape[0] if blocks[0].dim() == 2 else -1
+    for k, b in enumerate(blocks):
+        _check(f"blocks[{k}]", b, torch.int32, (K, 4), dev)
+    out = torch.empty((K, 4), dtype=torch.int32, device=dev)
+    if K == 0:
+        return out
+    _array_launch("kq_reduce_dflags", load().kq_reduce_dflags,
+                  [*blocks, out], [S, K * 4])
+    return out

@@ -67,27 +67,30 @@ __device__ __forceinline__ int kq_reserve_delta(const KqCycle& c,
   return s;
 }
 
-// Every thread of the block calls this with the same (wi, valid); thread
-// f owns column f of `usage`.  Returns the block-uniform admit decision.
+// Every thread of the block calls this with the same (wi, valid); each
+// thread owns the columns f = tid, tid + blockDim.x, ... of `usage`.
+// Returns the block-uniform admit decision.
 __device__ __forceinline__ bool kq_admit_entry(const KqTree& t,
                                                const KqCycle& c, int* usage,
                                                int wi, bool valid) {
-  const int f = threadIdx.x;
-  const bool own = f < t.F;
   const int cq = max(c.wl_cq[wi], 0);
   bool ok_f = true;
-  if (own) {
+  for (int f = threadIdx.x; f < t.F; f += blockDim.x) {
     const int avail = kq_available_at(t, usage, cq, f);
-    ok_f = kq_pairs_fit(c.dec_fr, c.dec_amt, c.rd, wi, f, avail);
+    if (!kq_pairs_fit(c.dec_fr, c.dec_amt, c.rd, wi, f, avail)) ok_f = false;
   }
   const bool ok = __syncthreads_and(ok_f) != 0;
   const bool admit = c.fit_mask[wi] && valid && ok;
   const bool is_res = c.res_mask[wi] && valid;
-  if (own && (admit || is_res)) {
-    int delta = 0;
-    if (admit) delta = kq_pairs_sum(c.dec_fr, c.dec_amt, c.rd, wi, f);
-    if (is_res) delta = kq_add(delta, kq_reserve_delta(c, usage, t.F, wi, cq, f));
-    kq_add_usage_chain(t, usage, c.wl_cq[wi], delta, f);
+  if (admit || is_res) {
+    for (int f = threadIdx.x; f < t.F; f += blockDim.x) {
+      int delta = 0;
+      if (admit) delta = kq_pairs_sum(c.dec_fr, c.dec_amt, c.rd, wi, f);
+      if (is_res) {
+        delta = kq_add(delta, kq_reserve_delta(c, usage, t.F, wi, cq, f));
+      }
+      kq_add_usage_chain(t, usage, c.wl_cq[wi], delta, f);
+    }
   }
   return admit;
 }

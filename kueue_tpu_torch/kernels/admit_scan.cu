@@ -1,9 +1,9 @@
 // admit_scan: the sequential admit loop of one cycle in one launch.
 //
 // Replaces kueue_tpu/ops/cycle.py admit_scan (a jitted lax.scan over the
-// cycle order).  One thread block; thread f owns flavor-resource column f
-// of the [N, F] usage carry, which lives in shared memory when it fits
-// and in global scratch otherwise.  Each entry costs one chain walk per
+// cycle order).  One thread block; each thread owns the flavor-resource
+// columns f = tid, tid + blockDim.x, ... of the [N, F] usage carry, which
+// lives in shared memory when it fits and in global scratch otherwise.  Each entry costs one chain walk per
 // column and one block reduction (__syncthreads_and) for the fit.
 //
 // Bound: latency, not bytes or operations.  The W entries are strictly

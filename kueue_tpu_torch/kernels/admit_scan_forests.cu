@@ -6,6 +6,8 @@
 // owns forest b's rows of the [N, F] usage carry (global scratch) and
 // decides its entries alone.  It compacts its entries out of the cycle
 // order with warp ballots, in order and up to max_forest_wl of them,
+// into a list in shared memory (in a global [n_forests, max_forest_wl]
+// scratch when the list would take more than the launcher's limit),
 // which is _forest_schedule without a sort; entries past max_forest_wl
 // are not admitted, as the JAX schedule drops them.  Heads with
 // wl_cq < 0 belong to the padding bucket and are never admitted.
@@ -19,11 +21,14 @@
 __global__ void kq_admit_scan_forests_kernel(
     KqTree t, KqCycle c, const int* usage0, int* usage, int n_nodes,
     const int* order, const int* forest_of_node, int W, int n_forests,
-    int max_forest_wl, uint8_t* admitted) {
+    int max_forest_wl, int* list_global, uint8_t* admitted) {
   extern __shared__ int smem[];
-  int* list = smem;                    // [max_forest_wl] head indices
-  int* warp_count = smem + max_forest_wl;  // [blockDim / 32]
   const int b = blockIdx.x;
+  // [max_forest_wl] head indices, then [blockDim / 32] warp counts
+  int* list = list_global != nullptr
+                  ? list_global + static_cast<size_t>(b) * max_forest_wl
+                  : smem;
+  int* warp_count = list_global != nullptr ? smem : smem + max_forest_wl;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
@@ -83,14 +88,15 @@ extern "C" int kq_admit_scan_forests(
     const int* dec_fr, const int* dec_amt, const uint8_t* fit_mask,
     const int* res_fr, const int* res_amt, const uint8_t* res_mask,
     const uint8_t* res_borrows, const int* order, const int* forest_of_node,
-    int* scratch, uint8_t* admitted, int n_nodes, int F, int W, int rd,
-    int rr, int depth, int n_forests, int max_forest_wl, int threads,
-    cudaStream_t stream) {
+    int* scratch, int* list_global, uint8_t* admitted, int n_nodes, int F,
+    int W, int rd, int rr, int depth, int n_forests, int max_forest_wl,
+    int threads, cudaStream_t stream) {
   KqTree t{subtree, guaranteed, borrow_cap, has_blim, parent, F, depth};
   KqCycle c{nominal_cq, npb_cq, wl_cq, dec_fr, dec_amt, rd, fit_mask,
             res_fr, res_amt, rr, res_mask, res_borrows};
+  const int list_ints = list_global != nullptr ? 0 : max_forest_wl;
   const int smem_bytes =
-      static_cast<int>((max_forest_wl + threads / 32) * sizeof(int));
+      static_cast<int>((list_ints + threads / 32) * sizeof(int));
   if (smem_bytes > 48 * 1024) {
     cudaFuncSetAttribute(kq_admit_scan_forests_kernel,
                          cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -98,6 +104,6 @@ extern "C" int kq_admit_scan_forests(
   }
   kq_admit_scan_forests_kernel<<<n_forests, threads, smem_bytes, stream>>>(
       t, c, usage0, scratch, n_nodes, order, forest_of_node, W, n_forests,
-      max_forest_wl, admitted);
+      max_forest_wl, list_global, admitted);
   return static_cast<int>(cudaGetLastError());
 }

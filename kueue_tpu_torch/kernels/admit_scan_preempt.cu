@@ -2,7 +2,8 @@
 //
 // Replaces kueue_tpu/ops/cycle.py admit_scan_preempt (+
 // _preempt_entry_decision and _remove_usage_chain).  One thread block;
-// thread f owns column f of three [N, F] planes: `usage` (the live
+// each thread owns the columns f = tid, tid + blockDim.x, ... of three
+// [N, F] planes: `usage` (the live
 // snapshot: admits, reserves and preemptor charges, targets not removed),
 // `check` (usage with every issued preemption's targets removed, what
 // fits checks against) and `trial` (check with the current entry's
@@ -27,17 +28,17 @@ __global__ void kq_admit_scan_preempt_kernel(
     int use_smem) {
   extern __shared__ int smem[];
   const int tid = threadIdx.x;
-  const int f = tid;
-  const bool own = f < t.F;
-  const int nf = n_nodes * t.F;
+  const int T = blockDim.x;
+  const int F = t.F;
+  const int nf = n_nodes * F;
   int* usage = use_smem ? smem : scratch;
   int* check = usage + nf;
   int* trial = usage + 2 * nf;
-  for (int i = tid; i < nf; i += blockDim.x) {
+  for (int i = tid; i < nf; i += T) {
     usage[i] = usage0[i];
     check[i] = usage0[i];
   }
-  for (int i = tid; i < n_targets; i += blockDim.x) used[i] = 0;
+  for (int i = tid; i < n_targets; i += T) used[i] = 0;
   __syncthreads();
 
   for (int step = 0; step < W; ++step) {
@@ -48,9 +49,11 @@ __global__ void kq_admit_scan_preempt_kernel(
 
     // fit entry: the fixed pairs against the check plane
     bool ok_f = true;
-    if (own) {
+    for (int f = tid; f < F; f += T) {
       const int avail = kq_available_at(t, check, cq, f);
-      ok_f = kq_pairs_fit(c.dec_fr, c.dec_amt, c.rd, wi, f, avail);
+      if (!kq_pairs_fit(c.dec_fr, c.dec_amt, c.rd, wi, f, avail)) {
+        ok_f = false;
+      }
     }
     const bool fit_ok = __syncthreads_and(ok_f) != 0;
     const bool admit = c.fit_mask[wi] && valid && fit_ok;
@@ -68,19 +71,16 @@ __global__ void kq_admit_scan_preempt_kernel(
     bool preempting = false;
     if (act_pre) {
       bool pre_f = true;
-      if (own) {
-        for (int n = 0; n < n_nodes; ++n) {
-          trial[n * t.F + f] = check[n * t.F + f];
-        }
+      for (int f = tid; f < F; f += T) {
+        for (int n = 0; n < n_nodes; ++n) trial[n * F + f] = check[n * F + f];
         for (int j = 0; j < mt; ++j) {
           const int tj = tg[j];
           if (tj < 0) continue;
           kq_remove_usage_chain(t, trial, tu_cq[tj],
-                                tu_delta[static_cast<size_t>(tj) * t.F + f],
-                                f);
+                                tu_delta[static_cast<size_t>(tj) * F + f], f);
         }
         const int avail = kq_available_at(t, trial, cq, f);
-        pre_f = kq_pairs_fit(pre_fr, pre_amt, rp, wi, f, avail);
+        if (!kq_pairs_fit(pre_fr, pre_amt, rp, wi, f, avail)) pre_f = false;
       }
       preempting = __syncthreads_and(pre_f) != 0;
       if (preempting && tid == 0) {
@@ -91,17 +91,19 @@ __global__ void kq_admit_scan_preempt_kernel(
     }
 
     const bool is_res = c.res_mask[wi] && valid;
-    if (own && (admit || preempting || is_res)) {
-      int delta = 0;
-      if (admit) delta = kq_pairs_sum(c.dec_fr, c.dec_amt, c.rd, wi, f);
-      if (preempting) {
-        delta = kq_add(delta, kq_pairs_sum(pre_fr, pre_amt, rp, wi, f));
+    if (admit || preempting || is_res) {
+      for (int f = tid; f < F; f += T) {
+        int delta = 0;
+        if (admit) delta = kq_pairs_sum(c.dec_fr, c.dec_amt, c.rd, wi, f);
+        if (preempting) {
+          delta = kq_add(delta, kq_pairs_sum(pre_fr, pre_amt, rp, wi, f));
+        }
+        if (is_res) {
+          delta = kq_add(delta, kq_reserve_delta(c, usage, F, wi, cq, f));
+        }
+        kq_add_usage_chain(t, usage, wcq, delta, f);
+        kq_add_usage_chain(t, preempting ? trial : check, wcq, delta, f);
       }
-      if (is_res) {
-        delta = kq_add(delta, kq_reserve_delta(c, usage, t.F, wi, cq, f));
-      }
-      kq_add_usage_chain(t, usage, wcq, delta, f);
-      kq_add_usage_chain(t, preempting ? trial : check, wcq, delta, f);
     }
     if (preempting) {
       int* tmp = check;

@@ -13,8 +13,11 @@
 // are those of the all-forest scan.
 //
 // One thread block.  Threads stride over entries (DRS), over nodes (the
-// tournament) and own one flavor-resource column each in the fit and the
-// charge.  The usage carry, the node winners, the four key minima and the
+// tournament) and over the flavor-resource columns in the fit and the
+// charge (any F).  An entry's DRS walk carries its usage up the chain in
+// a per-thread array of F ints: in registers / local memory up to
+// FS_MAX_F columns, in a global [threads, F] scratch row beyond.  The
+// usage carry, the node winners, the four key minima and the
 // promotion slots (each [N + 1]: slot N is JAX's drop bucket, unused here
 // because dead rows simply do not scatter) and the per-entry DRS live in
 // shared memory when they fit and in global scratch otherwise.  The
@@ -56,6 +59,7 @@ struct FsArgs {
   const uint8_t* valid;
   const int* forest_of_node;
   int* scratch;
+  int* carry;                 // [threads, F] when F > FS_MAX_F, else null
   int* order;
   uint8_t* admitted;
   uint8_t* processed;
@@ -68,7 +72,10 @@ __device__ void fs_entry_drs(const FsArgs& a, const int* usage, int j,
                              int cq, int* out) {
   const int F = a.F;
   const int R = a.R;
-  int carry[FS_MAX_F];
+  int carry_regs[FS_MAX_F];
+  int* carry = a.carry != nullptr
+                   ? a.carry + static_cast<size_t>(threadIdx.x) * F
+                   : carry_regs;
   for (int f = 0; f < F; ++f) carry[f] = a.u_e[static_cast<size_t>(j) * F + f];
   int node = cq;
   for (int lvl = 0; lvl < a.depth; ++lvl) {
@@ -214,15 +221,20 @@ __global__ void kq_fs_admit_scan_kernel(FsArgs a) {
     const int wcq = max(a.wl_cq[win], 0);
 
     // fit re-check and charge (host admit-loop semantics)
-    int wu = 0;
+    const int* wu = a.u_e + static_cast<size_t>(win) * F;
     bool ok_f = true;
-    if (tid < F) {
-      wu = a.u_e[static_cast<size_t>(win) * F + tid];
-      if (wu > 0) ok_f = wu <= kq_available_at(t, usage, wcq, tid);
+    for (int f = tid; f < F; f += T) {
+      if (wu[f] > 0 && !(wu[f] <= kq_available_at(t, usage, wcq, f))) {
+        ok_f = false;
+      }
     }
     const bool fits = __syncthreads_and(ok_f) != 0;
     const bool admit = !a.nofit[win] && fits;
-    if (admit && tid < F) kq_add_usage_chain(t, usage, wcq, wu, tid);
+    if (admit) {
+      for (int f = tid; f < F; f += T) {
+        kq_add_usage_chain(t, usage, wcq, wu[f], f);
+      }
+    }
     if (tid == 0) {
       rem[win] = 0;
       a.order[rnd] = win;
@@ -233,8 +245,9 @@ __global__ void kq_fs_admit_scan_kernel(FsArgs a) {
   }
 }
 
-// p: the 19 inputs in ops/fs_scan.py FS_ARGS order, then scratch, order,
-// admitted, processed.  d: N, F, R, W, depth, n_levels, threads,
+// p: the 19 inputs in ops/fs_scan.py FS_ARGS order, then scratch, carry
+// (null up to FS_MAX_F columns), order, admitted, processed.  d: N, F,
+// R, W, depth, n_levels, threads,
 // smem_bytes (0: the work arrays live in scratch).
 extern "C" int kq_fs_admit_scan(void* const* p, const int* d,
                                 cudaStream_t stream) {
@@ -259,9 +272,10 @@ extern "C" int kq_fs_admit_scan(void* const* p, const int* d,
   a.valid = static_cast<const uint8_t*>(p[17]);
   a.forest_of_node = static_cast<const int*>(p[18]);
   a.scratch = static_cast<int*>(p[19]);
-  a.order = static_cast<int*>(p[20]);
-  a.admitted = static_cast<uint8_t*>(p[21]);
-  a.processed = static_cast<uint8_t*>(p[22]);
+  a.carry = static_cast<int*>(p[20]);
+  a.order = static_cast<int*>(p[21]);
+  a.admitted = static_cast<uint8_t*>(p[22]);
+  a.processed = static_cast<uint8_t*>(p[23]);
   a.N = d[0];
   a.F = d[1];
   a.R = d[2];

@@ -4,12 +4,14 @@
 // Replaces kueue_tpu/ops/preemption_kernel.py minimal_preemptions_batch
 // (a vmap of two lax.scans; minimal_preemptions is the batch with S = 1).
 // Block s copies its forest-local [NL, F] usage plane into shared memory
-// (global scratch when the plane does not fit); thread f owns column f.
+// (global scratch when the plane does not fit); each thread owns the
+// columns f = tid, tid + blockDim.x, ...
 // The forward loop removes candidates in order (with the dynamic
 // borrowing skip and the borrowWithinCohort threshold flip) until the
 // preemptor fits, and stops there; the reverse loop
 // re-adds each removed candidate but the last and keeps it when the
-// preemptor still fits, undoing the chain otherwise.  The fit and the
+// preemptor still fits, undoing the chain otherwise (the undo recomputes
+// the overwritten cells, so no chain is kept and any depth works).  The fit and the
 // borrowing tests are block reductions (__syncthreads_and / _or).
 //
 // Bound: latency per search (K sequential steps of depth-long chain
@@ -18,17 +20,19 @@
 
 #include "quota.cuh"
 
-// workloadFits (preemption.go:552) at the preemptor's CQ; every thread
-// of the block calls it.
+// workloadFits (preemption.go:552) at the preemptor's CQ for the request
+// row wu [F]; every thread of the block calls it.
 __device__ __forceinline__ bool kq_fits(const KqTree& t, const int* usage,
-                                        int pcq, int wu, bool allow_b) {
-  const int f = threadIdx.x;
+                                        int pcq, const int* wu,
+                                        bool allow_b) {
   bool ok_f = true;
   bool borrow_f = false;
-  if (f < t.F && wu > 0) {
+  for (int f = threadIdx.x; f < t.F; f += blockDim.x) {
+    const int w = wu[f];
+    if (w <= 0) continue;
     const size_t o = static_cast<size_t>(pcq) * t.F + f;
-    ok_f = wu <= kq_available_at(t, usage, pcq, f);
-    borrow_f = kq_add(usage[o], wu) > t.subtree[o];
+    if (!(w <= kq_available_at(t, usage, pcq, f))) ok_f = false;
+    if (kq_add(usage[o], w) > t.subtree[o]) borrow_f = true;
   }
   const bool ok = __syncthreads_and(ok_f) != 0;
   const bool borrowing = __syncthreads_or(borrow_f) != 0;
@@ -46,8 +50,7 @@ __global__ void kq_minimal_preemptions_kernel(
   extern __shared__ int smem[];
   const int s = blockIdx.x;
   const int tid = threadIdx.x;
-  const int f = tid;
-  const bool own = f < F;
+  const int T = blockDim.x;
   const size_t plane = static_cast<size_t>(s) * NL * F;
   int* usage = use_smem ? smem : scratch + plane;   // [NL, F]
   const KqTree t{subtree + plane, guaranteed + plane, borrow_cap + plane,
@@ -56,17 +59,17 @@ __global__ void kq_minimal_preemptions_kernel(
   uint8_t* mask = mask_out + static_cast<size_t>(s) * K;
   const int* ccq = cand_cq + static_cast<size_t>(s) * K;
 
-  for (int k = tid; k < K; k += blockDim.x) mask[k] = 0;
+  for (int k = tid; k < K; k += T) mask[k] = 0;
   const int pcq = pre_cq[s];
   if (pcq < 0) {
     if (tid == 0) fitted_out[s] = 0;
     return;
   }
-  for (int i = tid; i < NL * F; i += blockDim.x) usage[i] = usage0[plane + i];
+  for (int i = tid; i < NL * F; i += T) usage[i] = usage0[plane + i];
   __syncthreads();
 
-  const int wu = own ? wl_usage[static_cast<size_t>(s) * F + f] : 0;
-  const bool need_f = own && frs_mask[static_cast<size_t>(s) * F + f];
+  const int* wu = wl_usage + static_cast<size_t>(s) * F;
+  const uint8_t* need = frs_mask + static_cast<size_t>(s) * F;
   bool allow_b = allow_borrowing0[s] != 0;
   const bool thr = threshold_enabled[s] != 0;
   bool fitted = false;
@@ -80,14 +83,14 @@ __global__ void kq_minimal_preemptions_kernel(
     // dynamic skip: an other-CQ candidate counts only while its CQ is
     // borrowing in a resource needing preemption
     bool cb_f = false;
-    if (need_f) {
+    for (int f = tid; f < F; f += T) {
       const size_t o = static_cast<size_t>(cq) * F + f;
-      cb_f = usage[o] > t.subtree[o];
+      if (need[f] && usage[o] > t.subtree[o]) cb_f = true;
     }
     const bool cand_borrowing = __syncthreads_or(cb_f) != 0;
     if (other && !cand_borrowing) continue;
     if (other && thr && cand_above[ko]) allow_b = false;
-    if (own) {
+    for (int f = tid; f < F; f += T) {
       kq_remove_usage_chain(t, usage, cq, cand_delta[ko * F + f], f);
     }
     if (tid == 0) mask[k] = 1;
@@ -96,21 +99,24 @@ __global__ void kq_minimal_preemptions_kernel(
   }
 
   if (!fitted) {
-    for (int k = tid; k < K; k += blockDim.x) mask[k] = 0;
+    for (int k = tid; k < K; k += T) mask[k] = 0;
     if (tid == 0) fitted_out[s] = 0;
     return;
   }
-  int old[KQ_MAX_DEPTH];
   for (int k = last_removed - 1; k >= 0; --k) {
     if (!mask[k]) continue;
     const int cq = ccq[k];
     const size_t ko = static_cast<size_t>(s) * K + k;
-    if (own) kq_add_usage_chain(t, usage, cq, cand_delta[ko * F + f], f, old);
+    for (int f = tid; f < F; f += T) {
+      kq_add_usage_chain(t, usage, cq, cand_delta[ko * F + f], f);
+    }
     const bool still = kq_fits(t, usage, pcq, wu, allow_b);
     if (still) {
       if (tid == 0) mask[k] = 0;   // filled back: not a target
-    } else if (own) {
-      kq_restore_chain(t, usage, cq, f, old);
+    } else {
+      for (int f = tid; f < F; f += T) {
+        kq_undo_add_usage_chain(t, usage, cq, cand_delta[ko * F + f], f);
+      }
     }
   }
   if (tid == 0) fitted_out[s] = 1;

@@ -4,18 +4,23 @@
 // (available_at, add_usage_chain) and the two remove_usage_chain copies
 // (kueue_tpu/ops/cycle.py _remove_usage_chain, ops/preemption_kernel.py
 // remove_usage_chain).  Every recurrence is independent per
-// flavor-resource column f, so the kernels give each thread of a block one
-// column: thread f walks the ancestor chain of a node for column f only,
-// and no two threads ever touch the same usage cell.  Cross-column
-// decisions (a fit over all pairs) are block reductions in the kernels.
+// flavor-resource column f, so the kernels give each thread of a block the
+// columns f = tid, tid + blockDim.x, ... (any F): a thread walks the
+// ancestor chain of a node for its own columns only, and no two threads
+// ever touch the same usage cell.  Cross-column decisions (a fit over all
+// pairs) are block reductions in the kernels.
 //
 // Arithmetic: XLA's int32 adds and subtracts wrap; signed overflow is
 // undefined in C++, so every add and subtract goes through unsigned.
+//
+// Chains of any depth: no walk needs its whole chain in a fixed array.
+// The top-down available() holds the chain in register segments of
+// KQ_CHAIN_SEG levels (kq_chain_top_down), and the undo of an addUsage()
+// recomputes each overwritten cell from the charged one (the add is a
+// bijection in wrapping int32).
 #pragma once
 
 #include <cstdint>
-
-#define KQ_MAX_DEPTH 16
 
 __device__ __forceinline__ int kq_add(int a, int b) {
   return static_cast<int>(static_cast<unsigned>(a) + static_cast<unsigned>(b));
@@ -49,21 +54,49 @@ struct KqTree {
   int depth;
 };
 
+#define KQ_CHAIN_SEG 16
+
+// The i-th ancestor of node (i = 0: the node itself), -1 past the root.
+__device__ __forceinline__ int kq_ancestor(const int* parent, int node,
+                                           int i) {
+  int n = node;
+  for (int k = 0; k < i && n >= 0; ++k) n = parent[n];
+  return n;
+}
+
+// Calls visit(c) for each ancestor c >= 0 of node below level `depth`,
+// top-down: the depth-1-th ancestor first, the node last.  The chain sits
+// in registers KQ_CHAIN_SEG levels at a time, the topmost segment first,
+// and each segment's first node is found by walking up from the node: a
+// chain of at most KQ_CHAIN_SEG levels costs `depth` parent reads, a
+// deeper one about depth^2 / (2 KQ_CHAIN_SEG) more.
+template <typename Visit>
+__device__ __forceinline__ void kq_chain_top_down(const int* parent,
+                                                  int node, int depth,
+                                                  Visit visit) {
+  for (int lo = ((depth - 1) / KQ_CHAIN_SEG) * KQ_CHAIN_SEG; lo >= 0;
+       lo -= KQ_CHAIN_SEG) {
+    int chain[KQ_CHAIN_SEG];
+    const int n_seg = min(depth - lo, KQ_CHAIN_SEG);
+    int n = kq_ancestor(parent, node, lo);
+    for (int i = 0; i < n_seg; ++i) {
+      chain[i] = n;
+      n = (n >= 0) ? parent[n] : -1;
+    }
+    for (int i = n_seg - 1; i >= 0; --i) {
+      if (chain[i] >= 0) visit(chain[i]);
+    }
+  }
+}
+
 // available() of one node in column f (resource_node.go:89): the chain
-// form of quota_kernel.available_at.  node = -1 gives 0.
+// form of quota_kernel.available_at, walked from the depth-1-th ancestor
+// down to the node.  node = -1 gives 0.
 __device__ __forceinline__ int kq_available_at(const KqTree& t,
                                                const int* usage, int node,
                                                int f) {
-  int chain[KQ_MAX_DEPTH];
-  int n = node;
-  for (int i = 0; i < t.depth; ++i) {
-    chain[i] = n;
-    n = (n >= 0) ? t.parent[n] : -1;
-  }
   int avail = 0;
-  for (int i = t.depth - 1; i >= 0; --i) {
-    const int c = chain[i];
-    if (c < 0) continue;
+  kq_chain_top_down(t.parent, node, t.depth, [&](int c) {
     const size_t o = static_cast<size_t>(c) * t.F + f;
     const int u = usage[o];
     if (t.parent[c] < 0) {
@@ -78,22 +111,19 @@ __device__ __forceinline__ int kq_available_at(const KqTree& t,
       }
       avail = kq_add(local, pa);
     }
-  }
+  });
   return avail;
 }
 
 // addUsage() up one ancestor chain in column f (resource_node.go:123).
-// When `old` is given, the overwritten cells are saved for kq_restore_chain.
 __device__ __forceinline__ void kq_add_usage_chain(const KqTree& t,
                                                    int* usage, int node,
-                                                   int delta, int f,
-                                                   int* old = nullptr) {
+                                                   int delta, int f) {
   int cur = node;
   int carry = delta;
   for (int i = 0; i < t.depth && cur >= 0; ++i) {
     const size_t o = static_cast<size_t>(cur) * t.F + f;
     const int u = usage[o];
-    if (old != nullptr) old[i] = u;
     const int local_avail = max(0, kq_sub(t.guaranteed[o], u));
     usage[o] = kq_add(u, carry);
     carry = max(0, kq_sub(carry, local_avail));
@@ -101,13 +131,19 @@ __device__ __forceinline__ void kq_add_usage_chain(const KqTree& t,
   }
 }
 
-// Undo a kq_add_usage_chain that saved into `old`.
-__device__ __forceinline__ void kq_restore_chain(const KqTree& t, int* usage,
-                                                 int node, int f,
-                                                 const int* old) {
+// Undo the last kq_add_usage_chain(t, usage, node, delta, f): each cell
+// before the add is the charged cell minus the carry that reached it, and
+// that cell gives the carry of the next level exactly as the add did.
+__device__ __forceinline__ void kq_undo_add_usage_chain(const KqTree& t,
+                                                        int* usage, int node,
+                                                        int delta, int f) {
   int cur = node;
+  int carry = delta;
   for (int i = 0; i < t.depth && cur >= 0; ++i) {
-    usage[static_cast<size_t>(cur) * t.F + f] = old[i];
+    const size_t o = static_cast<size_t>(cur) * t.F + f;
+    const int u = kq_sub(usage[o], carry);
+    usage[o] = u;
+    carry = max(0, kq_sub(carry, max(0, kq_sub(t.guaranteed[o], u))));
     cur = t.parent[cur];
   }
 }

@@ -7,7 +7,8 @@
 //
 // 1. kq_cq_avail: available_all (:458-461) of every CQ row, for usage0
 //    and for zero usage (potential0).  A thread per (CQ, flavor-resource)
-//    walks the CQ's ancestor chain once and carries both values; the
+//    walks the CQ's ancestor chain top-down (kq_chain_top_down: any
+//    depth) and carries both values; the
 //    arithmetic is quota.cuh's kq_available_at, whose chain form equals
 //    the JAX dense recurrence on forests no deeper than `depth` (the
 //    packer's depth is the forest's).  Only the C CQ rows are computed:
@@ -54,17 +55,9 @@ __global__ void kq_cq_avail_kernel(KqTree t, const int* usage0, int C,
   if (i >= static_cast<long long>(C) * t.F) return;
   const int c = static_cast<int>(i / t.F);
   const int f = static_cast<int>(i % t.F);
-  int chain[KQ_MAX_DEPTH];
-  int n = c;
-  for (int k = 0; k < t.depth; ++k) {
-    chain[k] = n;
-    n = (n >= 0) ? t.parent[n] : -1;
-  }
   int a = 0;   // available() under usage0
   int p = 0;   // available() under zero usage
-  for (int k = t.depth - 1; k >= 0; --k) {
-    const int node = chain[k];
-    if (node < 0) continue;
+  kq_chain_top_down(t.parent, c, t.depth, [&](int node) {
     const size_t o = static_cast<size_t>(node) * t.F + f;
     const int u = usage0[o];
     if (t.parent[node] < 0) {
@@ -81,7 +74,7 @@ __global__ void kq_cq_avail_kernel(KqTree t, const int* usage0, int C,
       a = kq_add(max(0, kq_sub(g, u)), pa);
       p = kq_add(max(0, g), pp);
     }
-  }
+  });
   avail[i] = a;
   potential[i] = p;
 }

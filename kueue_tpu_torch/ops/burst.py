@@ -47,7 +47,11 @@ usage as ground truth and rebuilds cohort rows level by level.
 ``burst_cycles_plain``, its plain PyTorch version, for CPU tensors.  The
 host half (``pack_burst`` and the delta packs) is the JAX package's
 numpy code, unchanged; ``BurstSolver`` launches on its device — on
-"cuda" the burst runs on the card or raises.
+"cuda" the burst runs on the card or raises.  ``set_shards(n)`` splits
+the cohort forests over a burst mesh (``parallel.sharded``): one launch
+per shard, the dirty flags reduced across shards, and the row planes of
+a fresh pack kept on the mesh between windows, its dirty rows written by
+``parallel.sharded.scatter_rows``.
 """
 
 from __future__ import annotations
@@ -56,12 +60,14 @@ import itertools
 import os
 import sys
 import time
+import weakref
 
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
+from ..chaos import injector as _chaos
 from ..features import env_value
 from .quota_kernel import available_all
 
@@ -150,7 +156,7 @@ def burst_cycles_plain(
         forest_of_cq, strict_cq, wcq_lower, rwc_enabled, rwc_only_lower,
         preempt_ok, members, cand_rows, cand_lmem, self_lmem, ext_release,
         ext_unpark, *, K: int, depth: int, L: int, S: int, KC: int,
-        n_levels: int, G: int, runtime: int):
+        n_levels: int, G: int, runtime: int, dflags_out: bool = False):
     """K fused admission cycles with in-kernel preemption, in plain
     PyTorch (kueue_tpu/ops/burst.py ``_burst_cycles``).
 
@@ -161,7 +167,9 @@ def burst_cycles_plain(
     tgt_words [K,C,KC/32], dirty [K] bool, dirty_reason [K], carry)``,
     int32 unless noted.  ``tgt_words`` holds the uint32 bit words as
     int32 (the same bits); ``carry`` is the final (elig, parked, resume,
-    adm, adm_seq, adm_usage, adm_uses, death, u_cq).
+    adm, adm_seq, adm_usage, adm_uses, death, u_cq).  With ``dflags_out``
+    the [K, 4] int32 flag block (``dirty_flags``' input: one forest
+    shard's part of the window's flags) replaces dirty and dirty_reason.
 
     The greedy and fill-back preemption walks run per lane: a lane stops
     once it fitted or walked past its eligible candidates (which sort
@@ -583,15 +591,24 @@ def burst_cycles_plain(
                      _pack_words(tgt0 & preempting_c[:, None]), dflags))
     head_row, kind, slot, borrows, tgt_words = (
         torch.stack([o[i] for o in outs]) for i in range(5))
-    fl = torch.tensor([o[5] for o in outs], dtype=torch.bool,
-                      device=dev).reshape(K, 3)
-    dirty = fl[:, 0].clone()
-    dirty_reason = (fl[:, 1].to(_I32) * DIRTY_PREEMPT
-                    + fl[:, 2].to(_I32) * DIRTY_SCALAR)
+    # the fourth lane (DIRTY_RESUME) stays 0, as in the JAX kernel
+    dflags = torch.tensor([o[5] + (False,) for o in outs], dtype=_I32,
+                          device=dev).reshape(K, 4)
     carry = (elig, parked, resume, adm, adm_seq, adm_usage, adm_uses,
              death, u_cq)
-    return (head_row, kind, slot, borrows, tgt_words, dirty, dirty_reason,
-            carry)
+    flags = (dflags,) if dflags_out else dirty_flags(dflags)
+    return (head_row, kind, slot, borrows, tgt_words) + flags + (carry,)
+
+
+def dirty_flags(dflags: torch.Tensor):
+    """``(dirty [K] bool, dirty_reason [K] int32)`` of a window's [K, 4]
+    int32 flag block (kueue_tpu/ops/burst.py:791-795): a lane is set
+    where any shard set it."""
+    hit = dflags > 0
+    reason = (hit[:, 1].to(_I32) * DIRTY_PREEMPT
+              + hit[:, 2].to(_I32) * DIRTY_SCALAR
+              + hit[:, 3].to(_I32) * DIRTY_RESUME)
+    return hit[:, 0].contiguous(), reason
 
 
 def _route(t: torch.Tensor) -> bool:
@@ -1767,6 +1784,33 @@ def _pack_burst_cached_classic(structure, queues, cache, scheduler,
 K_BURST_LADDER = (32,)
 
 
+class _ResidentRows:
+    """Shard-resident scatter-tier row planes from the last fresh
+    sharded dispatch, keyed by the DeltaPackState token that produced
+    them.  The next fresh pack reuses them when its ``prev_token``
+    matches: the delta pack spliced every clean record verbatim, so
+    only its ``dirty_cqs`` rows need to re-cross the host boundary.
+    The dirty rows are written into these planes in place, so the plan
+    that owned them (``owner``, weakly held) loses its cached launch
+    inputs when they move on (``hand_over``)."""
+    __slots__ = ("layout", "token", "planes", "owner")
+
+    def __init__(self, layout, token, planes, owner):
+        self.layout = layout
+        self.token = token
+        self.planes = planes
+        self.owner = weakref.ref(owner)
+
+    def hand_over(self) -> dict:
+        """The planes, for a scatter that overwrites them in place: the
+        previous owner plan re-gathers from host if it launches again
+        instead of reading the next plan's rows."""
+        owner = self.owner()
+        if owner is not None:
+            owner._resident_args = None
+        return dict(self.planes)
+
+
 @dataclass
 class BurstHandle:
     """An in-flight fused-burst launch.
@@ -1787,15 +1831,19 @@ class BurstHandle:
     carry: tuple = None          # final scan state (tensors)
     speculative: bool = False
     t_dispatch: float = 0.0
+    sharded: bool = False        # launched on the burst mesh
+    layout: object = None        # BurstShardLayout of a sharded launch
 
 
 class BurstSolver:
-    """Launch fused bursts on one device and expose the decisions for
-    application.
+    """Launch fused bursts and expose the decisions for application.
 
     ``device``: "cuda" (default) launches ``kernels/burst_cycles.cu`` and
     raises without a GPU; "cpu" runs ``burst_cycles_plain``.  There is
-    no route from one to the other."""
+    no route from one to the other.  ``set_shards(n)`` partitions the
+    cohort forests over a burst mesh of n devices
+    (``parallel.sharded``): one launch per shard, each on its own device
+    and stream, and the dirty flags reduced on shard 0."""
 
     def __init__(self, device="cuda"):
         from .solver import resolve_device
@@ -1826,10 +1874,40 @@ class BurstSolver:
                       "burst_delta_packs": 0, "burst_full_packs": 0,
                       "rows_reused": 0, "rows_repacked": 0,
                       "delta_pack_s": 0.0,
+                      # graceful degradation (chaos shard.device_loss or
+                      # lose_devices): mesh rebuilt over the survivors,
+                      # serial fallback when fewer than two remain
+                      "burst_shard_degradations": 0,
+                      "burst_shard_serial_fallbacks": 0,
                       # speculative windows discarded by injected faults
                       "burst_chaos_divergences": 0,
+                      # shard-resident boundary: fresh packs whose row
+                      # planes stayed on the mesh (only dirty rows
+                      # scattered from host) vs full re-uploads, and the
+                      # host→device bytes actually paid vs what the
+                      # upload-everything boundary would have paid
+                      "burst_resident_hits": 0,
+                      "burst_resident_misses": 0,
+                      "burst_resident_scatter_rows": 0,
+                      "burst_resident_scatter_ranges": 0,
+                      "burst_resident_scatter_s": 0.0,
+                      "burst_boundary_bytes_h2d": 0,
+                      "burst_boundary_bytes_equiv": 0,
                       # coalesced dirty-row ranges seen by the journal
-                      "burst_journal_dirty_ranges": 0}
+                      "burst_journal_dirty_ranges": 0,
+                      # cost-balanced forest partition (EWMA of decided
+                      # heads per forest, fed to BurstShardLayout)
+                      "burst_layout_rebuilds": 0,
+                      "burst_layout_cost_balanced": 0,
+                      "burst_shard_cost_ratio": 0.0}
+        # mesh-sharded dispatch (forest partition over a 1-D "cq" axis;
+        # parallel.sharded.BurstShardLayout) — off until set_shards(n>1)
+        self.n_shards = 1
+        self._shard_mesh = None
+        self._shard_layouts: dict = {}
+        # shard-resident device copy of the last fresh pack's row planes
+        # + the per-forest cycle-cost EWMA feeding the next layout
+        self._resident = None
         self._forest_cost: dict | None = None
         # dtype tightening of the launch's packed planes (sticky
         # per-plane widths; KUEUE_TPU_PACK_TIGHTEN=0 disables)
@@ -1837,17 +1915,102 @@ class BurstSolver:
         self._tighten = TightenState()
 
     def set_shards(self, n: int):
-        """Multi-device bursts are not ported: ``n > 1`` raises, and
-        ``n <= 1`` keeps the serial single-device path."""
-        if int(n or 0) > 1:
-            raise NotImplementedError(
-                "sharded bursts (multi-device dispatch) are not ported yet "
-                "(ROADMAP Queue 1 item 9)")
+        """Shard burst dispatches across ``n`` devices: cohort forests
+        are partitioned over a 1-D ``("cq",)`` mesh, each shard's block
+        runs the burst kernel on its device, and the dirty flags are
+        reduced across shards.  ``n <= 1`` (or too few devices for a
+        mesh) keeps the serial single-device path — graceful
+        degradation, not an error."""
+        from ..parallel.sharded import make_burst_mesh
+        n = int(n or 0)
+        mesh = make_burst_mesh(n, self.device) if n > 1 else None
+        self.n_shards = mesh.size if mesh is not None else 1
+        self._shard_mesh = mesh
+        self._shard_layouts = {}
+        self._resident = None
+        if mesh is not None:
+            self.stats.setdefault("burst_sharded_dispatches", 0)
+            # per-shard timing vectors (list-valued stats): how long the
+            # host spent building each shard's block of the permuted
+            # inputs, and how long each shard's decision slice took to
+            # become ready at fetch
+            self.stats["burst_shard_pack_s"] = [0.0] * self.n_shards
+            self.stats["burst_shard_fetch_s"] = [0.0] * self.n_shards
 
     def lose_devices(self, n_lost: int = 1) -> int:
-        raise NotImplementedError(
-            "shard degradation needs the multi-device burst, which is not "
-            "ported yet (ROADMAP Queue 1 item 9)")
+        """Graceful shard degradation: ``n_lost`` devices of the burst
+        mesh died.  The mesh is rebuilt over the survivors and the next
+        ``_layout_for`` re-partitions the cohort forests across them
+        (value-remapped exactly like the original layout, so decisions
+        stay bit-identical); with fewer than two survivors the window
+        re-runs on the serial single-device path.  Returns the new
+        shard count."""
+        if self.n_shards <= 1:
+            return self.n_shards
+        from ..parallel.sharded import make_burst_mesh
+        survivors = max(1, self.n_shards - max(1, int(n_lost)))
+        mesh = (make_burst_mesh(survivors, self.device) if survivors > 1
+                else None)
+        self.n_shards = mesh.size if mesh is not None else 1
+        self._shard_mesh = mesh
+        self._shard_layouts = {}
+        # the resident copy is laid out for the dead mesh; the next
+        # fresh pack re-gathers from host over the survivors
+        self._resident = None
+        self.stats["burst_shard_degradations"] += 1
+        if mesh is None:
+            self.stats["burst_shard_serial_fallbacks"] += 1
+        else:
+            self.stats["burst_shard_pack_s"] = [0.0] * self.n_shards
+            self.stats["burst_shard_fetch_s"] = [0.0] * self.n_shards
+        return self.n_shards
+
+    @staticmethod
+    def _layout_key(plan: BurstPlan):
+        st = plan.structure
+        return (id(st), st.generation, plan.C, plan.M, plan.G, plan.L,
+                plan.KC)
+
+    def _layout_for(self, plan: BurstPlan):
+        from ..parallel.sharded import BurstShardLayout
+        key = self._layout_key(plan)
+        lay = self._shard_layouts.get(key)
+        if lay is None:
+            # feed the measured per-forest cycle cost when it was
+            # sampled under this structure generation — layout rebuilds
+            # happen only on structure/mesh change (or an explicit
+            # refresh_layouts), so this is where rebalancing lands
+            fc = self._forest_cost
+            cost = None
+            if (fc is not None
+                    and fc["generation"] == plan.structure.generation
+                    and fc["windows"] > 0 and len(fc["ewma"]) == plan.G):
+                cost = fc["ewma"]
+            t0 = time.perf_counter()
+            lay = BurstShardLayout(plan, self.n_shards, forest_cost=cost)
+            if os.environ.get("KUEUE_BURST_DEBUG"):
+                print(f"layout rebuild: gen={plan.structure.generation} "
+                      f"Cs={lay.Cs} Gs={lay.Gs} cost={cost is not None} "
+                      f"{(time.perf_counter() - t0)*1e3:.1f}ms",
+                      file=sys.stderr)
+            self._shard_layouts = {key: lay}   # one structure at a time
+            self.stats["burst_layout_rebuilds"] = (
+                self.stats.get("burst_layout_rebuilds", 0) + 1)
+            if lay.cost_balanced:
+                self.stats["burst_layout_cost_balanced"] = (
+                    self.stats.get("burst_layout_cost_balanced", 0) + 1)
+            self.stats["burst_shard_cost_ratio"] = lay.cost_ratio
+            self.stats["burst_shard_cost"] = list(lay.shard_cost)
+        return lay
+
+    def refresh_layouts(self):
+        """Drop cached shard layouts so the NEXT fresh pack re-partitions
+        the forests with the current cycle-cost EWMA.  Callers must hold
+        no in-flight handles (the driver's window boundary, a harness's
+        warmup/measure seam): a chained carry is laid out for the old
+        partition and dispatch_next refuses to cross layouts."""
+        self._shard_layouts = {}
+        self._resident = None
 
     def _note_forest_activity(self, plan: BurstPlan, head_row):
         """Fold one fetched window's decided heads into the per-forest
@@ -1899,10 +2062,23 @@ class BurstSolver:
 
     def _launch(self, plan: BurstPlan, K: int, runtime: int,
                 ext_release, ext_unpark, state, seq_base: int,
-                speculative: bool) -> BurstHandle:
+                speculative: bool, permuted: bool = False) -> BurstHandle:
         """Issue one fused launch without waiting for its results.
         ``state`` is the 9-tuple of *0 scan-state planes (numpy for a
-        packed window, device tensors for a chained one)."""
+        packed window, device tensors for a chained one); ``permuted``
+        marks a chained state already in shard layout."""
+        if (_chaos.ACTIVE is not None and self.n_shards > 1
+                and not speculative and not permuted):
+            # device loss lands at fresh packs only: a chained carry is
+            # laid out for the old mesh and dispatch_next already
+            # refuses to cross dispatch modes
+            f = _chaos.ACTIVE.hit("shard.device_loss")
+            if f is not None:
+                self.lose_devices(int(f.payload or 1))
+        if self.n_shards > 1 and self._shard_mesh is not None:
+            return self._launch_sharded(plan, K, runtime, ext_release,
+                                        ext_unpark, state, seq_base,
+                                        speculative, permuted)
         st = plan.structure
         dev = self.device
         a = self._plan_tensors(plan)
@@ -1939,6 +2115,218 @@ class BurstSolver:
                            seq_base=seq_base, dev=dev, pending=out,
                            speculative=speculative, t_dispatch=t0)
 
+    def _static_inputs(self, plan: BurstPlan, layout, timers) -> dict:
+        """The STATIC tier on the mesh, uploaded once per layout (with
+        each shard's node table for the CUDA kernel)."""
+        dev_static = layout._static_dev
+        if dev_static is None:
+            from ..parallel.sharded import shard_node_tables
+            mesh = self._shard_mesh
+            t_s = time.perf_counter()
+            host = layout.static_arrays(plan, timers)
+            dev_static = {k: mesh.put(v) for k, v in host.items()}
+            dev_static["_node_tables"] = shard_node_tables(mesh, layout)
+            layout._static_dev = dev_static
+            layout._static_nbytes = sum(v.nbytes for v in host.values())
+            self.stats["burst_boundary_bytes_h2d"] += layout._static_nbytes
+            if os.environ.get("KUEUE_BURST_DEBUG"):
+                print(f"static tier upload: "
+                      f"{layout._static_nbytes/1e6:.1f}MB "
+                      f"{(time.perf_counter() - t_s)*1e3:.1f}ms",
+                      file=sys.stderr)
+        return dev_static
+
+    def _scatter_resident(self, layout, planes: dict, rows: np.ndarray,
+                          vals: list) -> None:
+        """Write the padded dirty rows (global shard-layout positions,
+        ``rows``) and their values into the resident planes, in place:
+        each row goes to its shard, one ``scatter_rows`` launch per
+        shard that has rows (all 13 planes at once)."""
+        from ..parallel import sharded
+        mesh = self._shard_mesh
+        Cs = layout.Cs
+        shard = rows // Cs
+        for s in np.unique(shard):
+            s = int(s)
+            sel = shard == s
+            with mesh.on(s):
+                dev = mesh.devices[s]
+                rows_s = torch.from_numpy(
+                    (rows[sel] - s * Cs).astype(np.int32)).to(dev)
+                vals_s = [torch.from_numpy(np.ascontiguousarray(v[sel]))
+                          .to(dev) for v in vals]
+                sharded.scatter_rows(
+                    [planes[n][s] for n in sharded.SCATTER_PLANES],
+                    rows_s, vals_s)
+
+    def _resident_inputs(self, plan: BurstPlan, layout, timers) -> dict:
+        """Sharded kernel inputs for a FRESH pack under the
+        shard-resident boundary (``KUEUE_TPU_RESIDENT``, default on):
+
+        - STATIC tier: permuted + uploaded once per layout lifetime;
+        - SCATTER tier (row records + scan-state init planes): reused
+          on the mesh when this plan chains the resident copy's pack
+          token — only ``plan.dirty_cqs`` rows are scattered from host,
+          coalesced (journal.PackJournal.coalesce) and bucketed
+          (packing.scatter_pad), one ``scatter_rows`` launch per shard
+          for all planes;
+        - GLOBAL tier (dense cross-CQ ranks, preempt envelope):
+          re-uploaded every fresh pack.
+
+        ``KUEUE_TPU_RESIDENT_VERIFY=1`` asserts every scattered plane is
+        bit-identical to a full host permute (test harness switch).
+        Returns the merged name → per-shard tensors dict."""
+        from ..parallel.sharded import (
+            _C_FILLS, SCATTER_PLANES, GLOBAL_PLANES)
+        from ..utils.journal import PackJournal
+        from .packing import scatter_pad
+        a = plan.arrays
+        mesh = self._shard_mesh
+        stats = self.stats
+        dev_static = self._static_inputs(plan, layout, timers)
+        stats["burst_boundary_bytes_equiv"] += layout._static_nbytes
+
+        res = self._resident
+        hit = (res is not None and res.layout is layout
+               and plan.prev_token is not None
+               and res.token == plan.prev_token
+               and plan.dirty_cqs is not None)
+        SCs = layout.n_shards * layout.Cs
+        full_bytes = sum((a[n].nbytes // max(1, plan.C)) * SCs
+                        for n in SCATTER_PLANES)
+        t0 = time.perf_counter()
+        if hit:
+            planes = res.hand_over()
+            dirty = np.asarray(plan.dirty_cqs)
+            D = int(dirty.size)
+            if D:
+                pos = layout.cq_pos[dirty]
+                order = np.argsort(pos, kind="stable")
+                cis = dirty[order]
+                rows = pos[order].astype(np.int32)
+                ranges = PackJournal.coalesce(rows.tolist())
+                Dp = scatter_pad(D)
+                rows_pad = (np.concatenate(
+                    [rows, np.repeat(rows[-1:], Dp - D)])
+                    if Dp != D else rows)
+                nb = 0
+                vals_all = []
+                for name in SCATTER_PLANES:
+                    vals = np.ascontiguousarray(a[name][cis])
+                    nb += vals.nbytes
+                    if Dp != D:
+                        vals = np.concatenate(
+                            [vals, np.repeat(vals[-1:], Dp - D, axis=0)])
+                    vals_all.append(vals)
+                self._scatter_resident(layout, planes, rows_pad, vals_all)
+                stats["burst_resident_scatter_rows"] += D
+                stats["burst_resident_scatter_ranges"] += len(ranges)
+                stats["burst_boundary_bytes_h2d"] += nb
+            stats["burst_resident_hits"] += 1
+            stats["burst_resident_scatter_s"] += time.perf_counter() - t0
+            if env_value("KUEUE_TPU_RESIDENT_VERIFY"):
+                for name in SCATTER_PLANES:
+                    want = layout.permute_rows(a[name], _C_FILLS[name])
+                    if not np.array_equal(mesh.gather(planes[name]), want):
+                        raise AssertionError(
+                            f"resident scatter drift in {name}")
+        else:
+            planes = {
+                name: mesh.put(layout.permute_rows(
+                    a[name], _C_FILLS[name], timers), timers)
+                for name in SCATTER_PLANES}
+            stats["burst_resident_misses"] += 1
+            stats["burst_boundary_bytes_h2d"] += full_bytes
+            if os.environ.get("KUEUE_BURST_DEBUG"):
+                print(f"resident miss: {full_bytes/1e6:.1f}MB "
+                      f"{(time.perf_counter() - t0)*1e3:.1f}ms",
+                      file=sys.stderr)
+        stats["burst_boundary_bytes_equiv"] += full_bytes
+
+        glob = {}
+        for name in GLOBAL_PLANES:
+            host = layout.permute_rows(a[name], _C_FILLS[name], timers)
+            glob[name] = mesh.put(host, timers)
+            stats["burst_boundary_bytes_h2d"] += host.nbytes
+            stats["burst_boundary_bytes_equiv"] += host.nbytes
+        self._resident = (
+            _ResidentRows(layout, plan.pack_token, planes, plan)
+            if plan.pack_token is not None else None)
+        merged = dict(dev_static)
+        merged.update(planes)
+        merged.update(glob)
+        return merged
+
+    def _shard_inputs(self, plan: BurstPlan, layout, timers) -> dict:
+        """The permuted plan on the mesh without the resident boundary
+        (``KUEUE_TPU_RESIDENT=0``): every non-state plane uploaded once
+        per plan, chained windows reuse it."""
+        cached = getattr(plan, "_shard_tensors", None)
+        if cached is not None and cached[0] is layout:
+            return cached[1]
+        host = layout.plan_arrays(plan, timers)
+        out = dict(self._static_inputs(plan, layout, timers))
+        for k, v in host.items():
+            if k not in out:
+                out[k] = self._shard_mesh.put(v, timers)
+        plan._shard_tensors = (layout, out)
+        return out
+
+    def _launch_sharded(self, plan: BurstPlan, K: int, runtime: int,
+                        ext_release, ext_unpark, state, seq_base: int,
+                        speculative: bool, permuted: bool) -> BurstHandle:
+        """Mesh-sharded twin of the serial launch: plan tensors and scan
+        state are permuted into per-forest shard blocks (value-remapped
+        so every rank/slot the kernel compares is carried verbatim —
+        decisions stay bit-identical) and each shard's block is launched
+        on its device (``parallel.sharded.sharded_burst``).  With the
+        resident boundary on, the permuted row planes live on the mesh:
+        a fresh pack scatters only its dirty rows (``_resident_inputs``)
+        and a chained window reuses the cached device dict outright."""
+        from ..parallel.sharded import _STATE_NAMES, sharded_burst
+        layout = self._layout_for(plan)
+        mesh = self._shard_mesh
+        timers = self.stats.get("burst_shard_pack_s")
+        a = None
+        if env_value("KUEUE_TPU_RESIDENT") != "0":
+            cached = getattr(plan, "_resident_args", None)
+            if cached is not None and cached[0] is layout:
+                a = cached[1]
+            elif not permuted:
+                a = self._resident_inputs(plan, layout, timers)
+                plan._resident_args = (layout, a)
+            if a is not None and not permuted:
+                state = tuple(a[n] for n in _STATE_NAMES)
+        if a is None:
+            a = self._shard_inputs(plan, layout, timers)
+            if not permuted:
+                state = tuple(mesh.put(x, timers)
+                              for x in layout.permute_state(state, timers))
+        extr, extu = layout.permute_ext(ext_release, ext_unpark)
+        ext = (mesh.put_ax1(extr), mesh.put_ax1(extu))
+        st = plan.structure
+        t0 = time.perf_counter()
+        out = sharded_burst(
+            mesh, a, state, seq_base, ext, K=K, depth=st.depth, L=plan.L,
+            S=int(st.slot_fr.shape[1]), KC=plan.KC,
+            n_levels=plan.n_levels, G=layout.Gs, runtime=max(0, runtime),
+            node_tables=a["_node_tables"])
+        self.stats["burst_dispatches"] += 1
+        self.stats["burst_cycles_decided"] += K
+        self.stats["burst_sharded_dispatches"] = (
+            self.stats.get("burst_sharded_dispatches", 0) + 1)
+        if speculative:
+            self.stats["burst_spec_dispatches"] += 1
+        else:
+            self.stats["burst_serial_windows"] += 1
+        dev = mesh.devices[0]
+        if dev.type == "cuda":
+            self.stats["burst_cuda_dispatches"] += 1
+        return BurstHandle(plan=plan, K=K, runtime=runtime,
+                           seq_base=seq_base, dev=dev, pending=out,
+                           speculative=speculative, t_dispatch=t0,
+                           sharded=True, layout=layout)
+
     def dispatch(self, plan: BurstPlan, K: int, runtime: int,
                  ext_release: np.ndarray,
                  ext_unpark: np.ndarray) -> BurstHandle:
@@ -1959,19 +2347,42 @@ class BurstSolver:
         from the modeled window must discard the handle unfetched."""
         if handle.carry is None:
             return None
+        # a carry from one dispatch mode can't chain into the other
+        # (sharded carries live in shard layout): force a re-pack
+        if handle.sharded != (self.n_shards > 1
+                              and self._shard_mesh is not None):
+            return None
+        # nor across layouts: after lose_devices/refresh_layouts the
+        # next _layout_for would re-partition and the carry's shard
+        # blocks no longer line up with the new permutation
+        if (handle.sharded and handle.layout is not None
+                and self._shard_layouts.get(
+                    self._layout_key(handle.plan)) is not handle.layout):
+            return None
         seq_base = handle.seq_base + handle.K
         # same headroom discipline as pack_burst's overflow gate
         if seq_base + max(K_BURST_LADDER) >= (1 << 20):
             return None
-        (elig, parked, resume, adm, adm_seq, adm_usage, adm_uses,
-         death, u_cq) = handle.carry
-        death = torch.where(adm & (death != INF_I32),
-                            death - handle.K, INF_I32).to(torch.int32)
-        state = (elig, parked, resume, adm, adm_seq, adm_usage,
-                 adm_uses, death, u_cq)
+
+        def rebase(adm, death):
+            return torch.where(adm & (death != INF_I32),
+                               death - handle.K, INF_I32).to(torch.int32)
+
+        carry = list(handle.carry)
+        if handle.sharded:
+            # per shard, on its own stream, where its carry lives
+            mesh = self._shard_mesh
+            deaths = []
+            for s in range(mesh.size):
+                with mesh.on(s):
+                    deaths.append(rebase(carry[3][s], carry[7][s]))
+            carry[7] = tuple(deaths)
+        else:
+            carry[7] = rebase(carry[3], carry[7])
         return self._launch(handle.plan, handle.K, handle.runtime,
-                            ext_release, ext_unpark, state, seq_base,
-                            speculative=True)
+                            ext_release, ext_unpark, tuple(carry),
+                            seq_base, speculative=True,
+                            permuted=handle.sharded)
 
     def fetch_flags(self, handle: BurstHandle):
         """Flags-first half of the fetch: wait only for the tiny
@@ -1983,9 +2394,21 @@ class BurstSolver:
         if handle.flags is not None:
             return handle.flags
         out = handle.pending
+        if handle.sharded:
+            outs, dirty, dirty_reason = out
+            handle.carry = self._shard_carry(outs)
+            mesh = self._shard_mesh
+            handle.flags = (mesh.fetch(0, dirty), mesh.fetch(0, dirty_reason))
+            return handle.flags
         handle.carry = out[-1]
         handle.flags = (out[5].cpu().numpy(), out[6].cpu().numpy())
         return handle.flags
+
+    @staticmethod
+    def _shard_carry(outs) -> tuple:
+        """Per-shard kernel outputs → the 9 carry planes, each a tuple of
+        the shards' blocks (still on their devices, in shard layout)."""
+        return tuple(tuple(o[6][i] for o in outs) for i in range(9))
 
     def fetch(self, handle: BurstHandle):
         """Block for a launched window's decisions.  Returns the numpy
@@ -1996,10 +2419,13 @@ class BurstSolver:
             return handle.decisions
         t0 = time.perf_counter()
         out = handle.pending
-        handle.carry = out[-1]
-        dec = [t.cpu().numpy() for t in out[:7]]
-        dec[4] = dec[4].view(np.uint32)
-        handle.decisions = tuple(dec)
+        if handle.sharded:
+            handle.decisions = self._fetch_sharded(handle)
+        else:
+            handle.carry = out[-1]
+            dec = [t.cpu().numpy() for t in out[:7]]
+            dec[4] = dec[4].view(np.uint32)
+            handle.decisions = tuple(dec)
         handle.pending = None
         self._note_forest_activity(handle.plan, handle.decisions[0])
         dt = time.perf_counter() - t0
@@ -2018,6 +2444,33 @@ class BurstSolver:
                   file=sys.stderr)
         return handle.decisions
 
+    def _fetch_sharded(self, handle: BurstHandle) -> tuple:
+        """A sharded launch's decisions in global layout: each shard's
+        slice is waited for in shard order (the incremental wait lands in
+        ``burst_shard_fetch_s``) and read on its stream; the planes come
+        back in shard layout [K, S*Cs, ...] and the inverse permutation
+        restores the global CQ axis.  tgt_words values need no remap:
+        bit j of a CQ's word row refers to candidate slot j, and the
+        local tables were value-remapped at identical slot positions."""
+        outs, dirty, dirty_reason = handle.pending
+        mesh = self._shard_mesh
+        handle.carry = self._shard_carry(outs)
+        waits = self.stats.get("burst_shard_fetch_s")
+        parts = []
+        for s, o in enumerate(outs):
+            t1 = time.perf_counter()
+            mesh.synchronize(s)
+            if waits is not None and s < len(waits):
+                waits[s] += time.perf_counter() - t1
+            parts.append([mesh.fetch(s, t) for t in o[:5]])
+        cp = handle.layout.cq_pos
+        dec = [np.ascontiguousarray(
+            np.concatenate([p[i] for p in parts], axis=1)[:, cp])
+            for i in range(5)]
+        dec[4] = dec[4].view(np.uint32)
+        return tuple(dec) + (mesh.fetch(0, dirty),
+                             mesh.fetch(0, dirty_reason))
+
     def run(self, plan: BurstPlan, K: int, runtime: int,
             ext_release: np.ndarray, ext_unpark: np.ndarray):
         """One fused launch of K cycles, synchronously.  Returns numpy
@@ -2025,4 +2478,8 @@ class BurstSolver:
         dirty, dirty_reason, u_cq)."""
         handle = self.dispatch(plan, K, runtime, ext_release, ext_unpark)
         decisions = self.fetch(handle)
+        if handle.sharded:
+            u_cq = self._shard_mesh.gather(handle.carry[-1])
+            return decisions + (
+                np.ascontiguousarray(u_cq[handle.layout.cq_pos]),)
         return decisions + (handle.carry[-1].cpu().numpy(),)

@@ -40,7 +40,9 @@ only; other policies and resumed walks take ``classify_np``, counted in
 heads in the compiled C++ core (``kueue_tpu_torch/native``, host numpy);
 cycles with preempting heads keep the device's ``admit_scan_preempt``.
 
-Not in this package yet (ROADMAP Queue 1 item 9): the mesh route.
+Not in this package yet (ROADMAP Queue 1 item 9, the next slice): the
+per-cycle mesh route (``set_mesh``).  The fused burst shards on its own
+mesh (``ops.burst.BurstSolver.set_shards``).
 """
 
 from __future__ import annotations
@@ -249,6 +251,15 @@ class CycleSolver:
         from .. import kernels
         self.stats["kernel_device_ms"] = kernels.collect()
         self.stats["kernel_launches"] = dict(kernels.LAUNCHES)
+
+    def set_mesh(self, mesh) -> None:
+        """The per-cycle mesh route of the JAX solver (GSPMD admit scans
+        with ``_mesh_pad``) is not ported: it is the next slice of the
+        port (ROADMAP Queue 1 item 9).  The Driver does not call this."""
+        raise NotImplementedError(
+            "CycleSolver.set_mesh: the per-cycle mesh route (sharded "
+            "admit scans) is the next slice of the port, ROADMAP Queue 1 "
+            "item 9; only the fused burst shards (BurstSolver.set_shards)")
 
     def warmup(self, snapshot: Snapshot, max_heads: int) -> None:
         """One-time setup outside the hot loop: on "cuda", build (when

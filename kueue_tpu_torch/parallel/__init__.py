@@ -1,10 +1,16 @@
-"""Cycle arguments for the one-call solver (``parallel.sharded``).
+"""Cycle arguments for the one-call solver and the forest-sharded burst
+(``parallel.sharded``).
 
-Only ``cycle_args`` is ported; the JAX package's mesh functions
-(``make_mesh``, ``sharded_cycle_fn``, ``admit_scan_fns``, ``fs_scan_fn``,
-``sharded_burst_fn``) exist only across devices and are not here yet
-(ROADMAP Queue 1 item 9)."""
+Ported: ``cycle_args``; the burst mesh (``make_burst_mesh``, with the
+``virtual_mesh`` hook that tests and ``chip_smoke.py`` set),
+``BurstShardLayout`` and ``sharded_burst`` with its two kernels'
+routed functions.  The JAX package's per-cycle mesh functions
+(``make_mesh``, ``sharded_cycle_fn``, ``admit_scan_fns``,
+``fs_scan_fn``, ``make_hybrid_mesh``) are the next slice (ROADMAP Queue
+1 item 9)."""
 
-from .sharded import cycle_args
+from .sharded import (BurstShardLayout, cycle_args, make_burst_mesh,
+                      sharded_burst, virtual_mesh)
 
-__all__ = ["cycle_args"]
+__all__ = ["BurstShardLayout", "cycle_args", "make_burst_mesh",
+           "sharded_burst", "virtual_mesh"]

@@ -30,6 +30,13 @@ the north-star shape, driven per cycle through ``Driver.schedule_once``.
   (required or preferred) or for no topology, 60 cycles; the digest
   covers every admission's topology domains.  ``TASBranches`` counts
   which branch of ``TASFlavorSnapshot._find_device`` each query took.
+- ``sustained_spec``/``sustained_drain``: the JAX tests' sustained burst
+  drain (2 CQs, 72 workloads) with a high-priority arrival at cycle 36,
+  serial or forest-sharded (``BurstSolver.set_shards``), optionally
+  losing devices half-way; with ``n_cqs`` the same drain at north-star
+  width (``northstar_resident_spec``: 1,000 CQs in cohorts of 5, a
+  backlog in every fifth, 40 reclaiming arrivals at cycle 36), whose
+  window boundaries are delta packs that the shard-resident copy serves.
 
 Every workload is generated from the scenario's parameters alone, so two
 runs (two devices, or this package and the JAX package) see the same
@@ -505,7 +512,145 @@ def burst_boundary_report(bstats: dict) -> dict:
         "rows_reused": bstats.get("rows_reused", 0),
         "rows_repacked": bstats.get("rows_repacked", 0),
         "delta_pack_s": round(bstats.get("delta_pack_s", 0.0), 4),
+        # the forest-sharded burst (absent on the serial path)
+        **{k[len("burst_"):]: bstats[k] for k in (
+            "burst_sharded_dispatches", "burst_resident_hits",
+            "burst_resident_misses", "burst_resident_scatter_rows",
+            "burst_resident_scatter_ranges", "burst_boundary_bytes_h2d",
+            "burst_boundary_bytes_equiv", "burst_shard_degradations")
+           if k in bstats},
     }
+
+
+def sustained_spec(t, d, per_cq: int = 36) -> None:
+    """tests/test_burst_pipeline.py ``sustained_spec``: 2 CQs of one
+    cohort (4,000 mCPU nominal each), ``per_cq`` workloads of 2,000 mCPU
+    each with priorities 0/10/20 — more than one K = 32 window of work,
+    finishes feeding re-admission for dozens of cycles.  ``t`` is this
+    package's api.types."""
+    d.apply_resource_flavor(t.ResourceFlavor(name="default"))
+    for q in range(2):
+        d.apply_cluster_queue(t.ClusterQueue(
+            name=f"cq-0-{q}", cohort="co-0",
+            queueing_strategy=t.QueueingStrategy.BEST_EFFORT_FIFO,
+            preemption=t.PreemptionPolicy(),
+            resource_groups=[t.ResourceGroup(
+                covered_resources=["cpu"],
+                flavors=[t.FlavorQuotas(name="default", resources={
+                    "cpu": t.ResourceQuota(nominal=4000)})])]))
+        d.apply_local_queue(t.LocalQueue(name=f"lq-0-{q}",
+                                         cluster_queue=f"cq-0-{q}"))
+    n = 0
+    for q in range(2):
+        for i in range(per_cq):
+            n += 1
+            d.create_workload(t.Workload(
+                name=f"w-{q}-{i}", queue_name=f"lq-0-{q}",
+                priority=(i % 3) * 10, creation_time=float(n),
+                pod_sets=[t.PodSet(name="main", count=1,
+                                   requests={"cpu": 2000})]))
+
+
+def northstar_resident_spec(t, d, n_cqs: int = 1000, per_cq: int = 100,
+                            active_every: int = 5) -> None:
+    """The north-star cluster of ``build_northstar`` (``n_cqs`` CQs in
+    cohorts of 5, 20,000 mCPU nominal and 100,000 borrowing each, cohort
+    reclaim and in-CQ priority preemption) with the north-star workload
+    mix queued in every ``active_every``-th CQ only: one busy tenant per
+    cohort borrowing its neighbours' idle quota.  A window boundary then
+    re-walks the busy CQs and the arrivals — a delta pack — instead of
+    every CQ.  ``t`` is this package's api.types."""
+    d.apply_resource_flavor(t.ResourceFlavor(name="default"))
+    for i in range(n_cqs):
+        d.apply_cluster_queue(t.ClusterQueue(
+            name=f"cq-{i}", cohort=f"cohort-{i // 5}",
+            preemption=t.PreemptionPolicy(
+                reclaim_within_cohort=t.ReclaimWithinCohort.ANY,
+                within_cluster_queue=t.WithinClusterQueue.LOWER_PRIORITY),
+            resource_groups=[t.ResourceGroup(
+                covered_resources=["cpu"],
+                flavors=[t.FlavorQuotas(name="default", resources={
+                    "cpu": t.ResourceQuota(nominal=20_000,
+                                           borrowing_limit=100_000)})])]))
+        d.apply_local_queue(t.LocalQueue(name=f"lq-{i}",
+                                         cluster_queue=f"cq-{i}"))
+    n = 0
+    for i in range(0, n_cqs, active_every):
+        for k in range(per_cq):
+            n += 1
+            if k % 3 == 2:        # medium: 2500/pod x 2 pods
+                per_pod, count, prio = 2500, 1 + (k % 2), 100
+            else:                 # small: 500/pod x 1..4 pods (ragged)
+                per_pod, count, prio = 500, (1, 2, 4)[k % 3], 50
+            d.create_workload(t.Workload(
+                name=f"wl-{i}-{k}", queue_name=f"lq-{i}", priority=prio,
+                creation_time=float(n), pod_sets=[t.PodSet(
+                    name="main", count=count, requests={"cpu": per_pod})]))
+
+
+def northstar_arrivals(t, n_cqs: int, n: int) -> list:
+    """``n`` high-priority gangs (4 x 5,000 mCPU) in the idle CQs 1, 6,
+    11, ... of ``northstar_resident_spec``: each reclaims its nominal
+    quota from its cohort's busy borrower.  ``t`` is this package's
+    api.types."""
+    return [t.Workload(
+        name=f"arrival-{j}", queue_name=f"lq-{(5 * j + 1) % n_cqs}",
+        priority=200, creation_time=1e6 + j, pod_sets=[t.PodSet(
+            name="main", count=4, requests={"cpu": 5000})])
+        for j in range(n)]
+
+
+def sustained_drain(device: str = "cuda", shards: int = 0,
+                    cycles: int = 80, runtime: int = 2, arrival: int = 36,
+                    lose: int = 0, n_cqs: int = 0) -> dict:
+    """The sustained drain through ``schedule_burst`` with a
+    high-priority arrival at applied cycle ``arrival``
+    (tests/test_multichip_parity.py :148): ``shards > 1`` shards the
+    burst over ``parallel.sharded.make_burst_mesh(shards)``.  With
+    ``lose``, the drain runs as two calls of ``cycles / 2`` with
+    ``lose_devices(lose)`` between them (:182).  ``n_cqs > 0`` drains
+    ``northstar_resident_spec(n_cqs)`` instead, with ``n_cqs / 25``
+    ``northstar_arrivals`` at ``arrival`` (pass a ``runtime`` longer
+    than a window, as 30, so that the busy CQs stay full).  Returns the
+    per-cycle records (admitted, skipped, inadmissible, preempted,
+    preempting), the burst solver's stats, the shard counts before and
+    after, and the Driver."""
+    from .api import types as t
+    from .ops.burst import BurstSolver
+    clock = VirtualClock()
+    d = Driver(clock=clock, device=device)
+    if n_cqs:
+        northstar_resident_spec(t, d, n_cqs)
+        arrivals = northstar_arrivals(t, n_cqs, max(1, n_cqs // 25))
+    else:
+        sustained_spec(t, d)
+        arrivals = [t.Workload(
+            name="boss", queue_name="lq-0-0", priority=100,
+            creation_time=500.0, pod_sets=[t.PodSet(
+                name="main", count=1, requests={"cpu": 4000})])]
+    bs = BurstSolver(device=device)
+    if shards > 1:
+        bs.set_shards(shards)
+    d._burst_solver = bs
+
+    def on_cycle_start(k):
+        if k == arrival:
+            for wl in arrivals:
+                d.create_workload(wl)
+        clock.t += 1.0
+
+    calls = (cycles // 2, cycles - cycles // 2) if lose else (cycles,)
+    stats, n_shards = [], [bs.n_shards]
+    for i, n in enumerate(calls):
+        if i:
+            n_shards.append(bs.lose_devices(lose))
+        stats += d.schedule_burst(n, runtime=runtime,
+                                  on_cycle_start=on_cycle_start)
+    records = [(sorted(x.admitted), sorted(x.skipped),
+                sorted(x.inadmissible), sorted(x.preempted_targets),
+                sorted(x.preempting)) for x in stats]
+    return dict(records=records, stats=dict(bs.stats), shards=n_shards,
+                driver=d)
 
 
 # ----------------------------------------------------------------------

@@ -19,12 +19,22 @@ BORROW_CAP_NONE = 2**30             # preemption_solver's forest-plane pad
 
 
 def forest(rng: np.random.Generator, n_cqs: int, n_cohorts: int,
-           depth: int):
+           depth: int, chain: bool = False):
     """parent [N] (CQs first, then cohorts), forest_of_node [N],
-    n_forests, and the true depth (<= ``depth`` levels)."""
+    n_forests, and the true depth (<= ``depth`` levels).  ``chain``: the
+    cohorts form one line (cohort j under cohort j - 1) and every CQ sits
+    under a cohort, CQ 0 under the deepest, so the tree is
+    ``n_cohorts + 1`` levels deep whatever ``depth`` says."""
     N = n_cqs + n_cohorts
     parent = np.full(N, -1, dtype=np.int32)
     level = np.zeros(N, dtype=np.int32)
+    if chain and n_cohorts:
+        parent[n_cqs + 1:] = np.arange(n_cqs, N - 1)
+        level[n_cqs:] = np.arange(n_cohorts)
+        parent[:n_cqs] = n_cqs + rng.integers(0, n_cohorts, n_cqs)
+        parent[0] = N - 1
+        level[:n_cqs] = level[parent[:n_cqs]] + 1
+        return parent, np.zeros(N, dtype=np.int32), 1, n_cohorts + 1
     # cohorts: each picks a parent cohort one level up, keeping the
     # cohort levels within depth - 1 so a CQ below fits in depth levels
     for j in range(n_cohorts):
@@ -77,12 +87,12 @@ def _pairs(rng, W: int, R: int, F: int, mask: np.ndarray, lo=1, hi=15):
 def admit_cycle(rng: np.random.Generator, *, n_cqs: int = 6,
                 n_cohorts: int = 3, depth: int = 3, F: int = 2, W: int = 16,
                 R: int = 2, n_valid: int | None = None,
-                reserve: bool = True) -> dict:
+                reserve: bool = True, chain: bool = False) -> dict:
     """Inputs of admit_scan / admit_scan_forests (with ``forest_of_node``,
     ``n_forests`` and ``max_forest_wl``), as numpy arrays; ``depth`` is
-    the static depth argument."""
+    the static depth argument (``chain`` as ``forest``)."""
     parent, forest_of, n_forests, true_depth = forest(rng, n_cqs, n_cohorts,
-                                                      depth)
+                                                      depth, chain)
     N = n_cqs + n_cohorts
     q = quota_planes(rng, N, F)
     nominal = rng.integers(0, 30, (n_cqs, F)).astype(np.int32)
@@ -145,16 +155,17 @@ def preemption_searches(rng: np.random.Generator, *, S: int = 32,
                         n_valid: int | None = None, K: int = 16,
                         n_cands: int | None = None, n_cqs: int = 4,
                         n_cohorts: int = 2, depth: int = 3,
-                        F: int = 2) -> dict:
+                        F: int = 2, chain: bool = False) -> dict:
     """Inputs of minimal_preemptions_batch: S forest-local searches over
-    [S, NL, F] planes, padded searches (pre_cq = -1) past ``n_valid``."""
+    [S, NL, F] planes, padded searches (pre_cq = -1) past ``n_valid``
+    (``chain`` as ``forest``)."""
     NL = n_cqs + n_cohorts
     n_valid = S if n_valid is None else n_valid
     planes = {k: [] for k in ("usage0", "subtree", "guaranteed",
                               "borrow_cap", "has_blim", "parent")}
     depths = []
     for _ in range(S):
-        parent, _, _, d = forest(rng, n_cqs, n_cohorts, depth)
+        parent, _, _, d = forest(rng, n_cqs, n_cohorts, depth, chain)
         depths.append(d)
         q = quota_planes(rng, NL, F, blim_none=BORROW_CAP_NONE)
         q["parent"] = parent
@@ -285,11 +296,12 @@ def kernel_cases(seed: int = 0):
 def burst_synthetic(rng: np.random.Generator, *, C: int = 12, M: int = 16,
                     R: int = 1, S: int = 1, K: int = 8, per: int = 4,
                     runtime: int = 3, ties: bool = False,
-                    deep: bool = False):
+                    deep: int = 0):
     """A seeded synthetic burst window: ``(args, kw)`` in
     ``ops.burst.ARG_NAMES`` order.  CQs sit in cohorts of ``per`` (one
-    cohort node each; ``deep`` adds a root above every two cohorts, a
-    depth the preemption envelope excludes), with pending and admitted
+    cohort node each; ``deep`` adds that many levels above them, a node
+    above every two of the level below, a depth the preemption envelope
+    excludes), with pending and admitted
     rows, usage consistent with the admitted rows, low nominal quota so
     heads need preemption, finishes and external release / unpark events
     inside the window, a few heads outside the vectorized coverage, and
@@ -298,14 +310,17 @@ def burst_synthetic(rng: np.random.Generator, *, C: int = 12, M: int = 16,
     separates them."""
     from .ops.burst import build_candidate_tables, build_members
     from .ops.cycle import available_all_np
-    G0 = -(-C // per)
-    n_top = -(-G0 // 2) if deep else 0
-    N = C + G0 + n_top
+    sizes = [-(-C // per)]
+    for _ in range(int(deep)):
+        sizes.append(-(-sizes[-1] // 2))
+    starts = C + np.concatenate([[0], np.cumsum(sizes)])
+    N = int(starts[-1])
     F = S * R
     parent = np.full(N, -1, dtype=np.int32)
     parent[:C] = C + np.arange(C) // per
-    if deep:
-        parent[C:C + G0] = C + G0 + np.arange(G0) // 2
+    for lvl in range(len(sizes) - 1):
+        parent[starts[lvl]:starts[lvl + 1]] = (
+            starts[lvl + 1] + np.arange(sizes[lvl]) // 2)
     level = np.zeros(N, dtype=np.int32)
     for n in range(N):
         p = parent[n]
@@ -435,6 +450,57 @@ def burst_cases(seed: int = 0):
     yield "probe", args, size
 
 
+def shape_cases(seed: int = 0, card: bool = False):
+    """The shapes past the CUDA launchers' old limits: ``(kernel name,
+    positional numpy arrays, keyword arguments)`` with a cohort chain 17
+    levels deep for every kernel that walks chains (the admit scans, the
+    batched search, the burst, ``kq_cq_avail``, ``drs_components``,
+    ``fs_admit_scan``), and ``fs_admit_scan`` at F = 65 and at F = 72
+    (8 flavors x 9 resources).  ``card`` adds the shapes only the card
+    runs at size: ``admit_scan`` at F = 1,025 and ``admit_scan_forests``
+    over one forest of 40,000 heads."""
+    rng = np.random.default_rng(seed)
+    deep = dict(n_cqs=6, n_cohorts=16, depth=2, chain=True)
+    c = admit_cycle(rng, F=3, W=24, R=2, **deep)
+    yield "admit_scan", admit_args(c), dict(depth=c["depth"])
+    yield "admit_scan_forests", forest_args(c), dict(
+        depth=c["depth"], n_forests=c["n_forests"],
+        max_forest_wl=c["max_forest_wl"])
+    c = preempt_cycle(rng, F=3, W=24, R=2, T=64, MT=4, n_targets=12, **deep)
+    yield "admit_scan_preempt", preempt_args(c), dict(depth=c["depth"])
+    c = preemption_searches(rng, S=8, K=16, n_cands=12, F=2, **deep)
+    yield "minimal_preemptions_batch", search_args(c), dict(depth=c["depth"])
+    args, kw = burst_synthetic(rng, C=8, per=4, M=8, deep=15)
+    yield "burst_cycles", args, kw
+    c = solve_cycle_planes(rng, S=2, R=2, F=4, W=32, **deep)
+    yield "kq_cq_avail", tuple(c[k] for k in SOLVE_ARGS[:6]), dict(
+        n_cqs=c["nominal_cq"].shape[0], depth=c["depth"])
+    args, kw = drs_case(rng, n_cqs=6, n_cohorts=16, depth=2, F=3, R=2,
+                        wl_req=True, chain=True)
+    yield "drs_components", args, kw
+    for n_cqs, n_coh, F, R, chain in ((8, 3, 65, 5, False),
+                                      (10, 4, 72, 9, False),
+                                      (6, 16, 72, 9, True)):
+        c = fs_cycle(rng, n_cqs=n_cqs, n_cohorts=n_coh, depth=3, F=F, R=R,
+                     W=16, chain=chain)
+        yield "fs_admit_scan", fs_args(c), dict(depth=c["depth"],
+                                                n_levels=c["n_levels"])
+    if not card:
+        return
+    c = admit_cycle(rng, n_cqs=6, n_cohorts=3, depth=3, F=1025, W=16, R=3)
+    yield "admit_scan", admit_args(c), dict(depth=c["depth"])
+    c = admit_cycle(rng, n_cqs=20, n_cohorts=1, depth=2, F=2, W=40_000,
+                    R=2, chain=True)
+    # room at the cohort for about half of the heads: the scan admits
+    # until the root runs out, then decides the rest against a full root
+    c["subtree"][-1] = 100_000
+    c["usage0"][-1] = 0
+    c["has_blim"][:] = False
+    yield "admit_scan_forests", forest_args(c), dict(
+        depth=c["depth"], n_forests=c["n_forests"],
+        max_forest_wl=c["max_forest_wl"])
+
+
 # ----------------------------------------------------------------------
 # Fair sharing (ops/fs_scan.py fs_admit_scan, ops/fairsharing_kernel.py
 # drs_components)
@@ -463,15 +529,17 @@ def _levels_and_order(rng, parent: np.ndarray):
 def fs_cycle(rng: np.random.Generator, *, n_cqs: int = 8, n_cohorts: int = 3,
              depth: int = 2, F: int = 2, R: int = 1, W: int = 16,
              n_valid: int | None = None, weights=FS_WEIGHTS,
-             zero_lend: float = 0.2, ties: bool = False) -> dict:
+             zero_lend: float = 0.2, ties: bool = False,
+             chain: bool = False) -> dict:
     """Inputs of fs_admit_scan (``ops.fs_scan.FS_ARGS`` plus ``depth`` and
     ``n_levels``) as numpy arrays: a cohort forest of up to ``depth``
     levels, usage that borrows above subtree quota, lendable capacity
     that is zero at roots and at a ``zero_lend`` share of the other nodes
     (the floor-division case), one head per CQ in the first ``n_valid``
     rows and padding after, NoFit heads, and with ``ties`` equal
-    priorities and timestamp ranks."""
-    parent, forest_of, _, true_depth = forest(rng, n_cqs, n_cohorts, depth)
+    priorities and timestamp ranks (``chain`` as ``forest``)."""
+    parent, forest_of, _, true_depth = forest(rng, n_cqs, n_cohorts, depth,
+                                              chain)
     N = n_cqs + n_cohorts
     q = quota_planes(rng, N, F)
     sq_mask = rng.random((N, F)) < 0.85
@@ -558,9 +626,11 @@ DRS_SHAPES = [
 
 
 def drs_case(rng: np.random.Generator, *, n_cqs: int, n_cohorts: int,
-             depth: int, F: int, R: int, wl_req: bool) -> tuple:
-    """(positional arrays, keywords) of drs_components."""
-    parent, _, _, true_depth = forest(rng, n_cqs, n_cohorts, depth)
+             depth: int, F: int, R: int, wl_req: bool,
+             chain: bool = False) -> tuple:
+    """(positional arrays, keywords) of drs_components (``chain`` as
+    ``forest``)."""
+    parent, _, _, true_depth = forest(rng, n_cqs, n_cohorts, depth, chain)
     N = n_cqs + n_cohorts
     q = quota_planes(rng, N, F)
     fr = (np.arange(F) % R).astype(np.int32)
@@ -828,7 +898,8 @@ def solve_cycle_planes(rng: np.random.Generator, *, n_cqs: int = 12,
                        n_cohorts: int = 4, depth: int = 3, S: int = 3,
                        R: int = 2, F: int = 6, W: int = 64,
                        n_valid: int | None = None, ties: bool = True,
-                       big: bool = True, fungibility: bool = True) -> dict:
+                       big: bool = True, fungibility: bool = True,
+                       chain: bool = False) -> dict:
     """The 14 planes of solve_cycle (``SOLVE_ARGS``) plus the optional
     FlavorFungibility planes (``FUNGIBILITY_ARGS``), ``forest_of_node``,
     ``n_forests``, ``max_forest_wl`` and the static ``depth``.
@@ -839,9 +910,10 @@ def solve_cycle_planes(rng: np.random.Generator, *, n_cqs: int = 12,
     timestamps 1e9 + k that tie once cast to float32.  ``big``: a few CQ
     usage cells near INT_MAX and requests near 2**30, so ``use + req``
     and the quota recurrences wrap.  ``fungibility``: random
-    whenCanBorrow / whenCanPreempt per CQ and resume slots per head."""
+    whenCanBorrow / whenCanPreempt per CQ and resume slots per head.
+    ``chain`` as ``forest``."""
     parent, forest_of, n_forests, true_depth = forest(rng, n_cqs, n_cohorts,
-                                                      depth)
+                                                      depth, chain)
     N = n_cqs + n_cohorts
     q = quota_planes(rng, N, F)
     nominal = rng.integers(0, 30, (n_cqs, F)).astype(np.int32)
@@ -957,3 +1029,79 @@ def solve_cycle_cases(seed: int = 0):
             W=W, n_valid=n_valid))
     for W in ORDER_WIDTHS:
         yield "kq_cycle_order", order_case(rng, W), {}
+
+
+# ----------------------------------------------------------------------
+# The forest-sharded burst (parallel/sharded.py BurstShardLayout)
+# ----------------------------------------------------------------------
+
+def layout_fields(layout, plan) -> dict:
+    """Every host field of a ``BurstShardLayout`` of either package on
+    ``plan`` as numpy arrays or scalars, by name: the sizes, the LPT's
+    cost figures, the permutations, the value-remapped tables, the
+    STATIC tier and the whole permuted plan (``plan_arrays``), and the
+    permuted scan state and event schedules of the plan's window — so the
+    JAX package's layout and the port's can be compared field by field.
+    Both packages' plans carry the same ``arrays`` (and
+    ``ops.packing.plan_to_torch`` turns either into the port's
+    tensors)."""
+    a = plan.arrays
+    out = {k: getattr(layout, k) for k in (
+        "n_shards", "M", "Cs", "Gs", "Ns", "cost_balanced", "shard_cost",
+        "cost_ratio", "cq_perm", "cq_pos", "node_perm", "forest_perm")}
+    for k, v in layout._static.items():
+        out[f"static.{k}"] = v
+    for k, v in layout.static_arrays(plan).items():
+        out[f"static_arrays.{k}"] = v
+    for k, v in layout.plan_arrays(plan).items():
+        out[f"plan_arrays.{k}"] = v
+    state = tuple(a[n] for n in ("elig0", "parked0", "resume0", "adm0",
+                                 "adm_seq0", "adm_usage0", "adm_uses0",
+                                 "death0", "u_cq0"))
+    for i, v in enumerate(layout.permute_state(state)):
+        out[f"state.{i}"] = v
+    rng = np.random.default_rng(plan.C)
+    F = a["u_cq0"].shape[1]
+    ext = (rng.integers(0, 3, (4, plan.C, F)).astype(np.int32),
+           rng.random((4, plan.G)) < 0.5)
+    for i, v in enumerate(layout.permute_ext(*ext)):
+        out[f"ext.{i}"] = v
+    return out
+
+
+def scatter_case(seed: int = 0, C: int = 12, M: int = 5, D: int = 3):
+    """``(planes, rows, vals)`` of the resident row scatter: 13 planes
+    shaped and typed like the SCATTER tier (``parallel.sharded.
+    SCATTER_PLANES``: [C, M, R], [C, M], [C, M, F], [C, F] and [C]
+    planes, int32 and bool), D distinct dirty rows padded to
+    ``scatter_pad(D)`` by repeating the last row with its own values,
+    and their values."""
+    from .ops.packing import scatter_pad
+    from .parallel.sharded import _C_FILLS, SCATTER_PLANES
+    rng = np.random.default_rng(seed)
+    tails = {"wl_req": (M, 2), "adm_usage0": (M, 3), "adm_uses0": (M, 3),
+             "u_cq0": (3,), "strict_cq": ()}
+    Dp = scatter_pad(D)
+    rows = rng.choice(C, D, replace=False).astype(np.int32)
+    rows = np.concatenate([rows, np.repeat(rows[-1:], Dp - D)])
+    planes, vals = [], []
+    for name in SCATTER_PLANES:
+        shape = tails.get(name, (M,))
+        if isinstance(_C_FILLS[name], bool):
+            pl = rng.random((C,) + shape) < 0.5
+            v = rng.random((D,) + shape) < 0.5
+        else:
+            pl = rng.integers(-5, 50, (C,) + shape).astype(np.int32)
+            v = rng.integers(-5, 50, (D,) + shape).astype(np.int32)
+        planes.append(pl)
+        vals.append(np.concatenate([v, np.repeat(v[-1:], Dp - D, axis=0)]))
+    return planes, rows, vals
+
+
+def dflags_blocks(S: int, K: int, seed: int | None = None) -> np.ndarray:
+    """S [K, 4] int32 dirty-flag blocks as S shards' burst launches leave
+    them: lanes 0-2 set at random, lane 3 (DIRTY_RESUME) 0."""
+    rng = np.random.default_rng(S * K if seed is None else seed)
+    blocks = (rng.random((S, K, 4)) < 0.2).astype(np.int32)
+    blocks[:, :, 3] = 0
+    return blocks

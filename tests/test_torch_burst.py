@@ -199,5 +199,12 @@ def test_cuda_solver_never_selects_the_cpu():
     assert kernels.LAUNCHES == before
     with pytest.raises(ValueError, match="CUDA tensors"):
         kernels.burst_cycles(*to_torch(args), **kw)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        tburst.BurstSolver(device="cpu").set_shards(2)
+    # set_shards(2) shards on a 2-device virtual mesh, and stays serial
+    # on the CPU's one device without one
+    from kueue_tpu_torch.parallel import sharded
+    bs = tburst.BurstSolver(device="cpu")
+    bs.set_shards(2)
+    assert bs.n_shards == 1 and bs._shard_mesh is None
+    with sharded.virtual_mesh("cpu", 2):
+        bs.set_shards(2)
+    assert bs.n_shards == 2 and bs._shard_mesh.size == 2

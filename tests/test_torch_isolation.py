@@ -166,10 +166,26 @@ def test_fair_sharing_drain_in_a_fresh_process():
 
 
 def test_unported_paths_raise(monkeypatch):
+    """The per-cycle mesh route is the next slice: CycleSolver.set_mesh
+    raises naming it.  KUEUE_TPU_SHARDS > 1 shards only the burst, so a
+    Driver under it constructs, with its per-cycle solver on one device."""
     from kueue_tpu_torch.controller.driver import Driver
     monkeypatch.setenv("KUEUE_TPU_SHARDS", "2")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        Driver(device="cpu")
+    d = Driver(device="cpu")
+    with pytest.raises(NotImplementedError, match="next slice"):
+        d.scheduler.solver.set_mesh(object())
+
+
+def test_every_kernel_source_is_built():
+    """Each CUDA source and header beside the launchers is one that the
+    build compiles (kernels.SOURCES) or includes (kernels.HEADERS), and
+    each kernel counts its launches."""
+    from kueue_tpu_torch import kernels
+    kdir = os.path.join(PORT, "kernels")
+    files = {f for f in os.listdir(kdir) if f.endswith((".cu", ".cuh"))}
+    assert files == set(kernels.SOURCES) | set(kernels.HEADERS)
+    assert set(kernels.LAUNCHES) == set(kernels.KERNELS)
+    assert {"kq_scatter_rows", "kq_reduce_dflags"} <= set(kernels.KERNELS)
 
 
 def test_cpu_tensors_never_reach_the_kernels():

@@ -1,7 +1,9 @@
 """Each CUDA kernel of kueue_tpu_torch against its plain PyTorch version
 on the same seeded inputs (kueue_tpu_torch.testing.kernel_cases,
-burst_cases, fs_cases, tas_cases and solve_cycle_cases): exact equality, as every output
-is bool or int32.  Needs a CUDA GPU — the kernels have no CPU mode —
+burst_cases, fs_cases, tas_cases, solve_cycle_cases, shape_cases,
+scatter_case and dflags_blocks), and the forest-sharded burst on a
+virtual mesh of the card against the serial burst: exact equality, as
+every output is bool or int32.  Needs a CUDA GPU — the kernels have no CPU mode —
 and skips without one.  This file imports no JAX, so it
 also runs on a machine with only PyTorch:
 
@@ -70,7 +72,7 @@ def test_cuda_launcher_rejects_bad_inputs():
     with pytest.raises(ValueError):
         kernels.admit_scan(*bad, **kw)
     with pytest.raises(ValueError):
-        kernels.admit_scan(*good, depth=kernels.MAX_DEPTH + 1)
+        kernels.admit_scan(*good, depth=0)
 
 
 @pytest.mark.gpu
@@ -273,3 +275,119 @@ def test_cuda_cycle_order_in_global_memory(monkeypatch):
         p = cycle.cycle_order_plain(*[torch.from_numpy(a) for a in args])
         c = cycle.cycle_order(*[torch.from_numpy(a).cuda() for a in args])
         assert c.dtype == p.dtype and torch.equal(c.cpu(), p), W
+
+
+SHAPE_PLAIN = {
+    "admit_scan": cycle.admit_scan_plain,
+    "admit_scan_forests": cycle.admit_scan_forests_plain,
+    "admit_scan_preempt": cycle.admit_scan_preempt_plain,
+    "minimal_preemptions_batch":
+        preemption_kernel.minimal_preemptions_batch_plain,
+    "burst_cycles": burst.burst_cycles_plain,
+    "kq_cq_avail": cycle.cq_avail_plain,
+    "drs_components": fairsharing_kernel.drs_components_plain,
+    "fs_admit_scan": fs_scan.fs_admit_scan_plain,
+}
+
+
+def _flat(out):
+    if not isinstance(out, tuple):
+        return [out]
+    return [t for x in out for t in _flat(x)]
+
+
+@pytest.mark.gpu
+def test_cuda_kernels_past_the_old_limits():
+    """Depth 17, fs_admit_scan at F = 65 and 72, admit_scan at F = 1,025
+    and admit_scan_forests over one forest of 40,000 heads (its head list
+    in global scratch): every launcher takes them, and each kernel equals
+    its plain version (kueue_tpu_torch.testing.shape_cases)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernels have no CPU mode")
+    from kueue_tpu_torch import kernels
+    seen = set()
+    for name, args, kw in tt.shape_cases(0, card=True):
+        before = kernels.LAUNCHES[name]
+        p = SHAPE_PLAIN[name](*[torch.from_numpy(a)
+                                if isinstance(a, np.ndarray) else a
+                                for a in args], **kw)
+        c = getattr(kernels, name)(*[torch.from_numpy(a).cuda()
+                                     if isinstance(a, np.ndarray) else a
+                                     for a in args], **kw)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES[name] == before + 1, name
+        for x, y in zip(_flat(p), _flat(c)):
+            assert y.dtype == x.dtype and y.shape == x.shape, (name, kw)
+            assert torch.equal(y.cpu(), x), (name, kw)
+        seen.add(name)
+    assert seen == set(SHAPE_PLAIN)
+
+
+@pytest.mark.gpu
+def test_cuda_forest_list_in_global_memory(monkeypatch):
+    """With no shared memory allowed for the head lists,
+    admit_scan_forests keeps them in global scratch and still equals its
+    plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernels have no CPU mode")
+    from kueue_tpu_torch import kernels
+    monkeypatch.setattr(kernels, "FOREST_SMEM", 0)
+    for name, args, kw in tt.kernel_cases(0):
+        if name != "admit_scan_forests":
+            continue
+        p = cycle.admit_scan_forests_plain(
+            *[torch.from_numpy(a) for a in args], **kw)
+        c = kernels.admit_scan_forests(
+            *[torch.from_numpy(a).cuda() for a in args], **kw)
+        assert torch.equal(c.cpu(), p), kw
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("seed,D", [(0, 1), (1, 3), (2, 9), (3, 12)])
+def test_cuda_scatter_and_reduce_match_plain(seed, D):
+    """kq_scatter_rows (13 planes in place, padded duplicate rows) and
+    kq_reduce_dflags against their plain versions."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernels have no CPU mode")
+    from kueue_tpu_torch import kernels
+    from kueue_tpu_torch.parallel import sharded
+    planes, rows, vals = tt.scatter_case(seed, D=D)
+    want = sharded.scatter_rows_plain(
+        [torch.from_numpy(p.copy()) for p in planes],
+        torch.from_numpy(rows), [torch.from_numpy(v) for v in vals])
+    before = kernels.LAUNCHES["kq_scatter_rows"]
+    got = sharded.scatter_rows(
+        [torch.from_numpy(p).cuda() for p in planes],
+        torch.from_numpy(rows).cuda(),
+        [torch.from_numpy(v).cuda() for v in vals])
+    assert kernels.LAUNCHES["kq_scatter_rows"] == before + 1
+    for x, y in zip(want, got):
+        assert y.dtype == x.dtype and torch.equal(y.cpu(), x)
+    blocks = tt.dflags_blocks(2 + seed, 32)
+    want = sharded.reduce_dflags_plain([torch.from_numpy(b) for b in blocks])
+    got = sharded.reduce_dflags([torch.from_numpy(b).cuda() for b in blocks])
+    assert got.dtype == want.dtype and torch.equal(got.cpu(), want)
+
+
+@pytest.mark.gpu
+def test_cuda_sharded_burst_matches_serial(monkeypatch):
+    """The sustained drain with a mid-run arrival on a 4-shard virtual
+    mesh of the card (one stream per shard): records equal to the serial
+    burst on the CPU, resident reuse with the scatter kernel, one
+    kq_reduce_dflags launch per sharded dispatch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernels have no CPU mode")
+    from kueue_tpu_torch import kernels, scenarios
+    from kueue_tpu_torch.parallel import sharded
+    monkeypatch.setenv("KUEUE_TPU_RESIDENT_VERIFY", "1")
+    serial = scenarios.sustained_drain(device="cpu")
+    before = dict(kernels.LAUNCHES)
+    with sharded.virtual_mesh("cuda:0", 4):
+        shard = scenarios.sustained_drain(device="cuda", shards=4)
+    grew = {k: kernels.LAUNCHES[k] - before[k] for k in before}
+    assert shard["records"] == serial["records"]
+    st = shard["stats"]
+    assert st["burst_sharded_dispatches"] >= 1, st
+    assert grew["kq_reduce_dflags"] == st["burst_sharded_dispatches"]
+    assert st["burst_resident_hits"] >= 1, st
+    assert grew["kq_scatter_rows"] >= 1, grew
