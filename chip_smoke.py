@@ -9,7 +9,8 @@ admission, ``Driver(device="cuda", fair_sharing=True).schedule_once``;
 then topology-aware scheduling, ``Driver(device="cuda")`` with the TAS
 gates on; then the one-call cycle solver behind the north-star probe
 (``python -m kueue_tpu_torch.probe``) and ``scenarios.entry()``, and
-``Driver(solver_backend="native")``:
+``Driver(solver_backend="native")``; then the forest-sharded burst and,
+under ``KUEUE_TPU_SHARDS``, the per-cycle mesh:
 
 1. device: name, count and ``nvidia-smi`` name/power limit;
 2. build: nvcc of every kernel source (in parallel) into one library;
@@ -107,10 +108,30 @@ gates on; then the one-call cycle solver behind the north-star probe
 3g. kq_scatter_rows and kq_reduce_dflags against their plain versions
    over seeded cases (kueue_tpu_torch.testing.scatter_case,
    dflags_blocks) and the calls captured in phases 15, 15b and 15c —
-   exact.
+   exact;
+16. the perf scenario through the per-cycle mesh (``KUEUE_TPU_SHARDS=4``
+   on a virtual 2 x 2 mesh of this card: 5 forests on 2 cq shards, one
+   stream per cell): all 15,000 drained, phase 4's decision digest,
+   sharded and sharded preempt dispatches > 0, one kq_gather_heads
+   launch per sharded dispatch, the per-shard launches of each kernel;
+16b. the 30 north-star cycles through the mesh (``KUEUE_TPU_SHARDS=8``:
+   4 x 2, 200 forests on 2 cq shards): phase 5's digest, the forest scan
+   and the 1,000-gang preemption cycle sharded;
+16c. the 30 fair-sharing north-star cycles through the mesh
+   (``KUEUE_TPU_SHARDS=4``): phase 9's digest, sharded fs dispatches > 0,
+   fs_admit_scan per shard, kq_fs_merge_order launched once per sharded
+   fs dispatch;
+16d. ``scenarios.dryrun_multichip(8)`` on a virtual 8-cell mesh of the
+   card: every check of the JAX package's ``__graft_entry__
+   .dryrun_multichip`` and its counts, with ``sharded_cycle_fn`` against
+   the unsharded ``solve_cycle`` timed on the card;
+3i. kq_gather_heads and kq_fs_merge_order against their plain versions
+   on the calls captured in 16-16d and on one synthetic call each at
+   north-star width (1,000 heads over 8 shards), and the per-shard admit
+   scans and fs_admit_scan captured in 16-16c against theirs — exact.
 
 Launch counts are zeroed just before phases 4, 5, 7, 8, 9, 9b, 11, 13,
-14, 15, 15b and 15c and read just after each.  Prints a ``kernels`` JSON line (per kernel: its launches on
+14, 15, 15b, 15c, 16, 16b, 16c and 16d and read just after each.  Prints a ``kernels`` JSON line (per kernel: its launches on
 its main path and in each phase), the nvidia-smi line, and as its last
 line ``{"ok": true, "device": {...}}``.  Exits non-zero, with no result
 line, when there is no CUDA device or no kueue_tpu_torch beside it.
@@ -147,6 +168,8 @@ TPU_KERNEL = {   # the jitted JAX program each kernel replaces
     "kq_cycle_order": "kueue_tpu/ops/cycle.py:521",
     "kq_scatter_rows": "kueue_tpu/ops/burst.py:2309",
     "kq_reduce_dflags": "kueue_tpu/ops/burst.py:789",
+    "kq_gather_heads": "kueue_tpu/parallel/sharded.py:90",
+    "kq_fs_merge_order": "kueue_tpu/parallel/sharded.py:137",
 }
 SOURCE = {
     "admit_scan": "kueue_tpu_torch/kernels/admit_scan.cu",
@@ -165,6 +188,8 @@ SOURCE = {
     "kq_cycle_order": "kueue_tpu_torch/kernels/solve_cycle.cu",
     "kq_scatter_rows": "kueue_tpu_torch/kernels/scatter_rows.cu",
     "kq_reduce_dflags": "kueue_tpu_torch/kernels/scatter_rows.cu",
+    "kq_gather_heads": "kueue_tpu_torch/kernels/mesh_gather.cu",
+    "kq_fs_merge_order": "kueue_tpu_torch/kernels/mesh_gather.cu",
 }
 TAS_KERNELS = ("fill_counts", "best_fit_descend", "split_across_roots")
 BENCH_WORKLOADS = 15_000
@@ -178,6 +203,10 @@ SHARD_KERNELS = ("kq_scatter_rows", "kq_reduce_dflags")
 INPLACE = ("kq_scatter_rows",)   # writes its first argument's planes
 NORTHSTAR_SHARDS = 4
 RESIDENT_SHARDS = 8
+MESH_KERNELS = ("kq_gather_heads", "kq_fs_merge_order")
+MESH_SCANS = ("admit_scan", "admit_scan_forests", "admit_scan_preempt",
+              "fs_admit_scan")
+MESH_SHARDS = {"bench": 4, "northstar": 8, "fs": 4, "dryrun": 8}
 
 
 def log(msg: str) -> None:
@@ -274,6 +303,18 @@ def install_shard_capture(cap: Capture) -> None:
     cap.install(sharded, "reduce_dflags", "kq_reduce_dflags")
 
 
+def install_mesh_capture(cap: Capture) -> None:
+    # the mesh route looks its gather and merge up in parallel.sharded,
+    # its per-shard scans in ops.cycle and ops.fs_scan, at each call
+    from kueue_tpu_torch.ops import cycle, fs_scan
+    from kueue_tpu_torch.parallel import sharded
+    for name in MESH_KERNELS:
+        cap.install(sharded, name[3:], name)
+    for name in MESH_SCANS[:3]:
+        cap.install(cycle, name, name)
+    cap.install(fs_scan, "fs_admit_scan", "fs_admit_scan")
+
+
 def signature(args, kw) -> tuple:
     """A call's shapes and keyword arguments."""
     return (tuple(tuple(a.shape) if hasattr(a, "shape") else a
@@ -320,6 +361,8 @@ def plain_fns():
     return {
         "kq_scatter_rows": sharded.scatter_rows_plain,
         "kq_reduce_dflags": sharded.reduce_dflags_plain,
+        "kq_gather_heads": sharded.gather_heads_plain,
+        "kq_fs_merge_order": sharded.fs_merge_order_plain,
         "fill_counts": tas_kernel.fill_counts_plain,
         "best_fit_descend": tas_kernel.best_fit_descend_plain,
         "split_across_roots": tas_kernel.split_across_roots_plain,
@@ -453,8 +496,12 @@ def op_count(name, args, kw) -> int:
     searches x real candidates x the forward and reverse steps)."""
     if name in TAS_KERNELS:
         return tas_op_count(name, args, kw)
-    if name == "kq_scatter_rows":
+    if name in ("kq_scatter_rows", "kq_gather_heads"):
         return 0                      # a copy: no arithmetic
+    if name == "kq_fs_merge_order":
+        # per round a comparison per shard and ~8 for the emit and the
+        # cursor step
+        return args[2] * (len(args[1]) + 8)
     if name == "kq_reduce_dflags":
         return len(args[0]) * args[0][0].numel()   # one add per input
     if name in PHASE1:
@@ -555,7 +602,9 @@ def library_call(name, args):
     same inputs (timed beside it, never used by the port), or None:
     ``index_put_`` per plane for the row scatter (one call per plane:
     PyTorch has no call that writes 13 tensors), ``torch.sum(dim=0)``
-    over the stacked flag blocks for the reduction."""
+    over the stacked flag blocks for the reduction, and per plane
+    ``index_copy_`` of the concatenated blocks into a filled row for the
+    head gather (the maps concatenated once, outside the timing)."""
     import torch
     if name == "kq_scatter_rows":
         planes, rows, vals = args
@@ -565,6 +614,13 @@ def library_call(name, args):
     if name == "kq_reduce_dflags":
         stacked = torch.stack(tuple(args[0]))
         return lambda: torch.sum(stacked, dim=0, dtype=torch.int32)
+    if name == "kq_gather_heads":
+        planes, head_of, W, fills = args
+        idx = torch.cat(head_of).long()
+        outs = [torch.full((W,), f, dtype=p[0].dtype, device=idx.device)
+                for p, f in zip(planes, fills)]
+        return lambda: [o.index_copy_(0, idx, torch.cat(p))
+                        for o, p in zip(outs, planes)]
     return None
 
 
@@ -629,6 +685,34 @@ def host_drs(snapshot) -> dict:
 def most_heads(calls):
     """The captured fs_admit_scan call with the most valid heads."""
     return max(calls, key=lambda call: int(call[0][17].sum()))
+
+
+def widest_mesh(calls):
+    """The captured gather or merge call over the most heads (its W),
+    then the most shards."""
+    return max(calls, key=lambda call: (call[0][2], len(call[0][1])))
+
+
+def mesh_line(tag, d, r, launches, device_ms, digest, ref, wall_ref, gcw):
+    from kueue_tpu_torch import scenarios
+    ss = d.scheduler.solver.stats
+    pct = scenarios.percentile
+    keys = ("sharded_dispatches", "sharded_preempt_dispatches",
+            "sharded_fs_dispatches", "sharded_empty_shards",
+            "sharded_shard_launches", "full_cycles", "fs_full_cycles",
+            "classify_cycles", "host_cycles", "skipped_dispatches",
+            "singleton_dispatches")
+    busy = sum(device_ms.values()) / 1e3
+    log(f"[{tag}] mesh {d.scheduler.solver.mesh.shape} (virtual, cuda:0), "
+        f"{r['cycles']} cycles in {r['wall']:.2f}s (serial {wall_ref:.2f}s),"
+        f" cycle p50 {pct(r['cycle_times'], 0.5) * 1e3:.3f}ms p99 "
+        f"{pct(r['cycle_times'], 0.99) * 1e3:.3f}ms, mean "
+        f"{r['wall'] / r['cycles'] * 1e3:.3f}ms, {gcw.line()}, device "
+        f"{busy * 1e3:.3f}ms (busy {busy / r['wall']:.6f}); digest {digest} "
+        f"(serial {ref}); stats "
+        f"{json.dumps({k: ss.get(k) for k in keys})}; launches "
+        f"{json.dumps({k: v for k, v in launches.items() if v})}; "
+        f"device_ms {json.dumps({k: v for k, v in device_ms.items() if v})}")
 
 
 def most_rows(calls):
@@ -761,6 +845,9 @@ def main() -> int:
         f"host_cycles {ss['host_cycles']}, classify_cycles "
         f"{ss['classify_cycles']}; launches {json.dumps(launches4)}; "
         f"device_ms {json.dumps(device_ms4)}")
+    digest4 = scenarios.decision_digest(d, r["decisions"])
+    wall4 = r["wall"]
+    log(f"[4 bench] digest {digest4}")
     check(r["finished"] == r["total"] == BENCH_WORKLOADS, r["finished"])
     check(r["preempted"] > 0, "no preemption in the perf scenario")
     check(ss["host_cycles"] == 0, ss)
@@ -789,6 +876,8 @@ def main() -> int:
         f"admitted {r5['admitted']}, preempted {r5['preempted']}; "
         f"launches {json.dumps(launches5)}; device_ms "
         f"{json.dumps(device_ms5)}")
+    digest5 = scenarios.decision_digest(d, r5["decisions"])
+    log(f"[5 northstar] digest {digest5}")
     check(launches5["admit_scan_forests"] > 0, launches5)
     del d
     cap.uninstall()
@@ -1356,11 +1445,166 @@ def main() -> int:
     log(f"[3g sharded-burst kernels, seeded + {n_captured} captured] "
         f"{json.dumps({k: stats[k] for k in SHARD_KERNELS})}")
 
+    # -- 16. the perf scenario through the per-cycle mesh ------------------
+    install_mesh_capture(cap)
+    cap.phase = "bench_mesh"
+    with sharded.virtual_mesh("cuda:0", MESH_SHARDS["bench"]):
+        d, clock, total, waves = scenarios.build_bench(
+            BENCH_WORKLOADS / 15_000, device="cuda",
+            shards=MESH_SHARDS["bench"])
+        d.scheduler.solver.warmup(d.cache.snapshot(),
+                                  len(d.cache.cluster_queue_names()))
+        gc.collect()      # phases 16-16c start from a collected heap
+        kernels.reset_counts()
+        with GCWatch() as gc16:
+            r16 = scenarios.run_bench(d, clock, total, waves)
+        torch.cuda.synchronize()
+        launches16 = dict(kernels.LAUNCHES)
+        device_ms16 = kernels.collect()
+    cap.uninstall()
+    ss = d.scheduler.solver.stats
+    digest16 = scenarios.decision_digest(d, r16["decisions"])
+    log(f"[16 bench mesh] drained {r16['finished']}/{r16['total']}, "
+        f"{r16['finished'] / r16['wall']:.1f} admissions/s (phase 4: "
+        f"{BENCH_WORKLOADS / wall4:.1f}), preempted {r16['preempted']}")
+    mesh_line("16 bench mesh", d, r16, launches16, device_ms16, digest16,
+              digest4, wall4, gc16)
+    check(d.scheduler.solver.mesh.shape == {"wl": 2, "cq": 2},
+          d.scheduler.solver.mesh.shape)
+    check(digest16 == digest4, {"mesh": digest16, "phase 4": digest4})
+    check(ss["sharded_dispatches"] > 0 and ss["sharded_preempt_dispatches"]
+          > 0, ss)
+    check(launches16["kq_gather_heads"] == ss["sharded_dispatches"],
+          (launches16, ss["sharded_dispatches"]))
+    for k in ("admit_scan", "admit_scan_preempt",
+              "minimal_preemptions_batch"):
+        check(launches16[k] > 0, (k, launches16))
+    check(sum(sum(v) for v in ss["sharded_shard_launches"].values())
+          == launches16["admit_scan"] + launches16["admit_scan_preempt"]
+          + launches16["admit_scan_forests"], ss["sharded_shard_launches"])
+    del d, waves
+
+    # -- 16b. the north-star shape through the per-cycle mesh ---------------
+    install_mesh_capture(cap)
+    cap.phase = "northstar_mesh"
+    with sharded.virtual_mesh("cuda:0", MESH_SHARDS["northstar"]):
+        t0 = time.perf_counter()
+        d, clock, total, wave = scenarios.build_northstar(
+            NORTHSTAR["n_cqs"], NORTHSTAR["n_wl"], device="cuda",
+            shards=MESH_SHARDS["northstar"])
+        d.scheduler.solver.warmup(d.cache.snapshot(), NORTHSTAR["n_cqs"])
+        build_s = time.perf_counter() - t0
+        gc.collect()
+        kernels.reset_counts()
+        with GCWatch() as gc16b:
+            r16b = scenarios.run_northstar(d, clock, wave,
+                                           cycles=NORTHSTAR["cycles"])
+        torch.cuda.synchronize()
+        launches16b = dict(kernels.LAUNCHES)
+        device_ms16b = kernels.collect()
+    cap.uninstall()
+    ss = d.scheduler.solver.stats
+    digest16b = scenarios.decision_digest(d, r16b["decisions"])
+    log(f"[16b northstar mesh] built in {build_s:.1f}s, admitted "
+        f"{r16b['admitted']}, preempted {r16b['preempted']}")
+    mesh_line("16b northstar mesh", d, r16b, launches16b, device_ms16b,
+              digest16b, digest5, r5["wall"], gc16b)
+    check(d.scheduler.solver.mesh.shape == {"wl": 4, "cq": 2},
+          d.scheduler.solver.mesh.shape)
+    check(digest16b == digest5, {"mesh": digest16b, "phase 5": digest5})
+    check(ss["sharded_preempt_dispatches"] > 0, ss)
+    check(launches16b["admit_scan_forests"] > 0, launches16b)
+    check(launches16b["kq_gather_heads"] == ss["sharded_dispatches"],
+          (launches16b, ss["sharded_dispatches"]))
+    del d
+
+    # -- 16c. fair sharing at the north-star size through the mesh ----------
+    install_mesh_capture(cap)
+    cap.phase = "northstar_fs_mesh"
+    with sharded.virtual_mesh("cuda:0", MESH_SHARDS["fs"]):
+        t0 = time.perf_counter()
+        d, clock, total = scenarios.build_northstar_fs(
+            NORTHSTAR["n_cqs"], NORTHSTAR["n_wl"], device="cuda",
+            shards=MESH_SHARDS["fs"])
+        d.scheduler.solver.warmup(d.cache.snapshot(), NORTHSTAR["n_cqs"])
+        build_s = time.perf_counter() - t0
+        gc.collect()
+        kernels.reset_counts()
+        with GCWatch() as gc16c:
+            r16c = scenarios.run_northstar_fs(d, clock,
+                                              cycles=NORTHSTAR["cycles"])
+        torch.cuda.synchronize()
+        launches16c = dict(kernels.LAUNCHES)
+        device_ms16c = kernels.collect()
+    cap.uninstall()
+    ss = d.scheduler.solver.stats
+    digest16c = scenarios.decision_digest(d, r16c["decisions"])
+    log(f"[16c northstar fs mesh] built in {build_s:.1f}s, admitted "
+        f"{r16c['admitted']}, skipped {r16c['skipped']}")
+    mesh_line("16c northstar fs mesh", d, r16c, launches16c, device_ms16c,
+              digest16c, digest9, r9["wall"], gc16c)
+    check(digest16c == digest9, {"mesh": digest16c, "phase 9": digest9})
+    check(ss["sharded_fs_dispatches"] > 0, ss)
+    check(launches16c["fs_admit_scan"] > 0, launches16c)
+    check(launches16c["kq_fs_merge_order"] == ss["sharded_fs_dispatches"],
+          (launches16c, ss["sharded_fs_dispatches"]))
+    check(launches16c["kq_gather_heads"] >= ss["sharded_fs_dispatches"],
+          launches16c)
+    del d
+
+    # -- 16d. the multi-chip dry run on a virtual mesh of the card ----------
+    install_mesh_capture(cap)
+    install_phase1_capture(cap)
+    cap.phase = "dryrun"
+    with sharded.virtual_mesh("cuda:0", MESH_SHARDS["dryrun"]):
+        kernels.reset_counts()
+        r16d = scenarios.dryrun_multichip(MESH_SHARDS["dryrun"],
+                                          device="cuda")
+        torch.cuda.synchronize()
+        launches16d = dict(kernels.LAUNCHES)
+        kernels.collect()
+    cap.uninstall()
+    log(f"[16d dryrun_multichip] {json.dumps(r16d)}; launches "
+        f"{json.dumps({k: v for k, v in launches16d.items() if v})}")
+    for k in PHASE1 + ("admit_scan", "admit_scan_preempt",
+                       "kq_gather_heads"):
+        check(launches16d[k] > 0, (k, launches16d))
+
+    # -- 3i. the mesh kernels and the per-shard scans against plain ---------
+    mesh_phases = ("bench_mesh", "northstar_mesh", "northstar_fs_mesh",
+                   "dryrun")
+    t0 = time.perf_counter()
+    n_captured = {}
+    for phase in mesh_phases:
+        for name in MESH_KERNELS + MESH_SCANS + PHASE1:
+            for args, kw in cap.calls.get((phase, name), []):
+                compare(name, args, kw, stats)
+                n_captured[name] = n_captured.get(name, 0) + 1
+    rng = np.random.default_rng(1000)
+    planes, head_of, fills = testing.gather_case(
+        rng, W=1000, S=8, dtypes=("bool", "bool", "bool"))
+    synth_gather = [tuple(tuple(on_card(list(p))) for p in planes),
+                    tuple(on_card(list(head_of))), 1000, fills]
+    compare("kq_gather_heads", synth_gather, {}, stats)
+    winners, head_of = testing.merge_case(rng, W=1000, S=8)
+    synth_merge = [tuple(on_card(list(winners))),
+                   tuple(on_card(list(head_of))), 1000]
+    compare("kq_fs_merge_order", synth_merge, {}, stats)
+    for name in MESH_KERNELS + MESH_SCANS + PHASE1:
+        check(stats[name]["mismatches"] == 0, (name, stats[name]))
+    for name in MESH_KERNELS:
+        check(n_captured.get(name), f"{name}: nothing captured in 16-16d")
+    log(f"[3i mesh kernels, synthetic + captured {json.dumps(n_captured)}] "
+        f"in {time.perf_counter() - t0:.1f}s; "
+        f"{json.dumps({k: stats[k] for k in MESH_KERNELS + MESH_SCANS})}")
+
     # -- the kernels line ----------------------------------------------------
     by_phase = {"4": launches4, "5": launches5, "7": launches7,
                 "8": launches8, "9": launches9, "9b": launches9b,
                 "11": launches11, "13": launches13, "14": launches14,
-                "15": launches15, "15b": launches15b, "15c": launches15w}
+                "15": launches15, "15b": launches15b, "15c": launches15w,
+                "16": launches16, "16b": launches16b, "16c": launches16c,
+                "16d": launches16d}
     rows = []
     for name in kernels.KERNELS:
         phase = {"admit_scan_forests": "northstar",
@@ -1370,13 +1614,17 @@ def main() -> int:
                  **dict.fromkeys(TAS_KERNELS, "tas"),
                  **dict.fromkeys(PHASE1, "probe"),
                  "kq_scatter_rows": "northstar_resident",
-                 "kq_reduce_dflags": "northstar_sharded"}.get(name, "bench")
+                 "kq_reduce_dflags": "northstar_sharded",
+                 "kq_gather_heads": "northstar_mesh",
+                 "kq_fs_merge_order": "northstar_fs_mesh"}.get(name,
+                                                               "bench")
         calls = cap.calls.get((phase, name))
         check(calls, f"{name}: no captured {phase} call")
         args, kw = (burst_window(calls) if name == "burst_cycles"
                     else most_heads(calls) if name == "fs_admit_scan"
                     else deepest(calls) if name == "best_fit_descend"
                     else most_rows(calls) if name == "kq_scatter_rows"
+                    else widest_mesh(calls) if name in MESH_KERNELS
                     else widest(calls) if name in PHASE1
                     else calls[0] if name in ("drs_components",
                                               "fill_counts",
@@ -1388,7 +1636,9 @@ def main() -> int:
                     "northstar_burst": launches8,
                     "northstar_fs": launches9, "tas": launches11,
                     "probe": launches13, "northstar_sharded": launches15,
-                    "northstar_resident": launches15w}[phase][name]
+                    "northstar_resident": launches15w,
+                    "northstar_mesh": launches16b,
+                    "northstar_fs_mesh": launches16c}[phase][name]
         extra = {}
         if name == "kq_scatter_rows":
             extra["timed_shape"] = dict(
@@ -1400,6 +1650,18 @@ def main() -> int:
         if name == "kq_reduce_dflags":
             extra["timed_shape"] = dict(S=len(args[0]),
                                         K=int(args[0][0].shape[0]))
+        if name in MESH_KERNELS:
+            path_ms = {"kq_gather_heads": device_ms16b,
+                       "kq_fs_merge_order": device_ms16c}[name]
+            extra["timed_shape"] = dict(W=int(args[2]), S=len(args[1]),
+                                        heads=int(sum(h.numel()
+                                                      for h in args[1])))
+            extra["device_ms_per_launch_on_path"] = (
+                path_ms[name] / max(1, launches))
+            ts = time_kernel(name, synth_gather if name == "kq_gather_heads"
+                             else synth_merge, {})
+            extra["synthetic_1000x8"] = {k: ts[k] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
         if name in TAS_KERNELS:
             extra["dependent_steps"] = tas_dependent_steps(name, args, kw)
             extra["timed_shape"] = dict(

@@ -119,14 +119,20 @@ class Driver:
             fs_preemption_strategies=fs_preemption_strategies,
             ordering=ordering, clock=clock, namespaces=namespaces)
         if use_device_solver:
-            # KUEUE_TPU_SHARDS > 1 shards the fused burst
-            # (schedule_burst → BurstSolver.set_shards); the per-cycle
-            # solver stays on one device, as the JAX Driver's does when
-            # make_mesh fails (CycleSolver.set_mesh is the next slice)
             from ..ops.solver import CycleSolver
             self.scheduler.solver = CycleSolver(
                 ordering, device=device,
                 backend="native" if solver_backend == "native" else "auto")
+            # KUEUE_TPU_SHARDS > 1: the per-cycle scans run over a (wl, cq)
+            # mesh of the Driver's devices (schedule_burst shards the
+            # fused burst on its own, BurstSolver.set_shards); fewer
+            # devices than asked: stay serial, as the JAX Driver does
+            shards = self._env_shards()
+            if shards > 1:
+                from ..parallel.sharded import make_mesh
+                mesh = make_mesh(shards, device=device)
+                if mesh is not None:
+                    self.scheduler.solver.set_mesh(mesh)
         self.scheduler.apply_admission = self._apply_admission
         self.scheduler.preemptor.apply_preemption = self._apply_preemption
         if self.wait_for_pods_ready.enable and self.wait_for_pods_ready.block_admission:

@@ -38,11 +38,12 @@ KERNELS = ("admit_scan", "admit_scan_preempt", "admit_scan_forests",
            "minimal_preemptions_batch", "burst_cycles", "fs_admit_scan",
            "drs_components", "fill_counts", "best_fit_descend",
            "split_across_roots", "kq_cq_avail", "kq_classify_heads",
-           "kq_cycle_order", "kq_scatter_rows", "kq_reduce_dflags")
+           "kq_cycle_order", "kq_scatter_rows", "kq_reduce_dflags",
+           "kq_gather_heads", "kq_fs_merge_order")
 SOURCES = ("admit_scan.cu", "admit_scan_preempt.cu", "admit_scan_forests.cu",
            "minimal_preemptions.cu", "burst_cycles.cu", "fs_admit_scan.cu",
            "drs_components.cu", "tas_fill_counts.cu", "tas_descend.cu",
-           "solve_cycle.cu", "scatter_rows.cu")
+           "solve_cycle.cu", "scatter_rows.cu", "mesh_gather.cu")
 HEADERS = ("quota.cuh", "admit_entry.cuh", "tas.cuh")
 MAX_THREADS = 1024
 SMEM_LIMIT = 227 * 1024  # dynamic shared memory a block may use on H100
@@ -128,6 +129,8 @@ _ARGTYPES = {
     "kq_cycle_order": [_P, _P, _P],
     "kq_scatter_rows": [_P, _P, _P],
     "kq_reduce_dflags": [_P, _P, _P],
+    "kq_gather_heads": [_P, _P, _P],
+    "kq_fs_merge_order": [_P, _P, _P],
 }
 
 
@@ -934,3 +937,88 @@ def kq_reduce_dflags(blocks):
     _array_launch("kq_reduce_dflags", load().kq_reduce_dflags,
                   [*blocks, out], [S, K * 4])
     return out
+
+
+# -- the per-cycle mesh: head gather, fair-sharing round merge --------------
+
+MESH_MAX_SHARDS = 32        # KQ_MESH_MAX_SHARDS in mesh_gather.cu
+GATHER_MAX_PLANES = 6       # KQ_GATHER_MAX_PLANES in mesh_gather.cu
+MERGE_SMEM = 48 * 1024      # KQ_MERGE_SMEM: done flags in shared memory
+
+
+def _mesh_maps(head_of, dev):
+    S = len(head_of)
+    if not 1 <= S <= MESH_MAX_SHARDS:
+        raise ValueError(f"{S} shards: 1 to {MESH_MAX_SHARDS}")
+    for s, h in enumerate(head_of):
+        n = h.shape[0] if h.dim() == 1 else -1
+        _check(f"head_of[{s}]", h, torch.int32, (n,), dev)
+    return [int(h.shape[0]) for h in head_of]
+
+
+def kq_gather_heads(planes, head_of, W: int, fills):
+    """CUDA head gather (kernels/mesh_gather.cu): for each plane p,
+    ``out[p][head_of[s][i]] = planes[p][s][i]``, the other rows
+    ``fills[p]``; one launch for all planes → a tuple of [W] tensors.
+    Arguments as ``parallel.sharded.gather_heads_plain``: planes[p] holds
+    S blocks [W_s] of one dtype (bool or int32) on the maps' CUDA device,
+    head_of S int32 maps [W_s].  Shards with no heads are dropped before
+    the launch."""
+    planes = tuple(tuple(b) for b in planes)
+    head_of = tuple(head_of)
+    dev = head_of[0].device if head_of else None
+    if dev is None or dev.type != "cuda":
+        raise ValueError(f"head_of on {dev}: the kernels need CUDA tensors")
+    P = len(planes)
+    if not 1 <= P <= GATHER_MAX_PLANES or len(fills) != P:
+        raise ValueError(f"{P} planes and {len(fills)} fills: 1 to "
+                         f"{GATHER_MAX_PLANES} of each, as many")
+    n = _mesh_maps(head_of, dev)
+    outs = []
+    for k, blocks in enumerate(planes):
+        if len(blocks) != len(head_of):
+            raise ValueError(f"planes[{k}]: {len(blocks)} blocks for "
+                             f"{len(head_of)} shards")
+        dtype = blocks[0].dtype
+        if dtype not in (torch.bool, torch.int32):
+            raise TypeError(f"planes[{k}]: dtype {dtype}, expected bool "
+                            f"or int32")
+        for s, b in enumerate(blocks):
+            _check(f"planes[{k}][{s}]", b, dtype, (n[s],), dev)
+        outs.append(torch.empty(W, dtype=dtype, device=dev))
+    if W == 0:
+        return tuple(outs)
+    live = [s for s in range(len(head_of)) if n[s] > 0]
+    ptrs = ([planes[k][s] for k in range(P) for s in live]
+            + [head_of[s] for s in live] + outs)
+    dims = ([P, len(live), W] + [n[s] for s in live]
+            + [o.element_size() for o in outs] + [int(f) for f in fills])
+    _array_launch("kq_gather_heads", load().kq_gather_heads, ptrs, dims)
+    return tuple(outs)
+
+
+def kq_fs_merge_order(winners, head_of, W: int):
+    """CUDA merge of the shards' fair-sharing winner sequences
+    (kernels/mesh_gather.cu) → order [W] int32 of global head indices, -1
+    past the last round.  Arguments as
+    ``parallel.sharded.fs_merge_order_plain``: winners[s] [W_s] int32
+    local ids into shard s's ascending head list head_of[s] [W_s] (-1
+    past its last round)."""
+    winners, head_of = tuple(winners), tuple(head_of)
+    dev = head_of[0].device if head_of else None
+    if dev is None or dev.type != "cuda":
+        raise ValueError(f"head_of on {dev}: the kernels need CUDA tensors")
+    n = _mesh_maps(head_of, dev)
+    if len(winners) != len(head_of):
+        raise ValueError(f"{len(winners)} winner sequences for "
+                         f"{len(head_of)} shards")
+    for s, w in enumerate(winners):
+        _check(f"winners[{s}]", w, torch.int32, (n[s],), dev)
+    order = torch.empty(W, dtype=torch.int32, device=dev)
+    if W == 0:
+        return order
+    done = (torch.empty(sum(n), dtype=torch.uint8, device=dev)
+            if sum(n) > MERGE_SMEM else None)
+    _array_launch("kq_fs_merge_order", load().kq_fs_merge_order,
+                  [*winners, *head_of, done, order], [len(n), W, *n])
+    return order

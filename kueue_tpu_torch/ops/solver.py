@@ -40,9 +40,15 @@ only; other policies and resumed walks take ``classify_np``, counted in
 heads in the compiled C++ core (``kueue_tpu_torch/native``, host numpy);
 cycles with preempting heads keep the device's ``admit_scan_preempt``.
 
-Not in this package yet (ROADMAP Queue 1 item 9, the next slice): the
-per-cycle mesh route (``set_mesh``).  The fused burst shards on its own
-mesh (``ops.burst.BurstSolver.set_shards``).
+``set_mesh(mesh)`` (a ``parallel.sharded.CycleMesh``; the Driver sets
+one under ``KUEUE_TPU_SHARDS=n``) routes every admit scan and
+fair-sharing scan that a shortcut does not prove unnecessary through the
+mesh, ahead of the native route: the structure's cohort forests are
+partitioned over the ``cq`` axis (``CycleShardLayout``, cached on the
+structure per mesh), each shard's kernel runs on its own device and
+stream, and ``kq_gather_heads`` (with ``kq_fs_merge_order`` for fair
+sharing) rebuilds the head-order outputs.  The fused burst shards on
+its own mesh (``ops.burst.BurstSolver.set_shards``).
 """
 
 from __future__ import annotations
@@ -143,7 +149,8 @@ class DispatchHandle:
     preempting: Optional[np.ndarray] = None
     overlap_skip: Optional[np.ndarray] = None
     fit_mask: Optional[np.ndarray] = None  # [W] bool: vector + scalar fits
-    route: str = ""   # "cuda" | "cpu" | "no_fit" | "singleton"
+    route: str = ""   # "cuda" | "cpu" | "sharded" | "native" | "no_fit"
+                      # | "singleton"
 
 
 # static structure planes the admit scans read, uploaded once per structure
@@ -216,6 +223,10 @@ class CycleSolver:
         }
         self._structure: Optional[PackedStructure] = None
         self._potential0 = None
+        # optional parallel.sharded.CycleMesh: when set, the admit and
+        # fair-sharing scans run forest-sharded over it (set_mesh)
+        self.mesh = None
+        self._sharded_fns: dict = {}
 
     # -- device planes -------------------------------------------------
 
@@ -253,13 +264,47 @@ class CycleSolver:
         self.stats["kernel_launches"] = dict(kernels.LAUNCHES)
 
     def set_mesh(self, mesh) -> None:
-        """The per-cycle mesh route of the JAX solver (GSPMD admit scans
-        with ``_mesh_pad``) is not ported: it is the next slice of the
-        port (ROADMAP Queue 1 item 9).  The Driver does not call this."""
-        raise NotImplementedError(
-            "CycleSolver.set_mesh: the per-cycle mesh route (sharded "
-            "admit scans) is the next slice of the port, ROADMAP Queue 1 "
-            "item 9; only the fused burst shards (BurstSolver.set_shards)")
+        """Route the admit scans and the fair-sharing scan through the
+        mesh-sharded programs (``parallel.sharded.admit_scan_fns`` /
+        ``fs_scan_fn``); None routes them back to the solver's device."""
+        self.mesh = mesh
+        self._sharded_fns = {}
+        for k in ("sharded_dispatches", "sharded_preempt_dispatches",
+                  "sharded_fs_dispatches", "sharded_empty_shards"):
+            self.stats.setdefault(k, 0)
+        # {kernel: [launches of shard j]}: one per shard with heads
+        self.stats.setdefault("sharded_shard_launches", {})
+
+    def _count_shards(self, layout, kernel: str) -> None:
+        row = self.stats["sharded_shard_launches"].setdefault(
+            kernel, [0] * layout.n_shards)
+        for j in layout.live:
+            row[j] += 1
+        self.stats["sharded_empty_shards"] += layout.empty_shards
+
+    def _sharded_for(self, depth: int) -> dict:
+        fns = self._sharded_fns.get(depth)
+        if fns is None:
+            from ..parallel.sharded import admit_scan_fns
+            fns = admit_scan_fns(self.mesh, depth)
+            self._sharded_fns[depth] = fns
+        return fns
+
+    def _mesh_pad(self, st: PackedStructure):
+        """The structure's ``CycleShardLayout`` over the mesh's ``cq``
+        axis, cached on the structure per mesh (a rebuilt structure gets
+        a new one, with fresh device statics).  The JAX solver's
+        ``_mesh_pad`` (and its ``_pad_rows``) pads nodes and heads to
+        mesh-divisible sizes for GSPMD; a partition of whole forests
+        needs no padding, and this layout takes its place."""
+        cached = getattr(st, "_mesh_layout", None)
+        if cached is None or cached[0] is not self.mesh:
+            from ..parallel.sharded import CycleShardLayout
+            layout = CycleShardLayout(
+                st.parent, len(st.cq_names), self.mesh.shape["cq"],
+                st.forest_of_node)
+            st._mesh_layout = cached = (self.mesh, layout)
+        return cached[1]
 
     def warmup(self, snapshot: Snapshot, max_heads: int) -> None:
         """One-time setup outside the hot loop: on "cuda", build (when
@@ -690,6 +735,17 @@ class CycleSolver:
                     return handle
 
         has_preempt = bool(pmask.any())
+        mfw = self._forest_bucket(packed) if not has_preempt else None
+        if self.mesh is not None:
+            # the mesh route takes precedence over the native one, as in
+            # the JAX solver
+            return self._dispatch_sharded(
+                handle, st, has_preempt, mfw, order, targets,
+                (packed.usage0, st.subtree_quota, st.guaranteed,
+                 st.borrow_cap, st.has_borrow_limit, st.parent,
+                 st.nominal_cq, st.nominal_plus_blimit_cq, packed.wl_cq,
+                 dec_fr, dec_amt, fit_mask, res_fr, res_amt, rmask,
+                 res_borrows), (pmask, pre_fr, pre_amt))
         if self.backend == "native" and not has_preempt:
             # the C++ core runs the admit loop synchronously on the host
             # (cycles with preempting heads keep the device scan)
@@ -702,7 +758,6 @@ class CycleSolver:
             handle.route = "native"
             self.stats["native_dispatches"] += 1
             return handle
-        mfw = self._forest_bucket(packed) if not has_preempt else None
         kernel = ("admit_scan_preempt" if has_preempt
                   else "admit_scan" if mfw is None else "admit_scan_forests")
         statics = self._device_planes(st)
@@ -733,6 +788,36 @@ class CycleSolver:
                     max_forest_wl=mfw)
             else:
                 handle.pending = admit_scan(*args, t_order, depth=st.depth)
+        return handle
+
+    def _dispatch_sharded(self, handle, st, has_preempt, mfw, order,
+                          targets, args, pre) -> DispatchHandle:
+        """The admit scan over the mesh: flat, forest or preempt, as the
+        unsharded dispatch picks it (``handle.route = "sharded"``)."""
+        fns = self._sharded_for(st.depth)
+        layout = self._mesh_pad(st)
+        self.stats["sharded_dispatches"] += 1
+        handle.route = "sharded"
+        from ..profiling import annotation
+        if has_preempt:
+            kernel = "admit_scan_preempt"
+            self.stats["sharded_preempt_dispatches"] += 1
+            with annotation("admit_scan_sharded:preempt"):
+                handle.pending = fns["preempt"](
+                    *args, *pre, targets.tgt_mat, targets.tu_cq,
+                    targets.tu_delta, order, layout=layout)
+        elif mfw is None:
+            kernel = "admit_scan"
+            with annotation("admit_scan_sharded:flat"):
+                handle.pending = fns["flat"](*args, order, layout=layout)
+        else:
+            kernel = "admit_scan_forests"
+            with annotation("admit_scan_sharded:forest"):
+                handle.pending = fns["forest"](
+                    *args, order, forest_of_node=st.forest_of_node,
+                    n_forests=st.n_forests, max_forest_wl=mfw,
+                    layout=layout)
+        self._count_shards(layout, kernel)
         return handle
 
     def dispatch_fs(self, cls: ClassifiedCycle) -> Optional[DispatchHandle]:
@@ -773,6 +858,28 @@ class CycleSolver:
         handle.fit_mask = fit_mask
         handle.route = self.device.type
         self.stats[f"{self.device.type}_dispatches"] += 1
+        if self.mesh is not None:
+            # the same kernel per cq shard of whole cohort forests, the
+            # rounds merged back into the reference's global order
+            key = ("fs", st.depth, statics.n_levels)
+            fn = self._sharded_fns.get(key)
+            if fn is None:
+                from ..parallel.sharded import fs_scan_fn
+                fn = fs_scan_fn(self.mesh, st.depth, statics.n_levels)
+                self._sharded_fns[key] = fn
+            self.stats["sharded_fs_dispatches"] += 1
+            layout = self._mesh_pad(st)
+            from ..profiling import annotation
+            with annotation("fs_admit_scan"):
+                handle.pending = ("fs", fn(
+                    packed.usage0, st.subtree_quota, statics.sq_mask,
+                    st.guaranteed, st.borrow_cap, st.has_borrow_limit,
+                    st.parent, statics.node_level, st.fair_weight_milli,
+                    statics.lendable_r, statics.onehot, statics.child_order,
+                    packed.wl_cq, u_e, nofit, packed.wl_priority, ts_rank,
+                    valid, st.forest_of_node, layout=layout))
+            self._count_shards(layout, "fs_admit_scan")
+            return handle
         planes = self._device_planes(st)
         fs = self._fs_planes(st, statics)
         usage0, wl_cq, t_u_e, t_nofit, prio, t_ts, t_valid = self._to_device(

@@ -1,16 +1,19 @@
-"""Cycle arguments for the one-call solver and the forest-sharded burst
-(``parallel.sharded``).
+"""Device meshes and the sharded programs (``parallel.sharded``).
 
-Ported: ``cycle_args``; the burst mesh (``make_burst_mesh``, with the
-``virtual_mesh`` hook that tests and ``chip_smoke.py`` set),
-``BurstShardLayout`` and ``sharded_burst`` with its two kernels'
-routed functions.  The JAX package's per-cycle mesh functions
-(``make_mesh``, ``sharded_cycle_fn``, ``admit_scan_fns``,
-``fs_scan_fn``, ``make_hybrid_mesh``) are the next slice (ROADMAP Queue
-1 item 9)."""
+The per-cycle mesh: ``make_mesh`` / ``make_hybrid_mesh`` build a 2-D
+(wl, cq) mesh, ``cycle_args`` gives the one-call solver's planes and
+``sharded_cycle_fn`` runs it over the mesh, as the JAX package's
+``parallel`` exports them; ``CycleSolver.set_mesh`` routes the
+production admit scans and the fair-sharing scan through
+``admit_scan_fns`` / ``fs_scan_fn``.  The forest-sharded burst:
+``make_burst_mesh``, ``BurstShardLayout`` and ``sharded_burst``.  Both
+partition whole cohort forests over the ``cq`` axis; ``virtual_mesh``
+(tests and ``chip_smoke.py`` only) repeats one device."""
 
 from .sharded import (BurstShardLayout, cycle_args, make_burst_mesh,
-                      sharded_burst, virtual_mesh)
+                      make_hybrid_mesh, make_mesh, sharded_burst,
+                      sharded_cycle_fn, virtual_mesh)
 
 __all__ = ["BurstShardLayout", "cycle_args", "make_burst_mesh",
-           "sharded_burst", "virtual_mesh"]
+           "make_hybrid_mesh", "make_mesh", "sharded_burst",
+           "sharded_cycle_fn", "virtual_mesh"]

@@ -20,7 +20,11 @@ the north-star shape, driven per cycle through ``Driver.schedule_once``.
 - ``build_entry_scenario``/``packed_cycle``/``entry``: the JAX package's
   ``__graft_entry__`` scenario (2 cohorts x 2 CQs, 24 workloads, optional
   contention and preemption), its packed first cycle, and the one-call
-  cycle solver as a step on those planes.
+  cycle solver as a step on those planes; ``dryrun_multichip`` is
+  ``__graft_entry__.dryrun_multichip`` over the port's per-cycle mesh.
+- ``shards=`` of ``build_bench`` / ``build_northstar`` /
+  ``build_northstar_fs`` (``shards_env``): the same drains with the
+  Driver's per-cycle mesh (``KUEUE_TPU_SHARDS``).
 - ``probe_synth``: the synthetic north-star cycle of
   ``scripts/northstar_probe.py`` (100,000 heads x 1,000 CQs, no host
   objects), driven by ``kueue_tpu_torch.probe``.
@@ -99,11 +103,33 @@ def _preempting_cq(name: str, cohort: str, resources: dict) -> ClusterQueue:
             flavors=[FlavorQuotas(name="default", resources=resources)])])
 
 
+@contextlib.contextmanager
+def shards_env(shards: int):
+    """``KUEUE_TPU_SHARDS=shards`` while the block runs (a Driver built
+    in it sets the per-cycle mesh; 0 leaves the environment as it is)."""
+    if not shards:
+        yield
+        return
+    import os
+    prev = os.environ.get("KUEUE_TPU_SHARDS")
+    os.environ["KUEUE_TPU_SHARDS"] = str(shards)
+    try:
+        yield
+    finally:
+        if prev is None:
+            del os.environ["KUEUE_TPU_SHARDS"]
+        else:
+            os.environ["KUEUE_TPU_SHARDS"] = prev
+
+
 def build_bench(scale: float = 1.0, device: str = "cuda",
-                solver_backend: str = "auto"):
-    """The perf scenario at ``scale`` → (driver, clock, total, waves)."""
+                solver_backend: str = "auto", shards: int = 0):
+    """The perf scenario at ``scale`` → (driver, clock, total, waves);
+    ``shards`` > 1: the Driver's per-cycle mesh (``shards_env``)."""
     clock = VirtualClock()
-    d = Driver(clock=clock, device=device, solver_backend=solver_backend)
+    with shards_env(shards):
+        d = Driver(clock=clock, device=device,
+                   solver_backend=solver_backend)
     d.apply_resource_flavor(ResourceFlavor(name="default"))
     total = 0
     waves: dict[str, list[Workload]] = {c[0]: [] for c in CLASSES}
@@ -190,11 +216,14 @@ def run_bench(d: Driver, clock: VirtualClock, total: int, waves,
 
 
 def build_northstar(n_cqs: int = 1000, n_wl: int = 100_000,
-                    device: str = "cuda", cqs_per_cohort: int = 5):
+                    device: str = "cuda", cqs_per_cohort: int = 5,
+                    shards: int = 0):
     """1,000 CQs in cohorts of 5 with ``n_wl`` pending workloads →
-    (driver, clock, total, preemptor_wave)."""
+    (driver, clock, total, preemptor_wave); ``shards`` as
+    ``build_bench``'s."""
     clock = VirtualClock()
-    d = Driver(clock=clock, device=device)
+    with shards_env(shards):
+        d = Driver(clock=clock, device=device)
     d.apply_resource_flavor(ResourceFlavor(name="default"))
     per_cq = max(1, n_wl // n_cqs)
     for i in range(n_cqs):
@@ -299,11 +328,13 @@ def northstar_fs_spec(t, d, n_cqs: int = 1000, n_wl: int = 100_000) -> int:
 
 
 def build_northstar_fs(n_cqs: int = 1000, n_wl: int = 100_000,
-                       device: str = "cuda"):
+                       device: str = "cuda", shards: int = 0):
     """The fair-sharing north-star run's cluster on a
-    ``Driver(fair_sharing=True)`` → (driver, clock, total)."""
+    ``Driver(fair_sharing=True)`` → (driver, clock, total); ``shards``
+    as ``build_bench``'s."""
     clock = VirtualClock()
-    d = Driver(clock=clock, fair_sharing=True, device=device)
+    with shards_env(shards):
+        d = Driver(clock=clock, fair_sharing=True, device=device)
     total = northstar_fs_spec(api_types, d, n_cqs, n_wl)
     return d, clock, total
 
@@ -1019,6 +1050,183 @@ def entry(device: str = "cuda"):
         return solve_cycle(*args, depth=depth)
 
     return step, cycle_args(packed, device=device)
+
+
+def dryrun_multichip(n_devices: int, device: str = "cuda") -> dict:
+    """The port's ``__graft_entry__.dryrun_multichip``: over an
+    ``n_devices`` (wl, cq) mesh of ``device`` (``make_mesh``; on one card
+    a virtual mesh must be on), check
+
+    1. the sharded one-call solver's first cycle of the contended entry
+       scenario (64 CQs, W >= 64) against the host scheduler on the
+       same snapshot: the admitted set, the admission order and every
+       admitted workload's flavors, with in-scan skips, borrowing and
+       flavor fallback all present;
+    2. ``sharded_cycle_fn`` against the unsharded ``solve_cycle``: all
+       six outputs equal, and both timed (host clock around a
+       synchronised call, after a warm call);
+    3. six production cycles with a preemptor wave through
+       ``CycleSolver.set_mesh``, each equal to the host scheduler's,
+       with sharded (and sharded preempt) dispatches and preemptions;
+    4. three such cycles on the hybrid layout (``make_hybrid_mesh`` over
+       4 or 2 hosts).
+
+    Prints the reference's line and returns its counts."""
+    import torch
+
+    from .ops.cycle import cycle_order_np, solve_cycle
+    from .parallel.sharded import (cycle_args, make_hybrid_mesh, make_mesh,
+                                   sharded_cycle_fn)
+    mesh = make_mesh(n_devices, device=device)
+    if mesh is None:
+        raise RuntimeError(f"make_mesh({n_devices}): fewer {device} "
+                           f"devices than that")
+    shape = dict(n_cohorts=16, cqs_per_cohort=4, n_flavors=2,
+                 n_workloads=192, contended=True)
+    driver, _, _, packed = packed_cycle(device="cpu", **shape)
+    W = packed.wl_cq.shape[0]
+    assert packed.wl_count >= 64, packed.wl_count
+    args = cycle_args(packed, device=device)
+    fn = sharded_cycle_fn(mesh, depth=packed.depth)
+    admitted, slots, borrows, preempt0, fit_slot0, borrows0 = [
+        o.cpu().numpy() for o in fn(*args)]
+
+    # -- exact first-cycle equality against the host scheduler ----------
+    host_driver = build_entry_scenario(device="cpu", **shape)
+    host_stats = host_driver.schedule_once()
+    order = cycle_order_np(borrows0, packed.wl_priority, packed.wl_timestamp)
+    dev_order = [packed.wl_keys[int(wi)] for wi in order
+                 if wi < packed.wl_count and admitted[int(wi)]]
+    assert dev_order == list(host_stats.admitted), (
+        f"admission order diverged:\ndevice={dev_order}\n"
+        f"host={list(host_stats.admitted)}")
+    mismatched = []
+    for wi in range(packed.wl_count):
+        if not admitted[wi]:
+            continue
+        key = packed.wl_keys[wi]
+        host_wl = host_driver.workload(key)
+        host_map = {a.name: dict(a.flavors)
+                    for a in host_wl.admission.pod_set_assignments}
+        cq = driver.cache.cluster_queue(
+            packed.cq_names[int(packed.wl_cq[wi])])
+        flavor = cq.spec.resource_groups[0].flavors[int(slots[wi])].name
+        dev_map = {a.name: {res: flavor for res in a.flavors}
+                   for a in host_wl.admission.pod_set_assignments}
+        if host_map != dev_map:
+            mismatched.append((key, host_map, dev_map))
+    assert not mismatched, mismatched[:3]
+    assert dev_order, "dry run admitted nothing: scenario degenerate"
+    n = packed.wl_count
+    n_skipped = len(host_stats.skipped)
+    n_borrow = int(borrows0[:n].sum())
+    n_slot1 = int((slots[:n] > 0).sum())
+    assert n_skipped > 0, "no in-scan skips: contention missing"
+    assert n_borrow > 0, "no borrowing heads: scenario degenerate"
+    assert n_slot1 > 0, "no flavor fallback: scenario degenerate"
+
+    # -- sharded against unsharded: parity and time ----------------------
+    def unsharded(*a):
+        return solve_cycle(*a, depth=packed.depth)
+
+    ref = [o.cpu().numpy() for o in unsharded(*args)]
+    got = [admitted, slots, borrows, preempt0, fit_slot0, borrows0]
+    for i, (r, g) in enumerate(zip(ref, got)):
+        assert r.dtype == g.dtype and np.array_equal(r, g), (
+            f"sharded output {i} diverged")
+
+    def sync():
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize()
+
+    def steady(f):
+        f(*args)
+        sync()
+        t0 = time.perf_counter()
+        f(*args)
+        sync()
+        return time.perf_counter() - t0
+
+    t_unsharded = steady(unsharded)
+    t_sharded = steady(fn)
+
+    # -- the production mesh route: 6 cycles with preemption -------------
+    pre_shape = dict(n_cohorts=4, cqs_per_cohort=2, n_flavors=1,
+                     n_workloads=32, preemption=True)
+
+    def preemptor_wave(d, k):
+        for i in range(k):
+            c = i % pre_shape["n_cohorts"]
+            d.create_workload(Workload(
+                name=f"boss-{i}", queue_name=f"lq-{c}-0", priority=100,
+                creation_time=1000.0 + i,
+                pod_sets=[PodSet(name="main", count=1,
+                                 requests={"cpu": 8000,
+                                           "memory": 1 << 30})]))
+
+    def parity(dev_d, cycles, wave_at, k):
+        host_d = build_entry_scenario(device="cpu", **pre_shape)
+        seq = []
+        for cyc in range(cycles):
+            if cyc == wave_at:
+                preemptor_wave(dev_d, k)
+                preemptor_wave(host_d, k)
+            sd = dev_d.schedule_once()
+            sh = host_d.schedule_once()
+            assert sd.admitted == sh.admitted, (
+                f"cycle {cyc} admitted diverged:\nmesh={sd.admitted}\n"
+                f"host={sh.admitted}")
+            assert sorted(sd.preempted_targets) == sorted(
+                sh.preempted_targets), f"cycle {cyc} preemptions diverged"
+            assert sorted(sd.skipped) == sorted(sh.skipped)
+            seq.append((len(sd.admitted), len(sd.preempted_targets)))
+        return seq
+
+    dev_d = build_entry_scenario(use_device_solver=True, device=device,
+                                 **pre_shape)
+    dev_d.scheduler.solver.set_mesh(mesh)
+    seq = parity(dev_d, 6, 2, 4)
+    sstats = dev_d.scheduler.solver.stats
+    assert sstats["sharded_dispatches"] > 0, sstats
+    assert sstats["sharded_preempt_dispatches"] > 0, (
+        "the preemption-aware admit scan never ran sharded", sstats, seq)
+    assert any(p for _, p in seq), "no preemptions fired"
+
+    # -- the hybrid layout: cq within a host, wl across hosts ------------
+    hybrid_cycles = 0
+    n_hosts = next((h for h in (4, 2) if n_devices % h == 0), None)
+    hmesh = None
+    if n_hosts is not None:
+        hmesh = make_hybrid_mesh(n_hosts=n_hosts, devices=mesh.devices)
+        hyb_d = build_entry_scenario(use_device_solver=True, device=device,
+                                     **pre_shape)
+        hyb_d.scheduler.solver.set_mesh(hmesh)
+        hybrid_cycles = len(parity(hyb_d, 3, 1, 2))
+        assert hyb_d.scheduler.solver.stats["sharded_dispatches"] > 0
+    out = dict(
+        mesh=mesh.shape, W=W, heads=packed.wl_count,
+        exact_match=len(dev_order), skipped=n_skipped, borrowing=n_borrow,
+        flavor_fallback=n_slot1, sharded_outputs_equal=6,
+        t_unsharded_ms=t_unsharded * 1e3, t_sharded_ms=t_sharded * 1e3,
+        production_mesh_cycles=len(seq),
+        sharded_dispatches=sstats["sharded_dispatches"],
+        sharded_preempt_dispatches=sstats["sharded_preempt_dispatches"],
+        preemptions=sum(p for _, p in seq), hybrid_mesh=(
+            hmesh.shape if hmesh is not None else None),
+        hybrid_dcn_cycles=hybrid_cycles)
+    print(f"dryrun_multichip ok: mesh={mesh.shape} W={W} "
+          f"heads={packed.wl_count} exact_match={len(dev_order)} admitted "
+          f"(set+order+flavors vs host first cycle) skipped={n_skipped} "
+          f"borrowing={n_borrow} flavor_fallback={n_slot1}; "
+          f"sharded_outputs_equal=6/6 t_unsharded={t_unsharded * 1e3:.1f}ms "
+          f"t_sharded={t_sharded * 1e3:.1f}ms; production_mesh_cycles="
+          f"{len(seq)} sharded_dispatches={sstats['sharded_dispatches']} "
+          f"sharded_preempt_dispatches="
+          f"{sstats['sharded_preempt_dispatches']} preemptions="
+          f"{out['preemptions']} (exact host parity); hybrid_dcn_cycles="
+          f"{hybrid_cycles} (cq-within-host layout, exact host parity)",
+          flush=True)
+    return out
 
 
 def probe_synth(W=100_000, C=1_000, S=4, R=3, cohorts=64, seed=0):

@@ -19,16 +19,30 @@ BORROW_CAP_NONE = 2**30             # preemption_solver's forest-plane pad
 
 
 def forest(rng: np.random.Generator, n_cqs: int, n_cohorts: int,
-           depth: int, chain: bool = False):
+           depth: int, chain: bool = False, roots: int = 0):
     """parent [N] (CQs first, then cohorts), forest_of_node [N],
     n_forests, and the true depth (<= ``depth`` levels).  ``chain``: the
     cohorts form one line (cohort j under cohort j - 1) and every CQ sits
     under a cohort, CQ 0 under the deepest, so the tree is
-    ``n_cohorts + 1`` levels deep whatever ``depth`` says."""
+    ``n_cohorts + 1`` levels deep whatever ``depth`` says.  ``roots``:
+    exactly that many forests — the first ``roots`` cohorts are roots,
+    the others nest under earlier ones (``depth`` >= 3), every CQ sits
+    under a cohort."""
     N = n_cqs + n_cohorts
     parent = np.full(N, -1, dtype=np.int32)
     level = np.zeros(N, dtype=np.int32)
-    if chain and n_cohorts:
+    if roots:
+        for j in range(roots, n_cohorts):
+            cands = [n_cqs + i for i in range(j)
+                     if level[n_cqs + i] < depth - 2]
+            if not cands:
+                raise ValueError("roots: nested cohorts need depth >= 3")
+            p = int(rng.choice(cands))
+            parent[n_cqs + j] = p
+            level[n_cqs + j] = level[p] + 1
+        parent[:n_cqs] = n_cqs + rng.integers(0, n_cohorts, n_cqs)
+        level[:n_cqs] = level[parent[:n_cqs]] + 1
+    elif chain and n_cohorts:
         parent[n_cqs + 1:] = np.arange(n_cqs, N - 1)
         level[n_cqs:] = np.arange(n_cohorts)
         parent[:n_cqs] = n_cqs + rng.integers(0, n_cohorts, n_cqs)
@@ -37,7 +51,7 @@ def forest(rng: np.random.Generator, n_cqs: int, n_cohorts: int,
         return parent, np.zeros(N, dtype=np.int32), 1, n_cohorts + 1
     # cohorts: each picks a parent cohort one level up, keeping the
     # cohort levels within depth - 1 so a CQ below fits in depth levels
-    for j in range(n_cohorts):
+    for j in range(n_cohorts if not roots else 0):
         node = n_cqs + j
         if j > 0 and depth > 2 and rng.random() < 0.6:
             cands = [n_cqs + i for i in range(j) if level[n_cqs + i] < depth - 2]
@@ -45,7 +59,7 @@ def forest(rng: np.random.Generator, n_cqs: int, n_cohorts: int,
                 p = int(rng.choice(cands))
                 parent[node] = p
                 level[node] = level[p] + 1
-    for c in range(n_cqs):
+    for c in range(n_cqs if not roots else 0):
         if n_cohorts and depth > 1 and rng.random() < 0.85:
             p = n_cqs + int(rng.integers(n_cohorts))
             parent[c] = p
@@ -87,12 +101,13 @@ def _pairs(rng, W: int, R: int, F: int, mask: np.ndarray, lo=1, hi=15):
 def admit_cycle(rng: np.random.Generator, *, n_cqs: int = 6,
                 n_cohorts: int = 3, depth: int = 3, F: int = 2, W: int = 16,
                 R: int = 2, n_valid: int | None = None,
-                reserve: bool = True, chain: bool = False) -> dict:
+                reserve: bool = True, chain: bool = False,
+                roots: int = 0) -> dict:
     """Inputs of admit_scan / admit_scan_forests (with ``forest_of_node``,
     ``n_forests`` and ``max_forest_wl``), as numpy arrays; ``depth`` is
-    the static depth argument (``chain`` as ``forest``)."""
+    the static depth argument (``chain`` and ``roots`` as ``forest``)."""
     parent, forest_of, n_forests, true_depth = forest(rng, n_cqs, n_cohorts,
-                                                      depth, chain)
+                                                      depth, chain, roots)
     N = n_cqs + n_cohorts
     q = quota_planes(rng, N, F)
     nominal = rng.integers(0, 30, (n_cqs, F)).astype(np.int32)
@@ -123,9 +138,12 @@ def admit_cycle(rng: np.random.Generator, *, n_cqs: int = 6,
 
 
 def preempt_cycle(rng: np.random.Generator, *, T: int = 64, MT: int = 4,
-                  n_targets: int | None = None, **kw) -> dict:
+                  n_targets: int | None = None, in_forest: bool = False,
+                  **kw) -> dict:
     """Inputs of admit_scan_preempt: ``admit_cycle`` plus preempt heads
-    whose target lists overlap."""
+    whose target lists overlap; ``in_forest``: each head's targets in
+    its own cohort forest, as a Kueue cycle has them (the forest-sharded
+    scans need it)."""
     a = admit_cycle(rng, **kw)
     W = a["wl_cq"].shape[0]
     F = a["usage0"].shape[1]
@@ -138,12 +156,21 @@ def preempt_cycle(rng: np.random.Generator, *, T: int = 64, MT: int = 4,
     pre_fr, pre_amt = _pairs(rng, W, R, F, pmask)
     n_targets = min(T, max(1, W // 2)) if n_targets is None else n_targets
     tgt_mat = np.full((W, MT), -1, dtype=np.int32)
-    for w in np.nonzero(pmask)[0]:
-        k = int(rng.integers(1, min(MT, n_targets) + 1))
-        # a small universe makes target lists overlap between heads
-        tgt_mat[w, :k] = rng.choice(n_targets, size=k, replace=False)
     tu_cq = np.zeros(T, dtype=np.int32)
-    tu_cq[:n_targets] = rng.integers(0, n_cqs, n_targets)
+    if in_forest:
+        tu_cq[:n_targets] = rng.integers(0, n_cqs, n_targets)
+        fon = a["forest_of_node"]
+        for w in np.nonzero(pmask)[0]:
+            pool = np.flatnonzero(fon[tu_cq[:n_targets]]
+                                  == fon[a["wl_cq"][w]])
+            k = int(rng.integers(0, min(MT, len(pool)) + 1))
+            tgt_mat[w, :k] = rng.choice(pool, size=k, replace=False)
+    else:
+        for w in np.nonzero(pmask)[0]:
+            k = int(rng.integers(1, min(MT, n_targets) + 1))
+            # a small universe makes target lists overlap between heads
+            tgt_mat[w, :k] = rng.choice(n_targets, size=k, replace=False)
+        tu_cq[:n_targets] = rng.integers(0, n_cqs, n_targets)
     tu_delta = np.zeros((T, F), dtype=np.int32)
     tu_delta[:n_targets] = rng.integers(0, 12, (n_targets, F))
     a.update(preempt_mask=pmask, pre_fr=pre_fr, pre_amt=pre_amt,
@@ -530,16 +557,17 @@ def fs_cycle(rng: np.random.Generator, *, n_cqs: int = 8, n_cohorts: int = 3,
              depth: int = 2, F: int = 2, R: int = 1, W: int = 16,
              n_valid: int | None = None, weights=FS_WEIGHTS,
              zero_lend: float = 0.2, ties: bool = False,
-             chain: bool = False) -> dict:
+             chain: bool = False, roots: int = 0) -> dict:
     """Inputs of fs_admit_scan (``ops.fs_scan.FS_ARGS`` plus ``depth`` and
     ``n_levels``) as numpy arrays: a cohort forest of up to ``depth``
     levels, usage that borrows above subtree quota, lendable capacity
     that is zero at roots and at a ``zero_lend`` share of the other nodes
     (the floor-division case), one head per CQ in the first ``n_valid``
     rows and padding after, NoFit heads, and with ``ties`` equal
-    priorities and timestamp ranks (``chain`` as ``forest``)."""
+    priorities and timestamp ranks (``chain`` and ``roots`` as
+    ``forest``)."""
     parent, forest_of, _, true_depth = forest(rng, n_cqs, n_cohorts, depth,
-                                              chain)
+                                              chain, roots)
     N = n_cqs + n_cohorts
     q = quota_planes(rng, N, F)
     sq_mask = rng.random((N, F)) < 0.85
@@ -899,7 +927,7 @@ def solve_cycle_planes(rng: np.random.Generator, *, n_cqs: int = 12,
                        R: int = 2, F: int = 6, W: int = 64,
                        n_valid: int | None = None, ties: bool = True,
                        big: bool = True, fungibility: bool = True,
-                       chain: bool = False) -> dict:
+                       chain: bool = False, roots: int = 0) -> dict:
     """The 14 planes of solve_cycle (``SOLVE_ARGS``) plus the optional
     FlavorFungibility planes (``FUNGIBILITY_ARGS``), ``forest_of_node``,
     ``n_forests``, ``max_forest_wl`` and the static ``depth``.
@@ -911,9 +939,9 @@ def solve_cycle_planes(rng: np.random.Generator, *, n_cqs: int = 12,
     usage cells near INT_MAX and requests near 2**30, so ``use + req``
     and the quota recurrences wrap.  ``fungibility``: random
     whenCanBorrow / whenCanPreempt per CQ and resume slots per head.
-    ``chain`` as ``forest``."""
+    ``chain`` and ``roots`` as ``forest``."""
     parent, forest_of, n_forests, true_depth = forest(rng, n_cqs, n_cohorts,
-                                                      depth, chain)
+                                                      depth, chain, roots)
     N = n_cqs + n_cohorts
     q = quota_planes(rng, N, F)
     nominal = rng.integers(0, 30, (n_cqs, F)).astype(np.int32)
@@ -1105,3 +1133,128 @@ def dflags_blocks(S: int, K: int, seed: int | None = None) -> np.ndarray:
     blocks = (rng.random((S, K, 4)) < 0.2).astype(np.int32)
     blocks[:, :, 3] = 0
     return blocks
+
+
+# ----------------------------------------------------------------------
+# The per-cycle mesh (parallel/sharded.py): gather and merge cases, the
+# fair-sharing preemption cluster of the sharded conformance rows
+# ----------------------------------------------------------------------
+
+def _shard_heads(rng, W: int, S: int, n_valid: int, empty=()) -> tuple:
+    """The first ``n_valid`` of W heads dealt to S shards at random (none
+    to the shards in ``empty``), each shard's list ascending → S int32
+    maps."""
+    live = [s for s in range(S) if s not in empty]
+    shard = np.full(W, -1)
+    shard[:n_valid] = rng.choice(live, n_valid)
+    return tuple(np.flatnonzero(shard == s).astype(np.int32)
+                 for s in range(S))
+
+
+def gather_case(rng: np.random.Generator, *, W: int, S: int,
+                n_valid: int | None = None, empty=(),
+                dtypes=("bool", "int32")) -> tuple:
+    """``(planes, head_of, fills)`` of the head gather: one plane per
+    dtype (S blocks [W_s] each), the S ascending maps of the first
+    ``n_valid`` heads (the rest belong to no shard; shards in ``empty``
+    get none), and the fills the unsharded kernels give (False, -1)."""
+    head_of = _shard_heads(rng, W, S, W if n_valid is None else n_valid,
+                           empty)
+    planes, fills = [], []
+    for dt in dtypes:
+        if dt == "bool":
+            planes.append(tuple(rng.random(len(h)) < 0.5 for h in head_of))
+            fills.append(False)
+        else:
+            planes.append(tuple(rng.integers(-3, 9, len(h)).astype(np.int32)
+                                for h in head_of))
+            fills.append(-1)
+    return tuple(planes), head_of, tuple(fills)
+
+
+def merge_case(rng: np.random.Generator, *, W: int, S: int,
+               n_valid: int | None = None, empty=(),
+               short: bool = False) -> tuple:
+    """``(winners, head_of)`` of the fair-sharing round merge: each
+    shard's winners a permutation of its local ids (``short``: one live
+    shard's sequence ends early, -1 after it)."""
+    head_of = _shard_heads(rng, W, S, W if n_valid is None else n_valid,
+                           empty)
+    winners = [rng.permutation(len(h)).astype(np.int32) for h in head_of]
+    if short:
+        s = next(s for s, h in enumerate(head_of) if len(h) > 1)
+        winners[s][len(winners[s]) // 2:] = -1
+    return tuple(winners), head_of
+
+
+def cross_forest_case() -> dict:
+    """A preempt cycle whose one preempting head names a target in
+    another cohort forest (CQ 0 under cohort 4, the target's CQ 2 under
+    cohort 5): never seen in a Kueue cycle, refused by the
+    forest-sharded scan."""
+    c = preempt_cycle(np.random.default_rng(0), n_cqs=4, n_cohorts=2,
+                      depth=2, F=1, W=4, R=1, T=64, MT=4, n_targets=2,
+                      roots=2, in_forest=True)
+    c["parent"] = np.array([4, 4, 5, 5, -1, -1], dtype=np.int32)
+    c["forest_of_node"] = np.array([0, 0, 1, 1, 0, 1], dtype=np.int32)
+    c["n_forests"] = 2
+    c["wl_cq"] = np.array([0, 1, 2, 3], dtype=np.int32)
+    c["preempt_mask"] = np.array([True, False, False, False])
+    c["fit_mask"][0] = False
+    c["res_mask"][:] = False
+    c["tgt_mat"][:] = -1
+    c["tgt_mat"][0, 0] = 1
+    c["tu_cq"][:2] = (0, 2)
+    return c
+
+
+def fs_preemption_cluster(t, d) -> None:
+    """tests/test_conformance_fair_preemption.py's cluster on a
+    ``Driver(fair_sharing=True)`` of either package (``t`` its
+    api.types): CQs a/b/c (nominal 3 cpu each) and "preemptible"
+    (nominal 0) in cohort "all", borrowWithinCohort LowerPriority
+    threshold -3, withinClusterQueue LowerPriority, reclaimWithinCohort
+    Any."""
+    d.apply_resource_flavor(t.ResourceFlavor(name="default"))
+    policy = t.PreemptionPolicy(
+        within_cluster_queue=t.WithinClusterQueue.LOWER_PRIORITY,
+        reclaim_within_cohort=t.ReclaimWithinCohort.ANY,
+        borrow_within_cohort=t.BorrowWithinCohort(
+            policy=t.BorrowWithinCohortPolicy.LOWER_PRIORITY,
+            max_priority_threshold=-3))
+    for name, nominal, pre in (("a", 3000, policy), ("b", 3000, policy),
+                               ("c", 3000, policy), ("preemptible", 0,
+                                                     None)):
+        d.apply_cluster_queue(t.ClusterQueue(
+            name=name, cohort="all",
+            **({"preemption": pre} if pre is not None else {}),
+            resource_groups=[t.ResourceGroup(
+                covered_resources=["cpu"], flavors=[t.FlavorQuotas(
+                    name="default", resources={
+                        "cpu": t.ResourceQuota(nominal=nominal)})])]))
+        d.apply_local_queue(t.LocalQueue(name=f"lq-{name}",
+                                         cluster_queue=name))
+
+
+def reserve(t, w, d, name, cq_name, cpu, priority=0, at=0.5) -> None:
+    """tests/test_conformance_preemption.py ``admit``: a workload of
+    ``cpu`` on flavor "default" restored with its quota reserved in
+    ``cq_name`` (``w`` the package's workload module)."""
+    wl = t.Workload(
+        name=name, namespace="default", priority=priority,
+        creation_time=at, pod_sets=[t.PodSet(
+            name="main", count=1, requests={"cpu": cpu})])
+    adm = t.Admission(cluster_queue=cq_name, pod_set_assignments=[
+        t.PodSetAssignment(name="main", flavors={"cpu": "default"},
+                           resource_usage={"cpu": cpu}, count=1)])
+    w.set_quota_reservation(wl, adm, at)
+    w.sync_admitted_condition(wl, at)
+    d.restore_workload(wl)
+
+
+def submit(t, d, name, cq_name, cpu, priority=0, created=999.0) -> None:
+    """tests/test_conformance_preemption.py ``incoming``."""
+    d.create_workload(t.Workload(
+        name=name, namespace="default", queue_name=f"lq-{cq_name}",
+        priority=priority, creation_time=created,
+        pod_sets=[t.PodSet(name="main", count=1, requests={"cpu": cpu})]))

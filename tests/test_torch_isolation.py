@@ -166,14 +166,23 @@ def test_fair_sharing_drain_in_a_fresh_process():
 
 
 def test_unported_paths_raise(monkeypatch):
-    """The per-cycle mesh route is the next slice: CycleSolver.set_mesh
-    raises naming it.  KUEUE_TPU_SHARDS > 1 shards only the burst, so a
-    Driver under it constructs, with its per-cycle solver on one device."""
+    """No path of the port raises as unported any more: under
+    KUEUE_TPU_SHARDS=2 a CPU Driver (one device, no virtual mesh) builds,
+    make_mesh finds fewer devices than asked and the per-cycle solver
+    stays serial, as the JAX Driver does; ``set_mesh`` takes a mesh and
+    None."""
     from kueue_tpu_torch.controller.driver import Driver
+    from kueue_tpu_torch.parallel import sharded
     monkeypatch.setenv("KUEUE_TPU_SHARDS", "2")
     d = Driver(device="cpu")
-    with pytest.raises(NotImplementedError, match="next slice"):
-        d.scheduler.solver.set_mesh(object())
+    assert d.scheduler.solver.mesh is None
+    assert sharded.make_mesh(2, device="cpu") is None
+    mesh = sharded.make_mesh(1, device="cpu")
+    d.scheduler.solver.set_mesh(mesh)
+    assert d.scheduler.solver.mesh is mesh
+    assert d.scheduler.solver.stats["sharded_dispatches"] == 0
+    d.scheduler.solver.set_mesh(None)
+    assert d.scheduler.solver.mesh is None
 
 
 def test_every_kernel_source_is_built():
@@ -185,7 +194,36 @@ def test_every_kernel_source_is_built():
     files = {f for f in os.listdir(kdir) if f.endswith((".cu", ".cuh"))}
     assert files == set(kernels.SOURCES) | set(kernels.HEADERS)
     assert set(kernels.LAUNCHES) == set(kernels.KERNELS)
-    assert {"kq_scatter_rows", "kq_reduce_dflags"} <= set(kernels.KERNELS)
+    assert {"kq_scatter_rows", "kq_reduce_dflags", "kq_gather_heads",
+            "kq_fs_merge_order"} <= set(kernels.KERNELS)
+    assert "mesh_gather.cu" in kernels.SOURCES
+
+
+def test_mesh_kernels_run_plain_on_cpu_tensors():
+    """The head gather and the round merge on CPU tensors run their
+    plain versions and launch nothing; their launchers refuse CPU
+    tensors."""
+    import numpy as np
+    from kueue_tpu_torch import kernels, testing
+    from kueue_tpu_torch.parallel import sharded
+    before = dict(kernels.LAUNCHES)
+    planes, head_of, fills = testing.gather_case(
+        np.random.default_rng(0), W=12, S=3, n_valid=10)
+    planes = tuple(tuple(torch.from_numpy(b) for b in p) for p in planes)
+    head_of = tuple(torch.from_numpy(h) for h in head_of)
+    out = sharded.gather_heads(planes, head_of, 12, fills)
+    assert [o.dtype for o in out] == [torch.bool, torch.int32]
+    winners = tuple(torch.randperm(len(h), dtype=torch.int32)
+                    for h in head_of)
+    order = sharded.fs_merge_order(winners, head_of, 12)
+    assert order.dtype == torch.int32
+    assert sorted(order[:10].tolist()) == sorted(
+        torch.cat(head_of).tolist())
+    assert kernels.LAUNCHES == before
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        kernels.kq_gather_heads(planes, head_of, 12, fills)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        kernels.kq_fs_merge_order(winners, head_of, 12)
 
 
 def test_cpu_tensors_never_reach_the_kernels():

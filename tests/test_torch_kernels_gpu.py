@@ -1,8 +1,10 @@
 """Each CUDA kernel of kueue_tpu_torch against its plain PyTorch version
 on the same seeded inputs (kueue_tpu_torch.testing.kernel_cases,
 burst_cases, fs_cases, tas_cases, solve_cycle_cases, shape_cases,
-scatter_case and dflags_blocks), and the forest-sharded burst on a
-virtual mesh of the card against the serial burst: exact equality, as
+scatter_case, dflags_blocks, gather_case and merge_case), the
+forest-sharded burst on a virtual mesh of the card against the serial
+burst, and the per-cycle mesh route on a virtual mesh of the card
+against the unsharded plain versions: exact equality, as
 every output is bool or int32.  Needs a CUDA GPU — the kernels have no CPU mode —
 and skips without one.  This file imports no JAX, so it
 also runs on a machine with only PyTorch:
@@ -391,3 +393,107 @@ def test_cuda_sharded_burst_matches_serial(monkeypatch):
     assert grew["kq_reduce_dflags"] == st["burst_sharded_dispatches"]
     assert st["burst_resident_hits"] >= 1, st
     assert grew["kq_scatter_rows"] >= 1, grew
+
+
+# (W, S, n_valid, shards with no head): a single shard, zero-length
+# blocks, and north-star width
+MESH_CASES = [(1, 1, 1, ()), (30, 1, 30, ()), (40, 8, 33, (2, 5)),
+              (64, 4, 0, ()), (1000, 8, 1000, ()), (33, 32, 30, (0, 31))]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("W,S,n_valid,empty", MESH_CASES)
+def test_cuda_mesh_kernels_match_plain(W, S, n_valid, empty):
+    """kq_gather_heads (a bool and an int32 plane in one launch; the
+    zero-length blocks dropped before it) and kq_fs_merge_order against
+    their plain versions."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernels have no CPU mode")
+    from kueue_tpu_torch import kernels
+    from kueue_tpu_torch.parallel import sharded
+    rng = np.random.default_rng(W + S)
+    planes, head_of, fills = tt.gather_case(rng, W=W, S=S, n_valid=n_valid,
+                                            empty=empty)
+    cpu = (tuple(tuple(torch.from_numpy(b) for b in p) for p in planes),
+           tuple(torch.from_numpy(h) for h in head_of))
+    card = (tuple(tuple(b.cuda() for b in p) for p in cpu[0]),
+            tuple(h.cuda() for h in cpu[1]))
+    want = sharded.gather_heads_plain(*cpu, W, fills)
+    before = dict(kernels.LAUNCHES)
+    got = sharded.gather_heads(*card, W, fills)
+    assert kernels.LAUNCHES["kq_gather_heads"] == before["kq_gather_heads"] + 1
+    for x, y in zip(want, got):
+        assert y.dtype == x.dtype and torch.equal(y.cpu(), x)
+    for short in ((False, True) if n_valid >= 2 * S else (False,)):
+        winners, head_of = tt.merge_case(rng, W=W, S=S, n_valid=n_valid,
+                                         empty=empty, short=short)
+        cpu = (tuple(torch.from_numpy(w) for w in winners),
+               tuple(torch.from_numpy(h) for h in head_of))
+        want = sharded.fs_merge_order_plain(*cpu, W)
+        got = sharded.fs_merge_order(tuple(w.cuda() for w in cpu[0]),
+                                     tuple(h.cuda() for h in cpu[1]), W)
+        assert got.dtype == want.dtype and torch.equal(got.cpu(), want)
+
+
+@pytest.mark.gpu
+def test_cuda_mesh_route_matches_plain():
+    """The three admit_scan_fns routes, fs_scan_fn and sharded_cycle_fn
+    on a virtual 8-cell mesh of the card (2 x 4 and 1 x 8), against the
+    unsharded plain versions: one kernel per shard with heads, one
+    gather per call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernels have no CPU mode")
+    from kueue_tpu_torch import kernels
+    from kueue_tpu_torch.parallel import sharded
+    rng = np.random.default_rng(5)
+    kw = dict(n_cqs=24, n_cohorts=8, depth=3, F=3, W=48, R=2, n_valid=41,
+              roots=5)
+    c = tt.preempt_cycle(rng, T=64, MT=4, n_targets=20, in_forest=True,
+                         **kw)
+    f = tt.fs_cycle(rng, n_cqs=24, n_cohorts=8, depth=3, W=32, n_valid=20,
+                    roots=5)
+    s = tt.solve_cycle_planes(rng, n_cqs=24, n_cohorts=8, depth=3, W=48,
+                              n_valid=40, roots=5, fungibility=False)
+    cpu = lambda xs: [torch.from_numpy(np.ascontiguousarray(x)) for x in xs]
+    with sharded.virtual_mesh("cuda:0", 8):
+        for mesh in (sharded.make_mesh(8), sharded.make_hybrid_mesh()):
+            before = dict(kernels.LAUNCHES)
+            fns = sharded.admit_scan_fns(mesh, c["depth"])
+            checks = [
+                (fns["flat"](*tt.admit_args(c)),
+                 cycle.admit_scan_plain(*cpu(tt.admit_args(c)),
+                                        depth=c["depth"])),
+                (fns["forest"](*tt.admit_args(c),
+                               forest_of_node=c["forest_of_node"],
+                               n_forests=c["n_forests"],
+                               max_forest_wl=c["max_forest_wl"]),
+                 cycle.admit_scan_forests_plain(
+                     *cpu(tt.forest_args(c)), depth=c["depth"],
+                     n_forests=c["n_forests"],
+                     max_forest_wl=c["max_forest_wl"])),
+                (fns["preempt"](*tt.preempt_args(c)),
+                 cycle.admit_scan_preempt_plain(*cpu(tt.preempt_args(c)),
+                                                depth=c["depth"])),
+                (sharded.fs_scan_fn(mesh, f["depth"], f["n_levels"])(
+                    *tt.fs_args(f)),
+                 fs_scan.fs_admit_scan_plain(*cpu(tt.fs_args(f)),
+                                             depth=f["depth"],
+                                             n_levels=f["n_levels"])),
+                (sharded.sharded_cycle_fn(mesh, s["depth"])(
+                    *tt.solve_args(s)),
+                 cycle.solve_cycle_plain(*cpu(tt.solve_args(s)),
+                                         depth=s["depth"])),
+            ]
+            torch.cuda.synchronize()
+            for got, want in checks:
+                got = got if isinstance(got, tuple) else (got,)
+                want = want if isinstance(want, tuple) else (want,)
+                for g, w in zip(got, want):
+                    assert g.dtype == w.dtype and torch.equal(g.cpu(), w)
+            grew = {k: kernels.LAUNCHES[k] - before[k] for k in before}
+            assert grew["kq_gather_heads"] == 5, grew
+            assert grew["kq_fs_merge_order"] == 1, grew
+            assert grew["kq_cycle_order"] == mesh.shape["cq"] - sum(
+                1 for h in sharded.CycleShardLayout(
+                    s["parent"], 24, mesh.shape["cq"]).heads(s["wl_cq"])
+                if not len(h)), grew

@@ -23,6 +23,8 @@ bool)."""
 
 from __future__ import annotations
 
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -381,25 +383,40 @@ def test_kill_switch_matches_jax(monkeypatch):
     assert st["burst_resident_misses"] == 0, st
 
 
-def test_env_switch_shards_the_burst(monkeypatch):
-    """KUEUE_TPU_SHARDS=8: the port's Driver constructs, schedule_burst
-    shards over the mesh, the per-cycle solver stays on one device, and
-    the records equal the JAX package's serial burst."""
-    monkeypatch.setenv("KUEUE_TPU_SHARDS", "8")
-    clock = Clock()
-    de = make_driver("kueue_tpu_torch", clock)
-    sc_sustained(per_cq=18)(types_of("kueue_tpu_torch"), de, clock)
-    env = _burst(de, clock, 40, 2)
-    monkeypatch.delenv("KUEUE_TPU_SHARDS")
+def env_burst(pkg):
+    """The sustained drain (18 per CQ, 40 cycles of the burst) on a Driver
+    of ``pkg`` built under KUEUE_TPU_SHARDS=8 → (driver, records)."""
+    prev = os.environ.get("KUEUE_TPU_SHARDS")
+    os.environ["KUEUE_TPU_SHARDS"] = "8"     # read again by schedule_burst
+    try:
+        clock = Clock()
+        d = make_driver(pkg, clock)
+        sc_sustained(per_cq=18)(types_of(pkg), d, clock)
+        return d, records(_burst(d, clock, 40, 2))
+    finally:
+        if prev is None:
+            del os.environ["KUEUE_TPU_SHARDS"]
+        else:
+            os.environ["KUEUE_TPU_SHARDS"] = prev
+
+
+def test_env_switch_shards_the_burst():
+    """KUEUE_TPU_SHARDS=8: the port's Driver constructs with its
+    per-cycle mesh set ({"wl": 4, "cq": 2}), schedule_burst shards over
+    the burst mesh, and the records (per-cycle fallbacks on the mesh)
+    equal the JAX package's serial burst here, and the JAX mesh Driver's
+    under the same switch in a fresh process
+    (tests/test_torch_mesh_driver.py, scenario "env_burst": a JAX mesh
+    program can deadlock XLA:CPU for the programs after it in one
+    process)."""
+    de, env = env_burst("kueue_tpu_torch")
     clock_s = Clock()
     ds = make_driver("kueue_tpu", clock_s)
     sc_sustained(per_cq=18)(types_of("kueue_tpu"), ds, clock_s)
-    serial = _burst(ds, clock_s, 40, 2)
-    assert records(env) == records(serial)
+    assert env == records(_burst(ds, clock_s, 40, 2))
     assert de._burst_solver.n_shards == 8
     assert de._burst_solver.stats["burst_sharded_dispatches"] >= 1
-    with pytest.raises(NotImplementedError, match="next slice"):
-        de.scheduler.solver.set_mesh(object())
+    assert de.scheduler.solver.mesh.shape == {"wl": 4, "cq": 2}
 
 
 def test_mesh_degrades_below_two_devices():
