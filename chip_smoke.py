@@ -128,13 +128,26 @@ under ``KUEUE_TPU_SHARDS``, the per-cycle mesh:
 3i. kq_gather_heads and kq_fs_merge_order against their plain versions
    on the calls captured in 16-16d and on one synthetic call each at
    north-star width (1,000 heads over 8 shards), and the per-shard admit
-   scans and fs_admit_scan captured in 16-16c against theirs — exact.
+   scans and fs_admit_scan captured in 16-16c against theirs — exact;
+3j. kq_reduce_dflags (the call captured in phase 15, and S = 8) and
+   kq_gather_heads (the widest call captured in 16b, and 1,000 heads
+   over 8 shards) taken apart: µs per call back to back of (a) the
+   wrapper, (b) the bare C launch, (c) the library call, beside a
+   one-element ``zero_()``, and the same calls under the profiler (each
+   kernel's own duration and the start-to-start period).
 
 Launch counts are zeroed just before phases 4, 5, 7, 8, 9, 9b, 11, 13,
-14, 15, 15b, 15c, 16, 16b, 16c and 16d and read just after each.  Prints a ``kernels`` JSON line (per kernel: its launches on
-its main path and in each phase), the nvidia-smi line, and as its last
-line ``{"ok": true, "device": {...}}``.  Exits non-zero, with no result
-line, when there is no CUDA device or no kueue_tpu_torch beside it.
+14, 15, 15b, 15c, 16, 16b, 16c and 16d and read just after each.  A
+launch records no CUDA event: the device time of phases 4, 5, 7, 8, 9,
+11, 13, 15, 15c, 16, 16b and 16c (per kernel, the rest, the busy union
+and its share of the wall) comes from torch.profiler's CUDA activity
+over the phase (``kueue_tpu_torch.profiling.DeviceClock``); a phase in
+which it sees nothing fails.  Prints a ``kernels`` JSON line (per
+kernel: its launches on its main path and in each phase, ms through
+the wrapper, ``bare_ms`` of the C launch alone, ``kernel_ms`` by the
+profiler), the nvidia-smi line, and as its last line ``{"ok": true,
+"device": {...}}``.  Exits non-zero, with no result line, when there is
+no CUDA device or no kueue_tpu_torch beside it.
 
     python3 chip_smoke.py
 """
@@ -361,7 +374,7 @@ def plain_fns():
     return {
         "kq_scatter_rows": sharded.scatter_rows_plain,
         "kq_reduce_dflags": sharded.reduce_dflags_plain,
-        "kq_gather_heads": sharded.gather_heads_plain,
+        "kq_gather_heads": sharded.gather_src_plain,
         "kq_fs_merge_order": sharded.fs_merge_order_plain,
         "fill_counts": tas_kernel.fill_counts_plain,
         "best_fit_descend": tas_kernel.best_fit_descend_plain,
@@ -503,7 +516,7 @@ def op_count(name, args, kw) -> int:
         # cursor step
         return args[2] * (len(args[1]) + 8)
     if name == "kq_reduce_dflags":
-        return len(args[0]) * args[0][0].numel()   # one add per input
+        return args[0].numel()                     # one add per input
     if name in PHASE1:
         return phase1_op_count(name, args, kw)
     depth = kw["depth"]
@@ -602,9 +615,12 @@ def library_call(name, args):
     same inputs (timed beside it, never used by the port), or None:
     ``index_put_`` per plane for the row scatter (one call per plane:
     PyTorch has no call that writes 13 tensors), ``torch.sum(dim=0)``
-    over the stacked flag blocks for the reduction, and per plane
-    ``index_copy_`` of the concatenated blocks into a filled row for the
-    head gather (the maps concatenated once, outside the timing)."""
+    over the flag window for the reduction, per plane ``index_copy_`` of
+    the concatenated blocks into a filled row for the head gather (the
+    maps read back from the source map and concatenated once, outside
+    the timing), and for the cycle order a stable ``torch.argsort`` of
+    the composed key (built once, outside the timing, as the gather's
+    maps)."""
     import torch
     if name == "kq_scatter_rows":
         planes, rows, vals = args
@@ -612,16 +628,36 @@ def library_call(name, args):
         idx = (rows.long(),)
         return lambda: [p.index_put_(idx, v) for p, v in zip(planes, vals)]
     if name == "kq_reduce_dflags":
-        stacked = torch.stack(tuple(args[0]))
-        return lambda: torch.sum(stacked, dim=0, dtype=torch.int32)
+        window = args[0]
+        return lambda: torch.sum(window, dim=0, dtype=torch.int32)
     if name == "kq_gather_heads":
-        planes, head_of, W, fills = args
-        idx = torch.cat(head_of).long()
-        outs = [torch.full((W,), f, dtype=p[0].dtype, device=idx.device)
+        from kueue_tpu_torch.parallel import sharded
+        planes, src, fills = args
+        idx = torch.cat(sharded.maps_of_source(
+            src, [b.shape[0] for b in planes[0]])).long()
+        outs = [torch.full((src.shape[0],), f, dtype=p[0].dtype,
+                           device=src.device)
                 for p, f in zip(planes, fills)]
         return lambda: [o.index_copy_(0, idx, torch.cat(p))
                         for o, p in zip(outs, planes)]
+    if name == "kq_cycle_order":
+        key = cycle_order_key(*args)
+        return lambda: torch.argsort(key, stable=True)
     return None
+
+
+def cycle_order_key(borrows0, priority, timestamp):
+    """One int64 key whose stable ascending sort is the cycle order of
+    ``ops.cycle.cycle_order_plain``: not borrowing first (the sign bit),
+    then -priority (wrapping at INT_MIN, 32 bits), then the timestamp's
+    dense rank in XLA's float order (31 bits)."""
+    import torch
+    from kueue_tpu_torch.ops.cycle import float32_sort_key
+    neg = -priority.to(torch.int64)
+    neg = torch.where(neg == 2**31, -2**31, neg)
+    rank = torch.unique(float32_sort_key(timestamp), return_inverse=True)[1]
+    base = torch.where(borrows0, 0, -2**63).to(torch.int64)
+    return base + ((neg + 2**31) << 31) + rank.to(torch.int64)
 
 
 def event_ms(fn, reps: int) -> float:
@@ -646,18 +682,25 @@ def event_ms(fn, reps: int) -> float:
 
 
 def time_kernel(name, args, kw, reps: int = 50) -> dict:
-    """Mean device ms per launch (CUDA events around ``reps`` launches
-    queued behind a busy stream), the plain version's ms on the same
-    card-resident inputs (host clock, synchronized), and the bound of
-    the call: the larger of its bytes over HBM bandwidth and its int32
-    operations over the peak rate."""
+    """Mean device ms per launch through the wrapper (CUDA events around
+    ``reps`` launches queued behind a busy stream), the same for the bare
+    C launch (``bare_launch``; None for burst_cycles, whose C launch
+    advances its own carry), the kernel's own duration under the
+    profiler (``profiled_period``), the plain version's ms on the same
+    card-resident inputs (host clock, synchronized), the bound of the
+    call (the larger of its bytes over HBM bandwidth and its int32
+    operations over the peak rate) and the library call's ms."""
     import torch
-    from kueue_tpu_torch import kernels
     fn = cuda_fns()[name]
     kw_c = cuda_kw(kw)
     outs = as_tuple(fn(*args, **kw_c))
-    ms = event_ms(lambda: fn(*args, **kw_c), reps)
-    kernels.collect()
+
+    def wrapper():
+        return fn(*args, **kw_c)
+    ms = event_ms(wrapper, reps)
+    bare_ms = (None if name == "burst_cycles"
+               else event_ms(bare_launch(name, args, kw), reps))
+    prof = profiled_period(wrapper, reps, name)
     plain = plain_fns()[name]
     plain(*args, **plain_kw(kw))
     torch.cuda.synchronize()
@@ -668,9 +711,107 @@ def time_kernel(name, args, kw, reps: int = 50) -> dict:
     bytes_ms = bound_bytes(name, args, outs) / PEAK_BYTES_PER_S * 1e3
     ops_ms = op_count(name, args, kw) / PEAK_OPS_PER_S * 1e3
     lib = library_call(name, args)
+    if name == "kq_cycle_order":
+        check(torch.equal(lib().to(torch.int32), outs[0]),
+              "the composed-key argsort differs from kq_cycle_order")
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=max(bytes_ms, ops_ms),
                 bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-                library_ms=event_ms(lib, reps) if lib is not None else None)
+                library_ms=event_ms(lib, reps) if lib is not None else None,
+                bare_ms=bare_ms,
+                kernel_ms=(prof["kernel_us"] / 1e3
+                           if prof.get("kernel_us") is not None else None))
+
+
+def bare_launch(name, args, kw):
+    """The kernel's C function as one wrapper call issues it, with the
+    wrapper's checks, allocations and argument packing done once: a
+    callable that re-issues only the C call on the current stream (and
+    counts nowhere)."""
+    import ctypes
+    import torch
+    from kueue_tpu_torch import kernels
+    seen = []
+    real = kernels._launch
+    kernels._launch = lambda _name, fn, *a: seen.append((fn, a))
+    try:
+        outs = cuda_fns()[name](*args, **cuda_kw(kw))
+    finally:
+        kernels._launch = real
+    check(len(seen) == 1, f"{name}: {len(seen)} launches in one call")
+    fn, a = seen[0]
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+
+    def call():
+        if fn(*a, stream) != 0:
+            raise RuntimeError(f"{name}: bare launch failed")
+        return outs
+    return call
+
+
+def spin(activity: str) -> bool:
+    """The busy-wait kernel of ``torch.cuda._sleep``."""
+    return "spin_kernel" in activity or "sleep" in activity
+
+
+def profiled_period(fn, reps: int, name: str | None = None) -> dict:
+    """``reps`` calls of ``fn`` queued behind a busy stream under the
+    profiler's CUDA activity, in microseconds: per call the summed
+    duration of the activities it issued and the start-to-start period
+    of its first activity (the spin kernel excluded), and the mean
+    duration of kernel ``name``'s own launches (``kernel_us``); an
+    ``error`` when the profiler fails, and no times when it saw no
+    device activity."""
+    import torch
+    from kueue_tpu_torch.profiling import DeviceClock
+    fn()
+    torch.cuda.synchronize()
+    try:
+        with DeviceClock() as clk:
+            torch.cuda._sleep(100_000_000)
+            for _ in range(reps):
+                fn()
+    except Exception as e:      # the profiler is untried on some machines
+        return dict(error=f"{type(e).__name__}: {e}")
+    from kueue_tpu_torch import kernels
+    spans = sorted(s for n, v in clk.spans_us.items() if not spin(n)
+                   for s in v)
+    if not spans:
+        return dict(activities_per_call=0)
+    per = max(1, round(len(spans) / reps))     # activities per call
+    firsts = [spans[i][0] for i in range(0, len(spans), per)]
+    own = [t1 - t0 for n, v in clk.spans_us.items()
+           if name is not None and kernels.launcher_of(n) == name
+           for t0, t1 in v]
+    return dict(
+        activities_per_call=len(spans) / reps,
+        device_us_per_call=sum(t1 - t0 for t0, t1 in spans) / reps,
+        period_us=((firsts[-1] - firsts[0]) / (len(firsts) - 1)
+                   if len(firsts) > 1 else None),
+        kernel_us=sum(own) / len(own) if own else None,
+        names=sorted({n for n in clk.spans_us if not spin(n)}))
+
+
+def launch_breakdown(cases, reps: int = 200) -> list:
+    """Phase 3j: for each (label, kernel, args, kw), ms per call back to
+    back behind a busy stream (``event_ms``) of (a) the wrapper, (b) the
+    bare C launch and (c) the library call, beside a one-element
+    ``zero_()`` (the floor of any launch); then the same launches under
+    the profiler (``profiled_period``)."""
+    import torch
+    rows = []
+    tiny = torch.zeros(1, dtype=torch.int32, device="cuda")
+    for label, name, args, kw in cases:
+        def wrapper():
+            return cuda_fns()[name](*args, **cuda_kw(kw))
+        calls = dict(wrapper=wrapper, bare=bare_launch(name, args, kw),
+                     library=library_call(name, args), zero=tiny.zero_)
+        row = dict(case=label, kernel=name)
+        for mode, fn in calls.items():
+            row[f"{mode}_ms"] = event_ms(fn, reps)
+        for mode, fn in calls.items():
+            row[f"{mode}_profiled"] = profiled_period(fn, reps, name)
+        rows.append(row)
+    return rows
 
 
 def host_drs(snapshot) -> dict:
@@ -687,13 +828,53 @@ def most_heads(calls):
     return max(calls, key=lambda call: int(call[0][17].sum()))
 
 
-def widest_mesh(calls):
+def mesh_shape(name, args) -> dict:
+    """W, shards and heads of a captured gather (planes, src, fills) or
+    merge (winners, head_of, W) call."""
+    if name == "kq_gather_heads":
+        return dict(W=int(args[1].shape[0]), S=len(args[0][0]),
+                    heads=int((args[1] >= 0).sum()))
+    return dict(W=int(args[2]), S=len(args[1]),
+                heads=int(sum(h.numel() for h in args[1])))
+
+
+def widest_mesh(name, calls):
     """The captured gather or merge call over the most heads (its W),
     then the most shards."""
-    return max(calls, key=lambda call: (call[0][2], len(call[0][1])))
+    return max(calls, key=lambda call: (mesh_shape(name, call[0])["W"],
+                                        mesh_shape(name, call[0])["S"]))
 
 
-def mesh_line(tag, d, r, launches, device_ms, digest, ref, wall_ref, gcw):
+def per_launch(dc, name) -> float:
+    """A kernel's mean device ms over the launches the profiler recorded
+    in a phase."""
+    return dc.kernel_ms[name] / max(1, dc.kernel_count[name])
+
+
+def device_line(tag, dc, wall_s: float, launches: dict) -> str:
+    """A phase's device time from the profiler's CUDA activity
+    (``profiling.DeviceClock``): each kernel's ms, every other
+    activity's ms (the three largest by name), the busy union and its
+    share of the phase's wall, and the launches the profiler did not
+    record; the phase fails when the profiler saw nothing on the
+    card."""
+    from kueue_tpu_torch import kernels
+    check(dc.activities > 0, f"phase {tag}: no device activity profiled")
+    other = sorted(((sum(t1 - t0 for t0, t1 in v) / 1e3, n[:60])
+                    for n, v in dc.spans_us.items()
+                    if kernels.launcher_of(n) is None), reverse=True)[:3]
+    missed = {k: launches[k] - dc.kernel_count[k] for k in launches
+              if launches[k] != dc.kernel_count[k]}
+    return (f"device (profiler) kernels_ms "
+            f"{json.dumps({k: v for k, v in dc.kernel_ms.items() if v})}, "
+            f"other {dc.other_ms:.3f}ms (largest "
+            f"{json.dumps([[n, round(ms, 3)] for ms, n in other])}), busy "
+            f"{dc.busy_ms:.3f}ms (busy share "
+            f"{dc.busy_ms / 1e3 / wall_s:.6f}), {dc.activities} activities, "
+            f"launches not recorded {json.dumps(missed)}")
+
+
+def mesh_line(tag, d, r, launches, dc, digest, ref, wall_ref, gcw):
     from kueue_tpu_torch import scenarios
     ss = d.scheduler.solver.stats
     pct = scenarios.percentile
@@ -702,17 +883,15 @@ def mesh_line(tag, d, r, launches, device_ms, digest, ref, wall_ref, gcw):
             "sharded_shard_launches", "full_cycles", "fs_full_cycles",
             "classify_cycles", "host_cycles", "skipped_dispatches",
             "singleton_dispatches")
-    busy = sum(device_ms.values()) / 1e3
     log(f"[{tag}] mesh {d.scheduler.solver.mesh.shape} (virtual, cuda:0), "
         f"{r['cycles']} cycles in {r['wall']:.2f}s (serial {wall_ref:.2f}s),"
         f" cycle p50 {pct(r['cycle_times'], 0.5) * 1e3:.3f}ms p99 "
         f"{pct(r['cycle_times'], 0.99) * 1e3:.3f}ms, mean "
-        f"{r['wall'] / r['cycles'] * 1e3:.3f}ms, {gcw.line()}, device "
-        f"{busy * 1e3:.3f}ms (busy {busy / r['wall']:.6f}); digest {digest} "
-        f"(serial {ref}); stats "
+        f"{r['wall'] / r['cycles'] * 1e3:.3f}ms, {gcw.line()}; digest "
+        f"{digest} (serial {ref}); stats "
         f"{json.dumps({k: ss.get(k) for k in keys})}; launches "
         f"{json.dumps({k: v for k, v in launches.items() if v})}; "
-        f"device_ms {json.dumps({k: v for k, v in device_ms.items() if v})}")
+        f"{device_line(tag, dc, r['wall'], launches)}")
 
 
 def most_rows(calls):
@@ -780,6 +959,7 @@ def main() -> int:
     try:
         import numpy as np
         from kueue_tpu_torch import kernels, scenarios, testing
+        from kueue_tpu_torch.profiling import DeviceClock
     except ImportError as e:
         print(f"chip_smoke: kueue_tpu_torch not found beside the script "
               f"({e})", file=sys.stderr)
@@ -830,10 +1010,9 @@ def main() -> int:
     d.scheduler.solver.warmup(d.cache.snapshot(),
                               len(d.cache.cluster_queue_names()))
     kernels.reset_counts()
-    r = scenarios.run_bench(d, clock, total, waves)
-    torch.cuda.synchronize()
+    with DeviceClock() as dc4:
+        r = scenarios.run_bench(d, clock, total, waves)
     launches4 = dict(kernels.LAUNCHES)
-    device_ms4 = kernels.collect()
     ss = d.scheduler.solver.stats
     aps = r["finished"] / r["wall"]
     log(f"[4 bench] drained {r['finished']}/{r['total']} in "
@@ -844,7 +1023,7 @@ def main() -> int:
         f"preempted {r['preempted']}, full_cycles {ss['full_cycles']}, "
         f"host_cycles {ss['host_cycles']}, classify_cycles "
         f"{ss['classify_cycles']}; launches {json.dumps(launches4)}; "
-        f"device_ms {json.dumps(device_ms4)}")
+        f"{device_line('4', dc4, r['wall'], launches4)}")
     digest4 = scenarios.decision_digest(d, r["decisions"])
     wall4 = r["wall"]
     log(f"[4 bench] digest {digest4}")
@@ -864,18 +1043,18 @@ def main() -> int:
     d.scheduler.solver.warmup(d.cache.snapshot(), NORTHSTAR["n_cqs"])
     build_s = time.perf_counter() - t0
     kernels.reset_counts()
-    r5 = scenarios.run_northstar(d, clock, wave, cycles=NORTHSTAR["cycles"])
-    torch.cuda.synchronize()
+    with DeviceClock() as dc5:
+        r5 = scenarios.run_northstar(d, clock, wave,
+                                     cycles=NORTHSTAR["cycles"])
     launches5 = dict(kernels.LAUNCHES)
-    device_ms5 = kernels.collect()
     log(f"[5 northstar] {NORTHSTAR['n_cqs']} CQs, {total} workloads "
         f"(built in {build_s:.1f}s), {r5['cycles']} cycles in "
         f"{r5['wall']:.2f}s, cycle p50 "
         f"{scenarios.percentile(r5['cycle_times'], 0.5) * 1e3:.3f}ms p99 "
         f"{scenarios.percentile(r5['cycle_times'], 0.99) * 1e3:.3f}ms, "
         f"admitted {r5['admitted']}, preempted {r5['preempted']}; "
-        f"launches {json.dumps(launches5)}; device_ms "
-        f"{json.dumps(device_ms5)}")
+        f"launches {json.dumps(launches5)}; "
+        f"{device_line('5', dc5, r5['wall'], launches5)}")
     digest5 = scenarios.decision_digest(d, r5["decisions"])
     log(f"[5 northstar] digest {digest5}")
     check(launches5["admit_scan_forests"] > 0, launches5)
@@ -911,18 +1090,17 @@ def main() -> int:
     d.scheduler.solver.warmup(d.cache.snapshot(),
                               len(d.cache.cluster_queue_names()))
     kernels.reset_counts()
-    r7 = scenarios.drain_bench_burst(d, clock, total, waves)
-    torch.cuda.synchronize()
+    with DeviceClock() as dc7:
+        r7 = scenarios.drain_bench_burst(d, clock, total, waves)
     launches7 = dict(kernels.LAUNCHES)
-    device_ms7 = kernels.collect()
     log(f"[7 bench burst] drained {r7['finished']}/{r7['total']} in "
         f"{r7['cycles']} cycles, {r7['wall']:.2f}s wall, "
         f"{r7['finished'] / r7['wall']:.1f} admissions/s, cycle p50 "
         f"{scenarios.percentile(r7['cycle_times'], 0.5) * 1e3:.3f}ms p99 "
         f"{scenarios.percentile(r7['cycle_times'], 0.99) * 1e3:.3f}ms, "
         f"preempted {r7['preempted']}, digest "
-        f"{scenarios.decision_digest(d, r7['decisions'])}; device_ms "
-        f"{json.dumps(device_ms7)}")
+        f"{scenarios.decision_digest(d, r7['decisions'])}; "
+        f"{device_line('7', dc7, r7['wall'], launches7)}")
     burst_line("7 bench burst", d, r7, launches7)
     check(r7["finished"] == r7["total"] == BENCH_WORKLOADS, r7["finished"])
     check(launches7["burst_cycles"] > 0, launches7)
@@ -954,12 +1132,10 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     gc.collect()      # phases 8 and 15 start from a collected heap
     kernels.reset_counts()
-    with GCWatch() as gc8:
+    with GCWatch() as gc8, DeviceClock() as dc8:
         r8 = scenarios.northstar_burst(d, clock, wave,
                                        cycles=NORTHSTAR["cycles"])
-    torch.cuda.synchronize()
     launches8 = dict(kernels.LAUNCHES)
-    device_ms8 = kernels.collect()
     digest8 = scenarios.decision_digest(d, r8["decisions"])
     log(f"[8 northstar burst] {NORTHSTAR['n_cqs']} CQs, {total} workloads "
         f"(built in {build_s:.1f}s), {r8['cycles']} cycles in "
@@ -967,7 +1143,8 @@ def main() -> int:
         f"{scenarios.percentile(r8['cycle_times'], 0.5) * 1e3:.3f}ms p99 "
         f"{scenarios.percentile(r8['cycle_times'], 0.99) * 1e3:.3f}ms, "
         f"admitted {r8['admitted']}, preempted {r8['preempted']}, digest "
-        f"{digest8}; {gc8.line()}; device_ms {json.dumps(device_ms8)}")
+        f"{digest8}; {gc8.line()}; "
+        f"{device_line('8', dc8, r8['wall'], launches8)}")
     burst_line("8 northstar burst", d, r8, launches8)
     check(r8["cycles"] == NORTHSTAR["cycles"], r8["cycles"])
     check(launches8["burst_cycles"] > 0, launches8)
@@ -1000,14 +1177,14 @@ def main() -> int:
     d.scheduler.solver.warmup(d.cache.snapshot(), NORTHSTAR["n_cqs"])
     build_s = time.perf_counter() - t0
     kernels.reset_counts()
-    r9 = scenarios.run_northstar_fs(d, clock, cycles=NORTHSTAR["cycles"])
-    snapshot = d.cache.snapshot()
-    t_drs = time.perf_counter()
-    drs = compute_all_drs(snapshot, device="cuda")
-    drs_s = time.perf_counter() - t_drs
-    torch.cuda.synchronize()
+    with DeviceClock() as dc9:
+        r9 = scenarios.run_northstar_fs(d, clock,
+                                        cycles=NORTHSTAR["cycles"])
+        snapshot = d.cache.snapshot()
+        t_drs = time.perf_counter()
+        drs = compute_all_drs(snapshot, device="cuda")
+        drs_s = time.perf_counter() - t_drs
     launches9 = dict(kernels.LAUNCHES)
-    device_ms9 = kernels.collect()
     ss = d.scheduler.solver.stats
     digest9 = scenarios.decision_digest(d, r9["decisions"])
     log(f"[9 northstar fs] {NORTHSTAR['n_cqs']} CQs, {total} workloads "
@@ -1020,7 +1197,8 @@ def main() -> int:
         f"{ss['fs_noop_skips']}, fs_noop_reuses {ss['fs_noop_reuses']}, "
         f"classify_cycles {ss['classify_cycles']}, host_cycles "
         f"{ss['host_cycles']}; digest {digest9}; launches "
-        f"{json.dumps(launches9)}; device_ms {json.dumps(device_ms9)}")
+        f"{json.dumps(launches9)}; "
+        f"{device_line('9', dc9, r9['wall'], launches9)}")
     check(launches9["fs_admit_scan"] > 0, launches9)
     check(ss["fs_full_cycles"] > 0, ss)
     check(r9["admitted"] > 0, "nothing admitted")
@@ -1054,7 +1232,6 @@ def main() -> int:
     torch.cuda.synchronize()
     launches9b = dict(kernels.LAUNCHES)
     check(launches9b["drs_components"] == 2, launches9b)
-    kernels.collect()
     cap.uninstall()
 
     # -- 10. the same fair-sharing run on the CPU ------------------------------
@@ -1088,16 +1265,14 @@ def main() -> int:
         d, clock, runtimes = scenarios.build_tas(device="cuda")
         build_s = time.perf_counter() - t0
         kernels.reset_counts()
-        with scenarios.TASBranches() as br11:
+        with scenarios.TASBranches() as br11, DeviceClock() as dc11:
             r11 = scenarios.run_tas(d, clock, runtimes, cycles=TAS_CYCLES)
-        torch.cuda.synchronize()
         launches11 = dict(kernels.LAUNCHES)
-        device_ms11 = kernels.collect()
     cap.uninstall()
     digest11 = scenarios.tas_digest(d, r11)
     ss = d.scheduler.solver.stats
     wall11 = sum(r11["cycle_times"])
-    dev11 = sum(device_ms11.values()) / 1e3
+    dev11 = dc11.busy_ms / 1e3
     log(f"[11 tas-4k] {len(d.cache.tas.nodes)} nodes, {len(runtimes)} "
         f"workloads (built in {build_s:.1f}s), {r11['cycles']} cycles in "
         f"{r11['wall']:.2f}s, cycle p50 "
@@ -1106,9 +1281,10 @@ def main() -> int:
         f"admitted {r11['admitted']}; branches {json.dumps(br11.counts)}; "
         f"full_cycles {ss['full_cycles']}, scalar_heads "
         f"{ss['scalar_heads']}, host_cycles {ss['host_cycles']}; device "
-        f"{dev11 * 1e3:.3f}ms of {wall11 * 1e3:.3f}ms cycle wall (host "
+        f"busy {dev11 * 1e3:.3f}ms of {wall11 * 1e3:.3f}ms cycle wall (host "
         f"share {1 - dev11 / wall11:.4f}); digest {digest11}; launches "
-        f"{json.dumps(launches11)}; device_ms {json.dumps(device_ms11)}")
+        f"{json.dumps(launches11)}; "
+        f"{device_line('11', dc11, r11['wall'], launches11)}")
     check(r11["admitted"] > 0, "tas-4k admitted nothing")
     for name in TAS_KERNELS:
         check(launches11[name] > 0, (name, launches11))
@@ -1171,21 +1347,22 @@ def main() -> int:
     install_phase1_capture(cap)
     cap.phase = "probe"
     kernels.reset_counts()
-    r13 = probe.run(PROBE["W"], PROBE["C"], device="cuda",
-                    reps=PROBE["reps"])
-    torch.cuda.synchronize()
+    t13 = time.perf_counter()
+    with DeviceClock() as dc13:
+        r13 = probe.run(PROBE["W"], PROBE["C"], device="cuda",
+                        reps=PROBE["reps"])
+    t13 = time.perf_counter() - t13
     launches13 = dict(kernels.LAUNCHES)
-    device_ms13 = kernels.collect()
     cap.uninstall()
     calls13 = PROBE["reps"] + 1
     path13 = PHASE1 + ("admit_scan", "admit_scan_forests")
     log(f"[13 probe] {PROBE['W']} heads x {PROBE['C']} CQs: "
         + "; ".join(f"{label} p50 {x['p50_ms']:.6f}ms worst "
-                    f"{x['worst_ms']:.6f}ms (device per call "
-                    f"{json.dumps(x['kernel_ms'])})"
-                    for label, x in r13.items())
+                    f"{x['worst_ms']:.6f}ms" for label, x in r13.items())
         + f"; launches {json.dumps({k: launches13[k] for k in path13})}"
-        f"; device_ms {json.dumps(device_ms13)}")
+        f"; device ms per launch "
+        f"{json.dumps({k: per_launch(dc13, k) for k in path13})}"
+        f"; {device_line('13', dc13, t13, launches13)}")
     check(launches13["kq_cq_avail"] == 3 * calls13, launches13)
     check(launches13["kq_classify_heads"] == 3 * calls13, launches13)
     check(launches13["kq_cycle_order"] == 2 * calls13, launches13)
@@ -1245,7 +1422,6 @@ def main() -> int:
     r14 = scenarios.run_bench(d, clock, total, waves)
     torch.cuda.synchronize()
     launches14 = dict(kernels.LAUNCHES)
-    kernels.collect()
     digest14 = scenarios.decision_digest(d, r14["decisions"])
     ss = d.scheduler.solver.stats
     log(f"[14 entry] {len(got[0])} heads, {int(got[0].sum())} admitted, "
@@ -1304,12 +1480,10 @@ def main() -> int:
             build_s = time.perf_counter() - t0
             gc.collect()
             kernels.reset_counts()
-            with GCWatch() as gc15:
+            with GCWatch() as gc15, DeviceClock() as dc15:
                 r15 = scenarios.northstar_burst(d, clock, wave,
                                                 cycles=NORTHSTAR["cycles"])
-            torch.cuda.synchronize()
             launches15 = dict(kernels.LAUNCHES)
-            device_ms15 = kernels.collect()
     finally:
         del os.environ["KUEUE_TPU_SHARDS"]
     cap.uninstall()
@@ -1328,7 +1502,7 @@ def main() -> int:
         f"{digest15} (phase 8: {digest8}); burst_shard_pack_s "
         f"{json.dumps(bs.stats['burst_shard_pack_s'])}, "
         f"burst_shard_fetch_s {json.dumps(bs.stats['burst_shard_fetch_s'])}"
-        f"; device_ms {json.dumps(device_ms15)}")
+        f"; {device_line('15', dc15, r15['wall'], launches15)}")
     burst_line("15 northstar sharded burst", d, r15, launches15)
     check(bs.n_shards == NORTHSTAR_SHARDS, bs.n_shards)
     check(digest15 == digest8, {"sharded": digest15, "phase 8": digest8})
@@ -1353,7 +1527,6 @@ def main() -> int:
                                              shards=RESIDENT_SHARDS)
             torch.cuda.synchronize()
             launches15b = dict(kernels.LAUNCHES)
-            kernels.collect()
             r15c = scenarios.sustained_drain(
                 device="cuda", shards=RESIDENT_SHARDS, lose=4)
     finally:
@@ -1394,12 +1567,11 @@ def main() -> int:
         with sharded.virtual_mesh("cuda:0", NORTHSTAR_SHARDS):
             kernels.reset_counts()
             t0 = time.perf_counter()
-            r15w = scenarios.sustained_drain(shards=NORTHSTAR_SHARDS,
-                                             **wide)
-            torch.cuda.synchronize()
+            with DeviceClock() as dc15w:
+                r15w = scenarios.sustained_drain(shards=NORTHSTAR_SHARDS,
+                                                 **wide)
             r15w_s = time.perf_counter() - t0
             launches15w = dict(kernels.LAUNCHES)
-            device_ms15w = kernels.collect()
     finally:
         del os.environ["KUEUE_TPU_RESIDENT_VERIFY"]
     cap.uninstall()
@@ -1413,8 +1585,7 @@ def main() -> int:
         f"serial drain: {r15w['records'] == serial_w['records']}; boundary "
         f"{json.dumps(scenarios.burst_boundary_report(st))}; launches "
         f"{json.dumps({k: launches15w[k] for k in ('burst_cycles',) + SHARD_KERNELS})}"
-        f"; device_ms "
-        f"{json.dumps({k: device_ms15w[k] for k in SHARD_KERNELS})}")
+        f"; {device_line('15c', dc15w, r15w_s, launches15w)}")
     check(r15w["records"] == serial_w["records"], "15c: records differ")
     check(st["burst_resident_hits"] >= 1, st)
     check(st["burst_resident_scatter_rows"] >= 1, st)
@@ -1431,9 +1602,9 @@ def main() -> int:
         compare("kq_scatter_rows", [tuple(on_card(planes)),
                                     torch.from_numpy(rows).cuda(),
                                     tuple(on_card(vals))], {}, stats)
-    for S in (2, 4, 8):
-        compare("kq_reduce_dflags", [tuple(on_card(list(
-            testing.dflags_blocks(S, 32))))], {}, stats)
+    for S, K in ((2, 32), (4, 32), (8, 32), (32, 32), (4, 7)):
+        compare("kq_reduce_dflags",
+                on_card([testing.dflags_blocks(S, K)]), {}, stats)
     n_captured = 0
     for phase in ("northstar_sharded", "resident", "northstar_resident"):
         for name in SHARD_KERNELS:
@@ -1456,18 +1627,16 @@ def main() -> int:
                                   len(d.cache.cluster_queue_names()))
         gc.collect()      # phases 16-16c start from a collected heap
         kernels.reset_counts()
-        with GCWatch() as gc16:
+        with GCWatch() as gc16, DeviceClock() as dc16:
             r16 = scenarios.run_bench(d, clock, total, waves)
-        torch.cuda.synchronize()
         launches16 = dict(kernels.LAUNCHES)
-        device_ms16 = kernels.collect()
     cap.uninstall()
     ss = d.scheduler.solver.stats
     digest16 = scenarios.decision_digest(d, r16["decisions"])
     log(f"[16 bench mesh] drained {r16['finished']}/{r16['total']}, "
         f"{r16['finished'] / r16['wall']:.1f} admissions/s (phase 4: "
         f"{BENCH_WORKLOADS / wall4:.1f}), preempted {r16['preempted']}")
-    mesh_line("16 bench mesh", d, r16, launches16, device_ms16, digest16,
+    mesh_line("16 bench mesh", d, r16, launches16, dc16, digest16,
               digest4, wall4, gc16)
     check(d.scheduler.solver.mesh.shape == {"wl": 2, "cq": 2},
           d.scheduler.solver.mesh.shape)
@@ -1496,18 +1665,16 @@ def main() -> int:
         build_s = time.perf_counter() - t0
         gc.collect()
         kernels.reset_counts()
-        with GCWatch() as gc16b:
+        with GCWatch() as gc16b, DeviceClock() as dc16b:
             r16b = scenarios.run_northstar(d, clock, wave,
                                            cycles=NORTHSTAR["cycles"])
-        torch.cuda.synchronize()
         launches16b = dict(kernels.LAUNCHES)
-        device_ms16b = kernels.collect()
     cap.uninstall()
     ss = d.scheduler.solver.stats
     digest16b = scenarios.decision_digest(d, r16b["decisions"])
     log(f"[16b northstar mesh] built in {build_s:.1f}s, admitted "
         f"{r16b['admitted']}, preempted {r16b['preempted']}")
-    mesh_line("16b northstar mesh", d, r16b, launches16b, device_ms16b,
+    mesh_line("16b northstar mesh", d, r16b, launches16b, dc16b,
               digest16b, digest5, r5["wall"], gc16b)
     check(d.scheduler.solver.mesh.shape == {"wl": 4, "cq": 2},
           d.scheduler.solver.mesh.shape)
@@ -1530,18 +1697,16 @@ def main() -> int:
         build_s = time.perf_counter() - t0
         gc.collect()
         kernels.reset_counts()
-        with GCWatch() as gc16c:
+        with GCWatch() as gc16c, DeviceClock() as dc16c:
             r16c = scenarios.run_northstar_fs(d, clock,
                                               cycles=NORTHSTAR["cycles"])
-        torch.cuda.synchronize()
         launches16c = dict(kernels.LAUNCHES)
-        device_ms16c = kernels.collect()
     cap.uninstall()
     ss = d.scheduler.solver.stats
     digest16c = scenarios.decision_digest(d, r16c["decisions"])
     log(f"[16c northstar fs mesh] built in {build_s:.1f}s, admitted "
         f"{r16c['admitted']}, skipped {r16c['skipped']}")
-    mesh_line("16c northstar fs mesh", d, r16c, launches16c, device_ms16c,
+    mesh_line("16c northstar fs mesh", d, r16c, launches16c, dc16c,
               digest16c, digest9, r9["wall"], gc16c)
     check(digest16c == digest9, {"mesh": digest16c, "phase 9": digest9})
     check(ss["sharded_fs_dispatches"] > 0, ss)
@@ -1562,7 +1727,6 @@ def main() -> int:
                                           device="cuda")
         torch.cuda.synchronize()
         launches16d = dict(kernels.LAUNCHES)
-        kernels.collect()
     cap.uninstall()
     log(f"[16d dryrun_multichip] {json.dumps(r16d)}; launches "
         f"{json.dumps({k: v for k, v in launches16d.items() if v})}")
@@ -1584,7 +1748,9 @@ def main() -> int:
     planes, head_of, fills = testing.gather_case(
         rng, W=1000, S=8, dtypes=("bool", "bool", "bool"))
     synth_gather = [tuple(tuple(on_card(list(p))) for p in planes),
-                    tuple(on_card(list(head_of))), 1000, fills]
+                    torch.from_numpy(sharded.source_map(head_of,
+                                                        1000)).cuda(),
+                    fills]
     compare("kq_gather_heads", synth_gather, {}, stats)
     winners, head_of = testing.merge_case(rng, W=1000, S=8)
     synth_merge = [tuple(on_card(list(winners))),
@@ -1597,6 +1763,22 @@ def main() -> int:
     log(f"[3i mesh kernels, synthetic + captured {json.dumps(n_captured)}] "
         f"in {time.perf_counter() - t0:.1f}s; "
         f"{json.dumps({k: stats[k] for k in MESH_KERNELS + MESH_SCANS})}")
+
+    # -- 3j. two launches taken apart: wrapper, bare C launch, library -----
+    t0 = time.perf_counter()
+    cases3j = [
+        ("phase 15, S = 4", "kq_reduce_dflags",
+         *cap.calls[("northstar_sharded", "kq_reduce_dflags")][0]),
+        ("S = 8, K = 32", "kq_reduce_dflags",
+         on_card([testing.dflags_blocks(8, 32)]), {}),
+        ("phase 16b, widest", "kq_gather_heads",
+         *widest_mesh("kq_gather_heads",
+                      cap.calls[("northstar_mesh", "kq_gather_heads")])),
+        ("1,000 heads x 8 shards", "kq_gather_heads", synth_gather, {}),
+    ]
+    j3 = launch_breakdown(cases3j)
+    log(f"[3j launch breakdown] ({time.perf_counter() - t0:.1f}s) "
+        f"{json.dumps(j3)}")
 
     # -- the kernels line ----------------------------------------------------
     by_phase = {"4": launches4, "5": launches5, "7": launches7,
@@ -1624,7 +1806,7 @@ def main() -> int:
                     else most_heads(calls) if name == "fs_admit_scan"
                     else deepest(calls) if name == "best_fit_descend"
                     else most_rows(calls) if name == "kq_scatter_rows"
-                    else widest_mesh(calls) if name in MESH_KERNELS
+                    else widest_mesh(name, calls) if name in MESH_KERNELS
                     else widest(calls) if name in PHASE1
                     else calls[0] if name in ("drs_components",
                                               "fill_counts",
@@ -1645,23 +1827,20 @@ def main() -> int:
                 planes=len(args[0]), rows=int(args[0][0].shape[0]),
                 Dp=int(args[1].shape[0]),
                 distinct=int(torch.unique(args[1]).numel()))
-            extra["device_ms_per_launch_on_path"] = (
-                device_ms15w[name] / max(1, launches15w[name]))
+            extra["device_ms_per_launch_on_path"] = per_launch(dc15w, name)
         if name == "kq_reduce_dflags":
-            extra["timed_shape"] = dict(S=len(args[0]),
-                                        K=int(args[0][0].shape[0]))
+            extra["timed_shape"] = dict(S=int(args[0].shape[0]),
+                                        K=int(args[0].shape[1]))
         if name in MESH_KERNELS:
-            path_ms = {"kq_gather_heads": device_ms16b,
-                       "kq_fs_merge_order": device_ms16c}[name]
-            extra["timed_shape"] = dict(W=int(args[2]), S=len(args[1]),
-                                        heads=int(sum(h.numel()
-                                                      for h in args[1])))
-            extra["device_ms_per_launch_on_path"] = (
-                path_ms[name] / max(1, launches))
+            path_dc = {"kq_gather_heads": dc16b,
+                       "kq_fs_merge_order": dc16c}[name]
+            extra["timed_shape"] = mesh_shape(name, args)
+            extra["device_ms_per_launch_on_path"] = per_launch(path_dc, name)
             ts = time_kernel(name, synth_gather if name == "kq_gather_heads"
                              else synth_merge, {})
             extra["synthetic_1000x8"] = {k: ts[k] for k in (
-                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+                "ms", "bare_ms", "kernel_ms", "plain_ms", "bound_ms",
+                "bound_by", "library_ms")}
         if name in TAS_KERNELS:
             extra["dependent_steps"] = tas_dependent_steps(name, args, kw)
             extra["timed_shape"] = dict(
@@ -1669,8 +1848,7 @@ def main() -> int:
                 R=int(args[0].shape[1]),
                 **{k: kw[k] for k in ("level", "profile", "descend_profile")
                    if k in kw})
-            extra["device_ms_per_launch_on_path"] = (
-                device_ms11[name] / max(1, launches11[name]))
+            extra["device_ms_per_launch_on_path"] = per_launch(dc11, name)
         if name == "fs_admit_scan":
             # the dependent chain: every live round is 5 + 7 (n_levels - 1)
             # block barriers (fs_admit_scan.cu)
@@ -1691,8 +1869,7 @@ def main() -> int:
                     C_S_R=list(args[3].shape), pairs=kw["pairs"]),
                 "kq_cycle_order": lambda: dict(W=int(args[0].shape[0])),
             }[name]()
-            extra["device_ms_per_launch_on_path"] = (
-                device_ms13[name] / max(1, launches13[name]))
+            extra["device_ms_per_launch_on_path"] = per_launch(dc13, name)
             if name == "kq_classify_heads":
                 # the 1,000-head call of the scans, with the pairs
                 h_args, h_kw = min(cap.calls[("probe", name)],
@@ -1724,8 +1901,7 @@ def main() -> int:
             extra["sharded_northstar"] = dict(
                 shards=NORTHSTAR_SHARDS,
                 launches=launches15["burst_cycles"],
-                device_ms_per_launch=device_ms15["burst_cycles"]
-                / max(1, launches15["burst_cycles"]))
+                device_ms_per_launch=per_launch(dc15, "burst_cycles"))
             extra["timed_shape"] = dict(C=int(args[0].shape[0]),
                                         M=int(args[0].shape[1]),
                                         KC=kw["KC"], K=kw["K"], L=kw["L"])

@@ -14,8 +14,9 @@ Every launcher checks device, dtype, shape and contiguity and raises on
 anything else, allocates its outputs and scratch with ``torch.empty``,
 launches on the current stream without synchronizing, raises if the
 launch status is not 0, and adds one to ``LAUNCHES[name]`` — nowhere
-else is a count taken.  Each launch is bracketed by CUDA events;
-``collect()`` folds the finished ones into ``DEVICE_MS``.
+else is a count taken.  A launch records no CUDA event: device times
+come from the profiler's CUDA activity (``profiling.DeviceClock``, which
+names each kernel by its launcher through ``SYMBOLS``).
 
 Nothing here is imported or built on a machine without CUDA unless a
 launcher is called with CUDA tensors.
@@ -51,14 +52,33 @@ FOREST_SMEM = 128 * 1024  # admit_scan_forests' head list in shared memory
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
+# each kernel's ``__global__`` symbol, as a profiler names it (before its
+# template and parameter lists) → its launcher's name
+SYMBOLS = {
+    "kq_admit_scan_kernel": "admit_scan",
+    "kq_admit_scan_preempt_kernel": "admit_scan_preempt",
+    "kq_admit_scan_forests_kernel": "admit_scan_forests",
+    "kq_minimal_preemptions_kernel": "minimal_preemptions_batch",
+    "kq_burst_cycles_kernel": "burst_cycles",
+    "kq_fs_admit_scan_kernel": "fs_admit_scan",
+    "kq_drs_components_kernel": "drs_components",
+    "kq_tas_fill_counts_kernel": "fill_counts",
+    "kq_tas_best_fit_descend_kernel": "best_fit_descend",
+    "kq_tas_split_across_roots_kernel": "split_across_roots",
+    "kq_cq_avail_kernel": "kq_cq_avail",
+    "kq_classify_heads_kernel": "kq_classify_heads",
+    "kq_cycle_order_kernel": "kq_cycle_order",
+    "kq_scatter_rows_kernel": "kq_scatter_rows",
+    "kq_reduce_dflags_kernel": "kq_reduce_dflags",
+    "kq_gather_heads_kernel": "kq_gather_heads",
+    "kq_fs_merge_order_kernel": "kq_fs_merge_order",
+}
 LAUNCHES: dict[str, int] = dict.fromkeys(KERNELS, 0)
-DEVICE_MS: dict[str, float] = dict.fromkeys(KERNELS, 0.0)
 BUILD: dict = {"seconds": None, "library": None}
 
 _SRC_DIR = Path(__file__).resolve().parent
 _lib = None
 _lock = threading.Lock()
-_pending: list[tuple[str, object, object]] = []
 
 
 def build_dir() -> Path:
@@ -128,8 +148,8 @@ _ARGTYPES = {
     "kq_classify_heads": [_P, _P, _P],
     "kq_cycle_order": [_P, _P, _P],
     "kq_scatter_rows": [_P, _P, _P],
-    "kq_reduce_dflags": [_P, _P, _P],
-    "kq_gather_heads": [_P, _P, _P],
+    "kq_reduce_dflags": [_P, _P, _I, _I, _P],
+    "kq_gather_heads": [_P, _I, _P, _I, _I, _I, ctypes.c_uint, _P],
     "kq_fs_merge_order": [_P, _P, _P],
 }
 
@@ -148,20 +168,19 @@ def load():
     return _lib
 
 
+def launcher_of(symbol: str) -> str | None:
+    """The launcher's name of a kernel symbol as a profiler reports it
+    (``"void kq_gather_heads_kernel<8>(...)"`` or ``"(anonymous
+    namespace)::kq_burst_cycles_kernel(BurstArgs)"`` → the launcher), or
+    None for a kernel that is not this library's."""
+    base = symbol.replace("(anonymous namespace)::", "")
+    base = base.split("(", 1)[0].split("<", 1)[0].strip()
+    return SYMBOLS.get(base.rsplit(" ", 1)[-1].rsplit("::", 1)[-1])
+
+
 def reset_counts() -> None:
-    collect()
     for k in KERNELS:
         LAUNCHES[k] = 0
-        DEVICE_MS[k] = 0.0
-
-
-def collect() -> dict[str, float]:
-    """Fold the device times of finished launches into DEVICE_MS."""
-    while _pending:
-        name, start, end = _pending.pop()
-        end.synchronize()
-        DEVICE_MS[name] += start.elapsed_time(end)
-    return dict(DEVICE_MS)
 
 
 # -- argument checks -------------------------------------------------------
@@ -192,16 +211,11 @@ def _check_depth(depth: int) -> None:
 
 
 def _launch(name: str, fn, *args) -> None:
-    stream = torch.cuda.current_stream()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record(stream)
-    status = fn(*args, _P(stream.cuda_stream))
-    end.record(stream)
+    """Call the C launch function on the current stream; count it."""
+    status = fn(*args, _P(torch.cuda.current_stream().cuda_stream))
     if status != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with status {status}")
     LAUNCHES[name] += 1
-    _pending.append((name, start, end))
 
 
 def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
@@ -449,12 +463,14 @@ def burst_node_table(parent, node_level, forest_of_cq, G: int, device):
 
 
 def burst_cycles(*args, K, depth, L, S, KC, n_levels, G, runtime,
-                 node_table=None, dflags_out=False):
+                 node_table=None, dflags_out=False, dflags=None):
     """CUDA burst_cycles (kernels/burst_cycles.cu): K fused admission
     cycles, one block per cohort forest.  Arguments and outputs as
     ``ops.burst.burst_cycles_plain`` (with ``dflags_out`` the [K, 4]
-    int32 flag block in place of dirty and dirty_reason); ``node_table``
-    as ``burst_node_table`` (derived here when not given)."""
+    int32 flag block in place of dirty and dirty_reason: ``dflags``, a
+    zeroed [K, 4] int32 block on the device such as a row of the sharded
+    burst's window, or a fresh one); ``node_table`` as
+    ``burst_node_table`` (derived here when not given)."""
     from ..ops.burst import ARG_NAMES, NARROW_ARGS, STATE_NAMES, dirty_flags
     if len(args) != len(ARG_NAMES):
         raise ValueError(f"burst_cycles takes {len(ARG_NAMES)} arguments, "
@@ -513,7 +529,9 @@ def burst_cycles(*args, K, depth, L, S, KC, n_levels, G, runtime,
     slot = torch.empty((K, C), dtype=i32, device=dev)
     borrows = torch.empty((K, C), dtype=b, device=dev)
     tgt_words = torch.zeros((K, C, KCW), dtype=i32, device=dev)
-    dflags = torch.zeros((K, 4), dtype=i32, device=dev)
+    if dflags is None:
+        dflags = torch.zeros((K, 4), dtype=i32, device=dev)
+    _check("dflags", dflags, i32, (K, 4), dev)
 
     def scratch(*shape):
         return torch.empty(shape, dtype=i32, device=dev)
@@ -884,7 +902,6 @@ def kq_cycle_order(borrows0, priority, timestamp):
 # -- the forest-sharded burst: resident row scatter, dirty-flag reduction ---
 
 SCATTER_MAX_PLANES = 16     # KQ_SCATTER_MAX_PLANES in scatter_rows.cu
-REDUCE_MAX_SHARDS = 256     # KQ_REDUCE_MAX_SHARDS in scatter_rows.cu
 
 
 def kq_scatter_rows(planes, rows, vals):
@@ -917,33 +934,34 @@ def kq_scatter_rows(planes, rows, vals):
     return planes
 
 
-def kq_reduce_dflags(blocks):
-    """CUDA sum of S [K, 4] int32 dirty-flag blocks (kernels/
-    scatter_rows.cu) → [K, 4] int32 on the blocks' device; arguments as
-    ``parallel.sharded.reduce_dflags_plain``."""
-    blocks = tuple(blocks)
-    S = len(blocks)
-    if not 1 <= S <= REDUCE_MAX_SHARDS:
-        raise ValueError(f"{S} blocks: 1 to {REDUCE_MAX_SHARDS}")
-    dev = blocks[0].device
+def kq_reduce_dflags(window):
+    """CUDA sum over s of a sharded burst window's [S, K, 4] int32
+    dirty-flag rows (kernels/scatter_rows.cu) → [K, 4] int32 on its
+    device; arguments as ``parallel.sharded.reduce_dflags_plain``.  The
+    kernel reads 16-byte rows, so the window starts 16-byte aligned."""
+    dev = window.device
     if dev.type != "cuda":
-        raise ValueError(f"blocks on {dev}: the kernels need CUDA tensors")
-    K = blocks[0].shape[0] if blocks[0].dim() == 2 else -1
-    for k, b in enumerate(blocks):
-        _check(f"blocks[{k}]", b, torch.int32, (K, 4), dev)
+        raise ValueError(f"window on {dev}: the kernels need CUDA tensors")
+    S, K = window.shape[:2] if window.dim() == 3 else (-1, -1)
+    _check("window", window, torch.int32, (S, K, 4), dev)
+    if S < 1:
+        raise ValueError("the window needs at least one shard's row")
+    if window.data_ptr() % 16:
+        raise ValueError("window: not 16-byte aligned")
     out = torch.empty((K, 4), dtype=torch.int32, device=dev)
     if K == 0:
         return out
-    _array_launch("kq_reduce_dflags", load().kq_reduce_dflags,
-                  [*blocks, out], [S, K * 4])
+    _launch("kq_reduce_dflags", load().kq_reduce_dflags, _ptr(window),
+            _ptr(out), S, K)
     return out
 
 
 # -- the per-cycle mesh: head gather, fair-sharing round merge --------------
 
 MESH_MAX_SHARDS = 32        # KQ_MESH_MAX_SHARDS in mesh_gather.cu
-GATHER_MAX_PLANES = 6       # KQ_GATHER_MAX_PLANES in mesh_gather.cu
 MERGE_SMEM = 48 * 1024      # KQ_MERGE_SMEM: done flags in shared memory
+SRC_SHIFT = 26              # KQ_SRC_SHIFT: src[w] = slot << 26 | row
+GATHER_SLOTS = 256          # the largest argument table of the gather
 
 
 def _mesh_maps(head_of, dev):
@@ -956,44 +974,58 @@ def _mesh_maps(head_of, dev):
     return [int(h.shape[0]) for h in head_of]
 
 
-def kq_gather_heads(planes, head_of, W: int, fills):
-    """CUDA head gather (kernels/mesh_gather.cu): for each plane p,
-    ``out[p][head_of[s][i]] = planes[p][s][i]``, the other rows
-    ``fills[p]``; one launch for all planes → a tuple of [W] tensors.
-    Arguments as ``parallel.sharded.gather_heads_plain``: planes[p] holds
-    S blocks [W_s] of one dtype (bool or int32) on the maps' CUDA device,
-    head_of S int32 maps [W_s].  Shards with no heads are dropped before
-    the launch."""
+def kq_gather_heads(planes, src, fills):
+    """CUDA head gather (kernels/mesh_gather.cu) by a source map, one
+    launch for all planes → a tuple of [W] tensors: ``out[p][w] =
+    planes[p][l][r]`` where ``src[w] = l << SRC_SHIFT | r``, ``fills[p]``
+    where ``src[w]`` is -1.  Arguments as
+    ``parallel.sharded.gather_src_plain``: planes[p] holds one block
+    [W_l] per slot l of the map (bool or int32, one dtype per plane) on
+    src's CUDA device, ``src`` [W] int32 (``CycleShardLayout.heads``
+    builds it; ``parallel.sharded.source_map`` from the maps).  The
+    launch's argument table holds the P x L block pointers, the L block
+    lengths, the P outputs and the P fills, and no more."""
     planes = tuple(tuple(b) for b in planes)
-    head_of = tuple(head_of)
-    dev = head_of[0].device if head_of else None
-    if dev is None or dev.type != "cuda":
-        raise ValueError(f"head_of on {dev}: the kernels need CUDA tensors")
+    dev = src.device
+    if dev.type != "cuda":
+        raise ValueError(f"src on {dev}: the kernels need CUDA tensors")
+    W = src.shape[0] if src.dim() == 1 else -1
+    _check("src", src, torch.int32, (W,), dev)
     P = len(planes)
-    if not 1 <= P <= GATHER_MAX_PLANES or len(fills) != P:
-        raise ValueError(f"{P} planes and {len(fills)} fills: 1 to "
-                         f"{GATHER_MAX_PLANES} of each, as many")
-    n = _mesh_maps(head_of, dev)
-    outs = []
+    if P < 1 or len(fills) != P:
+        raise ValueError(f"{P} planes and {len(fills)} fills: one fill "
+                         f"per plane, at least one plane")
+    L = len(planes[0])
+    if not 1 <= L <= MESH_MAX_SHARDS:
+        raise ValueError(f"{L} blocks per plane: 1 to {MESH_MAX_SHARDS}")
+    n = [int(b.shape[0]) if b.dim() == 1 else -1 for b in planes[0]]
+    if max(n) >= 1 << SRC_SHIFT:
+        raise ValueError(f"a block of {max(n)} heads: the source map "
+                         f"holds rows below 2^{SRC_SHIFT}")
+    n_slots = P * L + L + 2 * P
+    if n_slots > GATHER_SLOTS:
+        raise ValueError(f"{P} planes x {L} blocks need {n_slots} table "
+                         f"slots, more than {GATHER_SLOTS}")
+    outs, wide = [], 0
     for k, blocks in enumerate(planes):
-        if len(blocks) != len(head_of):
-            raise ValueError(f"planes[{k}]: {len(blocks)} blocks for "
-                             f"{len(head_of)} shards")
+        if len(blocks) != L:
+            raise ValueError(f"planes[{k}]: {len(blocks)} blocks, planes[0]"
+                             f" {L}")
         dtype = blocks[0].dtype
         if dtype not in (torch.bool, torch.int32):
             raise TypeError(f"planes[{k}]: dtype {dtype}, expected bool "
                             f"or int32")
-        for s, b in enumerate(blocks):
-            _check(f"planes[{k}][{s}]", b, dtype, (n[s],), dev)
+        for l, b in enumerate(blocks):
+            _check(f"planes[{k}][{l}]", b, dtype, (n[l],), dev)
+        wide |= int(dtype == torch.int32) << k
         outs.append(torch.empty(W, dtype=dtype, device=dev))
     if W == 0:
         return tuple(outs)
-    live = [s for s in range(len(head_of)) if n[s] > 0]
-    ptrs = ([planes[k][s] for k in range(P) for s in live]
-            + [head_of[s] for s in live] + outs)
-    dims = ([P, len(live), W] + [n[s] for s in live]
-            + [o.element_size() for o in outs] + [int(f) for f in fills])
-    _array_launch("kq_gather_heads", load().kq_gather_heads, ptrs, dims)
+    slots = ([b.data_ptr() for blocks in planes for b in blocks] + n
+             + [o.data_ptr() for o in outs] + [int(f) for f in fills])
+    _launch("kq_gather_heads", load().kq_gather_heads,
+            (ctypes.c_longlong * n_slots)(*slots), n_slots, _ptr(src), W,
+            P, L, wide)
     return tuple(outs)
 
 

@@ -9,14 +9,21 @@
 // shard's heads (kept in ascending global index), and puts the per-shard
 // outputs back into head order here.
 //
-// kq_gather_heads: out[p][head_of[s][i]] = blocks[p][s][i] for every
-// plane p, shard s and local head i; rows of heads that belong to no
-// shard keep the plane's fill value (what the unsharded kernel gives such
-// a head: False, -1 or 0).  One launch covers every output plane of a
-// scan (admitted, preempting, overlap_skip; solve_cycle's six), one
-// block per plane: the block writes the fill over its [W] row, waits at
-// a barrier, then scatters the S blocks.  Planes are bool (1 byte) or
-// int32 (4 bytes).  A head index outside [0, W) is dropped.
+// kq_gather_heads: out[p][w] = blocks[p][l][r] where the source map
+// says src[w] = l << KQ_SRC_SHIFT | r (head w is row r of live shard l's
+// block), and the plane's fill where src[w] = -1: what the unsharded
+// kernel gives a head that belongs to no shard (False, -1 or 0).  The
+// host builds src while it routes the heads (CycleShardLayout.heads),
+// so the gather runs in head order: thread w reads src[w] once and
+// writes every plane at w, coalesced, across as many blocks as W needs.
+// No fill pass, no barrier, no loop over shards.  One launch covers every
+// output plane of a scan (admitted, preempting, overlap_skip;
+// solve_cycle's six).  Planes are bool (1 byte) or int32 (4 bytes, a bit
+// of ``wide``).  The argument table holds the P x L block pointers, the
+// L block lengths, the P outputs and the P fills; its type is the
+// smallest of 8, 16, ..., 256 slots that holds them, and it is read in
+// place from the parameter space (__grid_constant__).  A slot or row
+// outside the table gives the fill.
 //
 // kq_fs_merge_order: the global winner sequence of fs_admit_scan from
 // the per-shard sequences.  Each round of the reference serves the cohort
@@ -31,25 +38,25 @@
 // live in shared memory, the done flags too (or in a global scratch when
 // they pass 48 KB).  Rounds past the last winner write -1.
 //
-// Bound: bytes.  Both read each block and map once and write [W] per
-// plane: far below a microsecond at 3.35 TB/s, so launch latency and, for
-// the merge, its W dependent rounds rule.
+// Bound: bytes.  The gather reads src and each block once and writes [W]
+// per plane, the merge reads each block and map once and writes [W]: far
+// below a microsecond at 3.35 TB/s, so the launch and, for the merge, its
+// W dependent rounds rule.
 #include <cuda_runtime.h>
 
 #include <climits>
 #include <cstdint>
 
-#define KQ_GATHER_MAX_PLANES 6
 #define KQ_MESH_MAX_SHARDS 32
 #define KQ_MERGE_SMEM (48 * 1024)
+#define KQ_SRC_SHIFT 26
+#define KQ_GATHER_THREADS 128
 
-struct GatherTable {
-  const void* blocks[KQ_GATHER_MAX_PLANES][KQ_MESH_MAX_SHARDS];
-  const int* head_of[KQ_MESH_MAX_SHARDS];
-  int n[KQ_MESH_MAX_SHARDS];
-  void* out[KQ_GATHER_MAX_PLANES];
-  int elem[KQ_GATHER_MAX_PLANES];
-  int fill[KQ_GATHER_MAX_PLANES];
+// P x L block pointers (plane-major), L block lengths, P output
+// pointers, P fills
+template <int N>
+struct GatherSlots {
+  long long v[N];
 };
 
 struct MergeTable {
@@ -59,32 +66,42 @@ struct MergeTable {
   int off[KQ_MESH_MAX_SHARDS + 1];
 };
 
-__global__ void kq_gather_heads_kernel(GatherTable t, int S, int W) {
-  const int p = blockIdx.x;
-  const bool wide = t.elem[p] == 4;
-  int* out32 = static_cast<int*>(t.out[p]);
-  uint8_t* out8 = static_cast<uint8_t*>(t.out[p]);
-  for (int w = threadIdx.x; w < W; w += blockDim.x) {
-    if (wide) {
-      out32[w] = t.fill[p];
+template <int N>
+__global__ void kq_gather_heads_kernel(
+    const __grid_constant__ GatherSlots<N> a, const int* src, int W, int P,
+    int L, unsigned wide) {
+  const int w = blockIdx.x * blockDim.x + threadIdx.x;
+  if (w >= W) return;
+  const int s = src[w];
+  const int l = s >= 0 ? s >> KQ_SRC_SHIFT : L;
+  const int r = s & ((1 << KQ_SRC_SHIFT) - 1);
+  const bool hit = l < L && r < a.v[P * L + l];
+  for (int p = 0; p < P; ++p) {
+    void* out = reinterpret_cast<void*>(a.v[P * L + L + p]);
+    const long long fill = a.v[P * L + L + P + p];
+    const void* blk = hit ? reinterpret_cast<const void*>(a.v[p * L + l])
+                          : nullptr;
+    if ((wide >> p) & 1u) {
+      static_cast<int*>(out)[w] =
+          hit ? static_cast<const int*>(blk)[r] : static_cast<int>(fill);
     } else {
-      out8[w] = static_cast<uint8_t>(t.fill[p]);
+      static_cast<uint8_t*>(out)[w] =
+          hit ? static_cast<const uint8_t*>(blk)[r]
+              : static_cast<uint8_t>(fill);
     }
   }
-  __syncthreads();
-  for (int s = 0; s < S; ++s) {
-    const int* h = t.head_of[s];
-    const int n = t.n[s];
-    for (int i = threadIdx.x; i < n; i += blockDim.x) {
-      const int w = h[i];
-      if (w < 0 || w >= W) continue;
-      if (wide) {
-        out32[w] = static_cast<const int*>(t.blocks[p][s])[i];
-      } else {
-        out8[w] = static_cast<const uint8_t*>(t.blocks[p][s])[i];
-      }
-    }
-  }
+}
+
+template <int N>
+static int launch_gather(const long long* slots, int n_slots, const int* src,
+                         int W, int P, int L, unsigned wide,
+                         cudaStream_t stream) {
+  GatherSlots<N> a;
+  for (int i = 0; i < n_slots; ++i) a.v[i] = slots[i];
+  kq_gather_heads_kernel<N>
+      <<<(W + KQ_GATHER_THREADS - 1) / KQ_GATHER_THREADS, KQ_GATHER_THREADS,
+         0, stream>>>(a, src, W, P, L, wide);
+  return static_cast<int>(cudaGetLastError());
 }
 
 __global__ void kq_fs_merge_order_kernel(MergeTable t, int S, int W,
@@ -143,34 +160,28 @@ __global__ void kq_fs_merge_order_kernel(MergeTable t, int S, int W,
   for (int i = r + lane; i < W; i += 32) order[i] = -1;
 }
 
-// p: P x S block pointers (plane-major), then S head_of pointers, then P
-// output pointers; d: P, S, W, then S block lengths, then P element
-// sizes, then P fills.
-extern "C" int kq_gather_heads(void* const* p, const int* d,
-                               cudaStream_t stream) {
-  const int P = d[0];
-  const int S = d[1];
-  const int W = d[2];
-  if (P < 1 || P > KQ_GATHER_MAX_PLANES || S < 0 || S > KQ_MESH_MAX_SHARDS ||
-      W < 1) {
+// slots: the table (P x L block pointers, L lengths, P outputs, P
+// fills), n_slots = P * L + L + 2 * P of them; src [W] int32.
+extern "C" int kq_gather_heads(const long long* slots, int n_slots,
+                               const void* src, int W, int P, int L,
+                               unsigned wide, cudaStream_t stream) {
+  if (P < 1 || P > 32 || L < 1 || L > KQ_MESH_MAX_SHARDS || W < 1 ||
+      n_slots != P * L + L + 2 * P) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  GatherTable t;
-  for (int k = 0; k < P; ++k) {
-    for (int s = 0; s < S; ++s) t.blocks[k][s] = p[k * S + s];
-    t.out[k] = p[P * S + S + k];
-    t.elem[k] = d[3 + S + k];
-    t.fill[k] = d[3 + S + P + k];
-    if (t.elem[k] != 1 && t.elem[k] != 4) {
-      return static_cast<int>(cudaErrorInvalidValue);
-    }
+  const int* s = static_cast<const int*>(src);
+#define KQ_GATHER_TABLE(N)                                              \
+  if (n_slots <= N) {                                                   \
+    return launch_gather<N>(slots, n_slots, s, W, P, L, wide, stream); \
   }
-  for (int s = 0; s < S; ++s) {
-    t.head_of[s] = static_cast<const int*>(p[P * S + s]);
-    t.n[s] = d[3 + s];
-  }
-  kq_gather_heads_kernel<<<P, 256, 0, stream>>>(t, S, W);
-  return static_cast<int>(cudaGetLastError());
+  KQ_GATHER_TABLE(8)
+  KQ_GATHER_TABLE(16)
+  KQ_GATHER_TABLE(32)
+  KQ_GATHER_TABLE(64)
+  KQ_GATHER_TABLE(128)
+  KQ_GATHER_TABLE(256)
+#undef KQ_GATHER_TABLE
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // p: S winner pointers, then S head_of pointers, then the done scratch

@@ -15,24 +15,22 @@
 // planes are updated, not copied.
 //
 // kq_reduce_dflags replaces the psum at kueue_tpu/ops/burst.py:789-790
-// under parallel/sharded.py sharded_burst_fn: each shard's burst_cycles
-// launch leaves a [K, 4] int32 block of dirty flags, and the window's
-// flags are their sum.  A thread per (cycle, flag) sums the S blocks
-// (wrapping int32, as XLA's psum wraps).
+// under parallel/sharded.py sharded_burst_fn: shard s's burst_cycles
+// launch leaves its [K, 4] int32 dirty flags in row s of one window
+// buffer [S, K, 4] (written there directly on a virtual mesh, by one peer
+// copy on a real one), and the window's flags are the sum over s.  One
+// thread per cycle row k reads the S rows' 16-byte int4 at k and adds
+// them as unsigned (wrapping, as XLA's psum wraps); at K = 32 that is one
+// warp.  The arguments are one pointer, S and K: no pointer table.
 //
 // Bound: bytes.  The scatter moves 2 x Dp x the summed row bytes (values
-// read once, rows written once) and the reduction S x K x 16 bytes; both
-// are far below a microsecond at 3.35 TB/s, so launch latency rules.
+// read once, rows written once) and the reduction (S + 1) x K x 16 bytes;
+// both are far below a microsecond at 3.35 TB/s, so the launch rules.
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
 #define KQ_SCATTER_MAX_PLANES 16
-#define KQ_REDUCE_MAX_SHARDS 256
-
-struct ReduceTable {
-  const int* blocks[KQ_REDUCE_MAX_SHARDS];
-};
 
 struct ScatterTable {
   void* planes[KQ_SCATTER_MAX_PLANES];
@@ -61,13 +59,20 @@ __global__ void kq_scatter_rows_kernel(ScatterTable tab, const int* rows,
   }
 }
 
-__global__ void kq_reduce_dflags_kernel(ReduceTable tab, int S, int n,
-                                        int* out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  unsigned s = 0;
-  for (int b = 0; b < S; ++b) s += static_cast<unsigned>(tab.blocks[b][i]);
-  out[i] = static_cast<int>(s);
+__global__ void kq_reduce_dflags_kernel(const int4* window, int S, int K,
+                                        int4* out) {
+  const int k = blockIdx.x * blockDim.x + threadIdx.x;
+  if (k >= K) return;
+  unsigned x = 0, y = 0, z = 0, w = 0;
+  for (int s = 0; s < S; ++s) {
+    const int4 v = window[static_cast<size_t>(s) * K + k];
+    x += static_cast<unsigned>(v.x);
+    y += static_cast<unsigned>(v.y);
+    z += static_cast<unsigned>(v.z);
+    w += static_cast<unsigned>(v.w);
+  }
+  out[k] = make_int4(static_cast<int>(x), static_cast<int>(y),
+                     static_cast<int>(z), static_cast<int>(w));
 }
 
 // p: P plane pointers, then P value pointers, then rows; d: P, Dp,
@@ -90,18 +95,11 @@ extern "C" int kq_scatter_rows(void* const* p, const int* d,
   return static_cast<int>(cudaGetLastError());
 }
 
-// p: S block pointers ([K, 4] each, on this device), then out [K, 4];
-// d: S, K * 4.
-extern "C" int kq_reduce_dflags(void* const* p, const int* d,
+// window [S, K, 4] and out [K, 4] int32, both 16-byte aligned.
+extern "C" int kq_reduce_dflags(const void* window, void* out, int S, int K,
                                 cudaStream_t stream) {
-  const int S = d[0];
-  const int n = d[1];
-  if (S < 1 || S > KQ_REDUCE_MAX_SHARDS || n < 1) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  ReduceTable tab;
-  for (int b = 0; b < S; ++b) tab.blocks[b] = static_cast<const int*>(p[b]);
-  kq_reduce_dflags_kernel<<<(n + 255) / 256, 256, 0, stream>>>(
-      tab, S, n, static_cast<int*>(p[S]));
+  if (S < 1 || K < 1) return static_cast<int>(cudaErrorInvalidValue);
+  kq_reduce_dflags_kernel<<<(K + 31) / 32, 32, 0, stream>>>(
+      static_cast<const int4*>(window), S, K, static_cast<int4*>(out));
   return static_cast<int>(cudaGetLastError());
 }

@@ -156,7 +156,8 @@ def burst_cycles_plain(
         forest_of_cq, strict_cq, wcq_lower, rwc_enabled, rwc_only_lower,
         preempt_ok, members, cand_rows, cand_lmem, self_lmem, ext_release,
         ext_unpark, *, K: int, depth: int, L: int, S: int, KC: int,
-        n_levels: int, G: int, runtime: int, dflags_out: bool = False):
+        n_levels: int, G: int, runtime: int, dflags_out: bool = False,
+        dflags=None):
     """K fused admission cycles with in-kernel preemption, in plain
     PyTorch (kueue_tpu/ops/burst.py ``_burst_cycles``).
 
@@ -169,7 +170,9 @@ def burst_cycles_plain(
     int32 (the same bits); ``carry`` is the final (elig, parked, resume,
     adm, adm_seq, adm_usage, adm_uses, death, u_cq).  With ``dflags_out``
     the [K, 4] int32 flag block (``dirty_flags``' input: one forest
-    shard's part of the window's flags) replaces dirty and dirty_reason.
+    shard's part of the window's flags) replaces dirty and dirty_reason,
+    written into ``dflags`` when given (a zeroed row of the sharded
+    burst's window).
 
     The greedy and fill-back preemption walks run per lane: a lane stops
     once it fitted or walked past its eligible candidates (which sort
@@ -324,9 +327,9 @@ def burst_cycles_plain(
                      & (has_stop | (p_count == 1)))
         vec_head = vec_ok[cidx, row]
         dirty_c = has_head & ((has_preempt & ~pre_model) | ~vec_head)
-        dflags = (bool(dirty_c.any()),
-                  bool((has_preempt & ~pre_model).any()),
-                  bool((has_head & ~vec_head).any()))
+        cycle_flags = (bool(dirty_c.any()),
+                       bool((has_preempt & ~pre_model).any()),
+                       bool((has_head & ~vec_head).any()))
 
         # -- nominate-time preemption searches (preemption.go:127-342) -
         preempting0 = torch.zeros(C, dtype=torch.bool, device=dev)
@@ -588,12 +591,14 @@ def burst_cycles_plain(
         borrows_out = torch.where(has_fit, borrows, p_borrows)
         outs.append((torch.where(has_head, row, -1).to(_I32), kind,
                      slot_out.to(_I32), borrows_out,
-                     _pack_words(tgt0 & preempting_c[:, None]), dflags))
+                     _pack_words(tgt0 & preempting_c[:, None]),
+                     cycle_flags))
     head_row, kind, slot, borrows, tgt_words = (
         torch.stack([o[i] for o in outs]) for i in range(5))
     # the fourth lane (DIRTY_RESUME) stays 0, as in the JAX kernel
-    dflags = torch.tensor([o[5] + (False,) for o in outs], dtype=_I32,
-                          device=dev).reshape(K, 4)
+    flags = torch.tensor([o[5] + (False,) for o in outs], dtype=_I32,
+                         device=dev).reshape(K, 4)
+    dflags = flags if dflags is None else dflags.copy_(flags)
     carry = (elig, parked, resume, adm, adm_seq, adm_usage, adm_uses,
              death, u_cq)
     flags = (dflags,) if dflags_out else dirty_flags(dflags)

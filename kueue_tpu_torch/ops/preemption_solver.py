@@ -43,11 +43,7 @@ def _to(device, *arrays):
 
 
 def _fetch(*tensors):
-    out = [t.cpu().numpy() for t in tensors]
-    if tensors and tensors[0].is_cuda:
-        from .. import kernels
-        kernels.collect()
-    return out
+    return [t.cpu().numpy() for t in tensors]
 
 
 def _bucket(n: int, minimum: int = 8) -> int:

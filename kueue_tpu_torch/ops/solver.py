@@ -216,10 +216,9 @@ class CycleSolver:
             "scalar_reasons": {},     # {reason: count} for scalar heads
             "resume_heads": 0,        # heads entering the walk mid-list
             "walk_stop_heads": 0,     # heads whose walk policy-stopped
-            # per-kernel CUDA launches and summed CUDA-event device time
-            # (process-wide, kernels.LAUNCHES / kernels.DEVICE_MS)
+            # per-kernel CUDA launches (process-wide, kernels.LAUNCHES);
+            # device times come from profiling.DeviceClock, not from here
             "kernel_launches": {},
-            "kernel_device_ms": {},
         }
         self._structure: Optional[PackedStructure] = None
         self._potential0 = None
@@ -260,7 +259,6 @@ class CycleSolver:
         if self.device.type != "cuda":
             return
         from .. import kernels
-        self.stats["kernel_device_ms"] = kernels.collect()
         self.stats["kernel_launches"] = dict(kernels.LAUNCHES)
 
     def set_mesh(self, mesh) -> None:

@@ -230,22 +230,23 @@ class CycleMesh(_StreamMesh):
         return [dev[o:o + a.nbytes].view(_TORCH_DTYPE[a.dtype.str])
                 .view(a.shape) for a, o in zip(arrays, offsets)]
 
-    def move(self, t: torch.Tensor, src: int, dst: int) -> torch.Tensor:
-        """``t``, made on cell src's stream, ready for cell dst's stream:
-        dst's stream waits for src's (an event), after a peer copy on
-        src's stream when the devices differ (on a virtual mesh they are
-        one device)."""
+    def move(self, ts, src: int, dst: int) -> list:
+        """Tensors made on cell src's stream, ready for cell dst's
+        stream: one event on src's stream and one wait on dst's, after a
+        peer copy of each on src's stream when the devices differ (on a
+        virtual mesh they are one device)."""
+        ts = list(ts)
         a, b = self.streams[src], self.streams[dst]
-        if src == dst or a is None:
-            return t
-        if self.devices[src] != self.devices[dst]:
-            with torch.cuda.stream(a):
-                t = t.to(self.devices[dst])
-        ev = torch.cuda.Event()
-        ev.record(a)
-        b.wait_event(ev)
-        t.record_stream(b)
-        return t
+        if src != dst and a is not None:
+            if self.devices[src] != self.devices[dst]:
+                with torch.cuda.stream(a):
+                    ts = [t.to(self.devices[dst]) for t in ts]
+            ev = torch.cuda.Event()
+            ev.record(a)
+            b.wait_event(ev)
+            for t in ts:
+                t.record_stream(b)
+        return ts
 
     def release(self, tensors) -> None:
         """Hand tensors made on cell 0's stream to the caller's current
@@ -647,23 +648,22 @@ def scatter_rows(planes, rows, vals):
     return scatter_rows_plain(planes, rows, vals)
 
 
-def reduce_dflags_plain(blocks):
-    """The sum of S [K, 4] int32 dirty-flag blocks, [K, 4] int32 (the
-    ``psum`` at kueue_tpu/ops/burst.py:789-790)."""
-    return torch.stack(tuple(blocks)).sum(0, dtype=torch.int32)
+def reduce_dflags_plain(window):
+    """The sum over s of a window's [S, K, 4] int32 dirty-flag rows, one
+    per shard: [K, 4] int32, wrapping (the ``psum`` at
+    kueue_tpu/ops/burst.py:789-790)."""
+    return window.sum(0, dtype=torch.int32)
 
 
-def reduce_dflags(blocks):
+def reduce_dflags(window):
     """The cross-shard dirty-flag reduction: ``kernels.kq_reduce_dflags``
-    for CUDA tensors, ``reduce_dflags_plain`` for CPU tensors."""
-    blocks = tuple(blocks)
-    if blocks[0].device.type == "cuda":
+    for a CUDA window, ``reduce_dflags_plain`` for a CPU one."""
+    if window.device.type == "cuda":
         from .. import kernels
-        return kernels.kq_reduce_dflags(blocks)
-    if blocks[0].device.type != "cpu":
-        raise ValueError(f"no reduction kernel for device "
-                         f"{blocks[0].device}")
-    return reduce_dflags_plain(blocks)
+        return kernels.kq_reduce_dflags(window)
+    if window.device.type != "cpu":
+        raise ValueError(f"no reduction kernel for device {window.device}")
+    return reduce_dflags_plain(window)
 
 
 def shard_node_tables(mesh: BurstMesh, layout: BurstShardLayout) -> list:
@@ -694,15 +694,25 @@ def sharded_burst(mesh: BurstMesh, arrays: dict, state, seq_base: int,
     forest-indexed input (``arrays[name][s]``, ``state[i][s]``,
     ``ext[i][s]``; local C = Cs, N = Ns, G = Gs) goes to
     ``ops.burst.burst_cycles`` on shard s's device and stream, with
-    ``seq_base`` replicated; then ``reduce_dflags`` sums the S [K, 4]
-    flag blocks on shard 0's device (copied there first from another
-    device; shard 0's stream waits on every shard's).
+    ``seq_base`` replicated; then ``reduce_dflags`` sums the window's
+    S [K, 4] flag rows on shard 0's device.  The window [S, K, 4] int32
+    is zeroed once on shard 0's stream; a shard on shard 0's device
+    writes its flags straight into its row, another device's block
+    arrives with one peer copy; shard 0's stream waits on every shard's.
 
     Returns ``(outs, dirty, dirty_reason)``: ``outs[s]`` is shard s's
     ``(head_row, kind, slot, borrows, tgt_words, dflags, carry)`` on its
     device, and the flags are shard 0's."""
     from ..ops import burst as _burst
     from ..ops.burst import ARG_NAMES
+    dev0 = mesh.devices[0]
+    with mesh.on(0):
+        window = torch.zeros((mesh.size, K, 4), dtype=torch.int32,
+                             device=dev0)
+        zeroed = None
+        if mesh.streams[0] is not None:
+            zeroed = torch.cuda.Event()
+            zeroed.record()
     outs = []
     for s in range(mesh.size):
         vals = {n: state[i][s] for i, n in enumerate(_STATE_NAMES)}
@@ -713,28 +723,26 @@ def sharded_burst(mesh: BurstMesh, arrays: dict, state, seq_base: int,
                   G=G, runtime=runtime, dflags_out=True)
         if node_tables is not None and node_tables[s] is not None:
             kw["node_table"] = node_tables[s]
+        if mesh.devices[s] == dev0:
+            kw["dflags"] = window[s]
         with mesh.on(s):
+            if s and zeroed is not None and mesh.devices[s] == dev0:
+                mesh.streams[s].wait_event(zeroed)
             outs.append(_burst.burst_cycles(*args, **kw))
-    dev0 = mesh.devices[0]
-    blocks = []
     with mesh.on(0):
-        for s, out in enumerate(outs):
-            blk = out[5]
-            if s == 0 or mesh.streams[s] is None:
-                blocks.append(blk)
-            elif mesh.devices[s] == dev0:
-                # a virtual mesh: another stream of the same device
-                ev = torch.cuda.Event()
-                ev.record(mesh.streams[s])
-                mesh.streams[0].wait_event(ev)
-                blk.record_stream(mesh.streams[0])
-                blocks.append(blk)
-            else:
-                # a peer copy of 16 K bytes, issued on shard s's stream;
-                # shard 0's stream waits for it
+        for s in range(1, mesh.size):
+            if mesh.streams[s] is None:
+                continue
+            if mesh.devices[s] != dev0:
+                # a peer copy of the [K, 4] block (16 x K bytes: 512 at
+                # K = 32) into row s, on shard s's stream after the zeroing
                 with torch.cuda.stream(mesh.streams[s]):
-                    blocks.append(blk.to(dev0))
-        dflags = reduce_dflags(blocks)
+                    mesh.streams[s].wait_event(zeroed)
+                    window[s].copy_(outs[s][5])
+            ev = torch.cuda.Event()
+            ev.record(mesh.streams[s])
+            mesh.streams[0].wait_event(ev)
+        dflags = reduce_dflags(window)
         dirty, dirty_reason = _burst.dirty_flags(dflags)
     return outs, dirty, dirty_reason
 
@@ -791,7 +799,8 @@ class CycleShardLayout:
     value-remapped to local ids, its local ``forest_of_node`` and its
     forest count.  Per cycle, ``heads`` routes each head to the shard of
     its CQ's forest, in ascending global index; a head with ``wl_cq < 0``
-    belongs to no shard.
+    belongs to no shard.  While it routes them it builds ``src``, the
+    head gather's source map over the shards with heads (``live``).
 
     Device copies of the statics (``static``) are cached per cell of a
     mesh: a layout must only be given the planes of its own structure."""
@@ -828,11 +837,14 @@ class CycleShardLayout:
             self.forest_local.append(fl)
         self.live: list = []        # shards with heads, last ``heads``
         self.empty_shards = 0       # shards without, last ``heads``
+        self.src = np.zeros(0, dtype=np.int32)  # source map, last ``heads``
         self._dev: dict = {}
 
     # -- host routing ---------------------------------------------------
     def heads(self, wl_cq, valid=None) -> list:
-        """Each shard's heads (global indices, ascending, int32)."""
+        """Each shard's heads (global indices, ascending, int32); sets
+        ``live`` and ``src``, the source map of the live shards' heads
+        in that order (``source_map``)."""
         wl_cq = np.asarray(wl_cq)
         ok = wl_cq >= 0
         if valid is not None:
@@ -842,6 +854,7 @@ class CycleShardLayout:
                for s in range(self.n_shards)]
         self.live = [s for s, h in enumerate(out) if len(h)]
         self.empty_shards = self.n_shards - len(self.live)
+        self.src = source_map([out[s] for s in self.live], len(wl_cq))
         return out
 
     def rows(self, arr, s: int, name: str) -> np.ndarray:
@@ -938,25 +951,39 @@ class CycleShardLayout:
         return mesh.put(cell, *host)
 
 
-def _gather(mesh: CycleMesh, done: list, W: int, fills) -> tuple:
-    """Per-head outputs back in head order on cell 0: ``done`` holds
-    (cell, heads on that cell, outputs) per shard that ran;
-    ``gather_heads`` launches once for all planes.  With no shard run (no
-    head in any forest) the outputs are the fills."""
+def _gather(mesh: CycleMesh, done: list, fills, src) -> tuple:
+    """Per-head outputs back in head order on cell 0 → (the [W] planes,
+    each shard's outputs on cell 0).  ``done`` holds (cell, outputs) per
+    shard that ran, in the slot order of ``src``, the layout's source map
+    [W] (a tensor on cell 0, else uploaded here).  Each shard's outputs
+    reach cell 0 in one move, and ``gather_heads`` launches once for the
+    first ``len(fills)`` outputs of every shard.  With no shard run (no
+    head in any forest) the planes are the fills."""
+    moved = []
     with mesh.on(0):
-        dev = mesh.devices[0]
         if not done:
             out = tuple(torch.full(
-                (W,), f, dtype=torch.bool if isinstance(f, bool)
-                else torch.int32, device=dev) for f in fills)
+                (len(src),), f, dtype=torch.bool if isinstance(f, bool)
+                else torch.int32, device=mesh.devices[0]) for f in fills)
         else:
-            maps = tuple(mesh.move(h, cell, 0) for cell, h, _ in done)
-            planes = tuple(tuple(mesh.move(outs[p], cell, 0)
-                                 for cell, _, outs in done)
-                           for p in range(len(fills)))
-            out = gather_heads(planes, maps, W, fills)
+            if not isinstance(src, torch.Tensor):
+                src = mesh.put(0, src)[0]
+            moved = [mesh.move(outs, cell, 0) for cell, outs in done]
+            out = gather_heads(tuple(tuple(m[p] for m in moved)
+                                     for p in range(len(fills))),
+                               src, fills)
     mesh.release(out)
-    return out
+    return out, moved
+
+
+def _put_with_src(mesh: CycleMesh, cell: int, layout, *host):
+    """``mesh.put(cell, *host)``, with the layout's source map in the same
+    upload when the cell is cell 0 → (tensors, the map: a tensor on cell
+    0, or the host array for ``_gather`` to upload)."""
+    if cell != 0:
+        return mesh.put(cell, *host), layout.src
+    *up, src = mesh.put(cell, *host, layout.src)
+    return up, src
 
 
 def _admit_sharded(mesh: CycleMesh, depth: int, kind: str, base, order, *,
@@ -977,7 +1004,9 @@ def _admit_sharded(mesh: CycleMesh, depth: int, kind: str, base, order, *,
         pmask, pre_fr, pre_amt, tgt_mat, tu_cq, tu_delta = (
             _host(a) for a in preempt)
     done = []
-    for j, h in enumerate(layout.heads(wl_cq)):
+    heads = layout.heads(wl_cq)
+    src = layout.src
+    for j, h in enumerate(heads):
         if not len(h):
             continue
         cell = mesh.cell(0, j)
@@ -987,14 +1016,15 @@ def _admit_sharded(mesh: CycleMesh, depth: int, kind: str, base, order, *,
                 ("borrow_cap", borrow_cap), ("has_blim", has_blim),
                 ("parent", None), ("nominal_cq", nominal_cq),
                 ("npb_cq", npb_cq))]
-            host = ([h, layout.rows(usage0, j, "usage0"),
+            host = ([layout.rows(usage0, j, "usage0"),
                      layout.local_cq(wl_cq, h)]
                     + [a[h] for a in base[9:]]
                     + [layout.local_order(order, h, W)])
             if kind == "preempt":
                 host += [pmask[h], pre_fr[h], pre_amt[h],
                          *layout.targets(h, wl_cq, tgt_mat, tu_cq, tu_delta)]
-            heads, usage, wl, *dev = mesh.put(cell, *host)
+            (usage, wl, *dev), src = _put_with_src(mesh, cell, layout,
+                                                   *host)
             args = [usage] + stat + [wl] + dev[:7]
             ordr = dev[7]
             if kind == "preempt":
@@ -1008,8 +1038,9 @@ def _admit_sharded(mesh: CycleMesh, depth: int, kind: str, base, order, *,
                     max_forest_wl=max_forest_wl),)
             else:
                 out = (_cycle.admit_scan(*args, ordr, depth=depth),)
-        done.append((cell, heads, out))
-    out = _gather(mesh, done, W, (False,) * (3 if kind == "preempt" else 1))
+        done.append((cell, out))
+    out, _ = _gather(mesh, done, (False,) * (3 if kind == "preempt" else 1),
+                     src)
     return out if kind == "preempt" else out[0]
 
 
@@ -1077,7 +1108,9 @@ def fs_scan_fn(mesh: CycleMesh, depth: int, n_levels: int):
                                       else _host(forest_of_node))
         W = wl_cq.shape[0]
         done = []
-        for j, h in enumerate(layout.heads(wl_cq, valid)):
+        heads = layout.heads(wl_cq, valid)
+        src = layout.src
+        for j, h in enumerate(heads):
             if not len(h):
                 continue
             cell = mesh.cell(0, j)
@@ -1086,23 +1119,22 @@ def fs_scan_fn(mesh: CycleMesh, depth: int, n_levels: int):
                                       None if name == "parent"
                                       else _host(planes[name]))
                         for name in _FS_STATICS]
-                heads, usage, wl, *dev = mesh.put(
-                    cell, h, layout.rows(usage0, j, "usage0"),
+                (h_dev, usage, wl, *dev), src = _put_with_src(
+                    mesh, cell, layout, h, layout.rows(usage0, j, "usage0"),
                     layout.local_cq(wl_cq, h),
                     *(a[h] for a in heads_planes),
                     np.ones(len(h), dtype=bool))
-                out = _fs.fs_admit_scan(
+                order, admitted, processed = _fs.fs_admit_scan(
                     usage, *stat, wl, *dev,
                     layout.static(mesh, cell, j, "forest_of_node"),
                     depth=depth, n_levels=n_levels)
-            done.append((cell, heads, out))
-        admitted, processed = _gather(
-            mesh, [(c, h, out[1:]) for c, h, out in done], W, (False, False))
+            done.append((cell, (admitted, processed, order, h_dev)))
+        (admitted, processed), moved = _gather(mesh, done, (False, False),
+                                               src)
         with mesh.on(0):
             if done:
-                order = fs_merge_order(
-                    tuple(mesh.move(out[0], c, 0) for c, _, out in done),
-                    tuple(mesh.move(h, c, 0) for c, h, _ in done), W)
+                order = fs_merge_order(tuple(m[2] for m in moved),
+                                       tuple(m[3] for m in moved), W)
             else:
                 order = torch.full((W,), -1, dtype=torch.int32,
                                    device=mesh.devices[0])
@@ -1134,9 +1166,10 @@ def sharded_cycle_fn(mesh: CycleMesh, depth: int, run_scan: bool = True):
                             f"planes, got {len(args)}")
         a = [_host(x) for x in args]
         layout = CycleShardLayout(a[5], a[6].shape[0], mesh.shape["cq"])
-        W = a[10].shape[0]
         done = []
-        for j, h in enumerate(layout.heads(a[10])):
+        heads = layout.heads(a[10])
+        src = layout.src
+        for j, h in enumerate(heads):
             if not len(h):
                 continue
             parts = []
@@ -1151,12 +1184,12 @@ def sharded_cycle_fn(mesh: CycleMesh, depth: int, run_scan: bool = True):
                 parts.append((cell, planes, out + (ts,)))
             top = mesh.cell(0, j)
             with mesh.on(top):
-                cols = [torch.cat([mesh.move(p[2][k], p[0], top)
-                                   for p in parts])
+                part_outs = [mesh.move(p[2], p[0], top) for p in parts]
+                cols = [torch.cat([o[k] for o in part_outs])
                         for k in range(len(parts[0][2]))]
                 fit_slot0, borrows0, preempt0 = cols[:3]
-                heads, prio, wl = mesh.put(top, h, a[12][h],
-                                           layout.local_cq(a[10], h))
+                (prio, wl), src = _put_with_src(mesh, top, layout, a[12][h],
+                                                layout.local_cq(a[10], h))
                 if run_scan:
                     dec_fr, dec_amt, fit_mask, ts = cols[3:]
                     planes = parts[0][1]
@@ -1173,13 +1206,42 @@ def sharded_cycle_fn(mesh: CycleMesh, depth: int, run_scan: bool = True):
                     zeros = torch.zeros_like(borrows0)
                     out = (zeros, torch.full_like(fit_slot0, -1), zeros,
                            preempt0, fit_slot0, borrows0)
-            done.append((top, heads, out))
-        return _gather(mesh, done, W, (False, -1, False, False, -1, False))
+            done.append((top, out))
+        return _gather(mesh, done, (False, -1, False, False, -1, False),
+                       src)[0]
 
     return step
 
 
 # -- the two kernels of the per-cycle mesh, with their plain versions -------
+
+def source_map(head_of, W: int) -> np.ndarray:
+    """The head gather's source map [W] int32 of L maps (global head
+    indices, ascending): ``src[head_of[l][r]] = l << SRC_SHIFT | r``, -1
+    for a head in no map."""
+    from ..kernels import SRC_SHIFT
+    src = np.full(W, -1, dtype=np.int32)
+    for l, h in enumerate(head_of):
+        h = _host(h)
+        src[h] = (l << SRC_SHIFT) | np.arange(len(h), dtype=np.int32)
+    return src
+
+
+def maps_of_source(src: torch.Tensor, lengths) -> tuple:
+    """The L maps [W_l] int32 that ``source_map`` made ``src`` from, on
+    src's device (``lengths``: W_l of each slot)."""
+    from ..kernels import SRC_SHIFT
+    w = torch.nonzero(src >= 0).flatten()
+    slot = src[w] >> SRC_SHIFT
+    row = (src[w] & ((1 << SRC_SHIFT) - 1)).long()
+    maps = []
+    for l, n in enumerate(lengths):
+        m = torch.empty(int(n), dtype=torch.int32, device=src.device)
+        sel = slot == l
+        m[row[sel]] = w[sel].to(torch.int32)
+        maps.append(m)
+    return tuple(maps)
+
 
 def gather_heads_plain(planes, head_of, W: int, fills) -> tuple:
     """``out[p][head_of[s][i]] = planes[p][s][i]``, every other row
@@ -1196,16 +1258,23 @@ def gather_heads_plain(planes, head_of, W: int, fills) -> tuple:
     return tuple(out)
 
 
-def gather_heads(planes, head_of, W: int, fills) -> tuple:
+def gather_src_plain(planes, src, fills) -> tuple:
+    """The head gather by a source map (``kernels.kq_gather_heads``'
+    arguments): ``gather_heads_plain`` over the maps read back from
+    ``src`` [W] int32; planes[p] holds one block per slot."""
+    maps = maps_of_source(src, [b.shape[0] for b in planes[0]])
+    return gather_heads_plain(planes, maps, src.shape[0], fills)
+
+
+def gather_heads(planes, src, fills) -> tuple:
     """The head gather: ``kernels.kq_gather_heads`` for CUDA tensors (one
-    launch for all planes), ``gather_heads_plain`` for CPU tensors."""
-    dev = head_of[0].device
-    if dev.type == "cuda":
+    launch for all planes), ``gather_src_plain`` for CPU tensors."""
+    if src.device.type == "cuda":
         from .. import kernels
-        return kernels.kq_gather_heads(planes, head_of, W, fills)
-    if dev.type != "cpu":
-        raise ValueError(f"no gather kernel for device {dev}")
-    return gather_heads_plain(planes, head_of, W, fills)
+        return kernels.kq_gather_heads(planes, src, fills)
+    if src.device.type != "cpu":
+        raise ValueError(f"no gather kernel for device {src.device}")
+    return gather_src_plain(planes, src, fills)
 
 
 def fs_merge_order_plain(winners, head_of, W: int) -> torch.Tensor:

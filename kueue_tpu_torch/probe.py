@@ -10,8 +10,9 @@ versions); without a GPU and without ``--device cpu`` it raises.  Each
 of the three timings is the p50 and the worst of ``reps`` calls after
 one warm-up, on the host clock from host numpy arrays in to results
 ready (the upload included, as the JAX script's ``bench_fn`` times a
-jitted call on numpy inputs); on the card it also reports the kernels'
-CUDA-event milliseconds per call.
+jitted call on numpy inputs).  Kernel launches record no timing events;
+the kernels' device time is read by ``profiling.DeviceClock`` around a
+run (``chip_smoke.py`` phase 13 does so).
 """
 
 from __future__ import annotations
@@ -23,7 +24,6 @@ import time
 import numpy as np
 import torch
 
-from . import kernels
 from .ops import cycle
 from .ops.solver import resolve_device
 from .scenarios import probe_synth
@@ -75,7 +75,7 @@ def bench_fn(fn, reps: int = 20):
 def run(W: int = 100_000, C: int = 1_000, device="cuda", reps: int = 20,
         cohorts: int = COHORTS) -> dict:
     """The three timings → {label: dict(p50_ms, worst_ms, calls,
-    kernel_ms per call by kernel, outputs as tensors on the device)}."""
+    outputs as tensors on the device)}."""
     dev = resolve_device(device)
     on_card = dev.type == "cuda"
     results = {}
@@ -88,13 +88,9 @@ def run(W: int = 100_000, C: int = 1_000, device="cuda", reps: int = 20,
                 torch.cuda.synchronize(dev)
             return out
 
-        before = kernels.collect() if on_card else {}
         p50, worst, out = bench_fn(call, reps)
-        after = kernels.collect() if on_card else {}
         results[label] = dict(
             p50_ms=p50 * 1e3, worst_ms=worst * 1e3, calls=reps + 1,
-            kernel_ms={k: (after[k] - before[k]) / (reps + 1)
-                       for k in after if after[k] > before[k]},
             outputs=out, name=name, kw=kw)
     return results
 
@@ -114,9 +110,8 @@ def main(argv=None) -> int:
 
     def line(label, what):
         x = r[label]
-        ms = "".join(f" {k}={v:.6f}ms" for k, v in x["kernel_ms"].items())
-        print(f"{what}: p50={x['p50_ms']:.3f}ms worst={x['worst_ms']:.3f}ms"
-              + (f"  kernels per call:{ms}" if ms else ""), flush=True)
+        print(f"{what}: p50={x['p50_ms']:.3f}ms worst={x['worst_ms']:.3f}ms",
+              flush=True)
 
     fit = int((r["classify"]["outputs"][4] >= 0).sum())
     line("classify", f"phase-1 classify {a.W}x{a.C} ({fit} fits)")

@@ -211,7 +211,8 @@ def test_mesh_kernels_run_plain_on_cpu_tensors():
         np.random.default_rng(0), W=12, S=3, n_valid=10)
     planes = tuple(tuple(torch.from_numpy(b) for b in p) for p in planes)
     head_of = tuple(torch.from_numpy(h) for h in head_of)
-    out = sharded.gather_heads(planes, head_of, 12, fills)
+    src = torch.from_numpy(sharded.source_map(head_of, 12))
+    out = sharded.gather_heads(planes, src, fills)
     assert [o.dtype for o in out] == [torch.bool, torch.int32]
     winners = tuple(torch.randperm(len(h), dtype=torch.int32)
                     for h in head_of)
@@ -221,7 +222,7 @@ def test_mesh_kernels_run_plain_on_cpu_tensors():
         torch.cat(head_of).tolist())
     assert kernels.LAUNCHES == before
     with pytest.raises(ValueError, match="CUDA tensors"):
-        kernels.kq_gather_heads(planes, head_of, 12, fills)
+        kernels.kq_gather_heads(planes, src, fills)
     with pytest.raises(ValueError, match="CUDA tensors"):
         kernels.kq_fs_merge_order(winners, head_of, 12)
 

@@ -365,9 +365,9 @@ def test_cuda_scatter_and_reduce_match_plain(seed, D):
     assert kernels.LAUNCHES["kq_scatter_rows"] == before + 1
     for x, y in zip(want, got):
         assert y.dtype == x.dtype and torch.equal(y.cpu(), x)
-    blocks = tt.dflags_blocks(2 + seed, 32)
-    want = sharded.reduce_dflags_plain([torch.from_numpy(b) for b in blocks])
-    got = sharded.reduce_dflags([torch.from_numpy(b).cuda() for b in blocks])
+    window = torch.from_numpy(tt.dflags_blocks(2 + seed, 32))
+    want = sharded.reduce_dflags_plain(window)
+    got = sharded.reduce_dflags(window.cuda())
     assert got.dtype == want.dtype and torch.equal(got.cpu(), want)
 
 
@@ -416,11 +416,11 @@ def test_cuda_mesh_kernels_match_plain(W, S, n_valid, empty):
                                             empty=empty)
     cpu = (tuple(tuple(torch.from_numpy(b) for b in p) for p in planes),
            tuple(torch.from_numpy(h) for h in head_of))
-    card = (tuple(tuple(b.cuda() for b in p) for p in cpu[0]),
-            tuple(h.cuda() for h in cpu[1]))
+    src = torch.from_numpy(sharded.source_map(head_of, W))
+    card = tuple(tuple(b.cuda() for b in p) for p in cpu[0])
     want = sharded.gather_heads_plain(*cpu, W, fills)
     before = dict(kernels.LAUNCHES)
-    got = sharded.gather_heads(*card, W, fills)
+    got = sharded.gather_heads(card, src.cuda(), fills)
     assert kernels.LAUNCHES["kq_gather_heads"] == before["kq_gather_heads"] + 1
     for x, y in zip(want, got):
         assert y.dtype == x.dtype and torch.equal(y.cpu(), x)
@@ -497,3 +497,67 @@ def test_cuda_mesh_route_matches_plain():
                 1 for h in sharded.CycleShardLayout(
                     s["parent"], 24, mesh.shape["cq"]).heads(s["wl_cq"])
                 if not len(h)), grew
+
+
+# the redesigned reduction at the sharded burst's shapes, and K that are
+# not multiples of 8 (one warp per 32 cycle rows)
+REDUCE_CASES = [(S, K) for S in (1, 2, 4, 8, 32) for K in (32, 7, 33, 100)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S,K", REDUCE_CASES)
+def test_cuda_reduce_window_matches_plain(S, K):
+    """kq_reduce_dflags over one [S, K, 4] window (flags, and values
+    that wrap int32), one launch, against ``reduce_dflags_plain``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernels have no CPU mode")
+    from kueue_tpu_torch import kernels
+    from kueue_tpu_torch.parallel import sharded
+    rng = np.random.default_rng(S * 1000 + K)
+    for window in (tt.dflags_blocks(S, K),
+                   rng.integers(2**31 - 9, 2**31, (S, K, 4)).astype(
+                       np.int32)):
+        window = torch.from_numpy(window)
+        want = sharded.reduce_dflags_plain(window)
+        before = kernels.LAUNCHES["kq_reduce_dflags"]
+        got = kernels.kq_reduce_dflags(window.cuda())
+        assert kernels.LAUNCHES["kq_reduce_dflags"] == before + 1
+        assert got.dtype == want.dtype and torch.equal(got.cpu(), want)
+    with pytest.raises(ValueError, match="16-byte"):
+        kernels.kq_reduce_dflags(torch.zeros(
+            S * K * 4 + 1, dtype=torch.int32, device="cuda")[1:].view(
+                S, K, 4))
+
+
+# (W, shards, planes): the north-star mesh (1,024 heads on 2 shards, one
+# and three planes), 1,000 heads on 8 and on 32 shards, all six planes
+GATHER_CASES = [(1024, 2, ("bool",)), (1024, 2, ("bool", "bool", "bool")),
+                (1000, 8, ("bool", "bool", "bool")), (1000, 32, ("int32",)),
+                (4096, 32, ("bool", "int32", "bool", "bool", "int32",
+                            "bool")), (100_000, 8, ("bool", "int32"))]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("W,S,dtypes", GATHER_CASES)
+def test_cuda_gather_by_source_map_matches_plain(W, S, dtypes):
+    """kq_gather_heads by the layout's source map (heads in no shard,
+    shards without heads dropped before the launch, as the mesh route
+    drops them) against ``gather_heads_plain`` on the maps."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernels have no CPU mode")
+    from kueue_tpu_torch import kernels
+    from kueue_tpu_torch.parallel import sharded
+    rng = np.random.default_rng(W + S)
+    planes, head_of, fills = tt.gather_case(
+        rng, W=W, S=S, n_valid=W - W // 10, empty=(S - 1,), dtypes=dtypes)
+    live = [s for s, h in enumerate(head_of) if len(h)]
+    head_of = tuple(torch.from_numpy(head_of[s]) for s in live)
+    cpu = tuple(tuple(torch.from_numpy(p[s]) for s in live) for p in planes)
+    want = sharded.gather_heads_plain(cpu, head_of, W, fills)
+    src = torch.from_numpy(sharded.source_map(head_of, W)).cuda()
+    before = kernels.LAUNCHES["kq_gather_heads"]
+    got = kernels.kq_gather_heads(
+        tuple(tuple(b.cuda() for b in p) for p in cpu), src, fills)
+    assert kernels.LAUNCHES["kq_gather_heads"] == before + 1
+    for x, y in zip(want, got):
+        assert y.dtype == x.dtype and torch.equal(y.cpu(), x)

@@ -111,7 +111,7 @@ def test_reduce_dflags_plain_matches_jax(S, K):
     psum = jax.jit(shard_map(lambda x: jax.lax.psum(x, "cq"), mesh=mesh,
                              in_specs=P("cq"), out_specs=P()))
     want = np.asarray(psum(jnp.asarray(blocks.reshape(S * K, 4))))
-    got = tsh.reduce_dflags([torch.from_numpy(b) for b in blocks])
+    got = tsh.reduce_dflags(torch.from_numpy(blocks))
     _same(want, got.numpy(), "dflags")
     dirty, reason = tburst.dirty_flags(got)
     _same(want[:, 0] > 0, dirty.numpy(), "dirty")
