@@ -55,8 +55,10 @@ under ``KUEUE_TPU_SHARDS``, the per-cycle mesh:
 3e. the TAS kernels against their plain versions over a seeded sweep
    (kueue_tpu_torch.testing.tas_cases: every profile and Mixed's
    unconstrained variant, every request shape, 1-3 levels, a flat
-   4,096-root level, the sort in global memory) and the calls captured
-   in phase 11 — exact in values and dtypes;
+   4,096-root level, levels shuffled out of id order and runs of 33-128
+   children (both on the sort route), the working set and the sort in
+   global memory) and the calls captured in phase 11 — exact in values
+   and dtypes, with the route each walked level took counted;
 13. the north-star probe at full size on the card
    (``kueue_tpu_torch.probe.run``): ``solve_cycle`` with
    ``run_scan=False`` over 100,000 heads x 1,000 CQs (S = 4, R = 3, 64
@@ -145,7 +147,9 @@ over the phase (``kueue_tpu_torch.profiling.DeviceClock``); a phase in
 which it sees nothing fails.  Prints a ``kernels`` JSON line (per
 kernel: its launches on its main path and in each phase, ms through
 the wrapper, ``bare_ms`` of the C launch alone, ``kernel_ms`` by the
-profiler), the nvidia-smi line, and as its last line ``{"ok": true,
+profiler; the TAS routes of the timed call, which must be the warp
+route for best_fit_descend at tas-4k; fs_admit_scan also on one forest
+of every CQ, its worst case), the nvidia-smi line, and as its last line ``{"ok": true,
 "device": {...}}``.  Exits non-zero, with no result line, when there is
 no CUDA device or no kueue_tpu_torch beside it.
 
@@ -483,23 +487,50 @@ def tas_op_count(name, args, kw) -> int:
     return ops
 
 
-def tas_dependent_steps(name, args, kw) -> int:
-    """The launch's chain of dependent steps: the fill's L barriers, the
-    bitonic sort's log2(P) (log2(P) + 1) / 2 barriers and three more per
-    level walked, and each level's longest child walk (three passes
-    under BestFit)."""
+def tas_dependent_steps(name, args, kw, routes) -> int:
+    """The launch's chain of dependent steps (kernels/tas.cuh): the route
+    check's barrier and the fill's L - 1, two for the pick (the argmin,
+    or the root total and the root split), then per level walked after
+    it one on the warp route (``routes[d]`` 1), or on the sort route the
+    bitonic sort's log2(P) (log2(P) + 1) / 2 barriers, three more and
+    the level's longest child walk (three passes under BestFit)."""
     import numpy as np
     sizes = kw["level_sizes"]
-    steps = len(sizes)
+    steps = len(sizes) + 2
     for d in tas_levels(name, kw):
+        if routes[d] == 1:
+            steps += 1 if d > 0 else 0     # the root split is the pick's
+            continue
         lg = max(0, (sizes[d] - 1).bit_length())
         if d == 0:
             seg = sizes[0]
         else:
             par = args[2][d - 1].cpu().numpy()
-            seg = int(np.bincount(par, minlength=sizes[d - 1]).max())
+            seg = int(np.bincount(par[(par >= 0) & (par < sizes[d - 1])],
+                                  minlength=sizes[d - 1]).max())
         steps += lg * (lg + 1) // 2 + 3 + 3 * seg
     return steps
+
+
+def fs_dependent_steps(args, kw) -> int:
+    """The launch's chain of dependent steps (kernels/fs_admit_scan.cu):
+    the membership sums (2 barriers), the two ordered compactions (2 per
+    chunk of FS_STRIP x threads indices of N and of W) and the local
+    maps (1); the largest forest's rounds, 5 + 7 (n_levels - 1) each;
+    the finished-block count (2) and the last block's scan of W (2 per
+    chunk)."""
+    import numpy as np
+    from kueue_tpu_torch import kernels
+    N, F = args[0].shape
+    W = int(args[12].shape[0])
+    chunk = kernels.FS_STRIP * kernels.fs_threads(F, kw["max_forest"])
+    wl_cq = args[12].cpu().numpy()
+    valid = args[17].cpu().numpy()
+    fon = args[18].cpu().numpy()
+    k = np.bincount(fon[np.maximum(wl_cq, 0)][valid], minlength=1)
+    rounds = int(k.max()) * (5 + 7 * (kw["n_levels"] - 1))
+    return (2 + 2 * -(-N // chunk) + 2 * -(-W // chunk) + 1 + rounds + 2
+            + 2 * -(-W // chunk))
 
 
 def op_count(name, args, kw) -> int:
@@ -1318,19 +1349,34 @@ def main() -> int:
     check(kernels.LAUNCHES == before, "a CPU run launched a kernel")
 
     # -- 3e. the TAS kernels: seeded sweep, global-memory sort, captured -----
+    # the walked levels of the descent launches by the route they took
+    routes3e = {"warp": 0, "sort": 0}
+
+    def tally(name, kw):
+        if name == "fill_counts":
+            return
+        taken = kernels.TAS_ROUTES[name].cpu().tolist()
+        for d in tas_levels(name, kw):
+            routes3e[kernels.TAS_ROUTE_NAMES[taken[d]]] += 1
+
     for seed in (0, 1):
         for name, arrays, kw in testing.tas_cases(
-                seed, testing.TAS_PARTS + ("tas4k",), flat=4096):
+                seed, testing.TAS_ALL, flat=4096):
             compare(name, on_card(arrays), kw, stats)
+            tally(name, kw)
     smem_sort = kernels.TAS_SMEM_SORT
     kernels.TAS_SMEM_SORT = 0
     try:
-        for name, arrays, kw in testing.tas_cases(0, ("three_levels",
-                                                      "flat")):
+        for name, arrays, kw in testing.tas_cases(
+                0, ("three_levels", "flat", "shuffled", "wide_runs")):
             if name != "fill_counts":
                 compare(name, on_card(arrays), kw, stats)
+                tally(name, kw)
     finally:
         kernels.TAS_SMEM_SORT = smem_sort
+    check(routes3e["warp"] > 0 and routes3e["sort"] > 0, routes3e)
+    log(f"[3e TAS routes of the sweep's walked levels] "
+        f"{json.dumps(routes3e)}")
     n_captured = 0
     for name in TAS_KERNELS:
         for args, kw in cap.calls.get(("tas", name), []):
@@ -1842,23 +1888,54 @@ def main() -> int:
                 "ms", "bare_ms", "kernel_ms", "plain_ms", "bound_ms",
                 "bound_by", "library_ms")}
         if name in TAS_KERNELS:
-            extra["dependent_steps"] = tas_dependent_steps(name, args, kw)
+            # the route each level of the timed call took, as the kernel
+            # wrote it (fill_counts walks none)
+            routes = (kernels.TAS_ROUTES[name].cpu().tolist()
+                      if name in kernels.TAS_ROUTES else [])
+            extra["dependent_steps"] = tas_dependent_steps(name, args, kw,
+                                                           routes)
             extra["timed_shape"] = dict(
                 level_sizes=list(kw["level_sizes"]),
                 R=int(args[0].shape[1]),
                 **{k: kw[k] for k in ("level", "profile", "descend_profile")
-                   if k in kw})
+                   if k in kw},
+                routes={d: kernels.TAS_ROUTE_NAMES[routes[d]]
+                        for d in tas_levels(name, kw)})
+            if name == "best_fit_descend":
+                check(all(routes[d] == 1 for d in tas_levels(name, kw)),
+                      f"best_fit_descend: not the warp route on every "
+                      f"walked level of the timed tas-4k call: {routes}")
             extra["device_ms_per_launch_on_path"] = per_launch(dc11, name)
         if name == "fs_admit_scan":
-            # the dependent chain: every live round is 5 + 7 (n_levels - 1)
-            # block barriers (fs_admit_scan.cu)
+            # the dependent chain: the largest forest's rounds beside the
+            # others, and the membership and merge passes
             rounds, entry_rounds, node_rounds = fs_forest_work(args)
-            extra["dependent_steps"] = rounds * (
-                5 + 7 * (kw["n_levels"] - 1))
+            extra["dependent_steps"] = fs_dependent_steps(args, kw)
             extra["timed_shape"] = dict(
                 N=int(args[0].shape[0]), F=int(args[0].shape[1]),
                 W=int(args[12].shape[0]), heads=rounds,
-                depth=kw["depth"], n_levels=kw["n_levels"])
+                depth=kw["depth"], n_levels=kw["n_levels"],
+                n_forests=kw["n_forests"], max_forest=kw["max_forest"],
+                threads=kernels.fs_threads(int(args[0].shape[1]),
+                                           kw["max_forest"]))
+            # the worst case: one forest holding the 1,000 CQs and 200
+            # cohorts (nested under one root), its rounds all in one block
+            c1 = testing.fs_cycle(np.random.default_rng(9), n_cqs=1000,
+                                  n_cohorts=200, depth=3, F=1, R=1, W=1024,
+                                  n_valid=1000, roots=1)
+            a1, k1 = on_card(list(testing.fs_args(c1))), testing.fs_kw(c1)
+            compare(name, a1, k1, stats)
+            check(stats[name]["mismatches"] == 0, stats[name])
+            t1 = time_kernel(name, a1, k1)
+            extra["one_forest"] = dict(
+                **{k: t1[k] for k in ("ms", "kernel_ms", "plain_ms",
+                                      "bound_ms")},
+                dependent_steps=fs_dependent_steps(a1, k1),
+                shape=dict(N=int(a1[0].shape[0]), W=1024, heads=1000,
+                           n_forests=k1["n_forests"],
+                           max_forest=k1["max_forest"],
+                           n_levels=k1["n_levels"],
+                           threads=kernels.fs_threads(1, k1["max_forest"])))
         if name in PHASE1:
             extra["timed_shape"] = {
                 "kq_cq_avail": lambda: dict(N=int(args[0].shape[0]),

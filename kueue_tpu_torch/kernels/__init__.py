@@ -555,16 +555,32 @@ def burst_cycles(*args, K, depth, L, S, KC, n_levels, G, runtime,
 # -- fair sharing --------------------------------------------------------------
 
 FS_MAX_F = 64           # FS_MAX_F in fs_admit_scan.cu: carry in registers
+FS_MIN_THREADS = 128
 FS_MAX_THREADS = 256
+FS_STATIC_SMEM = 1024   # the kernel's static shared words, rounded up
+FS_STRIP = 16           # FS_STRIP in fs_admit_scan.cu: indices per thread
+
+
+def fs_threads(F: int, max_forest: int) -> int:
+    """fs_admit_scan's block size: the threads stride over a forest's
+    entries, nodes and the columns, and at least FS_MIN_THREADS over
+    the membership pass and the merge."""
+    return min(FS_MAX_THREADS,
+               max(FS_MIN_THREADS, -(-max(max_forest, F) // 32) * 32))
 
 
 def fs_admit_scan(usage0, subtree, sq_mask, guaranteed, borrow_cap,
                   has_blim, parent, node_level, weights, lendable_r, onehot,
                   child_order, wl_cq, u_e, nofit, prio, ts_rank, valid,
-                  forest_of_node, *, depth, n_levels):
+                  forest_of_node, *, depth, n_levels, n_forests=None,
+                  max_forest=None):
     """CUDA fs_admit_scan (kernels/fs_admit_scan.cu) → (order [W] int32,
     admitted [W] bool, processed [W] bool); arguments as
-    ``ops.fs_scan.fs_admit_scan_plain``."""
+    ``ops.fs_scan.fs_admit_scan_plain``.  A block per cohort forest:
+    ``n_forests`` (required here; ``forest_of_node`` takes values in
+    [0, n_forests)) is the grid, and ``max_forest``, the most nodes of
+    one forest (N when None), sizes the blocks and their shared memory.
+    Each CQ holds at most one valid head, as in a cycle's heads."""
     dev = usage0.device
     if dev.type != "cuda":
         raise ValueError(f"usage0 on {dev}: the kernels need CUDA tensors")
@@ -593,33 +609,43 @@ def fs_admit_scan(usage0, subtree, sq_mask, guaranteed, borrow_cap,
         raise ValueError(f"n_levels={n_levels} outside [1, depth={depth}]")
     if min(F, R, N) < 1:
         raise ValueError(f"F={F}, R={R} and N={N} must be at least 1")
+    if n_forests is None or not 1 <= n_forests <= N:
+        raise ValueError(f"n_forests={n_forests}: the kernel's grid, one "
+                         f"block per cohort forest, in [1, N={N}]")
+    cap = N if max_forest is None else int(max_forest)
+    if not 1 <= cap <= N:
+        raise ValueError(f"max_forest={max_forest} outside [1, N={N}]")
     order = torch.empty(W, dtype=i32, device=dev)
     admitted = torch.empty(W, dtype=b, device=dev)
     processed = torch.empty(W, dtype=b, device=dev)
     if W == 0:
         return order, admitted, processed
     lib = load()
-    # threads stride over entries, nodes and columns
-    threads = max(32, -(-min(max(W, N, F), FS_MAX_THREADS) // 32) * 32)
+    threads = fs_threads(F, cap)
     # each thread's DRS carry row: registers up to FS_MAX_F columns
-    carry = (torch.empty((threads, F), dtype=i32, device=dev)
+    carry = (torch.empty((n_forests * threads, F), dtype=i32, device=dev)
              if F > FS_MAX_F else None)
-    # usage [N, F], node winners [N], four key minima and the promotion
-    # slots [N + 1] each, DRS [W, depth], remaining [W], two scalars
-    ints = N * F + N + 5 * (N + 1) + W * depth + W + 2
+    # a forest's work arrays (fs_admit_scan.cu FsLocal): F + 8 ints per
+    # node, depth + 3 per entry; at most one head per CQ
+    cap_e = min(W, cap)
+    ints = cap * (F + 8) + cap_e * (depth + 3)
     smem = ints * 4
-    if smem > SMEM_LIMIT:
+    scratch = None
+    if smem > SMEM_LIMIT - FS_STATIC_SMEM:
         smem = 0
-        scratch = torch.empty(ints, dtype=i32, device=dev)
-    else:
-        scratch = torch.empty(1, dtype=i32, device=dev)
+        scratch = torch.empty(N * (F + 8) + W * (depth + 3), dtype=i32,
+                              device=dev)
+    # per entry its rounds as key, its key and offset; the finished-block
+    # count (zeroed by the launch function on the stream)
+    aux = torch.empty(3 * W + 1, dtype=i32, device=dev)
     tensors = (usage0, subtree, sq_mask, guaranteed, borrow_cap, has_blim,
                parent, node_level, weights, lendable_r, onehot, child_order,
                wl_cq, u_e, nofit, prio, ts_rank, valid, forest_of_node,
-               scratch, carry, order, admitted, processed)
+               scratch, carry, aux, order, admitted, processed)
     ptrs = (ctypes.c_void_p * len(tensors))(
         *[t.data_ptr() if t is not None else None for t in tensors])
-    dims = (ctypes.c_int * 8)(N, F, R, W, depth, n_levels, threads, smem)
+    dims = (ctypes.c_int * 11)(N, F, R, W, depth, n_levels, int(n_forests),
+                               threads, cap, cap_e, smem)
     _launch("fs_admit_scan", lib.kq_fs_admit_scan, ptrs, dims)
     return order, admitted, processed
 
@@ -664,7 +690,14 @@ def drs_components(usage, subtree, guaranteed, borrow_cap, has_blim, parent,
 
 TAS_MAX_LEVELS = 8      # TAS_MAX_LEVELS in tas.cuh (Kueue allows 8 levels)
 TAS_PROFILES = {"bestfit": 0, "mostfree": 1, "leastfree": 2}
-TAS_SMEM_SORT = 200 * 1024   # the sort's keys and ties in shared memory
+# dynamic shared memory for a query's working set, then the sort route's
+# keys and ties; each past it goes to global scratch
+TAS_SMEM_SORT = 200 * 1024
+# the route each level of the last launch of a descent kernel took
+# (tas.cuh TasRoute: 0 not walked, 1 the warp route, 2 the sort route), a
+# uint8 tensor per launcher, on the device
+TAS_ROUTES: dict[str, torch.Tensor] = {}
+TAS_ROUTE_NAMES = ("not walked", "warp", "sort")
 
 
 def _tas_checks(leaf_free, per_pod, parents, level_sizes):
@@ -725,8 +758,9 @@ def fill_counts(leaf_free, per_pod, parents, *, level_sizes):
 
 
 def _tas_query(name, entry, leaf_free, per_pod, parents, level_sizes, count,
-               level, profile, descend_profile, sorted_levels):
-    """One best_fit_descend / split_across_roots launch → (ok, counts)."""
+               level, profile, descend_profile, walked):
+    """One best_fit_descend / split_across_roots launch → (ok, counts);
+    ``walked``: the levels the descent allocates."""
     for p in (profile, descend_profile):
         if p not in TAS_PROFILES:
             raise ValueError(f"profile {p!r}: one of {tuple(TAS_PROFILES)}")
@@ -734,28 +768,35 @@ def _tas_query(name, entry, leaf_free, per_pod, parents, level_sizes, count,
         raise OverflowError(f"count={count} outside int32")
     dev = _tas_checks(leaf_free, per_pod, parents, level_sizes)
     fn = getattr(load(), entry)
-    n = max([level_sizes[d] for d in sorted_levels], default=1)
+    # the sort route's scratch, for whichever walked level takes it (the
+    # route is decided on the device): P keys and ties of the largest
+    # walked level, the segment bounds of the largest parent level
+    n = max([level_sizes[d] for d in walked], default=1)
     P = 1 << max(0, n - 1).bit_length()
-    # the largest parent level walked: its segment bounds follow the sort
-    Q = max([level_sizes[d - 1] for d in sorted_levels if d > 0], default=0)
+    Q = max([level_sizes[d - 1] for d in walked if d > 0], default=0)
+    sort_bytes = 12 * P + 8 * Q
+    # the working set: states of every level, then the inner levels'
+    # counts and run bounds (begin, end)
     total = sum(level_sizes)
-    states = torch.empty(total, dtype=torch.int32, device=dev)
-    counts = torch.empty(total, dtype=torch.int32, device=dev)
-    ok = torch.empty(1, dtype=torch.bool, device=dev)
-    out = torch.empty(level_sizes[-1], dtype=torch.int32, device=dev)
-    smem = 12 * P + 8 * Q
-    sort_global = None
+    work_ints = total + 3 * (total - level_sizes[-1])
+    work = sort = None
+    smem = 4 * work_ints
     if smem > TAS_SMEM_SORT:
-        sort_global = torch.empty(smem, dtype=torch.uint8, device=dev)
+        work = torch.empty(work_ints, dtype=torch.int32, device=dev)
         smem = 0
+    if work is not None or smem + sort_bytes > TAS_SMEM_SORT:
+        sort = torch.empty(sort_bytes, dtype=torch.uint8, device=dev)
+    else:
+        smem += sort_bytes
+    flags = torch.empty(1 + TAS_MAX_LEVELS, dtype=torch.uint8, device=dev)
+    out = torch.empty(level_sizes[-1], dtype=torch.int32, device=dev)
     ptrs, dims = _tas_tree(leaf_free, per_pod, parents, level_sizes)
-    ptrs += [states.data_ptr(), counts.data_ptr(),
-             sort_global.data_ptr() if sort_global is not None else None,
-             ok.data_ptr(), out.data_ptr()]
+    ptrs += [work, sort, flags, out]
     dims += [count, level, TAS_PROFILES[profile],
-             TAS_PROFILES[descend_profile], P, smem]
+             TAS_PROFILES[descend_profile], P, sort_bytes, smem]
     _array_launch(name, fn, ptrs, dims)
-    return ok[0], out
+    TAS_ROUTES[name] = flags[1:1 + len(level_sizes)]
+    return flags[:1].view(torch.bool)[0], out
 
 
 def best_fit_descend(leaf_free, per_pod, parents, count, *, level_sizes,

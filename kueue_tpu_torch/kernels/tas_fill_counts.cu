@@ -2,8 +2,10 @@
 //
 // Replaces kueue_tpu/ops/tas_kernel.py fill_counts (:78): leaf fits =
 // min over requested resources of floor(free / per_pod), then a segment
-// sum up each level.  One block (tas.cuh tas_fill): a thread per leaf,
-// then a thread per child adding into its parent, one barrier per level.
+// sum up each level.  One block (tas.cuh tas_fill_leaves and
+// tas_fill_levels): a thread per leaf, then per level a warp per 32
+// consecutive children summing each run of equal parent (a segmented
+// warp scan) into the parent, one barrier per level.
 //
 // Bound: latency.  The call reads N_leaf x R int32 and writes one int32
 // per domain (~65 KB for a 4,096-host, 3-resource cluster: ~2e-5 ms at
@@ -14,7 +16,9 @@
 
 __global__ void __launch_bounds__(TAS_THREADS)
     kq_tas_fill_counts_kernel(TasTree t, int* states) {
-  tas_fill(t, states);
+  tas_fill_leaves(t, states);
+  __syncthreads();
+  tas_fill_levels(t, states);
 }
 
 // ptrs: the tree (tas_tree), then states [sum of sizes];

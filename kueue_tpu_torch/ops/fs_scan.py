@@ -233,11 +233,14 @@ def fs_admit_scan_plain(usage0, subtree, sq_mask, guaranteed, borrow_cap,
                         has_blim, parent, node_level, weights, lendable_r,
                         onehot, child_order, wl_cq, u_e, nofit, prio,
                         ts_rank, valid, forest_of_node, *, depth: int,
-                        n_levels: int):
+                        n_levels: int, n_forests: Optional[int] = None,
+                        max_forest: Optional[int] = None):
     """The fair-sharing cycle as W rounds of tournament + admit.  Returns
     (order [W] int32 winner per round or -1, admitted [W] bool,
     processed [W] bool) in head order; a fit head with ``processed`` and
-    not ``admitted`` lost capacity in-cycle (skip)."""
+    not ``admitted`` lost capacity in-cycle (skip).  ``n_forests`` and
+    ``max_forest`` size the CUDA kernel's grid and blocks; the rounds
+    here do not need them."""
     N, F = usage0.shape
     W = wl_cq.shape[0]
     L = depth
@@ -351,13 +354,19 @@ def fs_admit_scan_plain(usage0, subtree, sq_mask, guaranteed, borrow_cap,
     return order, admitted, processed
 
 
-def fs_admit_scan(*args, depth: int, n_levels: int):
-    """(order, admitted, processed): the CUDA kernel for CUDA tensors, the
-    plain version for CPU tensors; args as ``fs_admit_scan_plain``."""
+def fs_admit_scan(*args, depth: int, n_levels: int,
+                  n_forests: Optional[int] = None,
+                  max_forest: Optional[int] = None):
+    """(order, admitted, processed): the CUDA kernel for CUDA tensors (a
+    block per cohort forest: ``n_forests`` forests, ``forest_of_node``
+    in [0, n_forests), the largest of ``max_forest`` nodes), the plain
+    version for CPU tensors; args as ``fs_admit_scan_plain``."""
     dev = args[0].device
+    kw = dict(depth=depth, n_levels=n_levels, n_forests=n_forests,
+              max_forest=max_forest)
     if dev.type == "cuda":
         from .. import kernels
-        return kernels.fs_admit_scan(*args, depth=depth, n_levels=n_levels)
+        return kernels.fs_admit_scan(*args, **kw)
     if dev.type != "cpu":
         raise ValueError(f"no fs_admit_scan kernel for device {dev}")
-    return fs_admit_scan_plain(*args, depth=depth, n_levels=n_levels)
+    return fs_admit_scan_plain(*args, **kw)

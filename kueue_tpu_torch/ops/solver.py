@@ -240,14 +240,17 @@ class CycleSolver:
         return planes
 
     def _fs_planes(self, st: PackedStructure, statics) -> dict:
-        """The fair-sharing statics and weights on the solver's device
-        (cached on the structure, like ``_device_planes``)."""
+        """The fair-sharing statics and weights on the solver's device,
+        and the most nodes of one forest (cached on the structure, like
+        ``_device_planes``)."""
         planes = getattr(st, "_fs_device_planes", None)
         if planes is None:
             from .fs_scan import fs_statics_to_torch
             planes = fs_statics_to_torch(statics, self.device)
             planes["weights"] = torch.from_numpy(
                 np.ascontiguousarray(st.fair_weight_milli)).to(self.device)
+            # the fs kernel's block size: the most nodes of one forest
+            planes["max_forest"] = int(np.bincount(st.forest_of_node).max())
             st._fs_device_planes = planes
         return planes
 
@@ -892,7 +895,8 @@ class CycleSolver:
                 fs["node_level"], fs["weights"], fs["lendable_r"],
                 fs["onehot"], fs["child_order"], wl_cq, t_u_e, t_nofit,
                 prio, t_ts, t_valid, planes["forest_of_node"],
-                depth=st.depth, n_levels=statics.n_levels))
+                depth=st.depth, n_levels=statics.n_levels,
+                n_forests=st.n_forests, max_forest=fs["max_forest"]))
         return handle
 
     def fetch(self, handle: DispatchHandle) -> DeviceCycleFinal:

@@ -796,10 +796,11 @@ class CycleShardLayout:
     when None: fair sharing indexes its heads' CQs as nodes).  Shard j
     owns the padded local index spaces of ``ForestPartition`` (Cs CQ
     slots, then its cohorts): its node and CQ rows, ``parent``
-    value-remapped to local ids, its local ``forest_of_node`` and its
-    forest count.  Per cycle, ``heads`` routes each head to the shard of
-    its CQ's forest, in ascending global index; a head with ``wl_cq < 0``
-    belongs to no shard.  While it routes them it builds ``src``, the
+    value-remapped to local ids, its local ``forest_of_node``, its
+    forest count and the most local nodes of one forest.  Per cycle,
+    ``heads`` routes each head to the shard of its CQ's forest, in
+    ascending global index; a head with ``wl_cq < 0`` belongs to no
+    shard.  While it routes them it builds ``src``, the
     head gather's source map over the shards with heads (``live``).
 
     Device copies of the statics (``static``) are cached per cell of a
@@ -835,6 +836,10 @@ class CycleShardLayout:
             fl[v] = part.local_forest[fon[nodes[v]]]
             self.parent_local.append(pl)
             self.forest_local.append(fl)
+        # the most local nodes of one forest per shard (padding rows sit
+        # in local forest 0): the fair-sharing kernel's block size
+        self.max_forest = [int(np.bincount(fl).max()) if len(fl) else 1
+                           for fl in self.forest_local]
         self.live: list = []        # shards with heads, last ``heads``
         self.empty_shards = 0       # shards without, last ``heads``
         self.src = np.zeros(0, dtype=np.int32)  # source map, last ``heads``
@@ -1127,7 +1132,9 @@ def fs_scan_fn(mesh: CycleMesh, depth: int, n_levels: int):
                 order, admitted, processed = _fs.fs_admit_scan(
                     usage, *stat, wl, *dev,
                     layout.static(mesh, cell, j, "forest_of_node"),
-                    depth=depth, n_levels=n_levels)
+                    depth=depth, n_levels=n_levels,
+                    n_forests=layout.n_forests[j],
+                    max_forest=layout.max_forest[j])
             done.append((cell, (admitted, processed, order, h_dev)))
         (admitted, processed), moved = _gather(mesh, done, (False, False),
                                                src)

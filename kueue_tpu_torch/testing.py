@@ -19,7 +19,7 @@ BORROW_CAP_NONE = 2**30             # preemption_solver's forest-plane pad
 
 
 def forest(rng: np.random.Generator, n_cqs: int, n_cohorts: int,
-           depth: int, chain: bool = False, roots: int = 0):
+           depth: int, chain: bool = False, roots: int = 0, per: int = 0):
     """parent [N] (CQs first, then cohorts), forest_of_node [N],
     n_forests, and the true depth (<= ``depth`` levels).  ``chain``: the
     cohorts form one line (cohort j under cohort j - 1) and every CQ sits
@@ -27,10 +27,17 @@ def forest(rng: np.random.Generator, n_cqs: int, n_cohorts: int,
     ``n_cohorts + 1`` levels deep whatever ``depth`` says.  ``roots``:
     exactly that many forests — the first ``roots`` cohorts are roots,
     the others nest under earlier ones (``depth`` >= 3), every CQ sits
-    under a cohort."""
+    under a cohort.  ``per``: every cohort a root over ``per`` CQs (CQ c
+    under cohort c // per), the CQs past n_cohorts x per parentless —
+    the north star's cohorts of five."""
     N = n_cqs + n_cohorts
     parent = np.full(N, -1, dtype=np.int32)
     level = np.zeros(N, dtype=np.int32)
+    if per:
+        held = min(n_cqs, n_cohorts * per)
+        parent[:held] = n_cqs + np.arange(held) // per
+        level[:held] = 1
+        roots, n_cohorts = 0, 0      # the loops below then draw nothing
     if roots:
         for j in range(roots, n_cohorts):
             cands = [n_cqs + i for i in range(j)
@@ -510,8 +517,7 @@ def shape_cases(seed: int = 0, card: bool = False):
                                       (6, 16, 72, 9, True)):
         c = fs_cycle(rng, n_cqs=n_cqs, n_cohorts=n_coh, depth=3, F=F, R=R,
                      W=16, chain=chain)
-        yield "fs_admit_scan", fs_args(c), dict(depth=c["depth"],
-                                                n_levels=c["n_levels"])
+        yield "fs_admit_scan", fs_args(c), fs_kw(c)
     if not card:
         return
     c = admit_cycle(rng, n_cqs=6, n_cohorts=3, depth=3, F=1025, W=16, R=3)
@@ -557,17 +563,17 @@ def fs_cycle(rng: np.random.Generator, *, n_cqs: int = 8, n_cohorts: int = 3,
              depth: int = 2, F: int = 2, R: int = 1, W: int = 16,
              n_valid: int | None = None, weights=FS_WEIGHTS,
              zero_lend: float = 0.2, ties: bool = False,
-             chain: bool = False, roots: int = 0) -> dict:
+             chain: bool = False, roots: int = 0, per: int = 0) -> dict:
     """Inputs of fs_admit_scan (``ops.fs_scan.FS_ARGS`` plus ``depth`` and
     ``n_levels``) as numpy arrays: a cohort forest of up to ``depth``
     levels, usage that borrows above subtree quota, lendable capacity
     that is zero at roots and at a ``zero_lend`` share of the other nodes
     (the floor-division case), one head per CQ in the first ``n_valid``
     rows and padding after, NoFit heads, and with ``ties`` equal
-    priorities and timestamp ranks (``chain`` and ``roots`` as
-    ``forest``)."""
-    parent, forest_of, _, true_depth = forest(rng, n_cqs, n_cohorts, depth,
-                                              chain, roots)
+    priorities and timestamp ranks (``chain``, ``roots`` and ``per`` as
+    ``forest``), with the kernel's ``n_forests`` and ``max_forest``."""
+    parent, forest_of, n_forests, true_depth = forest(
+        rng, n_cqs, n_cohorts, depth, chain, roots, per)
     N = n_cqs + n_cohorts
     q = quota_planes(rng, N, F)
     sq_mask = rng.random((N, F)) < 0.85
@@ -594,13 +600,21 @@ def fs_cycle(rng: np.random.Generator, *, n_cqs: int = 8, n_cohorts: int = 3,
         prio=rng.integers(0, hi, W).astype(np.int32) * 10,
         ts_rank=rng.integers(0, hi, W).astype(np.int32), valid=valid,
         forest_of_node=forest_of, depth=max(depth, true_depth),
-        n_levels=int(level.max()) + 1)
+        n_levels=int(level.max()) + 1, n_forests=n_forests,
+        max_forest=int(np.bincount(forest_of).max()))
 
 
 def fs_args(case: dict) -> tuple:
     """fs_admit_scan's positional arrays (``ops.fs_scan.FS_ARGS``)."""
     from .ops.fs_scan import FS_ARGS
     return tuple(case[k] for k in FS_ARGS)
+
+
+def fs_kw(case: dict) -> dict:
+    """fs_admit_scan's keywords: ``depth``, ``n_levels``, and the CUDA
+    kernel's grid and block sizing (``n_forests``, ``max_forest``)."""
+    return {k: case[k] for k in ("depth", "n_levels", "n_forests",
+                                 "max_forest")}
 
 
 def fs_floor_case() -> dict:
@@ -628,10 +642,12 @@ def fs_floor_case() -> dict:
         prio=np.array([100, 0, 0, 0], np.int32),
         ts_rank=np.array([0, 1, 0, 0], np.int32),
         valid=np.array([True, True, False, False]),
-        forest_of_node=np.zeros(3, np.int32), depth=2, n_levels=2)
+        forest_of_node=np.zeros(3, np.int32), depth=2, n_levels=2,
+        n_forests=1, max_forest=3)
 
 
-# (n_cqs, n_cohorts, depth, F, R, W, n_valid, ties, weights, zero_lend)
+# (n_cqs, n_cohorts, depth, F, R, W, n_valid, ties, weights, zero_lend
+# [, fs_cycle's forest keywords])
 FS_SHAPES = [
     (6, 2, 2, 1, 1, 8, 6, False, FS_WEIGHTS, 0.2),         # flat
     (8, 3, 2, 2, 2, 16, 7, True, FS_WEIGHTS, 0.2),         # ties, padding
@@ -641,8 +657,25 @@ FS_SHAPES = [
     (10, 4, 3, 2, 2, 16, 10, True, (3000, 4000), 0.5),
     (60, 20, 3, 2, 1, 64, 50, False, FS_WEIGHTS, 0.2),     # N > 64
     (60, 20, 2, 2, 2, 64, 60, True, FS_WEIGHTS, 0.3),
+    # the kernel's block per forest: one forest holding every CQ (cohorts
+    # nested under one root), many forests of three nodes, and more
+    # forests (~160: 100 cohorts and the parentless CQs) than the card's
+    # 132 SMs
+    (40, 12, 4, 2, 2, 48, 40, True, FS_WEIGHTS, 0.2, dict(roots=1)),
+    (60, 30, 2, 1, 1, 64, 60, False, FS_WEIGHTS, 0.2, dict(per=2)),
+    (400, 100, 2, 1, 1, 416, 400, True, FS_WEIGHTS, 0.2),
     (1000, 200, 2, 1, 1, 1024, 1000, False, FS_WEIGHTS, 0.2),  # north star
 ]
+
+
+def fs_shape_cycle(rng: np.random.Generator, shape: tuple) -> dict:
+    """``fs_cycle`` of one ``FS_SHAPES`` row."""
+    n_cqs, n_coh, depth, F, R, W, n_valid, ties, w, zl, *extra = shape
+    return fs_cycle(rng, n_cqs=n_cqs, n_cohorts=n_coh, depth=depth, F=F,
+                    R=R, W=W, n_valid=n_valid, ties=ties, weights=w,
+                    zero_lend=zl, **(extra[0] if extra else {}))
+
+
 # (n_cqs, n_cohorts, depth, F, R, with wl_req)
 DRS_SHAPES = [
     (6, 3, 2, 1, 1, False),
@@ -676,15 +709,11 @@ def fs_cases(seed: int = 0):
     over ``FS_SHAPES`` plus ``fs_floor_case``, and for drs_components over
     ``DRS_SHAPES``."""
     rng = np.random.default_rng(seed)
-    for n_cqs, n_coh, depth, F, R, W, n_valid, ties, w, zl in FS_SHAPES:
-        c = fs_cycle(rng, n_cqs=n_cqs, n_cohorts=n_coh, depth=depth, F=F,
-                     R=R, W=W, n_valid=n_valid, ties=ties, weights=w,
-                     zero_lend=zl)
-        yield "fs_admit_scan", fs_args(c), dict(depth=c["depth"],
-                                                n_levels=c["n_levels"])
+    for shape in FS_SHAPES:
+        c = fs_shape_cycle(rng, shape)
+        yield "fs_admit_scan", fs_args(c), fs_kw(c)
     c = fs_floor_case()
-    yield "fs_admit_scan", fs_args(c), dict(depth=c["depth"],
-                                            n_levels=c["n_levels"])
+    yield "fs_admit_scan", fs_args(c), fs_kw(c)
     for n_cqs, n_coh, depth, F, R, wl_req in DRS_SHAPES:
         args, kw = drs_case(rng, n_cqs=n_cqs, n_cohorts=n_coh, depth=depth,
                             F=F, R=R, wl_req=wl_req)
@@ -861,6 +890,37 @@ def tas_flat_case(rng: np.random.Generator, n: int) -> tuple:
     return leaf_free, np.array([4, 0], np.int32), (), (n,)
 
 
+def tas_shuffled(rng: np.random.Generator, leaf_free, parents, sizes):
+    """The same tree with the domains of every level below the roots in
+    a random order, so each level's ``parents`` is not monotone (the
+    kernels' sort route): (leaf_free, parents)."""
+    parents = [np.asarray(p) for p in parents]
+    inv_prev = np.arange(sizes[0])
+    for d in range(1, len(sizes)):
+        perm = rng.permutation(sizes[d])      # new index k: old perm[k]
+        parents[d - 1] = inv_prev[parents[d - 1][perm]].astype(np.int32)
+        inv_prev = np.argsort(perm)
+        if d == len(sizes) - 1:
+            leaf_free = leaf_free[perm]
+    return np.ascontiguousarray(leaf_free), tuple(parents)
+
+
+def tas_runs_case(rng: np.random.Generator, runs: tuple) -> tuple:
+    """Leaves under parents in runs of the given lengths, below one or
+    two levels: ``runs[0]`` the root level's runs of the middle level
+    (or None for two levels), ``runs[-1]`` the runs of leaves.  Leaves
+    hold few distinct capacities (ties), some none.  (leaf_free,
+    per_pod, parents, sizes)."""
+    levels = [r for r in runs if r is not None]
+    parents = tuple(np.repeat(np.arange(len(r)), r).astype(np.int32)
+                    for r in levels)
+    sizes = (len(levels[0]),) + tuple(int(sum(r)) for r in levels)
+    n = sizes[-1]
+    leaf_free = np.stack([rng.choice([0, 4000, 8000, 8000, 16000], n),
+                          rng.choice([0, 4, 8, 8], n)], 1).astype(np.int32)
+    return leaf_free, np.array([2000, 1], np.int32), parents, sizes
+
+
 # (n_levels, n_roots, fanout, ties) by part name
 TAS_SHAPES = {
     "three_levels": (3, 3, 4, False),
@@ -869,9 +929,16 @@ TAS_SHAPES = {
     "one_level": (1, 6, 1, False),
     "wide": (3, 4, 6, False),
     "tas4k": (3, 8, 32, False),   # the tas-4k cluster's shape, ragged
+    "shuffled": (3, 3, 5, False),
 }
-TAS_PARTS = ("three_levels", "ties", "two_levels", "one_level", "wide",
-             "wrap", "flat")
+# every part in the order of their generators' seeds; "tas4k" is held
+# out of the CPU sweep (TAS_PARTS)
+TAS_ALL = ("three_levels", "ties", "two_levels", "one_level", "wide",
+           "wrap", "flat", "tas4k", "shuffled", "wide_runs")
+TAS_PARTS = tuple(p for p in TAS_ALL if p != "tas4k")
+# runs of leaves past the warp route's 32 (33-128), beside runs it takes,
+# under two and three levels
+TAS_WIDE_RUNS = ((None, (33, 1, 128, 16)), ((2, 3), (40, 32, 64, 7, 100)))
 
 
 def tas_cases(seed: int = 0, parts=TAS_PARTS, *, flat: int = 80):
@@ -880,13 +947,22 @@ def tas_cases(seed: int = 0, parts=TAS_PARTS, *, flat: int = 80):
     arrays, keywords)`` over the named ``parts`` — seeded snapshots of
     ``TAS_SHAPES`` (1-3 levels, ragged, zero capacities, a resource no
     leaf has) under every request of ``TAS_REQUESTS``, the wrapping case
-    (``wrap``) and a flat level of ``flat`` roots (``flat``).  Each part
+    (``wrap``), a flat level of ``flat`` roots (``flat``), a snapshot
+    whose levels are shuffled out of id order (``shuffled``: parents not
+    monotone) and runs of 33-128 children (``wide_runs``).  Each part
     draws from its own generator, so any subset gives the same cases."""
     from .ops.tas_kernel import pack_tas
-    for j, part in enumerate(TAS_PARTS + ("tas4k",)):
+    for j, part in enumerate(TAS_ALL):
         if part not in parts:
             continue
         rng = np.random.default_rng([seed, j])
+        if part == "wide_runs":
+            for runs in TAS_WIDE_RUNS:
+                leaf_free, per_pod, parents, sizes = tas_runs_case(rng, runs)
+                yield from tas_sweep(leaf_free, per_pod, parents, sizes,
+                                     _tas_counts(leaf_free, per_pod,
+                                                 parents, sizes))
+            continue
         if part == "wrap":
             leaf_free, per_pod, parents, sizes = tas_wrap_case()
             yield from tas_sweep(leaf_free, per_pod, parents, sizes,
@@ -903,11 +979,15 @@ def tas_cases(seed: int = 0, parts=TAS_PARTS, *, flat: int = 80):
                                        n_roots=n_roots, fanout=fanout,
                                        ties=ties))
         sizes = tuple(packed.level_sizes)
+        parents = packed.parents
         for request in TAS_REQUESTS:
             leaf_free, per_pod = tas_query_inputs(packed, request)
-            counts = _tas_counts(leaf_free, per_pod, packed.parents, sizes)
-            yield from tas_sweep(leaf_free, per_pod, packed.parents, sizes,
-                                 counts)
+            if part == "shuffled":
+                leaf_free, parents = tas_shuffled(
+                    np.random.default_rng([seed, j, 1]), leaf_free,
+                    packed.parents, sizes)
+            counts = _tas_counts(leaf_free, per_pod, parents, sizes)
+            yield from tas_sweep(leaf_free, per_pod, parents, sizes, counts)
 
 
 # ----------------------------------------------------------------------

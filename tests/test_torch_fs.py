@@ -70,11 +70,7 @@ FS_CASES = tt.FS_SHAPES[:-1]
                          ids=lambda s: "x".join(map(str, s[:8])))
 @pytest.mark.parametrize("seed", [0, 1])
 def test_fs_admit_scan_matches_jax(shape, seed):
-    n_cqs, n_coh, depth, F, R, W, n_valid, ties, weights, zl = shape
-    c = tt.fs_cycle(np.random.default_rng(seed), n_cqs=n_cqs,
-                    n_cohorts=n_coh, depth=depth, F=F, R=R, W=W,
-                    n_valid=n_valid, ties=ties, weights=weights,
-                    zero_lend=zl)
+    c = tt.fs_shape_cycle(np.random.default_rng(seed), shape)
     order, admitted, processed = _scan_both(c)
     assert int(processed.sum()) == int(c["valid"].sum())
     assert (order[int(c["valid"].sum()):] == -1).all()
@@ -87,11 +83,7 @@ def test_fs_cycles_reach_every_branch():
     admitted = skipped = reordered = nested = 0
     for seed in (0, 1):
         for shape in FS_CASES:
-            n_cqs, n_coh, depth, F, R, W, n_valid, ties, w, zl = shape
-            c = tt.fs_cycle(np.random.default_rng(seed), n_cqs=n_cqs,
-                            n_cohorts=n_coh, depth=depth, F=F, R=R, W=W,
-                            n_valid=n_valid, ties=ties, weights=w,
-                            zero_lend=zl)
+            c = tt.fs_shape_cycle(np.random.default_rng(seed), shape)
             order, adm, proc = tfs.fs_admit_scan(
                 *_t(tt.fs_args(c)), depth=c["depth"],
                 n_levels=c["n_levels"])

@@ -1,0 +1,487 @@
+"""The two redesigned CUDA kernels' algorithms, emulated in numpy step
+by step as the card runs them, against the JAX package's programs.
+
+- ``best_fit_descend`` / ``split_across_roots`` (kernels/tas.cuh): the
+  fill by segmented sums over runs of 32 consecutive children, the route
+  check (parents nondecreasing, in range, no run past 32 children), the
+  warp route (each child's rank by comparisons with its run, the scatter
+  into sorted order, an exclusive wrapping scan, the BestFit picks by
+  first / last set lane) and the sort route (a sort by (parent, key,
+  tie) and a serial walk of each parent's run), against
+  ``kueue_tpu.ops.tas_kernel``.
+- ``fs_admit_scan`` (kernels/fs_admit_scan.cu): every cohort forest
+  plays its own rounds with the forest's lowest remaining entry as e0,
+  then the rounds are put in the reference's order by their rank
+  (key m_f(k), offset k - the first k with that key), against
+  ``kueue_tpu.ops.fs_scan.fs_admit_scan`` (XLA on the CPU, as
+  tests/test_fs_device.py runs it).
+
+Exact in values; every case is its own parametrised test."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+from kueue_tpu.ops import fs_scan as jfs
+from kueue_tpu.ops import tas_kernel as jtk
+from kueue_tpu_torch import testing as tt
+
+I32_MAX = 2**31 - 1
+RUN = 32                      # TAS_WARP_RUN: the warp route's widest run
+WARP, SORT = 1, 2             # tas.cuh TasRoute
+
+
+def w32(x: int) -> int:
+    """Wrap to int32, as the kernels' unsigned adds do."""
+    return ((int(x) + 2**31) % 2**32) - 2**31
+
+
+# -- TAS ---------------------------------------------------------------------
+
+def tas_fill(leaf_free, per_pod, parents, sizes):
+    """tas_fill_leaves + tas_fill_levels: leaf states, then per level each
+    warp's 32 consecutive children summed run by run (runs of equal
+    parent) into the parent, with wrapping adds."""
+    need = per_pod > 0
+    if need.any():
+        leaf = np.array([min(int(row[r]) // int(per_pod[r])
+                             for r in np.nonzero(need)[0])
+                         for row in leaf_free], dtype=np.int64)
+    else:
+        leaf = np.zeros(sizes[-1], dtype=np.int64)
+    states = [None] * len(sizes)
+    states[-1] = [w32(v) for v in leaf]
+    for lvl in range(len(sizes) - 2, -1, -1):
+        par, child = parents[lvl], states[lvl + 1]
+        acc = [0] * sizes[lvl]
+        for base in range(0, len(child), 32):
+            k = base
+            while k < min(base + 32, len(child)):
+                e = k
+                while e + 1 < min(base + 32, len(child)) and \
+                        par[e + 1] == par[k]:
+                    e += 1
+                p = int(par[k])
+                if 0 <= p < sizes[lvl]:
+                    acc[p] = w32(acc[p] + sum(child[k:e + 1]))
+                k = e + 1
+        states[lvl] = acc
+    return states
+
+
+def tas_route(par, n_parent) -> int:
+    """tas_check_routes for one level."""
+    par = np.asarray(par, dtype=np.int64)
+    ok = ((par >= 0) & (par < n_parent)).all() and (np.diff(par) >= 0).all()
+    ok = ok and not (len(par) > RUN and (par[RUN:] == par[:-RUN]).any())
+    return WARP if ok else SORT
+
+
+def warp_walk(state, children, cnt, profile, out):
+    """tas_warp_walk: one run (<= 32 children) on one warp."""
+    m = len(children)
+    assert m <= RUN
+    least = profile == "leastfree"
+    key = [state[c] if least else w32(-state[c]) for c in children]
+    tie = [-c if least else c for c in children]
+    rank = [sum((key[j], tie[j]) < (key[i], tie[i]) for j in range(m))
+            for i in range(m)]
+    s, ch = [0] * m, [0] * m
+    for i in range(m):                       # the scatter through the slot
+        s[rank[i]], ch[rank[i]] = state[children[i]], children[i]
+    inc, rem = 0, []
+    for r in range(m):                       # exclusive wrapping scan
+        rem.append(w32(cnt - inc))
+        inc = w32(inc + s[r])
+    take = [min(s[r], max(0, rem[r])) for r in range(m)]
+    if profile == "bestfit":
+        ab = [r for r in range(m) if rem[r] > 0 and s[r] >= rem[r]]
+        if ab:
+            j = ab[0]                        # __ffs of the ballot
+            rem_j = rem[j]
+            cand = [r for r in range(j, m) if s[r] >= rem_j]
+            tight = s[cand[-1]]              # __clz of the ballot
+            pick = next(r for r in cand if s[r] == tight)
+            for r in range(j, m):
+                take[r] = rem_j if r == pick else 0
+    for r in range(m):
+        out[ch[r]] = take[r]
+
+
+def sort_walk(state, order, cnt, profile, out):
+    """tas_walk_segment: one parent's run in sorted order on one
+    thread."""
+    exc, j, rem_j = 0, -1, 0
+    for k, c in enumerate(order):
+        rem = w32(cnt - exc)
+        if j < 0 and rem > 0 and state[c] >= rem:
+            j, rem_j = k, rem
+        out[c] = min(state[c], max(0, rem))
+        exc = w32(exc + state[c])
+    if profile != "bestfit" or j < 0:
+        return
+    last = max(k for k in range(j, len(order)) if state[order[k]] >= rem_j)
+    tight = state[order[last]]
+    picked = False
+    for k in range(j, len(order)):
+        c = order[k]
+        take = 0
+        if not picked and state[c] >= rem_j and state[c] == tight:
+            take, picked = rem_j, True
+        out[c] = take
+
+
+def sort_key(state, i, n, profile):
+    least = profile == "leastfree"
+    return (state[i] if least else w32(-state[i]), n - 1 - i if least else i)
+
+
+def allocate_level(parent_counts, par, state, profile, route):
+    """Level d's counts on its route."""
+    n, np_ = len(state), len(parent_counts)
+    out = [0] * n
+    if route == WARP:
+        for p in range(np_):                 # a warp per parent's run
+            children = [k for k in range(n) if par[k] == p]
+            assert not children or children == list(
+                range(children[0], children[-1] + 1))
+            warp_walk(state, children, parent_counts[p], profile, out)
+        return out
+    order = sorted(range(n), key=lambda i: (int(par[i]) % 2**32,)
+                   + sort_key(state, i, n, profile))
+    for p in range(np_):
+        run = [i for i in order if par[i] == p]
+        sort_walk(state, run, parent_counts[p], profile, out)
+    return out
+
+
+def emu_best_fit_descend(leaf_free, per_pod, parents, count, sizes, level,
+                         profile):
+    states = tas_fill(leaf_free, per_pod, parents, sizes)
+    st = states[level]
+    fits = [s >= count for s in st]
+    key = [(s if profile != "mostfree" else w32(-s)) if f else I32_MAX
+           for s, f in zip(st, fits)]
+    ok = any(fits)
+    best = min(range(len(st)), key=lambda i: (key[i], i))
+    counts = [count if ok and i == best else 0 for i in range(len(st))]
+    routes = []
+    for d in range(level + 1, len(sizes)):
+        routes.append(tas_route(parents[d - 1], sizes[d - 1]))
+        counts = allocate_level(counts, parents[d - 1], states[d], profile,
+                                routes[-1])
+    return ok, np.array(counts, np.int32), routes
+
+
+def emu_split_across_roots(leaf_free, per_pod, parents, count, sizes,
+                           profile, descend_profile):
+    states = tas_fill(leaf_free, per_pod, parents, sizes)
+    ok = w32(sum(states[0])) >= count
+    n0 = sizes[0]
+    routes = [WARP if n0 <= RUN else SORT]
+    counts = allocate_level([count], [0] * n0, states[0], profile, routes[0])
+    if not ok:
+        counts = [0] * n0
+    for d in range(1, len(sizes)):
+        routes.append(tas_route(parents[d - 1], sizes[d - 1]))
+        counts = allocate_level(counts, parents[d - 1], states[d],
+                                descend_profile, routes[-1])
+    return ok, np.array(counts, np.int32), routes
+
+
+def _tas_tree(name):
+    rng = np.random.default_rng(7)
+    if name == "runs_1_16_32":
+        return tt.tas_runs_case(rng, (None, (1, 16, 32, 5))), (WARP,)
+    if name == "runs_3_levels":
+        return tt.tas_runs_case(rng, ((1, 3), (16, 1, 32, 2))), (WARP, WARP)
+    if name == "runs_past_32":
+        return tt.tas_runs_case(rng, (None, (33, 64, 1, 128))), (SORT,)
+    if name == "ties":
+        leaf_free = np.full((48, 2), 8, np.int32)
+        par = np.repeat(np.arange(3), 16).astype(np.int32)
+        return (leaf_free, np.array([2, 1], np.int32), (par,), (3, 48)), \
+            (WARP,)
+    if name == "wrap":
+        return tt.tas_wrap_case(), (WARP,)
+    if name == "shuffled":
+        lf, per_pod, parents, sizes = tt.tas_runs_case(
+            rng, ((3, 4), (4, 9, 1, 6, 3, 2, 5)))
+        lf, parents = tt.tas_shuffled(rng, lf, parents, sizes)
+        return (lf, per_pod, parents, sizes), (SORT, SORT)
+    raise KeyError(name)
+
+
+TAS_TREES = ("runs_1_16_32", "runs_3_levels", "runs_past_32", "ties", "wrap",
+             "shuffled")
+
+
+@pytest.mark.parametrize("profile", ("bestfit", "mostfree", "leastfree"))
+@pytest.mark.parametrize("tree", TAS_TREES)
+def test_tas_warp_and_sort_routes_match_jax(tree, profile):
+    """Every level and count of best_fit_descend and the root split
+    (Mixed's unconstrained variant beside BestFit), emulated on the
+    routes the kernel takes, equal the JAX programs; the routes are the
+    ones the tree's runs call for."""
+    (leaf_free, per_pod, parents, sizes), want = _tas_tree(tree)
+    parents = tuple(np.asarray(p, np.int32) for p in parents)
+    counts = tt._tas_counts(leaf_free, per_pod, parents, sizes)
+    if tree == "wrap":
+        counts = range(7)
+    splits = [(profile, profile)] + ([("leastfree", "bestfit")]
+                                     if profile == "bestfit" else [])
+    kw = dict(level_sizes=tuple(sizes))
+    for count in counts:
+        for level in range(len(sizes)):
+            ok, out, routes = emu_best_fit_descend(
+                leaf_free, per_pod, parents, int(count), sizes, level,
+                profile)
+            j_ok, j_out = jtk.best_fit_descend(
+                leaf_free, per_pod, parents, int(count), level=level,
+                profile=profile, **kw)
+            assert ok == bool(j_ok), (tree, count, level)
+            assert np.array_equal(out, np.asarray(j_out)), (tree, count,
+                                                            level)
+            assert tuple(routes) == want[level:], (tree, level, routes)
+        for prof, desc in splits:
+            ok, out, routes = emu_split_across_roots(
+                leaf_free, per_pod, parents, int(count), sizes, prof, desc)
+            j_ok, j_out = jtk.split_across_roots(
+                leaf_free, per_pod, parents, int(count), profile=prof,
+                descend_profile=desc, **kw)
+            assert ok == bool(j_ok), (tree, count, prof)
+            assert np.array_equal(out, np.asarray(j_out)), (tree, count,
+                                                            prof)
+            assert routes[0] == (WARP if sizes[0] <= RUN else SORT)
+            assert tuple(routes[1:]) == want, (tree, routes)
+
+
+def test_tas_route_check():
+    """The route check: runs of 1, 16 and 32 children in order take the
+    warp route; a run of 33, parents out of order and a parent outside
+    the level take the sort route."""
+    par = np.repeat(np.arange(3), (1, 16, 32))
+    assert tas_route(par, 3) == WARP
+    assert tas_route(np.repeat(np.arange(2), (33, 1)), 2) == SORT
+    assert tas_route(np.array([0, 1, 0]), 2) == SORT
+    assert tas_route(np.array([0, 0, 2]), 2) == SORT
+    assert tas_route(np.array([0, 2, 2]), 3) == WARP     # parent 1: no run
+
+
+# -- fair sharing ---------------------------------------------------------
+
+def chain(parent, node, depth):
+    out = []
+    while node >= 0 and len(out) < depth:
+        out.append(node)
+        node = int(parent[node])
+    return out
+
+
+def available(c, usage, node, f, depth):
+    """kq_available_at over a chain, top-down."""
+    avail = 0
+    for n in reversed(chain(c["parent"], node, depth)):
+        u = int(usage[n, f])
+        if c["parent"][n] < 0:
+            avail = w32(int(c["subtree"][n, f]) - u)
+        else:
+            g = int(c["guaranteed"][n, f])
+            local = max(0, w32(g - u))
+            pa = avail
+            if c["has_blim"][n, f]:
+                pa = min(w32(int(c["borrow_cap"][n, f]) - max(0, w32(u - g))),
+                         avail)
+            avail = w32(local + pa)
+    return avail
+
+
+def add_usage(c, usage, node, delta, f, depth):
+    """kq_add_usage_chain."""
+    carry = delta
+    for n in chain(c["parent"], node, depth):
+        u = int(usage[n, f])
+        local = max(0, w32(int(c["guaranteed"][n, f]) - u))
+        usage[n, f] = w32(u + carry)
+        carry = max(0, w32(carry - local))
+
+
+def entry_drs(c, usage, j, depth):
+    """fs_entry_drs: DRS at each level of the entry's path."""
+    F, R = c["u_e"].shape[1], c["onehot"].shape[1]
+    carry = [int(v) for v in c["u_e"][j]]
+    node = max(int(c["wl_cq"][j]), 0)
+    out = []
+    for _ in range(depth):
+        dws = 0
+        if node >= 0:
+            has_borrow, drs_raw = False, -2**31
+            for r in range(R):
+                b = 0
+                for f in range(F):
+                    oh = int(c["onehot"][f, r])
+                    if oh == 0:
+                        continue
+                    after = w32(int(usage[node, f]) + carry[f])
+                    bf = max(0, w32(after - int(c["subtree"][node, f])))
+                    if not c["sq_mask"][node, f]:
+                        bf = 0
+                    b = w32(b + w32(bf * oh))
+                has_borrow |= b > 0
+                lend = int(c["lendable_r"][node, r])
+                lend1 = max(lend, 1)
+                ratio = (w32(min(b, lend1) * 1000) // lend1
+                         if b > 0 and lend > 0 else -1)
+                drs_raw = max(drs_raw, ratio)
+            w = int(c["weights"][node])
+            dws = w32(drs_raw * 1000) // max(w, 1) if has_borrow else 0
+            if w == 0:
+                dws = 2**31 - 2
+            if c["parent"][node] < 0:
+                dws = 0
+            for f in range(F):
+                local = max(0, w32(int(c["guaranteed"][node, f])
+                                   - int(usage[node, f])))
+                carry[f] = max(0, w32(carry[f] - local))
+            node = int(c["parent"][node])
+        out.append(dws)
+    return out
+
+
+def forest_rounds(c, f, depth, n_levels, usage, out):
+    """One block: forest f's rounds with its own lowest remaining entry
+    as e0.  Writes admitted / processed, key_of / off_of per winner and
+    the per-key round counts."""
+    W = len(c["wl_cq"])
+    parent, level = c["parent"], c["node_level"]
+    cq = np.maximum(c["wl_cq"], 0)
+    ents = [j for j in range(W) if c["valid"][j]
+            and c["forest_of_node"][cq[j]] == f]
+    nodes = np.nonzero(c["forest_of_node"] == f)[0]
+    remaining = list(ents)
+    k, key_prev, first_k = 0, -1, 0
+    for j in ents:
+        out["cnt"][j] = 0
+    while remaining:
+        e0 = remaining[0]
+        drs = {j: entry_drs(c, usage, j, depth) for j in remaining}
+        nwin = {int(n): -1 for n in nodes}
+        for j in remaining:
+            nwin[int(cq[j])] = j
+        for lvl in range(n_levels - 1, 0, -1):
+            best = {}
+            for n in nodes:
+                w, p = nwin[int(n)], int(parent[n])
+                if level[n] != lvl or w < 0 or p < 0:
+                    continue
+                li = min(max(int(level[cq[w]]) - lvl, 0), depth - 1)
+                key = (drs[w][li], w32(-int(c["prio"][w])),
+                       int(c["ts_rank"][w]), int(c["child_order"][n]))
+                # the four atomicMin passes, then atomicMax of the entry
+                if p not in best or (key, -w) < best[p]:
+                    best[p] = (key, -w)
+            for n in nodes:
+                if level[n] == lvl - 1 and int(n) in best:
+                    nwin[int(n)] = -best[int(n)][1]
+        root = int(cq[e0])
+        for _ in range(depth - 1):
+            if parent[root] >= 0:
+                root = int(parent[root])
+        tw = nwin[root]
+        win = e0 if parent[cq[e0]] < 0 or tw < 0 else tw
+        wu = c["u_e"][win]
+        fit = all(not wu[g] > 0 or wu[g] <= available(c, usage, cq[win], g,
+                                                      depth)
+                  for g in range(len(wu)))
+        admit = bool(not c["nofit"][win] and fit)
+        if admit:
+            for g in range(len(wu)):
+                add_usage(c, usage, int(cq[win]), int(wu[g]), g, depth)
+        remaining.remove(win)
+        out["admitted"][win], out["processed"][win] = admit, True
+        if e0 != key_prev:
+            if key_prev >= 0:
+                out["cnt"][key_prev] = k - first_k
+            key_prev, first_k = e0, k
+        out["key_of"][win], out["off_of"][win] = e0, k - first_k
+        k += 1
+    if key_prev >= 0:
+        out["cnt"][key_prev] = k - first_k
+
+
+def emu_fs_admit_scan(c, depth, n_levels, n_forests):
+    """Every forest's block, then the last block's merge by rank."""
+    W = len(c["wl_cq"])
+    out = dict(cnt=np.zeros(W, np.int64), key_of=np.zeros(W, np.int64),
+               off_of=np.zeros(W, np.int64), admitted=np.zeros(W, bool),
+               processed=np.zeros(W, bool))
+    usage = c["usage0"].astype(np.int64)
+    for f in range(n_forests):
+        forest_rounds(c, f, depth, n_levels, usage, out)
+    held = c["valid"].copy()
+    base = np.concatenate([[0], np.cumsum(np.where(held, out["cnt"], 0))])
+    order = np.full(W, -1, np.int32)
+    for j in np.nonzero(held)[0]:
+        order[base[out["key_of"][j]] + out["off_of"][j]] = j
+    assert (order[:base[-1]] >= 0).all()
+    return order, out["admitted"], out["processed"]
+
+
+FS_DESIGN_CASES = {
+    "one_forest": dict(n_cqs=12, n_cohorts=4, depth=4, F=2, R=2, W=16,
+                       roots=1, ties=True),
+    "forests_of_5": dict(n_cqs=1000, n_cohorts=200, depth=2, F=1, R=1,
+                         W=1024, n_valid=1000, per=5),
+    "parentless": dict(n_cqs=20, n_cohorts=3, depth=2, F=2, R=1, W=24,
+                       per=4),
+    "invalid_entries": dict(n_cqs=16, n_cohorts=4, depth=3, F=2, R=2, W=32,
+                            n_valid=14),
+    "nested": dict(n_cqs=30, n_cohorts=10, depth=4, F=2, R=2, W=32,
+                   ties=True),
+    "depth_17": dict(n_cqs=6, n_cohorts=16, depth=3, F=2, R=1, W=8,
+                     chain=True),
+    "F_65": dict(n_cqs=8, n_cohorts=3, depth=3, F=65, R=5, W=16),
+}
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("case", list(FS_DESIGN_CASES))
+def test_fs_forest_blocks_and_rank_order_match_jax(case, seed):
+    """Forest-local rounds merged by (m_f(k), k) give the JAX scan's
+    order, admitted and processed."""
+    c = tt.fs_cycle(np.random.default_rng(seed), **FS_DESIGN_CASES[case])
+    if case == "invalid_entries":
+        c["valid"][:14:3] = False            # heads with a CQ, not valid
+        c["nofit"] &= c["valid"]
+        assert (c["wl_cq"] == -1).any()
+    kw = dict(depth=c["depth"], n_levels=c["n_levels"])
+    order, admitted, processed = emu_fs_admit_scan(c, n_forests=c[
+        "n_forests"], **kw)
+    j = jfs.fs_admit_scan(*[jnp.asarray(a) for a in tt.fs_args(c)[:-1]],
+                          **kw)
+    assert np.array_equal(order, np.asarray(j[0])), case
+    assert np.array_equal(admitted, np.asarray(j[1])), case
+    assert np.array_equal(processed, np.asarray(j[2])), case
+    assert int(processed.sum()) == int(c["valid"].sum())
+    if case == "forests_of_5":
+        assert c["n_forests"] == 200 and c["max_forest"] == 6
+    if case == "one_forest":
+        assert c["n_forests"] == 1
+
+
+def test_fs_rank_order_interleaves_forests():
+    """The merge is not the concatenation of the forests' rounds: three
+    cohorts of three CQs and three parentless CQs, whose rounds the rank
+    order interleaves (a forest's rounds fall in two stretches or more)
+    and whose heads it reorders, as the JAX scan does."""
+    c = tt.fs_cycle(np.random.default_rng(1), n_cqs=12, n_cohorts=3,
+                    depth=2, F=1, R=1, W=12, per=3, ties=True)
+    kw = dict(depth=c["depth"], n_levels=c["n_levels"])
+    order, _, _ = emu_fs_admit_scan(c, n_forests=c["n_forests"], **kw)
+    j = jfs.fs_admit_scan(*[jnp.asarray(a) for a in tt.fs_args(c)[:-1]],
+                          **kw)
+    assert np.array_equal(order, np.asarray(j[0]))
+    assert (order != np.sort(order)).any()
+    forest = c["forest_of_node"][c["wl_cq"][order]].tolist()
+    starts = [f for k, f in enumerate(forest) if k == 0 or forest[k - 1] != f]
+    assert len(starts) > len(set(starts)), forest

@@ -175,7 +175,8 @@ def test_cuda_tas_sort_in_global_memory(monkeypatch):
     from kueue_tpu_torch import kernels
     from kueue_tpu_torch.ops import tas_kernel
     monkeypatch.setattr(kernels, "TAS_SMEM_SORT", 0)
-    for name, args, kw in tt.tas_cases(0, ("three_levels", "flat")):
+    for name, args, kw in tt.tas_cases(0, ("three_levels", "flat",
+                                           "shuffled", "wide_runs")):
         if name == "fill_counts":
             continue
         cpu = [tuple(torch.from_numpy(p) for p in a) if isinstance(a, tuple)
@@ -188,6 +189,39 @@ def test_cuda_tas_sort_in_global_memory(monkeypatch):
         c = getattr(tas_kernel, name)(*cuda, **kw)
         for x, y in zip(p, c):
             assert y.dtype == x.dtype and torch.equal(y.cpu(), x), (name, kw)
+
+
+@pytest.mark.gpu
+def test_cuda_tas_routes():
+    """The descent kernels take the warp route on every level below the
+    roots of a tree at the tas-4k shape (runs of at most 32 children in
+    id order), the sort route on levels shuffled out of id order, both
+    on the trees with runs of 33-128 children, and the warp route for a
+    root split of at most 32 roots; each launch writes its routes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernels have no CPU mode")
+    from kueue_tpu_torch import kernels
+    from kueue_tpu_torch.ops import tas_kernel
+    below_roots = {"tas4k": {1}, "shuffled": {2}, "wide_runs": {1, 2}}
+    for part, want in below_roots.items():
+        seen = set()
+        for name, args, kw in tt.tas_cases(0, (part,)):
+            if name == "fill_counts":
+                continue
+            cuda = [tuple(torch.from_numpy(p).cuda() for p in a)
+                    if isinstance(a, tuple) else torch.from_numpy(a).cuda()
+                    if isinstance(a, np.ndarray) else a for a in args]
+            getattr(tas_kernel, name)(*cuda, **kw)
+            taken = kernels.TAS_ROUTES[name].cpu().tolist()
+            sizes = kw["level_sizes"]
+            if name == "split_across_roots":
+                assert taken[0] == (1 if sizes[0] <= 32 else 2), taken
+                first = 1
+            else:
+                first = kw["level"] + 1
+                assert taken[:first] == [0] * first, taken   # not walked
+            seen |= set(taken[first:len(sizes)])
+        assert seen == want, (part, seen)
 
 
 PHASE1 = ("kq_cq_avail", "kq_classify_heads", "kq_cycle_order")

@@ -40,8 +40,9 @@ def _jax_cq_avail(usage0, subtree, guaranteed, borrow_cap, has_blim,
             available_all(jnp.zeros_like(usage0), *q, depth)[:n_cqs])
 
 
-def _jax_fs(*args, **kw):
-    # the JAX scan takes every argument but forest_of_node
+def _jax_fs(*args, n_forests=None, max_forest=None, **kw):
+    # the JAX scan takes every argument but forest_of_node, and no grid
+    # sizing of the CUDA kernel
     return jfs.fs_admit_scan(*args[:-1], **kw)
 
 
