@@ -84,9 +84,15 @@ under ``KUEUE_TPU_SHARDS``, the per-cycle mesh:
    burst_cycles, kq_cq_avail and drs_components on a cohort chain 17
    levels deep, fs_admit_scan at F = 65 and 72, admit_scan at F = 1,025,
    admit_scan_forests over one forest of 40,000 heads (its head list in
-   global scratch) — each equal to its plain version; then admit_scan
-   over 1,000 heads timed on a cohort chain 17 levels deep beside the
-   same heads on a chain of 2;
+   global scratch) — each equal to its plain version; admit_scan over
+   the flat scan's forest layouts (testing.flat_scan_cases: interleaved
+   forests, padding, reserve heads, one forest, depth 17, F = 65, one
+   forest past a block's shared memory) with and without the forest
+   tables, and burst_cycles on a window and on one forest of every CQ,
+   each with shared memory and with none allowed — both routes of both
+   kernels taken and counted per call; then admit_scan over 1,000 heads
+   timed on a cohort chain 17 levels deep beside the same heads on a
+   chain of 2;
 15. the north-star shape through the forest-sharded burst at full width
    (``KUEUE_TPU_SHARDS=4`` on a virtual mesh of four shards on this
    card, one stream each): the same 30 cycles as phase 8, whose decision
@@ -148,8 +154,12 @@ which it sees nothing fails.  Prints a ``kernels`` JSON line (per
 kernel: its launches on its main path and in each phase, ms through
 the wrapper, ``bare_ms`` of the C launch alone, ``kernel_ms`` by the
 profiler; the TAS routes of the timed call, which must be the warp
-route for best_fit_descend at tas-4k; fs_admit_scan also on one forest
-of every CQ, its worst case), the nvidia-smi line, and as its last line ``{"ok": true,
+route for best_fit_descend at tas-4k; the routes admit_scan and
+burst_cycles took per call; a dependent-step count for the TAS
+kernels, fs_admit_scan, admit_scan and burst_cycles; admit_scan also
+on the probe's flat 1,000 heads, fs_admit_scan, admit_scan and
+burst_cycles also on one forest of every CQ, their worst case), the
+nvidia-smi line, and as its last line ``{"ok": true,
 "device": {...}}``.  Exits non-zero, with no result line, when there is
 no CUDA device or no kueue_tpu_torch beside it.
 
@@ -224,6 +234,7 @@ MESH_KERNELS = ("kq_gather_heads", "kq_fs_merge_order")
 MESH_SCANS = ("admit_scan", "admit_scan_forests", "admit_scan_preempt",
               "fs_admit_scan")
 MESH_SHARDS = {"bench": 4, "northstar": 8, "fs": 4, "dryrun": 8}
+ROUTED = ("admit_scan", "burst_cycles")   # kernels with two routes
 
 
 def log(msg: str) -> None:
@@ -443,6 +454,8 @@ def compare(name, args, kw, stats) -> None:
         cuda = as_tuple(cuda_fns()[name](*args, **cuda_kw(kw)))
         plain = as_tuple(plain_fns()[name](*on_cpu(args), **plain_kw(kw)))
     torch.cuda.synchronize()
+    if name in ROUTED:
+        tally_route(name, stats)
     err = 0
     for c, p in zip(cuda, plain):
         check(c.dtype == p.dtype and c.shape == p.shape,
@@ -454,6 +467,61 @@ def compare(name, args, kw, stats) -> None:
     s["cases"] += 1
     s["mismatches"] += int(err != 0)
     s["max_abs_err"] = max(s["max_abs_err"], err)
+
+
+def tally_route(name, stats) -> None:
+    """The route the last launch of ``name`` took, counted per call in
+    ``stats[name]["routes"]``: burst_cycles' forest state in shared
+    memory or global rows; admit_scan's blocks with heads all on the
+    shared-memory route, all on the global route, or both."""
+    from kueue_tpu_torch import kernels
+    if name == "burst_cycles":
+        route = kernels.BURST_ROUTES[name]
+    else:
+        taken = {kernels.FLAT_ROUTE_NAMES[r]
+                 for r in kernels.FLAT_ROUTES[name].cpu().tolist() if r}
+        route = taken.pop() if len(taken) == 1 else (
+            "both" if taken else "no heads")
+    routes = stats[name].setdefault("routes", {})
+    routes[route] = routes.get(route, 0) + 1
+
+
+def flat_dependent_steps(args, kw) -> int:
+    """admit_scan's chain of dependent steps (kernels/admit_scan.cu):
+    the prologue's passes over the nodes and heads (one load round per
+    chunk of FLAT_THREADS x 4 items, a root walk of depth more without
+    the forest tables), the staging's 3 barriers and the head
+    compaction's 2 per chunk; then the largest forest's entries, each
+    2 x depth + 3 (the pair loads, the walk, the vote, the column sums,
+    the charge walk)."""
+    import numpy as np
+    from kueue_tpu_torch import kernels
+    N = int(args[0].shape[0])
+    W = int(args[8].shape[0])
+    depth = kw["depth"]
+    chunk = kernels.FLAT_THREADS * 4
+    parent = args[5].cpu().numpy()
+    root = np.arange(N)
+    for _ in range(depth):
+        root = np.where(parent[root] >= 0, parent[root], root)
+    wl_cq = args[8].cpu().numpy()
+    heads = np.bincount(root[wl_cq[wl_cq >= 0]], minlength=1)
+    per_chunk = 1 + (0 if kw.get("forest_of_node") is not None else depth)
+    n_chunks = -(-N // chunk) + -(-W // chunk)
+    return (n_chunks * per_chunk + 3 + 2 * -(-W // chunk)
+            + int(heads.max()) * (2 * depth + 3))
+
+
+def burst_dependent_steps(kw) -> int:
+    """burst_cycles' chain of dependent steps (kernels/burst_cycles.cu)
+    per launch, the searches' candidate walks left out (they depend on
+    the data): per cycle the rebuild's n_levels barriers and 12 more
+    between the phases, then at most L scan entries on warp 0 of
+    n_levels + 6 steps each (the overlap vote, the row refresh, the
+    target removal, the marked rebuild's levels, the fit vote, the
+    charge)."""
+    n_levels = kw["n_levels"]
+    return kw["K"] * (n_levels + 12 + kw["L"] * (n_levels + 6))
 
 
 def io_bytes(args, outs) -> int:
@@ -1391,6 +1459,7 @@ def main() -> int:
     from kueue_tpu_torch import probe
     from kueue_tpu_torch.ops import cycle
     install_phase1_capture(cap)
+    cap.install(cycle, "admit_scan", "admit_scan")   # the flat 1,000 heads
     cap.phase = "probe"
     kernels.reset_counts()
     t13 = time.perf_counter()
@@ -1491,11 +1560,38 @@ def main() -> int:
                      F=int(arrays[0].shape[-1]) if name != "burst_cycles"
                      else int(arrays[17].shape[1]))
         n3h.setdefault(name, []).append(shape)
+    # the forest-parallel flat scan and the burst on both routes: the
+    # flat scan's layouts (testing.flat_scan_cases: one forest past a
+    # block's shared memory among them) with and without the forest
+    # tables, a burst window and one forest of every CQ, with shared
+    # memory and with none allowed (every block on its global route)
+    saved = (kernels.FLAT_SMEM, kernels.BURST_STATE_SMEM)
+    try:
+        for smem in (saved, (0, 0)):
+            kernels.FLAT_SMEM, kernels.BURST_STATE_SMEM = smem
+            for _, arrays, kw, (fon, nf) in testing.flat_scan_cases(
+                    0, card=True):
+                a = on_card(arrays)
+                compare("admit_scan", a, kw, stats)
+                compare("admit_scan", a, dict(
+                    kw, forest_of_node=torch.from_numpy(fon).cuda(),
+                    n_forests=nf), stats)
+            for _, arrays, kw in (next(testing.burst_cases(0)),
+                                  ("one_forest",
+                                   *testing.burst_one_forest(0))):
+                compare("burst_cycles", [
+                    torch.from_numpy(a).cuda() if isinstance(a, np.ndarray)
+                    else int(a) for a in arrays], kw, stats)
+    finally:
+        kernels.FLAT_SMEM, kernels.BURST_STATE_SMEM = saved
+    for name in ROUTED:
+        check({"shared", "global"} <= set(stats[name]["routes"]),
+              (name, stats[name]["routes"]))
     for name, s_ in stats.items():
         check(s_["mismatches"] == 0, (name, s_))
-    log(f"[3h kernels past the old limits] {json.dumps(n3h)} in "
-        f"{time.perf_counter() - t0:.1f}s; "
-        f"{json.dumps({k: stats[k] for k in n3h})}")
+    log(f"[3h kernels past the old limits, both routes] {json.dumps(n3h)} "
+        f"in {time.perf_counter() - t0:.1f}s; "
+        f"{json.dumps({k: stats[k] for k in set(n3h) | set(ROUTED)})}")
     # the cost of a deep chain: the same 1,000 heads over 6 CQs under a
     # cohort chain of 16 levels (depth 17) and of 1 level (depth 2)
     t3h = {}
@@ -1956,6 +2052,40 @@ def main() -> int:
                     ms=th["ms"], plain_ms=th["plain_ms"],
                     bound_ms=th["bound_ms"], bound_by=th["bound_by"],
                     W=int(h_args[0].shape[0]))
+        if name in ROUTED:
+            extra["routes"] = stats[name].get("routes")
+        if name == "admit_scan":
+            # the perf-15k call timed above, the probe's flat 1,000 heads
+            # (64 forests) and the worst case, one forest of 1,000 CQs
+            # under 64 cohorts with 1,000 heads
+            extra["dependent_steps"] = flat_dependent_steps(args, kw)
+            extra["timed_shape"] = dict(
+                N=int(args[0].shape[0]), F=int(args[0].shape[1]),
+                W=int(args[8].shape[0]), depth=kw["depth"],
+                tables=kw.get("forest_of_node") is not None)
+            extra["device_ms_per_launch_on_path"] = per_launch(dc4, name)
+            extra["device_ms_per_launch_mesh"] = per_launch(dc16, name)
+            p_args, p_kw = cap.calls[("probe", name)][0]
+            tp = time_kernel(name, p_args, p_kw)
+            extra["probe_1000_heads"] = dict(
+                **{k: tp[k] for k in ("ms", "kernel_ms", "plain_ms",
+                                      "bound_ms", "bound_by")},
+                device_ms_per_launch_on_path=per_launch(dc13, name),
+                dependent_steps=flat_dependent_steps(p_args, p_kw))
+            c1 = testing.admit_cycle(np.random.default_rng(7), n_cqs=1000,
+                                     n_cohorts=64, depth=3, F=12, W=1000,
+                                     R=3, roots=1)
+            a1 = on_card(testing.admit_args(c1))
+            k1 = dict(depth=c1["depth"])
+            compare(name, a1, k1, stats)
+            check(stats[name]["mismatches"] == 0, stats[name])
+            t1 = time_kernel(name, a1, k1)
+            extra["one_forest"] = dict(
+                **{k: t1[k] for k in ("ms", "kernel_ms", "plain_ms",
+                                      "bound_ms")},
+                dependent_steps=flat_dependent_steps(a1, k1),
+                shape=dict(N=int(a1[0].shape[0]), F=12, W=1000, heads=1000,
+                           depth=k1["depth"]))
         if name == "drs_components":
             extra["timed_shape"] = dict(N=int(args[0].shape[0]),
                                         F=int(args[0].shape[1]),
@@ -1966,15 +2096,27 @@ def main() -> int:
             b_args, b_kw = burst_window(cap.calls[("bench_burst", name)])
             tb = time_kernel(name, b_args, b_kw)
             extra["bench_burst"] = dict(
-                ms=tb["ms"], plain_ms=tb["plain_ms"],
+                ms=tb["ms"], kernel_ms=tb["kernel_ms"],
+                plain_ms=tb["plain_ms"],
                 bound_ms=tb["bound_ms"], bound_by=tb["bound_by"],
-                dependent_steps=b_kw["K"] * b_kw["L"],
+                dependent_steps=burst_dependent_steps(b_kw),
+                device_ms_per_launch_on_path=per_launch(dc7, name),
                 shape=dict(C=int(b_args[0].shape[0]),
                            M=int(b_args[0].shape[1]), KC=b_kw["KC"],
                            K=b_kw["K"], L=b_kw["L"]))
-            # the dependent chain of one launch: K cycles of L scan steps
-            # (plus the candidates each search walks, data-dependent)
-            extra["dependent_steps"] = kw["K"] * kw["L"]
+            extra["dependent_steps"] = burst_dependent_steps(kw)
+            extra["device_ms_per_launch_on_path"] = per_launch(dc8, name)
+            # the worst case: one forest of every CQ (40 CQs, one block)
+            o_args, o_kw = testing.burst_one_forest(0)
+            o_args = [torch.from_numpy(a).cuda()
+                      if isinstance(a, np.ndarray) else int(a)
+                      for a in o_args]
+            to = time_kernel(name, o_args, o_kw)
+            extra["one_forest"] = dict(
+                **{k: to[k] for k in ("ms", "kernel_ms", "plain_ms",
+                                      "bound_ms")},
+                dependent_steps=burst_dependent_steps(o_kw),
+                shape=dict(C=40, L=o_kw["L"], KC=o_kw["KC"], K=o_kw["K"]))
             extra["sharded_northstar"] = dict(
                 shards=NORTHSTAR_SHARDS,
                 launches=launches15["burst_cycles"],

@@ -1,11 +1,10 @@
 #!/usr/bin/env python3
-"""Times the TAS descent kernels and fs_admit_scan of the kueue_tpu_torch
-package under a checkout, on seeded inputs that every commit of the
-port builds alike, so that two commits can be compared in one run on
-one card (run it on each checkout in turns: parent, change, change,
-parent).
+"""Times kernels of the kueue_tpu_torch package under a checkout, on
+inputs that every commit of the port builds alike, so that two commits
+can be compared in one run on one card (run it on each checkout in
+turns: parent, change, change, parent).
 
-    python3 kernel_ab.py CHECKOUT [LABEL]
+    python3 kernel_ab.py CHECKOUT [LABEL] [--cases PATH] [--split DIR]
 
 Prints one JSON line: the card, and per case the ms per launch (CUDA
 events around back-to-back launches behind a busy stream) and a digest
@@ -17,14 +16,43 @@ of the outputs:
 - ``fs_admit_scan`` on ``testing.FS_SHAPES``' north-star row (1,000
   CQs, 200 cohorts, 1,024 heads, ~350 forests) and on one forest
   holding the 1,000 CQs and 200 cohorts (the worst case for a block
-  per forest)."""
+  per forest);
+- ``admit_scan`` on the north-star probe's flat 1,000 heads x 1,000
+  CQs in 64 cohorts (``probe_flat``), on the largest of the first four
+  calls of the perf scenario drained per cycle (``bench_cycle``), and
+  on one forest of 1,000 CQs under 64 cohorts with 1,000 heads
+  (``one_forest``); where the checkout's launcher takes the forest
+  tables, also with them (``*_tables``);
+- ``burst_cycles`` on the perf scenario's burst window and the
+  north-star (1,000-CQ) burst window that ``chip_smoke.py`` times (the
+  last window kept of each drain, a window with preemption), and on one
+  forest of 1,000 CQs (``burst_one_forest``: ``testing.burst_synthetic``
+  with every CQ under one cohort).
+
+The captured inputs (probe, perf scenario, bursts) are built on first
+use by driving the checkout's scenarios on the card and saved to PATH
+(default ``.kueue_tpu_torch_build/kernel_ab_cases.pt`` beside this
+script); later runs load them, so every checkout times the same inputs.
+
+``--split DIR`` instead times the phases inside the single-block flat
+``admit_scan`` and the global-scratch ``burst_cycles`` (the designs
+before the forest-parallel ones: run it on a checkout of that tree):
+it copies the checkout's kernel sources into DIR, inserts ``clock64()``
+phase sums read by thread 0 of each block into the copies of those two
+kernels, builds the copies there and runs them on the same inputs.  It
+prints per phase the cycles of block 0 (the flat scan) or of the block
+with the most cycles (the burst), and the same as µs at the clock that
+block 0's ``%globaltimer`` span gives."""
 
 from __future__ import annotations
 
 import inspect
 import json
 import os
+import subprocess
 import sys
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 
 def event_ms(fn, reps: int) -> float:
@@ -49,21 +77,525 @@ def digest(*tensors) -> int:
         1, t.numel() + 1, device=t.device)).sum()) for t in tensors)
 
 
+def flat(x):
+    """Outputs as a flat tuple of tensors (the burst's carry flattened)."""
+    if not isinstance(x, tuple):
+        return (x,)
+    return tuple(t for y in x for t in flat(y))
+
+
+def forest_table(parent):
+    """(forest_of_node [N] int32, n_forests): each node's tree, numbered
+    in order of the roots' indices."""
+    import numpy as np
+    parent = np.asarray(parent, dtype=np.int64)
+    root = np.arange(len(parent))
+    while True:
+        up = np.where(parent[root] >= 0, parent[root], root)
+        if np.array_equal(up, root):
+            break
+        root = up
+    _, fon = np.unique(root, return_inverse=True)
+    return fon.astype(np.int32), int(fon.max()) + 1
+
+
+# -- captured inputs ---------------------------------------------------------
+
+def capture_cases() -> dict:
+    """Drive the checkout's probe, perf scenario and north-star burst on
+    the card and keep the kernel inputs to time (CPU copies)."""
+    import numpy as np
+    import torch
+    from kueue_tpu_torch import scenarios
+    from kueue_tpu_torch.ops import burst, cycle, solver
+
+    def cpu(args):
+        return tuple(a.cpu() if isinstance(a, torch.Tensor) else a
+                     for a in args)
+
+    out = {}
+    # the probe's flat scan: solve_cycle over 1,000 heads x 1,000 CQs
+    kept = []
+    real = cycle.admit_scan
+
+    def keep_scan(*args, **kw):
+        kept.append((cpu(args), {"depth": kw["depth"]}))
+        return real(*args, **kw)
+    heads, depth = scenarios.probe_synth(W=1000, C=1000, cohorts=64, seed=1)
+    cycle.admit_scan = keep_scan
+    try:
+        cycle.solve_cycle(*[torch.from_numpy(np.ascontiguousarray(a)).cuda()
+                            for a in heads], depth=depth, run_scan=True)
+    finally:
+        cycle.admit_scan = real
+    out["probe_flat"] = kept[-1]
+
+    # the perf scenario per cycle: the largest of the first four scans
+    kept = []
+    real = solver.admit_scan
+
+    def keep_solver(*args, **kw):
+        if len(kept) < 4:
+            kept.append((cpu(args), {"depth": kw["depth"]}))
+        return real(*args, **kw)
+    solver.admit_scan = keep_solver
+    try:
+        d, clock, total, waves = scenarios.build_bench(1.0, device="cuda")
+        scenarios.run_bench(d, clock, total, waves)
+    finally:
+        solver.admit_scan = real
+    out["bench_cycle"] = max(kept, key=lambda c: c[0][8].shape[0])
+    del d
+
+    # the bursts: the last window kept of each drain, as chip_smoke.py
+    for label in ("burst_bench", "burst_northstar"):
+        kept = []
+        real = burst.burst_cycles
+
+        def keep_burst(*args, **kw):
+            res = real(*args, **kw)
+            if len(kept) < 4 or (len(kept) < 6 and bool(
+                    (res[1] == burst.KIND_PREEMPT).any())):
+                kept.append((cpu(args), dict(kw)))
+            return res
+        burst.burst_cycles = keep_burst
+        try:
+            if label == "burst_bench":
+                d, clock, total, waves = scenarios.build_bench(
+                    1.0, device="cuda")
+                scenarios.drain_bench_burst(d, clock, total, waves)
+            else:
+                d, clock, total, wave = scenarios.build_northstar(
+                    1000, 100_000, device="cuda")
+                scenarios.northstar_burst(d, clock, wave, cycles=30)
+        finally:
+            burst.burst_cycles = real
+        args, kw = kept[-1]
+        kw.pop("node_table", None)
+        kw.pop("device", None)
+        out[label] = (args, kw)
+        del d
+    return out
+
+
+def synthetic_cases(testing) -> dict:
+    """The one-forest worst cases of both kernels, seeded."""
+    import numpy as np
+    c = testing.admit_cycle(np.random.default_rng(7), n_cqs=1000,
+                            n_cohorts=64, depth=3, F=12, W=1000, R=3,
+                            roots=1)
+    one = (testing.admit_args(c), {"depth": c["depth"]})
+    args, kw = testing.burst_synthetic(np.random.default_rng(7), C=1000,
+                                       per=1000, M=16, K=4)
+    return {"one_forest": one, "burst_one_forest": (args, kw)}
+
+
+def load_cases(path: Path):
+    import torch
+    if path.exists():
+        return torch.load(path, weights_only=False)
+    cases = capture_cases()
+    path.parent.mkdir(parents=True, exist_ok=True)
+    torch.save(cases, path)
+    return cases
+
+
+def to_card(args):
+    import numpy as np
+    import torch
+    out = []
+    for a in args:
+        if isinstance(a, np.ndarray):
+            a = torch.from_numpy(np.ascontiguousarray(a))
+        out.append(a.cuda() if isinstance(a, torch.Tensor) else a)
+    return out
+
+
+def admit_calls(kernels, cases):
+    """(case, callable) for every admit_scan case, with the forest tables
+    where the launcher takes them."""
+    import torch
+    takes = "forest_of_node" in inspect.signature(
+        kernels.admit_scan).parameters
+    calls = []
+    for case in ("probe_flat", "bench_cycle", "one_forest"):
+        args, kw = cases[case]
+        args = to_card(args)
+        calls.append((case, lambda a=args, k=kw: kernels.admit_scan(*a,
+                                                                    **k)))
+        if takes:
+            fon, nf = forest_table(args[5].cpu().numpy())
+            tk = dict(kw, forest_of_node=torch.from_numpy(fon).cuda(),
+                      n_forests=nf)
+            calls.append((case + "_tables",
+                          lambda a=args, k=tk: kernels.admit_scan(*a, **k)))
+    return calls
+
+
+def burst_calls(kernels, cases):
+    """(case, callable) for every burst case, with the node table built
+    once (as the burst solver caches it with the structure)."""
+    from kueue_tpu_torch.ops.burst import ARG_NAMES
+    calls = []
+    for case in ("burst_bench", "burst_northstar", "burst_one_forest"):
+        args, kw = cases[case]
+        args = to_card(args)
+        a = dict(zip(ARG_NAMES, args))
+        kw = dict(kw, node_table=kernels.burst_node_table(
+            a["parent"], a["node_level"], a["forest_of_cq"], kw["G"],
+            args[0].device))
+        calls.append((case, lambda a=args, k=kw: kernels.burst_cycles(*a,
+                                                                      **k)))
+    return calls
+
+
+# -- the phase split ------------------------------------------------------------
+
+SPLIT_HEAD = r"""
+#define KQ_SPLIT_BLOCKS 1024
+#define KQ_SPLIT_P 24
+__device__ unsigned long long kq_split_acc[KQ_SPLIT_BLOCKS * KQ_SPLIT_P];
+__shared__ unsigned long long kq_split_s[KQ_SPLIT_P];
+__shared__ long long kq_split_t;
+__shared__ unsigned long long kq_split_ns0;
+__device__ __forceinline__ unsigned long long kq_split_gt() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+__device__ __forceinline__ void kq_split_start() {
+  if (threadIdx.x == 0) {
+    for (int p = 0; p < KQ_SPLIT_P; ++p) kq_split_s[p] = 0;
+    kq_split_ns0 = kq_split_gt();
+    kq_split_t = clock64();
+  }
+}
+__device__ __forceinline__ void kq_split_mark(int p) {
+  if (threadIdx.x == 0) {
+    const long long n = clock64();
+    kq_split_s[p] += n - kq_split_t;
+    kq_split_t = n;
+  }
+}
+__device__ __forceinline__ void kq_split_count(int p) {
+  if (threadIdx.x == 0) kq_split_s[p] += 1;
+}
+__device__ __forceinline__ void kq_split_flush() {
+  if (threadIdx.x == 0 && blockIdx.x < KQ_SPLIT_BLOCKS) {
+    kq_split_s[14] = kq_split_gt() - kq_split_ns0;  // block's span, ns
+    for (int p = 0; p < KQ_SPLIT_P; ++p) {
+      kq_split_acc[blockIdx.x * KQ_SPLIT_P + p] += kq_split_s[p];
+    }
+  }
+}
+extern "C" int kq_split_TAG_read(unsigned long long* out) {
+  return static_cast<int>(cudaMemcpyFromSymbol(
+      out, kq_split_acc, sizeof(kq_split_acc)));
+}
+extern "C" int kq_split_TAG_reset() {
+  static unsigned long long zero[KQ_SPLIT_BLOCKS * KQ_SPLIT_P];
+  return static_cast<int>(cudaMemcpyToSymbol(kq_split_acc, zero,
+                                             sizeof(zero)));
+}
+"""
+
+# phase names by slot; 14 is block 0's %globaltimer span in ns, and the
+# slots named "n ..." are counts
+ADMIT_PHASES = {0: "prologue", 1: "head loads", 2: "fit walk",
+                3: "barrier/vote", 4: "charge", 5: "n entries"}
+BURST_PHASES = {11: "target words zeroed", 0: "rebuild", 1: "heads",
+                2: "classify", 3: "searches", 4: "order",
+                5: "scan.copy", 6: "scan.sub_targets", 7: "scan.rebuild",
+                8: "scan.fit", 9: "scan.charge", 10: "transitions",
+                12: "n scan entries", 13: "n searches", 15: "n cycles"}
+
+
+def _patch(text: str, pairs, what: str) -> str:
+    for old, new in pairs:
+        if text.count(old) != 1:
+            raise SystemExit(f"--split: {what}: anchor found "
+                             f"{text.count(old)} times: {old[:60]!r}")
+        text = text.replace(old, new)
+    return text
+
+
+# the forest-parallel designs' phases (the same slots, other names)
+FLAT_PHASES = {0: "count", 1: "stage", 2: "list", 3: "decide (warp 0)",
+               5: "n entries (warp 0)"}
+FOREST_BURST_PHASES = {**BURST_PHASES, 11: "stage + target words",
+                       5: "scan.init", 6: "scan.rows",
+                       7: "scan.chain update", 16: "transitions.members",
+                       17: "transitions.evictions",
+                       18: "transitions.finishes",
+                       10: "transitions.carry and unpark"}
+
+
+def split_forest_designs(src: Path, dst: Path) -> None:
+    """The phase timers in the forest-parallel flat admit_scan and the
+    shared-memory burst_cycles."""
+    flat_src = _patch((src / "admit_scan.cu").read_text(), [
+        ('#include "admit_entry.cuh"\n',
+         '#include "admit_entry.cuh"\n' + SPLIT_HEAD.replace("TAG", "admit")),
+        ("  extern __shared__ int smem[];\n",
+         "  extern __shared__ int smem[];\n  kq_split_start();\n"),
+        ("  const int n_nodes = s_n[0];\n",
+         "  kq_split_mark(0);\n  const int n_nodes = s_n[0];\n"),
+        ("  if (!shared) list = a.glist",
+         "  kq_split_mark(1);\n  if (!shared) list = a.glist"),
+        ("  // 4. each warp decides its forests' entries\n",
+         "  kq_split_mark(2);\n"),
+        ("    flat_decide(a, rows, list, n_heads, col);\n  }\n}\n",
+         "    flat_decide(a, rows, list, n_heads, col);\n  }\n"
+         "  kq_split_mark(3);\n  kq_split_flush();\n}\n"),
+        ("    if ((bits >> kOwnerShift) != warp) continue;\n",
+         "    if ((bits >> kOwnerShift) != warp) continue;\n"
+         "    kq_split_count(5);\n"),
+    ], "admit_scan.cu")
+    (dst / "admit_scan.cu").write_text(flat_src)
+    burst_src = _patch((src / "burst_cycles.cu").read_text(), [
+        ('#include "quota.cuh"\n',
+         '#include "quota.cuh"\n' + SPLIT_HEAD.replace("TAG", "burst")),
+        ("  stage(a, s, g);\n",
+         "  kq_split_start();\n  stage(a, s, g);\n"),
+        ("    rebuild(a, s, g, s.ucq);\n    heads(a, s, mem);\n"
+         "    __syncthreads();\n    classify(a, s, mem, s_dflags);\n"
+         "    __syncthreads();\n",
+         "    kq_split_mark(11);\n    rebuild(a, s, g, s.ucq);\n"
+         "    kq_split_mark(0);\n    heads(a, s, mem);\n"
+         "    __syncthreads();\n    kq_split_mark(1);\n"
+         "    classify(a, s, mem, s_dflags);\n    __syncthreads();\n"
+         "    kq_split_mark(2);\n"),
+        ("      search_lane(a, s, g, l, c, k, mem, skey, sval, keep, s_int);\n",
+         "      search_lane(a, s, g, l, c, k, mem, skey, sval, keep, s_int);\n"
+         "      kq_split_count(13);\n"),
+        ("    order(a, s, mem);\n    scan(a, s, g, k, mem, keep);\n"
+         "    transitions(a, s, g, k, mem, s_int);\n  }\n",
+         "    kq_split_mark(3);\n    order(a, s, mem);\n"
+         "    kq_split_mark(4);\n    scan(a, s, g, k, mem, keep);\n"
+         "    transitions(a, s, g, k, mem, s_int);\n    kq_split_mark(10);\n"
+         "    kq_split_count(15);\n  }\n  kq_split_flush();\n"),
+        ("s.used[w] = 0;\n  __syncthreads();\n",
+         "s.used[w] = 0;\n  __syncthreads();\n  kq_split_mark(5);\n"),
+        ("      if (act || marks) {\n",
+         "      kq_split_mark(6);\n      if (act || marks) {\n"),
+        ("      // the fit re-check on the lanes",
+         "      kq_split_mark(7);\n      // the fit re-check on the lanes"),
+        ("      const bool pre_now = act && pre_ok;\n",
+         "      const bool pre_now = act && pre_ok;\n      kq_split_mark(8);\n"),
+        ("  // evictions: committed targets release",
+         "  kq_split_mark(16);\n  // evictions: committed targets release"),
+        ("  // modeled finishes of this cycle",
+         "  kq_split_mark(17);\n  // modeled finishes of this cycle"),
+        ("  if (tid == 0) s_int[7] = 0;\n  __syncthreads();\n",
+         "  if (tid == 0) s_int[7] = 0;\n  __syncthreads();\n"
+         "  kq_split_mark(18);\n"),
+        ("(overlap ? F_OVERLAP : 0);\n      }\n      __syncwarp();\n    }\n",
+         "(overlap ? F_OVERLAP : 0);\n      }\n      __syncwarp();\n"
+         "      kq_split_mark(9);\n      kq_split_count(12);\n    }\n"),
+    ], "burst_cycles.cu")
+    (dst / "burst_cycles.cu").write_text(burst_src)
+
+
+def split_sources(src: Path, dst: Path) -> bool:
+    """Copies of the checkout's kernel sources in ``dst``, with the
+    phase timers in the flat admit_scan and in burst_cycles; True for
+    the forest-parallel designs."""
+    dst.mkdir(parents=True, exist_ok=True)
+    for f in src.iterdir():
+        if f.suffix in (".cu", ".cuh"):
+            (dst / f.name).write_text(f.read_text())
+    if "retarget(" in (src / "burst_cycles.cu").read_text():
+        split_forest_designs(src, dst)
+        return True
+    entry = (src / "admit_entry.cuh").read_text()
+    body = entry[entry.index("__device__ __forceinline__ bool "
+                             "kq_admit_entry("):]
+    body = body.replace("kq_admit_entry(", "kq_admit_entry_split(", 1)
+    body = _patch(body, [
+        ("int wi, bool valid) {\n",
+         "int wi, bool valid) {\n  kq_split_mark(1);\n"),
+        ("f, avail)) ok_f = false;\n  }\n",
+         "f, avail)) ok_f = false;\n  }\n  kq_split_mark(2);\n"),
+        ("const bool ok = __syncthreads_and(ok_f) != 0;\n",
+         "const bool ok = __syncthreads_and(ok_f) != 0;\n"
+         "  kq_split_mark(3);\n"),
+        ("  return admit;\n", "  kq_split_mark(4);\n  return admit;\n"),
+    ], "admit_entry.cuh")
+    flat_src = (src / "admit_scan.cu").read_text()
+    flat_src = _patch(flat_src, [
+        ('#include "admit_entry.cuh"\n',
+         '#include "admit_entry.cuh"\n' + SPLIT_HEAD.replace("TAG", "admit")
+         + body),
+        ("  extern __shared__ int smem[];\n",
+         "  extern __shared__ int smem[];\n  kq_split_start();\n"),
+        ("  __syncthreads();\n  for (int i = 0; i < W; ++i) {\n",
+         "  __syncthreads();\n  kq_split_mark(0);\n"
+         "  for (int i = 0; i < W; ++i) {\n    kq_split_count(5);\n"),
+        ("kq_admit_entry(t, c, usage, wi",
+         "kq_admit_entry_split(t, c, usage, wi"),
+        ("    if (threadIdx.x == 0) admitted[wi] = admit;\n  }\n}\n",
+         "    if (threadIdx.x == 0) admitted[wi] = admit;\n  }\n"
+         "  kq_split_flush();\n}\n"),
+    ], "admit_scan.cu")
+    (dst / "admit_scan.cu").write_text(flat_src)
+    burst_src = (src / "burst_cycles.cu").read_text()
+    burst_src = _patch(burst_src, [
+        ('#include "quota.cuh"\n',
+         '#include "quota.cuh"\n' + SPLIT_HEAD.replace("TAG", "burst")),
+        ("  for (int w = tid; w < a.KCW; w += blockDim.x) used[w] = 0;\n"
+         "  if (tid == 0) s_int[4] = 0;\n  __syncthreads();\n",
+         "  for (int w = tid; w < a.KCW; w += blockDim.x) used[w] = 0;\n"
+         "  if (tid == 0) s_int[4] = 0;\n  __syncthreads();\n"
+         "  kq_split_mark(5);\n"),
+        ("      a.u_tmp[o] = a.u_chk[o];\n    }\n    __syncthreads();\n",
+         "      a.u_tmp[o] = a.u_chk[o];\n    }\n    __syncthreads();\n"
+         "    kq_split_mark(5);\n"),
+        ("    if (act) sub_targets(a, g, tw, a.u_tmp);\n"
+         "    __syncthreads();\n    rebuild(a, g, a.u_tmp);\n",
+         "    if (act) sub_targets(a, g, tw, a.u_tmp);\n"
+         "    __syncthreads();\n    kq_split_mark(6);\n"
+         "    rebuild(a, g, a.u_tmp);\n    kq_split_mark(7);\n"),
+        ("      s_int[4] = 0;\n    }\n    __syncthreads();\n",
+         "      s_int[4] = 0;\n    }\n    __syncthreads();\n"
+         "    kq_split_mark(8);\n"),
+        ("(overlap ? F_OVERLAP : 0);\n    }\n    __syncthreads();\n  }\n}\n",
+         "(overlap ? F_OVERLAP : 0);\n    }\n    __syncthreads();\n"
+         "    kq_split_mark(9);\n    kq_split_count(12);\n  }\n}\n"),
+        ("  for (int k = 0; k < a.K; ++k) {\n    if (tid < 3)",
+         "  kq_split_start();\n  for (int k = 0; k < a.K; ++k) {\n"
+         "    if (tid < 3)"),
+        ("    rebuild(a, g, a.u_cq);\n    heads(a, mem);\n"
+         "    __syncthreads();\n    classify(a, t, mem, s_dflags);\n"
+         "    __syncthreads();\n",
+         "    kq_split_mark(11);\n    rebuild(a, g, a.u_cq);\n"
+         "    kq_split_mark(0);\n    heads(a, mem);\n    __syncthreads();\n"
+         "    kq_split_mark(1);\n    classify(a, t, mem, s_dflags);\n"
+         "    __syncthreads();\n    kq_split_mark(2);\n"),
+        ("      search_lane(a, g, c, k, mem, skey, sval, keep, s_int);\n",
+         "      search_lane(a, g, c, k, mem, skey, sval, keep, s_int);\n"
+         "      kq_split_count(13);\n"),
+        ("    if (tid == 0) order(a, g, mem);\n    __syncthreads();\n"
+         "    scan(a, t, g, k, mem, s_int);\n"
+         "    transitions(a, g, k, mem, s_int);\n  }\n",
+         "    kq_split_mark(3);\n    if (tid == 0) order(a, g, mem);\n"
+         "    __syncthreads();\n    kq_split_mark(4);\n"
+         "    scan(a, t, g, k, mem, s_int);\n"
+         "    transitions(a, g, k, mem, s_int);\n    kq_split_mark(10);\n"
+         "    kq_split_count(15);\n  }\n  kq_split_flush();\n"),
+    ], "burst_cycles.cu")
+    (dst / "burst_cycles.cu").write_text(burst_src)
+    return False
+
+
+def split_build(kernels, src: Path):
+    """The instrumented library, built from ``src`` as ``kernels.build``
+    builds the checkout's, loaded in its place."""
+    import ctypes
+    nvcc = kernels._nvcc()
+    objs = [src / f"{Path(s).stem}.o" for s in kernels.SOURCES]
+
+    def run(cmd):
+        r = subprocess.run(cmd, capture_output=True, text=True)
+        if r.returncode != 0:
+            raise SystemExit(f"--split build failed: {' '.join(cmd)}\n"
+                             f"{r.stdout}\n{r.stderr}")
+    with ThreadPoolExecutor(len(objs)) as ex:
+        list(ex.map(run, [[nvcc, *kernels.NVCC_FLAGS, "-c", str(src / s),
+                           "-o", str(o)] for s, o in zip(kernels.SOURCES,
+                                                         objs)]))
+    lib_path = src / "libkueue_kernels_split.so"
+    run([nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared", "-o",
+         str(lib_path), *map(str, objs)])
+    lib = ctypes.CDLL(str(lib_path))
+    for name, argtypes in kernels._ARGTYPES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    for tag in ("admit", "burst"):
+        getattr(lib, f"kq_split_{tag}_read").argtypes = [ctypes.c_void_p]
+    kernels._lib = lib
+    return lib
+
+
+def split_run(lib, tag: str, call, names: dict, reps: int) -> dict:
+    """Phase cycles of ``reps`` launches: block 0 and the block with the
+    most cycles, per launch; µs at block 0's cycles per ns."""
+    import ctypes
+    import numpy as np
+    import torch
+    call()
+    torch.cuda.synchronize()
+    getattr(lib, f"kq_split_{tag}_reset")()
+    for _ in range(reps):
+        call()
+    torch.cuda.synchronize()
+    acc = np.zeros(1024 * 24, dtype=np.uint64)
+    getattr(lib, f"kq_split_{tag}_read")(
+        ctypes.c_void_p(acc.ctypes.data))
+    acc = acc.reshape(1024, 24).astype(np.float64) / reps
+    timed = [p for p, n in names.items() if not n.startswith("n ")]
+    totals = acc[:, timed].sum(1)
+    worst = int(totals.argmax())
+    per_ns = totals[0] / max(acc[0, 14], 1.0)       # cycles per ns
+    out = {"cycles_per_ns": per_ns, "blocks": int((totals > 0).sum()),
+           "slowest_block": worst}
+    for label, b in (("block0", 0), ("slowest", worst)):
+        row = {}
+        for p, n in names.items():
+            v = acc[b, p]
+            row[n] = v if n.startswith("n ") else dict(
+                cycles=v, us=v / per_ns / 1e3,
+                share=v / max(totals[b], 1.0))
+        row["total_us"] = totals[b] / per_ns / 1e3
+        out[label] = row
+    return out
+
+
 def main() -> int:
     import numpy as np
     import torch
     if not torch.cuda.is_available():
         print("kernel_ab: no CUDA device", file=sys.stderr)
         return 2
-    if len(sys.argv) < 2:
+    argv = sys.argv[1:]
+    opts = {}
+    for flag in ("--cases", "--split"):
+        if flag in argv:
+            i = argv.index(flag)
+            opts[flag] = argv[i + 1]
+            del argv[i:i + 2]
+    if not argv:
         print(__doc__, file=sys.stderr)
         return 2
-    sys.path.insert(0, os.path.abspath(sys.argv[1]))
+    here = Path(__file__).resolve().parent
+    sys.path.insert(0, os.path.abspath(argv[0]))
     from kueue_tpu_torch import kernels
     from kueue_tpu_torch import testing as tt
-    out = {"label": sys.argv[2] if len(sys.argv) > 2 else sys.argv[1],
-           "device": torch.cuda.get_device_name(0),
-           "library": str(kernels.build(force=True))}
+    out = {"label": argv[1] if len(argv) > 1 else argv[0],
+           "device": torch.cuda.get_device_name(0)}
+    cases = load_cases(Path(opts.get(
+        "--cases", here / ".kueue_tpu_torch_build" / "kernel_ab_cases.pt")))
+    cases.update(synthetic_cases(tt))
+
+    if "--split" in opts:
+        dst = Path(opts["--split"]).resolve()
+        forest = split_sources(Path(kernels.__file__).resolve().parent,
+                               dst)
+        lib = split_build(kernels, dst)
+        for case, call in admit_calls(kernels, cases):
+            out[case] = split_run(lib, "admit", call,
+                                  FLAT_PHASES if forest else ADMIT_PHASES,
+                                  3 if case == "one_forest" else 10)
+            out[case]["ms"] = event_ms(call, 10)
+        for case, call in burst_calls(kernels, cases):
+            reps = 2 if case == "burst_one_forest" else 10
+            out[case] = split_run(lib, "burst", call, FOREST_BURST_PHASES
+                                  if forest else BURST_PHASES, reps)
+            out[case]["ms"] = event_ms(call, reps)
+        print(json.dumps(out), flush=True)
+        return 0
+
+    out["library"] = str(kernels.build(force=True))
     dev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).cuda()
 
     rng = np.random.default_rng(0)
@@ -111,6 +643,12 @@ def main() -> int:
             return kernels.fs_admit_scan(*args, **kw)
         out[case] = dict(ms=event_ms(call, 10), digest=digest(*call()),
                          forests=int(c["forest_of_node"].max()) + 1)
+
+    for case, call in admit_calls(kernels, cases) + burst_calls(kernels,
+                                                                cases):
+        reps = 3 if case.endswith("one_forest") else 20
+        out[case] = dict(ms=event_ms(call, reps),
+                         digest=digest(*flat(call())))
     print(json.dumps(out), flush=True)
     return 0
 

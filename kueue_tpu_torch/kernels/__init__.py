@@ -134,7 +134,7 @@ def build(force: bool = False) -> Path:
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _ARGTYPES = {
-    "kq_admit_scan": [_P] * 19 + [_I] * 8 + [_P],
+    "kq_admit_scan": [_P, _P, _P],
     "kq_admit_scan_forests": [_P] * 21 + [_I] * 9 + [_P],
     "kq_admit_scan_preempt": [_P] * 28 + [_I] * 11 + [_P],
     "kq_minimal_preemptions": [_P] * 18 + [_I] * 7 + [_P],
@@ -260,27 +260,84 @@ def _cycle_ptrs(*ts):
 
 # -- launchers ---------------------------------------------------------------
 
+FLAT_THREADS = 256       # admit_scan's block: 8 warps, one per forest set
+FLAT_STATIC_SMEM = 256  # its static shared bytes, rounded up
+# shared bytes an admit_scan block may use; a block whose working set
+# needs more takes the global route (0 sends every block there)
+FLAT_SMEM = SMEM_LIMIT
+FLAT_ROUTES: dict[str, torch.Tensor] = {}
+FLAT_ROUTE_NAMES = ("no heads", "shared", "global")
+_SM_COUNT: dict[int, int] = {}
+
+
+def sm_count(dev: torch.device) -> int:
+    """The card's streaming multiprocessors (cached per device)."""
+    i = dev.index if dev.index is not None else torch.cuda.current_device()
+    if i not in _SM_COUNT:
+        _SM_COUNT[i] = torch.cuda.get_device_properties(
+            i).multi_processor_count
+    return _SM_COUNT[i]
+
+
+def flat_smem_ints(n_nodes: int, F: int, heads: int, rd: int,
+                   threads: int = FLAT_THREADS) -> int:
+    """admit_scan's shared working set (kernels/admit_scan.cu) for
+    ``n_nodes`` nodes and ``heads`` heads of ``rd`` decision pairs: per
+    node its index, parent and has-borrow-limit words, per cell usage,
+    guaranteed and cap; 3 + 2 rd ints per head; a column row per warp."""
+    words = -(-F // 32)
+    return (n_nodes * (2 + words + 3 * F) + (3 + 2 * rd) * heads
+            + (threads // 32) * F)
+
+
 def admit_scan(usage0, subtree, guaranteed, borrow_cap, has_blim, parent,
                nominal_cq, npb_cq, wl_cq, dec_fr, dec_amt, fit_mask,
-               res_fr, res_amt, res_mask, res_borrows, order, *, depth):
-    """CUDA admit_scan (kernels/admit_scan.cu) → admitted [W] bool."""
+               res_fr, res_amt, res_mask, res_borrows, order, *, depth,
+               forest_of_node=None, n_forests=None):
+    """CUDA admit_scan (kernels/admit_scan.cu) → admitted [W] bool.
+
+    Cohort forests in parallel: ``forest_of_node`` [N] int32 (every node
+    of a tree the same value in [0, ``n_forests``), as the structure
+    planes give it) names them; without it the kernel names each forest
+    by its root.  A block per forest up to the card's SM count; each
+    block's route (``FLAT_ROUTE_NAMES``) lands in
+    ``FLAT_ROUTES["admit_scan"]``."""
     args = (usage0, subtree, guaranteed, borrow_cap, has_blim, parent,
             nominal_cq, npb_cq, wl_cq, dec_fr, dec_amt, fit_mask,
             res_fr, res_amt, res_mask, res_borrows, order)
     dev, N, F, W, rd, rr = _cycle_checks(*args)
     _check_depth(depth)
+    if forest_of_node is not None:
+        _check("forest_of_node", forest_of_node, torch.int32, (N,), dev)
+        if n_forests is None or n_forests < 1:
+            raise ValueError("forest_of_node needs n_forests >= 1")
+    groups = N if forest_of_node is None else int(n_forests)
+    blocks = max(1, min(groups, sm_count(dev)))
+    threads = FLAT_THREADS
+    cols = (threads // 32) * F
+    if cols > (SMEM_LIMIT - FLAT_STATIC_SMEM) // 4:
+        raise ValueError(f"F={F}: a column row per warp exceeds shared "
+                         f"memory")
+    cap = max(cols, (min(FLAT_SMEM, SMEM_LIMIT) - FLAT_STATIC_SMEM) // 4)
+    need = flat_smem_ints(N, F, W, rd, threads)
+    smem = min(need, cap) * 4
     lib = load()
-    threads = _threads(F)
-    smem = N * F * 4
-    if smem > SMEM_LIMIT:
-        smem = 0
-        scratch = torch.empty((N, F), dtype=torch.int32, device=dev)
-    else:
-        scratch = torch.empty(1, dtype=torch.int32, device=dev)
+    i32 = torch.int32
+    wide = need > cap          # a block may take the global route
+    gusage = torch.empty((N, F) if wide else 1, dtype=i32, device=dev)
+    glist = torch.empty((3 + 2 * rd) * W if wide else 1, dtype=i32,
+                        device=dev)
+    gcount = torch.empty(1, dtype=i32, device=dev) if wide else None
+    gmap = torch.empty(max(N, 1), dtype=i32, device=dev)
     admitted = torch.empty(W, dtype=torch.bool, device=dev)
-    _launch("admit_scan", lib.kq_admit_scan, *_cycle_ptrs(*args),
-            _ptr(scratch), _ptr(admitted), N, F, W, rd, rr, depth, threads,
-            smem)
+    route = torch.empty(blocks, dtype=i32, device=dev)
+    FLAT_ROUTES["admit_scan"] = route
+    tensors = args + (forest_of_node, gmap, gusage, glist, gcount,
+                      admitted, route)
+    ptrs = (ctypes.c_void_p * len(tensors))(
+        *[t.data_ptr() if t is not None else None for t in tensors])
+    dims = (ctypes.c_int * 9)(N, F, W, rd, rr, depth, blocks, threads, smem)
+    _launch("admit_scan", lib.kq_admit_scan, ptrs, dims)
     return admitted
 
 
@@ -409,8 +466,14 @@ def minimal_preemptions_batch(usage0, subtree, guaranteed, borrow_cap,
 
 # -- the fused burst ---------------------------------------------------------
 
-BURST_THREADS = 256
-_BURST_Q_N = 6          # Q_N in burst_cycles.cu: per-CQ ints of a cycle
+BURST_MIN_THREADS = 64  # warp 0 runs the scan, thread 32 the second walk
+_BURST_Q_N = 6          # Q_N in burst_cycles.cu: per-member ints of a cycle
+# shared bytes a burst block may give its forest state (burst_cycles.cu
+# State) beside the candidate sort; past them the state lives in a global
+# [G, state] row (0 forces that route)
+BURST_STATE_SMEM = SMEM_LIMIT
+BURST_STATIC_SMEM = 64  # the kernel's static shared bytes, rounded up
+BURST_ROUTES: dict[str, str] = {}
 _BURST_BOOL = ("vec_ok", "elig0", "parked0", "adm0", "adm_uses0",
                "has_blim", "slot_valid", "cq_can_preempt_borrow",
                "cq_wcb_borrow", "cq_wcp_preempt", "strict_cq", "wcq_lower",
@@ -460,6 +523,27 @@ def burst_node_table(parent, node_level, forest_of_cq, G: int, device):
     table[f, np.arange(len(nodes)) - starts[f]] = nodes
     return (torch.from_numpy(table).to(device),
             torch.from_numpy(count).to(device))
+
+
+def burst_threads(L: int, KC: int) -> int:
+    """burst_cycles' block, sized from the forest: a thread per member
+    and per compare-exchange of the candidate sort (KCP / 2), at least
+    BURST_MIN_THREADS, at most MAX_THREADS (the launch function lowers
+    it to what the kernel's registers allow)."""
+    kcp = 1 << (KC - 1).bit_length()
+    return min(MAX_THREADS, max(BURST_MIN_THREADS,
+                                -(-max(L, kcp // 2) // 32) * 32))
+
+
+def burst_state_ints(NN: int, L: int, F: int, S: int, R: int,
+                     KCW: int) -> int:
+    """The ints of one forest's state (burst_cycles.cu state_ints): four
+    [NN, F] and three [NN] node planes, the [NN, F] borrow-limit bytes,
+    fourteen [L, F] member planes, six [L] and the [L, 6] member facts,
+    the fit slot's [L, R] columns and amounts, the CQs' [L, S, R] slot
+    columns and [L, S] validity, KCW words and KC candidate bytes."""
+    return (4 * NN * F + 3 * NN + 6 * L + L * _BURST_Q_N + 14 * L * F
+            + 2 * L * R + L * S * R + L * S + 9 * KCW + (NN * F + 3) // 4)
 
 
 def burst_cycles(*args, K, depth, L, S, KC, n_levels, G, runtime,
@@ -532,20 +616,25 @@ def burst_cycles(*args, K, depth, L, S, KC, n_levels, G, runtime,
     if dflags is None:
         dflags = torch.zeros((K, 4), dtype=i32, device=dev)
     _check("dflags", dflags, i32, (K, 4), dev)
-
-    def scratch(*shape):
-        return torch.empty(shape, dtype=i32, device=dev)
-
-    scr = [scratch(N, F)] + [scratch(C, F) for _ in range(7)] + [
-        scratch(C, _BURST_Q_N), scratch(G, L), scratch(G, L),
-        scratch(G, KCW), scratch(G, 2, L, F)]
+    NN = fnodes.shape[1]
+    threads = burst_threads(L, KC)
+    state = burst_state_ints(NN, L, F, S, R, KCW)
+    sort_bytes = kcp * 12 + 2 * KCW * 4
+    shared = (state * 4 <= BURST_STATE_SMEM
+              and sort_bytes + state * 4 <= SMEM_LIMIT - BURST_STATIC_SMEM)
+    BURST_ROUTES["burst_cycles"] = "shared" if shared else "global"
+    smem = sort_bytes + (state * 4 if shared else 0)
+    gmap = torch.empty(N, dtype=i32, device=dev)
+    gstate = None if shared else torch.empty((G, state), dtype=i32,
+                                             device=dev)
     tensors = ([a[n] for n in _BURST_INPUTS] + [fnodes, fcount] + carry
-               + [head_row, kind, slot, borrows, tgt_words, dflags] + scr)
+               + [head_row, kind, slot, borrows, tgt_words, dflags, gmap,
+                  gstate])
     ptrs = (ctypes.c_void_p * len(tensors))(
-        *[t.data_ptr() for t in tensors])
-    dims = (ctypes.c_int * 16)(
-        C, M, R, N, F, S, L, KC, K, G, depth, n_levels, fnodes.shape[1],
-        max(0, runtime), int(a["seq_base"]), BURST_THREADS)
+        *[t.data_ptr() if t is not None else None for t in tensors])
+    dims = (ctypes.c_int * 18)(
+        C, M, R, N, F, S, L, KC, K, G, depth, n_levels, NN,
+        max(0, runtime), int(a["seq_base"]), threads, state, smem)
     _launch("burst_cycles", lib.kq_burst_cycles, ptrs, dims)
     flags = (dflags,) if dflags_out else dirty_flags(dflags)
     return (head_row, kind, slot, borrows, tgt_words) + flags + (

@@ -269,9 +269,11 @@ def _admit_entry_(usage, wi, valid, *, subtree, guaranteed, borrow_cap,
 def admit_scan_plain(usage0, subtree, guaranteed, borrow_cap, has_blim,
                      parent, nominal_cq, npb_cq, wl_cq, dec_fr, dec_amt,
                      fit_mask, res_fr, res_amt, res_mask, res_borrows,
-                     order, *, depth: int) -> torch.Tensor:
+                     order, *, depth: int, forest_of_node=None,
+                     n_forests=None) -> torch.Tensor:
     """The sequential admit loop over ``order`` → admitted [W] bool (head
-    order)."""
+    order).  ``forest_of_node`` / ``n_forests`` only place the CUDA
+    kernel's blocks; the loop ignores them."""
     usage = usage0.clone()
     wl_cq_l = wl_cq.tolist()
     admitted = torch.zeros(wl_cq.shape[0], dtype=torch.bool,
@@ -416,11 +418,14 @@ def _route(t: torch.Tensor) -> bool:
     raise ValueError(f"no admit-scan kernel for device {t.device}")
 
 
-def admit_scan(*args, depth: int) -> torch.Tensor:
+def admit_scan(*args, depth: int, forest_of_node=None,
+               n_forests=None) -> torch.Tensor:
     """admitted [W] bool; args as ``admit_scan_plain``."""
     if _route(args[0]):
         from .. import kernels
-        return kernels.admit_scan(*args, depth=depth)
+        return kernels.admit_scan(*args, depth=depth,
+                                  forest_of_node=forest_of_node,
+                                  n_forests=n_forests)
     return admit_scan_plain(*args, depth=depth)
 
 

@@ -788,7 +788,10 @@ class CycleSolver:
                     depth=st.depth, n_forests=st.n_forests,
                     max_forest_wl=mfw)
             else:
-                handle.pending = admit_scan(*args, t_order, depth=st.depth)
+                handle.pending = admit_scan(
+                    *args, t_order, depth=st.depth,
+                    forest_of_node=statics["forest_of_node"],
+                    n_forests=st.n_forests)
         return handle
 
     def _dispatch_sharded(self, handle, st, has_preempt, mfw, order,

@@ -109,12 +109,14 @@ def admit_cycle(rng: np.random.Generator, *, n_cqs: int = 6,
                 n_cohorts: int = 3, depth: int = 3, F: int = 2, W: int = 16,
                 R: int = 2, n_valid: int | None = None,
                 reserve: bool = True, chain: bool = False,
-                roots: int = 0) -> dict:
+                roots: int = 0, per: int = 0) -> dict:
     """Inputs of admit_scan / admit_scan_forests (with ``forest_of_node``,
     ``n_forests`` and ``max_forest_wl``), as numpy arrays; ``depth`` is
-    the static depth argument (``chain`` and ``roots`` as ``forest``)."""
+    the static depth argument (``chain``, ``roots`` and ``per`` as
+    ``forest``)."""
     parent, forest_of, n_forests, true_depth = forest(rng, n_cqs, n_cohorts,
-                                                      depth, chain, roots)
+                                                      depth, chain, roots,
+                                                      per)
     N = n_cqs + n_cohorts
     q = quota_planes(rng, N, F)
     nominal = rng.integers(0, 30, (n_cqs, F)).astype(np.int32)
@@ -323,6 +325,48 @@ def kernel_cases(seed: int = 0):
             depth=c["depth"])
 
 
+# the flat scan's forest layouts: (label, admit_cycle keyword arguments)
+FLAT_CASES = [
+    # cohorts of five, their heads interleaved in the cycle order
+    ("interleaved", dict(n_cqs=60, n_cohorts=12, depth=2, F=3, W=64, R=2,
+                         per=5)),
+    ("padding", dict(n_cqs=20, n_cohorts=4, depth=3, F=2, W=48, R=2,
+                     n_valid=30)),
+    ("reserve", dict(n_cqs=12, n_cohorts=3, depth=2, F=2, W=40, R=2,
+                     per=4)),
+    ("one_forest", dict(n_cqs=40, n_cohorts=6, depth=3, F=3, W=64, R=2,
+                        roots=1)),
+    ("depth_17", dict(n_cqs=6, n_cohorts=16, depth=2, F=3, W=24, R=2,
+                      chain=True)),
+    ("F_65", dict(n_cqs=8, n_cohorts=3, depth=3, F=65, W=16, R=5)),
+]
+# one forest whose working set is past a block's shared memory (card)
+FLAT_CARD_CASES = [
+    ("over_smem", dict(n_cqs=18000, n_cohorts=200, depth=3, F=3, W=64,
+                       R=2, roots=1)),
+]
+
+
+def flat_scan_cases(seed: int = 0, card: bool = False):
+    """Yield (label, admit_scan's numpy arrays, keyword arguments,
+    (forest_of_node, n_forests)) over ``FLAT_CASES`` (and with ``card``
+    ``FLAT_CARD_CASES``): the layouts the forest-parallel flat scan
+    groups its heads by.  "reserve" makes every head without a fit a
+    reserve head; "padding" leaves 18 of 48 heads without a CQ."""
+    rng = np.random.default_rng(seed)
+    for label, kw in FLAT_CASES + (FLAT_CARD_CASES if card else []):
+        c = admit_cycle(rng, **kw)
+        if label == "reserve":
+            valid = c["wl_cq"] >= 0
+            c["res_mask"] = ~c["fit_mask"] & valid
+            F = c["usage0"].shape[1]
+            c["res_fr"], c["res_amt"] = _pairs(rng, len(valid), kw["R"], F,
+                                               c["res_mask"])
+            c["res_borrows"] = (rng.random(len(valid)) < 0.5) & c["res_mask"]
+        yield (label, admit_args(c), dict(depth=c["depth"]),
+               (c["forest_of_node"], c["n_forests"]))
+
+
 # ----------------------------------------------------------------------
 # The fused burst (ops/burst.py burst_cycles)
 # ----------------------------------------------------------------------
@@ -482,6 +526,13 @@ def burst_cases(seed: int = 0):
         yield label, args, size
     args, size = burst_probe_args(10, 16, 1, 8)
     yield "probe", args, size
+
+
+def burst_one_forest(seed: int = 0, C: int = 40, M: int = 16, K: int = 8):
+    """A burst window whose C CQs all sit under one cohort: one forest,
+    the worst case for a block per forest."""
+    return burst_synthetic(np.random.default_rng(seed), C=C, per=C, M=M,
+                           K=K)
 
 
 def shape_cases(seed: int = 0, card: bool = False):

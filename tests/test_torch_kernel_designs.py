@@ -485,3 +485,253 @@ def test_fs_rank_order_interleaves_forests():
     forest = c["forest_of_node"][c["wl_cq"][order]].tolist()
     starts = [f for k, f in enumerate(forest) if k == 0 or forest[k - 1] != f]
     assert len(starts) > len(set(starts)), forest
+
+
+# -- the flat admit_scan (kernels/admit_scan.cu) ------------------------------
+
+from kueue_tpu.ops import cycle as jcycle   # noqa: E402
+
+FLAT_WARPS = 8                # FLAT_THREADS / 32
+FLAT_GRIDS = (1, 3, 132)      # one block, forests sharing blocks, the card
+
+
+def flat_forest_ids(c, tables: bool) -> np.ndarray:
+    """flat_forests: forest_of_node (clamped at 0), or each node's root."""
+    if tables:
+        return np.maximum(c["forest_of_node"], 0)
+    parent = c["parent"]
+    out = np.arange(len(parent))
+    for n in range(len(parent)):
+        while parent[out[n]] >= 0:
+            out[n] = parent[out[n]]
+    return out
+
+
+def emu_flat_admit_scan(c, depth: int, tables: bool, B: int, rng):
+    """Block b = fid % B stages its nodes in any order (the atomic
+    counter's) as local rows — usage, guaranteed, subtree at roots or
+    borrow cap below, has-borrow-limit bits in 32-bit words — and lists
+    its heads in cycle order; warp (fid // B) % 8 decides its entries;
+    the warps of all blocks interleave at random.  An entry: each pair
+    checked against available() on the local rows, the vote, the charge
+    summed per column and walked up the chain for each nonzero column."""
+    N, F = c["usage0"].shape
+    W = len(c["wl_cq"])
+    fid = flat_forest_ids(c, tables)
+    words = -(-F // 32)
+    admitted = np.zeros(W, dtype=bool)
+    queues = []
+    for b in range(B):
+        nodes = rng.permutation(np.nonzero(fid % B == b)[0])
+        local = {int(n): i for i, n in enumerate(nodes)}
+        par = np.array([local[int(c["parent"][n])] if c["parent"][n] >= 0
+                        else -1 for n in nodes], dtype=np.int64)
+        cap = np.where((c["parent"][nodes] < 0)[:, None],
+                       c["subtree"][nodes], c["borrow_cap"][nodes])
+        bits = np.zeros((len(nodes), words), dtype=np.int64)
+        for f in range(F):
+            bits[:, f // 32] |= c["has_blim"][nodes, f].astype(np.int64) \
+                << (f % 32)
+        rows = dict(parent=par, subtree=cap, borrow_cap=cap,
+                    guaranteed=c["guaranteed"][nodes],
+                    has_blim=np.array([[(bits[i, f // 32] >> (f % 32)) & 1
+                                        for f in range(F)]
+                                       for i in range(len(nodes))],
+                                      dtype=bool).reshape(len(nodes), F))
+        usage = c["usage0"][nodes].astype(np.int64)
+        lists = [[] for _ in range(FLAT_WARPS)]
+        for wi in c["order"]:
+            cq = int(c["wl_cq"][wi])
+            if cq >= 0 and fid[cq] % B == b:
+                lists[(fid[cq] // B) % FLAT_WARPS].append((int(wi),
+                                                            local[cq]))
+        queues += [(rows, usage, q) for q in lists if q]
+    while queues:
+        k = int(rng.integers(len(queues)))
+        rows, usage, q = queues[k]
+        wi, node = q.pop(0)
+        if not q:
+            queues.pop(k)
+        ok = True
+        if c["fit_mask"][wi]:
+            for fr, amt in zip(c["dec_fr"][wi], c["dec_amt"][wi]):
+                if 0 <= fr < F and amt > available(rows, usage, node, fr,
+                                                   depth):
+                    ok = False
+        admit = bool(c["fit_mask"][wi]) and ok
+        if admit or c["res_mask"][wi]:
+            col = [0] * F
+            if admit:
+                for fr, amt in zip(c["dec_fr"][wi], c["dec_amt"][wi]):
+                    if 0 <= fr < F:
+                        col[fr] = w32(col[fr] + int(amt))
+            if c["res_mask"][wi]:
+                cq = int(c["wl_cq"][wi])
+                for fr, amt in zip(c["res_fr"][wi], c["res_amt"][wi]):
+                    if not 0 <= fr < F:
+                        continue
+                    cur = int(usage[node, fr])
+                    if c["res_borrows"][wi]:
+                        d = min(int(amt), w32(int(c["npb_cq"][cq, fr]) - cur))
+                    else:
+                        d = max(0, min(int(amt), w32(
+                            int(c["nominal_cq"][cq, fr]) - cur)))
+                    col[fr] = w32(col[fr] + d)
+            for f in range(F):
+                if col[f] != 0:
+                    add_usage(rows, usage, node, col[f], f, depth)
+        admitted[wi] = admit
+    return admitted
+
+
+@pytest.mark.parametrize("tables", [False, True])
+@pytest.mark.parametrize("case", [label for label, _ in tt.FLAT_CASES])
+def test_flat_scan_forest_warps_match_jax(case, tables):
+    """The flat scan decided forest by forest — heads grouped stably with
+    no cap, each forest's entries on one warp, forests named by the
+    tables or by their roots, one to 132 blocks — gives the JAX scan's
+    admitted."""
+    label, args, kw, _ = next(x for x in tt.flat_scan_cases(0)
+                              if x[0] == case)
+    c = dict(zip(tt.ADMIT_ARGS + ("order",), args))
+    c["forest_of_node"] = next(x for x in tt.flat_scan_cases(0)
+                               if x[0] == case)[3][0]
+    want = np.asarray(jcycle.admit_scan(*[jnp.asarray(a) for a in args],
+                                        **kw))
+    rng = np.random.default_rng(1)
+    for B in FLAT_GRIDS:
+        got = emu_flat_admit_scan(c, kw["depth"], tables, B, rng)
+        assert np.array_equal(got, want), (case, tables, B)
+    if case == "padding":
+        assert (c["wl_cq"] < 0).sum() == 18 and not want[c["wl_cq"] < 0].any()
+    if case == "reserve":
+        assert c["res_mask"].sum() > 0
+    if case == "one_forest":
+        assert len(set(flat_forest_ids(c, False).tolist())) == 1
+    if case == "interleaved":
+        fo = flat_forest_ids(c, False)[np.maximum(c["wl_cq"], 0)][c["order"]]
+        assert (np.diff(fo) != 0).sum() > 12
+
+
+# -- burst_cycles' chain-only update and rank order (burst_cycles.cu) -------
+
+def jax_rebuild(u_cq, parent, level, guaranteed, n_levels):
+    """burst.py rebuild_usage, line for line in jnp."""
+    N, F = guaranteed.shape
+    C = u_cq.shape[0]
+    usage = jnp.zeros((N, F), dtype=jnp.int32).at[:C].set(u_cq)
+    parent_safe = jnp.maximum(parent, 0)
+    for lvl in range(n_levels - 1, 0, -1):
+        is_l = (level == lvl) & (parent >= 0)
+        contrib = jnp.where(is_l[:, None],
+                            jnp.maximum(0, usage - guaranteed), 0)
+        usage = usage.at[parent_safe].add(contrib)
+    return np.asarray(usage)
+
+
+def retarget(nu, p, f, was, now, parent, guaranteed):
+    """burst_cycles.cu retarget: the CQ node moves by now - was, each
+    ancestor by the change of its child's term max(0, usage -
+    guaranteed), until a term stays the same (wrapping int32)."""
+    if was == now:
+        return
+    before = int(nu[p, f])
+    after = w32(before + now - was)
+    nu[p, f] = after
+    up = parent[p]
+    while up >= 0:
+        g = int(guaranteed[p, f])
+        t0, t1 = max(0, w32(before - g)), max(0, w32(after - g))
+        if t0 == t1:
+            break
+        before = int(nu[up, f])
+        after = w32(before + t1 - t0)
+        nu[up, f] = after
+        p, up = up, parent[up]
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_chain_rebuild_matches_jax_rebuild(seed):
+    """Entry after entry, updating only the ancestors of the changed CQ
+    rows (the kernel's retarget, row after row, column by column) leaves
+    the plane the JAX rebuild gives, bit for bit, on random trees whose
+    sums wrap int32."""
+    rng = np.random.default_rng(seed)
+    parent, _, _, depth = tt.forest(rng, 24, 8, 4)
+    level = np.zeros(len(parent), dtype=np.int32)
+    for n in range(len(parent)):
+        p = parent[n]
+        while p >= 0:
+            level[n] += 1
+            p = parent[p]
+    n_levels = int(level.max()) + 1
+    C, F = 24, 3
+    big = 2**31 - 1
+    guaranteed = rng.integers(-2**30, 2**30, (len(parent), F)).astype(
+        np.int32)
+    rows = rng.integers(-big, big, (C, F)).astype(np.int32)
+    nu = jax_rebuild(rows, parent, level, guaranteed, n_levels).astype(
+        np.int64)
+    wrapped = False
+    for _ in range(30):
+        changed = rng.choice(C, int(rng.integers(1, 4)), replace=False)
+        was = rows[changed].copy()
+        rows[changed] = rng.integers(-big, big, (len(changed), F))
+        for m, old in zip(changed, was):
+            for f in range(F):
+                retarget(nu, m, f, int(old[f]), int(rows[m, f]), parent,
+                         guaranteed)
+        want = jax_rebuild(rows, parent, level, guaranteed, n_levels)
+        assert np.array_equal(nu, want)
+        over = np.maximum(0, rows.astype(np.int64) - guaranteed[:C])
+        wrapped |= bool((np.abs(over.sum(0)) > big).any())
+    assert wrapped and n_levels >= 3
+
+
+def insertion_order(keys):
+    """burst_cycles' former order(): thread 0's insertion sort, entries
+    with the INF key left out, ties after their equals."""
+    mat, key = [], []
+    for l, kv in enumerate(keys):
+        if kv == I32_MAX:
+            continue
+        i = len(key)
+        key.append(kv)
+        mat.append(l)
+        while i > 0 and key[i - 1] > kv:
+            key[i], mat[i] = key[i - 1], mat[i - 1]
+            i -= 1
+        key[i], mat[i] = kv, l
+    return mat + [-1] * (len(keys) - len(mat))
+
+
+def rank_order(keys):
+    """order(): each entry's place is the count of entries with a smaller
+    key or an equal key at a lower member position."""
+    mat = [-1] * len(keys)
+    for l, kv in enumerate(keys):
+        if kv != I32_MAX:
+            mat[sum(1 for m, km in enumerate(keys)
+                    if km < kv or (km == kv and m < l))] = l
+    return mat
+
+
+@pytest.mark.parametrize("L", [1, 5, 40, 300])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_rank_order_matches_insertion_sort(seed, L):
+    """The rank by comparisons equals the insertion sort and the JAX
+    program's stable argsort of the member keys (INF last, cut to -1),
+    with ties."""
+    rng = np.random.default_rng(seed)
+    keys = rng.integers(0, max(2, L // 3), L).astype(np.int64)
+    keys[rng.random(L) < 0.2] = I32_MAX
+    keys[rng.random(L) < 0.1] += 1 << 30                 # borrowing heads
+    keys = np.minimum(keys, I32_MAX).tolist()
+    got = rank_order(keys)
+    assert got == insertion_order(keys)
+    kj = jnp.asarray(np.array(keys, dtype=np.int32))
+    ordj = np.asarray(jnp.argsort(kj))
+    want = [int(l) if keys[int(l)] < I32_MAX else -1 for l in ordj]
+    assert got == want
+    assert L < 5 or len(set(k for k in keys if k < I32_MAX)) < sum(
+        1 for k in keys if k < I32_MAX)

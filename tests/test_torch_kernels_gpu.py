@@ -1,7 +1,8 @@
 """Each CUDA kernel of kueue_tpu_torch against its plain PyTorch version
 on the same seeded inputs (kueue_tpu_torch.testing.kernel_cases,
-burst_cases, fs_cases, tas_cases, solve_cycle_cases, shape_cases,
-scatter_case, dflags_blocks, gather_case and merge_case), the
+burst_cases, burst_one_forest, flat_scan_cases, fs_cases, tas_cases,
+solve_cycle_cases, shape_cases, scatter_case, dflags_blocks,
+gather_case and merge_case; the two-route kernels on both routes), the
 forest-sharded burst on a virtual mesh of the card against the serial
 burst, and the per-cycle mesh route on a virtual mesh of the card
 against the unsharded plain versions: exact equality, as
@@ -595,3 +596,64 @@ def test_cuda_gather_by_source_map_matches_plain(W, S, dtypes):
     assert kernels.LAUNCHES["kq_gather_heads"] == before + 1
     for x, y in zip(want, got):
         assert y.dtype == x.dtype and torch.equal(y.cpu(), x)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", ["shared", "global"])
+@pytest.mark.parametrize("tables", [False, True])
+def test_cuda_flat_scan_routes_match_plain(route, tables, monkeypatch):
+    """The forest-parallel admit_scan on both routes (the working set in
+    shared memory, or with no shared memory allowed in global memory),
+    with the caller's forest tables and with forests named by their
+    roots, over the flat scan's layouts (tt.flat_scan_cases: interleaved
+    forests, padding, reserve heads, one forest of every CQ, depth 17,
+    F = 65, one forest past a block's shared memory) against
+    admit_scan_plain; each block with heads reports its route."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernels have no CPU mode")
+    from kueue_tpu_torch import kernels
+    if route == "global":
+        monkeypatch.setattr(kernels, "FLAT_SMEM", 0)
+    for label, args, kw, (fon, nf) in tt.flat_scan_cases(0, card=True):
+        want = cycle.admit_scan_plain(*[torch.from_numpy(a) for a in args],
+                                      **kw)
+        extra = (dict(forest_of_node=torch.from_numpy(fon).cuda(),
+                      n_forests=nf) if tables else {})
+        before = kernels.LAUNCHES["admit_scan"]
+        got = kernels.admit_scan(*[torch.from_numpy(a).cuda() for a in args],
+                                 **kw, **extra)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["admit_scan"] == before + 1, label
+        assert got.dtype == want.dtype and torch.equal(got.cpu(), want), \
+            (label, route, tables)
+        routes = kernels.FLAT_ROUTES["admit_scan"].cpu()
+        taken = {kernels.FLAT_ROUTE_NAMES[r] for r in routes.tolist() if r}
+        expect = "global" if route == "global" or label == "over_smem" \
+            else "shared"
+        assert taken == {expect}, (label, taken)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", ["shared", "global"])
+def test_cuda_burst_routes_match_plain(route, monkeypatch):
+    """burst_cycles with its forest state in shared memory and, with none
+    allowed, in its global rows, over the burst sweep and one forest of
+    every CQ (tt.burst_one_forest), against burst_cycles_plain."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernels have no CPU mode")
+    from kueue_tpu_torch import kernels
+    if route == "global":
+        monkeypatch.setattr(kernels, "BURST_STATE_SMEM", 0)
+    cases = list(tt.burst_cases(0)) + [("one_forest",
+                                        *tt.burst_one_forest(0))]
+    for label, args, kw in cases:
+        cpu = [torch.from_numpy(np.ascontiguousarray(a))
+               if isinstance(a, np.ndarray) else int(a) for a in args]
+        plain = burst.burst_cycles_plain(*cpu, **kw)
+        cuda = burst.burst_cycles(*[a.cuda() if isinstance(a, torch.Tensor)
+                                    else a for a in cpu], **kw)
+        torch.cuda.synchronize()
+        assert kernels.BURST_ROUTES["burst_cycles"] == route, label
+        for i, (p, c) in enumerate(zip(_flat(plain), _flat(cuda))):
+            assert c.dtype == p.dtype and c.shape == p.shape, (label, i)
+            assert torch.equal(c.cpu(), p), (label, i)
