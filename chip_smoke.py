@@ -16,7 +16,9 @@ under ``KUEUE_TPU_SHARDS``, the per-cycle mesh:
 2. build: nvcc of every kernel source (in parallel) into one library;
 3. kernels: each CUDA kernel against its plain version on the CPU over a
    seeded sweep (kueue_tpu_torch.testing.kernel_cases, burst_cases and
-   fs_cases) and over the inputs captured from the first calls of phases
+   fs_cases; admit_scan_preempt with the forest tables joined where a
+   target lies in another forest, testing.preempt_tables) and over the
+   inputs captured from the first calls of phases
    4, 5, 7, 8, 9 and 9b (for the burst also up to two windows with a
    preempting head) —
    exact equality (tolerance 0: every output is bool or int32, the
@@ -87,9 +89,13 @@ under ``KUEUE_TPU_SHARDS``, the per-cycle mesh:
    global scratch) — each equal to its plain version; admit_scan over
    the flat scan's forest layouts (testing.flat_scan_cases: interleaved
    forests, padding, reserve heads, one forest, depth 17, F = 65, one
-   forest past a block's shared memory) with and without the forest
-   tables, and burst_cycles on a window and on one forest of every CQ,
-   each with shared memory and with none allowed — both routes of both
+   forest past a block's shared memory, F = 1,025, F = 7,257 whose
+   warps' column rows only global memory holds) with and without the
+   forest tables, admit_scan_preempt over its forest layouts
+   (testing.preempt_route_cases: cohorts of five, nested forests, depth
+   17, F = 12, one forest, the cross-forest case under joined tables),
+   and burst_cycles on a window and on one forest of every CQ, each with
+   shared memory and with none allowed — both routes of the three
    kernels taken and counted per call; then admit_scan over 1,000 heads
    timed on a cohort chain 17 levels deep beside the same heads on a
    chain of 2;
@@ -145,7 +151,13 @@ under ``KUEUE_TPU_SHARDS``, the per-cycle mesh:
    kernel's own duration and the start-to-start period).
 
 Launch counts are zeroed just before phases 4, 5, 7, 8, 9, 9b, 11, 13,
-14, 15, 15b, 15c, 16, 16b, 16c and 16d and read just after each.  A
+14, 15, 15b, 15c, 16, 16b, 16c and 16d and read just after each.  The
+scenarios collect as the reference scripts do (builds frozen, drains
+with collection off): the measured north-star phases 5, 8, 9, 15, 15c,
+16b and 16c and tas-4k's phase 11 must see no full collection
+(``GCWatch``), and
+``scenarios.release()`` frees each phase's driver graph before the next
+phase builds.  A
 launch records no CUDA event: the device time of phases 4, 5, 7, 8, 9,
 11, 13, 15, 15c, 16, 16b and 16c (per kernel, the rest, the busy union
 and its share of the wall) comes from torch.profiler's CUDA activity
@@ -234,7 +246,8 @@ MESH_KERNELS = ("kq_gather_heads", "kq_fs_merge_order")
 MESH_SCANS = ("admit_scan", "admit_scan_forests", "admit_scan_preempt",
               "fs_admit_scan")
 MESH_SHARDS = {"bench": 4, "northstar": 8, "fs": 4, "dryrun": 8}
-ROUTED = ("admit_scan", "burst_cycles")   # kernels with two routes
+ROUTED = ("admit_scan", "burst_cycles",   # kernels with two routes
+          "admit_scan_preempt")
 
 
 def log(msg: str) -> None:
@@ -292,7 +305,9 @@ class Capture:
 class GCWatch:
     """Full (generation-2) garbage collections of the host's Python
     while a phase runs: how many, their seconds, the longest — a pause
-    lands inside whichever cycle triggered it."""
+    lands inside whichever cycle triggered it.  Entered inside the
+    phase's ``DeviceClock``, so the profiler's own reading is not
+    counted."""
 
     def __enter__(self):
         self.n, self.seconds, self.longest, self._t0 = 0, 0.0, 0.0, 0.0
@@ -440,7 +455,8 @@ def plain_kw(kw):
 
 
 def cuda_kw(kw):
-    return {k: v for k, v in kw.items() if k != "device"}
+    # without the caller's error word admit_scan_preempt reads its own
+    return {k: v for k, v in kw.items() if k not in ("device", "error")}
 
 
 def compare(name, args, kw, stats) -> None:
@@ -472,8 +488,9 @@ def compare(name, args, kw, stats) -> None:
 def tally_route(name, stats) -> None:
     """The route the last launch of ``name`` took, counted per call in
     ``stats[name]["routes"]``: burst_cycles' forest state in shared
-    memory or global rows; admit_scan's blocks with heads all on the
-    shared-memory route, all on the global route, or both."""
+    memory or global rows; the blocks with heads of admit_scan and
+    admit_scan_preempt all on the shared-memory route, all on the global
+    route, or both."""
     from kueue_tpu_torch import kernels
     if name == "burst_cycles":
         route = kernels.BURST_ROUTES[name]
@@ -603,17 +620,20 @@ def fs_dependent_steps(args, kw) -> int:
 
 def op_count(name, args, kw) -> int:
     """int32 operations the call's data needs: ~12 per column per chain
-    step of each entry that runs (admit scans: valid heads; preempt:
-    plus the target removals and the check-plane copy; search: valid
-    searches x real candidates x the forward and reverse steps)."""
+    step of each entry that runs (admit scans: valid heads' fit and
+    charge walks; preempt: plus each preempting head's fit after removal
+    and one removal walk per target it names; search: valid searches x
+    real candidates x the forward and reverse steps)."""
     if name in TAS_KERNELS:
         return tas_op_count(name, args, kw)
     if name in ("kq_scatter_rows", "kq_gather_heads"):
         return 0                      # a copy: no arithmetic
     if name == "kq_fs_merge_order":
-        # per round a comparison per shard and ~8 for the emit and the
-        # cursor step
-        return args[2] * (len(args[1]) + 8)
+        # per head ~8 for its mark, suffix minimum and key, per emission
+        # a binary search in each other shard's keys (~4 a step)
+        n = [int(h.shape[0]) for h in args[1]]
+        steps = max(n, default=0).bit_length()
+        return sum(n) * (8 + 4 * (len(n) - 1) * steps)
     if name == "kq_reduce_dflags":
         return args[0].numel()                     # one add per input
     if name in PHASE1:
@@ -642,9 +662,10 @@ def op_count(name, args, kw) -> int:
     heads = int((args[8] >= 0).sum())
     ops = heads * 2 * depth * F * 12
     if name == "admit_scan_preempt":
-        pre = int(args[16].sum())
-        mt = args[19].shape[1]
-        ops += pre * (N * F + mt * depth * F * 12)
+        valid = args[8] >= 0
+        pre = args[16] & valid
+        targets = int(((args[19] >= 0) & pre[:, None]).sum())
+        ops += (int(pre.sum()) + targets) * depth * F * 12
     return int(ops)
 
 
@@ -792,11 +813,17 @@ def time_kernel(name, args, kw, reps: int = 50) -> dict:
     import torch
     fn = cuda_fns()[name]
     kw_c = cuda_kw(kw)
+    if name == "admit_scan_preempt":
+        # an error word of the timing's own: no read-back per launch
+        kw_c["error"] = torch.zeros(1, dtype=torch.int32,
+                                    device=args[0].device)
     outs = as_tuple(fn(*args, **kw_c))
 
     def wrapper():
         return fn(*args, **kw_c)
     ms = event_ms(wrapper, reps)
+    if name == "admit_scan_preempt":
+        check(int(kw_c["error"].item()) == 0, f"{name}: error word set")
     bare_ms = (None if name == "burst_cycles"
                else event_ms(bare_launch(name, args, kw), reps))
     prof = profiled_period(wrapper, reps, name)
@@ -1089,6 +1116,11 @@ def main() -> int:
     for seed in (0, 1):
         for name, arrays, kw in testing.kernel_cases(seed):
             args = [torch.from_numpy(a).cuda() for a in arrays]
+            if name == "admit_scan_preempt":
+                # the sweep's targets may lie in other forests
+                fon, nf = testing.preempt_tables(arrays)
+                kw = dict(kw, forest_of_node=torch.from_numpy(fon).cuda(),
+                          n_forests=nf)
             compare(name, args, kw, stats)
         for _, arrays, kw in testing.burst_cases(seed):
             args = [torch.from_numpy(a).cuda() if isinstance(a, np.ndarray)
@@ -1133,6 +1165,7 @@ def main() -> int:
               "minimal_preemptions_batch"):
         check(launches4[k] > 0, (k, launches4))
     del d, waves
+    scenarios.release()
 
     # -- 5. the north-star shape, per cycle ---------------------------------
     cap.phase = "northstar"
@@ -1142,7 +1175,7 @@ def main() -> int:
     d.scheduler.solver.warmup(d.cache.snapshot(), NORTHSTAR["n_cqs"])
     build_s = time.perf_counter() - t0
     kernels.reset_counts()
-    with DeviceClock() as dc5:
+    with DeviceClock() as dc5, GCWatch() as gc5:
         r5 = scenarios.run_northstar(d, clock, wave,
                                      cycles=NORTHSTAR["cycles"])
     launches5 = dict(kernels.LAUNCHES)
@@ -1152,12 +1185,14 @@ def main() -> int:
         f"{scenarios.percentile(r5['cycle_times'], 0.5) * 1e3:.3f}ms p99 "
         f"{scenarios.percentile(r5['cycle_times'], 0.99) * 1e3:.3f}ms, "
         f"admitted {r5['admitted']}, preempted {r5['preempted']}; "
-        f"launches {json.dumps(launches5)}; "
+        f"{gc5.line()}; launches {json.dumps(launches5)}; "
         f"{device_line('5', dc5, r5['wall'], launches5)}")
     digest5 = scenarios.decision_digest(d, r5["decisions"])
     log(f"[5 northstar] digest {digest5}")
     check(launches5["admit_scan_forests"] > 0, launches5)
+    check(gc5.n == 0, f"phase 5: {gc5.line()}")
     del d
+    scenarios.release()
     cap.uninstall()
 
     # -- 3b. kernels against their plain versions: captured planes ----------
@@ -1178,6 +1213,8 @@ def main() -> int:
         log(f"[6 parity] {dev}: {r6['finished']}/{total} drained, "
             f"{r6['preempted']} preempted, digest {digests[dev]}")
         check(r6["finished"] == total, f"{dev}: not drained")
+        del d
+        scenarios.release()
     check(digests["cuda"] == digests["cpu"], digests)
     digest6 = digests["cuda"]
 
@@ -1205,6 +1242,7 @@ def main() -> int:
     check(launches7["burst_cycles"] > 0, launches7)
     check(d._burst_solver.stats["burst_cycles_decided"] > 0, "no burst")
     del d, waves
+    scenarios.release()
     cap.uninstall()
 
     # -- 7b. the burst on the card against the CPU --------------------------
@@ -1219,6 +1257,8 @@ def main() -> int:
             f"{d._burst_solver.stats['burst_cycles_decided']} cycles "
             f"decided in bursts, digest {digests[dev]}")
         check(r["finished"] == total, f"{dev}: not drained")
+        del d
+        scenarios.release()
     check(digests["cuda"] == digests["cpu"], digests)
 
     # -- 8. the north-star shape through the fused burst ---------------------
@@ -1231,7 +1271,7 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     gc.collect()      # phases 8 and 15 start from a collected heap
     kernels.reset_counts()
-    with GCWatch() as gc8, DeviceClock() as dc8:
+    with DeviceClock() as dc8, GCWatch() as gc8:
         r8 = scenarios.northstar_burst(d, clock, wave,
                                        cycles=NORTHSTAR["cycles"])
     launches8 = dict(kernels.LAUNCHES)
@@ -1248,7 +1288,9 @@ def main() -> int:
     check(r8["cycles"] == NORTHSTAR["cycles"], r8["cycles"])
     check(launches8["burst_cycles"] > 0, launches8)
     check(r8["preempted"] > 0, "no preemption in the north-star wave")
+    check(gc8.n == 0, f"phase 8: {gc8.line()}")
     del d
+    scenarios.release()
     cap.uninstall()
 
     # -- 3c. the burst kernel on the windows captured in phases 7 and 8 ------
@@ -1277,8 +1319,9 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     kernels.reset_counts()
     with DeviceClock() as dc9:
-        r9 = scenarios.run_northstar_fs(d, clock,
-                                        cycles=NORTHSTAR["cycles"])
+        with GCWatch() as gc9:
+            r9 = scenarios.run_northstar_fs(d, clock,
+                                            cycles=NORTHSTAR["cycles"])
         snapshot = d.cache.snapshot()
         t_drs = time.perf_counter()
         drs = compute_all_drs(snapshot, device="cuda")
@@ -1295,10 +1338,11 @@ def main() -> int:
         f"fs_full_cycles {ss['fs_full_cycles']}, fs_noop_skips "
         f"{ss['fs_noop_skips']}, fs_noop_reuses {ss['fs_noop_reuses']}, "
         f"classify_cycles {ss['classify_cycles']}, host_cycles "
-        f"{ss['host_cycles']}; digest {digest9}; launches "
+        f"{ss['host_cycles']}; digest {digest9}; {gc9.line()}; launches "
         f"{json.dumps(launches9)}; "
         f"{device_line('9', dc9, r9['wall'], launches9)}")
     check(launches9["fs_admit_scan"] > 0, launches9)
+    check(gc9.n == 0, f"phase 9: {gc9.line()}")
     check(ss["fs_full_cycles"] > 0, ss)
     check(r9["admitted"] > 0, "nothing admitted")
     host = host_drs(snapshot)
@@ -1308,6 +1352,7 @@ def main() -> int:
     check(drs == host, "compute_all_drs differs from the host DRS")
     check(launches9["drs_components"] > 0, launches9)
     del d, snapshot
+    scenarios.release()
 
     # -- 9b. compute_all_drs on a cluster that borrows ----------------------
     # (the north-star CQs fill their cohort's quota and never borrow)
@@ -1346,6 +1391,7 @@ def main() -> int:
     check(digest10 == digest9, {"cuda": digest9, "cpu": digest10})
     check(kernels.LAUNCHES == before, "the CPU run launched a kernel")
     del d
+    scenarios.release()
 
     # -- 3d. the fair-sharing kernels on the calls captured in 9 and 9b ------
     for name in ("fs_admit_scan", "drs_components"):
@@ -1364,7 +1410,8 @@ def main() -> int:
         d, clock, runtimes = scenarios.build_tas(device="cuda")
         build_s = time.perf_counter() - t0
         kernels.reset_counts()
-        with scenarios.TASBranches() as br11, DeviceClock() as dc11:
+        with (scenarios.TASBranches() as br11, DeviceClock() as dc11,
+              GCWatch() as gc11):
             r11 = scenarios.run_tas(d, clock, runtimes, cycles=TAS_CYCLES)
         launches11 = dict(kernels.LAUNCHES)
     cap.uninstall()
@@ -1381,7 +1428,8 @@ def main() -> int:
         f"full_cycles {ss['full_cycles']}, scalar_heads "
         f"{ss['scalar_heads']}, host_cycles {ss['host_cycles']}; device "
         f"busy {dev11 * 1e3:.3f}ms of {wall11 * 1e3:.3f}ms cycle wall (host "
-        f"share {1 - dev11 / wall11:.4f}); digest {digest11}; launches "
+        f"share {1 - dev11 / wall11:.4f}); digest {digest11}; "
+        f"{gc11.line()}; launches "
         f"{json.dumps(launches11)}; "
         f"{device_line('11', dc11, r11['wall'], launches11)}")
     check(r11["admitted"] > 0, "tas-4k admitted nothing")
@@ -1393,7 +1441,9 @@ def main() -> int:
         check(br11.counts[branch] > 0, (branch, br11.counts))
     check(br11.counts["scalar_walk"] == 0, "the host walk ran on the card")
     check(launches11["admit_scan"] > 0, launches11)
+    check(gc11.n == 0, f"phase 11: {gc11.line()}")
     del d
+    scenarios.release()
 
     # -- 12. the same cycles on the CPU: plain programs, then the host walk --
     before = dict(kernels.LAUNCHES)
@@ -1414,6 +1464,7 @@ def main() -> int:
             check(br.counts["scalar_walk"] > 0, br.counts)
             check(all(br.counts[k] == 0 for k in TAS_KERNELS), br.counts)
         del d
+        scenarios.release()
     check(kernels.LAUNCHES == before, "a CPU run launched a kernel")
 
     # -- 3e. the TAS kernels: seeded sweep, global-memory sort, captured -----
@@ -1550,6 +1601,7 @@ def main() -> int:
     check(digest14 == digest6, {"native": digest14, "phase 6": digest6})
     check(ss["native_dispatches"] > 0, ss)
     del d, waves
+    scenarios.release()
 
     # -- 3h. the shapes past the launchers' old limits ------------------------
     t0 = time.perf_counter()
@@ -1575,6 +1627,10 @@ def main() -> int:
                 compare("admit_scan", a, kw, stats)
                 compare("admit_scan", a, dict(
                     kw, forest_of_node=torch.from_numpy(fon).cuda(),
+                    n_forests=nf), stats)
+            for _, arrays, depth, (fon, nf) in testing.preempt_route_cases():
+                compare("admit_scan_preempt", on_card(arrays), dict(
+                    depth=depth, forest_of_node=torch.from_numpy(fon).cuda(),
                     n_forests=nf), stats)
             for _, arrays, kw in (next(testing.burst_cases(0)),
                                   ("one_forest",
@@ -1622,7 +1678,7 @@ def main() -> int:
             build_s = time.perf_counter() - t0
             gc.collect()
             kernels.reset_counts()
-            with GCWatch() as gc15, DeviceClock() as dc15:
+            with DeviceClock() as dc15, GCWatch() as gc15:
                 r15 = scenarios.northstar_burst(d, clock, wave,
                                                 cycles=NORTHSTAR["cycles"])
             launches15 = dict(kernels.LAUNCHES)
@@ -1654,7 +1710,9 @@ def main() -> int:
           (launches15, n_sharded))
     check(launches15["burst_cycles"] == NORTHSTAR_SHARDS * n_sharded
           + bs.stats["burst_dispatches"] - n_sharded, launches15)
+    check(gc15.n == 0, f"phase 15: {gc15.line()}")
     del d, bs
+    scenarios.release()
 
     # -- 15b. resident reuse on 8 virtual shards, then 8 → 4 ---------------
     install_shard_capture(cap)
@@ -1696,6 +1754,8 @@ def main() -> int:
     check(r15c["records"] == serial_split["records"],
           "15b: records differ after lose_devices(4)")
     check(r15c["stats"]["burst_shard_degradations"] == 1, r15c["stats"])
+    del serial, serial_split, r15b, r15c
+    scenarios.release()
 
     # -- 15c. resident reuse at north-star width on 4 virtual shards -------
     install_shard_capture(cap)
@@ -1709,7 +1769,7 @@ def main() -> int:
         with sharded.virtual_mesh("cuda:0", NORTHSTAR_SHARDS):
             kernels.reset_counts()
             t0 = time.perf_counter()
-            with DeviceClock() as dc15w:
+            with DeviceClock() as dc15w, GCWatch() as gc15w:
                 r15w = scenarios.sustained_drain(shards=NORTHSTAR_SHARDS,
                                                  **wide)
             r15w_s = time.perf_counter() - t0
@@ -1727,8 +1787,9 @@ def main() -> int:
         f"serial drain: {r15w['records'] == serial_w['records']}; boundary "
         f"{json.dumps(scenarios.burst_boundary_report(st))}; launches "
         f"{json.dumps({k: launches15w[k] for k in ('burst_cycles',) + SHARD_KERNELS})}"
-        f"; {device_line('15c', dc15w, r15w_s, launches15w)}")
+        f"; {gc15w.line()}; {device_line('15c', dc15w, r15w_s, launches15w)}")
     check(r15w["records"] == serial_w["records"], "15c: records differ")
+    check(gc15w.n == 0, f"phase 15c: {gc15w.line()}")
     check(st["burst_resident_hits"] >= 1, st)
     check(st["burst_resident_scatter_rows"] >= 1, st)
     check(launches15w["kq_scatter_rows"] >= 1, launches15w)
@@ -1769,7 +1830,7 @@ def main() -> int:
                                   len(d.cache.cluster_queue_names()))
         gc.collect()      # phases 16-16c start from a collected heap
         kernels.reset_counts()
-        with GCWatch() as gc16, DeviceClock() as dc16:
+        with DeviceClock() as dc16, GCWatch() as gc16:
             r16 = scenarios.run_bench(d, clock, total, waves)
         launches16 = dict(kernels.LAUNCHES)
     cap.uninstall()
@@ -1794,6 +1855,7 @@ def main() -> int:
           == launches16["admit_scan"] + launches16["admit_scan_preempt"]
           + launches16["admit_scan_forests"], ss["sharded_shard_launches"])
     del d, waves
+    scenarios.release()
 
     # -- 16b. the north-star shape through the per-cycle mesh ---------------
     install_mesh_capture(cap)
@@ -1807,7 +1869,7 @@ def main() -> int:
         build_s = time.perf_counter() - t0
         gc.collect()
         kernels.reset_counts()
-        with GCWatch() as gc16b, DeviceClock() as dc16b:
+        with DeviceClock() as dc16b, GCWatch() as gc16b:
             r16b = scenarios.run_northstar(d, clock, wave,
                                            cycles=NORTHSTAR["cycles"])
         launches16b = dict(kernels.LAUNCHES)
@@ -1825,7 +1887,9 @@ def main() -> int:
     check(launches16b["admit_scan_forests"] > 0, launches16b)
     check(launches16b["kq_gather_heads"] == ss["sharded_dispatches"],
           (launches16b, ss["sharded_dispatches"]))
+    check(gc16b.n == 0, f"phase 16b: {gc16b.line()}")
     del d
+    scenarios.release()
 
     # -- 16c. fair sharing at the north-star size through the mesh ----------
     install_mesh_capture(cap)
@@ -1839,7 +1903,7 @@ def main() -> int:
         build_s = time.perf_counter() - t0
         gc.collect()
         kernels.reset_counts()
-        with GCWatch() as gc16c, DeviceClock() as dc16c:
+        with DeviceClock() as dc16c, GCWatch() as gc16c:
             r16c = scenarios.run_northstar_fs(d, clock,
                                               cycles=NORTHSTAR["cycles"])
         launches16c = dict(kernels.LAUNCHES)
@@ -1857,7 +1921,9 @@ def main() -> int:
           (launches16c, ss["sharded_fs_dispatches"]))
     check(launches16c["kq_gather_heads"] >= ss["sharded_fs_dispatches"],
           launches16c)
+    check(gc16c.n == 0, f"phase 16c: {gc16c.line()}")
     del d
+    scenarios.release()
 
     # -- 16d. the multi-chip dry run on a virtual mesh of the card ----------
     install_mesh_capture(cap)
@@ -2086,6 +2152,29 @@ def main() -> int:
                 dependent_steps=flat_dependent_steps(a1, k1),
                 shape=dict(N=int(a1[0].shape[0]), F=12, W=1000, heads=1000,
                            depth=k1["depth"]))
+        if name == "admit_scan_preempt":
+            # the perf-15k call timed above, and northstar-1k's
+            # 1,000-gang cycle (the captured call with the most
+            # preempting heads)
+            def preempt_shape(a, k):
+                pre = a[16] & (a[8] >= 0)
+                return dict(N=int(a[0].shape[0]), F=int(a[0].shape[1]),
+                            W=int(a[8].shape[0]), depth=k["depth"],
+                            preempting=int(pre.sum()),
+                            targets=int(((a[19] >= 0)
+                                         & pre[:, None]).sum()),
+                            tables=k.get("forest_of_node") is not None)
+            extra["timed_shape"] = preempt_shape(args, kw)
+            extra["device_ms_per_launch_on_path"] = per_launch(dc4, name)
+            n_args, n_kw = max(cap.calls[("northstar", name)],
+                               key=lambda c: int(c[0][16].sum()))
+            tn = time_kernel(name, n_args, n_kw)
+            extra["northstar_1000_gangs"] = dict(
+                **{k: tn[k] for k in ("ms", "kernel_ms", "plain_ms",
+                                      "bound_ms", "bound_by")},
+                launches=launches5[name],
+                device_ms_per_launch_on_path=per_launch(dc5, name),
+                shape=preempt_shape(n_args, n_kw))
         if name == "drs_components":
             extra["timed_shape"] = dict(N=int(args[0].shape[0]),
                                         F=int(args[0].shape[1]),

@@ -29,17 +29,29 @@ of the outputs:
   forest of 1,000 CQs (``burst_one_forest``: ``testing.burst_synthetic``
   with every CQ under one cohort).
 
-The captured inputs (probe, perf scenario, bursts) are built on first
+- ``admit_scan_preempt`` on the north-star run's 1,000-gang
+  preemption cycle (``preempt_northstar``: the call of its per-cycle
+  run with the most preempting heads) and on the perf scenario's
+  preemption cycle with the most preempting heads
+  (``preempt_bench``); where the checkout's launcher takes the forest
+  tables, with them (``*_tables``);
+- ``kq_fs_merge_order`` on 1,000 rounds over 2 and over 8 shards
+  (``merge_2``, ``merge_8``: ``testing.merge_case``, seeded).
+
+The captured inputs (probe, perf scenario, bursts, preemption cycles)
+are built on first
 use by driving the checkout's scenarios on the card and saved to PATH
 (default ``.kueue_tpu_torch_build/kernel_ab_cases.pt`` beside this
 script); later runs load them, so every checkout times the same inputs.
 
-``--split DIR`` instead times the phases inside the single-block flat
-``admit_scan`` and the global-scratch ``burst_cycles`` (the designs
-before the forest-parallel ones: run it on a checkout of that tree):
-it copies the checkout's kernel sources into DIR, inserts ``clock64()``
-phase sums read by thread 0 of each block into the copies of those two
-kernels, builds the copies there and runs them on the same inputs.  It
+``--split DIR`` instead times the phases inside the flat
+``admit_scan``, ``burst_cycles`` and ``admit_scan_preempt`` (whichever
+designs the checkout has: the single-block ones, the forest-parallel
+flat scan and burst with the single-block preempt scan, or both scans
+on the shared forest layout of ``flat_forest.cuh``): it copies the
+checkout's kernel sources into DIR, inserts ``clock64()`` phase sums
+read by thread 0 of each block into the copies of those kernels, builds
+the copies there and runs them on the same inputs.  It
 prints per phase the cycles of block 0 (the flat scan) or of the block
 with the most cycles (the burst), and the same as µs at the clock that
 block 0's ``%globaltimer`` span gives."""
@@ -178,8 +190,49 @@ def capture_cases() -> dict:
     return out
 
 
+PREEMPT_CASES = ("preempt_bench", "preempt_northstar")
+
+
+def capture_preempt_cases() -> dict:
+    """The preemption cycle with the most preempting heads of the perf
+    scenario and of the north-star run, each drained per cycle on the
+    card (CPU copies of admit_scan_preempt's inputs)."""
+    import torch
+    from kueue_tpu_torch import scenarios
+    from kueue_tpu_torch.ops import solver
+
+    out = {}
+    for label in PREEMPT_CASES:
+        kept = []
+        real = solver.admit_scan_preempt
+
+        def keep(*args, **kw):
+            kept.append((tuple(a.cpu() for a in args),
+                         {"depth": kw["depth"]}))
+            return real(*args, **kw)
+        solver.admit_scan_preempt = keep
+        try:
+            if label == "preempt_bench":
+                d, clock, total, waves = scenarios.build_bench(
+                    1.0, device="cuda")
+                scenarios.run_bench(d, clock, total, waves)
+            else:
+                d, clock, total, wave = scenarios.build_northstar(
+                    1000, 100_000, device="cuda")
+                scenarios.run_northstar(d, clock, wave, cycles=30)
+        finally:
+            solver.admit_scan_preempt = real
+        out[label] = max(kept, key=lambda c: int(c[0][16].sum()))
+        del d
+        if hasattr(scenarios, "release"):
+            scenarios.release()
+        torch.cuda.synchronize()
+    return out
+
+
 def synthetic_cases(testing) -> dict:
-    """The one-forest worst cases of both kernels, seeded."""
+    """The one-forest worst cases of both kernels and the round
+    merges, seeded."""
     import numpy as np
     c = testing.admit_cycle(np.random.default_rng(7), n_cqs=1000,
                             n_cohorts=64, depth=3, F=12, W=1000, R=3,
@@ -187,16 +240,28 @@ def synthetic_cases(testing) -> dict:
     one = (testing.admit_args(c), {"depth": c["depth"]})
     args, kw = testing.burst_synthetic(np.random.default_rng(7), C=1000,
                                        per=1000, M=16, K=4)
-    return {"one_forest": one, "burst_one_forest": (args, kw)}
+    out = {"one_forest": one, "burst_one_forest": (args, kw)}
+    for S in (2, 8):
+        winners, head_of = testing.merge_case(np.random.default_rng(S),
+                                              W=1000, S=S)
+        out[f"merge_{S}"] = ((winners, head_of), {"W": 1000})
+    return out
 
 
 def load_cases(path: Path):
+    """The captured cases from ``path``, capturing (and saving) those the
+    file lacks."""
     import torch
-    if path.exists():
-        return torch.load(path, weights_only=False)
-    cases = capture_cases()
-    path.parent.mkdir(parents=True, exist_ok=True)
-    torch.save(cases, path)
+    cases = torch.load(path, weights_only=False) if path.exists() else {}
+    missing = not cases
+    if not cases:
+        cases = capture_cases()
+    if any(k not in cases for k in PREEMPT_CASES):
+        cases.update(capture_preempt_cases())
+        missing = True
+    if missing:
+        path.parent.mkdir(parents=True, exist_ok=True)
+        torch.save(cases, path)
     return cases
 
 
@@ -229,6 +294,41 @@ def admit_calls(kernels, cases):
                       n_forests=nf)
             calls.append((case + "_tables",
                           lambda a=args, k=tk: kernels.admit_scan(*a, **k)))
+    return calls
+
+
+def preempt_calls(kernels, cases):
+    """(case, callable) for every admit_scan_preempt case, with the
+    forest tables where the launcher takes them."""
+    import torch
+    takes = "forest_of_node" in inspect.signature(
+        kernels.admit_scan_preempt).parameters
+    calls = []
+    for case in PREEMPT_CASES:
+        args, kw = cases[case]
+        args = to_card(args)
+        if takes:      # an error word per call: no read-back per launch
+            kw = dict(kw, error=torch.zeros(1, dtype=torch.int32,
+                                            device=args[0].device))
+        calls.append((case, lambda a=args, k=kw:
+                      kernels.admit_scan_preempt(*a, **k)))
+        if takes:
+            fon, nf = forest_table(args[5].cpu().numpy())
+            tk = dict(kw, forest_of_node=torch.from_numpy(fon).cuda(),
+                      n_forests=nf)
+            calls.append((case + "_tables", lambda a=args, k=tk:
+                          kernels.admit_scan_preempt(*a, **k)))
+    return calls
+
+
+def merge_calls(kernels, cases):
+    """(case, callable) for the round merges."""
+    calls = []
+    for case in ("merge_2", "merge_8"):
+        (winners, head_of), kw = cases[case]
+        w, h = to_card(winners), to_card(head_of)
+        calls.append((case, lambda w=w, h=h, k=kw:
+                      kernels.kq_fs_merge_order(w, h, k["W"])))
     return calls
 
 
@@ -330,6 +430,125 @@ FOREST_BURST_PHASES = {**BURST_PHASES, 11: "stage + target words",
                        10: "transitions.carry and unpark"}
 
 
+# the single-block admit_scan_preempt (the first CUDA design): thread 0's
+# phases of each entry
+PREEMPT_PHASES = {0: "prologue", 1: "fit + barrier", 2: "overlap",
+                  3: "trial copy", 4: "target removals",
+                  5: "fit after removal + barrier", 6: "used marks",
+                  7: "charge + outputs", 8: "n entries",
+                  9: "n preempt trials"}
+# the warp-per-forest admit_scan_preempt: the shared prologue, then warp
+# 0's entries
+FOREST_PREEMPT_PHASES = {0: "count", 1: "stage", 2: "list",
+                         3: "fit (warp 0)", 4: "overlap",
+                         6: "target removals", 7: "fit after removal",
+                         8: "chain sync", 9: "charge + outputs",
+                         10: "n entries (warp 0)",
+                         11: "n preempt trials (warp 0)"}
+
+
+def split_preempt_single(src: Path, dst: Path) -> None:
+    """The phase timers in the single-block admit_scan_preempt."""
+    text = _patch((src / "admit_scan_preempt.cu").read_text(), [
+        ('#include "admit_entry.cuh"\n',
+         '#include "admit_entry.cuh"\n'
+         + SPLIT_HEAD.replace("TAG", "preempt")),
+        ("  extern __shared__ int smem[];\n",
+         "  extern __shared__ int smem[];\n  kq_split_start();\n"),
+        ("  for (int step = 0; step < W; ++step) {\n",
+         "  kq_split_mark(0);\n  for (int step = 0; step < W; ++step) {\n"
+         "    kq_split_count(8);\n"),
+        ("    const bool admit = c.fit_mask[wi] && valid && fit_ok;\n",
+         "    const bool admit = c.fit_mask[wi] && valid && fit_ok;\n"
+         "    kq_split_mark(1);\n"),
+        ("    const bool act_pre = is_pre && !overlap;\n",
+         "    const bool act_pre = is_pre && !overlap;\n"
+         "    kq_split_mark(2);\n"),
+        ("      bool pre_f = true;\n",
+         "      bool pre_f = true;\n      kq_split_count(9);\n"),
+        ("        for (int n = 0; n < n_nodes; ++n) trial[n * F + f] = "
+         "check[n * F + f];\n",
+         "        for (int n = 0; n < n_nodes; ++n) trial[n * F + f] = "
+         "check[n * F + f];\n        kq_split_mark(3);\n"),
+        ("        }\n        const int avail = kq_available_at(t, trial, "
+         "cq, f);\n",
+         "        }\n        kq_split_mark(4);\n"
+         "        const int avail = kq_available_at(t, trial, cq, f);\n"),
+        ("      preempting = __syncthreads_and(pre_f) != 0;\n",
+         "      preempting = __syncthreads_and(pre_f) != 0;\n"
+         "      kq_split_mark(5);\n"),
+        ("    const bool is_res = c.res_mask[wi] && valid;\n",
+         "    kq_split_mark(6);\n"
+         "    const bool is_res = c.res_mask[wi] && valid;\n"),
+        ("      skip_out[wi] = is_pre && overlap;\n    }\n  }\n}\n",
+         "      skip_out[wi] = is_pre && overlap;\n    }\n"
+         "    kq_split_mark(7);\n  }\n  kq_split_flush();\n}\n"),
+    ], "admit_scan_preempt.cu")
+    (dst / "admit_scan_preempt.cu").write_text(text)
+
+
+def split_shared_layout(src: Path, dst: Path) -> None:
+    """The phase timers in flat_forest.cuh's prologue (both scans) and in
+    each scan's decide loop."""
+    header = _patch((src / "flat_forest.cuh").read_text(), [
+        ("  __shared__ int s_n[3];      // nodes, heads, a counter / the "
+         "list base\n",
+         "  __shared__ int s_n[3];      // nodes, heads, a counter / the "
+         "list base\n  kq_split_start();\n"),
+        ("  const int n_nodes = s_n[0];\n",
+         "  kq_split_mark(0);\n  const int n_nodes = s_n[0];\n"),
+        ("  if (!shared) list = a.glist",
+         "  kq_split_mark(1);\n  if (!shared) list = a.glist"),
+        ("  return true;\n}\n", "  kq_split_mark(2);\n  return true;\n}\n"),
+    ], "flat_forest.cuh")
+    (dst / "flat_forest.cuh").write_text(header)
+    flat_src = _patch((src / "admit_scan.cu").read_text(), [
+        ('#include "flat_forest.cuh"\n',
+         SPLIT_HEAD.replace("TAG", "admit") + '#include "flat_forest.cuh"\n'),
+        ("    if ((bits >> kOwnerShift) != warp) continue;\n",
+         "    if ((bits >> kOwnerShift) != warp) continue;\n"
+         "    kq_split_count(5);\n"),
+        ("    flat_decide(a, rows, admitted, st.list, st.n_heads, st.col);\n"
+         "  }\n}\n",
+         "    flat_decide(a, rows, admitted, st.list, st.n_heads, st.col);\n"
+         "  }\n  kq_split_mark(3);\n  kq_split_flush();\n}\n"),
+    ], "admit_scan.cu")
+    (dst / "admit_scan.cu").write_text(flat_src)
+    pre_src = _patch((src / "admit_scan_preempt.cu").read_text(), [
+        ('#include "flat_forest.cuh"\n',
+         SPLIT_HEAD.replace("TAG", "preempt")
+         + '#include "flat_forest.cuh"\n'),
+        ("    if ((bits >> kOwnerShift) != warp) continue;\n",
+         "    if ((bits >> kOwnerShift) != warp) continue;\n"
+         "    kq_split_count(10);\n"),
+        ("    const bool admit = (bits & kFit) && ok;\n",
+         "    const bool admit = (bits & kFit) && ok;\n"
+         "    kq_split_mark(3);\n"),
+        ("      overlap = __any_sync(full, overlap);\n    }\n",
+         "      overlap = __any_sync(full, overlap);\n    }\n"
+         "    kq_split_mark(4);\n"),
+        ("      __syncwarp();\n      bool pre_ok = true;\n",
+         "      __syncwarp();\n      kq_split_mark(6);\n"
+         "      kq_split_count(11);\n      bool pre_ok = true;\n"),
+        ("      preempting = __all_sync(full, pre_ok);\n",
+         "      preempting = __all_sync(full, pre_ok);\n"
+         "      kq_split_mark(7);\n"),
+        ("      sync_chains(check, trial, tg, tn, p.mt, depth, "
+         "preempting);\n      __syncwarp();\n",
+         "      sync_chains(check, trial, tg, tn, p.mt, depth, "
+         "preempting);\n      __syncwarp();\n      kq_split_mark(8);\n"),
+        ("      p.skip[wi] = is_pre && overlap;\n    }\n",
+         "      p.skip[wi] = is_pre && overlap;\n    }\n"
+         "    kq_split_mark(9);\n"),
+        ("                   st.n_heads, st.col);\n  }\n}\n\n}  // "
+         "namespace\n",
+         "                   st.n_heads, st.col);\n  }\n"
+         "  kq_split_flush();\n}\n\n}  // namespace\n"),
+    ], "admit_scan_preempt.cu")
+    (dst / "admit_scan_preempt.cu").write_text(pre_src)
+    split_burst_forest(src, dst)
+
+
 def split_forest_designs(src: Path, dst: Path) -> None:
     """The phase timers in the forest-parallel flat admit_scan and the
     shared-memory burst_cycles."""
@@ -352,6 +571,11 @@ def split_forest_designs(src: Path, dst: Path) -> None:
          "    kq_split_count(5);\n"),
     ], "admit_scan.cu")
     (dst / "admit_scan.cu").write_text(flat_src)
+    split_burst_forest(src, dst)
+
+
+def split_burst_forest(src: Path, dst: Path) -> None:
+    """The phase timers in the shared-memory burst_cycles."""
     burst_src = _patch((src / "burst_cycles.cu").read_text(), [
         ('#include "quota.cuh"\n',
          '#include "quota.cuh"\n' + SPLIT_HEAD.replace("TAG", "burst")),
@@ -396,17 +620,22 @@ def split_forest_designs(src: Path, dst: Path) -> None:
     (dst / "burst_cycles.cu").write_text(burst_src)
 
 
-def split_sources(src: Path, dst: Path) -> bool:
+def split_sources(src: Path, dst: Path) -> tuple:
     """Copies of the checkout's kernel sources in ``dst``, with the
-    phase timers in the flat admit_scan and in burst_cycles; True for
-    the forest-parallel designs."""
+    phase timers in the flat admit_scan, burst_cycles and
+    admit_scan_preempt → (the flat scan and burst are the
+    forest-parallel designs, so is the preempt scan)."""
     dst.mkdir(parents=True, exist_ok=True)
     for f in src.iterdir():
         if f.suffix in (".cu", ".cuh"):
             (dst / f.name).write_text(f.read_text())
+    if (src / "flat_forest.cuh").exists():
+        split_shared_layout(src, dst)
+        return True, True
     if "retarget(" in (src / "burst_cycles.cu").read_text():
         split_forest_designs(src, dst)
-        return True
+        split_preempt_single(src, dst)
+        return True, False
     entry = (src / "admit_entry.cuh").read_text()
     body = entry[entry.index("__device__ __forceinline__ bool "
                              "kq_admit_entry("):]
@@ -484,7 +713,8 @@ def split_sources(src: Path, dst: Path) -> bool:
          "    kq_split_count(15);\n  }\n  kq_split_flush();\n"),
     ], "burst_cycles.cu")
     (dst / "burst_cycles.cu").write_text(burst_src)
-    return False
+    split_preempt_single(src, dst)
+    return False, False
 
 
 def split_build(kernels, src: Path):
@@ -511,7 +741,7 @@ def split_build(kernels, src: Path):
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-    for tag in ("admit", "burst"):
+    for tag in ("admit", "burst", "preempt"):
         getattr(lib, f"kq_split_{tag}_read").argtypes = [ctypes.c_void_p]
     kernels._lib = lib
     return lib
@@ -579,9 +809,13 @@ def main() -> int:
 
     if "--split" in opts:
         dst = Path(opts["--split"]).resolve()
-        forest = split_sources(Path(kernels.__file__).resolve().parent,
-                               dst)
+        forest, forest_pre = split_sources(
+            Path(kernels.__file__).resolve().parent, dst)
         lib = split_build(kernels, dst)
+        for case, call in preempt_calls(kernels, cases):
+            out[case] = split_run(lib, "preempt", call, FOREST_PREEMPT_PHASES
+                                  if forest_pre else PREEMPT_PHASES, 3)
+            out[case]["ms"] = event_ms(call, 3)
         for case, call in admit_calls(kernels, cases):
             out[case] = split_run(lib, "admit", call,
                                   FLAT_PHASES if forest else ADMIT_PHASES,
@@ -644,8 +878,10 @@ def main() -> int:
         out[case] = dict(ms=event_ms(call, 10), digest=digest(*call()),
                          forests=int(c["forest_of_node"].max()) + 1)
 
-    for case, call in admit_calls(kernels, cases) + burst_calls(kernels,
-                                                                cases):
+    for case, call in (admit_calls(kernels, cases)
+                       + burst_calls(kernels, cases)
+                       + preempt_calls(kernels, cases)
+                       + merge_calls(kernels, cases)):
         reps = 3 if case.endswith("one_forest") else 20
         out[case] = dict(ms=event_ms(call, reps),
                          digest=digest(*flat(call())))

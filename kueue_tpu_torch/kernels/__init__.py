@@ -45,7 +45,7 @@ SOURCES = ("admit_scan.cu", "admit_scan_preempt.cu", "admit_scan_forests.cu",
            "minimal_preemptions.cu", "burst_cycles.cu", "fs_admit_scan.cu",
            "drs_components.cu", "tas_fill_counts.cu", "tas_descend.cu",
            "solve_cycle.cu", "scatter_rows.cu", "mesh_gather.cu")
-HEADERS = ("quota.cuh", "admit_entry.cuh", "tas.cuh")
+HEADERS = ("quota.cuh", "admit_entry.cuh", "flat_forest.cuh", "tas.cuh")
 MAX_THREADS = 1024
 SMEM_LIMIT = 227 * 1024  # dynamic shared memory a block may use on H100
 FOREST_SMEM = 128 * 1024  # admit_scan_forests' head list in shared memory
@@ -136,7 +136,7 @@ _I = ctypes.c_int
 _ARGTYPES = {
     "kq_admit_scan": [_P, _P, _P],
     "kq_admit_scan_forests": [_P] * 21 + [_I] * 9 + [_P],
-    "kq_admit_scan_preempt": [_P] * 28 + [_I] * 11 + [_P],
+    "kq_admit_scan_preempt": [_P, _P, _P],
     "kq_minimal_preemptions": [_P] * 18 + [_I] * 7 + [_P],
     "kq_burst_cycles": [_P, _P, _P],
     "kq_fs_admit_scan": [_P, _P, _P],
@@ -262,8 +262,10 @@ def _cycle_ptrs(*ts):
 
 FLAT_THREADS = 256       # admit_scan's block: 8 warps, one per forest set
 FLAT_STATIC_SMEM = 256  # its static shared bytes, rounded up
-# shared bytes an admit_scan block may use; a block whose working set
-# needs more takes the global route (0 sends every block there)
+# shared bytes an admit_scan block may use; a block whose node rows and
+# head list need more takes the global route (0 sends every block
+# there); the warps' column rows follow in shared memory where they fit,
+# else in a global [blocks, warps, F] scratch
 FLAT_SMEM = SMEM_LIMIT
 FLAT_ROUTES: dict[str, torch.Tensor] = {}
 FLAT_ROUTE_NAMES = ("no heads", "shared", "global")
@@ -279,15 +281,33 @@ def sm_count(dev: torch.device) -> int:
     return _SM_COUNT[i]
 
 
-def flat_smem_ints(n_nodes: int, F: int, heads: int, rd: int,
-                   threads: int = FLAT_THREADS) -> int:
-    """admit_scan's shared working set (kernels/admit_scan.cu) for
-    ``n_nodes`` nodes and ``heads`` heads of ``rd`` decision pairs: per
-    node its index, parent and has-borrow-limit words, per cell usage,
-    guaranteed and cap; 3 + 2 rd ints per head; a column row per warp."""
+def flat_smem_ints(n_nodes: int, F: int, heads: int, ent: int,
+                   threads: int = FLAT_THREADS, planes: int = 1) -> int:
+    """The forest-parallel scans' shared working set
+    (kernels/flat_forest.cuh) for ``n_nodes`` nodes and ``heads`` list
+    entries of ``ent`` ints: per node its index, parent and
+    has-borrow-limit words, per cell ``planes`` usage-like rows,
+    guaranteed and cap; a column row per warp."""
     words = -(-F // 32)
-    return (n_nodes * (2 + words + 3 * F) + (3 + 2 * rd) * heads
+    return (n_nodes * (2 + words + (planes + 2) * F) + ent * heads
             + (threads // 32) * F)
+
+
+def _flat_smem(need: int) -> tuple[int, bool]:
+    """(dynamic shared bytes, whether a block may take the global route)
+    of a forest-parallel launch whose whole working set is ``need``
+    ints."""
+    cap = max(0, (min(FLAT_SMEM, SMEM_LIMIT) - FLAT_STATIC_SMEM) // 4)
+    return min(need, cap) * 4, need > cap
+
+
+def _forest_tables(forest_of_node, n_forests, N, dev):
+    if forest_of_node is None:
+        return N
+    _check("forest_of_node", forest_of_node, torch.int32, (N,), dev)
+    if n_forests is None or n_forests < 1:
+        raise ValueError("forest_of_node needs n_forests >= 1")
+    return int(n_forests)
 
 
 def admit_scan(usage0, subtree, guaranteed, borrow_cap, has_blim, parent,
@@ -301,39 +321,31 @@ def admit_scan(usage0, subtree, guaranteed, borrow_cap, has_blim, parent,
     planes give it) names them; without it the kernel names each forest
     by its root.  A block per forest up to the card's SM count; each
     block's route (``FLAT_ROUTE_NAMES``) lands in
-    ``FLAT_ROUTES["admit_scan"]``."""
+    ``FLAT_ROUTES["admit_scan"]``.  Any F: the warps' column rows go to
+    global scratch where shared memory cannot hold them."""
     args = (usage0, subtree, guaranteed, borrow_cap, has_blim, parent,
             nominal_cq, npb_cq, wl_cq, dec_fr, dec_amt, fit_mask,
             res_fr, res_amt, res_mask, res_borrows, order)
     dev, N, F, W, rd, rr = _cycle_checks(*args)
     _check_depth(depth)
-    if forest_of_node is not None:
-        _check("forest_of_node", forest_of_node, torch.int32, (N,), dev)
-        if n_forests is None or n_forests < 1:
-            raise ValueError("forest_of_node needs n_forests >= 1")
-    groups = N if forest_of_node is None else int(n_forests)
+    groups = _forest_tables(forest_of_node, n_forests, N, dev)
     blocks = max(1, min(groups, sm_count(dev)))
     threads = FLAT_THREADS
-    cols = (threads // 32) * F
-    if cols > (SMEM_LIMIT - FLAT_STATIC_SMEM) // 4:
-        raise ValueError(f"F={F}: a column row per warp exceeds shared "
-                         f"memory")
-    cap = max(cols, (min(FLAT_SMEM, SMEM_LIMIT) - FLAT_STATIC_SMEM) // 4)
-    need = flat_smem_ints(N, F, W, rd, threads)
-    smem = min(need, cap) * 4
+    ent = 3 + 2 * rd
+    smem, wide = _flat_smem(flat_smem_ints(N, F, W, ent, threads))
     lib = load()
     i32 = torch.int32
-    wide = need > cap          # a block may take the global route
     gusage = torch.empty((N, F) if wide else 1, dtype=i32, device=dev)
-    glist = torch.empty((3 + 2 * rd) * W if wide else 1, dtype=i32,
-                        device=dev)
+    glist = torch.empty(ent * W if wide else 1, dtype=i32, device=dev)
     gcount = torch.empty(1, dtype=i32, device=dev) if wide else None
+    gcol = (torch.empty((blocks, threads // 32, F), dtype=i32, device=dev)
+            if wide else None)
     gmap = torch.empty(max(N, 1), dtype=i32, device=dev)
     admitted = torch.empty(W, dtype=torch.bool, device=dev)
     route = torch.empty(blocks, dtype=i32, device=dev)
     FLAT_ROUTES["admit_scan"] = route
     tensors = args + (forest_of_node, gmap, gusage, glist, gcount,
-                      admitted, route)
+                      admitted, route, gcol)
     ptrs = (ctypes.c_void_p * len(tensors))(
         *[t.data_ptr() if t is not None else None for t in tensors])
     dims = (ctypes.c_int * 9)(N, F, W, rd, rr, depth, blocks, threads, smem)
@@ -377,9 +389,20 @@ def admit_scan_preempt(usage0, subtree, guaranteed, borrow_cap, has_blim,
                        parent, nominal_cq, npb_cq, wl_cq, dec_fr, dec_amt,
                        fit_mask, res_fr, res_amt, res_mask, res_borrows,
                        preempt_mask, pre_fr, pre_amt, tgt_mat, tu_cq,
-                       tu_delta, order, *, depth):
+                       tu_delta, order, *, depth, forest_of_node=None,
+                       n_forests=None, error=None):
     """CUDA admit_scan_preempt (kernels/admit_scan_preempt.cu) →
-    (admitted, preempting, overlap_skip), each [W] bool."""
+    (admitted, preempting, overlap_skip), each [W] bool.
+
+    Cohort forests in parallel, as ``admit_scan``: ``forest_of_node`` /
+    ``n_forests`` name them (``ops.cycle.join_target_forests`` merges the
+    forests that a preempting head and its targets connect), else each
+    forest is named by its root; each block's route lands in
+    ``FLAT_ROUTES["admit_scan_preempt"]``.  A target outside its head's
+    forest is never removed: it sets ``error``, a zeroed [1] int32 word
+    on the device that the caller reads when it fetches the outputs;
+    without ``error`` the launcher reads its own word after the launch
+    and raises."""
     args = (usage0, subtree, guaranteed, borrow_cap, has_blim, parent,
             nominal_cq, npb_cq, wl_cq, dec_fr, dec_amt, fit_mask,
             res_fr, res_amt, res_mask, res_borrows, order)
@@ -394,25 +417,50 @@ def admit_scan_preempt(usage0, subtree, guaranteed, borrow_cap, has_blim,
     _check("tgt_mat", tgt_mat, torch.int32, (W, mt), dev)
     _check("tu_cq", tu_cq, torch.int32, (T,), dev)
     _check("tu_delta", tu_delta, torch.int32, (T, F), dev)
+    own_error = error is None
+    if own_error:
+        error = torch.zeros(1, dtype=torch.int32, device=dev)
+    _check("error", error, torch.int32, (1,), dev)
+    groups = _forest_tables(forest_of_node, n_forests, N, dev)
+    blocks = max(1, min(groups, sm_count(dev)))
+    threads = FLAT_THREADS
+    ent = 3 + 2 * (rd + rp + mt)
+    smem, wide = _flat_smem(flat_smem_ints(N, F, W, ent, threads, planes=3))
     lib = load()
-    threads = _threads(F)
-    smem = 3 * N * F * 4
-    if smem > SMEM_LIMIT:
-        smem = 0
-        scratch = torch.empty((3, N, F), dtype=torch.int32, device=dev)
-    else:
-        scratch = torch.empty(1, dtype=torch.int32, device=dev)
+    i32 = torch.int32
+    gusage = torch.empty((3, N, F) if wide else 1, dtype=i32, device=dev)
+    glist = torch.empty(ent * W if wide else 1, dtype=i32, device=dev)
+    gcount = torch.empty(1, dtype=i32, device=dev) if wide else None
+    gcol = (torch.empty((blocks, threads // 32, F), dtype=i32, device=dev)
+            if wide else None)
+    gmap = torch.empty(max(N, 1), dtype=i32, device=dev)
     used = torch.empty(max(T, 1), dtype=torch.bool, device=dev)
     admitted = torch.empty(W, dtype=torch.bool, device=dev)
     preempting = torch.empty(W, dtype=torch.bool, device=dev)
     skip = torch.empty(W, dtype=torch.bool, device=dev)
-    _launch("admit_scan_preempt", lib.kq_admit_scan_preempt,
-            *_cycle_ptrs(*args[:16]), _ptr(preempt_mask), _ptr(pre_fr),
-            _ptr(pre_amt), _ptr(tgt_mat), _ptr(tu_cq), _ptr(tu_delta),
-            _ptr(order), _ptr(scratch), _ptr(used), _ptr(admitted),
-            _ptr(preempting), _ptr(skip), N, F, W, rd, rr, rp, mt, T, depth,
-            threads, smem)
+    route = torch.empty(blocks, dtype=i32, device=dev)
+    FLAT_ROUTES["admit_scan_preempt"] = route
+    tensors = (args[:17] + (forest_of_node, preempt_mask, pre_fr, pre_amt,
+                            tgt_mat, tu_cq, tu_delta, gmap, gusage, glist,
+                            gcount, gcol, used, admitted, preempting, skip,
+                            route, error))
+    ptrs = (ctypes.c_void_p * len(tensors))(
+        *[t.data_ptr() if t is not None else None for t in tensors])
+    dims = (ctypes.c_int * 12)(N, F, W, rd, rr, rp, mt, T, depth, blocks,
+                               threads, smem)
+    _launch("admit_scan_preempt", lib.kq_admit_scan_preempt, ptrs, dims)
+    if own_error:
+        check_preempt_error(error)
     return admitted, preempting, skip
+
+
+def check_preempt_error(error) -> None:
+    """Raise when an admit_scan_preempt launch found a preemption target
+    outside its head's cohort forest (its error word is set)."""
+    if int(error.max().item()) != 0:
+        raise RuntimeError("admit_scan_preempt: a preemption target lies "
+                           "outside its head's cohort forest; join the "
+                           "forests first (ops.cycle.join_target_forests)")
 
 
 def minimal_preemptions_batch(usage0, subtree, guaranteed, borrow_cap,
@@ -1089,7 +1137,7 @@ def kq_reduce_dflags(window):
 # -- the per-cycle mesh: head gather, fair-sharing round merge --------------
 
 MESH_MAX_SHARDS = 32        # KQ_MESH_MAX_SHARDS in mesh_gather.cu
-MERGE_SMEM = 48 * 1024      # KQ_MERGE_SMEM: done flags in shared memory
+MERGE_SMEM = 48 * 1024      # KQ_MERGE_SMEM: the merge's working set
 SRC_SHIFT = 26              # KQ_SRC_SHIFT: src[w] = slot << 26 | row
 GATHER_SLOTS = 256          # the largest argument table of the gather
 
@@ -1165,7 +1213,10 @@ def kq_fs_merge_order(winners, head_of, W: int):
     past the last round.  Arguments as
     ``parallel.sharded.fs_merge_order_plain``: winners[s] [W_s] int32
     local ids into shard s's ascending head list head_of[s] [W_s] (-1
-    past its last round)."""
+    past its last round; the ids before it distinct).  Each emission is
+    placed by its rank among the shards' sorted keys; the keys, winners,
+    heads and marks (13 bytes a head) sit in shared memory up to
+    ``MERGE_SMEM``, past it in global scratch."""
     winners, head_of = tuple(winners), tuple(head_of)
     dev = head_of[0].device if head_of else None
     if dev is None or dev.type != "cuda":
@@ -1179,8 +1230,10 @@ def kq_fs_merge_order(winners, head_of, W: int):
     order = torch.empty(W, dtype=torch.int32, device=dev)
     if W == 0:
         return order
-    done = (torch.empty(sum(n), dtype=torch.uint8, device=dev)
-            if sum(n) > MERGE_SMEM else None)
+    E = sum(n)
+    scratch = (torch.empty(3 * E + -(-E // 4), dtype=torch.int32,
+                           device=dev)
+               if 13 * E > MERGE_SMEM else None)
     _array_launch("kq_fs_merge_order", load().kq_fs_merge_order,
-                  [*winners, *head_of, done, order], [len(n), W, *n])
+                  [*winners, *head_of, scratch, order], [len(n), W, *n])
     return order

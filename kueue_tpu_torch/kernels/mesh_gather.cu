@@ -32,16 +32,28 @@
 // whose lowest remaining head has the smallest global index emits its
 // next winner.  Shard s gives winners[s] (local ids into its ascending
 // head list head_of[s], -1 past its last round) and head_of[s] (global
-// ids, all valid).  One warp, one lane per shard: the lanes pick the
-// smallest remaining head by a warp argmin, lane 0 emits the winner,
-// marks it done and moves that shard's cursor past done heads.  Cursors
-// live in shared memory, the done flags too (or in a global scratch when
-// they pass 48 KB).  Rounds past the last winner write -1.
+// ids, all valid).  Before its k-th emission shard s's lowest remaining
+// local id is cur_s(k) = min(min(winners_s[k:len_s]), the least id the
+// sequence never emits), where len_s ends at the first winner outside
+// [0, W_s): a suffix minimum, so key_s(k) = head_of[s][cur_s(k)] does not
+// decrease with k, and keys of different shards differ.  So the global
+// order is a merge of S sorted key sequences by rank: emission (s, k)
+// lands at k + the number of keys below key_s(k) in the other shards.
+// One block: the block stages every shard's winners and heads (a head
+// per thread), then a warp per shard finds len_s (a ballot), marks its
+// emitted ids and finds the least one never emitted (a ballot), and
+// writes the keys by a reverse running minimum over 32-wide tiles
+// (shuffles); then each thread places its head's emission by binary
+// searches in the other shards' keys.  The keys, winners, heads and
+// marks (13 bytes a head) sit in shared memory, or in a global scratch
+// past 48 KB.  Positions past W are dropped; the rest of order is -1.
+// Dependent steps: W_s / 32 tiles per shard, then log W per search,
+// where a merge round by round took W steps.
 //
 // Bound: bytes.  The gather reads src and each block once and writes [W]
 // per plane, the merge reads each block and map once and writes [W]: far
-// below a microsecond at 3.35 TB/s, so the launch and, for the merge, its
-// W dependent rounds rule.
+// below a microsecond at 3.35 TB/s, so the launch and, for the merge,
+// its tile walks and searches rule.
 #include <cuda_runtime.h>
 
 #include <climits>
@@ -51,6 +63,7 @@
 #define KQ_MERGE_SMEM (48 * 1024)
 #define KQ_SRC_SHIFT 26
 #define KQ_GATHER_THREADS 128
+#define KQ_MERGE_THREADS 1024
 
 // P x L block pointers (plane-major), L block lengths, P output
 // pointers, P fills
@@ -104,60 +117,116 @@ static int launch_gather(const long long* slots, int n_slots, const int* src,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The shard of flat index e: the last s with off[s] <= e.
+__device__ __forceinline__ int merge_shard(const int* off, int S, int e) {
+  int s = 0;
+  while (s + 1 < S && off[s + 1] <= e) ++s;
+  return s;
+}
+
 __global__ void kq_fs_merge_order_kernel(MergeTable t, int S, int W,
-                                         uint8_t* done_global, int* order) {
-  extern __shared__ uint8_t done_shared[];
-  __shared__ int cur[KQ_MESH_MAX_SHARDS];
-  __shared__ int wcur[KQ_MESH_MAX_SHARDS];
-  uint8_t* done = done_global != nullptr ? done_global : done_shared;
+                                         int* scratch_global, int* order) {
+  extern __shared__ int merge_smem[];
+  __shared__ int s_len[KQ_MESH_MAX_SHARDS];
+  __shared__ int s_off[KQ_MESH_MAX_SHARDS + 1];
+  __shared__ const int* s_win[KQ_MESH_MAX_SHARDS];
+  __shared__ const int* s_hd[KQ_MESH_MAX_SHARDS];
   const unsigned full = 0xffffffffu;
-  const int lane = threadIdx.x;
-  for (int i = lane; i < t.off[S]; i += 32) done[i] = 0;
-  if (lane < S) {
-    cur[lane] = 0;
-    wcur[lane] = 0;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int nw = blockDim.x >> 5;
+  if (threadIdx.x <= S) s_off[threadIdx.x] = t.off[threadIdx.x];
+  if (threadIdx.x < S) {
+    s_win[threadIdx.x] = t.winners[threadIdx.x];
+    s_hd[threadIdx.x] = t.head_of[threadIdx.x];
   }
-  __syncwarp();
-  int r = 0;
-  while (r < W) {
-    int id = INT_MAX;
-    int best = -1;
-    if (lane < S && cur[lane] < t.n[lane]) {
-      id = t.head_of[lane][cur[lane]];
-      best = lane;
-    }
-    for (int o = 16; o > 0; o >>= 1) {
-      const int oid = __shfl_down_sync(full, id, o);
-      const int ob = __shfl_down_sync(full, best, o);
-      if (oid < id) {
-        id = oid;
-        best = ob;
+  __syncthreads();
+  const int E = s_off[S];
+  int* key = scratch_global != nullptr ? scratch_global : merge_smem;
+  int* wins = key + E;
+  int* heads = wins + E;
+  uint8_t* seen = reinterpret_cast<uint8_t*>(heads + E);
+  // 0. every shard's winners and heads staged, a head per thread
+  for (int e = threadIdx.x; e < E; e += blockDim.x) {
+    const int s = merge_shard(s_off, S, e);
+    wins[e] = s_win[s][e - s_off[s]];
+    heads[e] = s_hd[s][e - s_off[s]];
+    seen[e] = 0;
+  }
+  __syncthreads();
+  for (int s = warp; s < S; s += nw) {
+    const int n = s_off[s + 1] - s_off[s];
+    const int* win = wins + s_off[s];
+    const int* hd = heads + s_off[s];
+    uint8_t* sn = seen + s_off[s];
+    int* ks = key + s_off[s];
+    // 1. the valid prefix: up to the first winner outside [0, n)
+    int len = n;
+    for (int base = 0; base < n; base += 32) {
+      const int k = base + lane;
+      const int w = k < n ? win[k] : 0;
+      const unsigned bad = __ballot_sync(full, k < n && (w < 0 || w >= n));
+      if (bad) {
+        len = base + __ffs(bad) - 1;
+        break;
       }
     }
-    best = __shfl_sync(full, best, 0);
-    if (best < 0) break;
-    int emitted = 0;
-    if (lane == 0) {
-      const int n = t.n[best];
-      const int k = wcur[best];
-      const int loc = k < n ? t.winners[best][k] : -1;
-      if (loc < 0 || loc >= n) {
-        cur[best] = n;  // the shard's sequence ended: it serves no more
-      } else {
-        wcur[best] = k + 1;
-        order[r] = t.head_of[best][loc];
-        uint8_t* d = done + t.off[best];
-        d[loc] = 1;
-        int c = cur[best];
-        while (c < n && d[c]) ++c;
-        cur[best] = c;
-        emitted = 1;
-      }
-    }
-    r += __shfl_sync(full, emitted, 0);
+    // 2. the emitted ids marked; the least never emitted
+    for (int k = lane; k < len; k += 32) sn[win[k]] = 1;
     __syncwarp();
+    int never = n;
+    for (int base = 0; base < n; base += 32) {
+      const int i = base + lane;
+      const unsigned un = __ballot_sync(full, i < n && !sn[i]);
+      if (un) {
+        never = base + __ffs(un) - 1;
+        break;
+      }
+    }
+    // 3. key[k] = head_of[min(min(winners[k:len]), never)], tiles from
+    // the end, each an inclusive suffix minimum by shuffles
+    int carry = never;
+    for (int base = ((len - 1) >> 5) << 5; base >= 0; base -= 32) {
+      const int k = base + lane;
+      int v = k < len ? win[k] : INT_MAX;
+      for (int o = 1; o < 32; o <<= 1) {
+        const int u = __shfl_down_sync(full, v, o);
+        if (lane + o < 32) v = min(v, u);
+      }
+      v = min(v, carry);
+      if (k < len) ks[k] = hd[v];
+      carry = __shfl_sync(full, v, 0);
+    }
+    if (lane == 0) s_len[s] = len;
   }
-  for (int i = r + lane; i < W; i += 32) order[i] = -1;
+  __syncthreads();
+  // 4. each emission's position: its rank in its shard plus the keys
+  // below its key in the other shards (a head per thread)
+  int total = 0;
+  for (int s = 0; s < S; ++s) total += s_len[s];
+  for (int e = threadIdx.x; e < E; e += blockDim.x) {
+    const int s = merge_shard(s_off, S, e);
+    const int k = e - s_off[s];
+    if (k >= s_len[s]) continue;
+    const int kv = key[e];
+    int pos = k;
+    for (int q = 0; q < S; ++q) {
+      if (q == s) continue;
+      const int* kq = key + s_off[q];
+      int lo = 0, hi = s_len[q];
+      while (lo < hi) {
+        const int mid = (lo + hi) >> 1;
+        if (kq[mid] < kv) {
+          lo = mid + 1;
+        } else {
+          hi = mid;
+        }
+      }
+      pos += lo;
+    }
+    if (pos < W) order[pos] = heads[s_off[s] + wins[e]];
+  }
+  for (int i = total + threadIdx.x; i < W; i += blockDim.x) order[i] = -1;
 }
 
 // slots: the table (P x L block pointers, L lengths, P outputs, P
@@ -184,8 +253,9 @@ extern "C" int kq_gather_heads(const long long* slots, int n_slots,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// p: S winner pointers, then S head_of pointers, then the done scratch
-// (null: in shared memory), then order [W]; d: S, W, then S lengths.
+// p: S winner pointers, then S head_of pointers, then the scratch of
+// the keys, winners, heads and marks (null: in shared memory; else 13 E
+// bytes for E heads in all), then order [W]; d: S, W, then S lengths.
 extern "C" int kq_fs_merge_order(void* const* p, const int* d,
                                  cudaStream_t stream) {
   const int S = d[0];
@@ -201,10 +271,10 @@ extern "C" int kq_fs_merge_order(void* const* p, const int* d,
     t.n[s] = d[2 + s];
     t.off[s + 1] = t.off[s] + t.n[s];
   }
-  uint8_t* done_global = static_cast<uint8_t*>(p[2 * S]);
-  const int smem = done_global != nullptr ? 0 : t.off[S];
+  int* scratch = static_cast<int*>(p[2 * S]);
+  const int smem = scratch != nullptr ? 0 : 13 * t.off[S];
   if (smem > KQ_MERGE_SMEM) return static_cast<int>(cudaErrorInvalidValue);
-  kq_fs_merge_order_kernel<<<1, 32, smem, stream>>>(
-      t, S, W, done_global, static_cast<int*>(p[2 * S + 1]));
+  kq_fs_merge_order_kernel<<<1, KQ_MERGE_THREADS, smem, stream>>>(
+      t, S, W, scratch, static_cast<int*>(p[2 * S + 1]));
   return static_cast<int>(cudaGetLastError());
 }

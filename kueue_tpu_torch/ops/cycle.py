@@ -337,8 +337,11 @@ def admit_scan_preempt_plain(usage0, subtree, guaranteed, borrow_cap,
                              dec_fr, dec_amt, fit_mask, res_fr, res_amt,
                              res_mask, res_borrows, preempt_mask, pre_fr,
                              pre_amt, tgt_mat, tu_cq, tu_delta, order,
-                             *, depth: int):
-    """``admit_scan`` with preempting entries.
+                             *, depth: int, forest_of_node=None,
+                             n_forests=None, error=None):
+    """``admit_scan`` with preempting entries.  ``forest_of_node``,
+    ``n_forests`` and ``error`` only serve the CUDA kernel; the loop
+    ignores them.
 
     Carries (usage, check, used): ``usage`` follows the live snapshot
     (admits + reserves + preemptor additions, targets NOT removed —
@@ -441,13 +444,47 @@ def admit_scan_forests(*args, depth: int, n_forests: int,
                                     max_forest_wl=max_forest_wl)
 
 
-def admit_scan_preempt(*args, depth: int):
+def admit_scan_preempt(*args, depth: int, forest_of_node=None,
+                       n_forests=None, error=None):
     """(admitted, preempting, overlap_skip); args as
-    ``admit_scan_preempt_plain``."""
+    ``admit_scan_preempt_plain``; the keywords as the CUDA launcher's."""
     if _route(args[0]):
         from .. import kernels
-        return kernels.admit_scan_preempt(*args, depth=depth)
+        return kernels.admit_scan_preempt(*args, depth=depth,
+                                          forest_of_node=forest_of_node,
+                                          n_forests=n_forests, error=error)
     return admit_scan_preempt_plain(*args, depth=depth)
+
+
+def join_target_forests(forest_of_node, n_forests: int, wl_cq,
+                        preempt_mask, tgt_mat, tu_cq):
+    """The cohort-forest labels for ``admit_scan_preempt`` (numpy):
+    ``forest_of_node`` with the forests that a preempting head (valid,
+    ``preempt_mask``) and its targets connect merged, each group under
+    its least label → (labels [N] int32, joined).  ``joined`` is False,
+    and the labels are ``forest_of_node`` itself, when every target lies
+    in its head's forest, as in every Kueue cycle."""
+    fon = np.asarray(forest_of_node)
+    wl = np.asarray(wl_cq)
+    pre = np.asarray(preempt_mask) & (wl >= 0)
+    tg = np.asarray(tgt_mat)[pre]
+    head_f = np.broadcast_to(fon[wl[pre]][:, None], tg.shape)
+    tgt_f = fon[np.asarray(tu_cq)[np.maximum(tg, 0)]]
+    cross = (tg >= 0) & (tgt_f != head_f)
+    if not cross.any():
+        return fon, False
+    rep = list(range(int(n_forests)))
+
+    def find(x: int) -> int:
+        while rep[x] != x:
+            rep[x] = rep[rep[x]]
+            x = rep[x]
+        return x
+    for x, y in zip(head_f[cross].tolist(), tgt_f[cross].tolist()):
+        rx, ry = find(x), find(y)
+        rep[max(rx, ry)] = min(rx, ry)
+    roots = np.array([find(x) for x in range(len(rep))], dtype=np.int32)
+    return roots[fon], True
 
 
 # ----------------------------------------------------------------------

@@ -53,7 +53,7 @@ its own mesh (``ops.burst.BurstSolver.set_shards``).
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Optional
 
 import numpy as np
@@ -73,7 +73,8 @@ from ..resources import FlavorResource, Requests
 from .packing import (PackedCycle, PackedStructure, _bucket, coarse_bucket,
                       pack_cycle, pack_structure, planes_to_torch)
 from .cycle import (admit_scan, admit_scan_forests, admit_scan_preempt,
-                    classify_np, cycle_order_np, decision_pairs_from_slots)
+                    classify_np, cycle_order_np, decision_pairs_from_slots,
+                    join_target_forests)
 
 
 # The flat admit scan decides one head per step; the forest-parallel
@@ -151,6 +152,8 @@ class DispatchHandle:
     fit_mask: Optional[np.ndarray] = None  # [W] bool: vector + scalar fits
     route: str = ""   # "cuda" | "cpu" | "sharded" | "native" | "no_fit"
                       # | "singleton"
+    errors: list = field(default_factory=list)  # admit_scan_preempt's
+                      # error words, read by ``fetch``
 
 
 # static structure planes the admit scans read, uploaded once per structure
@@ -777,11 +780,24 @@ class CycleSolver:
         from ..profiling import annotation
         with annotation(f"admit_scan:{kernel}"):
             if has_preempt:
+                # a Kueue cycle's targets lie in their heads' forests: the
+                # statics' labels serve; otherwise the joined ones
+                labels, joined = join_target_forests(
+                    st.forest_of_node, st.n_forests, packed.wl_cq, pmask,
+                    targets.tgt_mat, targets.tu_cq)
+                fon = (self._to_device(labels)[0] if joined
+                       else statics["forest_of_node"])
+                error = None
+                if self.device.type == "cuda":
+                    error = torch.zeros(1, dtype=torch.int32,
+                                        device=self.device)
+                    handle.errors.append(error)
                 handle.pending = admit_scan_preempt(
                     *args, *self._to_device(
                         pmask, pre_fr, pre_amt, targets.tgt_mat,
                         targets.tu_cq, targets.tu_delta),
-                    t_order, depth=st.depth)
+                    t_order, depth=st.depth, forest_of_node=fon,
+                    n_forests=st.n_forests, error=error)
             elif mfw is not None:
                 handle.pending = admit_scan_forests(
                     *args, t_order, statics["forest_of_node"],
@@ -809,7 +825,8 @@ class CycleSolver:
             with annotation("admit_scan_sharded:preempt"):
                 handle.pending = fns["preempt"](
                     *args, *pre, targets.tgt_mat, targets.tu_cq,
-                    targets.tu_delta, order, layout=layout)
+                    targets.tu_delta, order, layout=layout,
+                    errors=handle.errors)
         elif mfw is None:
             kernel = "admit_scan"
             with annotation("admit_scan_sharded:flat"):
@@ -928,6 +945,10 @@ class CycleSolver:
             if isinstance(out, tuple):
                 handle.admitted, handle.preempting, handle.overlap_skip = (
                     t.cpu().numpy() for t in out)
+                if handle.errors:
+                    from .. import kernels
+                    for error in handle.errors:
+                        kernels.check_preempt_error(error)
             else:
                 handle.admitted = out.cpu().numpy()
                 handle.preempting = np.zeros(W, dtype=bool)

@@ -993,9 +993,12 @@ def _put_with_src(mesh: CycleMesh, cell: int, layout, *host):
 
 def _admit_sharded(mesh: CycleMesh, depth: int, kind: str, base, order, *,
                    layout=None, preempt=None, forest_of_node=None,
-                   max_forest_wl=None):
+                   max_forest_wl=None, errors=None):
     """One admit scan over the mesh: shard j's heads on its row-0 cell,
-    on its stream, with the kernel of ``kind``; then the head gather."""
+    on its stream, with the kernel of ``kind``; then the head gather.
+    The preempt kernel gets its shard's forest tables; with ``errors`` (a
+    list) each CUDA launch's error word is appended to it for the caller
+    to read, else the launcher reads it."""
     from ..ops import cycle as _cycle
     base = tuple(_host(a) for a in base)
     order = _host(order)
@@ -1033,8 +1036,16 @@ def _admit_sharded(mesh: CycleMesh, depth: int, kind: str, base, order, *,
             args = [usage] + stat + [wl] + dev[:7]
             ordr = dev[7]
             if kind == "preempt":
-                out = _cycle.admit_scan_preempt(*args, *dev[8:], ordr,
-                                                depth=depth)
+                error = None
+                if errors is not None and usage.device.type == "cuda":
+                    error = torch.zeros(1, dtype=torch.int32,
+                                        device=usage.device)
+                    errors.append(error)
+                out = _cycle.admit_scan_preempt(
+                    *args, *dev[8:], ordr, depth=depth,
+                    forest_of_node=layout.static(mesh, cell, j,
+                                                 "forest_of_node"),
+                    n_forests=layout.n_forests[j], error=error)
             elif kind == "forest":
                 out = (_cycle.admit_scan_forests(
                     *args, ordr,
@@ -1062,7 +1073,8 @@ def admit_scan_fns(mesh: CycleMesh, depth: int) -> dict:
     unsharded kernel per shard that has heads (``max_forest_wl`` is the
     global bucket, at least each shard's own), and gathers the [W]
     outputs into head order on cell 0.  Preemption targets go with their
-    forests (the reference replicates the target universe)."""
+    forests (the reference replicates the target universe); the preempt
+    call takes ``errors=`` as ``_admit_sharded``."""
     def flat(*args, layout=None):
         return _admit_sharded(mesh, depth, "flat", args[:16], args[16],
                               layout=layout)
@@ -1074,9 +1086,10 @@ def admit_scan_fns(mesh: CycleMesh, depth: int) -> dict:
                               layout=layout, forest_of_node=forest_of_node,
                               max_forest_wl=max_forest_wl)
 
-    def preempt(*args, layout=None):
+    def preempt(*args, layout=None, errors=None):
         return _admit_sharded(mesh, depth, "preempt", args[:16], args[22],
-                              layout=layout, preempt=args[16:22])
+                              layout=layout, preempt=args[16:22],
+                              errors=errors)
 
     return {"flat": flat, "forest": forests, "preempt": preempt}
 

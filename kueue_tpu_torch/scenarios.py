@@ -45,11 +45,19 @@ the north-star shape, driven per cycle through ``Driver.schedule_once``.
 Every workload is generated from the scenario's parameters alone, so two
 runs (two devices, or this package and the JAX package) see the same
 inputs; ``decision_digest`` hashes what a run decided.
+
+Collection, as the reference scripts run it: the builds end with
+``freeze_heap`` (``gc.collect(); gc.freeze()``), the drains are
+``measured`` (``gc.disable()``, enabled again in a ``finally``), and
+``release`` (``gc.unfreeze(); gc.collect()``) frees a finished run's
+graph before the next build.  Decisions do not depend on it.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
+import gc
 import hashlib
 import json
 import time
@@ -122,6 +130,40 @@ def shards_env(shards: int):
             os.environ["KUEUE_TPU_SHARDS"] = prev
 
 
+def freeze_heap() -> None:
+    """Collect, then move everything alive into the permanent generation
+    (``gc.freeze``): what a build leaves is never scanned again by a
+    collection, as ``scripts/northstar_e2e.py`` ``build()`` (:199-200,
+    :517-518) and ``bench.py`` (:312-313) do after building."""
+    gc.collect()
+    gc.freeze()
+
+
+def release() -> None:
+    """Undo ``freeze_heap`` and collect (``bench.py`` :332-333): a
+    finished phase's driver graph, once unreferenced, is freed before
+    the next phase builds its own."""
+    gc.unfreeze()
+    gc.collect()
+
+
+def measured(fn):
+    """``fn`` run with automatic collection off, as the reference's
+    drains run under ``gc.disable()`` (northstar_e2e.py :292/:443,
+    :592/:634); on again afterwards, also when ``fn`` raises (left off
+    when it was off before)."""
+    @functools.wraps(fn)
+    def run(*args, **kw):
+        was = gc.isenabled()
+        gc.disable()
+        try:
+            return fn(*args, **kw)
+        finally:
+            if was:
+                gc.enable()
+    return run
+
+
 def build_bench(scale: float = 1.0, device: str = "cuda",
                 solver_backend: str = "auto", shards: int = 0):
     """The perf scenario at ``scale`` → (driver, clock, total, waves);
@@ -151,6 +193,7 @@ def build_bench(scale: float = 1.0, device: str = "cuda",
                         priority=prio, creation_time=float(total),
                         pod_sets=[PodSet(name="main", count=1,
                                          requests={"cpu": units * UNIT})]))
+    freeze_heap()
     return d, clock, total, waves
 
 
@@ -179,6 +222,7 @@ def _finish_due(d: Driver, running: list, cycle: int) -> tuple[list, int]:
     return still, finished
 
 
+@measured
 def run_bench(d: Driver, clock: VirtualClock, total: int, waves,
               runtime_cycles: int = RUNTIME_CYCLES) -> dict:
     """Drain the scenario one ``schedule_once`` per cycle."""
@@ -256,9 +300,11 @@ def build_northstar(n_cqs: int = 1000, n_wl: int = 100_000,
                                  requests={"cpu": 5000})]))
         return n_cqs
 
+    freeze_heap()
     return d, clock, total, preemptor_wave
 
 
+@measured
 def run_northstar(d: Driver, clock: VirtualClock, preemptor_wave,
                   cycles: int = 30, runtime: int = 4,
                   inject_at: int = -1) -> dict:
@@ -336,9 +382,11 @@ def build_northstar_fs(n_cqs: int = 1000, n_wl: int = 100_000,
     with shards_env(shards):
         d = Driver(clock=clock, fair_sharing=True, device=device)
     total = northstar_fs_spec(api_types, d, n_cqs, n_wl)
+    freeze_heap()
     return d, clock, total
 
 
+@measured
 def run_northstar_fs(d, clock: VirtualClock, cycles: int = 30,
                      runtime: int = 4) -> dict:
     """``cycles`` per-cycle ``schedule_once`` calls; each admission
@@ -401,6 +449,7 @@ def _carry_finishes(d: Driver, all_stats: list, runtime: int) -> dict:
     return ext
 
 
+@measured
 def drain_bench_burst(d: Driver, clock: VirtualClock, total: int, waves,
                       runtime_cycles: int = RUNTIME_CYCLES) -> dict:
     """Drain the perf scenario through ``Driver.schedule_burst`` (the
@@ -464,6 +513,7 @@ def drain_bench_burst(d: Driver, clock: VirtualClock, total: int, waves,
                 preempted=preempted, decisions=decisions)
 
 
+@measured
 def northstar_burst(d: Driver, clock: VirtualClock, preemptor_wave,
                     cycles: int = 30, runtime: int = 4,
                     inject_at: int = -1, pipeline: bool = True) -> dict:
@@ -631,6 +681,7 @@ def northstar_arrivals(t, n_cqs: int, n: int) -> list:
         for j in range(n)]
 
 
+@measured
 def sustained_drain(device: str = "cuda", shards: int = 0,
                     cycles: int = 80, runtime: int = 2, arrival: int = 36,
                     lose: int = 0, n_cqs: int = 0) -> dict:
@@ -645,7 +696,8 @@ def sustained_drain(device: str = "cuda", shards: int = 0,
     than a window, as 30, so that the busy CQs stay full).  Returns the
     per-cycle records (admitted, skipped, inadmissible, preempted,
     preempting), the burst solver's stats, the shard counts before and
-    after, and the Driver."""
+    after, and the Driver.  The call builds and drains, and the whole of
+    it is measured: it runs with collection off and freezes nothing."""
     from .api import types as t
     from .ops.burst import BurstSolver
     clock = VirtualClock()
@@ -806,6 +858,7 @@ def build_tas(device: str = "cuda", **kw):
     clock = VirtualClock()
     d = Driver(clock=clock, device=device)
     runtimes = tas_spec(api_types, d, NodeInfo, **kw)
+    freeze_heap()
     return d, clock, runtimes
 
 
@@ -820,6 +873,7 @@ def _tas_admission_record(d, key: str) -> list:
         for a in adm.pod_set_assignments)]
 
 
+@measured
 def run_tas(d, clock: VirtualClock, runtimes: dict, cycles: int = 60) -> dict:
     """``cycles`` per-cycle ``schedule_once`` calls on either package's
     Driver; each admission finishes its runtime later.  ``events_at``

@@ -255,6 +255,22 @@ def preempt_args(case: dict) -> tuple:
             + tuple(case[k] for k in PREEMPT_ARGS) + (case["order"],))
 
 
+def preempt_tables(args) -> tuple:
+    """``admit_scan_preempt``'s forest tables for its positional arrays
+    (``preempt_args``): each node's tree, with the forests that a
+    preempting head and its targets connect joined
+    (``ops.cycle.join_target_forests``) → (forest_of_node [N] int32,
+    n_forests)."""
+    from .ops.cycle import join_target_forests
+    from .parallel.sharded import forests_of_parent
+    args = [np.asarray(a) for a in args]
+    fon = forests_of_parent(args[5])
+    n = int(fon.max()) + 1
+    labels, _ = join_target_forests(fon, n, args[8], args[16], args[19],
+                                    args[20])
+    return np.ascontiguousarray(labels, dtype=np.int32), n
+
+
 def search_args(case: dict) -> tuple:
     return tuple(case[k] for k in SEARCH_ARGS)
 
@@ -340,10 +356,16 @@ FLAT_CASES = [
                       chain=True)),
     ("F_65", dict(n_cqs=8, n_cohorts=3, depth=3, F=65, W=16, R=5)),
 ]
-# one forest whose working set is past a block's shared memory (card)
+# one forest whose working set is past a block's shared memory, and the
+# widths past the warps' column rows in shared memory (card)
 FLAT_CARD_CASES = [
     ("over_smem", dict(n_cqs=18000, n_cohorts=200, depth=3, F=3, W=64,
                        R=2, roots=1)),
+    ("F_1025", dict(n_cqs=6, n_cohorts=3, depth=3, F=1025, W=16, R=3)),
+    # forests of one CQ under one cohort: their rows fit a block, eight
+    # column rows of 7,257 ints do not
+    ("F_7257", dict(n_cqs=4, n_cohorts=4, depth=2, F=7257, W=16, R=3,
+                    per=1)),
 ]
 
 
@@ -1316,6 +1338,37 @@ def merge_case(rng: np.random.Generator, *, W: int, S: int,
         s = next(s for s, h in enumerate(head_of) if len(h) > 1)
         winners[s][len(winners[s]) // 2:] = -1
     return tuple(winners), head_of
+
+
+# the warp-per-forest preempt scan's layouts: (label, preempt_cycle
+# keyword arguments); every head's targets in its own forest
+PREEMPT_ROUTE_CASES = [
+    # the north star's cohorts of five, heads interleaved in cycle order
+    ("cohorts_of_5", dict(n_cqs=60, n_cohorts=12, depth=2, F=1, W=200, R=1,
+                          per=5, T=256, MT=8, n_targets=160)),
+    ("nested", dict(n_cqs=24, n_cohorts=8, depth=3, F=3, W=48, R=2,
+                    roots=5, T=64, MT=4, n_targets=20)),
+    ("depth_17", dict(n_cqs=6, n_cohorts=16, depth=2, F=3, W=24, R=2,
+                      chain=True, T=64, MT=4, n_targets=12)),
+    ("F_12", dict(n_cqs=40, n_cohorts=10, depth=3, F=12, W=64, R=4, roots=4,
+                  T=64, MT=4, n_targets=30)),
+    ("one_forest", dict(n_cqs=40, n_cohorts=6, depth=3, F=3, W=64, R=2,
+                        roots=1, T=64, MT=6, n_targets=24)),
+]
+
+
+def preempt_route_cases(seed: int = 0):
+    """Yield (label, admit_scan_preempt's positional numpy arrays, depth,
+    (forest_of_node, n_forests)) over ``PREEMPT_ROUTE_CASES`` and the
+    cross-forest case under its joined tables."""
+    rng = np.random.default_rng(seed)
+    for label, kw in PREEMPT_ROUTE_CASES:
+        c = preempt_cycle(rng, in_forest=True, **kw)
+        yield (label, preempt_args(c), c["depth"],
+               (c["forest_of_node"], c["n_forests"]))
+    c = cross_forest_case()
+    args = preempt_args(c)
+    yield "cross_forest", args, c["depth"], preempt_tables(args)
 
 
 def cross_forest_case() -> dict:

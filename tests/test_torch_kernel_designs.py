@@ -735,3 +735,337 @@ def test_rank_order_matches_insertion_sort(seed, L):
     assert got == want
     assert L < 5 or len(set(k for k in keys if k < I32_MAX)) < sum(
         1 for k in keys if k < I32_MAX)
+
+
+# -- admit_scan_preempt, a warp per cohort forest (admit_scan_preempt.cu) ----
+
+from kueue_tpu_torch.ops.cycle import join_target_forests   # noqa: E402
+from kueue_tpu_torch.parallel import sharded as psh         # noqa: E402
+
+
+def remove_usage(c, usage, node, delta, f, depth):
+    """kq_remove_usage_chain."""
+    carry = delta
+    for n in chain(c["parent"], node, depth):
+        u = int(usage[n, f])
+        stored = w32(u - int(c["guaranteed"][n, f]))
+        usage[n, f] = w32(u - carry)
+        carry = min(carry, stored) if stored > 0 else 0
+
+
+def emu_preempt_scan(c, depth: int, fid, B: int, rng):
+    """Block b = fid % B stages its nodes (in the counter's order) with
+    three usage planes and lists its heads in cycle order; while it lists
+    a preempt head it checks each target's forest against the head's
+    (a mismatch sets the error word and drops the target); warp
+    (fid // B) % 8 decides its entries, the warps of all blocks
+    interleaved at random: the fit against check, the overlap with
+    ``used``, the targets removed into trial along their chains (column
+    by column, target after target), the fit after removal, the used
+    marks, the targets' chains copied trial → check (success) or check →
+    trial (failure), the charge walked up usage and check and copied to
+    trial.  Trial equals check after every entry.  Returns (admitted,
+    preempting, overlap_skip, error)."""
+    N, F = c["usage0"].shape
+    W = len(c["wl_cq"])
+    out = [np.zeros(W, dtype=bool) for _ in range(3)]
+    used = np.zeros(len(c["tu_cq"]), dtype=bool)
+    error = False
+    queues = []
+    for b in range(B):
+        nodes = rng.permutation(np.nonzero(fid % B == b)[0])
+        local = {int(n): i for i, n in enumerate(nodes)}
+        par = np.array([local[int(c["parent"][n])] if c["parent"][n] >= 0
+                        else -1 for n in nodes], dtype=np.int64)
+        rows = dict(parent=par, guaranteed=c["guaranteed"][nodes],
+                    subtree=np.where((c["parent"][nodes] < 0)[:, None],
+                                     c["subtree"][nodes],
+                                     c["borrow_cap"][nodes]),
+                    has_blim=c["has_blim"][nodes])
+        rows["borrow_cap"] = rows["subtree"]
+        planes = [c["usage0"][nodes].astype(np.int64) for _ in range(3)]
+        lists = [[] for _ in range(FLAT_WARPS)]
+        for wi in c["order"]:
+            cq = int(c["wl_cq"][wi])
+            if cq < 0 or fid[cq] % B != b:
+                continue
+            tg = []
+            if c["preempt_mask"][wi]:
+                for tk in c["tgt_mat"][wi]:
+                    if tk < 0:
+                        continue
+                    tcq = int(c["tu_cq"][tk])
+                    if fid[tcq] != fid[cq]:
+                        error = True
+                        continue
+                    tg.append((int(tk), local[tcq]))
+            lists[(fid[cq] // B) % FLAT_WARPS].append((int(wi), local[cq],
+                                                        tg))
+        queues += [(rows, planes, q) for q in lists if q]
+    while queues:
+        k = int(rng.integers(len(queues)))
+        rows, (usage, check, trial), q = queues[k]
+        wi, node, tg = q.pop(0)
+        if not q:
+            queues.pop(k)
+
+        def fits(fr_row, amt_row, plane):
+            return all(not (0 <= fr < F) or amt <= available(
+                rows, plane, node, fr, depth)
+                for fr, amt in zip(fr_row, amt_row))
+        admit = bool(c["fit_mask"][wi]) and fits(c["dec_fr"][wi],
+                                                 c["dec_amt"][wi], check)
+        is_pre = bool(c["preempt_mask"][wi])
+        overlap = is_pre and any(used[tk] for tk, _ in tg)
+        preempting = False
+        if is_pre and not overlap:
+            for f in range(F):
+                for tk, tn in tg:
+                    d = int(c["tu_delta"][tk, f])
+                    if d:
+                        remove_usage(rows, trial, tn, d, f, depth)
+            preempting = fits(c["pre_fr"][wi], c["pre_amt"][wi], trial)
+            for tk, _ in tg:
+                used[tk] |= preempting
+            src, dst = (trial, check) if preempting else (check, trial)
+            for _, tn in tg:
+                for n in chain(rows["parent"], tn, depth):
+                    dst[n] = src[n]
+        col = [0] * F
+        if admit:
+            for fr, amt in zip(c["dec_fr"][wi], c["dec_amt"][wi]):
+                if 0 <= fr < F:
+                    col[fr] = w32(col[fr] + int(amt))
+        if preempting:
+            for fr, amt in zip(c["pre_fr"][wi], c["pre_amt"][wi]):
+                if 0 <= fr < F:
+                    col[fr] = w32(col[fr] + int(amt))
+        if c["res_mask"][wi]:
+            cq = int(c["wl_cq"][wi])
+            for fr, amt in zip(c["res_fr"][wi], c["res_amt"][wi]):
+                if not 0 <= fr < F:
+                    continue
+                cur = int(usage[node, fr])
+                if c["res_borrows"][wi]:
+                    d = min(int(amt), w32(int(c["npb_cq"][cq, fr]) - cur))
+                else:
+                    d = max(0, min(int(amt), w32(
+                        int(c["nominal_cq"][cq, fr]) - cur)))
+                col[fr] = w32(col[fr] + d)
+        for f in range(F):
+            if col[f] != 0:
+                add_usage(rows, usage, node, col[f], f, depth)
+                add_usage(rows, check, node, col[f], f, depth)
+                for n in chain(rows["parent"], node, depth):
+                    trial[n, f] = check[n, f]
+        assert np.array_equal(trial, check)
+        out[0][wi], out[1][wi], out[2][wi] = admit, preempting, \
+            is_pre and overlap
+    return (*out, error)
+
+
+PREEMPT_ARG_NAMES = tt.ADMIT_ARGS + tt.PREEMPT_ARGS + ("order",)
+
+
+def _jax_preempt(args, depth):
+    return [np.asarray(x) for x in jcycle.admit_scan_preempt(
+        *[jnp.asarray(a) for a in args], depth=depth)]
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("case", [label for label, _ in
+                                  tt.PREEMPT_ROUTE_CASES] + ["cross_forest"])
+def test_preempt_forest_warps_match_jax(case, seed):
+    """The preempt scan decided forest by forest — a warp per forest,
+    forests by the tables (joined where a target crosses) or by roots,
+    one to 132 blocks, warps interleaved at random, trial rows restored
+    along the targets' chains — gives the JAX scan's admitted,
+    preempting and overlap_skip, values and dtypes."""
+    label, args, depth, (fon, nf) = next(
+        x for x in tt.preempt_route_cases(seed) if x[0] == case)
+    c = dict(zip(PREEMPT_ARG_NAMES, args))
+    want = _jax_preempt(args, depth)
+    rng = np.random.default_rng(seed + 1)
+    ids = [np.maximum(fon, 0)]
+    if case != "cross_forest":
+        ids.append(flat_forest_ids(c, False))        # forests by roots
+    for fid in ids:
+        for B in FLAT_GRIDS:
+            *got, error = emu_preempt_scan(c, depth, fid, B, rng)
+            assert not error, (case, B)
+            for g, w in zip(got, want):
+                assert g.dtype == w.dtype and np.array_equal(g, w), \
+                    (case, B)
+    if case == "cross_forest":
+        assert want[1][0]          # the head preempts across two cohorts
+    else:
+        assert want[1].any() or seed, case
+
+
+def test_preempt_depth_17_and_wide_targets_match_jax():
+    """A cohort chain 17 levels deep (shape_cases' preempt cycle: every
+    target in the one forest) and the sweep's widest cycle (1,024 heads,
+    4,096 targets, up to 16 a head, targets anywhere: joined tables)."""
+    for args, depth in (
+            next((a, k["depth"]) for n, a, k in tt.shape_cases(0)
+                 if n == "admit_scan_preempt"),
+            [(a, k["depth"]) for n, a, k in tt.kernel_cases(0)
+             if n == "admit_scan_preempt"][5]):
+        c = dict(zip(PREEMPT_ARG_NAMES, args))
+        fon, _ = tt.preempt_tables(args)
+        want = _jax_preempt(args, depth)
+        *got, error = emu_preempt_scan(c, depth, fon, 3,
+                                       np.random.default_rng(0))
+        assert not error
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype and np.array_equal(g, w)
+        assert want[1].any()
+
+
+def test_preempt_join_and_wrong_labels():
+    """join_target_forests merges the forests a preempting head and its
+    targets connect (each group under its least label, the other trees
+    untouched) and leaves Kueue-like labels as given; under the unjoined
+    labels the design sets the error word instead of deciding."""
+    c = tt.cross_forest_case()
+    labels, joined = join_target_forests(c["forest_of_node"],
+                                         c["n_forests"], c["wl_cq"],
+                                         c["preempt_mask"], c["tgt_mat"],
+                                         c["tu_cq"])
+    assert joined and labels.tolist() == [0] * 6
+    *_, error = emu_preempt_scan(c, c["depth"], c["forest_of_node"], 2,
+                                 np.random.default_rng(0))
+    assert error
+    for seed in range(4):
+        rng = np.random.default_rng(seed)
+        s = tt.preempt_cycle(rng, n_cqs=30, n_cohorts=10, depth=3, F=2,
+                             W=40, R=2, T=64, MT=4, n_targets=20, roots=6)
+        fon, n = s["forest_of_node"], s["n_forests"]
+        labels, joined = join_target_forests(fon, n, s["wl_cq"],
+                                             s["preempt_mask"], s["tgt_mat"],
+                                             s["tu_cq"])
+        pre = np.nonzero(s["preempt_mask"] & (s["wl_cq"] >= 0))[0]
+        for w in pre:
+            for t in s["tgt_mat"][w]:
+                if t >= 0:
+                    assert labels[s["tu_cq"][t]] == labels[s["wl_cq"][w]]
+        assert joined == bool((labels != fon).any())
+        # a label is one of its group's, and trees stay whole
+        assert all(len(set(labels[fon == f].tolist())) == 1
+                   for f in range(n))
+        assert all(labels[fon == f][0] <= f for f in range(n))
+        k = tt.preempt_cycle(rng, n_cqs=30, n_cohorts=10, depth=3, F=2,
+                             W=40, R=2, T=64, MT=4, n_targets=20, roots=6,
+                             in_forest=True)
+        same, joined = join_target_forests(
+            k["forest_of_node"], k["n_forests"], k["wl_cq"],
+            k["preempt_mask"], k["tgt_mat"], k["tu_cq"])
+        assert not joined and same is k["forest_of_node"]
+
+
+# -- kq_fs_merge_order by rank (mesh_gather.cu) -------------------------------
+
+I32_MAX_KEY = 2**31 - 1
+
+
+def emu_merge_rank(winners, head_of, W: int) -> np.ndarray:
+    """A warp per shard: the valid prefix (the first winner outside [0,
+    n) ends it), the emitted ids marked and the least never emitted, the
+    keys head_of[min(winners[k:len], never)] by 32-wide tiles from the
+    end (a suffix minimum within the tile, then the carry); then each
+    emission at k + the keys below its key in every other shard (lower
+    bounds), positions past W dropped, -1 after the last."""
+    keys, lens = [], []
+    for w, h in zip(winners, head_of):
+        w, n = [int(x) for x in w], len(h)
+        bad = [k for k in range(n) if not 0 <= w[k] < n]
+        ln = bad[0] if bad else n
+        seen = [False] * n
+        for k in range(ln):
+            seen[w[k]] = True
+        never = next((i for i in range(n) if not seen[i]), n)
+        key = [0] * ln
+        carry = never
+        for base in range(((ln - 1) >> 5) << 5, -1, -32):
+            vals = [w[base + l] if base + l < ln else I32_MAX_KEY
+                    for l in range(32)]
+            suff = [min(vals[l:]) for l in range(32)]
+            v = [min(x, carry) for x in suff]
+            for l in range(32):
+                if base + l < ln:
+                    key[base + l] = int(h[v[l]])
+            carry = v[0]
+        assert key == sorted(key)
+        keys.append(key)
+        lens.append(ln)
+    order = np.full(W, -1, dtype=np.int32)
+    for s, key in enumerate(keys):
+        for k in range(lens[s]):
+            pos = k + sum(int(np.searchsorted(keys[q], key[k], "left"))
+                          for q in range(len(keys)) if q != s)
+            if pos < W:
+                order[pos] = head_of[s][winners[s][k]]
+    assert (order[:min(W, sum(lens))] >= 0).all()
+    return order
+
+
+# (W, S, n_valid, shards with no head, short)
+MERGE_DESIGN_CASES = [(1, 1, 1, (), False), (40, 1, 40, (), True),
+                      (64, 2, 64, (), False), (64, 2, 50, (), True),
+                      (200, 8, 190, (2, 5), False), (200, 8, 200, (), True),
+                      (100, 32, 90, (0, 31), False),
+                      (300, 32, 300, (), True), (1000, 8, 1000, (), False)]
+
+
+@pytest.mark.parametrize("W,S,n_valid,empty,short", MERGE_DESIGN_CASES)
+def test_merge_rank_matches_round_merge(W, S, n_valid, empty, short):
+    """Suffix-minimum keys and merge-path positions give
+    fs_merge_order_plain's round-by-round order: permutations, a
+    sequence that ends early, shards without heads, heads in no shard."""
+    import torch
+    rng = np.random.default_rng(W * 37 + S)
+    winners, head_of = tt.merge_case(rng, W=W, S=S, n_valid=n_valid,
+                                     empty=empty, short=short)
+    want = psh.fs_merge_order_plain(
+        tuple(torch.from_numpy(w) for w in winners),
+        tuple(torch.from_numpy(h) for h in head_of), W).numpy()
+    got = emu_merge_rank(winners, head_of, W)
+    assert got.dtype == want.dtype and np.array_equal(got, want)
+
+
+def _fs_cases():
+    return [(i, a, k) for i, (n, a, k) in enumerate(tt.fs_cases(0))
+            if n == "fs_admit_scan"]
+
+
+@pytest.mark.parametrize("S", [2, 3])
+@pytest.mark.parametrize("i", [i for i, _, _ in _fs_cases()])
+def test_merge_rank_of_forest_shards_is_the_jax_order(i, S):
+    """The fair-sharing sweep split by forest over S shards: the JAX
+    scan of each shard's heads (the others invalid), merged by rank,
+    gives the JAX scan of all heads' order."""
+    _, args, kw = next(x for x in _fs_cases() if x[0] == i)
+    from kueue_tpu_torch.ops.fs_scan import FS_ARGS
+    c = dict(zip(FS_ARGS, args))
+    jkw = dict(depth=kw["depth"], n_levels=kw["n_levels"])
+    W = len(c["wl_cq"])
+
+    def jax_order(valid):
+        a = [c[k] if k != "valid" else valid for k in FS_ARGS[:-1]]
+        return np.asarray(jfs.fs_admit_scan(*[jnp.asarray(x) for x in a],
+                                            **jkw)[0])
+    want = jax_order(c["valid"])
+    shard = c["forest_of_node"][np.maximum(c["wl_cq"], 0)] % S
+    winners, head_of = [], []
+    for s in range(S):
+        valid = c["valid"] & (shard == s)
+        h = np.flatnonzero(valid).astype(np.int32)
+        order = jax_order(valid)
+        local = {int(g): j for j, g in enumerate(h)}
+        w = np.full(len(h), -1, dtype=np.int32)
+        seq = [local[int(g)] for g in order if g >= 0]
+        w[:len(seq)] = seq
+        winners.append(w)
+        head_of.append(h)
+    got = emu_merge_rank(winners, head_of, W)
+    assert np.array_equal(got, want), (i, S)

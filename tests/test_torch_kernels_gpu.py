@@ -1,8 +1,10 @@
 """Each CUDA kernel of kueue_tpu_torch against its plain PyTorch version
 on the same seeded inputs (kueue_tpu_torch.testing.kernel_cases,
-burst_cases, burst_one_forest, flat_scan_cases, fs_cases, tas_cases,
-solve_cycle_cases, shape_cases, scatter_case, dflags_blocks,
-gather_case and merge_case; the two-route kernels on both routes), the
+burst_cases, burst_one_forest, flat_scan_cases, preempt_route_cases,
+fs_cases, tas_cases, solve_cycle_cases, shape_cases, scatter_case,
+dflags_blocks, gather_case and merge_case; the two-route kernels on
+both routes; admit_scan_preempt under forest tables joined by
+testing.preempt_tables, and raising on wrong ones), the
 forest-sharded burst on a virtual mesh of the card against the serial
 burst, and the per-cycle mesh route on a virtual mesh of the card
 against the unsharded plain versions: exact equality, as
@@ -46,8 +48,14 @@ def test_cuda_kernels_match_plain(seed):
     for name, args, kw in tt.kernel_cases(seed):
         before = kernels.LAUNCHES[name]
         plain = PLAIN[name](*[torch.from_numpy(a) for a in args], **kw)
+        extra = {}
+        if name == "admit_scan_preempt":
+            # the sweep's targets may lie in other forests: joined tables
+            fon, nf = tt.preempt_tables(args)
+            extra = dict(forest_of_node=torch.from_numpy(fon).cuda(),
+                         n_forests=nf)
         cuda = ROUTED[name](*[torch.from_numpy(a).cuda() for a in args],
-                            **kw)
+                            **kw, **extra)
         torch.cuda.synchronize()
         assert kernels.LAUNCHES[name] == before + 1, name
         plain = plain if isinstance(plain, tuple) else (plain,)
@@ -657,3 +665,103 @@ def test_cuda_burst_routes_match_plain(route, monkeypatch):
         for i, (p, c) in enumerate(zip(_flat(plain), _flat(cuda))):
             assert c.dtype == p.dtype and c.shape == p.shape, (label, i)
             assert torch.equal(c.cpu(), p), (label, i)
+
+
+def _preempt_cases():
+    """(label, positional arrays, depth, tables or None): the preempt
+    sweep with joined tables, then tt.preempt_route_cases (cohorts of
+    five, nested forests, depth 17, F = 12, one forest, the cross-forest
+    case joined) with their tables and, but the cross-forest case, with
+    forests named by roots."""
+    for i, (name, args, kw) in enumerate(tt.kernel_cases(0)):
+        if name == "admit_scan_preempt":
+            yield f"sweep_{i}", args, kw["depth"], tt.preempt_tables(args)
+    for label, args, depth, tables in tt.preempt_route_cases(0):
+        yield label, args, depth, tables
+        if label != "cross_forest":
+            yield label + "_roots", args, depth, None
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", ["shared", "global"])
+def test_cuda_preempt_routes_match_plain(route, monkeypatch):
+    """The warp-per-forest admit_scan_preempt with its three planes in
+    shared memory and, with none allowed, in global memory, against
+    admit_scan_preempt_plain: the sweep, cycles with the forest tables
+    and by roots, the cross-forest case under joined tables; every
+    block with heads reports its route and the error word stays 0."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernels have no CPU mode")
+    from kueue_tpu_torch import kernels
+    if route == "global":
+        monkeypatch.setattr(kernels, "FLAT_SMEM", 0)
+    for label, args, depth, tables in _preempt_cases():
+        want = cycle.admit_scan_preempt_plain(
+            *[torch.from_numpy(a) for a in args], depth=depth)
+        extra = {}
+        if tables is not None:
+            extra = dict(forest_of_node=torch.from_numpy(tables[0]).cuda(),
+                         n_forests=tables[1])
+        error = torch.zeros(1, dtype=torch.int32, device="cuda")
+        before = kernels.LAUNCHES["admit_scan_preempt"]
+        got = kernels.admit_scan_preempt(
+            *[torch.from_numpy(a).cuda() for a in args], depth=depth,
+            error=error, **extra)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["admit_scan_preempt"] == before + 1, label
+        assert int(error.item()) == 0, label
+        for x, y in zip(want, got):
+            assert y.dtype == x.dtype and torch.equal(y.cpu(), x), \
+                (label, route)
+        routes = kernels.FLAT_ROUTES["admit_scan_preempt"].cpu().tolist()
+        taken = {kernels.FLAT_ROUTE_NAMES[r] for r in routes if r}
+        if route == "global":
+            assert taken == {"global"}, (label, taken)
+
+
+@pytest.mark.gpu
+def test_cuda_preempt_wrong_labels_raise():
+    """A target outside its head's forest under the given tables (the
+    cross-forest case with its own, unjoined labels) sets the error word
+    and raises; it never decides silently."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernels have no CPU mode")
+    from kueue_tpu_torch import kernels
+    c = tt.cross_forest_case()
+    args = [torch.from_numpy(a).cuda() for a in tt.preempt_args(c)]
+    fon = torch.from_numpy(c["forest_of_node"]).cuda()
+    with pytest.raises(RuntimeError, match="cohort forest"):
+        kernels.admit_scan_preempt(*args, depth=c["depth"],
+                                   forest_of_node=fon,
+                                   n_forests=c["n_forests"])
+    with pytest.raises(RuntimeError, match="cohort forest"):
+        kernels.admit_scan_preempt(*args, depth=c["depth"])   # by roots
+    error = torch.zeros(1, dtype=torch.int32, device="cuda")
+    kernels.admit_scan_preempt(*args, depth=c["depth"], forest_of_node=fon,
+                               n_forests=c["n_forests"], error=error)
+    assert int(error.item()) == 1
+    with pytest.raises(RuntimeError, match="cohort forest"):
+        kernels.check_preempt_error(error)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("W,S", [(1000, 2), (1000, 8), (100_000, 2),
+                                 (100_000, 8)])
+def test_cuda_merge_order_by_rank_matches_plain(W, S):
+    """kq_fs_merge_order at 1,000 and 100,000 rounds (the keys in
+    global scratch past MERGE_SMEM), permutations and a sequence that
+    ends early, against fs_merge_order_plain."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernels have no CPU mode")
+    from kueue_tpu_torch import kernels
+    from kueue_tpu_torch.parallel import sharded
+    rng = np.random.default_rng(W + S)
+    assert (13 * W > kernels.MERGE_SMEM) == (W == 100_000)
+    for short in (False, True):
+        winners, head_of = tt.merge_case(rng, W=W, S=S, short=short)
+        cpu = (tuple(torch.from_numpy(w) for w in winners),
+               tuple(torch.from_numpy(h) for h in head_of))
+        want = sharded.fs_merge_order_plain(*cpu, W)
+        got = kernels.kq_fs_merge_order(tuple(w.cuda() for w in cpu[0]),
+                                        tuple(h.cuda() for h in cpu[1]), W)
+        assert got.dtype == want.dtype and torch.equal(got.cpu(), want)
