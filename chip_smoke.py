@@ -10,7 +10,9 @@ then topology-aware scheduling, ``Driver(device="cuda")`` with the TAS
 gates on; then the one-call cycle solver behind the north-star probe
 (``python -m kueue_tpu_torch.probe``) and ``scenarios.entry()``, and
 ``Driver(solver_backend="native")``; then the forest-sharded burst and,
-under ``KUEUE_TPU_SHARDS``, the per-cycle mesh:
+under ``KUEUE_TPU_SHARDS``, the per-cycle mesh; then the front door:
+the reference perf harness (``python -m kueue_tpu_torch.perf.harness``)
+and the job layer (Configuration, manifests, ``JobManager``):
 
 1. device: name, count and ``nvidia-smi`` name/power limit;
 2. build: nvcc of every kernel source (in parallel) into one library;
@@ -139,6 +141,31 @@ under ``KUEUE_TPU_SHARDS``, the per-cycle mesh:
    card: every check of the JAX package's ``__graft_entry__
    .dryrun_multichip`` and its counts, with ``sharded_cycle_fn`` against
    the unsharded ``solve_cycle`` timed on the card;
+17. the reference perf harness at full size: ``python -m
+   kueue_tpu_torch.perf.harness perf/default_generator_config.yaml
+   perf/default_rangespec.yaml`` as a child process (its maxrss and mCPU
+   its own): 15,000 workloads finished, every class's average time to
+   admission with large < medium < small, no rangespec failure on usage
+   or time to admission (virtual time); wall, mCPU and maxrss printed
+   beside their limits; then ``run_scenario`` on the config cut to 1
+   cohort x 6 CQs (a fifth of each workload set) on "cuda" and "cpu":
+   every virtual-time field of ``PerfStats`` equal, and admit_scan,
+   admit_scan_preempt and minimal_preemptions_batch launched;
+18. the job front door at tas-4k's size (``scenarios.build_jobs`` /
+   ``run_jobs``): the Configuration from YAML (``config.load`` +
+   ``validate``: the TAS gate on, waitForPodsReady, fair sharing off),
+   ``Driver.from_config``, the cluster from one manifest
+   (``api.manifests``: priority classes, the Topology, a GPU flavor on it
+   and a CPU flavor, 4 cohorts, 32 ClusterQueues, LocalQueues) and
+   4,096 GPU nodes, then 6,400 jobs of nine kinds (BatchJob, JobSet,
+   PyTorchJob, MPIJob, RayJob, AppWrapper, PodGroup, StatefulSet,
+   LeaderWorkerSet) in waves over 64 steps of ``JobManager`` syncs and
+   ``schedule_once``, a high-priority wave at half time; every kind
+   started, preempted jobs stopped with their templates restored, the
+   webhook's refusals, fill_counts, best_fit_descend,
+   split_across_roots, admit_scan and admit_scan_preempt launched, no
+   full collection, and the same run on "cpu" with an equal digest (the
+   feature gates restored after each);
 3i. kq_gather_heads and kq_fs_merge_order against their plain versions
    on the calls captured in 16-16d and on one synthetic call each at
    north-star width (1,000 heads over 8 shards), and the per-shard admit
@@ -151,15 +178,17 @@ under ``KUEUE_TPU_SHARDS``, the per-cycle mesh:
    kernel's own duration and the start-to-start period).
 
 Launch counts are zeroed just before phases 4, 5, 7, 8, 9, 9b, 11, 13,
-14, 15, 15b, 15c, 16, 16b, 16c and 16d and read just after each.  The
+14, 15, 15b, 15c, 16, 16b, 16c, 16d, 17 and 18 and read just after
+each.  The
 scenarios collect as the reference scripts do (builds frozen, drains
 with collection off): the measured north-star phases 5, 8, 9, 15, 15c,
-16b and 16c and tas-4k's phase 11 must see no full collection
+16b and 16c, tas-4k's phase 11 and the job front door's phase 18 must
+see no full collection
 (``GCWatch``), and
 ``scenarios.release()`` frees each phase's driver graph before the next
 phase builds.  A
 launch records no CUDA event: the device time of phases 4, 5, 7, 8, 9,
-11, 13, 15, 15c, 16, 16b and 16c (per kernel, the rest, the busy union
+11, 13, 15, 15c, 16, 16b, 16c, 17 and 18 (per kernel, the rest, the busy union
 and its share of the wall) comes from torch.profiler's CUDA activity
 over the phase (``kueue_tpu_torch.profiling.DeviceClock``); a phase in
 which it sees nothing fails.  Prints a ``kernels`` JSON line (per
@@ -171,6 +200,8 @@ burst_cycles took per call; a dependent-step count for the TAS
 kernels, fs_admit_scan, admit_scan and burst_cycles; admit_scan also
 on the probe's flat 1,000 heads, fs_admit_scan, admit_scan and
 burst_cycles also on one forest of every CQ, their worst case), the
+seconds by phase (``[walls]``, the wall up to each printed line summed
+by the phase tag at its head) and the total, the
 nvidia-smi line, and as its last line ``{"ok": true,
 "device": {...}}``.  Exits non-zero, with no result line, when there is
 no CUDA device or no kueue_tpu_torch beside it.
@@ -186,6 +217,7 @@ import os
 import subprocess
 import sys
 import time
+from collections import Counter
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, and the float32 rate
 # outside the tensor cores, used as the (generous) int32 rate
@@ -248,9 +280,23 @@ MESH_SCANS = ("admit_scan", "admit_scan_forests", "admit_scan_preempt",
 MESH_SHARDS = {"bench": 4, "northstar": 8, "fs": 4, "dryrun": 8}
 ROUTED = ("admit_scan", "burst_cycles",   # kernels with two routes
           "admit_scan_preempt")
+HARNESS_TIMEOUT_S = 600    # phase 17's child process
+README_REPLAY = ("76.8 virtual s; large/medium/small 0 / 33.2 / 54.1 s; "
+                 "min CQ usage 98.7%")
+
+
+PHASE_WALLS: dict[str, float] = {}   # wall s by phase, summed by ``log``
+_LAST_LOG = [time.perf_counter()]
 
 
 def log(msg: str) -> None:
+    """Print one line.  The wall since the previous line counts to the
+    phase named at the head of this one (``[11 tas-4k] ...`` → "11",
+    ``[3h ...]`` → "3h"; a line without a tag → "-")."""
+    now = time.perf_counter()
+    tag = msg[1:].split("]")[0].split(" ")[0] if msg.startswith("[") else "-"
+    PHASE_WALLS[tag] = PHASE_WALLS.get(tag, 0.0) + now - _LAST_LOG[0]
+    _LAST_LOG[0] = now
     print(msg, flush=True)
 
 
@@ -1051,8 +1097,19 @@ def burst_window(calls):
     return calls[-1]
 
 
+def boundary_report(bstats: dict) -> str:
+    """The harness's ``burst_boundary_report`` of ``BurstSolver.stats``,
+    then the forest-sharded burst's two counters, under their stats
+    names, where the run has them."""
+    from kueue_tpu_torch.perf.harness import burst_boundary_report
+    shard = {k: bstats[k] for k in ("burst_sharded_dispatches",
+                                    "burst_shard_degradations")
+             if k in bstats}
+    return (json.dumps(burst_boundary_report(bstats))
+            + (f" {json.dumps(shard)}" if shard else ""))
+
+
 def burst_line(tag, d, r, launches) -> None:
-    from kueue_tpu_torch import scenarios
     bs = d._burst_solver.stats
     ss = d.scheduler.solver.stats
     log(f"[{tag}] burst_cycles launches {launches['burst_cycles']}, "
@@ -1067,11 +1124,55 @@ def burst_line(tag, d, r, launches) -> None:
         f"{bs['burst_target_divergences']}; per-cycle fallbacks: full "
         f"{ss['full_cycles']} classify {ss['classify_cycles']} host "
         f"{ss['host_cycles']}; boundary "
-        f"{json.dumps(scenarios.burst_boundary_report(bs))}; launches "
+        f"{boundary_report(bs)}; launches "
         f"{json.dumps(launches)}")
 
 
+class Launcher:
+    """A small process, started before this one imports torch, that runs
+    one command for it.  A child's ``ru_maxrss`` starts from the resident
+    high-water mark of the process it was forked from (Linux carries it
+    across exec), so a command started from here would report this run's
+    gigabytes; started from the launcher it reports its own."""
+
+    CODE = ("import json, subprocess, sys\n"
+            "req = json.loads(sys.stdin.readline() or 'null')\n"
+            "if req:\n"
+            "    r = subprocess.run(req['cmd'], cwd=req['cwd'], "
+            "env=req['env'], capture_output=True, text=True, "
+            "timeout=req['timeout'])\n"
+            "    sys.stdout.write(json.dumps([r.returncode, r.stdout, "
+            "r.stderr]))\n")
+
+    def __init__(self):
+        self.proc = subprocess.Popen([sys.executable, "-c", self.CODE],
+                                     stdin=subprocess.PIPE,
+                                     stdout=subprocess.PIPE, text=True)
+
+    def run(self, cmd: list, cwd: str, env: dict, timeout: float):
+        """``subprocess.run(cmd, ...)`` in the launcher (killed after
+        ``timeout`` seconds); the launcher exits afterwards."""
+        out, _ = self.proc.communicate(json.dumps(dict(
+            cmd=cmd, cwd=cwd, env=env, timeout=timeout)) + "\n",
+            timeout=timeout + 60)
+        rc, stdout, stderr = json.loads(out or "[null, \"\", \"\"]")
+        return subprocess.CompletedProcess(cmd, rc, stdout, stderr)
+
+    def close(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+        self.proc.wait()
+
+
 def main() -> int:
+    launcher = Launcher()   # while this process is still small
+    try:
+        return smoke(launcher)
+    finally:
+        launcher.close()
+
+
+def smoke(launcher: Launcher) -> int:
     try:
         import torch
     except ImportError:
@@ -1736,7 +1837,7 @@ def main() -> int:
     log(f"[15b resident] {RESIDENT_SHARDS} virtual shards: "
         f"{len(r15b['records'])} cycles, records equal to the serial "
         f"drain: {r15b['records'] == serial['records']}; boundary "
-        f"{json.dumps(scenarios.burst_boundary_report(st))}; launches "
+        f"{boundary_report(st)}; launches "
         f"{json.dumps({k: launches15b[k] for k in ('burst_cycles',) + SHARD_KERNELS})}"
         f"; after lose_devices(4): shards {r15c['shards']}, records equal "
         f"to the serial split drain: "
@@ -1785,7 +1886,7 @@ def main() -> int:
         f"{sum(len(r[0]) for r in r15w['records'])}, preempted "
         f"{sum(len(r[3]) for r in r15w['records'])}, records equal to the "
         f"serial drain: {r15w['records'] == serial_w['records']}; boundary "
-        f"{json.dumps(scenarios.burst_boundary_report(st))}; launches "
+        f"{boundary_report(st)}; launches "
         f"{json.dumps({k: launches15w[k] for k in ('burst_cycles',) + SHARD_KERNELS})}"
         f"; {gc15w.line()}; {device_line('15c', dc15w, r15w_s, launches15w)}")
     check(r15w["records"] == serial_w["records"], "15c: records differ")
@@ -1942,6 +2043,138 @@ def main() -> int:
                        "kq_gather_heads"):
         check(launches16d[k] > 0, (k, launches16d))
 
+    # -- 17. the reference perf harness at full size ------------------------
+    import yaml
+    from kueue_tpu_torch.perf import harness
+    here = os.path.dirname(os.path.abspath(__file__))
+    gen = os.path.join(here, "perf", "default_generator_config.yaml")
+    spec_path = os.path.join(here, "perf", "default_rangespec.yaml")
+    with open(spec_path) as f:
+        spec = yaml.safe_load(f)
+    t0 = time.perf_counter()
+    # a process of its own, started by the launcher, so that maxrss and
+    # mCPU are the harness's
+    proc = launcher.run(
+        [sys.executable, "-m", "kueue_tpu_torch.perf.harness", gen,
+         spec_path], cwd=here, env=dict(os.environ, PYTHONPATH=here),
+        timeout=HARNESS_TIMEOUT_S)
+    child_s = time.perf_counter() - t0
+    try:
+        h17 = json.loads(proc.stdout)
+    except json.JSONDecodeError:
+        raise RuntimeError(f"phase 17: no JSON from the harness (exit "
+                           f"{proc.returncode}): {proc.stdout[-2000:]}\n"
+                           f"{proc.stderr[-4000:]}") from None
+    tta = h17["avg_time_to_admission_ms"]
+    fails17 = [ln[len("RANGESPEC FAIL: "):]
+               for ln in proc.stderr.splitlines()
+               if ln.startswith("RANGESPEC FAIL: ")]
+    cmd = spec["cmd"]
+    log(f"[17 perf harness] python -m kueue_tpu_torch.perf.harness "
+        f"(exit {proc.returncode}, {child_s:.1f}s): {json.dumps(h17)}; "
+        f"rangespec failures {json.dumps(fails17)}; host figures against "
+        f"their limits: wall {h17['wall_ms']}ms (maxWallMs "
+        f"{cmd['maxWallMs']}), cpu {h17['cpu_mcpu']}mCPU (mCPU "
+        f"{cmd['mCPU']}), maxrss {h17['maxrss_kb']}KB (maxrss "
+        f"{cmd['maxrss']}KB, set for a JAX process); on the card "
+        f"{h17['virtual_ms'] / 1e3} virtual s, avg time to admission (s) "
+        f"{json.dumps({k: v / 1e3 for k, v in tta.items()})}, min CQ usage "
+        f"{h17['min_avg_usage_pct'].get('cq')}%, beside the JAX replay's "
+        f"record (README): {README_REPLAY}")
+    check(proc.returncode in (0, 1), ("phase 17 exit", proc.returncode,
+                                      proc.stderr[-4000:]))
+    check(proc.returncode == 0 or fails17, proc.stderr[-4000:])
+    check(h17["finished"] == h17["workloads"] == BENCH_WORKLOADS, h17)
+    check(set(tta) == {"small", "medium", "large"}
+          and tta["large"] < tta["medium"] < tta["small"], tta)
+    check(not [f for f in fails17
+               if f.startswith(("usage[", "timeToAdmission["))], fails17)
+
+    # the cut config in this process, on the card and on the CPU
+    with open(gen) as f:
+        cut = yaml.safe_load(f)
+    cut[0]["count"] = 1
+    for ws in cut[0]["queuesSets"][0]["workloadsSets"]:
+        ws["count"] //= 5
+    kernels.reset_counts()
+    with DeviceClock() as dc17:
+        s17 = harness.run_scenario(cut, device="cuda")
+    launches17 = dict(kernels.LAUNCHES)
+    s17c = harness.run_scenario(cut, device="cpu")
+    virtual = ("admitted", "finished", "virtual_ms",
+               "avg_time_to_admission_ms", "min_avg_usage_pct")
+    v17 = {k: getattr(s17, k) for k in virtual}
+    log(f"[17 perf harness, 1 cohort x 6 CQs, "
+        f"{s17.total_workloads} workloads] cuda {json.dumps(v17)} in "
+        f"{s17.wall_ms / 1e3:.2f}s; cpu equal: "
+        f"{v17 == {k: getattr(s17c, k) for k in virtual}} "
+        f"({s17c.wall_ms / 1e3:.2f}s); launches "
+        f"{json.dumps({k: v for k, v in launches17.items() if v})}; "
+        f"{device_line('17', dc17, s17.wall_ms / 1e3, launches17)}")
+    check(v17 == {k: getattr(s17c, k) for k in virtual},
+          ("phase 17: card and CPU differ", v17, s17c))
+    check(s17.finished == s17.total_workloads, s17)
+    for k in ("admit_scan", "admit_scan_preempt",
+              "minimal_preemptions_batch"):
+        check(launches17[k] > 0, (k, launches17))
+    del s17, s17c
+    scenarios.release()
+
+    # -- 18. the job front door at tas-4k's size ----------------------------
+    with scenarios.restore_gates():
+        t0 = time.perf_counter()
+        d, clock, mgr, plan = scenarios.build_jobs(device="cuda")
+        build_s = time.perf_counter() - t0
+        kernels.reset_counts()
+        with (scenarios.TASBranches() as br18, DeviceClock() as dc18,
+              GCWatch() as gc18):
+            r18 = scenarios.run_jobs(d, clock, mgr, plan)
+        launches18 = dict(kernels.LAUNCHES)
+    digest18 = scenarios.jobs_digest(d, r18)
+    pct = scenarios.percentile
+    log(f"[18 jobs-tas-4k] {len(d.cache.tas.nodes)} nodes, "
+        f"{len(list(d.queues.cluster_queue_names()))} CQs, "
+        f"{r18['jobs']} jobs (built in {build_s:.1f}s), {r18['steps']} "
+        f"steps in {r18['wall']:.2f}s (schedule_once "
+        f"{sum(r18['cycle_times']):.2f}s, the job layer the rest), cycle p50 "
+        f"{pct(r18['cycle_times'], 0.5) * 1e3:.3f}ms p99 "
+        f"{pct(r18['cycle_times'], 0.99) * 1e3:.3f}ms; admitted "
+        f"{r18['admitted']}, completed {r18['completed']}, preempted "
+        f"{r18['preempted']}, PodsReady timeouts {r18['timed_out']} "
+        f"(deactivated {r18['deactivated']}), stopped "
+        f"{len(r18['stopped'])} "
+        f"({json.dumps(Counter(s[1] for s in r18['stopped']))}), refused "
+        f"{len(r18['refused'])}; started by kind "
+        f"{json.dumps(r18['started_kinds'])}; branches "
+        f"{json.dumps(br18.counts)}; digest {digest18}; {gc18.line()}; "
+        f"launches {json.dumps({k: v for k, v in launches18.items() if v})}"
+        f"; {device_line('18', dc18, r18['wall'], launches18)}")
+    check(set(r18["started_kinds"]) == set(scenarios.JOB_KINDS),
+          r18["started_kinds"])
+    check(r18["preempted"] > 0 and r18["stopped"], "phase 18: no preemption")
+    check(r18["preempted_unstopped"] == [], r18["preempted_unstopped"][:5])
+    check(all(restored for _, _, restored in r18["stopped"]),
+          [s for s in r18["stopped"] if not s[2]][:5])
+    check(r18["refused"], "phase 18: the webhook refused nothing")
+    for k in TAS_KERNELS + ("admit_scan", "admit_scan_preempt"):
+        check(launches18[k] > 0, (k, launches18))
+    check(br18.counts["scalar_walk"] == 0, br18.counts)
+    check(gc18.n == 0, f"phase 18: {gc18.line()}")
+    del d, mgr, plan, r18
+    scenarios.release()
+
+    before = dict(kernels.LAUNCHES)
+    with scenarios.restore_gates():
+        d, clock, mgr, plan = scenarios.build_jobs(device="cpu")
+        r = scenarios.run_jobs(d, clock, mgr, plan)
+    digest = scenarios.jobs_digest(d, r)
+    log(f"[18 jobs parity] cpu: {r['steps']} steps in {r['wall']:.2f}s, "
+        f"admitted {r['admitted']}, digest {digest}")
+    check(digest == digest18, {"cuda": digest18, "cpu": digest})
+    check(kernels.LAUNCHES == before, "the CPU run launched a kernel")
+    del d, mgr, plan, r
+    scenarios.release()
+
     # -- 3i. the mesh kernels and the per-shard scans against plain ---------
     mesh_phases = ("bench_mesh", "northstar_mesh", "northstar_fs_mesh",
                    "dryrun")
@@ -1994,7 +2227,7 @@ def main() -> int:
                 "11": launches11, "13": launches13, "14": launches14,
                 "15": launches15, "15b": launches15b, "15c": launches15w,
                 "16": launches16, "16b": launches16b, "16c": launches16c,
-                "16d": launches16d}
+                "16d": launches16d, "17": launches17, "18": launches18}
     rows = []
     for name in kernels.KERNELS:
         phase = {"admit_scan_forests": "northstar",
@@ -2222,6 +2455,8 @@ def main() -> int:
             launches_by_phase={k: v[name] for k, v in by_phase.items()},
             **extra))
     print(json.dumps({"kernels": rows}), flush=True)
+    log("[walls] s by phase, to each line from the one before: "
+        + json.dumps({k: round(v, 3) for k, v in PHASE_WALLS.items()}))
     log(f"total {time.perf_counter() - t_start:.1f}s")
     print(smi_line, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -34,6 +34,13 @@ the north-star shape, driven per cycle through ``Driver.schedule_once``.
   (required or preferred) or for no topology, 60 cycles; the digest
   covers every admission's topology domains.  ``TASBranches`` counts
   which branch of ``TASFlavorSnapshot._find_device`` each query took.
+- ``build_jobs``/``run_jobs``: the job front door at tas-4k's size
+  (jobs-tas-4k) — a Configuration from YAML, the cluster from one
+  manifest, 6,400 jobs of nine kinds (``JOB_KINDS``) through the
+  ``JobManager`` and ``schedule_once`` over 64 steps, a high-priority
+  wave that preempts; ``jobs_spec`` builds it on the Driver of the
+  package whose modules it is given and ``jobs_digest`` hashes what a
+  run decided.
 - ``sustained_spec``/``sustained_drain``: the JAX tests' sustained burst
   drain (2 CQs, 72 workloads) with a high-priority arrival at cycle 36,
   serial or forest-sharded (``BurstSolver.set_shards``), optionally
@@ -571,38 +578,6 @@ def northstar_burst(d: Driver, clock: VirtualClock, preemptor_wave,
                 preempted=preempted, decisions=decisions)
 
 
-def burst_boundary_report(bstats: dict) -> dict:
-    """The burst boundary pipeline from ``BurstSolver.stats``: window
-    boundaries whose pack + launch overlapped the previous apply,
-    speculations discarded, serial windows, and the delta-pack reuse."""
-    overlapped = bstats.get("burst_overlapped_packs", 0)
-    packs = bstats.get("burst_packs", 0)
-    return {
-        "overlapped_packs": overlapped,
-        "spec_dispatches": bstats.get("burst_spec_dispatches", 0),
-        "spec_cancelled": bstats.get("burst_spec_cancelled", 0),
-        "serial_windows": bstats.get("burst_serial_windows", 0),
-        "serial_pack_s": round(bstats.get("burst_pack_s", 0.0), 4),
-        "boundary_overlap_share": round(
-            overlapped / max(1, overlapped + packs), 3),
-        "spec_fetch_wait_s": round(
-            bstats.get("burst_spec_fetch_wait_s", 0.0), 4),
-        "target_divergences": bstats.get("burst_target_divergences", 0),
-        "delta_packs": bstats.get("burst_delta_packs", 0),
-        "full_packs": bstats.get("burst_full_packs", 0),
-        "rows_reused": bstats.get("rows_reused", 0),
-        "rows_repacked": bstats.get("rows_repacked", 0),
-        "delta_pack_s": round(bstats.get("delta_pack_s", 0.0), 4),
-        # the forest-sharded burst (absent on the serial path)
-        **{k[len("burst_"):]: bstats[k] for k in (
-            "burst_sharded_dispatches", "burst_resident_hits",
-            "burst_resident_misses", "burst_resident_scatter_rows",
-            "burst_resident_scatter_ranges", "burst_boundary_bytes_h2d",
-            "burst_boundary_bytes_equiv", "burst_shard_degradations")
-           if k in bstats},
-    }
-
-
 def sustained_spec(t, d, per_cq: int = 36) -> None:
     """tests/test_burst_pipeline.py ``sustained_spec``: 2 CQs of one
     cohort (4,000 mCPU nominal each), ``per_cq`` workloads of 2,000 mCPU
@@ -1006,6 +981,479 @@ class TASBranches:
             setattr(owner, attr, orig)
         self._undo.clear()
         return False
+
+
+# ----------------------------------------------------------------------
+# The job front door (jobs-tas-4k)
+# ----------------------------------------------------------------------
+
+# the integrations the job front door drives, round robin
+JOB_KINDS = ("BatchJob", "JobSet", "PyTorchJob", "MPIJob", "RayJob",
+             "AppWrapper", "PodGroup", "StatefulSet", "LeaderWorkerSet")
+JOBS_CPU_FLAVOR = "cpu-pool"
+JOBS_ACCEL = {"cloud.google.com/gke-accelerator": "nvidia-h100-80gb"}
+JOBS_CPU_TOLERATION = {"key": "pool", "operator": "Equal", "value": "cpu",
+                       "effect": "NoSchedule"}
+JOBS_PRIORITY = {"low": 0, "high": 1000}
+JOBS_CPU_PER_CQ = 16             # CPUs of the CPU flavor per ClusterQueue
+# Kueue's Configuration: the TAS gate on, WaitForPodsReady enabled
+# without blocking admission (a not-ready gang is evicted after 10 s and
+# requeued with backoff, at most 3 times), fair sharing off
+JOBS_CONFIG = """\
+apiVersion: config.kueue.x-k8s.io/v1beta1
+kind: Configuration
+namespace: kueue-system
+manageJobsWithoutQueueName: false
+waitForPodsReady:
+  enable: true
+  blockAdmission: false
+  timeout: 10s
+  requeuingStrategy:
+    timestamp: Eviction
+    backoffLimitCount: 3
+    backoffBaseSeconds: 5
+    backoffMaxSeconds: 60
+integrations:
+  frameworks:
+  - batch/job
+  - pod
+  - pod-group
+  - jobset.x-k8s.io/jobset
+  - kubeflow.org/pytorchjob
+  - kubeflow.org/mpijob
+  - ray.io/rayjob
+  - workload.codeflare.dev/appwrapper
+  - statefulset
+  - leaderworkerset.x-k8s.io/leaderworkerset
+fairSharing:
+  enable: false
+featureGates:
+  TopologyAwareScheduling: true
+"""
+def _front_door():
+    """This package's modules that the job front door uses, by their
+    last name (``m.manifests``, ``m.kubeflow``, ``m.driver``, ...): the
+    ``m`` that ``jobs_spec`` / ``jobs_configuration`` take."""
+    import types as _types
+    from . import config, features, jobframework, jobs
+    from .api import manifests, types
+    from .cache import tas_cache
+    from .controller import driver
+    from .jobs import appwrapper, kubeflow, pod, ray, serving
+    from .webhooks import validation
+    return _types.SimpleNamespace(
+        types=types, manifests=manifests, config=config, features=features,
+        validation=validation, jobframework=jobframework, jobs=jobs,
+        appwrapper=appwrapper, kubeflow=kubeflow, pod=pod, ray=ray,
+        serving=serving, tas_cache=tas_cache, driver=driver)
+
+
+@contextlib.contextmanager
+def restore_gates():
+    """Every feature gate of this package back to what it was when the
+    block ends: ``Driver.from_config`` sets the configuration's gates
+    process-wide."""
+    from . import features
+    saved = dict(features._overrides)
+    try:
+        yield
+    finally:
+        features._overrides.clear()
+        features._overrides.update(saved)
+
+
+def jobs_configuration(m, text: str = JOBS_CONFIG):
+    """``text`` through package ``m``'s ``config.load`` (which reads a
+    file: a temporary one) and ``config.validate``."""
+    import os
+    import tempfile
+    fd, path = tempfile.mkstemp(suffix=".yaml")
+    try:
+        with os.fdopen(fd, "w") as f:
+            f.write(text)
+        cfg = m.config.load(path)
+    finally:
+        os.unlink(path)
+    errors = m.config.validate(cfg)
+    if errors:
+        raise m.config.ConfigValidationError(errors)
+    return cfg
+
+
+def jobs_manifests(*, n_nodes: int, n_cqs: int = 32,
+                   n_cohorts: int = 4) -> str:
+    """The cluster of the job front door as one multi-document manifest:
+    two WorkloadPriorityClasses, the GPU Topology (block → subblock →
+    host), a GPU flavor on it and a CPU flavor with a toleration, the
+    cohorts, ``n_cqs`` ClusterQueues over both flavors (the GPU quotas
+    add up to ``n_nodes`` TAS nodes; borrowing within the cohort
+    unlimited; reclaim within the cohort and lower-priority preemption
+    within the queue) and a LocalQueue each."""
+    import yaml
+    per_cohort = max(1, n_cqs // n_cohorts)
+    api = "kueue.x-k8s.io/v1beta1"
+    docs = [{"apiVersion": api, "kind": "WorkloadPriorityClass",
+             "metadata": {"name": name}, "value": value,
+             "description": f"{name} priority jobs"}
+            for name, value in JOBS_PRIORITY.items()]
+    docs.append({"apiVersion": "kueue.x-k8s.io/v1alpha1", "kind": "Topology",
+                 "metadata": {"name": "gpu-topology"},
+                 "spec": {"levels": [{"nodeLabel": lv}
+                                     for lv in TAS_LEVELS]}})
+    docs.append({"apiVersion": api, "kind": "ResourceFlavor",
+                 "metadata": {"name": TAS_FLAVOR},
+                 "spec": {"nodeLabels": dict(JOBS_ACCEL),
+                          "topologyName": "gpu-topology"}})
+    docs.append({"apiVersion": api, "kind": "ResourceFlavor",
+                 "metadata": {"name": JOBS_CPU_FLAVOR},
+                 "spec": {"nodeLabels": {"node-pool": "cpu"},
+                          "tolerations": [dict(JOBS_CPU_TOLERATION)]}})
+    docs += [{"apiVersion": "kueue.x-k8s.io/v1alpha1", "kind": "Cohort",
+              "metadata": {"name": f"cohort-{c}"}, "spec": {}}
+             for c in range(n_cohorts)]
+    for i in range(n_cqs):
+        docs.append({
+            "apiVersion": api, "kind": "ClusterQueue",
+            "metadata": {"name": f"cq-{i}"},
+            "spec": {
+                "cohort": f"cohort-{i // per_cohort}",
+                "namespaceSelector": {},
+                "queueingStrategy": "BestEffortFIFO",
+                "preemption": {"reclaimWithinCohort": "Any",
+                               "withinClusterQueue": "LowerPriority"},
+                "resourceGroups": [{
+                    "coveredResources": ["cpu", TAS_GPU],
+                    "flavors": [
+                        {"name": TAS_FLAVOR, "resources": [
+                            {"name": "cpu", "nominalQuota":
+                             f"{n_nodes * TAS_NODE['cpu'] // n_cqs}m"},
+                            {"name": TAS_GPU, "nominalQuota":
+                             n_nodes * TAS_NODE[TAS_GPU] // n_cqs}]},
+                        {"name": JOBS_CPU_FLAVOR, "resources": [
+                            {"name": "cpu",
+                             "nominalQuota": JOBS_CPU_PER_CQ},
+                            {"name": TAS_GPU, "nominalQuota": 0}]}]}]}})
+        docs.append({"apiVersion": api, "kind": "LocalQueue",
+                     "metadata": {"name": f"lq-{i}",
+                                  "namespace": "default"},
+                     "spec": {"clusterQueue": f"cq-{i}"}})
+    return yaml.safe_dump_all(docs, sort_keys=False)
+
+
+_APPLY = {"WorkloadPriorityClass": "apply_workload_priority_class",
+          "Topology": "apply_topology",
+          "ResourceFlavor": "apply_resource_flavor",
+          "Cohort": "apply_cohort", "ClusterQueue": "apply_cluster_queue",
+          "LocalQueue": "apply_local_queue"}
+
+
+def _gang_counts(hosts: int, block: int) -> tuple:
+    """Pods of 8 GPUs (one a host) a gang asks for under a subblock
+    (index 0) or a block (index 1) request."""
+    sub = sorted({c for c in (1, 2, 4, hosts // 4, hosts // 2, hosts)
+                  if c >= 1})
+    blk = sorted({c for c in (hosts, 2 * hosts, block // 4, block // 2)
+                  if c >= 1})
+    return sub, blk
+
+
+def _jobs_job(m, kind: str, name: str, queue: str, prio: str, rng,
+              hosts: int, block: int, opening: bool, invalid: bool):
+    """One job of ``kind`` (``JOB_KINDS``) for LocalQueue ``queue``.  The
+    kubeflow gangs and the JobSet take 8-GPU pods on the TAS flavor with
+    a topology request; the rest take CPU pods on the CPU flavor.  An
+    ``opening`` gang asks for 1.5 blocks (preferred: it splits across
+    blocks; required: it cannot fit); an ``invalid`` one carries a
+    topology request the job webhook refuses."""
+    t = m.types
+    gpu_pod = {TAS_GPU: 8, "cpu": 96_000}
+
+    def cpu() -> int:
+        return int(rng.choice((500, 1000, 2000, 4000)))
+
+    if kind in ("PyTorchJob", "MPIJob"):
+        sub, blk = _gang_counts(hosts, block)
+        level = int(rng.integers(2))
+        mode = ("required", "preferred")[int(rng.integers(2))]
+        workers = int(rng.choice((sub, blk)[level]))
+        if opening:
+            level, workers = 0, block * 3 // 2
+            mode = "preferred" if kind == "PyTorchJob" else "required"
+        req = t.PodSetTopologyRequest(**{mode: TAS_LEVELS[level]})
+        head_req = req
+        if invalid:
+            req = (t.PodSetTopologyRequest(required="not a label!!")
+                   if kind == "PyTorchJob" else
+                   t.PodSetTopologyRequest(required=TAS_LEVELS[1],
+                                           preferred=TAS_LEVELS[0]))
+        head, cls = (("Master", m.kubeflow.PyTorchJob) if kind == "PyTorchJob"
+                     else ("Launcher", m.kubeflow.MPIJob))
+        return cls(name, replicas=[
+            m.kubeflow.ReplicaSpec(role="Worker", replicas=workers,
+                                   requests=dict(gpu_pod),
+                                   topology_request=req),
+            m.kubeflow.ReplicaSpec(role=head, replicas=1,
+                                   requests=dict(gpu_pod),
+                                   topology_request=head_req)],
+            queue=queue, priority_class=prio)
+    if kind == "JobSet":
+        return m.jobs.JobSet(name, replicated_jobs=[
+            m.jobs.ReplicatedJobSpec(
+                name="leader", requests={TAS_GPU: 1, "cpu": 12_000},
+                topology_request=t.PodSetTopologyRequest(unconstrained=True)),
+            m.jobs.ReplicatedJobSpec(
+                name="workers", replicas=int(rng.integers(1, 5)),
+                parallelism=int(rng.choice((1, 2, 4))),
+                requests=dict(gpu_pod),
+                topology_request=t.PodSetTopologyRequest(
+                    preferred=TAS_LEVELS[1]))],
+            queue=queue, priority_class=prio)
+    if kind == "BatchJob":
+        return m.jobs.BatchJob(name, parallelism=int(rng.integers(1, 9)),
+                               requests={"cpu": cpu()}, queue=queue,
+                               priority_class=prio)
+    if kind == "RayJob":
+        return m.ray.RayJob(
+            name, head_requests={"cpu": 2000},
+            worker_groups=[m.ray.WorkerGroupSpec(
+                name="workers", replicas=int(rng.integers(1, 4)),
+                requests={"cpu": cpu()})],
+            submitter_requests={"cpu": 500}, queue=queue,
+            priority_class=prio)
+    if kind == "AppWrapper":
+        return m.appwrapper.AppWrapper(name, components=[
+            m.appwrapper.Component(name=f"c{j}",
+                                   count=int(rng.integers(1, 4)),
+                                   requests={"cpu": cpu()})
+            for j in range(int(rng.integers(1, 4)))],
+            queue=queue, priority_class=prio)
+    if kind == "PodGroup":
+        n = int(rng.integers(2, 7))
+        group = m.pod.PodGroup(name, total_count=n, queue=queue)
+        for j in range(n):
+            group.add_pod(m.pod.Pod(name=f"{name}-{j}",
+                                    requests={"cpu": cpu()}))
+        return group
+    if kind == "StatefulSet":
+        return m.serving.StatefulSet(name, replicas=int(rng.integers(1, 5)),
+                                     requests={"cpu": 1000}, queue=queue,
+                                     priority_class=prio)
+    return m.serving.LeaderWorkerSet(name, groups=[
+        m.serving.LWSGroup(index=g, workers=int(rng.integers(1, 4)),
+                           leader_requests={"cpu": 1000},
+                           worker_requests={"cpu": cpu()})
+        for g in range(int(rng.integers(1, 3)))],
+        queue=queue, priority_class=prio)
+
+
+def jobs_spec(m, d, *, blocks: int = 8, subblocks: int = 16,
+              hosts: int = 32, n_cqs: int = 32, n_cohorts: int = 4,
+              n_jobs: int = 6000, steps: int = 64, seed: int = 0) -> dict:
+    """Populate driver ``d`` of the package whose modules ``m`` holds
+    (by ``_front_door``'s names) with the cluster of ``jobs_manifests``
+    through ``api.manifests`` and the Driver's ``apply_*``, and tas-4k's
+    ``blocks x subblocks x hosts`` GPU nodes (as ``tas_spec`` adds them,
+    labelled for the GPU flavor); plan ``n_jobs`` jobs, round robin over
+    ``JOB_KINDS`` and the ClusterQueues, arriving in waves every 2 steps
+    over the first three quarters of ``steps``, then a wave of
+    ``n_jobs / 15`` high-priority jobs at half time that must preempt.
+    Each cohort opens with a 1.5-block PyTorchJob (preferred) and MPIJob
+    (required); every 150th kubeflow gang of a kind carries a topology
+    request the webhook refuses.  Returns the plan: arrivals by step,
+    each job's runtime (3-12 steps once its pods are ready) and, for the
+    kubeflow gangs, the steps from start until its pods are ready (0, or
+    30 for one in 40: the 10 s PodsReady timeout evicts it first)."""
+    rng = np.random.default_rng(seed)
+    n_nodes = blocks * subblocks * hosts
+    for obj in m.manifests.load_manifests(jobs_manifests(
+            n_nodes=n_nodes, n_cqs=n_cqs, n_cohorts=n_cohorts)):
+        getattr(d, _APPLY[type(obj).__name__])(obj)
+    for b in range(blocks):
+        for sb in range(subblocks):
+            for h in range(hosts):
+                d.cache.tas.add_or_update_node(m.tas_cache.NodeInfo(
+                    name=f"gpu-{b}-{sb}-{h}",
+                    labels={**dict(zip(TAS_LEVELS, (
+                        f"block-{b}", f"subblock-{b}-{sb}",
+                        f"gpu-{b}-{sb}-{h}"))), **JOBS_ACCEL},
+                    capacity=dict(TAS_NODE)))
+    per_cohort = max(1, n_cqs // n_cohorts)
+    waves = max(1, (steps * 3 // 4) // 2)
+    high_at = steps // 2
+    arrivals: dict[int, list] = {}
+    runtime: dict[str, int] = {}
+    ready_after: dict[str, int] = {}
+    n_high = n_jobs // 15
+    for i in range(n_jobs + n_high):
+        high = i >= n_jobs
+        kind = JOB_KINDS[i % len(JOB_KINDS)]
+        cq = i % n_cqs
+        step = high_at if high else 2 * (i * waves // n_jobs)
+        opening = (not high and i < len(JOB_KINDS) * n_cqs
+                   and cq % per_cohort == 0)
+        nth = i // len(JOB_KINDS)
+        invalid = (kind in ("PyTorchJob", "MPIJob") and not opening
+                   and nth % 150 == 149)
+        job = _jobs_job(m, kind, f"{kind.lower()}-{i}", f"lq-{cq}",
+                        "high" if high else "low", rng, hosts,
+                        subblocks * hosts, opening, invalid)
+        arrivals.setdefault(step, []).append(job)
+        runtime[job.key] = int(rng.integers(3, 13))
+        if kind in ("PyTorchJob", "MPIJob"):
+            ready_after[job.key] = 30 if rng.random() < 0.025 else 0
+    return dict(modules=m, arrivals=arrivals, runtime=runtime,
+                ready_after=ready_after, steps=steps)
+
+
+def build_jobs(device: str = "cuda", **kw):
+    """The job front door on this package's Driver → (driver, clock,
+    JobManager, plan): the Configuration from ``JOBS_CONFIG`` (``load``
+    + ``validate``), ``Driver.from_config`` on ``device``, then
+    ``jobs_spec(**kw)``.  ``from_config`` sets the configuration's
+    feature gates process-wide: run the build and the drain inside
+    ``restore_gates()``."""
+    m = _front_door()
+    clock = VirtualClock()
+    d = m.driver.Driver.from_config(jobs_configuration(m), clock,
+                                    device=device)
+    plan = jobs_spec(m, d, **kw)
+    manager = m.jobframework.JobManager(d)
+    freeze_heap()
+    return d, clock, manager, plan
+
+
+def _template_state(job) -> list:
+    """A job's pods as it would run them: per pod template (per pod of a
+    pod group) its count or phase, node selector and tolerations."""
+    if hasattr(job, "pods"):
+        return [[p.name, p.phase, p.gated, sorted(p.node_selector.items())]
+                for p in job.pods]
+    return [[tp.name, tp.count, sorted(tp.node_selector.items()),
+             [[x.key, x.operator, x.value, x.effect]
+              for x in tp.tolerations]] for tp in job.templates]
+
+
+def _restored(job) -> bool:
+    """A stopped job holds its original templates again (a pod group:
+    every member gated)."""
+    if hasattr(job, "pods"):
+        return all(p.gated for p in job.pods)
+    return job.templates == job._original
+
+
+def _complete(job) -> None:
+    """The job's pods succeed (a serving kind is deleted)."""
+    kind = job.gvk
+    if kind == "BatchJob":
+        job.complete_pods(job.completions)
+    elif kind == "JobSet":
+        for rj in job.replicated_jobs:
+            job.complete_replicated_job(rj.name)
+    elif kind in ("PyTorchJob", "MPIJob"):
+        job.mark_succeeded()
+    elif kind == "RayJob":
+        job.mark_status("SUCCEEDED")
+    elif kind == "AppWrapper":
+        job.mark_phase("Succeeded")
+    elif kind == "PodGroup":
+        for p in job.pods:
+            p.phase = "Succeeded"
+    else:
+        job.deleted = True
+
+
+@measured
+def run_jobs(d, clock: VirtualClock, manager, plan: dict,
+             steps: int | None = None) -> dict:
+    """``steps`` steps (the plan's by default) of the job front door on
+    either package's Driver: per step, ``JobManager.upsert`` of the
+    step's arrivals (a refused job's errors are recorded), ``sync``,
+    ``Driver.schedule_once``, ``sync``, then the started kubeflow gangs'
+    pods turn ready when due (``mark_running``) and jobs whose runtime
+    since then is due complete.  ``Stopped`` events are checked for restored
+    templates as they happen; ``preempted_unstopped`` lists the jobs
+    whose workload was preempted and that never stopped."""
+    m = plan["modules"]
+    steps = plan["steps"] if steps is None else steps
+    runtime, ready_after = plan["runtime"], plan["ready_after"]
+    cycle_times, decisions, refused, stopped = [], [], [], []
+    started: dict[str, int] = {}
+    started_kinds: dict[str, int] = {}
+    seen = len(d.events)
+    completed = 0
+
+    def observe(step: int) -> None:
+        nonlocal seen
+        for kind, key, note in d.events[seen:]:
+            if kind == "Started":
+                started[key] = step
+                started_kinds[key.split("/")[0]] = started_kinds.get(
+                    key.split("/")[0], 0) + 1
+            elif kind == "Stopped":
+                started.pop(key, None)
+                stopped.append([key, note, _restored(manager.jobs[key])])
+        seen = len(d.events)
+
+    t0 = time.perf_counter()
+    for step in range(steps):
+        clock.t += 1.0
+        for job in plan["arrivals"].get(step, ()):
+            try:
+                manager.upsert(job)
+            except m.validation.ValidationError as e:
+                refused.append([job.key, list(e.errors)])
+        manager.sync()
+        observe(step)
+        c0 = time.perf_counter()
+        stats = d.schedule_once()
+        cycle_times.append(time.perf_counter() - c0)
+        decisions.append([_tas_admission_record(d, k)
+                          for k in sorted(stats.admitted)])
+        manager.sync()
+        observe(step)
+        for key, at in list(started.items()):
+            job = manager.jobs[key]
+            if key in ready_after and step - at >= ready_after[key]:
+                if not job.job_running:
+                    job.mark_running()
+            if step - at >= ready_after.get(key, 0) + runtime[key]:
+                _complete(job)
+                del started[key]
+                completed += 1
+    job_of = {manager.reconciler.workload_key_for(j): k
+              for k, j in manager.jobs.items()}
+    stopped_jobs = {key for key, _, _ in stopped}
+    return dict(wall=time.perf_counter() - t0, steps=steps,
+                cycle_times=cycle_times, decisions=decisions,
+                refused=refused, stopped=stopped,
+                preempted_unstopped=sorted(
+                    {job_of[key] for kind, key, _ in d.events
+                     if kind == "Preempted"} - stopped_jobs),
+                started_kinds=started_kinds, completed=completed,
+                jobs=len(manager.jobs) + len(refused),
+                admitted=sum(len(x) for x in decisions),
+                preempted=sum(e[0] == "Preempted" for e in d.events),
+                # evicted for the PodsReady timeout (the only eviction
+                # that sets a requeue state), and of those deactivated
+                timed_out=sum(w.requeue_state is not None
+                              for w in d.workloads.values()),
+                deactivated=sum(not w.is_active
+                                for w in d.workloads.values()),
+                states=[[k, j.is_suspended(), j.finished()[2],
+                         _template_state(j)]
+                        for k, j in sorted(manager.jobs.items())])
+
+
+def jobs_digest(d, r: dict) -> str:
+    """sha256 of a ``run_jobs`` run: the driver's events (QuotaReserved,
+    Preempted, Started, Stopped, Finished, ...), each step's admissions
+    with their topology domains, the refused jobs with their errors, the
+    stops, and every job's final state."""
+    h = hashlib.sha256()
+    for part in (d.events, r["decisions"], r["refused"], r["stopped"],
+                 r["states"]):
+        h.update(json.dumps(part).encode())
+    return h.hexdigest()
 
 
 # ----------------------------------------------------------------------

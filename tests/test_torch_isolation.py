@@ -32,12 +32,20 @@ VERBATIM = (
     "webhooks/__init__.py", "webhooks/validation.py",
     "controller/__init__.py", "controller/tas_ungater.py",
     "ops/aggregate.py", "ops/stream_pack.py", "cache/arena.py",
+    "podset.py",
+    "jobframework/__init__.py", "jobframework/interface.py",
+    "jobframework/reconciler.py", "jobframework/webhook.py",
+    "jobs/__init__.py", "jobs/base.py", "jobs/batch_job.py", "jobs/pod.py",
+    "jobs/jobset.py", "jobs/kubeflow.py", "jobs/ray.py",
+    "jobs/appwrapper.py", "jobs/serving.py",
+    "config/__init__.py", "config/configuration.py",
+    "api/manifests.py", "utils/expectations.py", "perf/__init__.py",
 )
 # copies that begin with the original file and only append to it
 APPENDED = ("ops/packing.py",)
 # copies edited where they reached JAX or ops/ (CHANGES.md lists each)
 EDITED = ("controller/driver.py", "ops/preemption_solver.py", "ops/burst.py",
-          "cache/tas_snapshot.py", "cache/tas_cache.py")
+          "cache/tas_snapshot.py", "cache/tas_cache.py", "perf/harness.py")
 
 
 def _read(path):
@@ -101,6 +109,28 @@ def test_no_jax_or_kueue_tpu_import():
             for n in names:
                 top = n.split(".")[0]
                 if top in ("jax", "jaxlib", "flax", "kueue_tpu"):
+                    bad.append((os.path.relpath(path, ROOT), n))
+    assert not bad, bad
+
+
+def test_no_import_by_name():
+    """No module of the port imports by a name built at run time
+    (``importlib``, ``__import__``), which the AST scan above could not
+    see: every import of the port is a statement."""
+    bad = []
+    for path in _port_files():
+        tree = ast.parse(_read(path), filename=path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            elif isinstance(node, ast.Name):
+                names = [node.id]
+            else:
+                continue
+            for n in names:
+                if n.split(".")[0] in ("importlib", "__import__"):
                     bad.append((os.path.relpath(path, ROOT), n))
     assert not bad, bad
 
