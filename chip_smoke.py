@@ -96,9 +96,14 @@ and the job layer (Configuration, manifests, ``JobManager``):
    forest tables, admit_scan_preempt over its forest layouts
    (testing.preempt_route_cases: cohorts of five, nested forests, depth
    17, F = 12, one forest, the cross-forest case under joined tables),
-   and burst_cycles on a window and on one forest of every CQ, each with
-   shared memory and with none allowed — both routes of the three
-   kernels taken and counted per call; then admit_scan over 1,000 heads
+   admit_scan_forests over testing.FOREST_SHAPES (a forest with heads
+   past max_forest_wl among them) and burst_cycles on a window and on
+   one forest of every CQ, each with shared memory and with none allowed
+   — both routes of the four kernels taken and counted per call; and
+   minimal_preemptions_batch over testing.search_route_cases (S = 13 with
+   padding searches between real ones, K = 1,024, F = 40, a tree past
+   shared memory, candidates past it, both), each on the route its
+   shapes give (``kernels.SEARCH_ROUTES``); then admit_scan over 1,000 heads
    timed on a cohort chain 17 levels deep beside the same heads on a
    chain of 2;
 15. the north-star shape through the forest-sharded burst at full width
@@ -279,7 +284,12 @@ MESH_SCANS = ("admit_scan", "admit_scan_forests", "admit_scan_preempt",
               "fs_admit_scan")
 MESH_SHARDS = {"bench": 4, "northstar": 8, "fs": 4, "dryrun": 8}
 ROUTED = ("admit_scan", "burst_cycles",   # kernels with two routes
-          "admit_scan_preempt")
+          "admit_scan_preempt", "admit_scan_forests",
+          "minimal_preemptions_batch")
+# the routes each must take in 3h (minimal_preemptions_batch: its tree
+# and its candidates each staged or global)
+ROUTES_TAKEN = {"minimal_preemptions_batch": {
+    "shared", "tree global", "candidates global", "global"}}
 HARNESS_TIMEOUT_S = 600    # phase 17's child process
 README_REPLAY = ("76.8 virtual s; large/medium/small 0 / 33.2 / 54.1 s; "
                  "min CQ usage 98.7%")
@@ -534,12 +544,19 @@ def compare(name, args, kw, stats) -> None:
 def tally_route(name, stats) -> None:
     """The route the last launch of ``name`` took, counted per call in
     ``stats[name]["routes"]``: burst_cycles' forest state in shared
-    memory or global rows; the blocks with heads of admit_scan and
-    admit_scan_preempt all on the shared-memory route, all on the global
-    route, or both."""
+    memory or global rows; minimal_preemptions_batch's trees and
+    candidates staged ("shared"), read from the inputs ("global"), or one
+    of the two global; the blocks with heads of admit_scan,
+    admit_scan_forests and admit_scan_preempt all on the shared-memory
+    route, all on the global route, or both."""
     from kueue_tpu_torch import kernels
     if name == "burst_cycles":
         route = kernels.BURST_ROUTES[name]
+    elif name == "minimal_preemptions_batch":
+        r = kernels.SEARCH_ROUTES
+        route = (r["tree"] if r["tree"] == r["candidates"]
+                 else "tree global" if r["tree"] == "global"
+                 else "candidates global")
     else:
         taken = {kernels.FLAT_ROUTE_NAMES[r]
                  for r in kernels.FLAT_ROUTES[name].cpu().tolist() if r}
@@ -1729,6 +1746,9 @@ def smoke(launcher: Launcher) -> int:
                 compare("admit_scan", a, dict(
                     kw, forest_of_node=torch.from_numpy(fon).cuda(),
                     n_forests=nf), stats)
+            for name, arrays, kw in testing.kernel_cases(0):
+                if name == "admit_scan_forests":
+                    compare(name, on_card(arrays), kw, stats)
             for _, arrays, depth, (fon, nf) in testing.preempt_route_cases():
                 compare("admit_scan_preempt", on_card(arrays), dict(
                     depth=depth, forest_of_node=torch.from_numpy(fon).cuda(),
@@ -1741,9 +1761,22 @@ def smoke(launcher: Launcher) -> int:
                     else int(a) for a in arrays], kw, stats)
     finally:
         kernels.FLAT_SMEM, kernels.BURST_STATE_SMEM = saved
+    # the batched search's layouts: an S past a multiple of its searches
+    # per block, K = 1,024, F = 40, a tree and candidates past shared
+    # memory (testing.search_route_cases), each on the route its shapes
+    # give
+    for label, arrays, kw, route in testing.search_route_cases(0):
+        compare("minimal_preemptions_batch", on_card(arrays), kw, stats)
+        r = kernels.SEARCH_ROUTES
+        check((r["tree"], r["candidates"]) == {
+            "shared": ("shared", "shared"), "global": ("global", "global"),
+            "tree global": ("global", "shared"),
+            "candidates global": ("shared", "global")}[route],
+              (label, route, r))
+        n3h.setdefault("minimal_preemptions_batch", []).append(label)
     for name in ROUTED:
-        check({"shared", "global"} <= set(stats[name]["routes"]),
-              (name, stats[name]["routes"]))
+        check(ROUTES_TAKEN.get(name, {"shared", "global"})
+              <= set(stats[name]["routes"]), (name, stats[name]["routes"]))
     for name, s_ in stats.items():
         check(s_["mismatches"] == 0, (name, s_))
     log(f"[3h kernels past the old limits, both routes] {json.dumps(n3h)} "

@@ -36,7 +36,15 @@ of the outputs:
   (``preempt_bench``); where the checkout's launcher takes the forest
   tables, with them (``*_tables``);
 - ``kq_fs_merge_order`` on 1,000 rounds over 2 and over 8 shards
-  (``merge_2``, ``merge_8``: ``testing.merge_case``, seeded).
+  (``merge_2``, ``merge_8``: ``testing.merge_case``, seeded);
+- ``minimal_preemptions_batch`` on the perf scenario's call with the
+  most candidates (``search_bench``), on jobs-tas-4k's (``search_jobs``:
+  its preemptor's single searches over the whole plane) and on
+  ``testing.SEARCH_SHAPES``' row 5, seeded (``search_wide``: 256
+  searches, K = 128, six CQs, F = 2);
+- ``admit_scan_forests`` on the north-star probe's call
+  (``forest_probe``: 1,000 heads in 64 forests) and on the north-star
+  run's call with the most heads (``forest_northstar``).
 
 The captured inputs (probe, perf scenario, bursts, preemption cycles)
 are built on first
@@ -45,16 +53,21 @@ use by driving the checkout's scenarios on the card and saved to PATH
 script); later runs load them, so every checkout times the same inputs.
 
 ``--split DIR`` instead times the phases inside the flat
-``admit_scan``, ``burst_cycles`` and ``admit_scan_preempt`` (whichever
+``admit_scan``, ``burst_cycles``, ``admit_scan_preempt``,
+``minimal_preemptions_batch`` and ``admit_scan_forests`` (whichever
 designs the checkout has: the single-block ones, the forest-parallel
-flat scan and burst with the single-block preempt scan, or both scans
-on the shared forest layout of ``flat_forest.cuh``): it copies the
+flat scan and burst with the single-block preempt scan, or the scans
+on the shared forest layout of ``flat_forest.cuh``; a block or a warp
+per search; a block per forest or the flat layout): it copies the
 checkout's kernel sources into DIR, inserts ``clock64()`` phase sums
-read by thread 0 of each block into the copies of those kernels, builds
-the copies there and runs them on the same inputs.  It
-prints per phase the cycles of block 0 (the flat scan) or of the block
-with the most cycles (the burst), and the same as µs at the clock that
-block 0's ``%globaltimer`` span gives."""
+read by thread 0 of each block (lane 0 of each warp in the
+warp-per-search design, a row per search) into the copies of those
+kernels, builds the copies there and runs them on the same inputs.  It
+prints per phase the cycles of block 0 and of the block (or search)
+with the most cycles, and the same as µs at the clock that block 0's
+``%globaltimer`` span gives.  The search's phases are staging, the
+forward loop and the reverse loop (with their step counts); the forest
+scan's the row copy, the head compaction and the entries."""
 
 from __future__ import annotations
 
@@ -191,42 +204,105 @@ def capture_cases() -> dict:
 
 
 PREEMPT_CASES = ("preempt_bench", "preempt_northstar")
+# the batched search and the forest scan on their paths (captured with
+# the preemption cycles); search_wide is seeded (synthetic_cases)
+SEARCH_CASES = ("search_bench", "search_jobs", "search_wide")
+FOREST_CASES = ("forest_probe", "forest_northstar")
+CYCLE_CASES = PREEMPT_CASES + ("search_bench", "search_jobs",
+                               "forest_probe", "forest_northstar")
 
 
-def capture_preempt_cases() -> dict:
-    """The preemption cycle with the most preempting heads of the perf
-    scenario and of the north-star run, each drained per cycle on the
-    card (CPU copies of admit_scan_preempt's inputs)."""
+def capture_cycle_cases() -> dict:
+    """Drive the perf scenario, the north-star run and the job front
+    door per cycle on the card, and the north-star probe's forest scan,
+    keeping CPU copies of the inputs to time: the preemption cycle with
+    the most preempting heads of the perf scenario and of the north-star
+    run (admit_scan_preempt), the minimal_preemptions_batch call with
+    the most candidates (entries of cand_cq >= 0) of the perf scenario
+    and of jobs-tas-4k (the batched searches, or the single searches
+    over the whole plane that jobs-tas-4k's preemptor runs), the probe's
+    admit_scan_forests call and the north-star run's admit_scan_forests
+    call with the most heads."""
+    import numpy as np
     import torch
-    from kueue_tpu_torch import scenarios
-    from kueue_tpu_torch.ops import solver
+    from kueue_tpu_torch import probe, scenarios
+    from kueue_tpu_torch.ops import (cycle, preemption_kernel,
+                                     preemption_solver, solver)
 
-    out = {}
-    for label in PREEMPT_CASES:
-        kept = []
-        real = solver.admit_scan_preempt
+    kept: dict[str, list] = {}
+
+    def keeper(module, attr, label, size):
+        real = getattr(module, attr)
 
         def keep(*args, **kw):
-            kept.append((tuple(a.cpu() for a in args),
-                         {"depth": kw["depth"]}))
+            call = (tuple(a.cpu() if isinstance(a, torch.Tensor) else a
+                          for a in args), dict(kw))
+            calls = kept.setdefault(label, [])
+            if not calls or size(call[0]) > size(calls[0][0]):
+                calls[:] = [call]
             return real(*args, **kw)
-        solver.admit_scan_preempt = keep
+        setattr(module, attr, keep)
+        return module, attr, real
+
+    def n_pre(a):
+        return int(a[16].sum())
+
+    def n_cands(a):
+        return int((a[9] >= 0).sum())
+
+    def n_heads(a):
+        return int((a[8] >= 0).sum())
+
+    def drive(patches, fn):
+        undo = [keeper(*p) for p in patches]
         try:
-            if label == "preempt_bench":
-                d, clock, total, waves = scenarios.build_bench(
-                    1.0, device="cuda")
-                scenarios.run_bench(d, clock, total, waves)
-            else:
-                d, clock, total, wave = scenarios.build_northstar(
-                    1000, 100_000, device="cuda")
-                scenarios.run_northstar(d, clock, wave, cycles=30)
+            fn()
         finally:
-            solver.admit_scan_preempt = real
-        out[label] = max(kept, key=lambda c: int(c[0][16].sum()))
-        del d
+            for module, attr, real in undo:
+                setattr(module, attr, real)
         if hasattr(scenarios, "release"):
             scenarios.release()
         torch.cuda.synchronize()
+
+    def bench():
+        d, clock, total, waves = scenarios.build_bench(1.0, device="cuda")
+        scenarios.run_bench(d, clock, total, waves)
+
+    def northstar():
+        d, clock, total, wave = scenarios.build_northstar(
+            1000, 100_000, device="cuda")
+        scenarios.run_northstar(d, clock, wave, cycles=30)
+
+    def jobs():
+        with scenarios.restore_gates():
+            d, clock, mgr, plan = scenarios.build_jobs(device="cuda")
+            scenarios.run_jobs(d, clock, mgr, plan)
+
+    def probe_forest():
+        _, name, args, kw = probe.probe_calls()[2]
+        getattr(cycle, name)(*[torch.from_numpy(
+            np.ascontiguousarray(a)).cuda() for a in args], **kw)
+
+    # the batched searches of a cycle (preemption_solver), and the
+    # single searches over the whole plane (ops.preemption_kernel
+    # minimal_preemptions, S = 1) that jobs-tas-4k's preemptor runs
+    def search(label):
+        return [(m, "minimal_preemptions_batch", label, n_cands)
+                for m in (preemption_solver, preemption_kernel)]
+    drive([(solver, "admit_scan_preempt", "preempt_bench", n_pre)]
+          + search("search_bench"), bench)
+    drive([(solver, "admit_scan_preempt", "preempt_northstar", n_pre),
+           (solver, "admit_scan_forests", "forest_northstar", n_heads)],
+          northstar)
+    drive(search("search_jobs"), jobs)
+    drive([(cycle, "admit_scan_forests", "forest_probe", n_heads)],
+          probe_forest)
+    out = {}
+    for label, calls in kept.items():
+        args, kw = calls[0]
+        keys = ("depth",) if label.startswith("preempt") else (
+            "depth", "n_forests", "max_forest_wl")
+        out[label] = (args, {k: kw[k] for k in keys if k in kw})
     return out
 
 
@@ -241,6 +317,13 @@ def synthetic_cases(testing) -> dict:
     args, kw = testing.burst_synthetic(np.random.default_rng(7), C=1000,
                                        per=1000, M=16, K=4)
     out = {"one_forest": one, "burst_one_forest": (args, kw)}
+    # testing.SEARCH_SHAPES' row 5: 256 searches, K = 128, six CQs, F = 2
+    S, n_valid, K, n_c, n_cqs, n_coh, depth, F = testing.SEARCH_SHAPES[4]
+    c = testing.preemption_searches(np.random.default_rng(7), S=S,
+                                    n_valid=n_valid, K=K, n_cands=n_c,
+                                    n_cqs=n_cqs, n_cohorts=n_coh,
+                                    depth=depth, F=F)
+    out["search_wide"] = (testing.search_args(c), {"depth": c["depth"]})
     for S in (2, 8):
         winners, head_of = testing.merge_case(np.random.default_rng(S),
                                               W=1000, S=S)
@@ -256,8 +339,8 @@ def load_cases(path: Path):
     missing = not cases
     if not cases:
         cases = capture_cases()
-    if any(k not in cases for k in PREEMPT_CASES):
-        cases.update(capture_preempt_cases())
+    if any(k not in cases for k in CYCLE_CASES):
+        cases.update(capture_cycle_cases())
         missing = True
     if missing:
         path.parent.mkdir(parents=True, exist_ok=True)
@@ -318,6 +401,28 @@ def preempt_calls(kernels, cases):
                       n_forests=nf)
             calls.append((case + "_tables", lambda a=args, k=tk:
                           kernels.admit_scan_preempt(*a, **k)))
+    return calls
+
+
+def search_calls(kernels, cases):
+    """(case, callable) for every minimal_preemptions_batch case."""
+    calls = []
+    for case in SEARCH_CASES:
+        args, kw = cases[case]
+        args = to_card(args)
+        calls.append((case, lambda a=args, k=kw:
+                      kernels.minimal_preemptions_batch(*a, **k)))
+    return calls
+
+
+def forest_calls(kernels, cases):
+    """(case, callable) for every admit_scan_forests case."""
+    calls = []
+    for case in FOREST_CASES:
+        args, kw = cases[case]
+        args = to_card(args)
+        calls.append((case, lambda a=args, k=kw:
+                      kernels.admit_scan_forests(*a, **k)))
     return calls
 
 
@@ -501,7 +606,29 @@ def split_shared_layout(src: Path, dst: Path) -> None:
          "  kq_split_mark(1);\n  if (!shared) list = a.glist"),
         ("  return true;\n}\n", "  kq_split_mark(2);\n  return true;\n}\n"),
     ], "flat_forest.cuh")
+    if "flat_decide(" in header:
+        # the flat scans' decide loop in the header (admit_scan and
+        # admit_scan_forests)
+        header = _patch(header, [
+            ("    if (((bits >> kOwnerShift) & 31) != warp) continue;\n",
+             "    if (((bits >> kOwnerShift) & 31) != warp) continue;\n"
+             "    kq_split_count(5);\n"),
+            ("    decide(GlobalRows{a.t.parent, a.gusage, a.t, a.t.F});\n"
+             "  }\n}\n",
+             "    decide(GlobalRows{a.t.parent, a.gusage, a.t, a.t.F});\n"
+             "  }\n  kq_split_mark(3);\n  kq_split_flush();\n}\n"),
+        ], "flat_forest.cuh")
+        for name, tag in (("admit_scan.cu", "admit"),
+                          ("admit_scan_forests.cu", "forest")):
+            (dst / name).write_text(_patch((src / name).read_text(), [
+                ('#include "flat_forest.cuh"\n',
+                 SPLIT_HEAD.replace("TAG", tag)
+                 + '#include "flat_forest.cuh"\n')], name))
     (dst / "flat_forest.cuh").write_text(header)
+    if "flat_decide(" in header:
+        split_preempt_forest(src, dst)
+        split_burst_forest(src, dst)
+        return
     flat_src = _patch((src / "admit_scan.cu").read_text(), [
         ('#include "flat_forest.cuh"\n',
          SPLIT_HEAD.replace("TAG", "admit") + '#include "flat_forest.cuh"\n'),
@@ -514,6 +641,13 @@ def split_shared_layout(src: Path, dst: Path) -> None:
          "  }\n  kq_split_mark(3);\n  kq_split_flush();\n}\n"),
     ], "admit_scan.cu")
     (dst / "admit_scan.cu").write_text(flat_src)
+    split_preempt_forest(src, dst)
+    split_burst_forest(src, dst)
+
+
+def split_preempt_forest(src: Path, dst: Path) -> None:
+    """The phase timers in the warp-per-forest admit_scan_preempt's
+    decide loop."""
     pre_src = _patch((src / "admit_scan_preempt.cu").read_text(), [
         ('#include "flat_forest.cuh"\n',
          SPLIT_HEAD.replace("TAG", "preempt")
@@ -546,7 +680,6 @@ def split_shared_layout(src: Path, dst: Path) -> None:
          "  kq_split_flush();\n}\n\n}  // namespace\n"),
     ], "admit_scan_preempt.cu")
     (dst / "admit_scan_preempt.cu").write_text(pre_src)
-    split_burst_forest(src, dst)
 
 
 def split_forest_designs(src: Path, dst: Path) -> None:
@@ -620,6 +753,164 @@ def split_burst_forest(src: Path, dst: Path) -> None:
     (dst / "burst_cycles.cu").write_text(burst_src)
 
 
+# minimal_preemptions_batch and admit_scan_forests: the phases of one
+# search (thread 0's, or lane 0's of each warp in the warp-per-search
+# design, whose rows are searches) and of one forest (thread 0's of each
+# block in the block-per-forest design; the shared layout's prologue and
+# warp 0's entries in the flat_forest.cuh one)
+SEARCH_PHASES = {0: "staging", 1: "forward loop", 2: "reverse loop",
+                 3: "n forward steps", 4: "n reverse steps"}
+FOREST_PHASES = {0: "row copy", 1: "head compaction", 2: "entries",
+                 3: "n entries"}
+FOREST_FLAT_PHASES = {0: "row copy (count)", 1: "row copy (stage)",
+                      2: "head compaction", 3: "entries (warp 0)",
+                      5: "n entries (warp 0)"}
+
+
+# the phase sums of the warp-per-search design: lane 0 of each warp
+# records its own search, one row per search
+SPLIT_WARP_HEAD = r"""
+#define KQ_SPLIT_ROWS 1024
+#define KQ_SPLIT_P 24
+__device__ unsigned long long kq_split_acc[KQ_SPLIT_ROWS * KQ_SPLIT_P];
+__shared__ unsigned long long kq_split_s[32][KQ_SPLIT_P];
+__shared__ long long kq_split_t[32];
+__shared__ unsigned long long kq_split_ns0[32];
+__device__ __forceinline__ unsigned long long kq_split_gt() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+__device__ __forceinline__ void kq_split_start() {
+  const int w = threadIdx.x >> 5;
+  if ((threadIdx.x & 31) == 0) {
+    for (int p = 0; p < KQ_SPLIT_P; ++p) kq_split_s[w][p] = 0;
+    kq_split_ns0[w] = kq_split_gt();
+    kq_split_t[w] = clock64();
+  }
+}
+__device__ __forceinline__ void kq_split_mark(int p) {
+  const int w = threadIdx.x >> 5;
+  if ((threadIdx.x & 31) == 0) {
+    const long long n = clock64();
+    kq_split_s[w][p] += n - kq_split_t[w];
+    kq_split_t[w] = n;
+  }
+}
+__device__ __forceinline__ void kq_split_count(int p) {
+  if ((threadIdx.x & 31) == 0) kq_split_s[threadIdx.x >> 5][p] += 1;
+}
+__device__ __forceinline__ void kq_split_flush() {
+  const int w = threadIdx.x >> 5;
+  const int row = blockIdx.x * (blockDim.x >> 5) + w;
+  if ((threadIdx.x & 31) == 0 && row < KQ_SPLIT_ROWS) {
+    kq_split_s[w][14] = kq_split_gt() - kq_split_ns0[w];
+    for (int p = 0; p < KQ_SPLIT_P; ++p) {
+      kq_split_acc[row * KQ_SPLIT_P + p] += kq_split_s[w][p];
+    }
+  }
+}
+extern "C" int kq_split_TAG_read(unsigned long long* out) {
+  return static_cast<int>(cudaMemcpyFromSymbol(
+      out, kq_split_acc, sizeof(kq_split_acc)));
+}
+extern "C" int kq_split_TAG_reset() {
+  static unsigned long long zero[KQ_SPLIT_ROWS * KQ_SPLIT_P];
+  return static_cast<int>(cudaMemcpyToSymbol(kq_split_acc, zero,
+                                             sizeof(zero)));
+}
+"""
+
+
+def split_search_warp(src: Path, dst: Path) -> None:
+    """The phase timers in the warp-per-search minimal_preemptions: each
+    real search's lane 0, from the kernel's start to its outputs."""
+    text = _patch((src / "minimal_preemptions.cu").read_text(), [
+        ('#include "flat_forest.cuh"\n',
+         SPLIT_WARP_HEAD.replace("TAG", "search")
+         + '#include "flat_forest.cuh"\n'),
+        ("  if (s >= p.S) return;\n",
+         "  if (s >= p.S) return;\n  kq_split_start();\n"),
+        ("  if constexpr (kShort) chain4(rows, pcq, depth, up);\n",
+         "  if constexpr (kShort) chain4(rows, pcq, depth, up);\n"
+         "  kq_split_mark(0);\n"),
+        ("    if (code < 0) continue;\n    const int cq = code & kCqMask;\n",
+         "    if (code < 0) continue;\n    kq_split_count(3);\n"
+         "    const int cq = code & kCqMask;\n"),
+        ("    fitted = fits(allow_b);\n  }\n  __syncwarp();\n",
+         "    fitted = fits(allow_b);\n  }\n  __syncwarp();\n"
+         "  kq_split_mark(1);\n"),
+        ("      const int k = wd * 32 + b;\n",
+         "      const int k = wd * 32 + b;\n      kq_split_count(4);\n"),
+        ("  if (lane == 0) p.fitted[s] = fitted;\n}\n",
+         "  if (lane == 0) p.fitted[s] = fitted;\n  kq_split_mark(2);\n"
+         "  kq_split_flush();\n}\n"),
+    ], "minimal_preemptions.cu")
+    (dst / "minimal_preemptions.cu").write_text(text)
+
+
+def split_search_block(src: Path, dst: Path) -> None:
+    """The phase timers in the block-per-search minimal_preemptions."""
+    text = _patch((src / "minimal_preemptions.cu").read_text(), [
+        ('#include "quota.cuh"\n',
+         '#include "quota.cuh"\n' + SPLIT_HEAD.replace("TAG", "search")),
+        ("  extern __shared__ int smem[];\n",
+         "  extern __shared__ int smem[];\n  kq_split_start();\n"),
+        ("usage[i] = usage0[plane + i];\n  __syncthreads();\n",
+         "usage[i] = usage0[plane + i];\n  __syncthreads();\n"
+         "  kq_split_mark(0);\n"),
+        ("    if (cq < 0) continue;\n",
+         "    if (cq < 0) continue;\n    kq_split_count(3);\n"),
+        ("  if (!fitted) {\n    for (int k = tid; k < K; k += T) mask[k] = 0;"
+         "\n    if (tid == 0) fitted_out[s] = 0;\n    return;\n",
+         "  kq_split_mark(1);\n"
+         "  if (!fitted) {\n    for (int k = tid; k < K; k += T) mask[k] = 0;"
+         "\n    if (tid == 0) fitted_out[s] = 0;\n    kq_split_flush();\n"
+         "    return;\n"),
+        ("    if (!mask[k]) continue;\n",
+         "    if (!mask[k]) continue;\n    kq_split_count(4);\n"),
+        ("  if (tid == 0) fitted_out[s] = 1;\n}\n",
+         "  if (tid == 0) fitted_out[s] = 1;\n  kq_split_mark(2);\n"
+         "  kq_split_flush();\n}\n"),
+    ], "minimal_preemptions.cu")
+    (dst / "minimal_preemptions.cu").write_text(text)
+
+
+def split_forest_block(src: Path, dst: Path) -> None:
+    """The phase timers in the block-per-forest admit_scan_forests."""
+    text = _patch((src / "admit_scan_forests.cu").read_text(), [
+        ('#include "admit_entry.cuh"\n',
+         '#include "admit_entry.cuh"\n'
+         + SPLIT_HEAD.replace("TAG", "forest")),
+        ("  extern __shared__ int smem[];\n",
+         "  extern __shared__ int smem[];\n  kq_split_start();\n"),
+        ("  int count = 0;\n", "  kq_split_mark(0);\n  int count = 0;\n"),
+        ("  const int n = min(count, max_forest_wl);\n",
+         "  kq_split_mark(1);\n  const int n = min(count, max_forest_wl);\n"),
+        ("    if (tid == 0) admitted[wi] = admit;\n  }\n}\n",
+         "    if (tid == 0) admitted[wi] = admit;\n    kq_split_count(3);\n"
+         "  }\n  kq_split_mark(2);\n  kq_split_flush();\n}\n"),
+    ], "admit_scan_forests.cu")
+    (dst / "admit_scan_forests.cu").write_text(text)
+
+
+def split_search_forest(src: Path, dst: Path) -> tuple:
+    """The phase timers in the checkout's minimal_preemptions and
+    admit_scan_forests, whichever designs it has → (the search is a warp
+    per search, the forest scan is on flat_forest.cuh)."""
+    search_warp = "issue_cands(" in (
+        src / "minimal_preemptions.cu").read_text()
+    forest_flat = "flat_forest.cuh" in (
+        src / "admit_scan_forests.cu").read_text()
+    if search_warp:
+        split_search_warp(src, dst)
+    else:
+        split_search_block(src, dst)
+    if not forest_flat:
+        split_forest_block(src, dst)
+    return search_warp, forest_flat
+
+
 def split_sources(src: Path, dst: Path) -> tuple:
     """Copies of the checkout's kernel sources in ``dst``, with the
     phase timers in the flat admit_scan, burst_cycles and
@@ -631,11 +922,11 @@ def split_sources(src: Path, dst: Path) -> tuple:
             (dst / f.name).write_text(f.read_text())
     if (src / "flat_forest.cuh").exists():
         split_shared_layout(src, dst)
-        return True, True
+        return True, True, split_search_forest(src, dst)
     if "retarget(" in (src / "burst_cycles.cu").read_text():
         split_forest_designs(src, dst)
         split_preempt_single(src, dst)
-        return True, False
+        return True, False, split_search_forest(src, dst)
     entry = (src / "admit_entry.cuh").read_text()
     body = entry[entry.index("__device__ __forceinline__ bool "
                              "kq_admit_entry("):]
@@ -714,7 +1005,7 @@ def split_sources(src: Path, dst: Path) -> tuple:
     ], "burst_cycles.cu")
     (dst / "burst_cycles.cu").write_text(burst_src)
     split_preempt_single(src, dst)
-    return False, False
+    return False, False, split_search_forest(src, dst)
 
 
 def split_build(kernels, src: Path):
@@ -741,7 +1032,7 @@ def split_build(kernels, src: Path):
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-    for tag in ("admit", "burst", "preempt"):
+    for tag in ("admit", "burst", "preempt", "search", "forest"):
         getattr(lib, f"kq_split_{tag}_read").argtypes = [ctypes.c_void_p]
     kernels._lib = lib
     return lib
@@ -809,9 +1100,20 @@ def main() -> int:
 
     if "--split" in opts:
         dst = Path(opts["--split"]).resolve()
-        forest, forest_pre = split_sources(
+        forest, forest_pre, (search_warp, forest_flat) = split_sources(
             Path(kernels.__file__).resolve().parent, dst)
         lib = split_build(kernels, dst)
+        for case, call in search_calls(kernels, cases):
+            out[case] = split_run(lib, "search", call, SEARCH_PHASES, 10)
+            out[case]["design"] = ("warp per search" if search_warp
+                                   else "block per search")
+            out[case]["ms"] = event_ms(call, 10)
+        for case, call in forest_calls(kernels, cases):
+            out[case] = split_run(lib, "forest", call, FOREST_FLAT_PHASES
+                                  if forest_flat else FOREST_PHASES, 10)
+            out[case]["design"] = ("flat_forest.cuh" if forest_flat
+                                   else "block per forest")
+            out[case]["ms"] = event_ms(call, 10)
         for case, call in preempt_calls(kernels, cases):
             out[case] = split_run(lib, "preempt", call, FOREST_PREEMPT_PHASES
                                   if forest_pre else PREEMPT_PHASES, 3)
@@ -878,7 +1180,9 @@ def main() -> int:
         out[case] = dict(ms=event_ms(call, 10), digest=digest(*call()),
                          forests=int(c["forest_of_node"].max()) + 1)
 
-    for case, call in (admit_calls(kernels, cases)
+    for case, call in (search_calls(kernels, cases)
+                       + forest_calls(kernels, cases)
+                       + admit_calls(kernels, cases)
                        + burst_calls(kernels, cases)
                        + preempt_calls(kernels, cases)
                        + merge_calls(kernels, cases)):

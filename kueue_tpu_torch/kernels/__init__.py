@@ -48,7 +48,6 @@ SOURCES = ("admit_scan.cu", "admit_scan_preempt.cu", "admit_scan_forests.cu",
 HEADERS = ("quota.cuh", "admit_entry.cuh", "flat_forest.cuh", "tas.cuh")
 MAX_THREADS = 1024
 SMEM_LIMIT = 227 * 1024  # dynamic shared memory a block may use on H100
-FOREST_SMEM = 128 * 1024  # admit_scan_forests' head list in shared memory
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
@@ -135,9 +134,9 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _ARGTYPES = {
     "kq_admit_scan": [_P, _P, _P],
-    "kq_admit_scan_forests": [_P] * 21 + [_I] * 9 + [_P],
+    "kq_admit_scan_forests": [_P, _P, _P],
     "kq_admit_scan_preempt": [_P, _P, _P],
-    "kq_minimal_preemptions": [_P] * 18 + [_I] * 7 + [_P],
+    "kq_minimal_preemptions": [_P, _P, _P],
     "kq_burst_cycles": [_P, _P, _P],
     "kq_fs_admit_scan": [_P, _P, _P],
     "kq_drs_components": [_P] * 11 + [_I] * 4 + [_P],
@@ -197,12 +196,6 @@ def _check(name: str, t: torch.Tensor, dtype: torch.dtype,
         raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {shape}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: not contiguous")
-
-
-def _threads(F: int, minimum: int = 32) -> int:
-    """A thread per column up to MAX_THREADS; past that each thread
-    strides over the columns f = tid, tid + threads, ..."""
-    return min(MAX_THREADS, max(minimum, -(-F // 32) * 32))
 
 
 def _check_depth(depth: int) -> None:
@@ -293,12 +286,14 @@ def flat_smem_ints(n_nodes: int, F: int, heads: int, ent: int,
             + (threads // 32) * F)
 
 
-def _flat_smem(need: int) -> tuple[int, bool]:
+def _flat_smem(need: int, reserve: int = 0) -> tuple[int, bool]:
     """(dynamic shared bytes, whether a block may take the global route)
     of a forest-parallel launch whose whole working set is ``need``
-    ints."""
-    cap = max(0, (min(FLAT_SMEM, SMEM_LIMIT) - FLAT_STATIC_SMEM) // 4)
-    return min(need, cap) * 4, need > cap
+    ints, with ``reserve`` ints more that always sit in shared memory
+    (admit_scan_forests' rank counters)."""
+    cap = max(0, (min(FLAT_SMEM, SMEM_LIMIT - reserve * 4)
+                  - FLAT_STATIC_SMEM) // 4)
+    return (min(need, cap) + reserve) * 4, need > cap
 
 
 def _forest_tables(forest_of_node, n_forests, N, dev):
@@ -308,6 +303,52 @@ def _forest_tables(forest_of_node, n_forests, N, dev):
     if n_forests is None or n_forests < 1:
         raise ValueError("forest_of_node needs n_forests >= 1")
     return int(n_forests)
+
+
+def _flat_scan(name: str, fn, args, depth: int, forest_of_node, n_forests,
+               max_forest_wl: int = 0):
+    """Launch a flat scan (kernels/flat_forest.cuh ``flat_launch``) on
+    admit_scan's 17 arrays: a block per forest up to the card's SM
+    count, each block's route in ``FLAT_ROUTES[name]``.  With
+    ``max_forest_wl`` (admit_scan_forests' rank cap) the warps' rank
+    counters take a quarter of shared memory at most, else global
+    scratch."""
+    dev, N, F, W, rd, rr = _cycle_checks(*args)
+    _check_depth(depth)
+    groups = _forest_tables(forest_of_node, n_forests, N, dev)
+    blocks = max(1, min(groups, sm_count(dev)))
+    threads = FLAT_THREADS
+    nw = threads // 32
+    ent = 3 + 2 * rd
+    i32 = torch.int32
+    rank, cap_dims, reserve = (), (), 0
+    if max_forest_wl:
+        per_warp = -(-(-(-groups // blocks)) // nw)
+        reserve = nw * per_warp
+        rank = (None,)
+        if reserve * 4 > SMEM_LIMIT // 4:
+            reserve = 0
+            rank = (torch.empty((blocks, nw, per_warp), dtype=i32,
+                                device=dev),)
+        cap_dims = (max_forest_wl, groups, per_warp, reserve)
+    smem, wide = _flat_smem(flat_smem_ints(N, F, W, ent, threads), reserve)
+    lib = load()
+    gusage = torch.empty((N, F) if wide else 1, dtype=i32, device=dev)
+    glist = torch.empty(ent * W if wide else 1, dtype=i32, device=dev)
+    gcount = torch.empty(1, dtype=i32, device=dev) if wide else None
+    gcol = (torch.empty((blocks, nw, F), dtype=i32, device=dev)
+            if wide else None)
+    gmap = torch.empty(max(N, 1), dtype=i32, device=dev)
+    admitted = torch.empty(W, dtype=torch.bool, device=dev)
+    route = torch.empty(blocks, dtype=i32, device=dev)
+    FLAT_ROUTES[name] = route
+    tensors = args + (forest_of_node, gmap, gusage, glist, gcount,
+                      admitted, route, gcol) + rank
+    ptrs = (ctypes.c_void_p * len(tensors))(
+        *[t.data_ptr() if t is not None else None for t in tensors])
+    dims = (N, F, W, rd, rr, depth, blocks, threads, smem) + cap_dims
+    _launch(name, getattr(lib, fn), ptrs, (ctypes.c_int * len(dims))(*dims))
+    return admitted
 
 
 def admit_scan(usage0, subtree, guaranteed, borrow_cap, has_blim, parent,
@@ -326,31 +367,8 @@ def admit_scan(usage0, subtree, guaranteed, borrow_cap, has_blim, parent,
     args = (usage0, subtree, guaranteed, borrow_cap, has_blim, parent,
             nominal_cq, npb_cq, wl_cq, dec_fr, dec_amt, fit_mask,
             res_fr, res_amt, res_mask, res_borrows, order)
-    dev, N, F, W, rd, rr = _cycle_checks(*args)
-    _check_depth(depth)
-    groups = _forest_tables(forest_of_node, n_forests, N, dev)
-    blocks = max(1, min(groups, sm_count(dev)))
-    threads = FLAT_THREADS
-    ent = 3 + 2 * rd
-    smem, wide = _flat_smem(flat_smem_ints(N, F, W, ent, threads))
-    lib = load()
-    i32 = torch.int32
-    gusage = torch.empty((N, F) if wide else 1, dtype=i32, device=dev)
-    glist = torch.empty(ent * W if wide else 1, dtype=i32, device=dev)
-    gcount = torch.empty(1, dtype=i32, device=dev) if wide else None
-    gcol = (torch.empty((blocks, threads // 32, F), dtype=i32, device=dev)
-            if wide else None)
-    gmap = torch.empty(max(N, 1), dtype=i32, device=dev)
-    admitted = torch.empty(W, dtype=torch.bool, device=dev)
-    route = torch.empty(blocks, dtype=i32, device=dev)
-    FLAT_ROUTES["admit_scan"] = route
-    tensors = args + (forest_of_node, gmap, gusage, glist, gcount,
-                      admitted, route, gcol)
-    ptrs = (ctypes.c_void_p * len(tensors))(
-        *[t.data_ptr() if t is not None else None for t in tensors])
-    dims = (ctypes.c_int * 9)(N, F, W, rd, rr, depth, blocks, threads, smem)
-    _launch("admit_scan", lib.kq_admit_scan, ptrs, dims)
-    return admitted
+    return _flat_scan("admit_scan", "kq_admit_scan", args, depth,
+                      forest_of_node, n_forests)
 
 
 def admit_scan_forests(usage0, subtree, guaranteed, borrow_cap, has_blim,
@@ -358,31 +376,20 @@ def admit_scan_forests(usage0, subtree, guaranteed, borrow_cap, has_blim,
                        fit_mask, res_fr, res_amt, res_mask, res_borrows,
                        order, forest_of_node, *, depth, n_forests,
                        max_forest_wl):
-    """CUDA admit_scan_forests (kernels/admit_scan_forests.cu)."""
+    """CUDA admit_scan_forests (kernels/admit_scan_forests.cu) →
+    admitted [W] bool: admit_scan's layout with the forests named by
+    ``forest_of_node`` (values in [0, ``n_forests``)), and a head whose
+    rank within its forest, in cycle order, is ``max_forest_wl`` or more
+    not admitted.  Each block's route lands in
+    ``FLAT_ROUTES["admit_scan_forests"]``."""
+    if forest_of_node is None or n_forests < 1 or max_forest_wl < 1:
+        raise ValueError("admit_scan_forests needs forest_of_node, and "
+                         "n_forests and max_forest_wl >= 1")
     args = (usage0, subtree, guaranteed, borrow_cap, has_blim, parent,
             nominal_cq, npb_cq, wl_cq, dec_fr, dec_amt, fit_mask,
             res_fr, res_amt, res_mask, res_borrows, order)
-    dev, N, F, W, rd, rr = _cycle_checks(*args)
-    _check("forest_of_node", forest_of_node, torch.int32, (N,), dev)
-    _check_depth(depth)
-    if n_forests < 1 or max_forest_wl < 1:
-        raise ValueError("n_forests and max_forest_wl must be >= 1")
-    threads = _threads(F, minimum=128)
-    lib = load()
-    scratch = torch.empty((N, F), dtype=torch.int32, device=dev)
-    # each forest's head list in shared memory, or past FOREST_SMEM in a
-    # global [n_forests, max_forest_wl] scratch
-    list_global = None
-    if (max_forest_wl + threads // 32) * 4 > FOREST_SMEM:
-        list_global = torch.empty((n_forests, max_forest_wl),
-                                  dtype=torch.int32, device=dev)
-    admitted = torch.empty(W, dtype=torch.bool, device=dev)
-    _launch("admit_scan_forests", lib.kq_admit_scan_forests,
-            *_cycle_ptrs(*args), _ptr(forest_of_node), _ptr(scratch),
-            _P(list_global.data_ptr() if list_global is not None else None),
-            _ptr(admitted), N, F, W, rd, rr, depth, n_forests, max_forest_wl,
-            threads)
-    return admitted
+    return _flat_scan("admit_scan_forests", "kq_admit_scan_forests", args,
+                      depth, forest_of_node, n_forests, max_forest_wl)
 
 
 def admit_scan_preempt(usage0, subtree, guaranteed, borrow_cap, has_blim,
@@ -463,13 +470,41 @@ def check_preempt_error(error) -> None:
                            "forests first (ops.cycle.join_target_forests)")
 
 
+SEARCH_WARPS = 4     # minimal_preemptions_batch: searches per block
+# the last launch's routes: the searches' trees and candidates staged in
+# shared memory ("shared") or read from the inputs ("global")
+SEARCH_ROUTES: dict[str, str] = {}
+
+
+def search_layout(NL: int, F: int, K: int) -> tuple[int, int, int]:
+    """(searches per block, tree ints, candidate ints) of a warp's slice
+    of minimal_preemptions_batch's shared memory (0: that part global):
+    a tree is NL x (parent, has-borrow-limit words, usage, guaranteed,
+    cap, subtree) and its has-borrow-limit bytes, the candidates K x
+    (CQ, delta row), the removed bits and the two flag rows' bytes (each
+    byte row in the aligned words that hold it).  Fewer searches share
+    a block before a part goes global."""
+    budget = SMEM_LIMIT // 4
+    nf = NL * F
+    tree = NL * (1 + -(-F // 32)) + 4 * nf + (nf + 3) // 4 + 1
+    cands = K * (1 + F) + -(-K // 32) + 2 * ((K + 3) // 4 + 1)
+    warps = SEARCH_WARPS
+    while warps > 1 and warps * (tree + cands) > budget:
+        warps //= 2
+    tree = tree if warps * tree <= budget else 0
+    cands = cands if warps * (tree + cands) <= budget else 0
+    return warps, tree, cands
+
+
 def minimal_preemptions_batch(usage0, subtree, guaranteed, borrow_cap,
                               has_blim, parent, pre_cq, wl_usage, frs_mask,
                               cand_cq, cand_delta, cand_other_cq,
                               cand_above_threshold, allow_borrowing0,
                               threshold_enabled, *, depth):
     """CUDA minimal_preemptions_batch (kernels/minimal_preemptions.cu) →
-    (fitted [S] bool, target_mask [S, K] bool)."""
+    (fitted [S] bool, target_mask [S, K] bool): a warp per search,
+    ``search_layout`` deciding from the shapes what each warp stages;
+    the routes taken land in ``SEARCH_ROUTES``."""
     dev = usage0.device
     if dev.type != "cuda":
         raise ValueError(f"usage0 on {dev}: the kernels need CUDA tensors")
@@ -492,23 +527,26 @@ def minimal_preemptions_batch(usage0, subtree, guaranteed, borrow_cap,
     _check("threshold_enabled", threshold_enabled, b, (S,), dev)
     _check_depth(depth)
     lib = load()
-    smem = NL * F * 4
-    if smem > SMEM_LIMIT:
-        smem = 0
-        scratch = torch.empty((S, NL, F), dtype=i32, device=dev)
-    else:
-        scratch = torch.empty(1, dtype=i32, device=dev)
+    warps, tree, cands = search_layout(NL, F, K)
+    gusage = (None if tree else
+              torch.empty((S, NL, F), dtype=i32, device=dev))
+    gbits = (None if cands else
+             torch.empty((S, -(-K // 32)), dtype=i32, device=dev))
+    SEARCH_ROUTES.update(tree="shared" if tree else "global",
+                         candidates="shared" if cands else "global")
     fitted = torch.empty(S, dtype=b, device=dev)
     mask = torch.empty((S, K), dtype=b, device=dev)
     if S == 0:
         return fitted, mask
-    _launch("minimal_preemptions_batch", lib.kq_minimal_preemptions,
-            *_cycle_ptrs(usage0, subtree, guaranteed, borrow_cap, has_blim,
-                         parent, pre_cq, wl_usage, frs_mask, cand_cq,
-                         cand_delta, cand_other_cq, cand_above_threshold,
-                         allow_borrowing0, threshold_enabled, scratch, fitted,
-                         mask),
-            S, NL, F, K, depth, _threads(F), smem)
+    tensors = (usage0, subtree, guaranteed, borrow_cap, has_blim, parent,
+               pre_cq, wl_usage, frs_mask, cand_cq, cand_delta,
+               cand_other_cq, cand_above_threshold, allow_borrowing0,
+               threshold_enabled, gusage, gbits, fitted, mask)
+    ptrs = (ctypes.c_void_p * len(tensors))(
+        *[t.data_ptr() if t is not None else None for t in tensors])
+    dims = (ctypes.c_int * 8)(S, NL, F, K, depth, warps, tree, cands)
+    _launch("minimal_preemptions_batch", lib.kq_minimal_preemptions, ptrs,
+            dims)
     return fitted, mask
 
 

@@ -320,8 +320,7 @@ __device__ int fs_available(const FsArgs& a, const FsLocal& s, int node,
   return avail;
 }
 
-// addUsage() up the local chain in column f (quota.cuh
-// kq_add_usage_chain).
+// addUsage() up the local chain in column f (flat_forest.cuh AddStep).
 __device__ void fs_add_usage(const FsArgs& a, const FsLocal& s, int node,
                              int delta, int f) {
   int cur = node;

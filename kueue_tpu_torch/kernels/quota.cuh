@@ -1,9 +1,10 @@
 // Hierarchical quota recurrences as per-column device helpers.
 //
-// Replaces the JAX recurrences in kueue_tpu/ops/quota_kernel.py
-// (available_at, add_usage_chain) and the two remove_usage_chain copies
-// (kueue_tpu/ops/cycle.py _remove_usage_chain, ops/preemption_kernel.py
-// remove_usage_chain).  Every recurrence is independent per
+// Replaces the JAX recurrence kueue_tpu/ops/quota_kernel.py
+// available_at; the usage walks (add_usage_chain and the two
+// remove_usage_chain copies, kueue_tpu/ops/cycle.py _remove_usage_chain
+// and ops/preemption_kernel.py remove_usage_chain) are flat_forest.cuh's
+// AddStep / RemoveStep / UndoAddStep.  Every recurrence is independent per
 // flavor-resource column f, so the kernels give each thread of a block the
 // columns f = tid, tid + blockDim.x, ... (any F): a thread walks the
 // ancestor chain of a node for its own columns only, and no two threads
@@ -15,9 +16,7 @@
 //
 // Chains of any depth: no walk needs its whole chain in a fixed array.
 // The top-down available() holds the chain in register segments of
-// KQ_CHAIN_SEG levels (kq_chain_top_down), and the undo of an addUsage()
-// recomputes each overwritten cell from the charged one (the add is a
-// bijection in wrapping int32).
+// KQ_CHAIN_SEG levels (kq_chain_top_down).
 #pragma once
 
 #include <cstdint>
@@ -113,53 +112,4 @@ __device__ __forceinline__ int kq_available_at(const KqTree& t,
     }
   });
   return avail;
-}
-
-// addUsage() up one ancestor chain in column f (resource_node.go:123).
-__device__ __forceinline__ void kq_add_usage_chain(const KqTree& t,
-                                                   int* usage, int node,
-                                                   int delta, int f) {
-  int cur = node;
-  int carry = delta;
-  for (int i = 0; i < t.depth && cur >= 0; ++i) {
-    const size_t o = static_cast<size_t>(cur) * t.F + f;
-    const int u = usage[o];
-    const int local_avail = max(0, kq_sub(t.guaranteed[o], u));
-    usage[o] = kq_add(u, carry);
-    carry = max(0, kq_sub(carry, local_avail));
-    cur = t.parent[cur];
-  }
-}
-
-// Undo the last kq_add_usage_chain(t, usage, node, delta, f): each cell
-// before the add is the charged cell minus the carry that reached it, and
-// that cell gives the carry of the next level exactly as the add did.
-__device__ __forceinline__ void kq_undo_add_usage_chain(const KqTree& t,
-                                                        int* usage, int node,
-                                                        int delta, int f) {
-  int cur = node;
-  int carry = delta;
-  for (int i = 0; i < t.depth && cur >= 0; ++i) {
-    const size_t o = static_cast<size_t>(cur) * t.F + f;
-    const int u = kq_sub(usage[o], carry);
-    usage[o] = u;
-    carry = max(0, kq_sub(carry, max(0, kq_sub(t.guaranteed[o], u))));
-    cur = t.parent[cur];
-  }
-}
-
-// remove_usage() up one ancestor chain in column f (resource_node.go:135).
-__device__ __forceinline__ void kq_remove_usage_chain(const KqTree& t,
-                                                      int* usage, int node,
-                                                      int delta, int f) {
-  int cur = node;
-  int carry = delta;
-  for (int i = 0; i < t.depth && cur >= 0; ++i) {
-    const size_t o = static_cast<size_t>(cur) * t.F + f;
-    const int u = usage[o];
-    const int stored_in_parent = kq_sub(u, t.guaranteed[o]);
-    usage[o] = kq_sub(u, carry);
-    carry = stored_in_parent > 0 ? min(carry, stored_in_parent) : 0;
-    cur = t.parent[cur];
-  }
 }

@@ -497,7 +497,7 @@ def add_usage_chain_batched(usage, nodes, deltas, guaranteed, parent,
     usage [N, F].  nodes [G] int32 (-1 = no-op), deltas [G, F] int32.
     The plain twin of the JAX function, whose only caller is the forest
     scan: ``kernels/admit_scan_forests.cu`` does the same charge per
-    forest with ``quota.cuh``'s ``kq_add_usage_chain``."""
+    forest with ``flat_forest.cuh``'s ``AddStep`` walk."""
     usage = usage.clone()
     cur = nodes.to(torch.int64)
     carry = deltas

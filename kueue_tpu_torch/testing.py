@@ -315,6 +315,37 @@ SEARCH_SHAPES = [
 ]
 
 
+# minimal_preemptions_batch's layouts on the card: (label, the
+# preemption_searches keyword arguments, the route search_layout takes)
+SEARCH_ROUTE_CASES = [
+    ("S_13", dict(S=13, n_valid=9, K=16, n_cands=12, F=2), "shared"),
+    ("K_1024", dict(S=6, K=1024, n_cands=1000, F=2), "shared"),
+    ("F_40", dict(S=8, K=128, n_cands=60, n_cqs=6, n_cohorts=3, F=40),
+     "shared"),
+    ("NL_30000", dict(S=2, K=16, n_cands=16, n_cqs=29000, n_cohorts=1000,
+                      F=2), "tree global"),
+    ("cands_global", dict(S=5, K=1024, n_cands=40, F=64),
+     "candidates global"),
+    ("both_global", dict(S=2, K=1024, n_cands=30, n_cqs=19000,
+                         n_cohorts=1000, F=64), "global"),
+]
+
+
+def search_route_cases(seed: int = 0):
+    """Yield (label, minimal_preemptions_batch's numpy arrays, keyword
+    arguments, route) over ``SEARCH_ROUTE_CASES``: an S that is not a
+    multiple of the searches per block, K = 1,024, F past a warp's
+    lanes, a tree past shared memory, candidates past it, and both; the
+    searches shuffled so that padding searches lie between real ones."""
+    rng = np.random.default_rng(seed)
+    for label, kw, route in SEARCH_ROUTE_CASES:
+        c = preemption_searches(rng, **kw)
+        perm = rng.permutation(kw["S"])
+        for k in SEARCH_ARGS:
+            c[k] = np.ascontiguousarray(c[k][perm])
+        yield label, search_args(c), dict(depth=c["depth"]), route
+
+
 def kernel_cases(seed: int = 0):
     """Yield (kernel name, positional numpy arrays, keyword arguments)
     over the standard sweep of every kernel."""

@@ -297,7 +297,7 @@ def available(c, usage, node, f, depth):
 
 
 def add_usage(c, usage, node, delta, f, depth):
-    """kq_add_usage_chain."""
+    """flat_forest.cuh AddStep, up a chain."""
     carry = delta
     for n in chain(c["parent"], node, depth):
         u = int(usage[n, f])
@@ -507,14 +507,19 @@ def flat_forest_ids(c, tables: bool) -> np.ndarray:
     return out
 
 
-def emu_flat_admit_scan(c, depth: int, tables: bool, B: int, rng):
+def emu_flat_admit_scan(c, depth: int, tables: bool, B: int, rng,
+                        rank_cap=None):
     """Block b = fid % B stages its nodes in any order (the atomic
     counter's) as local rows — usage, guaranteed, subtree at roots or
     borrow cap below, has-borrow-limit bits in 32-bit words — and lists
     its heads in cycle order; warp (fid // B) % 8 decides its entries;
     the warps of all blocks interleave at random.  An entry: each pair
     checked against available() on the local rows, the vote, the charge
-    summed per column and walked up the chain for each nonzero column."""
+    summed per column and walked up the chain for each nonzero column.
+    ``rank_cap`` = (max_forest_wl, n_forests), admit_scan_forests' cap:
+    the warp counts each forest's heads as it decides them, and a head
+    of rank max_forest_wl or more, or outside [0, n_forests), is
+    neither admitted nor charged."""
     N, F = c["usage0"].shape
     W = len(c["wl_cq"])
     fid = flat_forest_ids(c, tables)
@@ -545,27 +550,41 @@ def emu_flat_admit_scan(c, depth: int, tables: bool, B: int, rng):
             if cq >= 0 and fid[cq] % B == b:
                 lists[(fid[cq] // B) % FLAT_WARPS].append((int(wi),
                                                             local[cq]))
+        if rank_cap is not None:
+            # the warp's counter of the head's forest, by its table value
+            for q in lists:
+                q[:] = [(wi, node, int(c["forest_of_node"][
+                    c["wl_cq"][wi]])) for wi, node in q]
         queues += [(rows, usage, q) for q in lists if q]
+    ranks = {}
     while queues:
         k = int(rng.integers(len(queues)))
         rows, usage, q = queues[k]
-        wi, node = q.pop(0)
+        wi, node, *raw = q.pop(0)
         if not q:
             queues.pop(k)
+        fit, res = bool(c["fit_mask"][wi]), bool(c["res_mask"][wi])
+        if rank_cap is not None:
+            r = rank_cap[0]
+            if 0 <= raw[0] < rank_cap[1]:
+                r = ranks.get(raw[0], 0)
+                ranks[raw[0]] = r + 1
+            if r >= rank_cap[0]:
+                fit = res = False
         ok = True
-        if c["fit_mask"][wi]:
+        if fit:
             for fr, amt in zip(c["dec_fr"][wi], c["dec_amt"][wi]):
                 if 0 <= fr < F and amt > available(rows, usage, node, fr,
                                                    depth):
                     ok = False
-        admit = bool(c["fit_mask"][wi]) and ok
-        if admit or c["res_mask"][wi]:
+        admit = fit and ok
+        if admit or res:
             col = [0] * F
             if admit:
                 for fr, amt in zip(c["dec_fr"][wi], c["dec_amt"][wi]):
                     if 0 <= fr < F:
                         col[fr] = w32(col[fr] + int(amt))
-            if c["res_mask"][wi]:
+            if res:
                 cq = int(c["wl_cq"][wi])
                 for fr, amt in zip(c["res_fr"][wi], c["res_amt"][wi]):
                     if not 0 <= fr < F:
@@ -611,6 +630,67 @@ def test_flat_scan_forest_warps_match_jax(case, tables):
     if case == "interleaved":
         fo = flat_forest_ids(c, False)[np.maximum(c["wl_cq"], 0)][c["order"]]
         assert (np.diff(fo) != 0).sum() > 12
+
+
+def _forest_case(i: int):
+    """testing.FOREST_SHAPES' row i, drawn as testing.kernel_cases draws
+    it (seed 0, the rows before it drawn first)."""
+    cases = [x for x in tt.kernel_cases(0) if x[0] == "admit_scan_forests"]
+    _, args, kw = cases[i]
+    return args, kw
+
+
+@pytest.mark.parametrize("row", range(len(tt.FOREST_SHAPES)))
+def test_forest_scan_flat_layout_with_cap_matches_jax(row):
+    """admit_scan_forests on the flat scan's layout — forests named by
+    the tables, each forest's heads on one warp in cycle order, one to
+    132 blocks, a head of rank max_forest_wl or more neither admitted nor
+    charged — gives the JAX forest scan's admitted."""
+    args, kw = _forest_case(row)
+    c = dict(zip(tt.ADMIT_ARGS + ("order", "forest_of_node"), args))
+    want = np.asarray(jcycle.admit_scan_forests(
+        *[jnp.asarray(a) for a in args], **kw))
+    rng = np.random.default_rng(row)
+    cap = (kw["max_forest_wl"], kw["n_forests"])
+    for B in FLAT_GRIDS:
+        got = emu_flat_admit_scan(c, kw["depth"], True, B, rng, cap)
+        assert np.array_equal(got, want), (row, B)
+    heads = np.bincount(c["forest_of_node"][c["wl_cq"][c["wl_cq"] >= 0]],
+                        minlength=kw["n_forests"])
+    if tt.FOREST_SHAPES[row][-1] is not None:
+        # the cap row: forests with heads past the cap, and a head past it
+        # that the uncapped flat scan admits
+        assert heads.max() > kw["max_forest_wl"]
+        flat = emu_flat_admit_scan(c, kw["depth"], True, 3, rng)
+        assert (flat & ~want).any()
+
+
+def test_forest_scan_heads_outside_the_tables():
+    """The heads of a forest numbered outside [0, n_forests) (one tree
+    numbered past the count, another below 0) are never admitted and take
+    no rank, as the plain version's schedule skips them."""
+    import torch
+    from kueue_tpu_torch.ops import cycle as tcycle
+    args, kw = _forest_case(1)
+    c = dict(zip(tt.ADMIT_ARGS + ("order", "forest_of_node"), args))
+    fon = c["forest_of_node"].copy()
+    first = fon[c["wl_cq"][0]]
+    other = fon[c["wl_cq"][c["wl_cq"] >= 0]]
+    other = other[other != first][0]
+    fon = np.where(fon == first, kw["n_forests"] + 5,
+                   np.where(fon == other, -1, fon)).astype(np.int32)
+    c["forest_of_node"] = fon
+    args = tt.admit_args(c) + (fon,)
+    want = tcycle.admit_scan_forests_plain(
+        *[torch.from_numpy(a) for a in args], **kw).numpy()
+    outside = (fon[np.maximum(c["wl_cq"], 0)] < 0) | (
+        fon[np.maximum(c["wl_cq"], 0)] >= kw["n_forests"])
+    assert outside[0] and not want[outside].any() and want.any()
+    cap = (kw["max_forest_wl"], kw["n_forests"])
+    for B in FLAT_GRIDS:
+        got = emu_flat_admit_scan(c, kw["depth"], True, B,
+                                  np.random.default_rng(B), cap)
+        assert np.array_equal(got, want), B
 
 
 # -- burst_cycles' chain-only update and rank order (burst_cycles.cu) -------
@@ -744,7 +824,7 @@ from kueue_tpu_torch.parallel import sharded as psh         # noqa: E402
 
 
 def remove_usage(c, usage, node, delta, f, depth):
-    """kq_remove_usage_chain."""
+    """flat_forest.cuh RemoveStep, up a chain."""
     carry = delta
     for n in chain(c["parent"], node, depth):
         u = int(usage[n, f])
@@ -1069,3 +1149,209 @@ def test_merge_rank_of_forest_shards_is_the_jax_order(i, S):
         head_of.append(h)
     got = emu_merge_rank(winners, head_of, W)
     assert np.array_equal(got, want), (i, S)
+
+
+# -- minimal_preemptions_batch, a warp per search (minimal_preemptions.cu) ---
+
+from kueue_tpu.ops import preemption_kernel as jpk   # noqa: E402
+from kueue_tpu_torch import kernels as tkernels      # noqa: E402
+
+OTHER, ABOVE = 1 << 29, 1 << 30
+CQ_MASK = OTHER - 1
+
+
+def undo_add(c, usage, node, delta, f, depth):
+    """flat_forest.cuh UndoAddStep, up a chain."""
+    carry = delta
+    for n in chain(c["parent"], node, depth):
+        u = w32(int(usage[n, f]) - carry)
+        usage[n, f] = u
+        carry = max(0, w32(carry - max(0, w32(int(c["guaranteed"][n, f])
+                                              - u))))
+
+
+def search_rows(c, s: int, staged: bool) -> dict:
+    """Search s's tree as its warp reads it: the staged slice (cap =
+    subtree at roots, borrow cap below; has-borrow-limit bits in 32-bit
+    words) or the input planes (the global route)."""
+    keys = ("parent", "subtree", "guaranteed", "borrow_cap", "has_blim")
+    rows = {k: c[k][s] for k in keys}
+    if not staged:
+        return rows
+    par = rows["parent"]
+    NL, F = rows["guaranteed"].shape
+    cap = np.where((par < 0)[:, None], rows["subtree"], rows["borrow_cap"])
+    words = np.zeros((NL, -(-F // 32)), dtype=np.int64)
+    for f in range(F):
+        words[:, f // 32] |= rows["has_blim"][:, f].astype(np.int64) \
+            << (f % 32)
+    blim = np.array([[(words[n, f // 32] >> (f % 32)) & 1 for f in range(F)]
+                     for n in range(NL)], dtype=bool).reshape(NL, F)
+    return dict(parent=par, subtree=cap, borrow_cap=cap,
+                guaranteed=rows["guaranteed"], has_blim=blim)
+
+
+def emu_search(c, s: int, depth: int, staged: bool):
+    """One warp's search: the candidates' code words up to the last real
+    one; the forward loop (the borrowing skip on the subtree rows, the
+    threshold flip, remove_usage, the vote of workloadFits) marking the
+    removed bits; the reverse loop word by word from the top, each word's
+    bits from the highest (the last removed one's word below it), adding
+    back, keeping a fill-back that still fits and undoing the others;
+    the mask written from each word."""
+    rows = search_rows(c, s, staged)
+    sub = c["subtree"][s]
+    usage = c["usage0"][s].astype(np.int64).copy()
+    K = c["cand_cq"].shape[1]
+    F = usage.shape[1]
+    code = [-1 if c["cand_cq"][s, k] < 0 else int(c["cand_cq"][s, k])
+            | (OTHER if c["cand_other_cq"][s, k] else 0)
+            | (ABOVE if c["cand_above_threshold"][s, k] else 0)
+            for k in range(K)]
+    n_k = max([k + 1 for k in range(K) if code[k] >= 0], default=0)
+    delta = c["cand_delta"][s]
+    pcq = int(c["pre_cq"][s])
+    wu, need = c["wl_usage"][s], c["frs_mask"][s]
+
+    def fits(allow_b):
+        ok, borrow = True, False
+        for f in range(F):
+            w = int(wu[f])
+            if w <= 0:
+                continue
+            if not w <= available(rows, usage, pcq, f, depth):
+                ok = False
+            if w32(int(usage[pcq, f]) + w) > sub[pcq, f]:
+                borrow = True
+        return ok and (allow_b or not borrow)
+
+    bits = [0] * -(-n_k // 32)
+    allow_b = bool(c["allow_borrowing0"][s])
+    thr = bool(c["threshold_enabled"][s])
+    fitted, last = False, -1
+    for k in range(n_k):
+        if fitted:
+            break
+        if code[k] < 0:
+            continue
+        cq = code[k] & CQ_MASK
+        if code[k] & OTHER:
+            if not any(need[f] and usage[cq, f] > sub[cq, f]
+                       for f in range(F)):
+                continue
+            if thr and code[k] & ABOVE:
+                allow_b = False
+        for f in range(F):
+            if delta[k, f]:
+                remove_usage(rows, usage, cq, int(delta[k, f]), f, depth)
+        bits[k >> 5] |= 1 << (k & 31)
+        last = k
+        fitted = fits(allow_b)
+    mask = np.zeros(K, dtype=bool)
+    if not fitted:
+        return False, mask
+    top = last >> 5
+    for wd in range(top, -1, -1):
+        below = (last & 31) if wd == top else 32
+        word = bits[wd] & ((1 << below) - 1)
+        keep = word
+        while word:
+            b = word.bit_length() - 1
+            word &= ~(1 << b)
+            k = wd * 32 + b
+            cq = code[k] & CQ_MASK
+            for f in range(F):
+                if delta[k, f]:
+                    add_usage(rows, usage, cq, int(delta[k, f]), f, depth)
+            if fits(allow_b):
+                keep &= ~(1 << b)
+            else:
+                for f in range(F):
+                    if delta[k, f]:
+                        undo_add(rows, usage, cq, int(delta[k, f]), f, depth)
+        if wd == top:
+            keep |= 1 << (last & 31)
+        for lane in range(32):
+            if wd * 32 + lane < K:
+                mask[wd * 32 + lane] = (keep >> lane) & 1
+    return True, mask
+
+
+def _search_case(row: int, seed: int):
+    """testing.SEARCH_SHAPES' row, its searches shuffled so that padding
+    searches lie between real ones."""
+    S, n_valid, K, n_c, n_cqs, n_coh, depth, F = tt.SEARCH_SHAPES[row]
+    rng = np.random.default_rng(seed)
+    c = tt.preemption_searches(rng, S=S, n_valid=n_valid, K=K, n_cands=n_c,
+                               n_cqs=n_cqs, n_cohorts=n_coh, depth=depth, F=F)
+    perm = rng.permutation(S)
+    for k in tt.SEARCH_ARGS:
+        c[k] = np.ascontiguousarray(c[k][perm])
+    return c
+
+
+@pytest.mark.parametrize("staged", [True, False], ids=["shared", "global"])
+@pytest.mark.parametrize("row", range(len(tt.SEARCH_SHAPES)))
+def test_search_warps_match_jax(row, staged):
+    """minimal_preemptions_batch a warp at a time — padding searches
+    between real ones, each search on its staged slice or on the input
+    planes — gives the JAX batch's fitted and target masks."""
+    c = _search_case(row, row)
+    args = tt.search_args(c)
+    want_f, want_m = (np.asarray(x) for x in jpk.minimal_preemptions_batch(
+        *[jnp.asarray(a) for a in args], depth=c["depth"]))
+    S = len(c["pre_cq"])
+    for s in range(S):
+        if c["pre_cq"][s] < 0:
+            got = (False, np.zeros(c["cand_cq"].shape[1], dtype=bool))
+        else:
+            got = emu_search(c, s, c["depth"], staged)
+        assert got[0] == want_f[s], (row, s)
+        assert np.array_equal(got[1], want_m[s]), (row, s)
+    if S > 1:
+        real = np.flatnonzero(c["pre_cq"] >= 0)
+        assert (c["pre_cq"] < 0).sum() == 0 or real.max() > np.flatnonzero(
+            c["pre_cq"] < 0).min()
+    assert want_f.any() and (want_m.sum(1) > 1).any() or S == 1
+
+
+def test_search_deep_chain_and_k_1024_match_jax():
+    """The warp's search on a cohort chain 17 levels deep (the walks past
+    four levels) and at K = 1,024 (32 words of removed bits), both
+    routes."""
+    rng = np.random.default_rng(5)
+    deep = tt.preemption_searches(rng, S=8, K=16, n_cands=12, F=2, n_cqs=6,
+                                  n_cohorts=16, depth=2, chain=True)
+    wide = tt.preemption_searches(rng, S=4, K=1024, n_cands=1000, F=2,
+                                  n_cqs=6, n_cohorts=3, depth=3)
+    for c in (deep, wide):
+        args = tt.search_args(c)
+        want_f, want_m = (np.asarray(x) for x in
+                          jpk.minimal_preemptions_batch(
+                              *[jnp.asarray(a) for a in args],
+                              depth=c["depth"]))
+        for staged in (True, False):
+            for s in range(len(c["pre_cq"])):
+                f, m = emu_search(c, s, c["depth"], staged)
+                assert f == want_f[s] and np.array_equal(m, want_m[s]), s
+    assert deep["depth"] == 17
+
+
+def test_search_layout_routes():
+    """search_layout stages the tree and the candidates of every search
+    of testing.SEARCH_SHAPES but the last (29,000 CQs: its tree global,
+    its candidates staged), stages K = 1,024 at F = 2 four searches to a
+    block, and halves the searches per block before a part goes
+    global."""
+    for S, _, K, _, n_cqs, n_coh, _, F in tt.SEARCH_SHAPES[:-1]:
+        warps, tree, cands = tkernels.search_layout(n_cqs + n_coh, F, K)
+        assert (warps, bool(tree), bool(cands)) == (4, True, True)
+    _, _, K, _, n_cqs, n_coh, _, F = tt.SEARCH_SHAPES[-1]
+    warps, tree, cands = tkernels.search_layout(n_cqs + n_coh, F, K)
+    assert tree == 0 and cands > 0
+    assert tkernels.search_layout(8, 2, 1024)[0] == 4
+    warps, tree, cands = tkernels.search_layout(8, 32, 1024)
+    assert warps == 1 and tree and cands
+    budget = tkernels.SMEM_LIMIT // 4
+    warps, tree, cands = tkernels.search_layout(3000, 3, 16)
+    assert warps == 1 and warps * (tree + cands) <= budget and tree

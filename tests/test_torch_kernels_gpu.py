@@ -370,13 +370,14 @@ def test_cuda_kernels_past_the_old_limits():
 
 @pytest.mark.gpu
 def test_cuda_forest_list_in_global_memory(monkeypatch):
-    """With no shared memory allowed for the head lists,
-    admit_scan_forests keeps them in global scratch and still equals its
+    """With no shared memory allowed for the working set,
+    admit_scan_forests keeps its rows and head lists in global scratch
+    (every block with heads on the global route) and still equals its
     plain version."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA GPU: the kernels have no CPU mode")
     from kueue_tpu_torch import kernels
-    monkeypatch.setattr(kernels, "FOREST_SMEM", 0)
+    monkeypatch.setattr(kernels, "FLAT_SMEM", 0)
     for name, args, kw in tt.kernel_cases(0):
         if name != "admit_scan_forests":
             continue
@@ -385,6 +386,62 @@ def test_cuda_forest_list_in_global_memory(monkeypatch):
         c = kernels.admit_scan_forests(
             *[torch.from_numpy(a).cuda() for a in args], **kw)
         assert torch.equal(c.cpu(), p), kw
+        routes = kernels.FLAT_ROUTES["admit_scan_forests"].cpu().tolist()
+        assert {r for r in routes if r} == {2}, kw
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", ["shared", "global"])
+def test_cuda_forest_scan_routes_match_plain(route, monkeypatch):
+    """admit_scan_forests on the flat scan's layout, both routes, over
+    tt.FOREST_SHAPES (a forest with heads past max_forest_wl among them)
+    and a forest numbered outside the tables, against
+    admit_scan_forests_plain."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernels have no CPU mode")
+    from kueue_tpu_torch import kernels
+    if route == "global":
+        monkeypatch.setattr(kernels, "FLAT_SMEM", 0)
+    cases = [(args, kw) for name, args, kw in tt.kernel_cases(1)
+             if name == "admit_scan_forests"]
+    args, kw = cases[1]
+    fon = args[-1].copy()
+    fon[fon == fon[max(args[8][0], 0)]] = kw["n_forests"] + 3
+    cases.append((args[:-1] + (fon,), kw))
+    for args, kw in cases:
+        want = cycle.admit_scan_forests_plain(
+            *[torch.from_numpy(a) for a in args], **kw)
+        got = kernels.admit_scan_forests(
+            *[torch.from_numpy(a).cuda() for a in args], **kw)
+        assert torch.equal(got.cpu(), want), (route, kw)
+        routes = kernels.FLAT_ROUTES["admit_scan_forests"].cpu().tolist()
+        assert {r for r in routes if r} == {1 if route == "shared" else 2}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("label", [c[0] for c in tt.SEARCH_ROUTE_CASES])
+def test_cuda_search_layouts_match_plain(label):
+    """minimal_preemptions_batch, a warp per search, over
+    tt.search_route_cases (S = 13 with padding between real searches,
+    K = 1,024, F = 40, a tree past shared memory, candidates past it,
+    both) against minimal_preemptions_batch_plain, on the route its
+    shapes give."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernels have no CPU mode")
+    from kueue_tpu_torch import kernels
+    _, args, kw, route = next(c for c in tt.search_route_cases(0)
+                              if c[0] == label)
+    want = preemption_kernel.minimal_preemptions_batch_plain(
+        *[torch.from_numpy(a) for a in args], **kw)
+    got = kernels.minimal_preemptions_batch(
+        *[torch.from_numpy(a).cuda() for a in args], **kw)
+    for x, y in zip(want, got):
+        assert y.dtype == x.dtype and torch.equal(y.cpu(), x), label
+    r = kernels.SEARCH_ROUTES
+    taken = (r["tree"] if r["tree"] == r["candidates"]
+             else "tree global" if r["tree"] == "global"
+             else "candidates global")
+    assert taken == route, (label, r)
 
 
 @pytest.mark.gpu
