@@ -76,8 +76,13 @@ and the job layer (Configuration, manifests, ``JobManager``):
 3f. the three phase-1 kernels against their plain versions over a seeded
    sweep (kueue_tpu_torch.testing.solve_cycle_cases: N on both sides of
    64, padding, uncovered and invalid slots, int32 wraps, ties and
-   INT_MIN, 10,000 heads sorted in global scratch), the sort forced into
-   global scratch, and the calls captured in phase 13 — exact;
+   INT_MIN, groups of 1 / 4 / 8 lanes a head (a lane a slot) and 40
+   slots on the loop route, the order's registers route at 1 to 16,384
+   heads and its global route past them), the classify forced onto its
+   loop route (``kernels.CLASSIFY_LANES = 0``) and the sort into global
+   scratch (``kernels.SORT_SMEM = 0``), and the calls captured in phase
+   13 — exact; both routes of both kernels taken and counted per call
+   (``kernels.PHASE1_ROUTES``; checked with the others' in 3h);
 14. ``entry(device="cuda")``'s step equal to ``entry(device="cpu")``'s;
    then ``Driver(device="cuda", solver_backend="native")`` on the perf
    scenario at 3,000 workloads: its decision digest equal to phase 6's
@@ -285,11 +290,14 @@ MESH_SCANS = ("admit_scan", "admit_scan_forests", "admit_scan_preempt",
 MESH_SHARDS = {"bench": 4, "northstar": 8, "fs": 4, "dryrun": 8}
 ROUTED = ("admit_scan", "burst_cycles",   # kernels with two routes
           "admit_scan_preempt", "admit_scan_forests",
-          "minimal_preemptions_batch")
-# the routes each must take in 3h (minimal_preemptions_batch: its tree
-# and its candidates each staged or global)
+          "minimal_preemptions_batch", "kq_classify_heads",
+          "kq_cycle_order")
+# the routes each must take in 3f / 3h (minimal_preemptions_batch: its
+# tree and its candidates each staged or global)
 ROUTES_TAKEN = {"minimal_preemptions_batch": {
-    "shared", "tree global", "candidates global", "global"}}
+    "shared", "tree global", "candidates global", "global"},
+    "kq_classify_heads": {"group", "loop"},
+    "kq_cycle_order": {"registers", "global"}}
 HARNESS_TIMEOUT_S = 600    # phase 17's child process
 README_REPLAY = ("76.8 virtual s; large/medium/small 0 / 33.2 / 54.1 s; "
                  "min CQ usage 98.7%")
@@ -543,14 +551,17 @@ def compare(name, args, kw, stats) -> None:
 
 def tally_route(name, stats) -> None:
     """The route the last launch of ``name`` took, counted per call in
-    ``stats[name]["routes"]``: burst_cycles' forest state in shared
-    memory or global rows; minimal_preemptions_batch's trees and
-    candidates staged ("shared"), read from the inputs ("global"), or one
-    of the two global; the blocks with heads of admit_scan,
-    admit_scan_forests and admit_scan_preempt all on the shared-memory
-    route, all on the global route, or both."""
+    ``stats[name]["routes"]``: kq_classify_heads' lane groups or loop,
+    kq_cycle_order's registers or global route; burst_cycles' forest
+    state in shared memory or global rows; minimal_preemptions_batch's
+    trees and candidates staged ("shared"), read from the inputs
+    ("global"), or one of the two global; the blocks with heads of
+    admit_scan, admit_scan_forests and admit_scan_preempt all on the
+    shared-memory route, all on the global route, or both."""
     from kueue_tpu_torch import kernels
-    if name == "burst_cycles":
+    if name in PHASE1:
+        route = kernels.PHASE1_ROUTES[name]
+    elif name == "burst_cycles":
         route = kernels.BURST_ROUTES[name]
     elif name == "minimal_preemptions_batch":
         r = kernels.SEARCH_ROUTES
@@ -1669,18 +1680,23 @@ def smoke(launcher: Launcher) -> int:
         f"({time.perf_counter() - t0:.1f}s): {fits13} fits of "
         f"{PROBE['W']}, {admitted13} of {PROBE['C']} heads admitted")
 
-    # -- 3f. the phase-1 kernels: seeded sweep, global sort, captured --------
+    # -- 3f. the phase-1 kernels: seeded sweep, both routes, captured -------
     for seed in (0, 1):
         for name, arrays, kw in testing.solve_cycle_cases(seed):
             compare(name, on_card(arrays), kw, stats)
-    sort_smem = kernels.SORT_SMEM
-    kernels.SORT_SMEM = 0
+    # the other route of each: the classify's loop on every shape, the
+    # sort in global scratch
+    saved = (kernels.CLASSIFY_LANES, kernels.SORT_SMEM)
+    kernels.CLASSIFY_LANES, kernels.SORT_SMEM = 0, 0
     try:
+        for name, arrays, kw in testing.solve_cycle_cases(2):
+            if name == "kq_classify_heads":
+                compare(name, on_card(arrays), kw, stats)
         for W in (5, 1000):
             compare("kq_cycle_order", on_card(testing.order_case(
                 np.random.default_rng(W), W)), {}, stats)
     finally:
-        kernels.SORT_SMEM = sort_smem
+        kernels.CLASSIFY_LANES, kernels.SORT_SMEM = saved
     n_captured = 0
     for name in PHASE1:
         for args, kw in cap.calls.get(("probe", name), []):

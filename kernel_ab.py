@@ -44,7 +44,16 @@ of the outputs:
   searches, K = 128, six CQs, F = 2);
 - ``admit_scan_forests`` on the north-star probe's call
   (``forest_probe``: 1,000 heads in 64 forests) and on the north-star
-  run's call with the most heads (``forest_northstar``).
+  run's call with the most heads (``forest_northstar``);
+- ``kq_classify_heads`` on the probe's classify (``classify_probe``:
+  100,000 heads x 1,000 CQs, S = 4, R = 3, no pairs) and its 1,000
+  scanned heads with the decision pairs (``classify_pairs``), and
+  ``kq_cycle_order`` on those 1,000 heads (``order_probe``), on the
+  16d dry run's first cycle (``order_dryrun``: the contended entry
+  scenario, 64 CQs, 192 workloads) and on ``testing.order_case`` at
+  10,000 heads (``order_wide``), all seeded (``scenarios.probe_synth``,
+  ``scenarios.packed_cycle``), each order case also as the stable
+  ``torch.argsort`` of the composed key (``library_ms``).
 
 The captured inputs (probe, perf scenario, bursts, preemption cycles)
 are built on first
@@ -62,12 +71,18 @@ per search; a block per forest or the flat layout): it copies the
 checkout's kernel sources into DIR, inserts ``clock64()`` phase sums
 read by thread 0 of each block (lane 0 of each warp in the
 warp-per-search design, a row per search) into the copies of those
-kernels, builds the copies there and runs them on the same inputs.  It
+kernels and of ``kq_classify_heads`` and ``kq_cycle_order``, builds the
+copies there and runs them on the same inputs.  It
 prints per phase the cycles of block 0 and of the block (or search)
 with the most cycles, and the same as µs at the clock that block 0's
 ``%globaltimer`` span gives.  The search's phases are staging, the
 forward loop and the reverse loop (with their step counts); the forest
-scan's the row copy, the head compaction and the entries."""
+scan's the row copy, the head compaction and the entries.  The
+classify's: in the thread-per-head design the head loads, the slot loop
+(pair loads, votes and walk interleaved) and the stores; in the
+lane-per-slot design the loads with the pair votes, the slot ballots,
+the walk and the stores.  The order's: the key build, the register and shuffle
+stages, the shared (or global) stages with their count, the write-out."""
 
 from __future__ import annotations
 
@@ -329,6 +344,82 @@ def synthetic_cases(testing) -> dict:
                                               W=1000, S=S)
         out[f"merge_{S}"] = ((winners, head_of), {"W": 1000})
     return out
+
+
+PHASE1_CASES = ("classify_probe", "classify_pairs", "order_probe",
+                "order_dryrun", "order_wide")
+
+
+def phase1_cases(scenarios, testing) -> dict:
+    """The phase-1 kernels' inputs, seeded: the probe's classify of
+    100,000 heads and of its 1,000 scanned heads (with the pairs), the
+    order of those 1,000 heads and of the 16d dry run's first cycle (the
+    borrows of the plain classify), and ``testing.order_case`` at 10,000
+    heads."""
+    import numpy as np
+    import torch
+    from kueue_tpu_torch.ops import cycle
+    from kueue_tpu_torch.parallel import cycle_args
+
+    def classify_inputs(planes, depth):
+        (usage0, subtree, guaranteed, borrow_cap, has_blim, parent, nominal,
+         slot_fr, slot_valid, can_pb, wl_cq, wl_req, prio, ts) = planes
+        C, W = slot_fr.shape[0], wl_cq.shape[0]
+        avail0, potential0 = cycle.cq_avail_plain(
+            usage0, subtree, guaranteed, borrow_cap, has_blim, parent,
+            n_cqs=C, depth=depth)
+        heads = (wl_cq, wl_req, torch.zeros(W, dtype=torch.int32), slot_fr,
+                 slot_valid, nominal, usage0, subtree, parent, can_pb,
+                 torch.ones(C, dtype=torch.bool),
+                 torch.zeros(C, dtype=torch.bool), avail0, potential0)
+        return heads, (prio, ts.to(torch.float32))
+
+    out = {}
+    for label, W, seed in (("classify_probe", 100_000, 0),
+                           ("classify_pairs", 1000, 1)):
+        planes, depth = scenarios.probe_synth(W=W, C=1000, cohorts=64,
+                                              seed=seed)
+        heads, (prio, ts) = classify_inputs(
+            [torch.from_numpy(np.ascontiguousarray(a)) for a in planes],
+            depth)
+        pairs = label == "classify_pairs"
+        out[label] = (heads, {"pairs": pairs})
+        if pairs:
+            borrows0 = cycle.classify_heads_plain(*heads, pairs=True)[1]
+            out["order_probe"] = ((borrows0, prio, ts), {})
+    _, _, _, packed = scenarios.packed_cycle(
+        device="cpu", n_cohorts=16, cqs_per_cohort=4, n_flavors=2,
+        n_workloads=192, contended=True)
+    planes = cycle_args(packed, device="cpu")
+    borrows0 = cycle.solve_cycle_plain(*planes, depth=packed.depth,
+                                       run_scan=False)[5]
+    out["order_dryrun"] = ((borrows0, planes[12],
+                            planes[13].to(torch.float32)), {})
+    out["order_wide"] = (tuple(torch.from_numpy(a) for a in
+                               testing.order_case(
+                                   np.random.default_rng(10_000), 10_000)),
+                         {})
+    return out
+
+
+def phase1_calls(kernels, cases):
+    """(case, callable, library callable or None) for the phase-1 cases:
+    the order's library call is the stable argsort of the composed key
+    (``chip_smoke.cycle_order_key``, built once)."""
+    import torch
+    from chip_smoke import cycle_order_key
+    calls = []
+    for case in PHASE1_CASES:
+        args, kw = cases[case]
+        args = to_card(args)
+        if case.startswith("order"):
+            key = cycle_order_key(*args)
+            calls.append((case, lambda a=args: kernels.kq_cycle_order(*a),
+                          lambda k=key: torch.argsort(k, stable=True)))
+        else:
+            calls.append((case, lambda a=args, k=kw:
+                          kernels.kq_classify_heads(*a, **k), None))
+    return calls
 
 
 def load_cases(path: Path):
@@ -911,6 +1002,107 @@ def split_search_forest(src: Path, dst: Path) -> tuple:
     return search_warp, forest_flat
 
 
+# kq_classify_heads and kq_cycle_order: thread 0's phases (block 0 holds
+# the order's one block)
+CLASSIFY_THREAD_PHASES = {0: "head loads",
+                          1: "slot loop (pair loads, votes, walk)",
+                          2: "stores", 3: "pair stores"}
+CLASSIFY_GROUP_PHASES = {0: "loads and pair votes", 1: "slot ballots",
+                         2: "walk", 3: "stores"}
+ORDER_PHASES = {0: "key build", 1: "register + shuffle stages",
+                2: "shared (or global) stages", 3: "write-out",
+                5: "n shared (or global) stages"}
+
+# the order's global route (both designs' bitonic sort in scratch)
+ORDER_GLOBAL_SPLIT = [
+    ("  unsigned long long* lo = hi + P;\n",
+     "  unsigned long long* lo = hi + P;\n  kq_split_start();\n"),
+    ("  __syncthreads();\n  for (int k = 2; k <= P; k <<= 1) {\n",
+     "  __syncthreads();\n  kq_split_mark(0);\n"
+     "  for (int k = 2; k <= P; k <<= 1) {\n"),
+    ("      __syncthreads();\n    }\n  }\n"
+     "  for (int i = threadIdx.x; i < W; i += blockDim.x) {\n",
+     "      __syncthreads();\n      kq_split_count(5);\n    }\n  }\n"
+     "  kq_split_mark(2);\n"
+     "  for (int i = threadIdx.x; i < W; i += blockDim.x) {\n"),
+    ("order[i] = static_cast<int>(static_cast<unsigned>(lo[i] & "
+     "0xffffffffull));\n  }\n}\n",
+     "order[i] = static_cast<int>(static_cast<unsigned>(lo[i] & "
+     "0xffffffffull));\n  }\n  kq_split_mark(3);\n  kq_split_flush();\n"
+     "}\n"),
+]
+
+
+def split_phase1(src: Path, dst: Path) -> tuple:
+    """The phase timers in the checkout's kq_classify_heads and
+    kq_cycle_order, whichever designs it has → (the classify is a group
+    per head, the order has the registers route)."""
+    text = (src / "solve_cycle.cu").read_text()
+    group = "kq_group_ballot" in text
+    chip = "kq_order_chip" in text
+    pairs = [('#include "quota.cuh"\n',
+              '#include "quota.cuh"\n' + SPLIT_HEAD.replace("TAG", "phase1"))]
+    if group:
+        pairs += [
+            ("  const bool live = w < k.W;\n",
+             "  const bool live = w < k.W;\n  kq_split_start();\n"),
+            ("    const bool fit = !notfit && !missing && slot_ok;\n",
+             "    kq_split_mark(0);\n"
+             "    const bool fit = !notfit && !missing && slot_ok;\n"),
+            ("    if (stop_idx < 0 && m_stop != 0) {",
+             "    kq_split_mark(1);\n"
+             "    if (stop_idx < 0 && m_stop != 0) {"),
+            ("      best_b = (m_bor >> i) & 1u;\n    }\n  }\n",
+             "      best_b = (m_bor >> i) & 1u;\n    }\n"
+             "    kq_split_mark(2);\n  }\n"),
+            ("  if (k.dec_fr == nullptr) return;\n",
+             "  if (k.dec_fr == nullptr) {\n    kq_split_mark(3);\n"
+             "    kq_split_flush();\n    return;\n  }\n"),
+            ("rel ? rq : 0;\n  }\n}\n",
+             "rel ? rq : 0;\n  }\n  kq_split_mark(3);\n  kq_split_flush();\n"
+             "}\n"),
+        ]
+    else:
+        pairs += [
+            ("  if (w >= k.W) return;\n",
+             "  if (w >= k.W) return;\n  kq_split_start();\n"),
+            ("  int stop_idx = -1, stop_mode = 0;\n",
+             "  kq_split_mark(0);\n  int stop_idx = -1, stop_mode = 0;\n"),
+            ("  const int chosen = stop_idx >= 0 ? stop_idx : best_idx;\n",
+             "  kq_split_mark(1);\n"
+             "  const int chosen = stop_idx >= 0 ? stop_idx : best_idx;\n"),
+            ("  if (k.dec_fr == nullptr) return;\n",
+             "  kq_split_mark(2);\n  if (k.dec_fr == nullptr) {\n"
+             "    kq_split_flush();\n    return;\n  }\n"),
+            ("  k.fit_mask[w] = has_fit;\n}\n",
+             "  k.fit_mask[w] = has_fit;\n  kq_split_mark(3);\n"
+             "  kq_split_flush();\n}\n"),
+        ]
+    pairs += ORDER_GLOBAL_SPLIT
+    if chip:
+        pairs += [
+            ("  const unsigned full = 0xffffffffu;\n",
+             "  const unsigned full = 0xffffffffu;\n  kq_split_start();\n"),
+            ("  const int cross = 32 * E;",
+             "  kq_split_mark(0);\n  const int cross = 32 * E;"),
+            ("      unsigned long long* sh = order_smem + buf * P;\n",
+             "      kq_split_mark(1);\n      kq_split_count(5);\n"
+             "      unsigned long long* sh = order_smem + buf * P;\n"),
+            ("      }\n    }\n    // partner in another lane of this warp",
+             "      }\n      kq_split_mark(2);\n    }\n"
+             "    // partner in another lane of this warp"),
+            ("#pragma unroll\n  for (int r = 0; r < E; ++r) {\n"
+             "    if (tid * E + r < W)",
+             "  kq_split_mark(1);\n#pragma unroll\n"
+             "  for (int r = 0; r < E; ++r) {\n    if (tid * E + r < W)"),
+            ("static_cast<int>(lo[r] & 0x7fffffffu);\n    }\n  }\n}\n",
+             "static_cast<int>(lo[r] & 0x7fffffffu);\n    }\n  }\n"
+             "  kq_split_mark(3);\n  kq_split_flush();\n}\n"),
+        ]
+    (dst / "solve_cycle.cu").write_text(_patch(text, pairs, "solve_cycle.cu"))
+    return group, chip
+
+
 def split_sources(src: Path, dst: Path) -> tuple:
     """Copies of the checkout's kernel sources in ``dst``, with the
     phase timers in the flat admit_scan, burst_cycles and
@@ -1032,7 +1224,7 @@ def split_build(kernels, src: Path):
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-    for tag in ("admit", "burst", "preempt", "search", "forest"):
+    for tag in ("admit", "burst", "preempt", "search", "forest", "phase1"):
         getattr(lib, f"kq_split_{tag}_read").argtypes = [ctypes.c_void_p]
     kernels._lib = lib
     return lib
@@ -1090,19 +1282,32 @@ def main() -> int:
         return 2
     here = Path(__file__).resolve().parent
     sys.path.insert(0, os.path.abspath(argv[0]))
-    from kueue_tpu_torch import kernels
+    from kueue_tpu_torch import kernels, scenarios
     from kueue_tpu_torch import testing as tt
     out = {"label": argv[1] if len(argv) > 1 else argv[0],
            "device": torch.cuda.get_device_name(0)}
     cases = load_cases(Path(opts.get(
         "--cases", here / ".kueue_tpu_torch_build" / "kernel_ab_cases.pt")))
     cases.update(synthetic_cases(tt))
+    cases.update(phase1_cases(scenarios, tt))
 
     if "--split" in opts:
         dst = Path(opts["--split"]).resolve()
         forest, forest_pre, (search_warp, forest_flat) = split_sources(
             Path(kernels.__file__).resolve().parent, dst)
+        group, chip = split_phase1(Path(kernels.__file__).resolve().parent,
+                                   dst)
         lib = split_build(kernels, dst)
+        for case, call, _ in phase1_calls(kernels, cases):
+            order = case.startswith("order")
+            out[case] = split_run(lib, "phase1", call, ORDER_PHASES if order
+                                  else CLASSIFY_GROUP_PHASES if group
+                                  else CLASSIFY_THREAD_PHASES, 10)
+            out[case]["design"] = (
+                ("registers route" if chip else "one block in shared memory")
+                if order else ("group per head" if group
+                               else "thread per head"))
+            out[case]["ms"] = event_ms(call, 10)
         for case, call in search_calls(kernels, cases):
             out[case] = split_run(lib, "search", call, SEARCH_PHASES, 10)
             out[case]["design"] = ("warp per search" if search_warp
@@ -1180,6 +1385,10 @@ def main() -> int:
         out[case] = dict(ms=event_ms(call, 10), digest=digest(*call()),
                          forests=int(c["forest_of_node"].max()) + 1)
 
+    for case, call, lib in phase1_calls(kernels, cases):
+        out[case] = dict(ms=event_ms(call, 20), digest=digest(*flat(call())))
+        if lib is not None:
+            out[case]["library_ms"] = event_ms(lib, 20)
     for case, call in (search_calls(kernels, cases)
                        + forest_calls(kernels, cases)
                        + admit_calls(kernels, cases)

@@ -1003,7 +1003,41 @@ def split_across_roots(leaf_free, per_pod, parents, count, *, level_sizes,
 
 # -- the one-call cycle solver's phase 1 ----------------------------------
 
-SORT_SMEM = 128 * 1024      # the order's keys in shared memory up to here
+# kq_cycle_order: the registers route sorts P = max(128, 2^k >= W) keys,
+# E a thread (4 up to 4,096, 8 at 8,192, 16 at 16,384 = ORDER_CHIP_MAX),
+# its key buffers (two, 24 P bytes; one, 12 P, at E = 16) in shared
+# memory while they fit in SORT_SMEM; wider, or with SORT_SMEM = 0, the
+# global route (2 P int64 of scratch)
+SORT_SMEM = SMEM_LIMIT
+ORDER_CHIP_MAX = 16384      # KQ_ORDER_CHIP_MAX in solve_cycle.cu
+ORDER_MIN_KEYS = 128        # one warp of four keys a lane
+# kq_classify_heads: a head's S slots share a group of lanes (S rounded up
+# to a power of two), a lane a slot, while S <= CLASSIFY_LANES (at most
+# 32); past it (0: always) a warp per head loops over chunks of 32 slots
+CLASSIFY_LANES = 32
+# the route of each phase-1 kernel's last launch: kq_cycle_order's
+# "registers" or "global", kq_classify_heads' "group" or "loop"
+PHASE1_ROUTES: dict[str, str] = {}
+
+
+def classify_layout(S: int) -> tuple[int, bool]:
+    """(lanes per head, the loop route) of kq_classify_heads for S
+    slots."""
+    if S <= min(CLASSIFY_LANES, 32):
+        return 1 << max(0, S - 1).bit_length(), False
+    return 32, True
+
+
+def order_layout(W: int) -> tuple[int, int, int]:
+    """(P, keys a thread E, shared bytes) of kq_cycle_order at W heads:
+    E = 0 is the global route, whose P is the power of two >= W."""
+    P = 1 << max(0, W - 1).bit_length()
+    chip = max(P, ORDER_MIN_KEYS)
+    E = 4 if chip <= 4096 else 8 if chip <= 8192 else 16
+    smem = (24 if E < 16 else 12) * chip
+    if chip > ORDER_CHIP_MAX or smem > SORT_SMEM:
+        return P, 0, 0
+    return chip, E, smem if chip > 32 * E else 0
 
 
 def kq_cq_avail(usage0, subtree, guaranteed, borrow_cap, has_blim, parent,
@@ -1042,7 +1076,10 @@ def kq_classify_heads(wl_cq, wl_requests, start_slot, slot_fr, slot_valid,
     """CUDA per-head classify (kernels/solve_cycle.cu) → (fit_slot0 [W]
     int32, borrows0 [W] bool, preempt0 [W] bool) and, with ``pairs``,
     (dec_fr [W, R] int32, dec_amt [W, R] int32, fit_mask [W] bool);
-    arguments as ``ops.cycle.classify_heads_plain``."""
+    arguments as ``ops.cycle.classify_heads_plain``.  A group of lanes
+    per head, a lane a slot, or a warp per head looping over chunks of
+    slots (``classify_layout``); the route lands in
+    ``PHASE1_ROUTES``."""
     dev = wl_cq.device
     if dev.type != "cuda":
         raise ValueError(f"wl_cq on {dev}: the kernels need CUDA tensors")
@@ -1076,21 +1113,24 @@ def kq_classify_heads(wl_cq, wl_requests, start_slot, slot_fr, slot_valid,
         outs += [torch.empty((W, R), dtype=i32, device=dev),
                  torch.empty((W, R), dtype=i32, device=dev),
                  torch.empty(W, dtype=b, device=dev)]
+    lanes, loop = classify_layout(S)
+    PHASE1_ROUTES["kq_classify_heads"] = "loop" if loop else "group"
     if W == 0:
         return tuple(outs)
     _array_launch("kq_classify_heads", load().kq_classify_heads,
-                     [wl_cq, wl_requests, start_slot, slot_fr, slot_valid,
-                      nominal_cq, usage0, subtree, parent,
-                      cq_can_preempt_borrow, cq_wcb_borrow, cq_wcp_preempt,
-                      avail0, potential0, *outs]
-                     + [None] * (6 - len(outs)),
-                     [W, S, R, F])
+                  [wl_cq, wl_requests, start_slot, slot_fr, slot_valid,
+                   nominal_cq, usage0, subtree, parent,
+                   cq_can_preempt_borrow, cq_wcb_borrow, cq_wcp_preempt,
+                   avail0, potential0, *outs] + [None] * (6 - len(outs)),
+                  [W, S, R, F, lanes, int(loop)])
     return tuple(outs)
 
 
 def kq_cycle_order(borrows0, priority, timestamp):
     """CUDA stable cycle order (kernels/solve_cycle.cu) → order [W] int32;
-    arguments as ``ops.cycle.cycle_order_plain`` (timestamp float32)."""
+    arguments as ``ops.cycle.cycle_order_plain`` (timestamp float32).
+    The registers route or the global one (``order_layout``); the route
+    lands in ``PHASE1_ROUTES``."""
     dev = borrows0.device
     if dev.type != "cuda":
         raise ValueError(f"borrows0 on {dev}: the kernels need CUDA tensors")
@@ -1101,17 +1141,15 @@ def kq_cycle_order(borrows0, priority, timestamp):
     if W >= 2**31 - 1:
         raise ValueError(f"W={W} heads: the sort's index is 32 bits")
     order = torch.empty(W, dtype=torch.int32, device=dev)
+    P, E, smem = order_layout(W)
+    PHASE1_ROUTES["kq_cycle_order"] = "registers" if E else "global"
     if W == 0:
         return order
-    P = 1 << max(0, W - 1).bit_length()
-    smem = 16 * P
-    scratch = None
-    if smem > SORT_SMEM:
-        scratch = torch.empty(2 * P, dtype=torch.int64, device=dev)
-        smem = 0
+    scratch = (None if E else
+               torch.empty(2 * P, dtype=torch.int64, device=dev))
     _array_launch("kq_cycle_order", load().kq_cycle_order,
-                     [borrows0, priority, timestamp, scratch, order],
-                     [W, P, smem])
+                  [borrows0, priority, timestamp, scratch, order],
+                  [W, P, E, smem])
     return order
 
 

@@ -13,31 +13,46 @@
 //    the JAX dense recurrence on forests no deeper than `depth` (the
 //    packer's depth is the forest's).  Only the C CQ rows are computed:
 //    the classify never reads a cohort's availability.
-// 2. kq_classify_heads: the vmapped classify (:463-514).  A thread per
-//    head loops over its CQ's S slots x R resources, classifies each slot
-//    fit / preempt / no-fit, runs the FlavorFungibility walk (first stop
-//    slot, else the first slot of the best mode) and writes fit_slot0,
-//    borrows0 and preempt0.  With the scan it also writes the decision
-//    pairs (decision_pairs_from_slots, :537, fused): dec_fr, dec_amt and
-//    fit_mask.
+// 2. kq_classify_heads: the vmapped classify (:463-514).  A group of G
+//    lanes per head (G = S rounded up to a power of two, at most 32), lane
+//    g owning slot g: it issues its slot's slot_fr cells and requests,
+//    then the five [C, F] cells of each pair, KQ_CLASSIFY_RC resources at
+//    a time, and folds the pair votes in registers.  Four ballots over the
+//    group give S-bit masks (fit, preempt, stop, borrows) on which the
+//    FlavorFungibility walk (first stop slot, else the first slot of the
+//    best mode) is a few __ffs.  Where S > 32 (the loop route) a warp per
+//    head walks chunks of 32 slots.  Writes fit_slot0, borrows0 and
+//    preempt0 and, with the scan, the decision pairs
+//    (decision_pairs_from_slots, :537, fused): the group's lanes write
+//    the chosen slot's dec_fr and dec_amt, lane 0 fit_mask.
 // 3. kq_cycle_order: the stable jnp.lexsort of :521 — heads by borrows0,
-//    then priority descending, then the float32 timestamp, then index.
-//    One block sorts two 64-bit words per head with a bitonic sort:
-//    hi = borrows << 32 | (-priority, sign bit flipped) and
-//    lo = (timestamp's order-preserving key) << 32 | index.  The index
-//    makes every key distinct, so the order is total and the sort stable
-//    by construction.  The timestamp key follows XLA's sort comparator:
-//    -0 is +0, every NaN one NaN after +inf.  In shared memory while the
-//    keys fit, else in global scratch.
+//    then priority descending, then the float32 timestamp, then index —
+//    as a bitonic sort of one 96-bit key per head: hi = borrows << 63 |
+//    (-priority, sign bit flipped) << 31 | ts key >> 1, lo = (ts key &
+//    1) << 31 | index.  The index makes every key distinct, so the order
+//    is total and the sort stable by construction.  The timestamp key
+//    follows XLA's sort comparator: -0 is +0, every NaN one NaN after
+//    +inf.  Registers route (P <= KQ_ORDER_CHIP_MAX, P >= 128 the
+//    power of two >= W): one block of P / E threads holds E keys each in
+//    registers; a stage whose partner is in the same thread exchanges in
+//    registers, in another lane of the warp by __shfl_xor_sync, and only
+//    a stage whose partner is in another warp goes through shared memory
+//    (two buffers, one barrier per stage; one buffer and two barriers at
+//    16,384).  Padding keys (all ones) sort after every real key.
+//    Global route (wider, or no shared memory allowed): the first
+//    design, one block of 1,024 threads over two 64-bit words per key in
+//    global scratch, a barrier per stage; no path sorts that many heads.
 // The admit scan then runs as admit_scan.cu or admit_scan_forests.cu.
 //
 // Bound: at the probe's shapes (W = 100,000 heads, C = 1,000, S = 4,
 // R = 3) the classify moves about 2.9 MB (5.4 MB with the decision
 // pairs) and does ~20 int32 operations per (head, slot, resource):
-// 0.9-1.6 us at 3.35 TB/s, so launch latency rules.
-// The sort of 1,000 heads is 55 barrier stages in one block.  Wrapping
-// int32 as XLA wraps it: adds and subtracts through quota.cuh's
-// unsigned helpers.
+// 0.9-1.6 us at 3.35 TB/s, so latency rules: a thread per head walked
+// its S x R pairs as ~24 dependent round trips, a lane per slot makes
+// them three (the head, the slot cells, the pair cells) with the lanes
+// of a head on one CQ row.  The sort of 1,000 heads is 55 stages: 19 in
+// registers, 30 by shuffles, 6 behind a barrier.  Wrapping int32 as
+// XLA wraps it: adds and subtracts through quota.cuh's unsigned helpers.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -45,6 +60,8 @@
 #include "quota.cuh"
 
 #define KQ_SORT_THREADS 1024
+#define KQ_CLASSIFY_THREADS 256
+#define KQ_ORDER_CHIP_MAX 16384  // the widest sort of the registers route
 
 // -- 1. available() of the CQ rows, for usage0 and for zeros ----------------
 
@@ -105,77 +122,147 @@ struct KqClassify {
   int W, S, R, F;
 };
 
-__global__ void kq_classify_heads_kernel(KqClassify k) {
-  const int w = blockIdx.x * blockDim.x + threadIdx.x;
-  if (w >= k.W) return;
-  const int q = k.wl_cq[w];
+// A pair's four votes: a needed resource the slot does not cover; a
+// relevant pair that does not fit; one that can never fit here (over the
+// potential, or over the available and not preempt-capable); one whose
+// charge would pass its subtree quota (wrapping add).  The five cells are
+// loaded whatever the pair (at column 0 for an uncovered one), so that a
+// lane's loads of several pairs issue together.
+struct KqPairVotes {
+  bool missing, notfit, nofit, borrow;
+};
+
+__device__ __forceinline__ KqPairVotes kq_pair_votes(const KqClassify& k,
+                                                     int cq, int fr, int rq,
+                                                     bool can_pb) {
+  const size_t o = static_cast<size_t>(cq) * k.F + max(fr, 0);
+  const int av = k.avail0[o];
+  const int pot = k.potential0[o];
+  const int nom = k.nominal_cq[o];
+  const int use = k.usage0[o];
+  const int sub = k.subtree[o];
+  const bool rel = fr >= 0 && rq > 0;
+  const bool fit_r = rq <= av;
+  return KqPairVotes{
+      rq > 0 && fr < 0, rel && !fit_r,
+      rel && (rq > pot || (!fit_r && !(rq <= nom || can_pb))),
+      rel && kq_add(use, rq) > sub};
+}
+
+// The group's G bits of a warp-wide ballot (lanes base .. base + G - 1).
+template <int G>
+__device__ __forceinline__ unsigned kq_group_ballot(bool v, int base) {
+  const unsigned b = __ballot_sync(0xffffffffu, v);
+  return G == 32 ? b : (b >> base) & ((1u << G) - 1u);
+}
+
+#define KQ_CLASSIFY_RC 4   // resources a lane loads at once
+
+// G lanes per head, lane g owning slot g (G: S rounded up to a power of
+// two).  kLoop (G = 32): S > 32 slots (or the route forced), so the warp
+// walks chunks of 32 slots.  A lane loads its slot's pairs
+// KQ_CLASSIFY_RC resources at a time (the slot_fr cells, the requests,
+// then the five cells of each), folds the votes in registers, and four
+// ballots give the group S-bit masks (fit, preempt, stop, borrows) on
+// which the walk is a few __ffs.  No lane returns before the ballots:
+// every lane of a warp takes part, padding groups (w >= W) with votes of
+// false.
+template <int G, bool kLoop>
+__global__ void __launch_bounds__(KQ_CLASSIFY_THREADS)
+kq_classify_heads_kernel(KqClassify k) {
+  const int lane = threadIdx.x & 31;
+  const int g = lane & (G - 1);
+  const int base = lane & ~(G - 1);
+  const long long w = (static_cast<long long>(blockIdx.x) * blockDim.x +
+                       threadIdx.x) / G;
+  const bool live = w < k.W;
+  const int S = k.S;
+  const int R = k.R;
+  const int q = live ? k.wl_cq[w] : -1;
   const bool valid = q >= 0;
   const int cq = max(q, 0);
-  const int* req = k.wl_requests + static_cast<size_t>(w) * k.R;
-  const int start = k.start_slot[w];
+  const int start = live ? k.start_slot[w] : 0;
   const bool can_pb = k.can_preempt_borrow[cq] != 0;
   const bool wcb = k.wcb_borrow[cq] != 0;
   const bool wcp = k.wcp_preempt[cq] != 0;
   const bool has_parent = k.parent[cq] >= 0;
-  int stop_idx = -1, stop_mode = 0;
-  bool stop_borrows = false;
-  int best_idx = 0, best_mode = -1;
-  bool best_borrows = false;
-  for (int s = 0; s < k.S; ++s) {
-    const int* frs = k.slot_fr + (static_cast<size_t>(cq) * k.S + s) * k.R;
-    bool missing = false, all_fit = true, any_nofit = false;
-    bool any_borrow = false;
-    for (int r = 0; r < k.R; ++r) {
-      const int fr = frs[r];
-      const int rq = req[r];
-      const bool covered = fr >= 0;
-      const bool needed = rq > 0;
-      if (needed && !covered) missing = true;
-      if (!(covered && needed)) continue;
-      const size_t o = static_cast<size_t>(cq) * k.F + fr;
-      const bool fit_r = rq <= k.avail0[o];
-      const bool nofit_r = rq > k.potential0[o];
-      const bool capable = rq <= k.nominal_cq[o] || can_pb;
-      all_fit &= fit_r;
-      any_nofit |= nofit_r || (!fit_r && !capable);
-      any_borrow |= kq_add(k.usage0[o], rq) > k.subtree[o];
+  const int* req = k.wl_requests + static_cast<size_t>(live ? w : 0) * R;
+  const int* frs = k.slot_fr + static_cast<size_t>(cq) * S * R;
+  int stop_idx = -1, stop_mode = 0, best_idx = 0, best_mode = -1;
+  bool stop_b = false, best_b = false;
+  for (int s0 = 0; s0 < S; s0 += G) {    // one pass without the loop
+    const int s = s0 + g;                // this lane's slot
+    const bool in = live && s < S;
+    bool slot_ok = false, missing = false, notfit = false, nofit = false;
+    bool borrow = false;
+    if (in) {
+      slot_ok = k.slot_valid[static_cast<size_t>(cq) * S + s] != 0;
+      const int* row = frs + static_cast<size_t>(s) * R;
+      for (int r0 = 0; r0 < R; r0 += KQ_CLASSIFY_RC) {
+        int fr[KQ_CLASSIFY_RC], rq[KQ_CLASSIFY_RC];
+#pragma unroll
+        for (int i = 0; i < KQ_CLASSIFY_RC; ++i) {
+          const bool ok = r0 + i < R;
+          fr[i] = ok ? row[r0 + i] : -1;
+          rq[i] = ok ? req[r0 + i] : 0;
+        }
+#pragma unroll
+        for (int i = 0; i < KQ_CLASSIFY_RC; ++i) {
+          const KqPairVotes v = kq_pair_votes(k, cq, fr[i], rq[i], can_pb);
+          missing |= v.missing;
+          notfit |= v.notfit;
+          nofit |= v.nofit;
+          borrow |= v.borrow;
+        }
+      }
     }
-    const bool slot_ok = k.slot_valid[static_cast<size_t>(cq) * k.S + s] != 0;
-    const bool fit = all_fit && !missing && slot_ok;
-    const bool nofit = any_nofit || missing || !slot_ok;
-    const bool preempt = !fit && !nofit;
-    const bool borrows = any_borrow && has_parent;
+    const bool fit = !notfit && !missing && slot_ok;
+    const bool pre = !fit && !(nofit || missing || !slot_ok);
+    const bool bor = borrow && has_parent;
     const bool active = s >= start;
-    const int mode = active ? (fit ? 2 : (preempt ? 1 : 0)) : 0;
-    if (stop_idx < 0 && active && (fit || (preempt && wcp)) &&
-        (!borrows || wcb)) {
-      stop_idx = s;
-      stop_mode = mode;
-      stop_borrows = borrows;
+    const bool stop = active && (fit || (pre && wcp)) && (!bor || wcb);
+    const unsigned m_fit = kq_group_ballot<G>(in && active && fit, base);
+    const unsigned m_pre = kq_group_ballot<G>(in && active && pre, base);
+    const unsigned m_stop = kq_group_ballot<G>(in && stop, base);
+    const unsigned m_bor = kq_group_ballot<G>(in && bor, base);
+    if (stop_idx < 0 && m_stop != 0) {   // the first stop slot
+      const int i = __ffs(m_stop) - 1;
+      stop_idx = s0 + i;
+      stop_mode = (m_fit >> i) & 1u ? 2 : 1;
+      stop_b = (m_bor >> i) & 1u;
     }
-    if (mode > best_mode) {   // the first slot of the best mode
-      best_idx = s;
+    // the first slot of the chunk's best mode (mode 0: its first slot)
+    const int mode = m_fit != 0 ? 2 : (m_pre != 0 ? 1 : 0);
+    if (mode > best_mode) {
+      const int i = mode == 2 ? __ffs(m_fit) - 1
+                              : (mode == 1 ? __ffs(m_pre) - 1 : 0);
+      best_idx = s0 + i;
       best_mode = mode;
-      best_borrows = borrows;
+      best_b = (m_bor >> i) & 1u;
     }
   }
-  const int chosen = stop_idx >= 0 ? stop_idx : best_idx;
-  const int mode = stop_idx >= 0 ? stop_mode : best_mode;
-  const bool chosen_borrows = stop_idx >= 0 ? stop_borrows : best_borrows;
+  const bool has_stop = stop_idx >= 0;
+  const int mode = has_stop ? stop_mode : best_mode;
   const bool has_fit = valid && mode == 2;
-  const int fit_slot = has_fit ? chosen : -1;
-  k.fit_slot0[w] = fit_slot;
-  k.borrows0[w] = has_fit && chosen_borrows;
-  k.preempt0[w] = valid && mode == 1;
-  if (k.dec_fr == nullptr) return;
-  const int* frs = k.slot_fr +
-                   (static_cast<size_t>(cq) * k.S + max(fit_slot, 0)) * k.R;
-  for (int r = 0; r < k.R; ++r) {
-    const bool rel = has_fit && frs[r] >= 0 && req[r] > 0;
-    k.dec_fr[static_cast<size_t>(w) * k.R + r] = rel ? frs[r] : -1;
-    k.dec_amt[static_cast<size_t>(w) * k.R + r] = rel ? req[r] : 0;
+  const int fit_slot = has_fit ? (has_stop ? stop_idx : best_idx) : -1;
+  if (!live) return;
+  if (g == 0) {
+    k.fit_slot0[w] = fit_slot;
+    k.borrows0[w] = has_fit && (has_stop ? stop_b : best_b);
+    k.preempt0[w] = valid && mode == 1;
+    if (k.dec_fr != nullptr) k.fit_mask[w] = has_fit;
   }
-  k.fit_mask[w] = has_fit;
+  if (k.dec_fr == nullptr) return;
+  // the decision pairs of the chosen slot (slot 0's without a fit), the
+  // group's lanes taking resources g, g + G, ...
+  const int* row = frs + static_cast<size_t>(max(fit_slot, 0)) * R;
+  for (int r = g; r < R; r += G) {
+    const int fr = row[r];
+    const int rq = req[r];
+    const bool rel = has_fit && fr >= 0 && rq > 0;
+    k.dec_fr[static_cast<size_t>(w) * R + r] = rel ? fr : -1;
+    k.dec_amt[static_cast<size_t>(w) * R + r] = rel ? rq : 0;
+  }
 }
 
 // -- 3. the cycle order: a stable sort by (borrows, -priority, ts, index) ----
@@ -188,25 +275,149 @@ __device__ __forceinline__ unsigned kq_ts_key(float x) {
   return (b & 0x80000000u) ? ~b : (b | 0x80000000u);
 }
 
+// -priority, wrapping at INT_MIN, as an unsigned key in signed order.
+__device__ __forceinline__ unsigned kq_prio_key(int priority) {
+  return (0u - static_cast<unsigned>(priority)) ^ 0x80000000u;
+}
+
+// Is key (bh, bl) before key (ah, al)?
+__device__ __forceinline__ bool kq_key_less(unsigned long long bh,
+                                            unsigned bl,
+                                            unsigned long long ah,
+                                            unsigned al) {
+  return bh < ah || (bh == ah && bl < al);
+}
+
+// The registers route: P / E threads, thread t holding positions
+// t * E .. t * E + E - 1 (head r * T + t's key in position t * E + r).
+// Shared memory: two buffers of P keys (one at E = 16, P = 16,384, which
+// two would not fit: a second barrier before each write), position
+// t * E + r at r * T + t.
+template <int E>
+__device__ __forceinline__ void kq_order_chip(const uint8_t* borrows,
+                                              const int* priority,
+                                              const float* ts, int W, int P,
+                                              int* order) {
+  extern __shared__ unsigned long long order_smem[];
+  const int tid = threadIdx.x;
+  const int T = P / E;
+  const unsigned full = 0xffffffffu;
+  unsigned long long hi[E];
+  unsigned lo[E];
+#pragma unroll
+  for (int r = 0; r < E; ++r) {
+    const int h = r * T + tid;
+    if (h < W) {
+      const unsigned t = kq_ts_key(ts[h]);
+      hi[r] = (static_cast<unsigned long long>(borrows[h] != 0) << 63) |
+              (static_cast<unsigned long long>(kq_prio_key(priority[h]))
+               << 31) | (t >> 1);
+      lo[r] = ((t & 1u) << 31) | static_cast<unsigned>(h);
+    } else {
+      hi[r] = ~0ull;
+      lo[r] = ~0u;
+    }
+  }
+  const int cross = 32 * E;   // from here on the partner is in another warp
+  constexpr int kBufs = E < 16 ? 2 : 1;
+  int buf = 0;
+  for (int k = 2; k <= P; k <<= 1) {
+    // partner in another warp: through shared memory, a barrier a stage
+    for (int j = k >> 1; j >= cross; j >>= 1) {
+      unsigned long long* sh = order_smem + buf * P;
+      unsigned* sl =
+          reinterpret_cast<unsigned*>(order_smem + kBufs * P) + buf * P;
+      if constexpr (kBufs == 2) {
+        buf ^= 1;
+      } else {
+        __syncthreads();   // every read of the stage before is done
+      }
+      const int other = tid ^ (j / E);
+      const bool lower = (tid & (j / E)) == 0;
+#pragma unroll
+      for (int r = 0; r < E; ++r) {
+        sh[r * T + tid] = hi[r];
+        sl[r * T + tid] = lo[r];
+      }
+      __syncthreads();
+#pragma unroll
+      for (int r = 0; r < E; ++r) {
+        const unsigned long long oh = sh[r * T + other];
+        const unsigned ol = sl[r * T + other];
+        const bool up = ((tid * E + r) & k) == 0;
+        // keep the smaller key where this position is the lower one of an
+        // ascending pair or the upper one of a descending pair
+        if (kq_key_less(oh, ol, hi[r], lo[r]) == (lower == up)) {
+          hi[r] = oh;
+          lo[r] = ol;
+        }
+      }
+    }
+    // partner in another lane of this warp: shuffles
+    for (int j = min(k >> 1, cross >> 1); j >= E; j >>= 1) {
+      const int x = j / E;
+      const bool lower = (tid & x) == 0;
+#pragma unroll
+      for (int r = 0; r < E; ++r) {
+        const unsigned long long oh = __shfl_xor_sync(full, hi[r], x);
+        const unsigned ol = __shfl_xor_sync(full, lo[r], x);
+        const bool up = ((tid * E + r) & k) == 0;
+        if (kq_key_less(oh, ol, hi[r], lo[r]) == (lower == up)) {
+          hi[r] = oh;
+          lo[r] = ol;
+        }
+      }
+    }
+    // partner in this thread: registers
+#pragma unroll
+    for (int j = E / 2; j >= 1; j >>= 1) {
+      if (j < k) {
+#pragma unroll
+        for (int r = 0; r < E; ++r) {
+          const int rp = r ^ j;
+          if (rp > r) {
+            const bool up = ((tid * E + r) & k) == 0;
+            if (kq_key_less(hi[rp], lo[rp], hi[r], lo[r]) == up) {
+              const unsigned long long th = hi[r];
+              hi[r] = hi[rp];
+              hi[rp] = th;
+              const unsigned tl = lo[r];
+              lo[r] = lo[rp];
+              lo[rp] = tl;
+            }
+          }
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < E; ++r) {
+    if (tid * E + r < W) {
+      order[tid * E + r] = static_cast<int>(lo[r] & 0x7fffffffu);
+    }
+  }
+}
+
 __device__ __forceinline__ bool kq_key_after(const unsigned long long* hi,
                                              const unsigned long long* lo,
                                              int a, int b) {
   return hi[a] > hi[b] || (hi[a] == hi[b] && lo[a] > lo[b]);
 }
 
-__global__ void kq_cycle_order_kernel(const uint8_t* borrows,
-                                      const int* priority, const float* ts,
-                                      int W, int P,
-                                      unsigned long long* scratch,
-                                      int use_smem, int* order) {
-  extern __shared__ unsigned long long sort_smem[];
-  unsigned long long* hi = use_smem ? sort_smem : scratch;
+// The global route: a block of KQ_SORT_THREADS over two 64-bit words per
+// key in global scratch (hi = borrows << 32 | priority key, lo = ts key
+// << 32 | index), a barrier per stage.
+__device__ __forceinline__ void kq_order_global(const uint8_t* borrows,
+                                                const int* priority,
+                                                const float* ts, int W,
+                                                int P,
+                                                unsigned long long* hi,
+                                                int* order) {
   unsigned long long* lo = hi + P;
   for (int i = threadIdx.x; i < P; i += blockDim.x) {
     if (i < W) {
-      const unsigned neg = 0u - static_cast<unsigned>(priority[i]);
       hi[i] = (static_cast<unsigned long long>(borrows[i] != 0) << 32) |
-              (neg ^ 0x80000000u);
+              kq_prio_key(priority[i]);
       lo[i] = (static_cast<unsigned long long>(kq_ts_key(ts[i])) << 32) |
               static_cast<unsigned>(i);
     } else {
@@ -239,6 +450,19 @@ __global__ void kq_cycle_order_kernel(const uint8_t* borrows,
   }
 }
 
+// E keys a thread on the registers route; E = 0: the global route.
+template <int E>
+__global__ void __launch_bounds__(KQ_SORT_THREADS, 1)
+kq_cycle_order_kernel(const uint8_t* borrows, const int* priority,
+                      const float* ts, int W, int P,
+                      unsigned long long* scratch, int* order) {
+  if constexpr (E == 0) {
+    kq_order_global(borrows, priority, ts, W, P, scratch, order);
+  } else {
+    kq_order_chip<E>(borrows, priority, ts, W, P, order);
+  }
+}
+
 // -- launchers --------------------------------------------------------------
 
 // ptrs: usage0, subtree, guaranteed, borrow_cap, has_blim, parent,
@@ -259,8 +483,18 @@ extern "C" int kq_cq_avail(void* const* ptrs, const int* dims,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int G, bool kLoop>
+static void kq_classify_launch(const KqClassify& k, cudaStream_t stream) {
+  const long long threads = static_cast<long long>(k.W) * G;
+  const int blocks = static_cast<int>(
+      (threads + KQ_CLASSIFY_THREADS - 1) / KQ_CLASSIFY_THREADS);
+  kq_classify_heads_kernel<G, kLoop>
+      <<<blocks, KQ_CLASSIFY_THREADS, 0, stream>>>(k);
+}
+
 // ptrs: as KqClassify's fields in order (dec_fr, dec_amt and fit_mask
-// null without the scan);  dims: W, S, R, F.
+// null without the scan);  dims: W, S, R, F, G (lanes per head: 1, 2, 4,
+// 8, 16 or 32, at least S), loop (1: the loop route, G = 32).
 extern "C" int kq_classify_heads(void* const* ptrs, const int* dims,
                                  cudaStream_t stream) {
   KqClassify k{static_cast<const int*>(ptrs[0]),
@@ -284,27 +518,66 @@ extern "C" int kq_classify_heads(void* const* ptrs, const int* dims,
                static_cast<int*>(ptrs[18]),
                static_cast<uint8_t*>(ptrs[19]),
                dims[0], dims[1], dims[2], dims[3]};
-  const int threads = 128;
-  kq_classify_heads_kernel<<<(k.W + threads - 1) / threads, threads, 0,
-                             stream>>>(k);
+  if (dims[5]) {
+    if (dims[4] != 32) return static_cast<int>(cudaErrorInvalidValue);
+    kq_classify_launch<32, true>(k, stream);
+    return static_cast<int>(cudaGetLastError());
+  }
+  switch (dims[4]) {
+    case 1: kq_classify_launch<1, false>(k, stream); break;
+    case 2: kq_classify_launch<2, false>(k, stream); break;
+    case 4: kq_classify_launch<4, false>(k, stream); break;
+    case 8: kq_classify_launch<8, false>(k, stream); break;
+    case 16: kq_classify_launch<16, false>(k, stream); break;
+    case 32: kq_classify_launch<32, false>(k, stream); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
-// ptrs: borrows0, priority, timestamp (float32), scratch (null when the
-// keys sort in shared memory), order;  dims: W, P, smem_bytes.
-extern "C" int kq_cycle_order(void* const* ptrs, const int* dims,
-                              cudaStream_t stream) {
-  const int smem = dims[2];
+template <int E>
+static int kq_order_launch(const uint8_t* borrows, const int* priority,
+                           const float* ts, int W, int P,
+                           unsigned long long* scratch, int* order,
+                           int smem, cudaStream_t stream) {
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        kq_cycle_order_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
+        kq_cycle_order_kernel<E>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  kq_cycle_order_kernel<<<1, KQ_SORT_THREADS, smem, stream>>>(
-      static_cast<const uint8_t*>(ptrs[0]), static_cast<const int*>(ptrs[1]),
-      static_cast<const float*>(ptrs[2]), dims[0], dims[1],
-      static_cast<unsigned long long*>(ptrs[3]), smem > 0,
-      static_cast<int*>(ptrs[4]));
+  const int threads = E == 0 ? KQ_SORT_THREADS : P / (E == 0 ? 1 : E);
+  kq_cycle_order_kernel<E><<<1, threads, smem, stream>>>(
+      borrows, priority, ts, W, P, scratch, order);
   return static_cast<int>(cudaGetLastError());
+}
+
+// ptrs: borrows0, priority, timestamp (float32), scratch (2P int64 on the
+// global route, else null), order;  dims: W, P, E (keys a thread on the
+// registers route: 4 for P <= 4,096, 8 for P = 8,192, 16 for P =
+// 16,384; 0: the global route), smem (bytes: the key buffers, 24 P, or
+// 12 P at E = 16, where a stage crosses warps, else 0).
+extern "C" int kq_cycle_order(void* const* ptrs, const int* dims,
+                              cudaStream_t stream) {
+  const auto* borrows = static_cast<const uint8_t*>(ptrs[0]);
+  const auto* priority = static_cast<const int*>(ptrs[1]);
+  const auto* ts = static_cast<const float*>(ptrs[2]);
+  auto* scratch = static_cast<unsigned long long*>(ptrs[3]);
+  auto* order = static_cast<int*>(ptrs[4]);
+  const int W = dims[0], P = dims[1], E = dims[2], smem = dims[3];
+  if (E != 0 && (P > KQ_ORDER_CHIP_MAX || P < 32 * E || P % E != 0 ||
+                 P / E > KQ_SORT_THREADS)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  switch (E) {
+    case 0: return kq_order_launch<0>(borrows, priority, ts, W, P, scratch,
+                                      order, 0, stream);
+    case 4: return kq_order_launch<4>(borrows, priority, ts, W, P, nullptr,
+                                      order, smem, stream);
+    case 8: return kq_order_launch<8>(borrows, priority, ts, W, P, nullptr,
+                                      order, smem, stream);
+    case 16: return kq_order_launch<16>(borrows, priority, ts, W, P,
+                                        nullptr, order, smem, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

@@ -1224,15 +1224,22 @@ SOLVE_SHAPES = [
     (12, 4, 3, 3, 2, 6, 64, 50),         # N <= 64: dense available_at
     (80, 10, 3, 4, 3, 12, 256, 240),     # N > 64
     (1, 1, 2, 1, 1, 1, 2, 2),
+    (24, 6, 3, 6, 7, 16, 90, 85),        # S x R = 42: 7 resources a slot
+    (40, 8, 3, 4, 3, 12, 37, 33),        # 8 heads a warp, the last 5
+    (10, 3, 3, 40, 1, 8, 24, 20),        # S = 40 > 32: the loop route
 ]
-ORDER_WIDTHS = (1, 3, 1000, 8192, 10_000)   # 10,000: the global sort
+# kq_cycle_order's route boundaries: one warp up to 128 heads, four keys a
+# thread up to 4,096, eight at 8,192, sixteen at 16,384, the global route
+# past it
+ORDER_WIDTHS = (1, 3, 128, 129, 1000, 4096, 4097, 8192, 8193, 10_000,
+                16384, 16385)
 
 
 def solve_cycle_cases(seed: int = 0):
     """Yield (kernel name, numpy arrays, keyword arguments) over the
     standard sweep of the three phase-1 kernels (``phase1_cases`` of each
     ``SOLVE_SHAPES`` case, then ``kq_cycle_order`` at every width of
-    ``ORDER_WIDTHS``: the shared-memory sort up to 8,192 heads, global
+    ``ORDER_WIDTHS``: the registers route up to 16,384 heads, global
     scratch beyond)."""
     rng = np.random.default_rng(seed)
     for n_cqs, n_coh, depth, S, R, F, W, n_valid in SOLVE_SHAPES:

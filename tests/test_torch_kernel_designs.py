@@ -15,6 +15,13 @@ by step as the card runs them, against the JAX package's programs.
   (key m_f(k), offset k - the first k with that key), against
   ``kueue_tpu.ops.fs_scan.fs_admit_scan`` (XLA on the CPU, as
   tests/test_fs_device.py runs it).
+- ``kq_cycle_order`` and ``kq_classify_heads`` (kernels/solve_cycle.cu):
+  the order's bitonic stages in registers, by shuffles within a warp and
+  through shared memory across warps on 96-bit keys (and the global
+  route's), against ``jnp.lexsort``; the classify's lane groups, their
+  ballots and the walk on slot masks (a warp per head looping over the
+  pairs past 32), against the JAX ``solve_cycle(run_scan=False)`` and
+  ``decision_pairs_from_slots``.
 
 Exact in values; every case is its own parametrised test."""
 
@@ -1355,3 +1362,378 @@ def test_search_layout_routes():
     budget = tkernels.SMEM_LIMIT // 4
     warps, tree, cands = tkernels.search_layout(3000, 3, 16)
     assert warps == 1 and warps * (tree + cands) <= budget and tree
+
+
+# -- the phase-1 kernels: kq_cycle_order, kq_classify_heads (solve_cycle.cu) -
+
+from kueue_tpu.ops.quota_kernel import available_all as javailable  # noqa
+
+U32 = 0xffffffff
+
+
+def ts_key(ts) -> np.ndarray:
+    """kq_ts_key: float32 → uint32 in XLA's sort order (-0 as +0, every
+    NaN one NaN after +inf)."""
+    ts = np.asarray(ts, dtype=np.float32)
+    b = ts.view(np.uint32).astype(np.uint64)
+    b = np.where(ts == 0, 0, b)
+    b = np.where(np.isnan(ts), 0x7fc00000, b)
+    return np.where(b & 0x80000000, ~b & U32, b | 0x80000000)
+
+
+def prio_key(prio) -> np.ndarray:
+    """kq_prio_key: -priority wrapping at INT_MIN, in unsigned order."""
+    return (((-np.asarray(prio, dtype=np.int64)) & U32)
+            ^ 0x80000000).astype(np.uint64)
+
+
+def key_less(bh, bl, ah, al):
+    return (bh < ah) | ((bh == ah) & (bl < al))
+
+
+def emu_order_registers(borrows, prio, ts, P: int, E: int):
+    """The registers route, thread t's register r holding head r * T + t
+    in position t * E + r → (order [W], shared stages).  Each stage checks
+    where its partner lies: this thread, a lane of this warp (a shuffle),
+    or another warp (both through the shared buffer laid out r * T + t,
+    behind one barrier)."""
+    W, T = len(borrows), P // E
+    assert T >= 32 and T % 32 == 0
+    tid = np.arange(T)[:, None]
+    r = np.arange(E)[None, :]
+    head = r * T + tid                                    # [T, E]
+    real = head < W
+    h = np.minimum(head, W - 1)
+    tk = ts_key(ts)[h]
+    hi = ((np.asarray(borrows)[h].astype(np.uint64) << 63)
+          | (prio_key(prio)[h] << 31) | (tk >> 1))
+    lo = ((tk & 1) << 31) | head.astype(np.uint64)
+    hi = np.where(real, hi, np.uint64(2**64 - 1)).astype(np.uint64)
+    lo = np.where(real, lo, U32).astype(np.uint64)
+    pos = tid * E + r
+    warp = np.arange(T) // 32
+    cross, shared, k = 32 * E, 0, 2
+    while k <= P:
+        up = (pos & k) == 0
+        j = k // 2
+        while j >= cross:                        # another warp
+            x = j // E
+            other = np.arange(T) ^ x
+            assert (warp[other] != warp).all()
+            buf_h = np.empty(P, np.uint64)
+            buf_l = np.empty(P, np.uint64)
+            buf_h[r * T + tid] = hi
+            buf_l[r * T + tid] = lo
+            at = r * T + other[:, None]
+            oh, ol = buf_h[at], buf_l[at]
+            lower = (tid & x) == 0
+            take = key_less(oh, ol, hi, lo) == (lower == up)
+            hi, lo = np.where(take, oh, hi), np.where(take, ol, lo)
+            shared += 1
+            j //= 2
+        j = min(k // 2, cross // 2)
+        while j >= E:                            # a lane of this warp
+            x = j // E
+            other = np.arange(T) ^ x
+            assert (warp[other] == warp).all()
+            oh, ol = hi[other], lo[other]
+            lower = (tid & x) == 0
+            take = key_less(oh, ol, hi, lo) == (lower == up)
+            hi, lo = np.where(take, oh, hi), np.where(take, ol, lo)
+            j //= 2
+        j = E // 2
+        while j >= 1:                            # this thread
+            if j < k:
+                for a in range(E):
+                    b = a ^ j
+                    if b > a:
+                        swap = key_less(hi[:, b], lo[:, b], hi[:, a],
+                                        lo[:, a]) == up[:, a]
+                        for arr in (hi, lo):
+                            x_a, x_b = arr[:, a].copy(), arr[:, b].copy()
+                            arr[:, a] = np.where(swap, x_b, x_a)
+                            arr[:, b] = np.where(swap, x_a, x_b)
+            j //= 2
+        k *= 2
+    hi, lo = hi.reshape(-1), lo.reshape(-1)             # by position
+    assert (hi[W:] == 2**64 - 1).all() and (lo[W:] == U32).all()
+    return (lo[:W] & 0x7fffffff).astype(np.int32), shared
+
+
+def emu_order_global(borrows, prio, ts, P: int):
+    """The global route: the bitonic network over P two-word keys (hi =
+    borrows << 32 | priority key, lo = ts key << 32 | index)."""
+    W = len(borrows)
+    i = np.arange(P)
+    h = np.minimum(i, W - 1)
+    hi = (np.asarray(borrows)[h].astype(np.uint64) << 32) | prio_key(prio)[h]
+    lo = (ts_key(ts)[h] << 32) | i.astype(np.uint64)
+    hi = np.where(i < W, hi, np.uint64(2**64 - 1)).astype(np.uint64)
+    lo = np.where(i < W, lo, np.uint64(2**64 - 1)).astype(np.uint64)
+    k = 2
+    while k <= P:
+        j = k // 2
+        while j >= 1:
+            a = i[(i ^ j) > i]
+            b = a ^ j
+            up = (a & k) == 0
+            after = (hi[a] > hi[b]) | ((hi[a] == hi[b]) & (lo[a] > lo[b]))
+            s = after == up
+            for arr in (hi, lo):
+                x_a, x_b = arr[a].copy(), arr[b].copy()
+                arr[a] = np.where(s, x_b, x_a)
+                arr[b] = np.where(s, x_a, x_b)
+            j //= 2
+        k *= 2
+    return (lo[:W] & U32).astype(np.int32)
+
+
+def emu_cycle_order(borrows, prio, ts):
+    """kq_cycle_order on the route order_layout gives → (order, route,
+    shared stages)."""
+    P, E, smem = tkernels.order_layout(len(borrows))
+    if E == 0:
+        return emu_order_global(borrows, prio, ts, P), "global", 0
+    buffers = 2 if E < 16 else 1
+    assert smem == (12 * buffers * P if P > 32 * E else 0) \
+        <= tkernels.SMEM_LIMIT
+    order, shared = emu_order_registers(borrows, prio, ts, P, E)
+    return order, "registers", shared
+
+
+def jax_order(borrows, prio, ts):
+    W = len(borrows)
+    return np.asarray(jnp.lexsort((jnp.arange(W), jnp.asarray(ts),
+                                   -jnp.asarray(prio),
+                                   jnp.asarray(borrows).astype(jnp.int32))))
+
+
+# W: 1 and 2 (one warp of padding), 31 / 33 / 128 / 129 (the one-warp
+# boundary), 1,000 and 1,025, 4,096 / 4,097 (E = 4 → 8), 8,192 / 8,193
+# (E = 8 → 16, one buffer), 16,384 (the widest registers sort) and 16,385
+# (the global route)
+ORDER_DESIGN_WIDTHS = (1, 2, 31, 33, 128, 129, 1000, 1025, 4096, 4097,
+                       8192, 8193, 16384, 16385)
+
+
+@pytest.mark.parametrize("W", ORDER_DESIGN_WIDTHS)
+def test_cycle_order_stages_match_lexsort(W):
+    """kq_cycle_order's stages on testing.order_case's keys (INT_MIN,
+    -0.0, NaN, ties) give jnp.lexsort's order; 1,000 heads take 6 stages
+    behind a barrier; past 16,384 heads the global route."""
+    borrows, prio, ts = tt.order_case(np.random.default_rng(W), W)
+    got, route, shared = emu_cycle_order(borrows, prio, ts)
+    assert got.dtype == np.int32
+    assert np.array_equal(got, jax_order(borrows, prio, ts)), W
+    assert route == ("global" if W > tkernels.ORDER_CHIP_MAX
+                     else "registers")
+    if W == 1000:
+        assert shared == 6
+    if W <= 128:
+        assert shared == 0
+
+
+@pytest.mark.parametrize("W", [1, 5, 1000])
+def test_cycle_order_global_route_matches_lexsort(W, monkeypatch):
+    """With no shared memory allowed (SORT_SMEM = 0, as chip_smoke's 3f
+    forces it) every width takes the global route, and it gives
+    jnp.lexsort's order."""
+    monkeypatch.setattr(tkernels, "SORT_SMEM", 0)
+    borrows, prio, ts = tt.order_case(np.random.default_rng(W), W)
+    got, route, _ = emu_cycle_order(borrows, prio, ts)
+    assert route == "global"
+    assert np.array_equal(got, jax_order(borrows, prio, ts)), W
+
+
+def test_cycle_order_keys_split_at_bit_32():
+    """The registers route's 96-bit key orders as (borrows, -priority,
+    timestamp, index): a head differing only in the timestamp's lowest
+    bit, or only in the index, sorts by it."""
+    ts = np.array([1.0, np.nextafter(np.float32(1.0), np.float32(2.0)),
+                   1.0, -0.0, 0.0, np.nan, np.inf], dtype=np.float32)
+    prio = np.array([3, 3, 3, -2**31, -2**31, 2**31 - 1, 0], np.int32)
+    borrows = np.array([1, 1, 1, 0, 0, 0, 1], dtype=bool)
+    got, _, _ = emu_cycle_order(borrows, prio, ts)
+    assert np.array_equal(got, jax_order(borrows, prio, ts))
+    assert got.tolist() == [3, 4, 5, 0, 2, 1, 6]
+
+
+def emu_classify_heads(c, avail0, potential0, pairs: bool):
+    """kq_classify_heads a warp at a time, the 32 lanes as vectors: G
+    lanes a head (kernels.classify_layout), lane g owning slot s0 + g of
+    each chunk of G slots; a lane folds its slot's pair votes
+    KQ_CLASSIFY_RC resources at a time, four ballots cut to the group's
+    bits give the slot masks, the walk takes their lowest set bits; lane 0
+    writes the head, lanes g, g + G, ... the chosen slot's pairs."""
+    wl_cq, req = c["wl_cq"], c["wl_requests"].astype(np.int64)
+    start, slot_fr, slot_valid = c["start_slot"], c["slot_fr"], \
+        c["slot_valid"]
+    nominal, usage0, subtree = c["nominal_cq"], c["usage0"], c["subtree"]
+    can_pb, wcb, wcp = c["cq_can_preempt_borrow"], c["cq_wcb_borrow"], \
+        c["cq_wcp_preempt"]
+    W = len(wl_cq)
+    _, S, R = slot_fr.shape
+    G, _ = tkernels.classify_layout(S)
+    RC = 4                                    # KQ_CLASSIFY_RC
+    lane = np.arange(32)
+    g, base = lane % G, lane - lane % G
+    gmask = (1 << G) - 1
+
+    def ballot(v):
+        bits = int(np.sum(v.astype(np.int64) << lane))
+        return np.array([(bits >> int(b)) & gmask for b in base], np.int64)
+
+    def ffs(m):                               # lowest set bit, -1 for none
+        return np.where(m != 0, np.log2(np.maximum(m & -m, 1)).astype(int),
+                        -1)
+
+    fit_slot0 = np.full(W, -7, np.int32)
+    borrows0 = np.zeros(W, bool)
+    preempt0 = np.zeros(W, bool)
+    dec_fr = np.full((W, R), -7, np.int32)
+    dec_amt = np.full((W, R), -7, np.int32)
+    fit_mask = np.zeros(W, bool)
+    for wp in range(-(-W * G // 32)):
+        w = (wp * 32 + lane) // G
+        live = w < W
+        wc = np.minimum(w, W - 1)
+        q = np.where(live, wl_cq[wc], -1)
+        valid, cq = q >= 0, np.maximum(q, 0)
+        st = np.where(live, start[wc], 0)
+        has_parent = c["parent"][cq] >= 0
+        stop_idx = np.full(32, -1)
+        stop_mode = np.zeros(32, int)
+        best_idx, best_mode = np.zeros(32, int), np.full(32, -1)
+        stop_b, best_b = np.zeros(32, bool), np.zeros(32, bool)
+        for s0 in range(0, S, G):
+            s = s0 + g
+            inn = live & (s < S)
+            sc = np.minimum(s, S - 1)
+            slot_ok = inn & slot_valid[cq, sc]
+            missing, notfit, nofit, borrow = (np.zeros(32, bool)
+                                              for _ in range(4))
+            for r0 in range(0, R, RC):
+                for i in range(RC):           # the lane's loads, then votes
+                    ok = inn & (r0 + i < R)
+                    r = min(r0 + i, R - 1)
+                    fr = np.where(ok, slot_fr[cq, sc, r], -1)
+                    rq = np.where(ok, req[wc, r], 0)
+                    rel = (fr >= 0) & (rq > 0)
+                    o = (cq, np.maximum(fr, 0))
+                    fit_r = rq <= avail0[o]
+                    missing |= (rq > 0) & (fr < 0)
+                    notfit |= rel & ~fit_r
+                    nofit |= rel & ((rq > potential0[o]) | (
+                        ~fit_r & ~((rq <= nominal[o]) | can_pb[cq])))
+                    borrow |= rel & (np.array([w32(x) for x in
+                                               usage0[o] + rq]) > subtree[o])
+            fit = ~notfit & ~missing & slot_ok
+            pre = ~fit & ~(nofit | missing | ~slot_ok)
+            bor = borrow & has_parent
+            active = s >= st
+            stop = active & (fit | (pre & wcp[cq])) & (~bor | wcb[cq])
+            m_fit, m_pre, m_stop, m_bor = (ballot(v) for v in (
+                inn & active & fit, inn & active & pre, inn & stop,
+                inn & bor))
+            first = (stop_idx < 0) & (m_stop != 0)
+            i = np.maximum(ffs(m_stop), 0)
+            stop_idx = np.where(first, s0 + i, stop_idx)
+            stop_mode = np.where(first, np.where((m_fit >> i) & 1, 2, 1),
+                                 stop_mode)
+            stop_b = np.where(first, ((m_bor >> i) & 1) != 0, stop_b)
+            mode = np.where(m_fit != 0, 2, np.where(m_pre != 0, 1, 0))
+            i = np.where(mode == 2, ffs(m_fit),
+                         np.where(mode == 1, ffs(m_pre), 0))
+            better = mode > best_mode
+            best_idx = np.where(better, s0 + i, best_idx)
+            best_mode = np.where(better, mode, best_mode)
+            best_b = np.where(better, ((m_bor >> i) & 1) != 0, best_b)
+        has_stop = stop_idx >= 0
+        mode = np.where(has_stop, stop_mode, best_mode)
+        has_fit = valid & (mode == 2)
+        fit_slot = np.where(has_fit, np.where(has_stop, stop_idx, best_idx),
+                            -1)
+        for ln in np.flatnonzero(live):
+            wi = w[ln]
+            if g[ln] == 0:
+                fit_slot0[wi] = fit_slot[ln]
+                borrows0[wi] = has_fit[ln] and (stop_b[ln] if has_stop[ln]
+                                                else best_b[ln])
+                preempt0[wi] = valid[ln] and mode[ln] == 1
+                fit_mask[wi] = has_fit[ln]
+            if not pairs:
+                continue
+            cs = max(fit_slot[ln], 0)
+            for r in range(g[ln], R, G):
+                fr = slot_fr[cq[ln], cs, r]
+                ok = has_fit[ln] and fr >= 0 and req[wi, r] > 0
+                dec_fr[wi, r] = fr if ok else -1
+                dec_amt[wi, r] = req[wi, r] if ok else 0
+    out = (fit_slot0, borrows0, preempt0)
+    return out + (dec_fr, dec_amt, fit_mask) if pairs else out
+
+
+def _classify_case(shape, seed: int):
+    """A solve_cycle_planes case of ``shape`` (testing.SOLVE_SHAPES'
+    columns) with the fungibility planes, and the CQ rows of both
+    availabilities from the JAX ``available_all``."""
+    n_cqs, n_coh, depth, S, R, F, W, n_valid = shape
+    c = tt.solve_cycle_planes(np.random.default_rng(seed), n_cqs=n_cqs,
+                              n_cohorts=n_coh, depth=depth, S=S, R=R, F=F,
+                              W=W, n_valid=n_valid)
+    q = [jnp.asarray(c[k]) for k in tt.SOLVE_ARGS[:6]]
+    avail0 = np.asarray(javailable(*q, c["depth"]))[:n_cqs]
+    potential0 = np.asarray(javailable(jnp.zeros_like(q[0]), *q[1:],
+                                       c["depth"]))[:n_cqs]
+    return c, avail0, potential0
+
+
+def _jax_classify(c):
+    """The JAX solve_cycle's classify (run_scan=False) → (fit_slot0,
+    borrows0, preempt0) and decision_pairs_from_slots of it."""
+    out = jcycle.solve_cycle(
+        *[jnp.asarray(a) for a in tt.solve_args(c)], depth=c["depth"],
+        run_scan=False, cq_wcb_borrow=jnp.asarray(c["cq_wcb_borrow"]),
+        cq_wcp_preempt=jnp.asarray(c["cq_wcp_preempt"]),
+        start_slot=jnp.asarray(c["start_slot"]))
+    fit_slot0, borrows0, preempt0 = (np.asarray(out[i]) for i in (4, 5, 3))
+    pairs = jcycle.decision_pairs_from_slots(
+        c["slot_fr"], c["wl_cq"], c["wl_requests"], fit_slot0)
+    return (fit_slot0, borrows0, preempt0) + tuple(np.asarray(x)
+                                                   for x in pairs)
+
+
+@pytest.mark.parametrize("loop", [False, True], ids=["layout", "loop"])
+@pytest.mark.parametrize("row", range(len(tt.SOLVE_SHAPES)))
+def test_classify_groups_match_jax(row, loop, monkeypatch):
+    """kq_classify_heads' lane groups (G = S rounded up: 4 lanes for 3
+    slots, 1 for 1 — 32 heads a warp — padding groups past W, seven
+    resources in two loads of four) or, past 32 slots or with
+    CLASSIFY_LANES = 0, a warp per head looping over chunks of slots: the
+    JAX classify and its decision pairs exactly, with resume slots,
+    whenCanBorrow / whenCanPreempt, wrapping adds and padding heads."""
+    if loop:
+        monkeypatch.setattr(tkernels, "CLASSIFY_LANES", 0)
+    shape = tt.SOLVE_SHAPES[row]
+    c, avail0, potential0 = _classify_case(shape, row)
+    S = shape[3]
+    assert tkernels.classify_layout(S)[1] == (loop or S > 32)
+    want = _jax_classify(c)
+    got = emu_classify_heads(c, avail0, potential0, pairs=True)
+    for x, y in zip(want, got):
+        assert x.dtype == y.dtype and np.array_equal(x, y), row
+    assert want[0].max() >= 0
+    no_pairs = emu_classify_heads(c, avail0, potential0, pairs=False)
+    for x, y in zip(got[:3], no_pairs):
+        assert np.array_equal(x, y)
+
+
+def test_classify_layout_routes():
+    """Lanes a head: S rounded up to a power of two, the loop route past 32
+    slots (testing.SOLVE_SHAPES holds both, and groups of 1, 4 and 8),
+    every shape on the loop route with CLASSIFY_LANES = 0."""
+    got = {tkernels.classify_layout(s[3]) for s in tt.SOLVE_SHAPES}
+    assert {(1, False), (4, False), (8, False), (32, True)} <= got
+    assert tkernels.classify_layout(32) == (32, False)
+    assert tkernels.classify_layout(33) == (32, True)
+    assert tkernels.classify_layout(3) == (4, False)

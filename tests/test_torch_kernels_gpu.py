@@ -243,8 +243,9 @@ def test_cuda_solve_cycle_kernels_match_plain(seed):
     against their plain versions on the CPU
     (kueue_tpu_torch.testing.solve_cycle_cases: N on both sides of 64,
     padding heads, uncovered and invalid slots, int32 wraps, ties and
-    INT_MIN, the sort in shared memory and, past 8,192 heads, in global
-    scratch): values and dtypes exactly."""
+    INT_MIN, lane groups and 40 slots on the loop route, the sort on its
+    registers route and, past 16,384 heads, in global scratch): values
+    and dtypes exactly."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA GPU: the kernels have no CPU mode")
     from kueue_tpu_torch import kernels
@@ -320,6 +321,37 @@ def test_cuda_cycle_order_in_global_memory(monkeypatch):
         p = cycle.cycle_order_plain(*[torch.from_numpy(a) for a in args])
         c = cycle.cycle_order(*[torch.from_numpy(a).cuda() for a in args])
         assert c.dtype == p.dtype and torch.equal(c.cpu(), p), W
+        assert kernels.PHASE1_ROUTES["kq_cycle_order"] == "global"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lanes", [32, 0], ids=["layout", "loop"])
+def test_cuda_classify_routes_match_plain(lanes, monkeypatch):
+    """kq_classify_heads on its lane groups and, with CLASSIFY_LANES = 0,
+    on its loop route (a warp per head), over testing.SOLVE_SHAPES (40
+    slots of one resource among them: two chunks of slots), with and
+    without the decision pairs, equals its plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernels have no CPU mode")
+    from kueue_tpu_torch import kernels
+    monkeypatch.setattr(kernels, "CLASSIFY_LANES", lanes)
+    routes = set()
+    for i, (n_cqs, n_coh, depth, S, R, F, W, n_valid) in enumerate(
+            tt.SOLVE_SHAPES):
+        case = tt.solve_cycle_planes(np.random.default_rng(i), n_cqs=n_cqs,
+                                     n_cohorts=n_coh, depth=depth, S=S, R=R,
+                                     F=F, W=W, n_valid=n_valid)
+        for name, args, kw in tt.phase1_cases(case):
+            if name != "kq_classify_heads":
+                continue
+            p = cycle.classify_heads_plain(
+                *[torch.from_numpy(a) for a in args], **kw)
+            c = cycle.classify_heads(
+                *[torch.from_numpy(a).cuda() for a in args], **kw)
+            for x, y in zip(p, c):
+                assert y.dtype == x.dtype and torch.equal(y.cpu(), x), (S, R)
+            routes.add(kernels.PHASE1_ROUTES["kq_classify_heads"])
+    assert routes == ({"group", "loop"} if lanes else {"loop"})
 
 
 SHAPE_PLAIN = {
