@@ -17,8 +17,10 @@ and the job layer (Configuration, manifests, ``JobManager``):
 1. device: name, count and ``nvidia-smi`` name/power limit;
 2. build: nvcc of every kernel source (in parallel) into one library;
 3. kernels: each CUDA kernel against its plain version on the CPU over a
-   seeded sweep (kueue_tpu_torch.testing.kernel_cases, burst_cases and
-   fs_cases; admit_scan_preempt with the forest tables joined where a
+   seeded sweep (kueue_tpu_torch.testing.kernel_cases, burst_cases,
+   fs_cases and avail_cases: kq_cq_avail's staged route at depth 1, 2,
+   3 and 17 and at N = 12,288, its global route at N = 13,000, both
+   counted per call; admit_scan_preempt with the forest tables joined where a
    target lies in another forest, testing.preempt_tables) and over the
    inputs captured from the first calls of phases
    4, 5, 7, 8, 9 and 9b (for the burst also up to two windows with a
@@ -91,7 +93,8 @@ and the job layer (Configuration, manifests, ``JobManager``):
    (kueue_tpu_torch.testing.shape_cases): admit_scan,
    admit_scan_preempt, admit_scan_forests, minimal_preemptions_batch,
    burst_cycles, kq_cq_avail and drs_components on a cohort chain 17
-   levels deep, fs_admit_scan at F = 65 and 72, admit_scan at F = 1,025,
+   levels deep, fs_admit_scan at F = 65 and 72, kq_cq_avail on its
+   global route (N = 13,000), admit_scan at F = 1,025,
    admit_scan_forests over one forest of 40,000 heads (its head list in
    global scratch) — each equal to its plain version; admit_scan over
    the flat scan's forest layouts (testing.flat_scan_cases: interleaved
@@ -129,12 +132,16 @@ and the job layer (Configuration, manifests, ``JobManager``):
    fifth, 40 reclaiming arrivals at cycle 36, runtime 30) on 4 virtual
    shards with ``KUEUE_TPU_RESIDENT_VERIFY=1``: records equal to the
    serial drain on the card, resident hits > 0 that scatter the busy
-   CQs' rows with kq_scatter_rows, fewer boundary bytes than a full
+   CQs' rows with kq_scatter_rows, one packed host-to-device copy and
+   one launch per shard with rows (``burst_resident_scatter_s`` and
+   the copies per hit printed), fewer boundary bytes than a full
    upload;
 3g. kq_scatter_rows and kq_reduce_dflags against their plain versions
-   over seeded cases (kueue_tpu_torch.testing.scatter_case,
-   dflags_blocks) and the calls captured in phases 15, 15b and 15c —
-   exact;
+   over seeded cases (kueue_tpu_torch.testing.scatter_case packed by
+   ops.packing.pack_scatter_rows: padded duplicate rows, a row past the
+   planes, 5-byte bool rows, 16-byte rows, every row of a 250-row
+   shard; dflags_blocks) and the calls captured in phases 15, 15b and
+   15c — exact;
 16. the perf scenario through the per-cycle mesh (``KUEUE_TPU_SHARDS=4``
    on a virtual 2 x 2 mesh of this card: 5 forests on 2 cq shards, one
    stream per cell): all 15,000 drained, phase 4's decision digest,
@@ -198,13 +205,16 @@ see no full collection
 ``scenarios.release()`` frees each phase's driver graph before the next
 phase builds.  A
 launch records no CUDA event: the device time of phases 4, 5, 7, 8, 9,
-11, 13, 15, 15c, 16, 16b, 16c, 17 and 18 (per kernel, the rest, the busy union
+11, 13, 15, 15c, 16, 16b, 16c, 16d, 17 and 18 (per kernel, the rest, the busy union
 and its share of the wall) comes from torch.profiler's CUDA activity
 over the phase (``kueue_tpu_torch.profiling.DeviceClock``); a phase in
 which it sees nothing fails.  Prints a ``kernels`` JSON line (per
 kernel: its launches on its main path and in each phase, ms through
 the wrapper, ``bare_ms`` of the C launch alone, ``kernel_ms`` by the
-profiler; the TAS routes of the timed call, which must be the warp
+profiler, which must have recorded the timed launches (a kernel with
+no profiler duration fails the run; 3k prints the host-to-device
+offset of the profiler's clocks after the build and before the line);
+the route of the timed call of each kernel with two; the TAS routes of the timed call, which must be the warp
 route for best_fit_descend at tas-4k; the routes admit_scan and
 burst_cycles took per call; a dependent-step count for the TAS
 kernels, fs_admit_scan, admit_scan and burst_cycles; admit_scan also
@@ -290,12 +300,13 @@ MESH_SCANS = ("admit_scan", "admit_scan_forests", "admit_scan_preempt",
 MESH_SHARDS = {"bench": 4, "northstar": 8, "fs": 4, "dryrun": 8}
 ROUTED = ("admit_scan", "burst_cycles",   # kernels with two routes
           "admit_scan_preempt", "admit_scan_forests",
-          "minimal_preemptions_batch", "kq_classify_heads",
+          "minimal_preemptions_batch", "kq_cq_avail", "kq_classify_heads",
           "kq_cycle_order")
 # the routes each must take in 3f / 3h (minimal_preemptions_batch: its
 # tree and its candidates each staged or global)
 ROUTES_TAKEN = {"minimal_preemptions_batch": {
     "shared", "tree global", "candidates global", "global"},
+    "kq_cq_avail": {"staged", "global"},
     "kq_classify_heads": {"group", "loop"},
     "kq_cycle_order": {"registers", "global"}}
 HARNESS_TIMEOUT_S = 600    # phase 17's child process
@@ -549,9 +560,9 @@ def compare(name, args, kw, stats) -> None:
     s["max_abs_err"] = max(s["max_abs_err"], err)
 
 
-def tally_route(name, stats) -> None:
-    """The route the last launch of ``name`` took, counted per call in
-    ``stats[name]["routes"]``: kq_classify_heads' lane groups or loop,
+def route_of(name) -> str:
+    """The route the last launch of ``name`` took: kq_cq_avail's staged
+    or global route, kq_classify_heads' lane groups or loop,
     kq_cycle_order's registers or global route; burst_cycles' forest
     state in shared memory or global rows; minimal_preemptions_batch's
     trees and candidates staged ("shared"), read from the inputs
@@ -573,6 +584,13 @@ def tally_route(name, stats) -> None:
                  for r in kernels.FLAT_ROUTES[name].cpu().tolist() if r}
         route = taken.pop() if len(taken) == 1 else (
             "both" if taken else "no heads")
+    return route
+
+
+def tally_route(name, stats) -> None:
+    """The route of the last launch of ``name`` (``route_of``), counted
+    per call in ``stats[name]["routes"]``."""
+    route = route_of(name)
     routes = stats[name].setdefault("routes", {})
     routes[route] = routes.get(route, 0) + 1
 
@@ -798,9 +816,13 @@ def bound_bytes(name, args, outs) -> int:
     row writes what its first copy wrote)."""
     import torch
     if name == "kq_scatter_rows":
-        planes, rows = args[0], args[1]
+        from kueue_tpu_torch.ops.packing import scatter_layout
+        from kueue_tpu_torch.parallel import sharded
+        planes, buf, count = args
+        rows = sharded.unpack_scatter_rows(planes, buf, count)[0]
+        rows = rows[(rows >= 0) & (rows < planes[0].shape[0])]
         return 2 * int(torch.unique(rows).numel()) * sum(
-            p[0].numel() * p.element_size() for p in planes)
+            scatter_layout(planes, count)[1])
     return io_bytes(args, outs)
 
 
@@ -817,7 +839,10 @@ def library_call(name, args):
     maps)."""
     import torch
     if name == "kq_scatter_rows":
-        planes, rows, vals = args
+        # the rows and values as views of the packed buffer
+        from kueue_tpu_torch.parallel import sharded
+        planes, buf, count = args
+        rows, vals = sharded.unpack_scatter_rows(planes, buf, count)
         planes = clone_args(planes)
         idx = (rows.long(),)
         return lambda: [p.index_put_(idx, v) for p, v in zip(planes, vals)]
@@ -901,6 +926,7 @@ def time_kernel(name, args, kw, reps: int = 50) -> dict:
     bare_ms = (None if name == "burst_cycles"
                else event_ms(bare_launch(name, args, kw), reps))
     prof = profiled_period(wrapper, reps, name)
+    require_kernel_time(name, prof, f"the kernels line's {name}")
     plain = plain_fns()[name]
     plain(*args, **plain_kw(kw))
     torch.cuda.synchronize()
@@ -918,8 +944,8 @@ def time_kernel(name, args, kw, reps: int = 50) -> dict:
                 bound_by="bytes" if bytes_ms >= ops_ms else "operations",
                 library_ms=event_ms(lib, reps) if lib is not None else None,
                 bare_ms=bare_ms,
-                kernel_ms=(prof["kernel_us"] / 1e3
-                           if prof.get("kernel_us") is not None else None))
+                kernel_ms=prof["kernel_us"] / 1e3,
+                kernel_records=prof["kernel_records"])
 
 
 def bare_launch(name, args, kw):
@@ -948,47 +974,80 @@ def bare_launch(name, args, kw):
     return call
 
 
-def spin(activity: str) -> bool:
-    """The busy-wait kernel of ``torch.cuda._sleep``."""
-    return "spin_kernel" in activity or "sleep" in activity
-
-
 def profiled_period(fn, reps: int, name: str | None = None) -> dict:
     """``reps`` calls of ``fn`` queued behind a busy stream under the
     profiler's CUDA activity, in microseconds: per call the summed
     duration of the activities it issued and the start-to-start period
-    of its first activity (the spin kernel excluded), and the mean
-    duration of kernel ``name``'s own launches (``kernel_us``); an
-    ``error`` when the profiler fails, and no times when it saw no
-    device activity."""
+    of its first activity (``DeviceClock`` leaves the spins out), the
+    mean duration of kernel ``name``'s own launches (``kernel_us``, None
+    when the profiler recorded none of them), how many it recorded
+    (``kernel_records``) and whether it recorded the 100 M-cycle spin
+    (``spin_seen``: a spin longer than a millisecond).  A profiler that
+    raises fails the run."""
     import torch
+    from kueue_tpu_torch import kernels
     from kueue_tpu_torch.profiling import DeviceClock
     fn()
     torch.cuda.synchronize()
-    try:
-        with DeviceClock() as clk:
-            torch.cuda._sleep(100_000_000)
-            for _ in range(reps):
-                fn()
-    except Exception as e:      # the profiler is untried on some machines
-        return dict(error=f"{type(e).__name__}: {e}")
-    from kueue_tpu_torch import kernels
-    spans = sorted(s for n, v in clk.spans_us.items() if not spin(n)
-                   for s in v)
-    if not spans:
-        return dict(activities_per_call=0)
-    per = max(1, round(len(spans) / reps))     # activities per call
-    firsts = [spans[i][0] for i in range(0, len(spans), per)]
+    with DeviceClock() as clk:
+        torch.cuda._sleep(100_000_000)
+        for _ in range(reps):
+            fn()
+    spans = sorted(s for v in clk.spans_us.values() for s in v)
     own = [t1 - t0 for n, v in clk.spans_us.items()
            if name is not None and kernels.launcher_of(n) == name
            for t0, t1 in v]
+    out = dict(activities_per_call=len(spans) / reps,
+               spin_seen=any(t1 - t0 > 1e3 for t0, t1 in clk.spin_us),
+               kernel_records=len(own),
+               kernel_us=sum(own) / len(own) if own else None)
+    if not spans:
+        return out
+    per = max(1, round(len(spans) / reps))     # activities per call
+    firsts = [spans[i][0] for i in range(0, len(spans), per)]
     return dict(
-        activities_per_call=len(spans) / reps,
-        device_us_per_call=sum(t1 - t0 for t0, t1 in spans) / reps,
+        out, device_us_per_call=sum(t1 - t0 for t0, t1 in spans) / reps,
         period_us=((firsts[-1] - firsts[0]) / (len(firsts) - 1)
                    if len(firsts) > 1 else None),
-        kernel_us=sum(own) / len(own) if own else None,
-        names=sorted({n for n in clk.spans_us if not spin(n)}))
+        names=sorted(clk.spans_us))
+
+
+def require_kernel_time(name, prof, what: str) -> None:
+    """A profiled run of ``name``'s kernel must give its own duration: a
+    kernel that launched without one fails the run."""
+    check(prof.get("kernel_us") is not None,
+          f"{what}: the profiler recorded no launch of {name} "
+          f"({json.dumps({k: prof.get(k) for k in ('kernel_records', 'activities_per_call', 'spin_seen', 'names')})})")
+
+
+def profiler_clock_offset(reps: int = 20, margin_s: float = 1.0) -> dict:
+    """Microseconds from the start of a host op (``aten::zero_``, the
+    host's clock) to the start of its kernel (the device's timestamp as
+    the profiler converts it), one-element zeroings on an idle card
+    inside a window held open ``margin_s`` at each end: a few
+    microseconds when the two clocks agree; its change over a run is the
+    drift of the conversion (``DeviceClock.MARGIN_S`` must exceed it)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    x = torch.zeros(1, device="cuda")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        time.sleep(margin_s)
+        for _ in range(reps):
+            x.zero_()
+            torch.cuda.synchronize()
+        time.sleep(margin_s)
+    ev = prof.events()
+    ops = sorted(e.time_range.start for e in ev if e.name == "aten::zero_"
+                 and e.device_type == DeviceType.CPU)
+    ks = sorted(e.time_range.start for e in ev
+                if e.device_type == DeviceType.CUDA)
+    off = sorted(k - o for o, k in zip(ops, ks))
+    return dict(ops=len(ops), kernels=len(ks),
+                median_us=off[len(off) // 2] if off else None,
+                min_us=off[0] if off else None)
 
 
 def launch_breakdown(cases, reps: int = 200) -> list:
@@ -1010,6 +1069,9 @@ def launch_breakdown(cases, reps: int = 200) -> list:
             row[f"{mode}_ms"] = event_ms(fn, reps)
         for mode, fn in calls.items():
             row[f"{mode}_profiled"] = profiled_period(fn, reps, name)
+            if mode in ("wrapper", "bare"):
+                require_kernel_time(name, row[f"{mode}_profiled"],
+                                    f"3j {label} ({mode})")
         rows.append(row)
     return rows
 
@@ -1096,7 +1158,7 @@ def mesh_line(tag, d, r, launches, dc, digest, ref, wall_ref, gcw):
 
 def most_rows(calls):
     """The captured row scatter that writes the most rows."""
-    return max(calls, key=lambda call: int(call[0][1].shape[0]))
+    return max(calls, key=lambda call: int(call[0][2]))
 
 
 def largest(calls):
@@ -1238,6 +1300,7 @@ def smoke(launcher: Launcher) -> int:
     kernels.load()
     log(f"[2 build] {kernels.BUILD['library']} in "
         f"{time.perf_counter() - t0:.2f}s")
+    clock_offset0 = profiler_clock_offset()
 
     # -- 3a. kernels against their plain versions: seeded sweep ------------
     stats = {k: dict(cases=0, mismatches=0, max_abs_err=0)
@@ -1258,6 +1321,10 @@ def smoke(launcher: Launcher) -> int:
         for name, arrays, kw in testing.fs_cases(seed):
             compare(name, [torch.from_numpy(a).cuda() for a in arrays], kw,
                     stats)
+        # kq_cq_avail's staged route at depth 1, 2, 3 and 17 (N = 12,288,
+        # the widest it stages, with seed 0) and its global route
+        for name, arrays, kw in testing.avail_cases(seed, card=seed == 0):
+            compare(name, on_card(arrays), kw, stats)
     log(f"[3 kernels, sweep] {json.dumps(stats)}")
 
     cap = Capture()
@@ -1815,6 +1882,7 @@ def smoke(launcher: Launcher) -> int:
     log(f"[3h admit_scan, 1,000 heads, by chain depth] {json.dumps(t3h)}")
 
     # -- 15. the north-star shape through the forest-sharded burst ---------
+    from kueue_tpu_torch.ops.packing import pack_scatter_rows, scatter_layout
     from kueue_tpu_torch.parallel import sharded
     install_shard_capture(cap)
     cap.phase = "northstar_sharded"
@@ -1938,8 +2006,17 @@ def smoke(launcher: Launcher) -> int:
         f"{boundary_report(st)}; launches "
         f"{json.dumps({k: launches15w[k] for k in ('burst_cycles',) + SHARD_KERNELS})}"
         f"; {gc15w.line()}; {device_line('15c', dc15w, r15w_s, launches15w)}")
+    hits15w = max(1, st["burst_resident_hits"])
+    log(f"[15c resident scatter] per resident hit: "
+        f"burst_resident_scatter_s {st['burst_resident_scatter_s'] / hits15w:.6f}"
+        f", host-to-device copies {st['burst_resident_scatter_copies'] / hits15w:.3f}"
+        f" ({st['burst_resident_scatter_copies']} copies, "
+        f"{launches15w['kq_scatter_rows']} kq_scatter_rows launches, "
+        f"{st['burst_resident_hits']} hits, {NORTHSTAR_SHARDS} shards)")
     check(r15w["records"] == serial_w["records"], "15c: records differ")
     check(gc15w.n == 0, f"phase 15c: {gc15w.line()}")
+    check(st["burst_resident_scatter_copies"]
+          == launches15w["kq_scatter_rows"], (st, launches15w))
     check(st["burst_resident_hits"] >= 1, st)
     check(st["burst_resident_scatter_rows"] >= 1, st)
     check(launches15w["kq_scatter_rows"] >= 1, launches15w)
@@ -1950,11 +2027,15 @@ def smoke(launcher: Launcher) -> int:
     check(any(r[3] for r in r15w["records"]), "15c: no preemption")
 
     # -- 3g. the two sharded-burst kernels: seeded and captured -------------
-    for seed, D in ((0, 1), (1, 3), (2, 9), (3, 12)):
-        planes, rows, vals = testing.scatter_case(seed, D=D)
-        compare("kq_scatter_rows", [tuple(on_card(planes)),
-                                    torch.from_numpy(rows).cuda(),
-                                    tuple(on_card(vals))], {}, stats)
+    # packed buffers: padded duplicate rows, a row past the planes,
+    # 5-byte bool rows, 16-byte rows; all 250 rows of a shard dirty
+    for seed, C, D in ((0, 12, 1), (1, 12, 3), (2, 12, 9), (3, 12, 12),
+                       (4, 250, 250)):
+        planes, rows, vals = testing.scatter_case(seed, C=C, D=D)
+        compare("kq_scatter_rows", [
+            tuple(on_card(planes)),
+            torch.from_numpy(pack_scatter_rows(rows, vals)).cuda(),
+            len(rows)], {}, stats)
     for S, K in ((2, 32), (4, 32), (8, 32), (32, 32), (4, 7)):
         compare("kq_reduce_dflags",
                 on_card([testing.dflags_blocks(S, K)]), {}, stats)
@@ -2081,13 +2162,18 @@ def smoke(launcher: Launcher) -> int:
     cap.phase = "dryrun"
     with sharded.virtual_mesh("cuda:0", MESH_SHARDS["dryrun"]):
         kernels.reset_counts()
-        r16d = scenarios.dryrun_multichip(MESH_SHARDS["dryrun"],
-                                          device="cuda")
-        torch.cuda.synchronize()
+        t16d = time.perf_counter()
+        with DeviceClock() as dc16d:
+            r16d = scenarios.dryrun_multichip(MESH_SHARDS["dryrun"],
+                                              device="cuda")
+        t16d = time.perf_counter() - t16d
         launches16d = dict(kernels.LAUNCHES)
     cap.uninstall()
     log(f"[16d dryrun_multichip] {json.dumps(r16d)}; launches "
-        f"{json.dumps({k: v for k, v in launches16d.items() if v})}")
+        f"{json.dumps({k: v for k, v in launches16d.items() if v})}; "
+        f"device ms per launch "
+        f"{json.dumps({k: per_launch(dc16d, k) for k in PHASE1})}; "
+        f"{device_line('16d', dc16d, t16d, launches16d)}")
     for k in PHASE1 + ("admit_scan", "admit_scan_preempt",
                        "kq_gather_heads"):
         check(launches16d[k] > 0, (k, launches16d))
@@ -2270,6 +2356,14 @@ def smoke(launcher: Launcher) -> int:
     log(f"[3j launch breakdown] ({time.perf_counter() - t0:.1f}s) "
         f"{json.dumps(j3)}")
 
+    # -- 3k. the profiler's clocks: the host op to its kernel, then and now -
+    clock_offset1 = profiler_clock_offset()
+    log(f"[3k profiler clock] host op to its kernel's start, µs: after the "
+        f"build {json.dumps(clock_offset0)}; "
+        f"{time.perf_counter() - t_start:.1f}s into the run "
+        f"{json.dumps(clock_offset1)}; DeviceClock's margin "
+        f"{DeviceClock.MARGIN_S * 1e6:.0f}µs")
+
     # -- the kernels line ----------------------------------------------------
     by_phase = {"4": launches4, "5": launches5, "7": launches7,
                 "8": launches8, "9": launches9, "9b": launches9b,
@@ -2312,11 +2406,15 @@ def smoke(launcher: Launcher) -> int:
                     "northstar_mesh": launches16b,
                     "northstar_fs_mesh": launches16c}[phase][name]
         extra = {}
+        if name in ROUTED:
+            extra["timed_route"] = route_of(name)
         if name == "kq_scatter_rows":
+            rows_t = sharded.unpack_scatter_rows(*args)[0]
             extra["timed_shape"] = dict(
                 planes=len(args[0]), rows=int(args[0][0].shape[0]),
-                Dp=int(args[1].shape[0]),
-                distinct=int(torch.unique(args[1]).numel()))
+                Dp=int(args[2]), distinct=int(torch.unique(rows_t).numel()),
+                buffer_bytes=int(args[1].numel()),
+                row_bytes=scatter_layout(args[0], args[2])[1])
             extra["device_ms_per_launch_on_path"] = per_launch(dc15w, name)
         if name == "kq_reduce_dflags":
             extra["timed_shape"] = dict(S=int(args[0].shape[0]),

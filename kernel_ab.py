@@ -53,7 +53,19 @@ of the outputs:
   scenario, 64 CQs, 192 workloads) and on ``testing.order_case`` at
   10,000 heads (``order_wide``), all seeded (``scenarios.probe_synth``,
   ``scenarios.packed_cycle``), each order case also as the stable
-  ``torch.argsort`` of the composed key (``library_ms``).
+  ``torch.argsort`` of the composed key (``library_ms``);
+- ``kq_cq_avail`` on the probe's planes (``cq_avail_probe``: 1,000 CQs
+  in 64 cohorts, its usage0), the 16d dry run's first cycle
+  (``cq_avail_dryrun``) and a cohort chain 17 levels deep over 1,000
+  CQs (``cq_avail_deep``), seeded, each with the route it took;
+- ``kq_scatter_rows`` on the call of chip_smoke.py's 15c drain with the
+  most rows (``scatter_15c``: 13 planes of 250 rows, captured on first
+  use) and on every row of that shard (``scatter_wide``: Dp = 256,
+  seeded values), the checkout's launcher on per-plane values or on the
+  packed buffer, each digest over the planes written;
+- the 15c drain itself, twice (``resident_15c``): per resident hit the
+  host seconds of the scatter, its host-to-device copies and launches,
+  and a digest of the records.
 
 The captured inputs (probe, perf scenario, bursts, preemption cycles)
 are built on first
@@ -82,7 +94,13 @@ classify's: in the thread-per-head design the head loads, the slot loop
 (pair loads, votes and walk interleaved) and the stores; in the
 lane-per-slot design the loads with the pair votes, the slot ballots,
 the walk and the stores.  The order's: the key build, the register and shuffle
-stages, the shared (or global) stages with their count, the write-out."""
+stages, the shared (or global) stages with their count, the write-out.
+The CQ availability's: in the staged design the staging (with the CQ's
+own row of cells), the chain's resolution in shared memory, the loads
+of every level (their values consumed before the mark) and the fold
+with the stores; the walk design as one phase.  The row scatter's: the
+block-per-pair design's row read and copy loop, or the warp-per-pair
+design's read of the row and its values with the copy as one phase."""
 
 from __future__ import annotations
 
@@ -422,6 +440,144 @@ def phase1_calls(kernels, cases):
     return calls
 
 
+AVAIL_CASES = ("cq_avail_probe", "cq_avail_dryrun", "cq_avail_deep")
+SCATTER_CASES = ("scatter_15c", "scatter_wide")
+
+
+def avail_cases(scenarios, testing) -> dict:
+    """kq_cq_avail's inputs, seeded: the probe's planes (1,000 CQs in 64
+    cohorts, its usage0), the 16d dry run's first cycle (the contended
+    entry scenario: 64 CQs in 16 cohorts) and a cohort chain 17 levels
+    deep over 1,000 CQs (F = 12)."""
+    import numpy as np
+    import torch
+    from kueue_tpu_torch.parallel import cycle_args
+    planes, depth = scenarios.probe_synth(W=1000, C=1000, cohorts=64, seed=1)
+    out = {"cq_avail_probe": (
+        tuple(torch.from_numpy(np.ascontiguousarray(a)) for a in planes[:6]),
+        {"n_cqs": int(planes[6].shape[0]), "depth": depth})}
+    _, _, _, packed = scenarios.packed_cycle(
+        device="cpu", n_cohorts=16, cqs_per_cohort=4, n_flavors=2,
+        n_workloads=192, contended=True)
+    a = cycle_args(packed, device="cpu")
+    out["cq_avail_dryrun"] = (tuple(a[:6]), {
+        "n_cqs": int(a[6].shape[0]), "depth": packed.depth})
+    c = testing.solve_cycle_planes(np.random.default_rng(17), n_cqs=1000,
+                                   n_cohorts=16, depth=2, F=12, W=8,
+                                   chain=True)
+    out["cq_avail_deep"] = (
+        tuple(torch.from_numpy(c[k]) for k in testing.SOLVE_ARGS[:6]),
+        {"n_cqs": 1000, "depth": c["depth"]})
+    return out
+
+
+def capture_scatter_case() -> dict:
+    """Drive the sustained drain at north-star width on 4 virtual shards
+    of the card (chip_smoke.py's 15c) and keep, of the first four
+    resident scatters, the one with the most rows, as the kernels line's
+    ``most_rows`` does: (planes, rows, vals) on the CPU, whichever
+    signature the checkout's ``parallel.sharded.scatter_rows`` has
+    (per-plane values, or the packed buffer and its row count)."""
+    import torch
+    from kueue_tpu_torch import scenarios
+    from kueue_tpu_torch.parallel import sharded
+    kept = []
+    real = sharded.scatter_rows
+
+    def keep(planes, *rest):
+        if len(kept) < 4:
+            planes_c = tuple(p.clone() for p in planes)   # before the write
+            if isinstance(rest[1], int):       # (buf, count)
+                rows, vals = sharded.unpack_scatter_rows(planes, *rest)
+            else:                              # (rows, vals)
+                rows, vals = rest
+            kept.append((tuple(p.cpu() for p in planes_c), rows.cpu(),
+                         tuple(v.cpu() for v in vals)))
+        return real(planes, *rest)
+    sharded.scatter_rows = keep
+    try:
+        with sharded.virtual_mesh("cuda:0", 4):
+            scenarios.sustained_drain(device="cuda", n_cqs=1000, runtime=30,
+                                      shards=4)
+    finally:
+        sharded.scatter_rows = real
+    if hasattr(scenarios, "release"):
+        scenarios.release()
+    torch.cuda.synchronize()
+    return {"scatter_15c": max(kept, key=lambda k: int(k[1].shape[0]))}
+
+
+def resident_drain(drains: int = 2) -> dict:
+    """chip_smoke.py's 15c drain (1,000 CQs, 4 virtual shards of the
+    card) run ``drains`` times: per resident hit the host seconds of the
+    resident scatter (``burst_resident_scatter_s``: pack, uploads and
+    launches) and its host-to-device copies (tensor uploads made inside
+    ``BurstSolver._scatter_resident``, counted for any checkout), the
+    ``kq_scatter_rows`` launches and a digest of the records."""
+    import hashlib
+    import torch
+    from kueue_tpu_torch import kernels, scenarios
+    from kueue_tpu_torch.ops.burst import BurstSolver
+    from kueue_tpu_torch.parallel import sharded
+    inside, copies = [False], [0]
+    real_scatter, real_to = BurstSolver._scatter_resident, torch.Tensor.to
+
+    def scatter(self, *a, **k):
+        inside[0] = True
+        try:
+            return real_scatter(self, *a, **k)
+        finally:
+            inside[0] = False
+
+    def to(self, *a, **k):
+        out = real_to(self, *a, **k)
+        if inside[0] and self.device.type == "cpu" \
+                and out.device.type == "cuda":
+            copies[0] += 1
+        return out
+    BurstSolver._scatter_resident, torch.Tensor.to = scatter, to
+    secs = hits = 0
+    records = []
+    before = kernels.LAUNCHES["kq_scatter_rows"]
+    try:
+        with sharded.virtual_mesh("cuda:0", 4):
+            for _ in range(drains):
+                r = scenarios.sustained_drain(device="cuda", n_cqs=1000,
+                                              runtime=30, shards=4)
+                secs += r["stats"]["burst_resident_scatter_s"]
+                hits += r["stats"]["burst_resident_hits"]
+                records.append(r["records"])
+                del r
+                if hasattr(scenarios, "release"):
+                    scenarios.release()
+    finally:
+        BurstSolver._scatter_resident, torch.Tensor.to = real_scatter, real_to
+    launches = kernels.LAUNCHES["kq_scatter_rows"] - before
+    return dict(scatter_s_per_hit=secs / max(1, hits),
+                copies_per_hit=copies[0] / max(1, hits),
+                launches_per_hit=launches / max(1, hits), hits=hits,
+                digest=hashlib.sha256(repr(records).encode()).hexdigest())
+
+
+def scatter_wide(case):
+    """Every row of the 15c case's 250-row shard dirty, padded to 256 by
+    repeating the last, with seeded values of each plane's type."""
+    import numpy as np
+    import torch
+    planes = case[0]
+    n = planes[0].shape[0]
+    Dp = 1 << max(0, n - 1).bit_length()
+    rows = np.concatenate([np.arange(n), np.full(Dp - n, n - 1)])
+    rng = np.random.default_rng(250)
+    vals = []
+    for p in planes:
+        shape = (n,) + tuple(p.shape[1:])
+        v = (torch.from_numpy(rng.random(shape) < 0.5) if p.dtype == torch.bool
+             else torch.from_numpy(rng.integers(-5, 50, shape)).to(p.dtype))
+        vals.append(torch.cat([v, v[-1:].expand((Dp - n,) + v.shape[1:])]))
+    return (planes, torch.from_numpy(rows.astype(np.int32)), tuple(vals))
+
+
 def load_cases(path: Path):
     """The captured cases from ``path``, capturing (and saving) those the
     file lacks."""
@@ -432,6 +588,9 @@ def load_cases(path: Path):
         cases = capture_cases()
     if any(k not in cases for k in CYCLE_CASES):
         cases.update(capture_cycle_cases())
+        missing = True
+    if "scatter_15c" not in cases:
+        cases.update(capture_scatter_case())
         missing = True
     if missing:
         path.parent.mkdir(parents=True, exist_ok=True)
@@ -525,6 +684,42 @@ def merge_calls(kernels, cases):
         w, h = to_card(winners), to_card(head_of)
         calls.append((case, lambda w=w, h=h, k=kw:
                       kernels.kq_fs_merge_order(w, h, k["W"])))
+    return calls
+
+
+def avail_calls(kernels, cases):
+    """(case, callable) for every kq_cq_avail case."""
+    calls = []
+    for case in AVAIL_CASES:
+        args, kw = cases[case]
+        args = to_card(args)
+        calls.append((case, lambda a=args, k=kw: kernels.kq_cq_avail(*a,
+                                                                     **k)))
+    return calls
+
+
+def scatter_calls(kernels, cases):
+    """(case, callable, the planes it writes) for every kq_scatter_rows
+    case: the checkout's launcher on per-plane values, or on the buffer
+    that its ``ops.packing.pack_scatter_rows`` packs (uploaded once,
+    outside the timing).  Each case writes its own copy of the planes."""
+    import torch
+    packed = "buf" in inspect.signature(kernels.kq_scatter_rows).parameters
+    calls = []
+    for case in SCATTER_CASES:
+        planes, rows, vals = (cases["scatter_15c"] if case == "scatter_15c"
+                              else scatter_wide(cases["scatter_15c"]))
+        planes = tuple(to_card(planes))
+        if packed:
+            from kueue_tpu_torch.ops.packing import pack_scatter_rows
+            buf = torch.from_numpy(pack_scatter_rows(
+                rows.numpy(), [v.numpy() for v in vals])).cuda()
+            calls.append((case, lambda p=planes, b=buf, n=len(rows):
+                          kernels.kq_scatter_rows(p, b, n), planes))
+        else:
+            r, v = to_card([rows])[0], tuple(to_card(vals))
+            calls.append((case, lambda p=planes, r=r, v=v:
+                          kernels.kq_scatter_rows(p, r, v), planes))
     return calls
 
 
@@ -1033,6 +1228,48 @@ ORDER_GLOBAL_SPLIT = [
 ]
 
 
+# kq_cq_avail: the staged design's staging (with the CQ's own row of
+# cells), chain resolution, loads (their
+# values consumed into a volatile word before the mark, so the loads'
+# latency lands in their phase) and fold with the stores, summed over the
+# chain's segments; the walk design (a thread per cell, the chain from
+# global memory) as one phase
+AVAIL_STAGED_PHASES = {0: "staging", 1: "chain resolution", 2: "loads",
+                       3: "fold + stores"}
+AVAIL_WALK_PHASES = {0: "walk (parent hops, cell loads, fold, stores)"}
+AVAIL_STAGED_SPLIT = [
+    ("  extern __shared__ int s_par[];\n  const int* par = t.parent;\n",
+     "  extern __shared__ int s_par[];\n  const int* par = t.parent;\n"
+     "  kq_split_start();\n"),
+    ("  __syncthreads();\n  if (!live) return;\n",
+     "  __syncthreads();\n  kq_split_mark(0);\n  if (!live) return;\n"),
+    ("    // every level's five cells, all loads in flight before any is "
+     "used\n",
+     "    kq_split_mark(1);\n"
+     "    // every level's five cells, all loads in flight before any is "
+     "used\n"),
+    ("    // the fold, top-down\n",
+     "    {\n      int sink = 0;\n#pragma unroll\n"
+     "      for (int i = 0; i < S; ++i) {\n"
+     "        if (i < n_seg) sink ^= u[i] ^ sub[i] ^ g[i] ^ bc[i] ^ hb[i];\n"
+     "      }\n"
+     "      if (threadIdx.x == 0) kq_split_sink = sink;\n    }\n"
+     "    kq_split_mark(2);\n    // the fold, top-down\n"),
+    ("  const size_t o = static_cast<size_t>(c) * F + f;\n"
+     "  avail[o] = a;\n  potential[o] = p;\n}\n",
+     "  const size_t o = static_cast<size_t>(c) * F + f;\n"
+     "  avail[o] = a;\n  potential[o] = p;\n  kq_split_mark(3);\n"
+     "  kq_split_flush();\n}\n"),
+]
+AVAIL_WALK_SPLIT = [
+    ("  const int c = static_cast<int>(i / t.F);\n",
+     "  kq_split_start();\n  const int c = static_cast<int>(i / t.F);\n"),
+    ("  avail[i] = a;\n  potential[i] = p;\n}\n",
+     "  avail[i] = a;\n  potential[i] = p;\n  kq_split_mark(0);\n"
+     "  kq_split_flush();\n}\n"),
+]
+
+
 def split_phase1(src: Path, dst: Path) -> tuple:
     """The phase timers in the checkout's kq_classify_heads and
     kq_cycle_order, whichever designs it has → (the classify is a group
@@ -1041,7 +1278,8 @@ def split_phase1(src: Path, dst: Path) -> tuple:
     group = "kq_group_ballot" in text
     chip = "kq_order_chip" in text
     pairs = [('#include "quota.cuh"\n',
-              '#include "quota.cuh"\n' + SPLIT_HEAD.replace("TAG", "phase1"))]
+              '#include "quota.cuh"\n' + SPLIT_HEAD.replace("TAG", "phase1")
+              + "__shared__ volatile int kq_split_sink;\n")]
     if group:
         pairs += [
             ("  const bool live = w < k.W;\n",
@@ -1079,6 +1317,8 @@ def split_phase1(src: Path, dst: Path) -> tuple:
              "  kq_split_flush();\n}\n"),
         ]
     pairs += ORDER_GLOBAL_SPLIT
+    pairs += AVAIL_STAGED_SPLIT if "kq_avail_staged" in text \
+        else AVAIL_WALK_SPLIT
     if chip:
         pairs += [
             ("  const unsigned full = 0xffffffffu;\n",
@@ -1101,6 +1341,49 @@ def split_phase1(src: Path, dst: Path) -> tuple:
         ]
     (dst / "solve_cycle.cu").write_text(_patch(text, pairs, "solve_cycle.cu"))
     return group, chip
+
+
+# kq_scatter_rows: the first warp of each block (the warp-per-pair design:
+# the row and its values load together, one phase) or each plane-0 block
+# (the block-per-pair design, whose P blocks of a row share its
+# accumulator row: the row read with its range check, then the copy)
+SCATTER_WARP_PHASES = {1: "row and values read + copy"}
+SCATTER_BLOCK_PHASES = {0: "row read", 1: "copy loop"}
+
+
+def split_scatter(src: Path, dst: Path) -> bool:
+    """The phase timers in the checkout's kq_scatter_rows → (the
+    warp-per-pair design)."""
+    text = (src / "scatter_rows.cu").read_text()
+    warp = "KQ_SCATTER_WARPS" in text
+    head = SPLIT_HEAD.replace("TAG", "scatter")
+    if warp:
+        pairs = [
+            ("#define KQ_SCATTER_WARPS 8\n",
+             "#define KQ_SCATTER_WARPS 8\n" + head),
+            ("  const int pair = blockIdx.x * KQ_SCATTER_WARPS",
+             "  kq_split_start();\n"
+             "  const int pair = blockIdx.x * KQ_SCATTER_WARPS"),
+            ("      if (keep) dst[k] = v;\n    }\n  }\n}\n",
+             "      if (keep) dst[k] = v;\n    }\n  }\n"
+             "  kq_split_mark(1);\n  kq_split_flush();\n}\n"),
+        ]
+    else:
+        pairs = [
+            ("#define KQ_SCATTER_MAX_PLANES 16\n",
+             "#define KQ_SCATTER_MAX_PLANES 16\n" + head),
+            ("  const int i = blockIdx.x;\n  const int p = blockIdx.y;\n",
+             "  kq_split_start();\n"
+             "  const int i = blockIdx.x;\n  const int p = blockIdx.y;\n"),
+            ("  if (r < 0 || r >= n_rows) return;\n",
+             "  if (r < 0 || r >= n_rows) return;\n  kq_split_mark(0);\n"),
+            ("dst[b] = src[b];\n  }\n}\n",
+             "dst[b] = src[b];\n  }\n  kq_split_mark(1);\n"
+             "  if (blockIdx.y == 0) kq_split_flush();\n}\n"),
+        ]
+    (dst / "scatter_rows.cu").write_text(_patch(text, pairs,
+                                                "scatter_rows.cu"))
+    return warp
 
 
 def split_sources(src: Path, dst: Path) -> tuple:
@@ -1224,7 +1507,8 @@ def split_build(kernels, src: Path):
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-    for tag in ("admit", "burst", "preempt", "search", "forest", "phase1"):
+    for tag in ("admit", "burst", "preempt", "search", "forest", "phase1",
+                "scatter"):
         getattr(lib, f"kq_split_{tag}_read").argtypes = [ctypes.c_void_p]
     kernels._lib = lib
     return lib
@@ -1290,6 +1574,7 @@ def main() -> int:
         "--cases", here / ".kueue_tpu_torch_build" / "kernel_ab_cases.pt")))
     cases.update(synthetic_cases(tt))
     cases.update(phase1_cases(scenarios, tt))
+    cases.update(avail_cases(scenarios, tt))
 
     if "--split" in opts:
         dst = Path(opts["--split"]).resolve()
@@ -1297,7 +1582,22 @@ def main() -> int:
             Path(kernels.__file__).resolve().parent, dst)
         group, chip = split_phase1(Path(kernels.__file__).resolve().parent,
                                    dst)
+        warp = split_scatter(Path(kernels.__file__).resolve().parent, dst)
+        staged = "kq_avail_staged" in (dst / "solve_cycle.cu").read_text()
         lib = split_build(kernels, dst)
+        for case, call in avail_calls(kernels, cases):
+            out[case] = split_run(lib, "phase1", call, AVAIL_STAGED_PHASES
+                                  if staged else AVAIL_WALK_PHASES, 10)
+            out[case]["design"] = ("staged chain" if staged
+                                   else "thread per cell, global walk")
+            out[case]["route"] = kernels.PHASE1_ROUTES.get("kq_cq_avail")
+            out[case]["ms"] = event_ms(call, 10)
+        for case, call, _ in scatter_calls(kernels, cases):
+            out[case] = split_run(lib, "scatter", call, SCATTER_WARP_PHASES
+                                  if warp else SCATTER_BLOCK_PHASES, 10)
+            out[case]["design"] = ("warp per (row, plane)" if warp
+                                   else "block per (row, plane)")
+            out[case]["ms"] = event_ms(call, 10)
         for case, call, _ in phase1_calls(kernels, cases):
             order = case.startswith("order")
             out[case] = split_run(lib, "phase1", call, ORDER_PHASES if order
@@ -1389,6 +1689,12 @@ def main() -> int:
         out[case] = dict(ms=event_ms(call, 20), digest=digest(*flat(call())))
         if lib is not None:
             out[case]["library_ms"] = event_ms(lib, 20)
+    for case, call in avail_calls(kernels, cases):
+        out[case] = dict(ms=event_ms(call, 50), digest=digest(*flat(call())),
+                         route=kernels.PHASE1_ROUTES.get("kq_cq_avail"))
+    for case, call, planes in scatter_calls(kernels, cases):
+        out[case] = dict(ms=event_ms(call, 50), digest=digest(*planes))
+    out["resident_15c"] = resident_drain()
     for case, call in (search_calls(kernels, cases)
                        + forest_calls(kernels, cases)
                        + admit_calls(kernels, cases)

@@ -1015,8 +1015,13 @@ ORDER_MIN_KEYS = 128        # one warp of four keys a lane
 # to a power of two), a lane a slot, while S <= CLASSIFY_LANES (at most
 # 32); past it (0: always) a warp per head loops over chunks of 32 slots
 CLASSIFY_LANES = 32
-# the route of each phase-1 kernel's last launch: kq_cycle_order's
-# "registers" or "global", kq_classify_heads' "group" or "loop"
+# kq_cq_avail: each block stages parent[] in shared memory while its 4 N
+# bytes fit in the 48 KB a block gets without the opt-in (the staged
+# route), else the chain is walked from global memory (the global route)
+AVAIL_STAGE_MAX = 12288     # KQ_AVAIL_STAGE_MAX in solve_cycle.cu
+# the route of each phase-1 kernel's last launch: kq_cq_avail's "staged"
+# or "global", kq_cycle_order's "registers" or "global",
+# kq_classify_heads' "group" or "loop"
 PHASE1_ROUTES: dict[str, str] = {}
 
 
@@ -1026,6 +1031,18 @@ def classify_layout(S: int) -> tuple[int, bool]:
     if S <= min(CLASSIFY_LANES, 32):
         return 1 << max(0, S - 1).bit_length(), False
     return 32, True
+
+
+def cq_avail_route(N: int) -> str:
+    """kq_cq_avail's route for N nodes: "staged" or "global"."""
+    return "staged" if N <= AVAIL_STAGE_MAX else "global"
+
+
+def cq_avail_segment(depth: int) -> int:
+    """Levels of a chain segment on kq_cq_avail's staged route (the
+    kernel's template argument S): the depth rounded up to 1, 2, 4, 8 or
+    16, at most 16 (deeper chains run in several segments)."""
+    return min(16, 1 << max(0, depth - 1).bit_length())
 
 
 def order_layout(W: int) -> tuple[int, int, int]:
@@ -1044,7 +1061,9 @@ def kq_cq_avail(usage0, subtree, guaranteed, borrow_cap, has_blim, parent,
                 *, n_cqs, depth):
     """CUDA available() of the CQ rows (kernels/solve_cycle.cu) →
     (avail0 [C, F], potential0 [C, F]) int32; arguments as
-    ``ops.cycle.cq_avail_plain``."""
+    ``ops.cycle.cq_avail_plain``.  The staged route or the global one,
+    by N alone (``cq_avail_route``); the route lands in
+    ``PHASE1_ROUTES``."""
     dev = usage0.device
     if dev.type != "cuda":
         raise ValueError(f"usage0 on {dev}: the kernels need CUDA tensors")
@@ -1061,11 +1080,15 @@ def kq_cq_avail(usage0, subtree, guaranteed, borrow_cap, has_blim, parent,
         raise ValueError(f"n_cqs={C} outside [0, N={N}]")
     avail = torch.empty((C, F), dtype=i32, device=dev)
     potential = torch.empty((C, F), dtype=i32, device=dev)
+    route = cq_avail_route(N)
+    PHASE1_ROUTES["kq_cq_avail"] = route
     if C * F == 0:
         return avail, potential
     _array_launch("kq_cq_avail", load().kq_cq_avail,
-                     [usage0, subtree, guaranteed, borrow_cap, has_blim,
-                      parent, avail, potential], [N, F, C, depth])
+                  [usage0, subtree, guaranteed, borrow_cap, has_blim,
+                   parent, avail, potential],
+                  [N, F, C, depth,
+                   cq_avail_segment(depth) if route == "staged" else 0])
     return avail, potential
 
 
@@ -1158,33 +1181,37 @@ def kq_cycle_order(borrows0, priority, timestamp):
 SCATTER_MAX_PLANES = 16     # KQ_SCATTER_MAX_PLANES in scatter_rows.cu
 
 
-def kq_scatter_rows(planes, rows, vals):
+def kq_scatter_rows(planes, buf, count):
     """CUDA row scatter (kernels/scatter_rows.cu), in place:
     ``planes[p][rows[i]] = vals[p][i]`` for every plane p, all planes in
-    one launch; returns ``planes`` as a tuple.  Arguments as
-    ``parallel.sharded.scatter_rows_plain``: planes [n, ...] of any dtype
-    on one CUDA device, rows int32 [Dp], vals[p] [Dp, ...] of its plane's
-    dtype and row shape."""
-    planes, vals = tuple(planes), tuple(vals)
-    dev = rows.device
+    one launch, a warp a (row, plane); returns ``planes`` as a tuple.
+    Arguments as ``parallel.sharded.scatter_rows_plain``: planes [n, ...]
+    of any dtype on one CUDA device, and ``buf`` the uint8 buffer of
+    ``count`` rows and their values that ``ops.packing.
+    pack_scatter_rows`` packs for them, 16-byte aligned, on that
+    device."""
+    from ..ops.packing import scatter_layout
+    planes = tuple(planes)
+    dev = buf.device
     if dev.type != "cuda":
-        raise ValueError(f"rows on {dev}: the kernels need CUDA tensors")
+        raise ValueError(f"buf on {dev}: the kernels need CUDA tensors")
     P = len(planes)
-    if not 1 <= P <= SCATTER_MAX_PLANES or len(vals) != P:
-        raise ValueError(f"{P} planes and {len(vals)} value planes: 1 to "
-                         f"{SCATTER_MAX_PLANES} of each, as many")
-    Dp = rows.shape[0] if rows.dim() == 1 else -1
-    _check("rows", rows, torch.int32, (Dp,), dev)
+    if not 1 <= P <= SCATTER_MAX_PLANES:
+        raise ValueError(f"{P} planes: 1 to {SCATTER_MAX_PLANES}")
+    count = int(count)
     n = planes[0].shape[0]
-    row_bytes = []
-    for k, (pl, v) in enumerate(zip(planes, vals)):
+    offsets, row_bytes, total = scatter_layout(planes, count)
+    _check("buf", buf, torch.uint8, (total,), dev)
+    if buf.data_ptr() % 16:
+        raise ValueError("buf: not 16-byte aligned")
+    for k, pl in enumerate(planes):
         _check(f"planes[{k}]", pl, pl.dtype, (n,) + tuple(pl.shape[1:]), dev)
-        _check(f"vals[{k}]", v, pl.dtype, (Dp,) + tuple(pl.shape[1:]), dev)
-        row_bytes.append(pl[0].numel() * pl.element_size() if n else 0)
-    if Dp == 0 or n == 0:
+    if count == 0 or n == 0:
         return planes
+    if total >= 2**31:
+        raise ValueError(f"a {total}-byte buffer: offsets are 32 bits")
     _array_launch("kq_scatter_rows", load().kq_scatter_rows,
-                  [*planes, *vals, rows], [P, Dp, n, *row_bytes])
+                  [*planes, buf], [P, count, n, *offsets, *row_bytes])
     return planes
 
 

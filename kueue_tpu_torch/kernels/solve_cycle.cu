@@ -6,13 +6,22 @@
 // synchronisation in between:
 //
 // 1. kq_cq_avail: available_all (:458-461) of every CQ row, for usage0
-//    and for zero usage (potential0).  A thread per (CQ, flavor-resource)
-//    walks the CQ's ancestor chain top-down (kq_chain_top_down: any
-//    depth) and carries both values; the
-//    arithmetic is quota.cuh's kq_available_at, whose chain form equals
+//    and for zero usage (potential0), both folded top-down along the
+//    CQ's ancestor chain in registers (any depth, in segments of up to
+//    KQ_CHAIN_SEG levels); the arithmetic is quota.cuh's, whose chain form equals
 //    the JAX dense recurrence on forests no deeper than `depth` (the
 //    packer's depth is the forest's).  Only the C CQ rows are computed:
-//    the classify never reads a cohort's availability.
+//    the classify never reads a cohort's availability.  Staged route (N
+//    <= KQ_AVAIL_STAGE_MAX, parent[] in the 48 KB a block gets without
+//    the opt-in): each block copies parent[] into shared memory in one
+//    coalesced pass of cp.async (the CQ's own cells load meanwhile), a
+//    thread resolves its CQ's chain there, then issues the five plane
+//    loads of every level of the segment before it uses any, so a chain
+//    costs about two global round trips (the staging, the loads) instead
+//    of a dependent pair (parent, then the cells) per level.  The F cells of a CQ sit in one warp (32 / F CQs a warp, or
+//    ceil(F / 32) warps a CQ), so a level's loads of a CQ coalesce.
+//    Global route (wider N): a thread per (CQ, flavor-resource) walks
+//    the chain from global memory (kq_chain_top_down).
 // 2. kq_classify_heads: the vmapped classify (:463-514).  A group of G
 //    lanes per head (G = S rounded up to a power of two, at most 32), lane
 //    g owning slot g: it issues its slot's slot_fr cells and requests,
@@ -53,6 +62,7 @@
 // of a head on one CQ row.  The sort of 1,000 heads is 55 stages: 19 in
 // registers, 30 by shuffles, 6 behind a barrier.  Wrapping int32 as
 // XLA wraps it: adds and subtracts through quota.cuh's unsigned helpers.
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -62,11 +72,36 @@
 #define KQ_SORT_THREADS 1024
 #define KQ_CLASSIFY_THREADS 256
 #define KQ_ORDER_CHIP_MAX 16384  // the widest sort of the registers route
+#define KQ_AVAIL_THREADS 256
+#define KQ_AVAIL_STAGE_MAX 12288   // parent[] staged in 48 KB: 4 N bytes
 
 // -- 1. available() of the CQ rows, for usage0 and for zeros ----------------
 
-__global__ void kq_cq_avail_kernel(KqTree t, const int* usage0, int C,
-                                   int* avail, int* potential) {
+// One level of the top-down fold for both outputs: a under usage u, p
+// under zero usage (quota_kernel.available_at, resource_node.go:89).
+__device__ __forceinline__ void kq_avail_step(bool root, int sub, int g,
+                                              int bc, bool hb, int u,
+                                              int& a, int& p) {
+  if (root) {
+    a = kq_sub(sub, u);
+    p = sub;
+    return;
+  }
+  int pa = a;
+  int pp = p;
+  if (hb) {
+    pa = min(kq_sub(bc, max(0, kq_sub(u, g))), a);
+    pp = min(kq_sub(bc, max(0, kq_sub(0, g))), p);
+  }
+  a = kq_add(max(0, kq_sub(g, u)), pa);
+  p = kq_add(max(0, g), pp);
+}
+
+// The global route: thread i is cell (i / F, i % F); the chain is
+// walked from global memory, a level's cells loaded after its parent.
+__device__ __forceinline__ void kq_avail_global(const KqTree& t,
+                                                const int* usage0, int C,
+                                                int* avail, int* potential) {
   const long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
                       threadIdx.x;
   if (i >= static_cast<long long>(C) * t.F) return;
@@ -76,24 +111,158 @@ __global__ void kq_cq_avail_kernel(KqTree t, const int* usage0, int C,
   int p = 0;   // available() under zero usage
   kq_chain_top_down(t.parent, c, t.depth, [&](int node) {
     const size_t o = static_cast<size_t>(node) * t.F + f;
-    const int u = usage0[o];
-    if (t.parent[node] < 0) {
-      a = kq_sub(t.subtree[o], u);
-      p = t.subtree[o];
-    } else {
-      const int g = t.guaranteed[o];
-      int pa = a;
-      int pp = p;
-      if (t.has_blim[o]) {
-        pa = min(kq_sub(t.borrow_cap[o], max(0, kq_sub(u, g))), a);
-        pp = min(kq_sub(t.borrow_cap[o], max(0, kq_sub(0, g))), p);
-      }
-      a = kq_add(max(0, kq_sub(g, u)), pa);
-      p = kq_add(max(0, g), pp);
-    }
+    kq_avail_step(t.parent[node] < 0, t.subtree[o], t.guaranteed[o],
+                  t.borrow_cap[o], t.has_blim[o] != 0, usage0[o], a, p);
   });
   avail[i] = a;
   potential[i] = p;
+}
+
+// The staged route (see the head of the file).  Warp w holds CQs
+// w * per .. w * per + per - 1 (per = 32 / F; lane l on column l % F of
+// CQ w * per + l / F) for F <= 32, else CQ w / wpc with lane l on
+// column (w % wpc) * 32 + l (wpc = ceil(F / 32)).  The CQ's own row of
+// cells loads while parent[] is staged.  Segments hold S levels, S the
+// launch's depth rounded up to 1, 2, 4, 8 or 16 (KQ_CHAIN_SEG): a shallow
+// forest runs a short unrolled loop, whose code a cold SM fetches fast.
+template <int S>
+__device__ __forceinline__ void kq_avail_staged(const KqTree& t,
+                                                const int* usage0, int N,
+                                                int C, int* avail,
+                                                int* potential) {
+  extern __shared__ int s_par[];
+  const int* par = t.parent;
+  if ((reinterpret_cast<uintptr_t>(par) & 15) == 0) {
+    const int n4 = N >> 2;
+    for (int j = threadIdx.x; j < n4; j += blockDim.x) {
+      __pipeline_memcpy_async(s_par + 4 * j, par + 4 * j, 16);
+    }
+    for (int j = (n4 << 2) + threadIdx.x; j < N; j += blockDim.x) {
+      __pipeline_memcpy_async(s_par + j, par + j, sizeof(int));
+    }
+  } else {
+    for (int j = threadIdx.x; j < N; j += blockDim.x) {
+      __pipeline_memcpy_async(s_par + j, par + j, sizeof(int));
+    }
+  }
+  __pipeline_commit();
+  const int F = t.F;
+  const int warp = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  int c, f;
+  bool live;
+  if (F <= 32) {
+    const int per = 32 / F;
+    const int q = lane / F;
+    c = warp * per + q;
+    f = lane - q * F;
+    live = lane < per * F;
+  } else {
+    const int wpc = (F + 31) >> 5;
+    c = warp / wpc;
+    f = (warp - c * wpc) * 32 + lane;
+    live = f < F;
+  }
+  live = live && c < C;
+  int u0 = 0, sub0 = 0, g0 = 0, bc0 = 0;
+  uint8_t hb0 = 0;
+  if (live) {
+    const size_t o = static_cast<size_t>(c) * F + f;
+    u0 = __ldg(usage0 + o);
+    sub0 = __ldg(t.subtree + o);
+    g0 = __ldg(t.guaranteed + o);
+    bc0 = __ldg(t.borrow_cap + o);
+    hb0 = __ldg(t.has_blim + o);
+  }
+  __pipeline_wait_prior(0);
+  __syncthreads();
+  if (!live) return;
+  int a = 0;
+  int p = 0;
+  for (int lo = ((t.depth - 1) / S) * S; lo >= 0; lo -= S) {
+    const int n_seg = min(t.depth - lo, S);
+    int n = c;
+    for (int k = 0; k < lo && n >= 0; ++k) n = s_par[n];
+    // the segment's chain from shared memory: node[i] i levels above the
+    // segment's first (-1 past a root)
+    int node[S];
+    bool root[S];
+#pragma unroll
+    for (int i = 0; i < S; ++i) {
+      if (i >= n_seg) break;
+      const int up = n >= 0 ? s_par[n] : -1;
+      node[i] = n;
+      root[i] = up < 0;
+      n = up;
+    }
+    // every level's five cells, all loads in flight before any is used
+    int u[S], sub[S], g[S], bc[S];
+    uint8_t hb[S];
+#pragma unroll
+    for (int i = 0; i < S; ++i) {
+      if (i >= n_seg) break;
+      if (lo == 0 && i == 0) {      // node[0] is the CQ: its row, loaded
+        u[0] = u0;
+        sub[0] = sub0;
+        g[0] = g0;
+        bc[0] = bc0;
+        hb[0] = hb0;
+        continue;
+      }
+      u[i] = sub[i] = g[i] = bc[i] = 0;
+      hb[i] = 0;
+      if (node[i] >= 0) {
+        const size_t o = static_cast<size_t>(node[i]) * F + f;
+        u[i] = __ldg(usage0 + o);
+        sub[i] = __ldg(t.subtree + o);
+        g[i] = __ldg(t.guaranteed + o);
+        bc[i] = __ldg(t.borrow_cap + o);
+        hb[i] = __ldg(t.has_blim + o);
+      }
+    }
+    // the fold, top-down
+#pragma unroll
+    for (int i = S - 1; i >= 0; --i) {
+      if (i < n_seg && node[i] >= 0) {
+        kq_avail_step(root[i], sub[i], g[i], bc[i], hb[i] != 0, u[i], a, p);
+      }
+    }
+  }
+  const size_t o = static_cast<size_t>(c) * F + f;
+  avail[o] = a;
+  potential[o] = p;
+}
+
+// S: the staged route's segment length, 0 the global route.
+template <int S>
+__global__ void __launch_bounds__(KQ_AVAIL_THREADS)
+kq_cq_avail_kernel(KqTree t, const int* usage0, int N, int C, int* avail,
+                   int* potential) {
+  if constexpr (S > 0) {
+    kq_avail_staged<S>(t, usage0, N, C, avail, potential);
+  } else {
+    kq_avail_global(t, usage0, C, avail, potential);
+  }
+}
+
+template <int S>
+static void kq_cq_avail_launch(const KqTree& t, const int* usage0, int N,
+                               int C, int* avail, int* potential,
+                               cudaStream_t stream) {
+  const int F = t.F;
+  long long threads;
+  size_t smem = 0;
+  if (S > 0) {
+    threads = 32 * (F <= 32 ? (C + 32 / F - 1) / (32 / F)
+                            : static_cast<long long>(C) * ((F + 31) / 32));
+    smem = static_cast<size_t>(N) * sizeof(int);
+  } else {
+    threads = static_cast<long long>(C) * F;
+  }
+  const int blocks = static_cast<int>(
+      (threads + KQ_AVAIL_THREADS - 1) / KQ_AVAIL_THREADS);
+  kq_cq_avail_kernel<S><<<blocks, KQ_AVAIL_THREADS, smem, stream>>>(
+      t, usage0, N, C, avail, potential);
 }
 
 // -- 2. classify each head against its CQ's slots ----------------------------
@@ -466,7 +635,9 @@ kq_cycle_order_kernel(const uint8_t* borrows, const int* priority,
 // -- launchers --------------------------------------------------------------
 
 // ptrs: usage0, subtree, guaranteed, borrow_cap, has_blim, parent,
-//       avail [C, F], potential [C, F];  dims: N, F, C, depth.
+//       avail [C, F], potential [C, F];  dims: N, F, C, depth, S (the
+//       staged route's segment length, 1, 2, 4, 8 or KQ_CHAIN_SEG, with
+//       N <= KQ_AVAIL_STAGE_MAX; 0: the global route).
 extern "C" int kq_cq_avail(void* const* ptrs, const int* dims,
                            cudaStream_t stream) {
   KqTree t{static_cast<const int*>(ptrs[1]),
@@ -474,12 +645,36 @@ extern "C" int kq_cq_avail(void* const* ptrs, const int* dims,
            static_cast<const int*>(ptrs[3]),
            static_cast<const uint8_t*>(ptrs[4]),
            static_cast<const int*>(ptrs[5]), dims[1], dims[3]};
-  const long long cells = static_cast<long long>(dims[2]) * dims[1];
-  const int threads = 256;
-  const int blocks = static_cast<int>((cells + threads - 1) / threads);
-  kq_cq_avail_kernel<<<blocks, threads, 0, stream>>>(
-      t, static_cast<const int*>(ptrs[0]), dims[2],
-      static_cast<int*>(ptrs[6]), static_cast<int*>(ptrs[7]));
+  const int N = dims[0], C = dims[2];
+  const int* usage0 = static_cast<const int*>(ptrs[0]);
+  int* avail = static_cast<int*>(ptrs[6]);
+  int* potential = static_cast<int*>(ptrs[7]);
+  if (dims[4] != 0 && N > KQ_AVAIL_STAGE_MAX) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  switch (dims[4]) {
+    case 0:
+      kq_cq_avail_launch<0>(t, usage0, N, C, avail, potential, stream);
+      break;
+    case 1:
+      kq_cq_avail_launch<1>(t, usage0, N, C, avail, potential, stream);
+      break;
+    case 2:
+      kq_cq_avail_launch<2>(t, usage0, N, C, avail, potential, stream);
+      break;
+    case 4:
+      kq_cq_avail_launch<4>(t, usage0, N, C, avail, potential, stream);
+      break;
+    case 8:
+      kq_cq_avail_launch<8>(t, usage0, N, C, avail, potential, stream);
+      break;
+    case KQ_CHAIN_SEG:
+      kq_cq_avail_launch<KQ_CHAIN_SEG>(t, usage0, N, C, avail, potential,
+                                       stream);
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1896,6 +1896,9 @@ class BurstSolver:
                       "burst_resident_scatter_rows": 0,
                       "burst_resident_scatter_ranges": 0,
                       "burst_resident_scatter_s": 0.0,
+                      # host-to-device copies of the resident scatter:
+                      # one packed buffer per shard with dirty rows
+                      "burst_resident_scatter_copies": 0,
                       "burst_boundary_bytes_h2d": 0,
                       "burst_boundary_bytes_equiv": 0,
                       # coalesced dirty-row ranges seen by the journal
@@ -2145,24 +2148,32 @@ class BurstSolver:
                           vals: list) -> None:
         """Write the padded dirty rows (global shard-layout positions,
         ``rows``) and their values into the resident planes, in place:
-        each row goes to its shard, one ``scatter_rows`` launch per
-        shard that has rows (all 13 planes at once)."""
+        each row goes to its shard; per shard that has rows, the rows and
+        the 13 planes' values are packed into one buffer
+        (``packing.pack_scatter_rows``), pinned on a CUDA shard, uploaded
+        by one copy on the shard's stream (``burst_resident_scatter_copies``)
+        and written by one ``scatter_rows`` launch."""
         from ..parallel import sharded
+        from .packing import pack_scatter_rows, scatter_layout
         mesh = self._shard_mesh
         Cs = layout.Cs
         shard = rows // Cs
         for s in np.unique(shard):
             s = int(s)
             sel = shard == s
+            dev = mesh.devices[s]
+            rows_s = (rows[sel] - s * Cs).astype(np.int32)
+            vals_s = [v[sel] for v in vals]
+            nbytes = scatter_layout(vals_s, rows_s.shape[0])[2]
+            host = torch.empty(nbytes, dtype=torch.uint8,
+                               pin_memory=dev.type == "cuda")
+            pack_scatter_rows(rows_s, vals_s, out=host.numpy())
             with mesh.on(s):
-                dev = mesh.devices[s]
-                rows_s = torch.from_numpy(
-                    (rows[sel] - s * Cs).astype(np.int32)).to(dev)
-                vals_s = [torch.from_numpy(np.ascontiguousarray(v[sel]))
-                          .to(dev) for v in vals]
+                buf = host.to(dev, non_blocking=True)
                 sharded.scatter_rows(
                     [planes[n][s] for n in sharded.SCATTER_PLANES],
-                    rows_s, vals_s)
+                    buf, rows_s.shape[0])
+            self.stats["burst_resident_scatter_copies"] += 1
 
     def _resident_inputs(self, plan: BurstPlan, layout, timers) -> dict:
         """Sharded kernel inputs for a FRESH pack under the

@@ -645,3 +645,37 @@ def plan_to_torch(plan_or_arrays, device) -> dict:
     both packages' kernels compute on identical inputs."""
     arrays = getattr(plan_or_arrays, "arrays", plan_or_arrays)
     return planes_to_torch(dict(arrays), device)
+
+
+def scatter_layout(planes, count: int) -> tuple[list[int], list[int], int]:
+    """The packed buffer of a resident row scatter of ``count`` rows
+    into ``planes`` (numpy arrays or tensors [n, ...]; a plane's values
+    [count, ...] lay out alike): the rows as int32 [count] at byte 0,
+    then each plane's ``count`` value rows, every segment at a 16-byte
+    boundary → (each plane's segment offset, its bytes a row, the
+    buffer's bytes)."""
+    offsets, row_bytes, n = [], [], -(-4 * count // 16) * 16
+    for p in planes:
+        rb = math.prod(p.shape[1:]) * p.itemsize
+        offsets.append(n)
+        row_bytes.append(rb)
+        n += -(-rb * count // 16) * 16
+    return offsets, row_bytes, max(n, 16)
+
+
+def pack_scatter_rows(rows: np.ndarray, vals, out=None) -> np.ndarray:
+    """Rows int32 [count] and each plane's value rows [count, ...] packed
+    into one uint8 buffer as ``scatter_layout`` lays it out (``out``: a
+    uint8 array of at least its bytes to fill, say a pinned tensor's
+    numpy view) → the buffer; the padding between segments is zero."""
+    rows = np.ascontiguousarray(rows, dtype=np.int32)
+    vals = [np.ascontiguousarray(v) for v in vals]
+    count = rows.shape[0]
+    offsets, _, n = scatter_layout(vals, count)
+    buf = np.zeros(n, dtype=np.uint8) if out is None else out[:n]
+    if out is not None:
+        buf[:] = 0
+    buf[:rows.nbytes] = rows.view(np.uint8)
+    for v, o in zip(vals, offsets):
+        buf[o:o + v.nbytes] = v.reshape(-1).view(np.uint8)
+    return buf

@@ -625,27 +625,48 @@ class BurstShardLayout:
 # The two kernels around the per-shard burst, with their plain versions
 # ---------------------------------------------------------------------------
 
-def scatter_rows_plain(planes, rows, vals):
-    """``plane[rows[i]] = vals[i]`` for every plane, in place; returns
-    the planes as a tuple (kueue_tpu/ops/burst.py ``_scatter_rows_fn``,
-    whose ``a.at[rows].set(v)`` returns new arrays with the same
-    values)."""
-    idx = rows.long()
+def unpack_scatter_rows(planes, buf, count: int):
+    """Typed views of a packed row-scatter buffer
+    (``ops.packing.pack_scatter_rows``) laid out for ``planes``: (rows
+    int32 [count], each plane's value rows [count, ...])."""
+    from ..ops.packing import scatter_layout
+    offsets, row_bytes, n = scatter_layout(planes, count)
+    if buf.dtype != torch.uint8 or buf.dim() != 1 or buf.numel() != n:
+        raise ValueError(f"buffer {buf.dtype}{tuple(buf.shape)}: expected "
+                         f"uint8 [{n}] for {count} rows")
+    rows = buf[:4 * count].view(torch.int32)
+    vals = [buf[o:o + count * rb].view(p.dtype).view(
+        (count,) + tuple(p.shape[1:]))
+        for p, o, rb in zip(planes, offsets, row_bytes)]
+    return rows, vals
+
+
+def scatter_rows_plain(planes, buf, count: int):
+    """``plane[rows[i]] = vals[i]`` for every plane, in place, where the
+    rows and values come packed in ``buf`` (``unpack_scatter_rows``); a
+    row outside [0, n) is dropped.  Returns the planes as a tuple
+    (kueue_tpu/ops/burst.py ``_scatter_rows_fn``, whose
+    ``a.at[rows].set(v)`` returns new arrays with the same values and
+    drops an index past the end)."""
+    rows, vals = unpack_scatter_rows(planes, buf, count)
+    keep = (rows >= 0) & (rows < planes[0].shape[0])
+    idx = rows[keep].long()
     for p, v in zip(planes, vals):
-        p[idx] = v
+        p[idx] = v[keep]
     return tuple(planes)
 
 
-def scatter_rows(planes, rows, vals):
-    """The resident row scatter: ``kernels.kq_scatter_rows`` for CUDA
-    tensors (one launch for all planes), ``scatter_rows_plain`` for CPU
-    tensors; raises for any other device."""
-    if rows.device.type == "cuda":
+def scatter_rows(planes, buf, count: int):
+    """The resident row scatter of ``count`` packed rows: one
+    ``kernels.kq_scatter_rows`` launch for all planes of a CUDA buffer,
+    ``scatter_rows_plain`` for a CPU one; raises for any other
+    device."""
+    if buf.device.type == "cuda":
         from .. import kernels
-        return kernels.kq_scatter_rows(planes, rows, vals)
-    if rows.device.type != "cpu":
-        raise ValueError(f"no scatter kernel for device {rows.device}")
-    return scatter_rows_plain(planes, rows, vals)
+        return kernels.kq_scatter_rows(planes, buf, count)
+    if buf.device.type != "cpu":
+        raise ValueError(f"no scatter kernel for device {buf.device}")
+    return scatter_rows_plain(planes, buf, count)
 
 
 def reduce_dflags_plain(window):

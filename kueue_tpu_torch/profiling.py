@@ -18,6 +18,7 @@ from __future__ import annotations
 import contextlib
 import os
 import threading
+import time
 from typing import Optional
 
 _active = threading.Event()
@@ -100,18 +101,38 @@ class DeviceClock:
     other activity (PyTorch's kernels, copies, fills), ``busy_ms`` the
     union of all activity intervals, ``activities`` their number, and
     ``spans_us`` every activity's (start, end) by name, in microseconds.
-    The block ends with ``torch.cuda.synchronize()``.  One clock at a
-    time, and not inside ``start_trace``."""
+    The busy-wait kernels of ``torch.cuda._sleep`` are left out of all of
+    these; ``spin_us`` keeps their spans.  The block ends with
+    ``torch.cuda.synchronize()``.  One clock at a time, and not inside
+    ``start_trace``.
+
+    Late in a ten-minute process on an H100, the profiler dropped the
+    first 44 to 50 device activities of many sessions (a count fixed
+    within the process, whatever the activities' durations: a 50 ms spin
+    and 49 launches, or 49 of 1,200 short kernels), all of them in a
+    session of 51; and the device's timestamps, converted to the host's
+    clock, drifted 1.4 ms from it, while it keeps only the activities
+    inside its window on the host's clock.  So a session starts with
+    ``PAD`` throwaway spins, and its window is held open ``MARGIN_S`` on
+    the host before the work and after its synchronize."""
+
+    PAD = 256
+    MARGIN_S = 0.05
 
     def __enter__(self):
+        import torch
         from torch.profiler import ProfilerActivity, profile
         self._prof = profile(activities=[ProfilerActivity.CUDA])
         self._prof.__enter__()
+        time.sleep(self.MARGIN_S)
+        for _ in range(self.PAD):
+            torch.cuda._sleep(1)
         return self
 
     def __exit__(self, *exc):
         import torch
         torch.cuda.synchronize()
+        time.sleep(self.MARGIN_S)
         self._prof.__exit__(*exc)
         if exc[0] is None:
             self._read(self._prof.events())
@@ -124,12 +145,16 @@ class DeviceClock:
         self.kernel_ms = dict.fromkeys(kernels.KERNELS, 0.0)
         self.kernel_count = dict.fromkeys(kernels.KERNELS, 0)
         self.spans_us: dict[str, list] = {}
+        self.spin_us: list = []
         self.other_ms = 0.0
         spans = []
         for e in events:
             if e.device_type != DeviceType.CUDA:
                 continue
             t0, t1 = e.time_range.start, e.time_range.end
+            if "spin_kernel" in e.name:
+                self.spin_us.append((t0, t1))
+                continue
             spans.append((t0, t1))
             self.spans_us.setdefault(e.name, []).append((t0, t1))
             name = kernels.launcher_of(e.name)

@@ -595,8 +595,9 @@ def shape_cases(seed: int = 0, card: bool = False):
     batched search, the burst, ``kq_cq_avail``, ``drs_components``,
     ``fs_admit_scan``), and ``fs_admit_scan`` at F = 65 and at F = 72
     (8 flavors x 9 resources).  ``card`` adds the shapes only the card
-    runs at size: ``admit_scan`` at F = 1,025 and ``admit_scan_forests``
-    over one forest of 40,000 heads."""
+    runs at size: ``kq_cq_avail`` past its staged route (N = 13,000),
+    ``admit_scan`` at F = 1,025 and ``admit_scan_forests`` over one
+    forest of 40,000 heads."""
     rng = np.random.default_rng(seed)
     deep = dict(n_cqs=6, n_cohorts=16, depth=2, chain=True)
     c = admit_cycle(rng, F=3, W=24, R=2, **deep)
@@ -624,6 +625,7 @@ def shape_cases(seed: int = 0, card: bool = False):
         yield "fs_admit_scan", fs_args(c), fs_kw(c)
     if not card:
         return
+    yield ("kq_cq_avail", *avail_case(rng, *AVAIL_CARD_SHAPES[-1]))
     c = admit_cycle(rng, n_cqs=6, n_cohorts=3, depth=3, F=1025, W=16, R=3)
     yield "admit_scan", admit_args(c), dict(depth=c["depth"])
     c = admit_cycle(rng, n_cqs=20, n_cohorts=1, depth=2, F=2, W=40_000,
@@ -1173,6 +1175,52 @@ def solve_cycle_planes(rng: np.random.Generator, *, n_cqs: int = 12,
                 depth=max(depth, true_depth))
 
 
+# kq_cq_avail's cases: (n_cqs, n_cohorts, depth, F, chain); depth 1 (no
+# cohort), 2, 3 (nested cohorts), 6 (a chain of 5 cohorts) and 17 (a
+# chain of 16: two segments), one to two warps a CQ; ``card`` adds N =
+# 12,288 (the widest staged) and N = 13,000 (the global route)
+AVAIL_SHAPES = [
+    (9, 3, 1, 5, False),
+    (40, 8, 2, 12, False),
+    (30, 10, 3, 1, False),
+    (12, 5, 3, 32, False),
+    (7, 4, 3, 33, False),
+    (8, 5, 2, 7, True),
+    (6, 16, 2, 12, True),
+    (5, 16, 2, 40, True),
+]
+AVAIL_CARD_SHAPES = [
+    (12_000, 288, 3, 12, False),
+    (12_400, 600, 3, 4, False),
+]
+
+
+def avail_case(rng: np.random.Generator, n_cqs: int, n_cohorts: int,
+               depth: int, F: int, chain: bool) -> tuple:
+    """kq_cq_avail's arguments on a forest (``forest``) with quota planes
+    whose cells are ~5% at the int32 limits, so the recurrences wrap:
+    (the six planes of ``SOLVE_ARGS``, keyword arguments)."""
+    parent, _, _, true_depth = forest(rng, n_cqs, n_cohorts, depth, chain)
+    N = n_cqs + n_cohorts
+    q = quota_planes(rng, N, F)
+    edges = np.array([I32_MIN, I32_MIN + 3, 2**31 - 8, 2**31 - 1],
+                     dtype=np.int64)
+    for k in ("usage0", "subtree", "guaranteed", "borrow_cap"):
+        cells = rng.random((N, F)) < 0.05
+        q[k][cells] = rng.choice(edges, int(cells.sum())).astype(np.int32)
+    planes = (q["usage0"], q["subtree"], q["guaranteed"], q["borrow_cap"],
+              q["has_blim"], parent)
+    return planes, dict(n_cqs=n_cqs, depth=max(depth, true_depth))
+
+
+def avail_cases(seed: int = 0, card: bool = False):
+    """Yield ("kq_cq_avail", numpy arrays, keyword arguments) over
+    ``AVAIL_SHAPES`` (and ``AVAIL_CARD_SHAPES`` with ``card``)."""
+    rng = np.random.default_rng(seed)
+    for shape in AVAIL_SHAPES + (AVAIL_CARD_SHAPES if card else []):
+        yield ("kq_cq_avail", *avail_case(rng, *shape))
+
+
 def solve_args(case: dict, fungibility: bool = False) -> tuple:
     """solve_cycle's positional arrays (with the fungibility planes)."""
     names = SOLVE_ARGS + (FUNGIBILITY_ARGS if fungibility else ())
@@ -1291,17 +1339,20 @@ def layout_fields(layout, plan) -> dict:
 def scatter_case(seed: int = 0, C: int = 12, M: int = 5, D: int = 3):
     """``(planes, rows, vals)`` of the resident row scatter: 13 planes
     shaped and typed like the SCATTER tier (``parallel.sharded.
-    SCATTER_PLANES``: [C, M, R], [C, M], [C, M, F], [C, F] and [C]
-    planes, int32 and bool), D distinct dirty rows padded to
-    ``scatter_pad(D)`` by repeating the last row with its own values,
-    and their values."""
+    SCATTER_PLANES``: [C, M, 2], [C, M], [C, M, 4], [C, 4] and [C]
+    planes, int32 and bool: at M = 5 bool rows of 5 bytes, 16-byte
+    ``u_cq0`` rows), one row past the planes (C + 2: a scatter drops it)
+    and D distinct dirty rows, padded to ``scatter_pad`` of their count
+    by repeating the last row with its own values, and their values."""
     from .ops.packing import scatter_pad
     from .parallel.sharded import _C_FILLS, SCATTER_PLANES
     rng = np.random.default_rng(seed)
-    tails = {"wl_req": (M, 2), "adm_usage0": (M, 3), "adm_uses0": (M, 3),
-             "u_cq0": (3,), "strict_cq": ()}
+    tails = {"wl_req": (M, 2), "adm_usage0": (M, 4), "adm_uses0": (M, 4),
+             "u_cq0": (4,), "strict_cq": ()}
+    rows = np.concatenate([np.array([C + 2], np.int32),
+                           rng.choice(C, D, replace=False).astype(np.int32)])
+    D = len(rows)
     Dp = scatter_pad(D)
-    rows = rng.choice(C, D, replace=False).astype(np.int32)
     rows = np.concatenate([rows, np.repeat(rows[-1:], Dp - D)])
     planes, vals = [], []
     for name in SCATTER_PLANES:

@@ -1,8 +1,8 @@
 """Each CUDA kernel of kueue_tpu_torch against its plain PyTorch version
 on the same seeded inputs (kueue_tpu_torch.testing.kernel_cases,
 burst_cases, burst_one_forest, flat_scan_cases, preempt_route_cases,
-fs_cases, tas_cases, solve_cycle_cases, shape_cases, scatter_case,
-dflags_blocks, gather_case and merge_case; the two-route kernels on
+fs_cases, tas_cases, solve_cycle_cases, avail_cases, shape_cases,
+scatter_case, dflags_blocks, gather_case and merge_case; the two-route kernels on
 both routes; admit_scan_preempt under forest tables joined by
 testing.preempt_tables, and raising on wrong ones), the
 forest-sharded burst on a virtual mesh of the card against the serial
@@ -272,6 +272,31 @@ def test_cuda_solve_cycle_kernels_match_plain(seed):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("seed", [0, 1])
+def test_cuda_cq_avail_routes_match_plain(seed):
+    """kq_cq_avail on its staged route (testing.avail_cases: depth 1, 2,
+    3 and 17, one and two warps a CQ, cells at the int32 limits, N =
+    12,288) and on its global route (N = 13,000) against cq_avail_plain:
+    values and dtypes exactly, the route by N."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernels have no CPU mode")
+    from kueue_tpu_torch import kernels
+    seen = set()
+    for _, args, kw in tt.avail_cases(seed, card=True):
+        want = cycle.cq_avail_plain(*[torch.from_numpy(a) for a in args],
+                                    **kw)
+        got = cycle.cq_avail(*[torch.from_numpy(a).cuda() for a in args],
+                             **kw)
+        torch.cuda.synchronize()
+        route = kernels.PHASE1_ROUTES["kq_cq_avail"]
+        assert route == kernels.cq_avail_route(args[0].shape[0])
+        seen.add(route)
+        for x, y in zip(want, got):
+            assert y.dtype == x.dtype and torch.equal(y.cpu(), x), kw
+    assert seen == {"staged", "global"}
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("fungibility", [False, True])
 def test_cuda_solve_cycle_matches_plain(fungibility):
     """solve_cycle (with and without the scan) and solve_cycle_forests on
@@ -479,21 +504,21 @@ def test_cuda_search_layouts_match_plain(label):
 @pytest.mark.gpu
 @pytest.mark.parametrize("seed,D", [(0, 1), (1, 3), (2, 9), (3, 12)])
 def test_cuda_scatter_and_reduce_match_plain(seed, D):
-    """kq_scatter_rows (13 planes in place, padded duplicate rows) and
-    kq_reduce_dflags against their plain versions."""
+    """kq_scatter_rows (13 planes in place from one packed buffer:
+    padded duplicate rows, a row past the planes, 5-byte bool rows,
+    16-byte rows) and kq_reduce_dflags against their plain versions."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA GPU: the kernels have no CPU mode")
     from kueue_tpu_torch import kernels
+    from kueue_tpu_torch.ops.packing import pack_scatter_rows
     from kueue_tpu_torch.parallel import sharded
     planes, rows, vals = tt.scatter_case(seed, D=D)
+    buf = torch.from_numpy(pack_scatter_rows(rows, vals))
     want = sharded.scatter_rows_plain(
-        [torch.from_numpy(p.copy()) for p in planes],
-        torch.from_numpy(rows), [torch.from_numpy(v) for v in vals])
+        [torch.from_numpy(p.copy()) for p in planes], buf, len(rows))
     before = kernels.LAUNCHES["kq_scatter_rows"]
     got = sharded.scatter_rows(
-        [torch.from_numpy(p).cuda() for p in planes],
-        torch.from_numpy(rows).cuda(),
-        [torch.from_numpy(v).cuda() for v in vals])
+        [torch.from_numpy(p).cuda() for p in planes], buf.cuda(), len(rows))
     assert kernels.LAUNCHES["kq_scatter_rows"] == before + 1
     for x, y in zip(want, got):
         assert y.dtype == x.dtype and torch.equal(y.cpu(), x)
@@ -525,6 +550,9 @@ def test_cuda_sharded_burst_matches_serial(monkeypatch):
     assert grew["kq_reduce_dflags"] == st["burst_sharded_dispatches"]
     assert st["burst_resident_hits"] >= 1, st
     assert grew["kq_scatter_rows"] >= 1, grew
+    # one packed upload and one launch per shard with dirty rows
+    assert st["burst_resident_scatter_copies"] == grew["kq_scatter_rows"]
+    assert grew["kq_scatter_rows"] <= 4 * st["burst_resident_hits"], st
 
 
 # (W, S, n_valid, shards with no head): a single shard, zero-length

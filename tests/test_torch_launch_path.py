@@ -116,6 +116,29 @@ def test_device_clock_reads_kernels_other_work_and_busy_union():
     assert clk.activities == 4
 
 
+def test_device_clock_leaves_out_the_spins():
+    """The busy-wait kernels of ``torch.cuda._sleep`` (a session's
+    leading throwaway spins, a timing's busy stream) count in no figure;
+    ``spin_us`` keeps their spans."""
+    from torch.autograd import DeviceType
+
+    def ev(name, t0, t1):
+        return SimpleNamespace(name=name, device_type=DeviceType.CUDA,
+                               time_range=SimpleNamespace(start=t0, end=t1))
+
+    spin = "at::cuda::(anonymous namespace)::spin_kernel(long)"
+    clk = DeviceClock()
+    clk._read([ev(spin, 0, 1), ev(spin, 1, 2), ev(spin, 2, 50_002),
+               ev("kq_reduce_dflags_kernel(int4 const*, int, int, int4*)",
+                  50_003, 50_005)])
+    assert clk.spin_us == [(0, 1), (1, 2), (2, 50_002)]
+    assert list(clk.spans_us) == [
+        "kq_reduce_dflags_kernel(int4 const*, int, int, int4*)"]
+    assert clk.activities == 1 and clk.other_ms == 0
+    assert clk.busy_ms == pytest.approx(2e-3)
+    assert DeviceClock.PAD > 0
+
+
 # -- the head gather's source map --------------------------------------
 
 def _structure(n_forests: int, per: int = 2):

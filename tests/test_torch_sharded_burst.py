@@ -37,6 +37,7 @@ from kueue_tpu.parallel import sharded as jsh
 from kueue_tpu_torch import scenarios
 from kueue_tpu_torch import testing as tt
 from kueue_tpu_torch.ops import burst as tburst
+from kueue_tpu_torch.ops.packing import pack_scatter_rows
 from kueue_tpu_torch.parallel import sharded as tsh
 
 from test_torch_burst import _packed
@@ -94,7 +95,7 @@ def test_scatter_rows_plain_matches_jax(seed, D):
                              tuple(jnp.asarray(v) for v in vals)))
     got = tsh.scatter_rows(
         [torch.from_numpy(p.copy()) for p in planes],
-        torch.from_numpy(rows), [torch.from_numpy(v) for v in vals])
+        torch.from_numpy(pack_scatter_rows(rows, vals)), len(rows))
     assert len(got) == len(want) == 13
     for name, w, g in zip(tsh.SCATTER_PLANES, want, got):
         _same(w, g.numpy(), name)
