@@ -12,7 +12,10 @@ gates on; then the one-call cycle solver behind the north-star probe
 ``Driver(solver_backend="native")``; then the forest-sharded burst and,
 under ``KUEUE_TPU_SHARDS``, the per-cycle mesh; then the front door:
 the reference perf harness (``python -m kueue_tpu_torch.perf.harness``)
-and the job layer (Configuration, manifests, ``JobManager``):
+and the job layer (Configuration, manifests, ``JobManager``); then the
+open-loop traffic runner (``kueue_tpu_torch.traffic``) and two-phase
+admission with the provisioning check
+(``kueue_tpu_torch.admissionchecks``):
 
 1. device: name, count and ``nvidia-smi`` name/power limit;
 2. build: nvcc of every kernel source (in parallel) into one library;
@@ -93,7 +96,10 @@ and the job layer (Configuration, manifests, ``JobManager``):
    (kueue_tpu_torch.testing.shape_cases): admit_scan,
    admit_scan_preempt, admit_scan_forests, minimal_preemptions_batch,
    burst_cycles, kq_cq_avail and drs_components on a cohort chain 17
-   levels deep, fs_admit_scan at F = 65 and 72, kq_cq_avail on its
+   levels deep, drs_components over testing.drs_design_cases (depth 1
+   to 17, F = 1 to 65, R = 1 to 5, a resource with no column, the int32
+   range, its staged route and its walk, both counted per call),
+   fs_admit_scan at F = 65 and 72, kq_cq_avail on its
    global route (N = 13,000), admit_scan at F = 1,025,
    admit_scan_forests over one forest of 40,000 heads (its head list in
    global scratch) — each equal to its plain version; admit_scan over
@@ -138,9 +144,9 @@ and the job layer (Configuration, manifests, ``JobManager``):
    upload;
 3g. kq_scatter_rows and kq_reduce_dflags against their plain versions
    over seeded cases (kueue_tpu_torch.testing.scatter_case packed by
-   ops.packing.pack_scatter_rows: padded duplicate rows, a row past the
-   planes, 5-byte bool rows, 16-byte rows, every row of a 250-row
-   shard; dflags_blocks) and the calls captured in phases 15, 15b and
+   ops.packing.pack_scatter_rows: padded duplicate rows, rows past the
+   planes and below -C, a row in [-C, 0) written at C + r, 5-byte bool
+   rows, 16-byte rows, every row of a 250-row shard; dflags_blocks) and the calls captured in phases 15, 15b and
    15c — exact;
 16. the perf scenario through the per-cycle mesh (``KUEUE_TPU_SHARDS=4``
    on a virtual 2 x 2 mesh of this card: 5 forests on 2 cq shards, one
@@ -183,6 +189,28 @@ and the job layer (Configuration, manifests, ``JobManager``):
    split_across_roots, admit_scan and admit_scan_preempt launched, no
    full collection, and the same run on "cpu" with an equal digest (the
    feature gates restored after each);
+19. the open loop at scripts/traffic_soak.py's width
+   (``scenarios.build_traffic`` / ``traffic_stream`` / ``open_loop``):
+   1,000 CQs in cohorts of 4, 4,000m cpu each, BEST_EFFORT_FIFO, Poisson
+   arrivals of 1,500m at half the capacity estimate (333.3/s), runtimes
+   2 or 4 s, priorities 0 / 10 / 20, 2% cancels and 2% churn, 30
+   virtual s at dt = 1 s, p99 SLO 8 s, on the card: the SLO met, the
+   queue depth bounded, admit kernels launched, no host-fallback cycle;
+   the same stream on "cpu" with equal decisions and latencies; the
+   consumed events replayed on the card with bit-identical decisions;
+   then ``traffic.find_sustainable_rate`` on the card (2 probes between
+   the half rate and 1.5 x the estimate), the rate printed with the
+   cycle walls and the nvidia-smi line;
+20. two-phase admission with a provisioning check at the perf
+   scenario's size (``scenarios.build_provisioning`` /
+   ``run_provisioning``): 5 cohorts x 6 CQs each carrying the check,
+   ``ProvisioningController`` over a seeded capacity backend, 15,000
+   workloads on the card: Provisioned, Failed then retried with
+   backoff, BookingExpired before admission, CapacityRevoked after it
+   and a check rejected at its retry limit all reached, admit kernels
+   launched, every workload finished or rejected; then at 3,000
+   workloads on "cuda" and "cpu" equal digests over every cycle's
+   reservations and check writes;
 3i. kq_gather_heads and kq_fs_merge_order against their plain versions
    on the calls captured in 16-16d and on one synthetic call each at
    north-star width (1,000 heads over 8 shards), and the per-shard admit
@@ -195,17 +223,17 @@ and the job layer (Configuration, manifests, ``JobManager``):
    kernel's own duration and the start-to-start period).
 
 Launch counts are zeroed just before phases 4, 5, 7, 8, 9, 9b, 11, 13,
-14, 15, 15b, 15c, 16, 16b, 16c, 16d, 17 and 18 and read just after
-each.  The
+14, 15, 15b, 15c, 16, 16b, 16c, 16d, 17, 18, 19 (its run and its
+search) and 20 and read just after each.  The
 scenarios collect as the reference scripts do (builds frozen, drains
 with collection off): the measured north-star phases 5, 8, 9, 15, 15c,
-16b and 16c, tas-4k's phase 11 and the job front door's phase 18 must
-see no full collection
+16b and 16c, tas-4k's phase 11, the job front door's phase 18 and
+phases 19 and 20 must see no full collection
 (``GCWatch``), and
 ``scenarios.release()`` frees each phase's driver graph before the next
 phase builds.  A
 launch records no CUDA event: the device time of phases 4, 5, 7, 8, 9,
-11, 13, 15, 15c, 16, 16b, 16c, 16d, 17 and 18 (per kernel, the rest, the busy union
+11, 13, 15, 15c, 16, 16b, 16c, 16d, 17, 18, 19 and 20 (per kernel, the rest, the busy union
 and its share of the wall) comes from torch.profiler's CUDA activity
 over the phase (``kueue_tpu_torch.profiling.DeviceClock``); a phase in
 which it sees nothing fails.  Prints a ``kernels`` JSON line (per
@@ -219,7 +247,8 @@ route for best_fit_descend at tas-4k; the routes admit_scan and
 burst_cycles took per call; a dependent-step count for the TAS
 kernels, fs_admit_scan, admit_scan and burst_cycles; admit_scan also
 on the probe's flat 1,000 heads, fs_admit_scan, admit_scan and
-burst_cycles also on one forest of every CQ, their worst case), the
+burst_cycles also on one forest of every CQ, their worst case;
+drs_components also on a cohort chain 17 levels deep, ``deep_17``), the
 seconds by phase (``[walls]``, the wall up to each printed line summed
 by the phase tag at its head) and the total, the
 nvidia-smi line, and as its last line ``{"ok": true,
@@ -301,15 +330,27 @@ MESH_SHARDS = {"bench": 4, "northstar": 8, "fs": 4, "dryrun": 8}
 ROUTED = ("admit_scan", "burst_cycles",   # kernels with two routes
           "admit_scan_preempt", "admit_scan_forests",
           "minimal_preemptions_batch", "kq_cq_avail", "kq_classify_heads",
-          "kq_cycle_order")
+          "kq_cycle_order", "drs_components")
 # the routes each must take in 3f / 3h (minimal_preemptions_batch: its
 # tree and its candidates each staged or global)
 ROUTES_TAKEN = {"minimal_preemptions_batch": {
     "shared", "tree global", "candidates global", "global"},
     "kq_cq_avail": {"staged", "global"},
+    "drs_components": {"staged", "walk"},
     "kq_classify_heads": {"group", "loop"},
     "kq_cycle_order": {"registers", "global"}}
 HARNESS_TIMEOUT_S = 600    # phase 17's child process
+# phase 19: scripts/traffic_soak.py's cluster, marks, horizon and SLO and
+# its default seed (KUEUE_TPU_TRAFFIC_SEED); the search runs its --quick
+# iterations, 2 (not 4): the whole run passed 900 s with 4
+TRAFFIC = dict(n_cqs=1000, duration_s=30.0, slo_p99_s=8.0, seed=1109,
+               iters=2, wall_budget_s=60.0)
+PROV_SCALE = 1.0            # phase 20: 15,000 workloads (0.2: 3,000)
+# the outcomes of phase 20's check writes that must all show
+PROV_REACHED = ("Ready: Provisioned", "Retry: Retrying after Failed",
+                "Retry: Retrying after booking expired",
+                "Rejected: CapacityRevoked", "Rejected: Failed")
+ADMIT_KERNELS = ("admit_scan", "admit_scan_forests", "admit_scan_preempt")
 README_REPLAY = ("76.8 virtual s; large/medium/small 0 / 33.2 / 54.1 s; "
                  "min CQ usage 98.7%")
 
@@ -562,7 +603,7 @@ def compare(name, args, kw, stats) -> None:
 
 def route_of(name) -> str:
     """The route the last launch of ``name`` took: kq_cq_avail's staged
-    or global route, kq_classify_heads' lane groups or loop,
+    or global route, drs_components' staged route or walk, kq_classify_heads' lane groups or loop,
     kq_cycle_order's registers or global route; burst_cycles' forest
     state in shared memory or global rows; minimal_preemptions_batch's
     trees and candidates staged ("shared"), read from the inputs
@@ -572,6 +613,8 @@ def route_of(name) -> str:
     from kueue_tpu_torch import kernels
     if name in PHASE1:
         route = kernels.PHASE1_ROUTES[name]
+    elif name == "drs_components":
+        route = kernels.DRS_ROUTES[name]
     elif name == "burst_cycles":
         route = kernels.BURST_ROUTES[name]
     elif name == "minimal_preemptions_batch":
@@ -819,8 +862,10 @@ def bound_bytes(name, args, outs) -> int:
         from kueue_tpu_torch.ops.packing import scatter_layout
         from kueue_tpu_torch.parallel import sharded
         planes, buf, count = args
+        n = planes[0].shape[0]
         rows = sharded.unpack_scatter_rows(planes, buf, count)[0]
-        rows = rows[(rows >= 0) & (rows < planes[0].shape[0])]
+        rows = rows[(rows >= -n) & (rows < n)]
+        rows = torch.where(rows < 0, rows + n, rows)
         return 2 * int(torch.unique(rows).numel()) * sum(
             scatter_layout(planes, count)[1])
     return io_bytes(args, outs)
@@ -1813,6 +1858,13 @@ def smoke(launcher: Launcher) -> int:
                      F=int(arrays[0].shape[-1]) if name != "burst_cycles"
                      else int(arrays[17].shape[1]))
         n3h.setdefault(name, []).append(shape)
+    # drs_components' (node, column) design: depth 1 to 17, F = 1 to 65,
+    # R = 1 to 5, a resource with no column, the int32 range, both routes
+    for arrays, kw in testing.drs_design_cases(0):
+        compare("drs_components", on_card(arrays), kw, stats)
+        n3h.setdefault("drs_components", []).append(dict(
+            N=int(arrays[0].shape[0]), depth=kw["depth"],
+            F=int(arrays[0].shape[1]), R=kw["n_resources"]))
     # the forest-parallel flat scan and the burst on both routes: the
     # flat scan's layouts (testing.flat_scan_cases: one forest past a
     # block's shared memory among them) with and without the forest
@@ -2027,8 +2079,9 @@ def smoke(launcher: Launcher) -> int:
     check(any(r[3] for r in r15w["records"]), "15c: no preemption")
 
     # -- 3g. the two sharded-burst kernels: seeded and captured -------------
-    # packed buffers: padded duplicate rows, a row past the planes,
-    # 5-byte bool rows, 16-byte rows; all 250 rows of a shard dirty
+    # packed buffers: padded duplicate rows, rows past the planes and
+    # below -C, a row in [-C, 0) (written at C + r), 5-byte bool rows,
+    # 16-byte rows; all 250 rows of a shard dirty
     for seed, C, D in ((0, 12, 1), (1, 12, 3), (2, 12, 9), (3, 12, 12),
                        (4, 250, 250)):
         planes, rows, vals = testing.scatter_case(seed, C=C, D=D)
@@ -2310,6 +2363,135 @@ def smoke(launcher: Launcher) -> int:
     del d, mgr, plan, r
     scenarios.release()
 
+    # -- 19. the open loop at traffic_soak.py's width ------------------------
+    from kueue_tpu_torch.traffic import find_sustainable_rate
+    n19 = TRAFFIC["n_cqs"]
+    loop_cfg = {k: TRAFFIC[k] for k in ("duration_s", "slo_p99_s")}
+    cap19 = scenarios.traffic_capacity(n19)
+    rate19 = round(cap19 * 0.5, 1)
+    seed19 = scenarios.rate_seed(TRAFFIC["seed"], rate19)
+    t0 = time.perf_counter()
+    d, clock = scenarios.build_traffic(n19, device="cuda")
+    build_s = time.perf_counter() - t0
+    kernels.reset_counts()
+    with DeviceClock() as dc19, GCWatch() as gc19:
+        r19 = scenarios.open_loop(
+            d, clock, scenarios.traffic_stream(n19, rate19, seed19),
+            **loop_cfg)
+    launches19 = dict(kernels.LAUNCHES)
+    ss = d.scheduler.solver.stats
+    log(f"[19 traffic-1k] {n19} CQs (built in {build_s:.1f}s), Poisson "
+        f"{rate19}/s (half of the capacity estimate {cap19:.1f}/s, seed "
+        f"{seed19}), {r19.cycles} cycles in {r19.wall_s:.2f}s: submitted "
+        f"{r19.submitted}, admitted {r19.admitted}, cancelled "
+        f"{r19.cancelled}, churned {r19.churned}; latency p50 / p99 "
+        f"{r19.p50_latency_s} / {r19.p99_latency_s} virtual s (SLO "
+        f"{TRAFFIC['slo_p99_s']}), depth max / end {r19.max_depth} / "
+        f"{r19.end_depth}, meets_slo {r19.meets_slo}; cycle wall p50 / p99 "
+        f"{r19.cycle_wall_p50_ms:.3f} / {r19.cycle_wall_p99_ms:.3f}ms; "
+        f"host_cycles {ss['host_cycles']}; {gc19.line()}; launches "
+        f"{json.dumps({k: v for k, v in launches19.items() if v})}; "
+        f"{device_line('19', dc19, r19.wall_s, launches19)}; {smi_line}")
+    check(r19.meets_slo and not r19.truncated, "phase 19: over the SLO")
+    check(r19.max_depth < rate19 * TRAFFIC["slo_p99_s"],
+          f"phase 19: queue depth {r19.max_depth} not bounded")
+    check(sum(launches19[k] for k in ADMIT_KERNELS) > 0, launches19)
+    check(ss["host_cycles"] == 0, ss)
+    check(gc19.n == 0, f"phase 19: {gc19.line()}")
+    # the phase's drivers stay frozen until its end: one release, the
+    # one full collection that scans the whole heap
+    del d
+    before = dict(kernels.LAUNCHES)
+    r19c, d = scenarios.traffic_probe(n19, rate19, seed=seed19,
+                                      device="cpu", **loop_cfg)
+    decided = ("decisions", "submitted", "admitted", "cancelled", "churned",
+               "p50_latency_s", "p99_latency_s", "mean_latency_s",
+               "latency_hist", "max_depth", "end_depth", "meets_slo")
+    diff19 = [k for k in decided if getattr(r19c, k) != getattr(r19, k)]
+    check(kernels.LAUNCHES == before, "the CPU run launched a kernel")
+    del d
+    r19r, d = scenarios.traffic_probe(n19, rate19, seed=seed19,
+                                      device="cuda", events=r19.events,
+                                      **loop_cfg)
+    log(f"[19 traffic parity] cpu: {r19c.cycles} cycles in "
+        f"{r19c.wall_s:.2f}s, fields differing from the card's "
+        f"{diff19}; card replay of {len(r19.events)} events: decisions "
+        f"bit-identical {r19r.decisions == r19.decisions}")
+    check(not diff19, diff19)
+    check(r19r.decisions == r19.decisions, "phase 19: the replay diverged")
+    del d
+
+    def probe19(rate):
+        return scenarios.traffic_probe(
+            n19, rate, seed=scenarios.rate_seed(TRAFFIC["seed"], rate),
+            device="cuda", wall_budget_s=TRAFFIC["wall_budget_s"],
+            **loop_cfg)[0]
+
+    t0 = time.perf_counter()
+    kernels.reset_counts()
+    best19, probes19 = find_sustainable_rate(
+        probe19, rate19, cap19 * 1.5, iters=TRAFFIC["iters"])
+    launches19s = dict(kernels.LAUNCHES)
+    at_best = next((r for r in probes19 if r.rate_per_s == best19), r19)
+    log(f"[19 sustainable rate] {best19:.1f}/s at p99 <= "
+        f"{TRAFFIC['slo_p99_s']} virtual s over [{rate19}, "
+        f"{cap19 * 1.5:.1f}] in {TRAFFIC['iters']} probes "
+        f"({time.perf_counter() - t0:.1f}s): "
+        f"{json.dumps([[round(r.rate_per_s, 1), r.meets_slo, r.p99_latency_s, r.end_depth, round(r.cycle_wall_p50_ms, 3), round(r.cycle_wall_p99_ms, 3)] for r in probes19])} "
+        f"(rate, meets, p99 s, end depth, cycle wall p50 / p99 ms); at "
+        f"the rate cycle wall p50 / p99 {at_best.cycle_wall_p50_ms:.3f} / "
+        f"{at_best.cycle_wall_p99_ms:.3f}ms, admissions per wall s "
+        f"{at_best.admissions_per_wall_s:.1f}; launches "
+        f"{json.dumps({k: v for k, v in launches19s.items() if v})}; "
+        f"{smi_line}")
+    check(sum(launches19s[k] for k in ADMIT_KERNELS) > 0, launches19s)
+    del probes19, at_best
+    scenarios.release()
+
+    # -- 20. two-phase admission with a provisioning check ------------------
+    t0 = time.perf_counter()
+    d, clock, ctrl, total, waves, revoke = scenarios.build_provisioning(
+        PROV_SCALE, device="cuda")
+    build_s = time.perf_counter() - t0
+    kernels.reset_counts()
+    with DeviceClock() as dc20, GCWatch() as gc20:
+        r20 = scenarios.run_provisioning(d, clock, ctrl, total, waves,
+                                         revoke)
+    launches20 = dict(kernels.LAUNCHES)
+    ss = d.scheduler.solver.stats
+    log(f"[20 provisioning-15k] {total} workloads in 30 CQs with the "
+        f"check (built in {build_s:.1f}s), {r20['cycles']} cycles in "
+        f"{r20['wall']:.2f}s (schedule_once "
+        f"{sum(r20['cycle_times']):.2f}s, the controller and the drain "
+        f"the rest), cycle p50 "
+        f"{scenarios.percentile(r20['cycle_times'], 0.5) * 1e3:.3f}ms p99 "
+        f"{scenarios.percentile(r20['cycle_times'], 0.99) * 1e3:.3f}ms; "
+        f"admitted {r20['admitted']}, finished {r20['finished']}, rejected "
+        f"{r20['rejected']}; check writes {json.dumps(r20['reached'])}; "
+        f"host_cycles {ss['host_cycles']}; {gc20.line()}; launches "
+        f"{json.dumps({k: v for k, v in launches20.items() if v})}; "
+        f"{device_line('20', dc20, r20['wall'], launches20)}")
+    check(r20["finished"] + r20["rejected"] == total, r20["cycles"])
+    check(set(PROV_REACHED) <= set(r20["reached"]), r20["reached"])
+    check(sum(launches20[k] for k in ADMIT_KERNELS) > 0, launches20)
+    check(ss["host_cycles"] == 0, ss)
+    check(gc20.n == 0, f"phase 20: {gc20.line()}")
+    del d, ctrl, waves, revoke, r20
+    digests20 = {}
+    for device in ("cuda", "cpu"):
+        d, clock, ctrl, total, waves, revoke = scenarios.build_provisioning(
+            PARITY_SCALE, device=device)
+        r = scenarios.run_provisioning(d, clock, ctrl, total, waves, revoke)
+        digests20[device] = scenarios.decision_digest(
+            d, [r["decisions"], r["requests"], r["reached"]])
+        log(f"[20 provisioning parity] {device}: {total} workloads, "
+            f"{r['cycles']} cycles in {r['wall']:.2f}s, admitted "
+            f"{r['admitted']}, finished {r['finished']}, rejected "
+            f"{r['rejected']}, digest {digests20[device]}")
+        del d, ctrl, waves, revoke, r
+    scenarios.release()
+    check(digests20["cuda"] == digests20["cpu"], digests20)
+
     # -- 3i. the mesh kernels and the per-shard scans against plain ---------
     mesh_phases = ("bench_mesh", "northstar_mesh", "northstar_fs_mesh",
                    "dryrun")
@@ -2370,7 +2552,8 @@ def smoke(launcher: Launcher) -> int:
                 "11": launches11, "13": launches13, "14": launches14,
                 "15": launches15, "15b": launches15b, "15c": launches15w,
                 "16": launches16, "16b": launches16b, "16c": launches16c,
-                "16d": launches16d, "17": launches17, "18": launches18}
+                "16d": launches16d, "17": launches17, "18": launches18,
+                "19": launches19, "20": launches20}
     rows = []
     for name in kernels.KERNELS:
         phase = {"admit_scan_forests": "northstar",
@@ -2560,6 +2743,20 @@ def smoke(launcher: Launcher) -> int:
                                         F=int(args[0].shape[1]),
                                         R=kw["n_resources"],
                                         depth=kw["depth"])
+            extra["device_ms_per_launch_on_path"] = per_launch(dc9, name)
+            # the chain's cost: 1,000 CQs under a cohort chain 17 deep
+            d_args, d_kw = testing.drs_case(
+                np.random.default_rng(17), n_cqs=1000, n_cohorts=16,
+                depth=2, F=12, R=3, wl_req=False, chain=True)
+            d_args = on_card(d_args)
+            compare(name, d_args, d_kw, stats)
+            check(stats[name]["mismatches"] == 0, stats[name])
+            td = time_kernel(name, d_args, d_kw)
+            extra["deep_17"] = dict(
+                **{k: td[k] for k in ("ms", "kernel_ms", "plain_ms",
+                                      "bound_ms", "bound_by")},
+                route=route_of(name), shape=dict(N=1016, F=12, R=3,
+                                                 depth=d_kw["depth"]))
         if name == "burst_cycles":
             # the same timing on a perf-scenario window (5 forests)
             b_args, b_kw = burst_window(cap.calls[("bench_burst", name)])

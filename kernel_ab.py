@@ -65,7 +65,15 @@ of the outputs:
   packed buffer, each digest over the planes written;
 - the 15c drain itself, twice (``resident_15c``): per resident hit the
   host seconds of the scatter, its host-to-device copies and launches,
-  and a digest of the records.
+  and a digest of the records;
+- ``drs_components`` on phase 9's shape (``drs_phase9``: 1,000 CQs
+  under 200 root cohorts, F = R = 1, depth 2), on the probe's planes
+  (``drs_probe``: 1,000 CQs in 64 cohorts, F = 12, R = 3) and on a
+  cohort chain 17 levels deep over 1,000 CQs (``drs_deep``, F = 12, R =
+  3), seeded, each with the kernel's own µs by the profiler
+  (``kernel_us``: the ``drs_components`` kernel alone) beside the
+  wrapper's ms, the device µs of everything a call issues
+  (``device_us``) and the route where the checkout records one.
 
 The captured inputs (probe, perf scenario, bursts, preemption cycles)
 are built on first
@@ -100,7 +108,11 @@ own row of cells), the chain's resolution in shared memory, the loads
 of every level (their values consumed before the mark) and the fold
 with the stores; the walk design as one phase.  The row scatter's: the
 block-per-pair design's row read and copy loop, or the warp-per-pair
-design's read of the row and its values with the copy as one phase."""
+design's read of the row and its values with the copy as one phase.
+``drs_components``': in the (node, column) design the lanes' own cells
+(with the staging of parent[] on the staged route), the chain with its
+level loads and fold, the (node, resource) sums and the stores; the
+thread-per-(node, resource) design as one phase."""
 
 from __future__ import annotations
 
@@ -441,6 +453,7 @@ def phase1_calls(kernels, cases):
 
 
 AVAIL_CASES = ("cq_avail_probe", "cq_avail_dryrun", "cq_avail_deep")
+DRS_CASES = ("drs_phase9", "drs_probe", "drs_deep")
 SCATTER_CASES = ("scatter_15c", "scatter_wide")
 
 
@@ -469,6 +482,29 @@ def avail_cases(scenarios, testing) -> dict:
         tuple(torch.from_numpy(c[k]) for k in testing.SOLVE_ARGS[:6]),
         {"n_cqs": 1000, "depth": c["depth"]})
     return out
+
+
+def drs_cases(scenarios, testing) -> dict:
+    """drs_components' inputs, seeded (``testing.drs_case``, which every
+    checkout has): phase 9's shape, the probe's planes (F = 12 as 4
+    flavors x 3 resources), a cohort chain 17 levels deep."""
+    import numpy as np
+    import torch
+    out = {}
+    args, kw = testing.drs_case(np.random.default_rng(9), n_cqs=1000,
+                                n_cohorts=200, depth=2, F=1, R=1,
+                                wl_req=False)
+    out["drs_phase9"] = (args, kw)
+    planes, depth = scenarios.probe_synth(W=8, C=1000, cohorts=64, seed=1)
+    fr = (np.arange(planes[0].shape[1]) % 3).astype(np.int32)
+    out["drs_probe"] = (tuple(np.ascontiguousarray(a) for a in planes[:6])
+                        + (fr,), {"n_resources": 3, "depth": depth})
+    args, kw = testing.drs_case(np.random.default_rng(17), n_cqs=1000,
+                                n_cohorts=16, depth=2, F=12, R=3,
+                                wl_req=False, chain=True)
+    out["drs_deep"] = (args, kw)
+    return {k: (tuple(torch.from_numpy(a) for a in args), kw)
+            for k, (args, kw) in out.items()}
 
 
 def capture_scatter_case() -> dict:
@@ -696,6 +732,38 @@ def avail_calls(kernels, cases):
         calls.append((case, lambda a=args, k=kw: kernels.kq_cq_avail(*a,
                                                                      **k)))
     return calls
+
+
+def drs_calls(kernels, cases):
+    """(case, callable) for every drs_components case."""
+    calls = []
+    for case in DRS_CASES:
+        args, kw = cases[case]
+        args = to_card(args)
+        calls.append((case, lambda a=args, k=kw:
+                      kernels.drs_components(*a, **k)))
+    return calls
+
+
+def own_us(call, name: str, reps: int = 50) -> dict:
+    """``reps`` calls behind a busy stream under the profiler
+    (``profiling.DeviceClock``): the mean duration of ``name``'s own
+    kernel, how many of its launches it recorded, and the device µs of
+    everything a call issues (``device_us``)."""
+    import torch
+    from kueue_tpu_torch import kernels
+    from kueue_tpu_torch.profiling import DeviceClock
+    call()
+    torch.cuda.synchronize()
+    with DeviceClock() as clk:
+        torch.cuda._sleep(100_000_000)
+        for _ in range(reps):
+            call()
+    own = [t1 - t0 for n, v in clk.spans_us.items()
+           if kernels.launcher_of(n) == name for t0, t1 in v]
+    spans = [t1 - t0 for v in clk.spans_us.values() for t0, t1 in v]
+    return dict(kernel_us=sum(own) / len(own) if own else None,
+                kernel_records=len(own), device_us=sum(spans) / reps)
 
 
 def scatter_calls(kernels, cases):
@@ -1386,6 +1454,53 @@ def split_scatter(src: Path, dst: Path) -> bool:
     return warp
 
 
+# drs_components: block 0's thread 0 (lane 0 of its first warp)
+DRS_LANE_PHASES = {0: "own cells (+ staging)", 1: "chain + level loads + fold",
+                   2: "sums", 3: "stores"}
+DRS_THREAD_PHASES = {0: "columns, parent chains, stores"}
+
+
+def split_drs(src: Path, dst: Path) -> bool:
+    """The phase timers in the checkout's drs_components → (the (node,
+    column) design)."""
+    text = (src / "drs_components.cu").read_text()
+    lanes = "kq_drs_potential" in text
+    pairs = [('#include "quota.cuh"\n',
+              '#include "quota.cuh"\n' + SPLIT_HEAD.replace("TAG", "drs")
+              + "__shared__ volatile unsigned kq_split_sink;\n")]
+    if lanes:
+        pairs += [
+            ("  const int F = k.F, R = k.R, per = k.per;\n",
+             "  const int F = k.F, R = k.R, per = k.per;\n"
+             "  kq_split_start();\n"),
+            ("  for (int c = 0; c < chunks; ++c) {\n",
+             "  kq_split_mark(0);\n  for (int c = 0; c < chunks; ++c) {\n"),
+            ("    // the (node, resource) sums:",
+             "    if (threadIdx.x == 0) kq_split_sink = l;\n"
+             "    kq_split_mark(1);\n    // the (node, resource) sums:"),
+            ("      atomicAdd(acc + cells + key, l);\n    }\n"
+             "    __syncwarp();\n  }\n",
+             "      atomicAdd(acc + cells + key, l);\n    }\n"
+             "    __syncwarp();\n    kq_split_mark(2);\n  }\n"),
+            ("      k.lendable[o] = static_cast<int>(acc[cells + j]);\n"
+             "    }\n  }\n}\n",
+             "      k.lendable[o] = static_cast<int>(acc[cells + j]);\n"
+             "    }\n  }\n  kq_split_mark(3);\n  kq_split_flush();\n}\n"),
+        ]
+    else:
+        pairs += [
+            ("  const int idx = blockIdx.x * blockDim.x + threadIdx.x;\n",
+             "  kq_split_start();\n"
+             "  const int idx = blockIdx.x * blockDim.x + threadIdx.x;\n"),
+            ("  borrowing[idx] = b;\n  lendable[idx] = lend;\n}\n",
+             "  borrowing[idx] = b;\n  lendable[idx] = lend;\n"
+             "  kq_split_mark(0);\n  kq_split_flush();\n}\n"),
+        ]
+    (dst / "drs_components.cu").write_text(_patch(text, pairs,
+                                                  "drs_components.cu"))
+    return lanes
+
+
 def split_sources(src: Path, dst: Path) -> tuple:
     """Copies of the checkout's kernel sources in ``dst``, with the
     phase timers in the flat admit_scan, burst_cycles and
@@ -1508,7 +1623,7 @@ def split_build(kernels, src: Path):
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     for tag in ("admit", "burst", "preempt", "search", "forest", "phase1",
-                "scatter"):
+                "scatter", "drs"):
         getattr(lib, f"kq_split_{tag}_read").argtypes = [ctypes.c_void_p]
     kernels._lib = lib
     return lib
@@ -1575,6 +1690,7 @@ def main() -> int:
     cases.update(synthetic_cases(tt))
     cases.update(phase1_cases(scenarios, tt))
     cases.update(avail_cases(scenarios, tt))
+    cases.update(drs_cases(scenarios, tt))
 
     if "--split" in opts:
         dst = Path(opts["--split"]).resolve()
@@ -1583,8 +1699,15 @@ def main() -> int:
         group, chip = split_phase1(Path(kernels.__file__).resolve().parent,
                                    dst)
         warp = split_scatter(Path(kernels.__file__).resolve().parent, dst)
+        lanes = split_drs(Path(kernels.__file__).resolve().parent, dst)
         staged = "kq_avail_staged" in (dst / "solve_cycle.cu").read_text()
         lib = split_build(kernels, dst)
+        for case, call in drs_calls(kernels, cases):
+            out[case] = split_run(lib, "drs", call, DRS_LANE_PHASES
+                                  if lanes else DRS_THREAD_PHASES, 10)
+            out[case]["design"] = ("lanes over (node, column)" if lanes
+                                   else "thread per (node, resource)")
+            out[case]["ms"] = event_ms(call, 10)
         for case, call in avail_calls(kernels, cases):
             out[case] = split_run(lib, "phase1", call, AVAIL_STAGED_PHASES
                                   if staged else AVAIL_WALK_PHASES, 10)
@@ -1694,6 +1817,11 @@ def main() -> int:
                          route=kernels.PHASE1_ROUTES.get("kq_cq_avail"))
     for case, call, planes in scatter_calls(kernels, cases):
         out[case] = dict(ms=event_ms(call, 50), digest=digest(*planes))
+    for case, call in drs_calls(kernels, cases):
+        out[case] = dict(ms=event_ms(call, 50), digest=digest(*call()),
+                         **own_us(call, "drs_components"),
+                         route=getattr(kernels, "DRS_ROUTES", {}).get(
+                             "drs_components"))
     out["resident_15c"] = resident_drain()
     for case, call in (search_calls(kernels, cases)
                        + forest_calls(kernels, cases)

@@ -139,7 +139,7 @@ _ARGTYPES = {
     "kq_minimal_preemptions": [_P, _P, _P],
     "kq_burst_cycles": [_P, _P, _P],
     "kq_fs_admit_scan": [_P, _P, _P],
-    "kq_drs_components": [_P] * 11 + [_I] * 4 + [_P],
+    "kq_drs_components": [_P, _P, _P],
     "kq_tas_fill_counts": [_P, _P, _P],
     "kq_tas_best_fit_descend": [_P, _P, _P],
     "kq_tas_split_across_roots": [_P, _P, _P],
@@ -825,11 +825,46 @@ def fs_admit_scan(usage0, subtree, sq_mask, guaranteed, borrow_cap,
     return order, admitted, processed
 
 
+# drs_components: parent[] staged in shared memory up to this N for a
+# chain deeper than 2 levels (the staged route), else each lane walks the
+# chain from global memory (the walk)
+DRS_STAGE_MAX = 12288       # KQ_DRS_STAGE_MAX in drs_components.cu
+# the route of drs_components' last launch: "staged" or "walk"
+DRS_ROUTES: dict[str, str] = {}
+
+
+def drs_layout(N: int, F: int, R: int, depth: int) -> dict:
+    """drs_components' launch for N nodes, F columns, R resources and a
+    chain of ``depth`` levels: its route ("staged" for depth > 2 to
+    ``DRS_STAGE_MAX`` nodes, as far as shared memory holds parent[]
+    beside the sums; else "walk", whose one round trip a level costs
+    less than staging at depth 2), nodes a warp (``per``: 32 / F for
+    F <= 32, else 1), warps a block (8) and shared bytes (each warp's
+    [2, per, R] sums, then parent[] when staged); ``per`` and the warps
+    halve while the sums alone outgrow shared memory."""
+    per, warps = (32 // F if 0 < F <= 32 else 32 if F == 0 else 1), 8
+    while warps * per * R * 8 > SMEM_LIMIT and warps > 1:
+        warps //= 2
+    while warps * per * R * 8 > SMEM_LIMIT and per > 1:
+        per //= 2
+    sums = warps * per * R * 8
+    if sums > SMEM_LIMIT:
+        raise ValueError(f"n_resources={R}: one node's sums ({sums} "
+                         f"bytes) outgrow a block's shared memory")
+    staged = (depth > 2 and N <= DRS_STAGE_MAX
+              and sums + 4 * N <= SMEM_LIMIT)
+    return dict(route="staged" if staged else "walk", per=per,
+                warps=warps, smem=sums + (4 * N if staged else 0))
+
+
 def drs_components(usage, subtree, guaranteed, borrow_cap, has_blim, parent,
                    fr_to_resource, wl_req=None, *, n_resources, depth):
     """CUDA drs_components (kernels/drs_components.cu) → (borrowing
     [N, R] int32, lendable [N, R] int32); arguments as
-    ``ops.fairsharing_kernel.drs_components_plain``."""
+    ``ops.fairsharing_kernel.drs_components_plain``.  The kernel writes
+    every output cell once and reads no usage plane for the potential:
+    the wrapper allocates the two outputs and launches, nothing more.
+    The route (``drs_layout``) lands in ``DRS_ROUTES``."""
     dev = usage.device
     if dev.type != "cuda":
         raise ValueError(f"usage on {dev}: the kernels need CUDA tensors")
@@ -849,15 +884,16 @@ def drs_components(usage, subtree, guaranteed, borrow_cap, has_blim, parent,
         raise ValueError(f"n_resources={R} must be at least 1")
     borrowing = torch.empty((N, R), dtype=i32, device=dev)
     lendable = torch.empty((N, R), dtype=i32, device=dev)
+    lay = drs_layout(N, F, R, depth)
+    DRS_ROUTES["drs_components"] = lay["route"]
     if N == 0:
         return borrowing, lendable
-    lib = load()
-    zeros = torch.zeros((N, F), dtype=i32, device=dev)
-    _launch("drs_components", lib.kq_drs_components,
-            *_cycle_ptrs(usage, subtree, guaranteed, borrow_cap, has_blim,
-                         parent, fr_to_resource),
-            _P(wl_req.data_ptr() if wl_req is not None else None),
-            *_cycle_ptrs(zeros, borrowing, lendable), N, F, R, depth)
+    _array_launch("drs_components", load().kq_drs_components,
+                  [usage, wl_req, subtree, guaranteed, borrow_cap, has_blim,
+                   parent, fr_to_resource, borrowing, lendable],
+                  [N, F, R, depth, cq_avail_segment(depth),
+                   int(lay["route"] == "staged"), lay["per"], lay["warps"],
+                   lay["smem"]])
     return borrowing, lendable
 
 

@@ -88,6 +88,20 @@ __device__ __forceinline__ void kq_chain_top_down(const int* parent,
   }
 }
 
+// One level of the top-down available() fold on an all-zero usage plane
+// (the potential availability): a root gives its subtree quota, a level
+// below max(0, g) plus what it may take from the level above, capped by
+// its borrowing limit where it has one.
+__device__ __forceinline__ void kq_potential_step(bool root, int sub, int g,
+                                                  int bc, bool hb, int& p) {
+  if (root) {
+    p = sub;
+    return;
+  }
+  const int pp = hb ? min(kq_sub(bc, max(0, kq_sub(0, g))), p) : p;
+  p = kq_add(max(0, g), pp);
+}
+
 // available() of one node in column f (resource_node.go:89): the chain
 // form of quota_kernel.available_at, walked from the depth-1-th ancestor
 // down to the node.  node = -1 gives 0.

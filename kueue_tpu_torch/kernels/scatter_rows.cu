@@ -17,9 +17,10 @@
 // where both are 4-byte aligned, else bytes (a bool plane of M-byte rows
 // with M odd, strict_cq's single byte).  Padded rows repeat the last row with its own value
 // (packing.scatter_pad), so two warps that write the same row write the
-// same bytes and their order does not matter.  A row outside
-// [0, n_rows) is dropped.  The write is in place: the resident planes
-// are updated, not copied.
+// same bytes and their order does not matter.  A row r in [-n_rows, 0)
+// writes row n_rows + r, and a row below -n_rows or at n_rows and past
+// it is dropped (NumPy indexing, which jnp's .at[].set follows).  The
+// write is in place: the resident planes are updated, not copied.
 //
 // kq_reduce_dflags replaces the psum at kueue_tpu/ops/burst.py:789-790
 // under parallel/sharded.py sharded_burst_fn: shard s's burst_cycles
@@ -62,8 +63,9 @@ kq_scatter_rows_kernel(ScatterTable tab, const char* buf, int P, int Dp,
   const int rb = tab.row_bytes[p];
   char* base = static_cast<char*>(tab.planes[p]);
   const char* src = buf + tab.offset[p] + static_cast<size_t>(i) * rb;
-  const bool keep = r >= 0 && r < n_rows;
-  char* dst = base + static_cast<size_t>(keep ? r : 0) * rb;
+  const bool keep = r >= -n_rows && r < n_rows;
+  const int row = r < 0 ? r + n_rows : r;
+  char* dst = base + static_cast<size_t>(keep ? row : 0) * rb;
   // a plane's rows and their segment rows (segments 16-byte aligned) all
   // share the alignment of (base | rb)
   const unsigned mis = static_cast<unsigned>(

@@ -84,17 +84,11 @@ __device__ __forceinline__ void kq_avail_step(bool root, int sub, int g,
                                               int& a, int& p) {
   if (root) {
     a = kq_sub(sub, u);
-    p = sub;
-    return;
+  } else {
+    const int pa = hb ? min(kq_sub(bc, max(0, kq_sub(u, g))), a) : a;
+    a = kq_add(max(0, kq_sub(g, u)), pa);
   }
-  int pa = a;
-  int pp = p;
-  if (hb) {
-    pa = min(kq_sub(bc, max(0, kq_sub(u, g))), a);
-    pp = min(kq_sub(bc, max(0, kq_sub(0, g))), p);
-  }
-  a = kq_add(max(0, kq_sub(g, u)), pa);
-  p = kq_add(max(0, g), pp);
+  kq_potential_step(root, sub, g, bc, hb, p);
 }
 
 // The global route: thread i is cell (i / F, i % F); the chain is

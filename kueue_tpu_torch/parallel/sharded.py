@@ -644,13 +644,16 @@ def unpack_scatter_rows(planes, buf, count: int):
 def scatter_rows_plain(planes, buf, count: int):
     """``plane[rows[i]] = vals[i]`` for every plane, in place, where the
     rows and values come packed in ``buf`` (``unpack_scatter_rows``); a
-    row outside [0, n) is dropped.  Returns the planes as a tuple
-    (kueue_tpu/ops/burst.py ``_scatter_rows_fn``, whose
-    ``a.at[rows].set(v)`` returns new arrays with the same values and
-    drops an index past the end)."""
+    row r in [-n, 0) writes row n + r, and a row below -n or at n and
+    past it is dropped, as NumPy indexing does.  Returns the planes as a
+    tuple (kueue_tpu/ops/burst.py ``_scatter_rows_fn``, whose
+    ``a.at[rows].set(v)`` returns new arrays with the same values,
+    wraps a negative index once and drops one out of range)."""
     rows, vals = unpack_scatter_rows(planes, buf, count)
-    keep = (rows >= 0) & (rows < planes[0].shape[0])
-    idx = rows[keep].long()
+    n = planes[0].shape[0]
+    keep = (rows >= -n) & (rows < n)
+    r = rows[keep].long()
+    idx = torch.where(r < 0, r + n, r)
     for p, v in zip(planes, vals):
         p[idx] = v[keep]
     return tuple(planes)

@@ -48,6 +48,14 @@ the north-star shape, driven per cycle through ``Driver.schedule_once``.
   width (``northstar_resident_spec``: 1,000 CQs in cohorts of 5, a
   backlog in every fifth, 40 reclaiming arrivals at cycle 36), whose
   window boundaries are delta packs that the shard-resident copy serves.
+- ``traffic_spec``/``build_traffic``/``traffic_stream``/``open_loop``/
+  ``traffic_probe``: scripts/traffic_soak.py's open loop (its cluster,
+  arrival marks, ``rate_seed`` and ``probe``) over ``traffic/``.
+- ``provisioning_spec``/``build_provisioning``/``run_provisioning``: the
+  perf scenario with a provisioning admission check on every CQ, a
+  ``ProvisioningController`` over a seeded capacity backend
+  (``capacity_outcome``), drained until every workload is finished or
+  rejected; either package's Driver.
 
 Every workload is generated from the scenario's parameters alone, so two
 runs (two devices, or this package and the JAX package) see the same
@@ -1766,3 +1774,278 @@ def probe_synth(W=100_000, C=1_000, S=4, R=3, cohorts=64, seed=0):
     return (usage0, subtree, guaranteed, borrow_cap, has_blim, parent,
             nominal, slot_fr, slot_valid, can_preempt,
             wl_cq, wl_requests, wl_priority, wl_timestamp), depth
+
+
+# ----------------------------------------------------------------------
+# Open-loop traffic (scripts/traffic_soak.py) and two-phase admission
+# with a provisioning check
+# ----------------------------------------------------------------------
+
+TRAFFIC_RUNTIMES_S = (2.0, 4.0)   # mean 3 s; 2 concurrent 1500m slots a CQ
+
+
+def traffic_spec(t, d, n_cqs: int) -> None:
+    """Populate driver ``d`` (of either package, ``t`` its api.types
+    module) with scripts/traffic_soak.py ``build``'s cluster: CQs in
+    cohorts of 4, 4,000m cpu nominal each, BEST_EFFORT_FIFO, a
+    LocalQueue ``lq-<i>`` each.  Applied inside ``Driver.bulk_apply``:
+    one settle on exit instead of one per ClusterQueue (1,000 CQs build
+    in 0.06 s instead of 3 s on a CPU here; the same cluster, the same
+    decisions)."""
+    with d.bulk_apply():
+        _traffic_cluster(t, d, n_cqs)
+
+
+def _traffic_cluster(t, d, n_cqs: int) -> None:
+    d.apply_resource_flavor(t.ResourceFlavor(name="default"))
+    for q in range(n_cqs):
+        name = f"cq-{q}"
+        d.apply_cluster_queue(t.ClusterQueue(
+            name=name, cohort=f"co-{q // 4}",
+            queueing_strategy=t.QueueingStrategy.BEST_EFFORT_FIFO,
+            preemption=t.PreemptionPolicy(),
+            resource_groups=[t.ResourceGroup(
+                covered_resources=["cpu"],
+                flavors=[t.FlavorQuotas(name="default", resources={
+                    "cpu": t.ResourceQuota(nominal=4000)})])]))
+        d.apply_local_queue(t.LocalQueue(name=f"lq-{q}", cluster_queue=name))
+
+
+def traffic_capacity(n_cqs: int) -> float:
+    """The quota ceiling in admissions/s: slots / mean service time
+    (traffic_soak.py ``capacity_estimate``)."""
+    return n_cqs * 2 / (sum(TRAFFIC_RUNTIMES_S) / len(TRAFFIC_RUNTIMES_S))
+
+
+def traffic_marks(n_cqs: int):
+    """What each arrival looks like (traffic_soak.py ``spec_for``):
+    1,500m, priorities 0 / 10 / 20, runtimes 2 or 4 s, 2% cancels and
+    2% priority churn."""
+    from .traffic import TrafficSpec
+    return TrafficSpec(n_cqs=n_cqs, cpu_choices=(1500,),
+                       priorities=(0, 10, 20),
+                       runtime_choices_s=TRAFFIC_RUNTIMES_S,
+                       cancel_fraction=0.02, churn_fraction=0.02)
+
+
+def rate_seed(base: int, rate: float) -> int:
+    """The stream's seed at ``rate`` (traffic_soak.py ``rate_seed``):
+    one rate, one stream, in every arm and in the replay."""
+    return base + int(round(rate * 8))
+
+
+def build_traffic(n_cqs: int = 1000, device: str = "cuda"):
+    """traffic_soak.py ``build``'s cluster on a fresh Driver →
+    (driver, clock)."""
+    clock = VirtualClock()
+    d = Driver(clock=clock, use_device_solver=True, device=device)
+    traffic_spec(api_types, d, n_cqs)
+    freeze_heap()
+    return d, clock
+
+
+def traffic_stream(n_cqs: int, rate: float, seed: int, events=None):
+    """traffic_soak.py ``probe``'s stream: Poisson arrivals at ``rate``
+    with ``traffic_marks``, seeded by ``seed`` — or the recorded
+    ``events`` through a ``ReplayStream``."""
+    from .traffic import ArrivalStream, PoissonProcess, ReplayStream
+    if events is not None:
+        return ReplayStream(events)
+    return ArrivalStream(PoissonProcess(rate, seed=seed),
+                         traffic_marks(n_cqs), seed=seed)
+
+
+@measured
+def open_loop(d, clock, stream, duration_s: float = 30.0,
+              slo_p99_s: float = 8.0, wall_budget_s: float | None = None):
+    """``traffic.run_open_loop`` at dt = 1 s → its OpenLoopResult."""
+    from .traffic import OpenLoopConfig, run_open_loop
+    return run_open_loop(d, clock, stream, OpenLoopConfig(
+        duration_s=duration_s, dt_s=1.0, slo_p99_s=slo_p99_s,
+        wall_budget_s=wall_budget_s))
+
+
+def traffic_probe(n_cqs: int, rate: float, *, seed: int,
+                  device: str = "cuda", events=None, **cfg):
+    """One fresh-driver open-loop run at ``rate`` (traffic_soak.py
+    ``probe``): ``build_traffic``, then ``open_loop`` over
+    ``traffic_stream``; ``cfg`` as ``open_loop``'s → (OpenLoopResult,
+    with its consumed events and the rate, and the driver)."""
+    d, clock = build_traffic(n_cqs, device)
+    r = open_loop(d, clock, traffic_stream(n_cqs, rate, seed, events),
+                  **cfg)
+    r.rate_per_s = rate
+    return r, d
+
+
+PROV_CHECK = "prov"
+PROV_BACKOFF_S = 2          # virtual seconds; a cycle is one
+PROV_LIMIT = 3              # attempts before a check is rejected
+
+
+class CheckLog:
+    """The driver as an admission-check controller sees it: every
+    attribute is the driver's, and each check-state write is also kept
+    in ``log`` as ``[key, state, message]``."""
+
+    def __init__(self, driver):
+        self._driver = driver
+        self.log: list = []
+
+    def __getattr__(self, name):
+        return getattr(self._driver, name)
+
+    def set_admission_check_state(self, key, check, state, message=""):
+        self.log.append([key, state.value, message])
+        self._driver.set_admission_check_state(key, check, state, message)
+
+
+def capacity_outcome(seed: int, name: str, attempt: int) -> str:
+    """The seeded capacity backend's answer to request ``name``: on a
+    first attempt 60% ``Provisioned``, 20% ``Failed``, 15%
+    ``BookingExpired`` and 5% ``Revoke`` (provisioned, its capacity
+    revoked once the workload is admitted); on a retry 75%
+    ``Provisioned``, else ``Failed`` again.  crc32, not ``hash``: the
+    same answer in every process."""
+    import zlib
+    b = zlib.crc32(f"{seed}:{name}".encode()) % 100
+    if attempt > 1:
+        return "Provisioned" if b < 75 else "Failed"
+    return ("Provisioned" if b < 60 else "Failed" if b < 80
+            else "BookingExpired" if b < 95 else "Revoke")
+
+
+def provisioning_spec(t, ac, d, *, scale: float = 1.0, seed: int = 0):
+    """The perf scenario's 5 cohorts x 6 CQs on driver ``d`` (of either
+    package: ``t`` its api.types, ``ac`` its admissionchecks), each CQ
+    carrying the provisioning check ``PROV_CHECK``, and a
+    ``ProvisioningController`` over a CheckLog of ``d`` whose capacity
+    backend answers by ``capacity_outcome`` → (controller, total,
+    waves, requests to revoke once admitted)."""
+    d.apply_resource_flavor(t.ResourceFlavor(name="default"))
+    d.apply_admission_check(t.AdmissionCheck(
+        name=PROV_CHECK, controller_name=ac.PROVISIONING_CONTROLLER_NAME))
+    revoke: list = []
+
+    def backend(req):
+        out = capacity_outcome(seed, req.name, req.attempt)
+        if out == "Revoke":
+            revoke.append(req)
+            out = "Provisioned"
+        req.state = out
+        if out != "Provisioned":
+            req.failure_message = "zone stockout"
+
+    ctrl = ac.ProvisioningController(
+        CheckLog(d), check_name=PROV_CHECK,
+        config=t.ProvisioningRequestConfig(
+            name="prov-config", provisioning_class_name="queued-provisioning",
+            retry_strategy=t.ProvisioningRequestRetryStrategy(
+                backoff_limit_count=PROV_LIMIT,
+                backoff_base_seconds=PROV_BACKOFF_S)),
+        capacity_backend=backend)
+    total = 0
+    waves: dict[str, list] = {c[0]: [] for c in CLASSES}
+    for c in range(N_COHORTS):
+        for q in range(CQS_PER_COHORT):
+            name = f"cq-{c}-{q}"
+            d.apply_cluster_queue(t.ClusterQueue(
+                name=name, cohort=f"cohort-{c}",
+                admission_checks=[PROV_CHECK],
+                preemption=t.PreemptionPolicy(
+                    reclaim_within_cohort=t.ReclaimWithinCohort.ANY,
+                    within_cluster_queue=t.WithinClusterQueue.LOWER_PRIORITY),
+                resource_groups=[t.ResourceGroup(
+                    covered_resources=["cpu"],
+                    flavors=[t.FlavorQuotas(name="default", resources={
+                        "cpu": t.ResourceQuota(
+                            nominal=20 * UNIT,
+                            borrowing_limit=100 * UNIT)})])]))
+            d.apply_local_queue(t.LocalQueue(name=f"lq-{c}-{q}",
+                                             cluster_queue=name))
+            for cls, count, units, prio in CLASSES:
+                for k in range(max(1, int(count * scale))):
+                    total += 1
+                    waves[cls].append(t.Workload(
+                        name=f"{cls}-{c}-{q}-{k}", queue_name=f"lq-{c}-{q}",
+                        priority=prio, creation_time=float(total),
+                        pod_sets=[t.PodSet(name="main", count=1,
+                                           requests={"cpu": units * UNIT})]))
+    return ctrl, total, waves, revoke
+
+
+def build_provisioning(scale: float = 1.0, device: str = "cuda",
+                       seed: int = 0):
+    """``provisioning_spec`` on a fresh port Driver → (driver, clock,
+    controller, total, waves, revoke)."""
+    from . import admissionchecks
+    clock = VirtualClock()
+    d = Driver(clock=clock, device=device)
+    ctrl, total, waves, revoke = provisioning_spec(
+        api_types, admissionchecks, d, scale=scale, seed=seed)
+    freeze_heap()
+    return d, clock, ctrl, total, waves, revoke
+
+
+def _check_kind(state: str, message: str) -> str:
+    """A check write's kind: its state and the request state behind it."""
+    return f"{state}: {message.split(':', 1)[0]}"
+
+
+@measured
+def run_provisioning(d, clock, ctrl, total: int, waves, revoke,
+                     runtime_cycles: int = RUNTIME_CYCLES,
+                     max_cycles: int = 10_000) -> dict:
+    """Drain the provisioning scenario (either package): per cycle the
+    waves due, ``schedule_once`` (quota reserved, checks pending), the
+    controller's ``reconcile`` (requests created and answered, checks
+    Ready / Retry / Rejected), the capacity revoked under every admitted
+    workload whose request the backend marked, and the finishes due,
+    until every workload is finished or rejected.  ``decisions`` holds
+    per cycle the reservations (CQ and flavors) and every check write."""
+    log = ctrl.driver.log
+    running: list[tuple[int, str]] = []
+    cycle = 0
+    cycle_times = []
+    decisions = []
+    reached: dict[str, int] = {}
+    admitted = done = 0          # done: finished or rejected
+    pending = sorted(waves.items(), key=lambda kv: WAVE_AT_CYCLE[kv[0]])
+    keys = [wl.key for _, wls in pending for wl in wls]
+    t0 = time.perf_counter()
+    while cycle < max_cycles and done < total:
+        for cls, wls in list(pending):
+            if cycle >= WAVE_AT_CYCLE[cls]:
+                for wl in wls:
+                    d.create_workload(wl)
+                pending.remove((cls, wls))
+        cycle += 1
+        clock.t += 1.0
+        c0 = time.perf_counter()
+        stats = d.schedule_once()
+        cycle_times.append(time.perf_counter() - c0)
+        del log[:]
+        ctrl.reconcile()
+        for req in list(revoke):
+            wl = d.workloads.get(req.workload_key)
+            if wl is not None and wl.is_admitted:
+                req.state = "CapacityRevoked"
+                req.failure_message = "nodes deleted"
+                revoke.remove(req)
+        for key, state, message in log:
+            kind = _check_kind(state, message)
+            reached[kind] = reached.get(kind, 0) + 1
+            if state == "Ready":
+                admitted += 1
+                running.append((cycle + runtime_cycles, key))
+            done += state == "Rejected"
+        decisions.append([[_admission_record(d, k)
+                           for k in sorted(stats.admitted)], list(log)])
+        running, n = _finish_due(d, running, cycle)
+        done += n
+    finished = sum(d.workloads[k].is_finished for k in keys)
+    rejected = sum(not d.workloads[k].is_active for k in keys)
+    return dict(wall=time.perf_counter() - t0, cycles=cycle,
+                cycle_times=cycle_times, total=total, admitted=admitted,
+                finished=finished, rejected=rejected, reached=reached,
+                requests=sorted(ctrl.requests), decisions=decisions)

@@ -794,19 +794,60 @@ DRS_SHAPES = [
 
 def drs_case(rng: np.random.Generator, *, n_cqs: int, n_cohorts: int,
              depth: int, F: int, R: int, wl_req: bool,
-             chain: bool = False) -> tuple:
+             chain: bool = False, extremes: bool = False,
+             empty: bool = False) -> tuple:
     """(positional arrays, keywords) of drs_components (``chain`` as
-    ``forest``)."""
+    ``forest``).  ``extremes``: every plane drawn over the whole int32
+    range (negative guaranteed, sums that wrap); ``empty``: resource 0
+    has no column (its columns go to resource 1)."""
     parent, _, _, true_depth = forest(rng, n_cqs, n_cohorts, depth, chain)
     N = n_cqs + n_cohorts
     q = quota_planes(rng, N, F)
     fr = (np.arange(F) % R).astype(np.int32)
     rng.shuffle(fr)
+    if empty:
+        fr[fr == 0] = 1 % R
+    if extremes:
+        for k in ("usage0", "subtree", "guaranteed", "borrow_cap"):
+            wide = rng.integers(-2**31, 2**31, (N, F))
+            q[k] = np.where(rng.random((N, F)) < 0.5, wide,
+                            q[k] - 10).astype(np.int32)
     args = (q["usage0"], q["subtree"], q["guaranteed"], q["borrow_cap"],
             q["has_blim"], parent, fr)
     if wl_req:
-        args += (rng.integers(0, 30, (N, F)).astype(np.int32),)
+        args += ((rng.integers(-2**31, 2**31, (N, F)) if extremes
+                  else rng.integers(0, 30, (N, F))).astype(np.int32),)
     return args, dict(n_resources=R, depth=max(depth, true_depth))
+
+
+# drs_components' redesign (kernels/drs_components.cu): (n_cqs,
+# n_cohorts, depth, F, R, wl_req, chain, extremes, empty) — depth 1, 2,
+# 3 and 17, F = 1 / 5 / 12 / 65, R = 1 / 3 / 5, a resource with no
+# column, values over the whole int32 range, and N past the staged
+# route (12,600 nodes: the global route)
+DRS_DESIGN_SHAPES = [
+    (40, 0, 1, 1, 1, False, False, False, False),
+    (1000, 200, 2, 1, 1, False, False, False, False),
+    (1000, 200, 2, 1, 1, True, False, True, False),
+    (100, 20, 3, 12, 3, True, False, True, False),
+    (40, 8, 2, 5, 5, False, False, False, True),
+    (50, 16, 2, 1, 5, True, True, True, False),
+    (60, 16, 2, 65, 5, True, True, True, True),
+    (30, 10, 3, 65, 1, False, False, False, False),
+    (12_500, 100, 2, 1, 1, True, False, True, False),
+    (12_500, 100, 3, 65, 5, False, False, True, True),
+]
+
+
+def drs_design_cases(seed: int = 0):
+    """``(positional arrays, keywords)`` of drs_components over
+    ``DRS_DESIGN_SHAPES``."""
+    rng = np.random.default_rng(seed)
+    for n_cqs, n_coh, depth, F, R, wl, chain, ext, empty in \
+            DRS_DESIGN_SHAPES:
+        yield drs_case(rng, n_cqs=n_cqs, n_cohorts=n_coh, depth=depth, F=F,
+                       R=R, wl_req=wl, chain=chain, extremes=ext,
+                       empty=empty)
 
 
 def fs_cases(seed: int = 0):
@@ -1341,19 +1382,27 @@ def scatter_case(seed: int = 0, C: int = 12, M: int = 5, D: int = 3):
     shaped and typed like the SCATTER tier (``parallel.sharded.
     SCATTER_PLANES``: [C, M, 2], [C, M], [C, M, 4], [C, 4] and [C]
     planes, int32 and bool: at M = 5 bool rows of 5 bytes, 16-byte
-    ``u_cq0`` rows), one row past the planes (C + 2: a scatter drops it)
-    and D distinct dirty rows, padded to ``scatter_pad`` of their count
-    by repeating the last row with its own values, and their values."""
+    ``u_cq0`` rows), one row past the planes (C + 2), one below -C (-C -
+    3; a scatter drops both), one in [-C, 0) (it writes row C + r, a row
+    no dirty row writes, or, where all C rows are dirty, with that row's
+    own values: which of two writes of one row wins is unspecified) and
+    D distinct dirty rows, padded to ``scatter_pad`` of their count by
+    repeating the last row with its own values, and their values."""
     from .ops.packing import scatter_pad
     from .parallel.sharded import _C_FILLS, SCATTER_PLANES
     rng = np.random.default_rng(seed)
     tails = {"wl_req": (M, 2), "adm_usage0": (M, 4), "adm_uses0": (M, 4),
              "u_cq0": (4,), "strict_cq": ()}
-    rows = np.concatenate([np.array([C + 2], np.int32),
-                           rng.choice(C, D, replace=False).astype(np.int32)])
+    dirty = rng.choice(C, D, replace=False).astype(np.int32)
+    free = np.setdiff1d(np.arange(C), dirty)
+    target = int(rng.choice(free if len(free) else dirty))
+    rows = np.concatenate([np.array([C + 2, target - C, -C - 3], np.int32),
+                           dirty])
     D = len(rows)
     Dp = scatter_pad(D)
     rows = np.concatenate([rows, np.repeat(rows[-1:], Dp - D)])
+    twin = 3 + int(np.flatnonzero(dirty == target)[0]) if not len(free) \
+        else None
     planes, vals = [], []
     for name in SCATTER_PLANES:
         shape = tails.get(name, (M,))
@@ -1363,6 +1412,8 @@ def scatter_case(seed: int = 0, C: int = 12, M: int = 5, D: int = 3):
         else:
             pl = rng.integers(-5, 50, (C,) + shape).astype(np.int32)
             v = rng.integers(-5, 50, (D,) + shape).astype(np.int32)
+        if twin is not None:
+            v[1] = v[twin]
         planes.append(pl)
         vals.append(np.concatenate([v, np.repeat(v[-1:], Dp - D, axis=0)]))
     return planes, rows, vals

@@ -186,12 +186,14 @@ def test_cq_avail_routes():
                                     (4, 250)])
 def test_packed_scatter_matches_jax(seed, D):
     """One buffer, unpacked on the CPU, against ``a.at[rows].set(v)``:
-    padded duplicate rows, a row past the planes (dropped), 5-byte bool
-    rows and 16-byte rows; every segment 16-byte aligned."""
+    padded duplicate rows, a row past the planes and one below -C
+    (dropped), one in [-C, 0) (written at C + r), 5-byte bool rows and
+    16-byte rows; every segment 16-byte aligned."""
     C = 256 if D == 250 else 12
     planes, rows, vals = tt.scatter_case(seed, C=C, D=D)
     assert len(rows) > D + 1, len(rows)           # padded duplicates
-    assert int(rows.max()) >= C                       # one row dropped
+    assert int(rows.max()) >= C and int(rows.min()) < -C   # dropped
+    assert ((rows >= -C) & (rows < 0)).sum() == 1          # wrapped
     offsets, row_bytes, n = scatter_layout(planes, len(rows))
     assert 5 in row_bytes and 16 in row_bytes and 1 in row_bytes
     assert all(o % 16 == 0 for o in offsets) and n % 16 == 0

@@ -40,12 +40,15 @@ VERBATIM = (
     "jobs/appwrapper.py", "jobs/serving.py",
     "config/__init__.py", "config/configuration.py",
     "api/manifests.py", "utils/expectations.py", "perf/__init__.py",
+    "admissionchecks/provisioning.py",
+    "traffic/__init__.py", "traffic/arrivals.py", "traffic/runner.py",
 )
 # copies that begin with the original file and only append to it
 APPENDED = ("ops/packing.py",)
 # copies edited where they reached JAX or ops/ (CHANGES.md lists each)
 EDITED = ("controller/driver.py", "ops/preemption_solver.py", "ops/burst.py",
-          "cache/tas_snapshot.py", "cache/tas_cache.py", "perf/harness.py")
+          "cache/tas_snapshot.py", "cache/tas_cache.py", "perf/harness.py",
+          "admissionchecks/__init__.py")
 
 
 def _read(path):

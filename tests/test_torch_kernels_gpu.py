@@ -139,6 +139,42 @@ def test_cuda_fair_sharing_kernels_match_plain(seed):
 
 
 @pytest.mark.gpu
+def test_cuda_drs_components_design_matches_plain():
+    """drs_components' (node, column) design against its plain version:
+    testing.drs_design_cases (depth 1, 2, 3 and 17, F = 1 / 5 / 12 / 65,
+    R = 1 / 3 / 5, a resource with no column, planes over the whole
+    int32 range, N past the staged route, both routes) and kernel_ab.py's
+    seeded
+    shapes (phase 9's, the probe's planes, a chain 17 levels deep):
+    values and dtypes exactly, one launch each, the route by
+    ``kernels.drs_layout``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernels have no CPU mode")
+    import kernel_ab
+    from kueue_tpu_torch import kernels, scenarios
+    cases = [tuple(a.numpy() for a in args) + (kw,) for args, kw in
+             kernel_ab.drs_cases(scenarios, tt).values()]
+    cases += [args + (kw,) for args, kw in tt.drs_design_cases(0)]
+    seen = set()
+    for *args, kw in cases:
+        want = fairsharing_kernel.drs_components_plain(
+            *[torch.from_numpy(a) for a in args], **kw)
+        before = kernels.LAUNCHES["drs_components"]
+        got = fairsharing_kernel.drs_components(
+            *[torch.from_numpy(a).cuda() for a in args], **kw)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["drs_components"] == before + 1
+        N, F = args[0].shape
+        route = kernels.DRS_ROUTES["drs_components"]
+        assert route == kernels.drs_layout(N, F, kw["n_resources"],
+                                           kw["depth"])["route"]
+        seen.add(route)
+        for x, y in zip(want, got):
+            assert y.dtype == x.dtype and torch.equal(y.cpu(), x), (N, F, kw)
+    assert seen == {"staged", "walk"}
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("seed", [0, 1])
 def test_cuda_tas_kernels_match_plain(seed):
     """fill_counts, best_fit_descend and split_across_roots on the card
@@ -505,8 +541,9 @@ def test_cuda_search_layouts_match_plain(label):
 @pytest.mark.parametrize("seed,D", [(0, 1), (1, 3), (2, 9), (3, 12)])
 def test_cuda_scatter_and_reduce_match_plain(seed, D):
     """kq_scatter_rows (13 planes in place from one packed buffer:
-    padded duplicate rows, a row past the planes, 5-byte bool rows,
-    16-byte rows) and kq_reduce_dflags against their plain versions."""
+    padded duplicate rows, rows past the planes and below -C, a row in
+    [-C, 0) written at C + r, 5-byte bool rows, 16-byte rows) and
+    kq_reduce_dflags against their plain versions."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA GPU: the kernels have no CPU mode")
     from kueue_tpu_torch import kernels
