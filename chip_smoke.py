@@ -15,7 +15,11 @@ the reference perf harness (``python -m kueue_tpu_torch.perf.harness``)
 and the job layer (Configuration, manifests, ``JobManager``); then the
 open-loop traffic runner (``kueue_tpu_torch.traffic``) and two-phase
 admission with the provisioning check
-(``kueue_tpu_torch.admissionchecks``):
+(``kueue_tpu_torch.admissionchecks``); then the serving front
+(``kueue_tpu_torch.serving``), the MultiKueue federation
+(``kueue_tpu_torch.federation``, ``remote``) and supervised child
+processes (``kueue_tpu_torch.dist``), each ending in the per-cycle admit
+kernels:
 
 1. device: name, count and ``nvidia-smi`` name/power limit;
 2. build: nvcc of every kernel source (in parallel) into one library;
@@ -204,13 +208,52 @@ admission with the provisioning check
 20. two-phase admission with a provisioning check at the perf
    scenario's size (``scenarios.build_provisioning`` /
    ``run_provisioning``): 5 cohorts x 6 CQs each carrying the check,
-   ``ProvisioningController`` over a seeded capacity backend, 15,000
-   workloads on the card: Provisioned, Failed then retried with
-   backoff, BookingExpired before admission, CapacityRevoked after it
-   and a check rejected at its retry limit all reached, admit kernels
+   ``ProvisioningController`` over a seeded capacity backend, 6,000
+   workloads on the card (``PROV_SCALE``, cut from 15,000): Provisioned,
+   Failed then retried with backoff, BookingExpired before admission,
+   CapacityRevoked after it and a check rejected at its retry limit all
+   reached, admit kernels
    launched, every workload finished or rejected; then at 3,000
    workloads on "cuda" and "cpu" equal digests over every cycle's
    reservations and check writes;
+21. the admission service at traffic-1k's width
+   (``scenarios.serve_loop`` / ``serve_open_loop`` / ``serve_killable``,
+   scripts/serve_soak.py's arms): phase 19's stream's 9,488 submissions
+   (its cancels and reprioritisations left out: the service takes
+   submissions only) through ``AdmissionService.submit`` / ``step`` on
+   ``Driver(device="cuda")`` with K pinned to 1, and through
+   ``run_open_loop`` on a fresh card Driver: decisions and
+   ``remote.state_digest`` identical; (b) the same with ``k_max`` 8 fed
+   by 4 submitter threads: no accepted submission lost, none admitted
+   twice, K adapted; (c) a ``svc.cycle`` crash at the middle step,
+   ``recover_service`` from the store, the WAL and the ingest journal:
+   (a)'s decisions and digest; every launch from the one thread that
+   steps the service; (d) (a)'s service arm over the first 10 virtual s
+   on "cuda" and "cpu": equal digests; (e) serve_soak.py's wall arm (16
+   CQs, 4 submitter threads, diurnal 8-96/s, p99 SLO 2 s) cut from 24 s
+   to 8 s of wall clock: the SLO held in every window, a clean drain,
+   every launch from the service thread;
+22. the federation at scripts/federation_soak.py's size
+   (``scenarios.fed_arm``): a manager of 1,000 CQs (250 remote) and 4
+   workers, each ``Driver(device="cuda")``, 2,500 events (cut from
+   5,000), seed 1513: the
+   fault-free control and ``worker_crash_mid_sync`` with equal global
+   digests, no violation, no double admission, the WAL tail replayed;
+   then the control with the events cut to 1,000 on "cuda" and "cpu":
+   equal global digests;
+23. supervised processes on the card at scripts/dist_soak.py's
+   configuration (``scenarios.dist_kill_front_end_shard`` /
+   ``dist_kill_federation_worker``): 2 shard, 2 submitter and 2 worker
+   children, each ``python -m kueue_tpu_torch.dist.child --device
+   cuda`` (no argv names a module of the JAX package), against
+   in-process controls on the card: shard0 SIGKILLed and rebuilt from
+   its journals, w0 SIGKILLed behind fault-injecting proxies and rebuilt
+   from its journals: decisions and digests equal to the controls, none
+   lost, none duplicated; while the children run, nvidia-smi's compute
+   apps grow by one per shard and worker child; each child's
+   ``--stats-file`` shows a CUDA context, the library loaded (not
+   built) and, for the shards, admit kernels launched; each child's
+   start printed;
 3i. kq_gather_heads and kq_fs_merge_order against their plain versions
    on the calls captured in 16-16d and on one synthetic call each at
    north-star width (1,000 heads over 8 shards), and the per-shard admit
@@ -224,7 +267,9 @@ admission with the provisioning check
 
 Launch counts are zeroed just before phases 4, 5, 7, 8, 9, 9b, 11, 13,
 14, 15, 15b, 15c, 16, 16b, 16c, 16d, 17, 18, 19 (its run and its
-search) and 20 and read just after each.  The
+search), 20, 21 (its arms on the card, and its wall arm), 22 and 23 and
+read just after each (23: this process's and, from their
+``--stats-file``, the children's).  The
 scenarios collect as the reference scripts do (builds frozen, drains
 with collection off): the measured north-star phases 5, 8, 9, 15, 15c,
 16b and 16c, tas-4k's phase 11, the job front door's phase 18 and
@@ -233,8 +278,9 @@ phases 19 and 20 must see no full collection
 ``scenarios.release()`` frees each phase's driver graph before the next
 phase builds.  A
 launch records no CUDA event: the device time of phases 4, 5, 7, 8, 9,
-11, 13, 15, 15c, 16, 16b, 16c, 16d, 17, 18, 19 and 20 (per kernel, the rest, the busy union
-and its share of the wall) comes from torch.profiler's CUDA activity
+11, 13, 15, 15c, 16, 16b, 16c, 16d, 17, 18, 19, 20, 21, 22 and 23 (this
+process only: the children are not profiled) (per kernel, the rest, the
+busy union and its share of the wall) comes from torch.profiler's CUDA activity
 over the phase (``kueue_tpu_torch.profiling.DeviceClock``); a phase in
 which it sees nothing fails.  Prints a ``kernels`` JSON line (per
 kernel: its launches on its main path and in each phase, ms through
@@ -345,12 +391,35 @@ HARNESS_TIMEOUT_S = 600    # phase 17's child process
 # iterations, 2 (not 4): the whole run passed 900 s with 4
 TRAFFIC = dict(n_cqs=1000, duration_s=30.0, slo_p99_s=8.0, seed=1109,
                iters=2, wall_budget_s=60.0)
-PROV_SCALE = 1.0            # phase 20: 15,000 workloads (0.2: 3,000)
+# phase 20: 6,000 workloads, cut from 15,000 when phases 21-23 came
+# (their ~110-140 s took the run past 1,150 s on a slow host)
+PROV_SCALE = 0.4
 # the outcomes of phase 20's check writes that must all show
 PROV_REACHED = ("Ready: Provisioned", "Retry: Retrying after Failed",
                 "Retry: Retrying after booking expired",
                 "Rejected: CapacityRevoked", "Rejected: Failed")
 ADMIT_KERNELS = ("admit_scan", "admit_scan_forests", "admit_scan_preempt")
+# phase 21 (e): scripts/serve_soak.py's wall arm at its own configuration
+# and seed (KUEUE_TPU_SVC_SEED 1709 + 3), its 24 s of wall clock cut to
+# 8 s (and so its diurnal period and its 8 windows with it)
+SERVE_WALL = dict(cqs=16, wall_dt_s=0.25, wall_duration_s=8.0,
+                  wall_trough_rate=8.0, wall_peak_rate=96.0,
+                  wall_runtime_s=0.3, wall_submitters=4, wall_windows=8,
+                  slo_p99_s=2.0, high_water=4096, k_max=8, seed=1712)
+SERVE_CPU_S = 10            # phase 21 (d): virtual s on "cpu" and the card
+# phase 22: scripts/federation_soak.py at its defaults but its events,
+# cut from 5,000 to 2,500 to fit the phase's time, and its
+# worker_crash_mid_sync seed (KUEUE_TPU_FED_SEED 1511 + 2); the card
+# against the CPU with the events cut to 1,000
+FED = dict(cqs=1000, remote_cqs=250, workers=4, events=2500, rate=500.0,
+           steps=12, drain_max=400, seed=1513)
+FED_PARITY_EVENTS = 1000
+# phase 23: scripts/dist_soak.py at its defaults (seed KUEUE_TPU_DIST_SEED
+# 2003; the shard arm + 1, the federation-worker arm + 4)
+DIST = dict(cqs=8, shards=2, submitters=2, workers=2, per_step=4,
+            kill_steps=8, fed_cqs=6, fed_remote_cqs=4, fed_traffic_steps=5,
+            fed_pre_kill_steps=3, fed_post_kill_steps=7, proxy_reset=0.03,
+            proxy_latency=0.05, ready_timeout_s=120.0, seed=2003)
 README_REPLAY = ("76.8 virtual s; large/medium/small 0 / 33.2 / 54.1 s; "
                  "min CQ usage 98.7%")
 
@@ -447,6 +516,47 @@ class GCWatch:
     def line(self) -> str:
         return (f"gen-2 GC {self.n} collections, {self.seconds:.3f}s, "
                 f"longest {self.longest:.3f}s")
+
+
+class LaunchThreads:
+    """The threads that launched kernels while the block ran, with their
+    launches: wraps ``kernels._launch``, which every launcher calls where
+    it counts a launch."""
+
+    def __enter__(self):
+        import threading
+        from kueue_tpu_torch import kernels
+        self.idents: Counter = Counter()
+        self._orig = orig = kernels._launch
+
+        def launch(name, fn, *args):
+            self.idents[threading.get_ident()] += 1
+            return orig(name, fn, *args)
+
+        kernels._launch = launch
+        return self
+
+    def __exit__(self, *exc):
+        from kueue_tpu_torch import kernels
+        kernels._launch = self._orig
+
+
+def compute_apps() -> list:
+    """The pids of the processes that hold a context on the card, as
+    ``nvidia-smi --query-compute-apps=pid`` lists them."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60).stdout
+    return [int(x) for x in out.split() if x.strip().isdigit()]
+
+
+def summed(counts) -> dict:
+    """Launch counts summed over several processes' ``LAUNCHES``."""
+    from kueue_tpu_torch import kernels
+    out = Counter(dict.fromkeys(kernels.KERNELS, 0))
+    for c in counts:
+        out.update(c or {})
+    return dict(out)
 
 
 def clone_args(args):
@@ -2459,8 +2569,8 @@ def smoke(launcher: Launcher) -> int:
                                          revoke)
     launches20 = dict(kernels.LAUNCHES)
     ss = d.scheduler.solver.stats
-    log(f"[20 provisioning-15k] {total} workloads in 30 CQs with the "
-        f"check (built in {build_s:.1f}s), {r20['cycles']} cycles in "
+    log(f"[20 provisioning-{total // 1000}k] {total} workloads in 30 CQs "
+        f"with the check (built in {build_s:.1f}s), {r20['cycles']} cycles in "
         f"{r20['wall']:.2f}s (schedule_once "
         f"{sum(r20['cycle_times']):.2f}s, the controller and the drain "
         f"the rest), cycle p50 "
@@ -2491,6 +2601,270 @@ def smoke(launcher: Launcher) -> int:
         del d, ctrl, waves, revoke, r
     scenarios.release()
     check(digests20["cuda"] == digests20["cpu"], digests20)
+
+    # -- 21. the admission service at traffic-1k's width --------------------
+    import tempfile
+    import threading
+    from kueue_tpu_torch.remote import state_digest
+    m21 = scenarios.serving_modules("cuda")
+    cyc21 = int(TRAFFIC["duration_s"])
+    ev21 = scenarios.serve_events(
+        scenarios.traffic_stream(n19, rate19, seed19), TRAFFIC["duration_s"])
+    td21 = tempfile.mkdtemp(prefix="chip_smoke_serve_")
+    main_thread = threading.get_ident()
+    t0 = time.perf_counter()
+    kernels.reset_counts()
+    gc.disable()    # the arms run with collection off, and so what
+    try:            # they leave between them
+        with DeviceClock() as dc21, GCWatch() as gc21, \
+                LaunchThreads() as lt21:
+            t1 = time.perf_counter()
+            a21 = scenarios.serve_loop(m21, n19, ev21, cyc21)
+            serve_s = time.perf_counter() - t1
+            t1 = time.perf_counter()
+            o21 = scenarios.serve_open_loop(m21, n19, ev21, cyc21)
+            open_s = time.perf_counter() - t1
+            parity21 = (a21["decisions"] == o21["decisions"],
+                        state_digest(a21["driver"]),
+                        state_digest(o21["driver"]))
+            del o21
+            t1 = time.perf_counter()
+            b21 = scenarios.serve_loop(m21, n19, ev21, cyc21, k_max=8,
+                                       threads=4)
+            adaptive_s = time.perf_counter() - t1
+            lost21, dup21 = scenarios.lost_and_duplicated(
+                b21["accepted"], b21["driver"], b21["decisions"])
+            ks21 = b21["ks"]
+            adaptive_digest = state_digest(b21["driver"])
+            del b21
+            # the unkilled control of (c) is (a)'s run: the same service
+            # steps, without the journals on disk, which decide nothing
+            t1 = time.perf_counter()
+            k21 = scenarios.serve_killable(m21, n19, ev21, cyc21, td21, "kill",
+                                           kill_site="svc.cycle",
+                                           kill_at=cyc21 // 2 + 1)
+            kill_s = time.perf_counter() - t1
+            kill21 = (k21["crashed"], k21["decisions"] == a21["decisions"],
+                      state_digest(k21["driver"]), parity21[1],
+                      k21["service"].duplicate_total)
+            del a21, k21
+    finally:
+        gc.enable()
+    wall21 = time.perf_counter() - t0
+    launches21 = dict(kernels.LAUNCHES)
+    log(f"[21 serve-1k] {n19} CQs, phase 19's stream: {len(ev21)} "
+        f"submissions (its cancels and reprioritisations left out) over "
+        f"{cyc21} virtual s; (a) AdmissionService K = 1 {serve_s:.2f}s, "
+        f"run_open_loop {open_s:.2f}s: decisions identical {parity21[0]}, "
+        f"digests {parity21[1]} / {parity21[2]}; (b) k_max 8, 4 submitter "
+        f"threads, {adaptive_s:.2f}s: K chosen {ks21}, lost {lost21}, "
+        f"duplicated {dup21}, digest {adaptive_digest}; (c) svc.cycle "
+        f"crash at step {cyc21 // 2 + 1}, recover_service, {kill_s:.2f}s: "
+        f"crashed {kill21[0] is not None}, decisions identical "
+        f"{kill21[1]}, digest {kill21[2]} ((a)'s {kill21[3]}), "
+        f"resubmissions deduped {kill21[4]}; wall {wall21:.2f}s; "
+        f"launching threads {len(lt21.idents)} (the service thread only "
+        f"{set(lt21.idents) == {main_thread}}); {gc21.line()}; launches "
+        f"{json.dumps({k: v for k, v in launches21.items() if v})}; "
+        f"{device_line('21', dc21, wall21, launches21)}")
+    check(parity21[0] and parity21[1] == parity21[2], parity21)
+    check(lost21 == 0 and dup21 == 0, (lost21, dup21))
+    check(max(ks21) > 1, f"phase 21: K never adapted {ks21}")
+    check(kill21[0] is not None and kill21[1] and kill21[2] == kill21[3],
+          kill21)
+    check(set(lt21.idents) == {main_thread}, dict(lt21.idents))
+    check(sum(launches21[k] for k in ADMIT_KERNELS) > 0, launches21)
+    head21 = [e for e in ev21 if e.t <= SERVE_CPU_S]
+    digests21 = {}
+    for device in ("cuda", "cpu"):
+        t1 = time.perf_counter()
+        r = scenarios.serve_loop(scenarios.serving_modules(device), n19,
+                                 head21, SERVE_CPU_S)
+        digests21[device] = (state_digest(r["driver"]),
+                             scenarios.decision_digest(r["driver"],
+                                                       r["decisions"]))
+        log(f"[21 serve parity] {device}: {len(head21)} submissions over "
+            f"{SERVE_CPU_S} virtual s in {time.perf_counter() - t1:.2f}s, "
+            f"admitted {sum(map(len, r['decisions']))}, digests "
+            f"{digests21[device]}")
+        del r
+    check(digests21["cuda"] == digests21["cpu"], digests21)
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    with DeviceClock() as dc21w, GCWatch() as gc21w, \
+            LaunchThreads() as lt21w:
+        w21 = scenarios.serve_wall(SERVE_WALL, SERVE_WALL["seed"], td21,
+                                   device="cuda")
+    wall21w = time.perf_counter() - t0
+    launches21w = dict(kernels.LAUNCHES)
+    p99_21 = [[w["samples"], round(w["p99_s"], 4)] for w in w21["windows"]]
+    log(f"[21 serve wall] serve_soak.py's wall arm, {SERVE_WALL['cqs']} "
+        f"CQs, {w21['events']} diurnal arrivals "
+        f"{SERVE_WALL['wall_trough_rate']}-{SERVE_WALL['wall_peak_rate']}/s "
+        f"over {w21['duration_s']}s of wall clock (cut from 24 s), 4 "
+        f"submitter threads, dt {SERVE_WALL['wall_dt_s']}s: submitted "
+        f"{w21['submitted']}, admitted {w21['admitted']} "
+        f"({w21['admissions_per_s']:.1f}/s), rejected {w21['rejected']}, "
+        f"shed {w21['shed']}, drained clean {w21['drained_clean']}; p99 by "
+        f"window {json.dumps(p99_21)} "
+        f"(samples, s) against the SLO {SERVE_WALL['slo_p99_s']}s: held "
+        f"{w21['held']}; K chosen {w21['k_values']}; launching threads "
+        f"{len(lt21w.idents)} (the service thread only "
+        f"{set(lt21w.idents) == {w21['service_thread']}}); wall "
+        f"{wall21w:.2f}s; {gc21w.line()}; launches "
+        f"{json.dumps({k: v for k, v in launches21w.items() if v})}; "
+        f"{device_line('21', dc21w, wall21w, launches21w)}; {smi_line}")
+    check(w21["held"] and w21["drained_clean"] and w21["stopped"], w21)
+    check(w21["admitted"] == w21["submitted"] - w21["shed"], w21)
+    check(set(lt21w.idents) == {w21["service_thread"]}, dict(lt21w.idents))
+    check(sum(launches21w[k] for k in ADMIT_KERNELS) > 0, launches21w)
+    launches21 = summed([launches21, launches21w])
+    del w21
+    scenarios.release()
+
+    # -- 22. the federation at federation_soak.py's size --------------------
+    td22 = tempfile.mkdtemp(prefix="chip_smoke_fed_")
+    at22 = max(2, FED["steps"] // 3)
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    with DeviceClock() as dc22, GCWatch() as gc22:
+        ctl22, ok_c = scenarios.fed_arm(FED, FED["seed"], f"{td22}/c",
+                                        m=m21)
+        ctl_s = time.perf_counter() - t0
+        crash22, ok_f = scenarios.fed_arm(
+            FED, FED["seed"], f"{td22}/f", m=m21,
+            arm=lambda i: i.arm("fed.worker_crash", at=at22,
+                                payload=ctl22.worker_names[0]))
+    wall22 = time.perf_counter() - t0
+    launches22 = dict(kernels.LAUNCHES)
+    dg22 = (m21.fed.global_digest(ctl22), m21.fed.global_digest(crash22))
+    dbl22 = scenarios.fed_double_admissions(crash22)
+    log(f"[22 fed-1k] manager {FED['cqs']} CQs ({FED['remote_cqs']} "
+        f"remote) + {FED['workers']} workers, each Driver(device=\"cuda\"),"
+        f" {FED['events']} events, seed {FED['seed']}: control "
+        f"{ctl22.step_no} steps in {ctl_s:.2f}s, worker_crash_mid_sync "
+        f"(w0 at step {at22}) {crash22.step_no} steps in "
+        f"{wall22 - ctl_s:.2f}s; settled {ok_c} / {ok_f}; global digests "
+        f"{dg22[0]} / {dg22[1]}; violations {len(ctl22.violations)} / "
+        f"{len(crash22.violations)}, double admissions {dbl22}; counters "
+        f"{json.dumps(crash22.counters)}; spread "
+        f"{json.dumps(crash22.assignment_spread())}; {gc22.line()}; "
+        f"launches {json.dumps({k: v for k, v in launches22.items() if v})}"
+        f"; {device_line('22', dc22, wall22, launches22)}")
+    check(ok_c and ok_f, (ok_c, ok_f))
+    check(ctl22.violations == [] and crash22.violations == [],
+          crash22.violations[:2])
+    check(dg22[0] == dg22[1] and dbl22 == 0, (dg22, dbl22))
+    check(crash22.counters["worker_crashes"] == 1
+          and crash22.counters["mid_admit_crashes"] >= 1
+          and crash22.counters["wal_tail_replayed"] >= 1, crash22.counters)
+    check(sum(launches22[k] for k in ADMIT_KERNELS) > 0, launches22)
+    del ctl22, crash22
+    cut22 = dict(FED, events=FED_PARITY_EVENTS)
+    digests22 = {}
+    for device in ("cuda", "cpu"):
+        t1 = time.perf_counter()
+        sim, ok = scenarios.fed_arm(cut22, FED["seed"], f"{td22}/{device}",
+                                    m=scenarios.serving_modules(device))
+        digests22[device] = m21.fed.global_digest(sim)
+        log(f"[22 fed parity] {device}: {FED_PARITY_EVENTS} events, "
+            f"{sim.step_no} steps in {time.perf_counter() - t1:.2f}s, "
+            f"settled {ok}, global digest {digests22[device]}")
+        del sim
+    check(digests22["cuda"] == digests22["cpu"], digests22)
+    scenarios.release()
+
+    # -- 23. supervised processes on the card ---------------------------------
+    here = os.path.dirname(os.path.abspath(__file__))
+    os.environ["PYTHONPATH"] = os.pathsep.join(
+        [here] + [p for p in os.environ.get("PYTHONPATH", "").split(
+            os.pathsep) if p])
+    td23 = tempfile.mkdtemp(prefix="chip_smoke_dist_")
+    seen23 = {}
+
+    # nvidia-smi in a container that sees another pid namespace lists
+    # every compute app as pid 1: what shows the shards on the card is
+    # that the apps grow by one for each shard child once it has stepped
+    # (the workers, ready by then, open their context at their first
+    # cycle, later in their arm)
+    apps_before = compute_apps()
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    # the federation arm's workers start while the shard arm runs
+    fed23 = scenarios.start_fed_workers(DIST, DIST["seed"] + 4, td23,
+                                        device="cuda")
+
+    def apps_while_running(sup):
+        scenarios.wait_fed_workers(fed23, DIST["ready_timeout_s"])
+        seen23.update(apps=compute_apps(), children={
+            n: mp.proc.pid for n, mp in [*sup.procs.items(),
+                                         *fed23["workers"].items()]})
+        return seen23
+
+    try:
+        with DeviceClock() as dc23, GCWatch() as gc23:
+            s23 = scenarios.dist_kill_front_end_shard(
+                DIST, DIST["seed"] + 1, td23, device="cuda",
+                while_running=apps_while_running)
+            shard_s = time.perf_counter() - t0
+            f23 = scenarios.dist_kill_federation_worker(
+                DIST, DIST["seed"] + 4, td23, device="cuda", started=fed23)
+    finally:
+        fed23["sup"].terminate_all()
+    wall23 = time.perf_counter() - t0
+    launches23p = dict(kernels.LAUNCHES)
+    starts23 = {k: round(v, 3) for k, v in {**s23["starts_s"],
+                                            **f23["starts_s"]}.items()}
+    kids23 = {**s23["child_stats"], **f23["child_stats"]}
+    launches23c = summed([st and st["launches"] for st in kids23.values()])
+    argvs23 = s23["argvs"] + f23["argvs"]
+    jax_argv = [a for a in argvs23 if any(
+        x == "kueue_tpu" or x.startswith("kueue_tpu.") for x in a)]
+    card_kids = [n for n in seen23["children"] if not n.startswith("sub")]
+    shards_on_card = {n: seen23["children"][n] in seen23["apps"]
+                      for n in card_kids}
+    apps_added = len(seen23["apps"]) - len(apps_before)
+    log(f"[23 dist-procs] dist_soak.py's config ({DIST['cqs']} CQs, "
+        f"{DIST['shards']} shards, {DIST['submitters']} submitters, "
+        f"{DIST['workers']} workers, seed {DIST['seed']}), every child "
+        f"`python -m kueue_tpu_torch.dist.child --device cuda`: "
+        f"front_end_shard (the workers starting beside it) "
+        f"{shard_s:.2f}s: killed {s23['killed']}, same "
+        f"port {s23['same_port']}, {s23['admissions']} admissions over "
+        f"{s23['steps']} steps, decisions identical "
+        f"{s23['decisions_identical']}, lost {s23['lost']}, duplicated "
+        f"{s23['duplicated']}, dedupe {json.dumps(s23['dedupe'])}; "
+        f"federation_worker {wall23 - shard_s:.2f}s: killed "
+        f"{f23['killed']}, manager / worker parity {f23['manager_parity']}"
+        f" / {f23['worker_parity']}, settled {f23['settled']}, duplicated "
+        f"{f23['duplicated']}, epoch resyncs {f23['epoch_resyncs']}, proxy "
+        f"{json.dumps(f23['proxy'])}; child start (spawn to ready, s; the "
+        f"workers' to the first look, after the shard arm's first step) "
+        f"{json.dumps(starts23)}"
+        f"; children's build s "
+        f"{json.dumps({n: st and st['build_s'] for n, st in kids23.items()})}"
+        f" (null: the library was loaded, not built); compute apps before "
+        f"{apps_before}, while the children ran {seen23.get('apps')} "
+        f"(+{apps_added}), children {json.dumps(seen23.get('children'))}, "
+        f"shard / worker pids listed {json.dumps(shards_on_card)}; argvs "
+        f"naming the JAX package {len(jax_argv)}; wall {wall23:.2f}s; "
+        f"{gc23.line()}; launches in the children "
+        f"{json.dumps({k: v for k, v in launches23c.items() if v})}, in "
+        f"this process (the controls and the manager) "
+        f"{json.dumps({k: v for k, v in launches23p.items() if v})}; this "
+        f"process's {device_line('23', dc23, wall23, launches23p)}")
+    check(s23["ok"] and f23["ok"], (s23["ok"], f23["ok"]))
+    check(not jax_argv, jax_argv)
+    check(all(shards_on_card.values()) or apps_added == DIST["shards"],
+          (apps_before, seen23))
+    check(all(st and st["cuda_initialized"] for st in kids23.values()),
+          kids23)
+    check(all(sum(st["launches"][k] for k in ADMIT_KERNELS) > 0
+              for n, st in kids23.items() if n.startswith("shard")), kids23)
+    check(sum(launches23c[k] for k in ADMIT_KERNELS) > 0, launches23c)
+    launches23 = summed([launches23p, launches23c])
+    del s23, f23
+    scenarios.release()
 
     # -- 3i. the mesh kernels and the per-shard scans against plain ---------
     mesh_phases = ("bench_mesh", "northstar_mesh", "northstar_fs_mesh",
@@ -2553,7 +2927,8 @@ def smoke(launcher: Launcher) -> int:
                 "15": launches15, "15b": launches15b, "15c": launches15w,
                 "16": launches16, "16b": launches16b, "16c": launches16c,
                 "16d": launches16d, "17": launches17, "18": launches18,
-                "19": launches19, "20": launches20}
+                "19": launches19, "20": launches20, "21": launches21,
+                "22": launches22, "23": launches23}
     rows = []
     for name in kernels.KERNELS:
         phase = {"admit_scan_forests": "northstar",

@@ -5,8 +5,7 @@ pending check states; these controllers flip them to Ready/Retry/Rejected
 and the workload only starts when every check is Ready.
 """
 
-# The MultiKueue names (MULTIKUEUE_CONTROLLER_NAME, MultiKueueController,
-# WorkerCluster) come with multikueue.py, which needs the remote plane.
+from .multikueue import MULTIKUEUE_CONTROLLER_NAME, MultiKueueController, WorkerCluster
 from .provisioning import (
     PROVISIONING_CONTROLLER_NAME,
     ProvisioningController,
@@ -14,6 +13,7 @@ from .provisioning import (
 )
 
 __all__ = [
+    "MULTIKUEUE_CONTROLLER_NAME", "MultiKueueController", "WorkerCluster",
     "PROVISIONING_CONTROLLER_NAME", "ProvisioningController",
     "ProvisioningRequest",
 ]

@@ -56,6 +56,13 @@ the north-star shape, driven per cycle through ``Driver.schedule_once``.
   ``ProvisioningController`` over a seeded capacity backend
   (``capacity_outcome``), drained until every workload is finished or
   rejected; either package's Driver.
+- ``serving_modules`` and the arms of scripts/serve_soak.py
+  (``serve_loop``, ``serve_open_loop``, ``serve_killable``,
+  ``serve_wall``), federation_soak.py (``fed_arm``) and dist_soak.py
+  (``dist_kill_front_end_shard``, ``start_fed_workers`` +
+  ``dist_kill_federation_worker``): the admission service, the
+  MultiKueue federation and supervised child processes on the port's
+  Driver; the first two take either package's modules.
 
 Every workload is generated from the scenario's parameters alone, so two
 runs (two devices, or this package and the JAX package) see the same
@@ -76,6 +83,7 @@ import gc
 import hashlib
 import json
 import time
+from collections import Counter
 
 import numpy as np
 
@@ -2049,3 +2057,616 @@ def run_provisioning(d, clock, ctrl, total: int, waves, revoke,
                 cycle_times=cycle_times, total=total, admitted=admitted,
                 finished=finished, rejected=rejected, reached=reached,
                 requests=sorted(ctrl.requests), decisions=decisions)
+
+
+# ----------------------------------------------------------------------
+# The serving front, the federation and supervised processes
+# (scripts/serve_soak.py, federation_soak.py and dist_soak.py)
+# ----------------------------------------------------------------------
+
+def serving_modules(device: str = "cuda"):
+    """The modules the serving, federation and process arms below use,
+    with ``driver(clock)`` building a Driver and ``fed_spec(**kw)`` a
+    federation's FedSpec on ``device``.  A test builds the same
+    namespace from the JAX package's modules and runs the same arms
+    there."""
+    from types import SimpleNamespace
+
+    from . import remote, serving, traffic
+    from .chaos import injector
+    from .federation import sim
+    from .utils import journal
+    return SimpleNamespace(
+        types=api_types, serving=serving, traffic=traffic, chaos=injector,
+        journal=journal, remote=remote, fed=sim,
+        driver=lambda clock: Driver(clock=clock, device=device),
+        fed_spec=lambda **kw: sim.FedSpec(device=device, **kw))
+
+
+def serve_driver(m, n_cqs: int, clock):
+    """serve_soak.py ``cluster_spec`` (traffic_soak.py's cluster:
+    ``traffic_spec``) on ``m.driver(clock)``."""
+    d = m.driver(clock)
+    traffic_spec(m.types, d, n_cqs)
+    return d
+
+
+def serve_events(stream, duration_s: float) -> list:
+    """The submissions of ``stream`` up to ``duration_s`` virtual s.  A
+    stream with traffic_soak.py's marks also cancels and reprioritises
+    (2% each); the service takes submissions only, so those are left
+    out."""
+    out = []
+    for ev in stream:
+        if ev.t > duration_s:
+            break
+        if ev.kind == "submit":
+            out.append(ev)
+    return out
+
+
+def _submit_event(svc, ev):
+    ns, name = ev.key.split("/", 1)
+    return svc.submit(name=name, namespace=ns, queue_name=f"lq-{ev.cq}",
+                      requests={"cpu": ev.cpu_m}, priority=ev.priority,
+                      creation_time=svc.epoch + ev.t,
+                      runtime_s=ev.runtime_s)
+
+
+def _by_step(events, cycles: int, dt: float) -> list:
+    """Events batched by the step whose cycle time they precede."""
+    out, i = [], 0
+    for k in range(cycles):
+        j = i
+        while j < len(events) and events[j].t <= (k + 1) * dt:
+            j += 1
+        out.append(events[i:j])
+        i = j
+    return out
+
+
+def _submit_threads(svc, batch, threads: int) -> list:
+    """``batch`` submitted by ``threads`` racing submitter threads (a lane
+    each) → the SubmitResults."""
+    import threading
+    results, errs = [None] * len(batch), []
+    gate = threading.Barrier(threads)
+
+    def lane(k):
+        try:
+            gate.wait()
+            for i in range(k, len(batch), threads):
+                results[i] = _submit_event(svc, batch[i])
+        except Exception as e:   # surfaced below
+            errs.append(e)
+
+    ts = [threading.Thread(target=lane, args=(k,)) for k in range(threads)]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join()
+    if errs:
+        raise errs[0]
+    return results
+
+
+@measured
+def serve_loop(m, n_cqs: int, events, cycles: int, *, k_max: int = 1,
+               threads: int = 1, dt: float = 1.0) -> dict:
+    """serve_soak.py ``arm_parity``'s service arm: ``events`` through
+    ``AdmissionService.submit`` / ``step`` in virtual time, a step a
+    ``dt``; ``k_max`` 1 pins K, ``threads`` > 1 submits each step's
+    batch from racing submitter threads.  → dict(driver, service,
+    decisions (a list a cycle), ks (K a step), accepted)."""
+    clock = VirtualClock()
+    d = serve_driver(m, n_cqs, clock)
+    svc = m.serving.AdmissionService(d, config=m.serving.ServiceConfig(
+        dt_s=dt, k_max=k_max, journal_path="", high_water=1 << 30,
+        epoch_t=clock.t))
+    decisions, ks, accepted = [], [], []
+    for batch in _by_step(events, cycles, dt):
+        res = (_submit_threads(svc, batch, threads) if threads > 1
+               else [_submit_event(svc, ev) for ev in batch])
+        accepted += [ev.key for ev, r in zip(batch, res)
+                     if r.status == "accepted" and not r.duplicate]
+        out = svc.step()
+        decisions.extend(out["decisions"])
+        ks.append(out["k"])
+    return dict(driver=d, service=svc, decisions=decisions, ks=ks,
+                accepted=accepted)
+
+
+@measured
+def serve_open_loop(m, n_cqs: int, events, cycles: int,
+                    dt: float = 1.0) -> dict:
+    """serve_soak.py ``arm_parity``'s batch arm: the same events through
+    ``traffic.run_open_loop`` on a fresh Driver → dict(driver,
+    decisions)."""
+    clock = VirtualClock()
+    d = serve_driver(m, n_cqs, clock)
+    res = m.traffic.run_open_loop(
+        d, clock, m.traffic.ReplayStream(events),
+        m.traffic.OpenLoopConfig(duration_s=cycles * dt, dt_s=dt))
+    return dict(driver=d, decisions=res.decisions)
+
+
+@measured
+def serve_killable(m, n_cqs: int, events, cycles: int, td: str, tag: str,
+                   kill_site=None, kill_at: int = 0,
+                   dt: float = 1.0) -> dict:
+    """serve_soak.py ``run_killable`` over ``events`` batched a step: a
+    service with its CycleWAL and ingest journal on disk in ``td``; with
+    ``kill_site`` armed at its ``kill_at``-th hit the run crashes,
+    recovers (``recover_service`` from the store, the WAL and the
+    journal), resubmits the interrupted batch (idempotent tokens) and
+    goes on → dict(driver, service, decisions, crashed)."""
+    import os
+    clock = VirtualClock()
+    d = serve_driver(m, n_cqs, clock)
+    wal = m.journal.CycleWAL(path=os.path.join(td, f"{tag}.wal"))
+    d.attach_wal(wal)
+    jpath = os.path.join(td, f"{tag}.ing")
+    cfg = m.serving.ServiceConfig(dt_s=dt, k_max=1, journal_path=jpath,
+                                  high_water=1 << 30, epoch_t=clock.t)
+    svc = m.serving.AdmissionService(d, config=cfg, wal=wal)
+    if kill_site is not None:
+        m.chaos.install(m.chaos.ChaosInjector(seed=1000 + kill_at)).arm(
+            kill_site, at=kill_at)
+    batches = _by_step(events, cycles, dt)
+    decisions, crashed, s = [], None, 0
+    try:
+        while s < len(batches):
+            try:
+                for ev in batches[s]:
+                    _submit_event(svc, ev)
+                decisions.extend(svc.step()["decisions"])
+                s += 1
+            except m.chaos.InjectedCrash as e:
+                crashed = str(e)
+                m.chaos.clear()
+                d2 = serve_driver(m, n_cqs, clock)
+                svc = m.serving.recover_service(
+                    d2, d.workloads.values(), wal,
+                    config=m.serving.ServiceConfig(
+                        dt_s=dt, k_max=1, journal_path=jpath,
+                        high_water=1 << 30, epoch_t=cfg.epoch_t))
+                d = d2
+    finally:
+        m.chaos.clear()
+    return dict(driver=d, service=svc, decisions=decisions,
+                crashed=crashed)
+
+
+def lost_and_duplicated(accepted_keys, d, decisions) -> tuple:
+    """(accepted submissions missing from the store, keys admitted more
+    than once over ``decisions``)."""
+    flat = Counter(k for cyc in decisions for k in cyc)
+    lost = sum(1 for k in accepted_keys if k not in d.workloads)
+    return lost, sum(1 for n in flat.values() if n > 1)
+
+
+def serve_wall_schedule(cfg: dict, seed: int) -> list:
+    """serve_soak.py ``gen_wall_schedule``: a diurnal submission schedule
+    (t_rel, name, lq, priority, runtime) replayed at wall pace."""
+    import random
+
+    from .traffic import DiurnalProcess
+    proc = DiurnalProcess(cfg["wall_trough_rate"], cfg["wall_peak_rate"],
+                          period_s=cfg["wall_duration_s"], seed=seed)
+    marks = random.Random(seed + 1)
+    events, t, i = [], 0.0, 0
+    while True:
+        t += proc.next_gap(t)
+        if t >= cfg["wall_duration_s"]:
+            return events
+        i += 1
+        events.append((t, f"s{i}", f"lq-{marks.randrange(cfg['cqs'])}",
+                       marks.choice((0, 10, 20)), cfg["wall_runtime_s"]))
+
+
+def _pctile(xs, q: float) -> float:
+    import math
+    if not xs:
+        return 0.0
+    s = sorted(xs)
+    return s[min(len(s) - 1, max(0, math.ceil(q * len(s)) - 1))]
+
+
+def serve_wall(cfg: dict, seed: int, td: str, device: str = "cuda") -> dict:
+    """serve_soak.py ``arm_wall``: ``AdmissionService.serve`` on a
+    service thread in wall-clock time, ``cfg['wall_submitters']``
+    submitter threads replaying ``serve_wall_schedule`` at its pace, the
+    tail admitted, then a graceful drain; per-window p99 admission
+    latency against ``cfg['slo_p99_s']`` and the K values chosen.  The
+    result also names the service thread (``service_thread``, its
+    ident)."""
+    import os
+    import threading
+    from .serving import AdmissionService, ServiceConfig
+    from .utils.journal import CycleWAL
+    d = Driver(clock=time.time, device=device)
+    traffic_spec(api_types, d, cfg["cqs"])
+    wal = CycleWAL(path=os.path.join(td, "wall.wal"))
+    d.attach_wal(wal)
+    svc = AdmissionService(d, config=ServiceConfig(
+        dt_s=cfg["wall_dt_s"], high_water=cfg["high_water"],
+        slo_p99_s=cfg["slo_p99_s"], drain_timeout_s=30.0,
+        journal_path=os.path.join(td, "wall.ing"),
+        k_max=cfg["k_max"], ewma_halflife_s=2.0), wal=wal)
+    events = serve_wall_schedule(cfg, seed)
+    stop = threading.Event()
+    server = threading.Thread(target=svc.serve, args=(stop,), daemon=True)
+    server.start()
+    t_start = time.perf_counter()
+    n_threads = cfg["wall_submitters"]
+
+    def submitter(lane):
+        for (t_rel, name, lq, prio, rt) in events[lane::n_threads]:
+            lag = t_start + t_rel - time.perf_counter()
+            if lag > 0:
+                time.sleep(lag)
+            svc.submit(name=name, queue_name=lq, requests={"cpu": 1500},
+                       priority=prio, runtime_s=rt)
+
+    subs = [threading.Thread(target=submitter, args=(i,), daemon=True)
+            for i in range(n_threads)]
+    for s in subs:
+        s.start()
+    for s in subs:
+        s.join()
+    time.sleep(4 * cfg["wall_dt_s"])   # let the tail admit
+    stop.set()
+    server.join(timeout=svc.cfg.drain_timeout_s + 10.0)
+    duration = cfg["wall_duration_s"]
+    w_len = duration / cfg["wall_windows"]
+    windows = []
+    for w in range(cfg["wall_windows"]):
+        lo, hi = w * w_len, (w + 1) * w_len
+        lats = [lat for (t, lat) in svc.latency_log if lo <= t < hi]
+        ks = [s["k"] for s in svc.telemetry if lo <= s["t_wall"] < hi]
+        windows.append({"t0_s": lo, "samples": len(lats),
+                        "p99_s": _pctile(lats, 0.99),
+                        "k_max": max(ks) if ks else 0})
+    active = [w for w in windows if w["samples"] > 0]
+    stats = svc.stats()
+    return {
+        "duration_s": duration, "events": len(events),
+        "submitted": stats["accepted"], "admitted": stats["admitted"],
+        "admissions_per_s": stats["admitted"] / duration,
+        "drained_clean": stats["drained_clean"],
+        "stopped": not server.is_alive(),
+        "held": bool(active) and all(w["p99_s"] <= cfg["slo_p99_s"]
+                                     for w in active),
+        "windows": windows,
+        "k_values": sorted({s["k"] for s in svc.telemetry}),
+        "rejected": stats["rejected"], "shed": stats["shed"],
+        "service_thread": server.ident, "driver": d,
+    }
+
+
+@measured
+def fed_arm(cfg: dict, seed: int, wal_dir: str, arm=None, m=None,
+            **spec_kw):
+    """federation_soak.py ``run_arm``: one FederationSim arm on
+    ``cfg``'s federation (``m``: the modules, ``serving_modules`` on
+    "cuda" by default) over ``make_traffic``'s stream, chaos armed by
+    ``arm(injector)`` after the traffic is loaded → (sim, settled).
+    Collection is off while it runs, as in the drains above."""
+    m = m if m is not None else serving_modules()
+    fed = m.fed
+    m.chaos.clear()
+    spec = m.fed_spec(n_workers=cfg["workers"], n_cqs=cfg["cqs"],
+                      remote_cqs=cfg["remote_cqs"], seed=seed, **spec_kw)
+    sim = fed.FederationSim(spec, wal_dir=wal_dir)
+    tspec = m.traffic.TrafficSpec(
+        n_cqs=cfg["cqs"], remote_fraction=0.5, cancel_fraction=0.0,
+        churn_fraction=0.0, runtime_choices_s=(2.0,))
+    events = m.traffic.ArrivalStream(
+        m.traffic.PoissonProcess(cfg["rate"], seed=seed), tspec,
+        seed=seed).take(cfg["events"])
+    by_step, _ = fed.schedule_traffic(events, n_cqs=cfg["cqs"],
+                                      remote_cqs=cfg["remote_cqs"])
+    sim.load_traffic(by_step)
+    try:
+        if arm is not None:
+            arm(m.chaos.install(m.chaos.ChaosInjector(seed=seed)))
+        settled = sim.run(cfg["steps"], drain_max=cfg["drain_max"])
+    finally:
+        m.chaos.clear()
+    return sim, settled
+
+
+def fed_double_admissions(sim) -> int:
+    return sum(1 for v in sim.violations
+               if v.get("kind") == "double_admission")
+
+
+# -- supervised processes (scripts/dist_soak.py) ------------------------
+
+def _shard_argv(tmp: str, shard_id: int, n_cqs: int, device: str,
+                recover=False, resume_cycle=0, port=0):
+    from .dist.supervisor import child_argv
+    pf = f"{tmp}/shard{shard_id}.port"
+    return child_argv(
+        "shard", shard_id=shard_id, n_cqs=n_cqs, state_dir=str(tmp),
+        port_file=pf, recover=recover, resume_cycle=resume_cycle,
+        port=port, device=device,
+        stats_file=f"{tmp}/shard{shard_id}.stats"), pf
+
+
+def _cmd_all(subs, line: str) -> list:
+    for mp in subs:
+        mp.proc.stdin.write(line + "\n")
+        mp.proc.stdin.flush()
+    return [mp.proc.stdout.readline().strip() for mp in subs]
+
+
+def _dist_control(tmp: str, n_cqs: int, device: str):
+    import os
+
+    from .dist.serving import build_shard_service
+    os.makedirs(f"{tmp}/ctl", exist_ok=True)
+    return build_shard_service(0, n_cqs, f"{tmp}/ctl", device=device)[0]
+
+
+def _ctl_submit(svc, step, n_sub, per_step, n_cqs):
+    from .dist.serving import step_payloads
+    for j in range(n_sub):
+        for b in step_payloads(step, j, n_sub, per_step, n_cqs):
+            svc.submit(name=b["name"], queue_name=b["queue_name"],
+                       requests=b["requests"], priority=b["priority"],
+                       namespace=b["namespace"], runtime_s=b["runtime_s"],
+                       count=b["count"], token=b["token"])
+
+
+def child_stats(path: str):
+    """What a child wrote to its ``--stats-file`` after its last step
+    (None before the first)."""
+    import os
+    if not os.path.exists(path):
+        return None
+    with open(path, encoding="utf-8") as fh:
+        return json.load(fh)
+
+
+def dist_kill_front_end_shard(cfg: dict, seed: int, td: str,
+                              device: str = "cuda",
+                              while_running=None) -> dict:
+    """dist_soak.py ``arm_kill_front_end_shard``: ``cfg['shards']`` shard
+    processes and ``cfg['submitters']`` submitter processes, every one
+    started through ``child_argv`` with ``device``; lockstep barriers
+    against an in-process control on ``device``; shard0 SIGKILLed at the
+    half (the armed ``dist.kill`` site), rebuilt from its journals on
+    its port, the submitters resynced.  ``while_running(supervisor)``
+    is called after the first barrier, while every child runs.  Also
+    returns each shard's start (spawn to ready, s), its last
+    ``--stats-file`` report and every child's argv."""
+    import os
+
+    from .chaos import injector as chaos
+    from .dist.serving import ShardClient
+    from .dist.supervisor import ProcessSupervisor, child_argv
+    tmp = f"{td}/kshard"
+    os.makedirs(tmp, exist_ok=True)
+    sup = ProcessSupervisor(seed=seed)
+    dist_keys, ctl_keys, per_step_ok, starts = [], [], [], {}
+    argvs, seen = [], None
+    try:
+        shards = []
+        t0 = time.perf_counter()
+        for s in range(cfg["shards"]):
+            argv, pf = _shard_argv(tmp, s, cfg["cqs"], device)
+            argvs.append(argv)
+            shards.append(sup.spawn(f"shard{s}", "shard", argv,
+                                    port_file=pf))
+        for mp in shards:
+            sup.wait_ready(mp, timeout=cfg["ready_timeout_s"])
+            starts[mp.name] = time.perf_counter() - t0
+        ports = [mp.port for mp in shards]
+        clients = [ShardClient(p) for p in ports]
+        subs = []
+        for j in range(cfg["submitters"]):
+            argv = child_argv(
+                "submitter", submitter_id=j,
+                n_submitters=cfg["submitters"], per_step=cfg["per_step"],
+                n_cqs=cfg["cqs"], shard_ports=",".join(map(str, ports)))
+            argvs.append(argv)
+            mp = sup.spawn(f"sub{j}", "submitter", argv, pipe_stdio=True)
+            if mp.proc.stdout.readline().strip() != "ready":
+                raise RuntimeError(f"sub{j}: no ready line")
+            subs.append(mp)
+        ctl_svc = _dist_control(tmp, cfg["cqs"], device)
+
+        def lockstep(step):
+            _cmd_all(subs, f"step {step}")
+            _ctl_submit(ctl_svc, step, len(subs), cfg["per_step"],
+                        cfg["cqs"])
+            got = []
+            for c in clients:
+                for dec in c.step(retry_deadline_s=15.0)["decisions"]:
+                    got.extend(dec)
+            want = [k for dec in ctl_svc.step()["decisions"] for k in dec]
+            dist_keys.extend(got)
+            ctl_keys.extend(want)
+            per_step_ok.append(sorted(got) == sorted(want))
+
+        half = cfg["kill_steps"] // 2
+        for s in range(half):
+            lockstep(s)
+            if s == 0 and while_running is not None:
+                seen = while_running(sup)
+        inj = chaos.ChaosInjector(seed=seed)
+        inj.arm("dist.kill", at=1, payload="shard0")
+        chaos.install(inj)
+        killed = sup.maybe_kill("shard0")
+        chaos.clear()
+        argv, _ = _shard_argv(tmp, 0, cfg["cqs"], device, recover=True,
+                              resume_cycle=half, port=ports[0])
+        argvs.append(argv)
+        t0 = time.perf_counter()
+        sup.restart("shard0", argv=argv, timeout=cfg["ready_timeout_s"])
+        starts["shard0 restart"] = time.perf_counter() - t0
+        same_port = shards[0].port == ports[0]
+        replies = _cmd_all(subs, f"resync {half}")
+        deduped = sum(int(r.split()[2]) for r in replies)
+        expected = len(subs) * half * cfg["per_step"]
+        for s in range(half, cfg["kill_steps"]):
+            lockstep(s)
+        stats = {mp.name: child_stats(f"{tmp}/{mp.name}.stats")
+                 for mp in shards}
+        rep = sup.report()
+    finally:
+        chaos.clear()
+        sup.terminate_all()
+    c_ctl, c_dist = Counter(ctl_keys), Counter(dist_keys)
+    lost, duplicated = (sum((c_ctl - c_dist).values()),
+                        sum((c_dist - c_ctl).values()))
+    identical = all(per_step_ok)
+    return {
+        "killed": bool(killed), "same_port": same_port,
+        "steps": cfg["kill_steps"], "admissions": len(ctl_keys),
+        "decisions_identical": identical, "lost": lost,
+        "duplicated": duplicated,
+        "dedupe": {"replayed": deduped, "expected": expected},
+        "starts_s": starts, "child_stats": stats, "argvs": argvs,
+        "while_running": seen, "report": rep,
+        "ok": (bool(killed) and same_port and identical and lost == 0
+               and duplicated == 0 and deduped == expected),
+    }
+
+
+def _fed_worker_argv(tmp: str, cfg: dict, device: str, name: str,
+                     recover=False, resume_t=None, port=0):
+    from .dist.supervisor import child_argv
+    pf = f"{tmp}/{name}.port"
+    return child_argv(
+        "worker", name=name, remote_cqs=cfg["fed_remote_cqs"],
+        state_dir=tmp, port_file=pf, recover=recover, resume_t=resume_t,
+        port=port, device=device, stats_file=f"{tmp}/{name}.stats"), pf
+
+
+def start_fed_workers(cfg: dict, seed: int, td: str,
+                      device: str = "cuda") -> dict:
+    """Spawn the worker processes of ``dist_kill_federation_worker``
+    without waiting for them, so that they start while other work runs;
+    pass the result to it as ``started``."""
+    import os
+
+    from .dist.supervisor import ProcessSupervisor
+    tmp = f"{td}/kfed"
+    os.makedirs(tmp, exist_ok=True)
+    sup = ProcessSupervisor(seed=seed)
+    workers, argvs = {}, []
+    t0 = time.perf_counter()
+    for i in range(cfg["workers"]):
+        name = f"w{i}"
+        argv, pf = _fed_worker_argv(tmp, cfg, device, name)
+        argvs.append(argv)
+        workers[name] = sup.spawn(name, "worker", argv, port_file=pf)
+    return dict(sup=sup, workers=workers, argvs=argvs, t0=t0, tmp=tmp,
+                starts={})
+
+
+def wait_fed_workers(started: dict, timeout: float) -> dict:
+    """Wait until every worker of ``start_fed_workers`` answers
+    ``/readyz``; the first wait records each one's start (spawn to
+    ready, s) in ``started['starts']``."""
+    for name, mp in started["workers"].items():
+        started["sup"].wait_ready(mp, timeout=timeout)
+        started["starts"].setdefault(name,
+                                     time.perf_counter() - started["t0"])
+    return started["starts"]
+
+
+def dist_kill_federation_worker(cfg: dict, seed: int, td: str,
+                                device: str = "cuda",
+                                started: dict | None = None) -> dict:
+    """dist_soak.py ``arm_kill_federation_worker``: ``cfg['workers']``
+    worker processes started through ``child_argv`` with ``device``
+    (by ``start_fed_workers``, here or earlier: ``started``) behind
+    fault-injecting socket proxies, a ``ProcFederation`` manager on
+    ``device`` against an in-process ``FederationSim`` control on
+    ``device``; w0 SIGKILLed after ``fed_pre_kill_steps`` and rebuilt
+    from its journals on its port.  Every digest must equal the
+    control's."""
+    from .chaos import injector as chaos
+    from .dist.proxy import FaultPlan, SocketFaultProxy
+    from .federation.procs import ProcFederation, fed_traffic
+    from .federation.sim import FederationSim, FedSpec
+    from .remote import state_digest
+    started = started or start_fed_workers(cfg, seed, td, device)
+    sup, workers, tmp = started["sup"], started["workers"], started["tmp"]
+    n_cqs, remote_cqs = cfg["fed_cqs"], cfg["fed_remote_cqs"]
+    proxies, argvs = [], list(started["argvs"])
+    try:
+        starts = dict(wait_fed_workers(started, cfg["ready_timeout_s"]))
+        inj = chaos.ChaosInjector(seed=seed)
+        inj.arm("dist.proxy_fault", at=3, action="truncate", payload=16)
+        inj.arm("dist.proxy_fault", at=9, action="reset")
+        chaos.install(inj)
+        plan = FaultPlan.resolved(reset=cfg["proxy_reset"],
+                                  latency=cfg["proxy_latency"],
+                                  latency_s=0.02)
+        urls = {}
+        for name, mp in workers.items():
+            px = SocketFaultProxy(mp.port, seed=seed, plan=plan)
+            px.start()
+            proxies.append(px)
+            urls[name] = px.base_url
+        traffic = fed_traffic(steps=cfg["fed_traffic_steps"], per_step=2,
+                              n_cqs=n_cqs)
+        fed = ProcFederation(urls, n_cqs=n_cqs, remote_cqs=remote_cqs,
+                             client_timeout=2.0, client_retries=4,
+                             device=device)
+        fed.load_traffic(traffic)
+        spec = FedSpec(n_workers=cfg["workers"], n_cqs=n_cqs,
+                       remote_cqs=remote_cqs, manager_quota_m=8000,
+                       worker_quota_m=4000, runtime_steps=2,
+                       worker_lost_timeout=3.0, reconnect_budget=0,
+                       device=device)
+        ctl = FederationSim(spec, wal_dir=f"{tmp}/ctl")
+        ctl.load_traffic(dict(traffic))
+        pre = cfg["fed_pre_kill_steps"]
+        for _ in range(pre):
+            fed.step()
+            ctl.step()
+        port0 = workers["w0"].port
+        inj.arm("dist.kill", at=1, payload="w0")
+        killed = sup.maybe_kill("w0")
+        argv, _ = _fed_worker_argv(tmp, cfg, device, "w0", recover=True,
+                                   resume_t=fed.clock.t, port=port0)
+        argvs.append(argv)
+        t0 = time.perf_counter()
+        sup.restart("w0", argv=argv, timeout=cfg["ready_timeout_s"])
+        starts["w0 restart"] = time.perf_counter() - t0
+        for _ in range(cfg["fed_post_kill_steps"]):
+            fed.step()
+            ctl.step()
+        dg = fed.digests()
+        worker_parity = all(dg["workers"][n] == state_digest(ctl.workers[n])
+                            for n in urls)
+        manager_parity = dg["manager"] == state_digest(ctl.manager)
+        settled = fed.settled() and ctl.settled()
+        resyncs = fed.client_stats()["w0"]["epoch_resyncs"]
+        proxy = Counter()
+        for px in proxies:
+            proxy.update(px.stats)
+        duplicated = len(fed.violations) + len(ctl.violations)
+        stats = {n: child_stats(f"{tmp}/{n}.stats") for n in workers}
+        rep = sup.report()
+    finally:
+        chaos.clear()
+        for px in proxies:
+            px.stop()
+        sup.terminate_all()
+    parity = manager_parity and worker_parity
+    return {
+        "killed": bool(killed), "manager_parity": manager_parity,
+        "worker_parity": worker_parity, "settled": settled,
+        "duplicated": duplicated, "epoch_resyncs": resyncs,
+        "proxy": dict(proxy), "digests": dg, "starts_s": starts,
+        "child_stats": stats, "argvs": argvs, "report": rep,
+        "manager": fed.manager, "control": ctl,
+        "ok": (bool(killed) and parity and settled and duplicated == 0
+               and resyncs >= 1),
+    }

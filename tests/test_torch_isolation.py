@@ -42,13 +42,19 @@ VERBATIM = (
     "api/manifests.py", "utils/expectations.py", "perf/__init__.py",
     "admissionchecks/provisioning.py",
     "traffic/__init__.py", "traffic/arrivals.py", "traffic/runner.py",
+    "admissionchecks/__init__.py",
+    "serving/__init__.py", "serving/ingest.py", "serving/service.py",
+    "remote.py", "visibility.py", "federation/__init__.py",
+    "dist/__init__.py", "dist/proxy.py",
 )
 # copies that begin with the original file and only append to it
 APPENDED = ("ops/packing.py",)
 # copies edited where they reached JAX or ops/ (CHANGES.md lists each)
 EDITED = ("controller/driver.py", "ops/preemption_solver.py", "ops/burst.py",
           "cache/tas_snapshot.py", "cache/tas_cache.py", "perf/harness.py",
-          "admissionchecks/__init__.py")
+          "federation/sim.py", "federation/procs.py", "dist/serving.py",
+          "dist/worker.py", "dist/supervisor.py", "dist/child.py",
+          "admissionchecks/multikueue.py")
 
 
 def _read(path):
@@ -136,6 +142,56 @@ def test_no_import_by_name():
                 if n.split(".")[0] in ("importlib", "__import__"):
                     bad.append((os.path.relpath(path, ROOT), n))
     assert not bad, bad
+
+
+def _names_the_jax_package(text: str) -> bool:
+    return text == "kueue_tpu" or text.startswith("kueue_tpu.")
+
+
+def test_no_string_names_a_jax_package_module():
+    """No string constant of the port is, or begins with, a module path
+    of the JAX package (``"kueue_tpu"`` or ``"kueue_tpu.<...>"``): a
+    child argv or a module looked up by such a string would load the
+    JAX package, which the import scan above cannot see.  Docstrings
+    that name a path inside prose do not begin with it."""
+    bad = []
+    for path in _port_files():
+        tree = ast.parse(_read(path), filename=path)
+        for node in ast.walk(tree):
+            if (isinstance(node, ast.Constant) and isinstance(node.value, str)
+                    and _names_the_jax_package(node.value.strip())):
+                bad.append((os.path.relpath(path, ROOT), node.lineno,
+                            node.value))
+    assert not bad, bad
+    # the scan sees what it must: the JAX package's own child_argv
+    src = _read(os.path.join(ROOT, "kueue_tpu", "dist", "supervisor.py"))
+    assert any(isinstance(n, ast.Constant) and isinstance(n.value, str)
+               and _names_the_jax_package(n.value)
+               for n in ast.walk(ast.parse(src)))
+
+
+def test_serving_and_remote_modules_in_a_fresh_process():
+    """Importing the serving front, the remote plane and the process
+    entry points (``dist.child`` included) loads neither jax nor
+    kueue_tpu, and ``child_argv`` names the port's child module."""
+    code = (
+        "import sys\n"
+        "import kueue_tpu_torch.dist.child, kueue_tpu_torch.serving\n"
+        "import kueue_tpu_torch.federation, kueue_tpu_torch.remote\n"
+        "import kueue_tpu_torch.visibility, kueue_tpu_torch.dist.supervisor\n"
+        "import kueue_tpu_torch.federation.procs, kueue_tpu_torch.dist.proxy\n"
+        "import kueue_tpu_torch.admissionchecks\n"
+        "from kueue_tpu_torch.dist.supervisor import child_argv\n"
+        "assert child_argv('shard')[2] == 'kueue_tpu_torch.dist.child'\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'kueue_tpu'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.strip().endswith("ok")
 
 
 def test_runtime_modules_in_a_fresh_process():

@@ -5,7 +5,7 @@ packages' Drivers (the port's on the CPU), with the reference test's
 assertions on each and, after every reconcile, every workload's check
 state, message and podset updates, the Driver's events, the request
 names, the retry state and the pod templates equal between the two.
-Then the scenario that chip_smoke.py drives at 15,000 workloads
+Then the scenario that chip_smoke.py drives at 6,000 workloads
 (``scenarios.provisioning_spec``), small, on both packages: equal
 decisions, and every check outcome reached.  Tolerance 0."""
 
@@ -267,22 +267,23 @@ def test_provisioning_case_on_both_packages(case):
 
 
 def test_init_differs_only_by_the_multikueue_names():
-    """The port's ``admissionchecks/__init__.py`` is the reference's
-    without the MultiKueue import and names (they come with the remote
-    plane) and with the comment that says so."""
-    def lines(path):
-        with open(path) as fh:
-            return [ln for ln in fh.read().splitlines()
-                    if ln.strip() and not ln.startswith("#")]
-    ref = lines(os.path.join(ROOT, "kueue_tpu/admissionchecks/__init__.py"))
-    port = lines(os.path.join(ROOT,
-                              "kueue_tpu_torch/admissionchecks/__init__.py"))
-    assert port == [ln for ln in ref if "MultiKueue" not in ln]
-    assert len(port) == len(ref) - 2
+    """The port's ``admissionchecks/__init__.py`` lacked only the
+    MultiKueue import and names until the remote plane came; with
+    ``multikueue.py`` ported it is the reference's file, and both
+    packages export the same names, the MultiKueue ones among them."""
+    def read(path):
+        with open(path, "rb") as fh:
+            return fh.read()
+    assert read(os.path.join(
+        ROOT, "kueue_tpu_torch/admissionchecks/__init__.py")) == read(
+        os.path.join(ROOT, "kueue_tpu/admissionchecks/__init__.py"))
+    import kueue_tpu.admissionchecks as ref
     from kueue_tpu_torch import admissionchecks
-    assert admissionchecks.__all__ == [
-        "PROVISIONING_CONTROLLER_NAME", "ProvisioningController",
-        "ProvisioningRequest"]
+    assert admissionchecks.__all__ == ref.__all__
+    assert {"MULTIKUEUE_CONTROLLER_NAME", "MultiKueueController",
+            "WorkerCluster", "PROVISIONING_CONTROLLER_NAME",
+            "ProvisioningController",
+            "ProvisioningRequest"} == set(admissionchecks.__all__)
 
 
 @pytest.mark.parametrize("seed", [0, 1])

@@ -1,8 +1,9 @@
 """The open-loop traffic subsystem of the port (``kueue_tpu_torch.traffic``)
 against the JAX package's: the cases of tests/test_traffic_arrivals.py on
 the port, the same seed giving the same event stream in both packages;
-the cases of tests/test_traffic_openloop.py (all but the remote-routing
-one, which needs the remote plane) with every ``OpenLoopResult``
+the cases of tests/test_traffic_openloop.py (the remote-routing one
+through each package's ``remote.LocalWorkerClient``) with every
+``OpenLoopResult``
 decision and latency equal between the JAX Driver (host solver, as the
 reference test builds it) and the port's ``Driver(device="cpu")`` at 8
 CQs; replay bit-identity, the bisection, and chip_smoke.py phase 19's
@@ -46,7 +47,8 @@ def package(root):
     """Package ``root``'s modules that the cases use."""
     m = SimpleNamespace(**{
         name.rsplit(".", 1)[-1]: importlib.import_module(f"{root}.{name}")
-        for name in ("api.types", "traffic", "controller.driver")})
+        for name in ("api.types", "traffic", "controller.driver",
+                     "remote")})
     m.root = root
     return m
 
@@ -160,14 +162,17 @@ def build(m, n_cqs=N_CQS):
     return d, clock
 
 
-def run(m, rate, seed=101, duration=30.0, events=None):
+def run(m, rate, seed=101, duration=30.0, events=None, remote_fraction=0.0):
     tr = m.traffic
     d, clock = build(m)
     s = (tr.ReplayStream(events) if events is not None else
          tr.ArrivalStream(tr.PoissonProcess(rate, seed=seed),
-                          tr.TrafficSpec(**LOOP_SPEC), seed=seed))
+                          tr.TrafficSpec(**LOOP_SPEC,
+                                         remote_fraction=remote_fraction),
+                          seed=seed))
+    client = m.remote.LocalWorkerClient(d) if remote_fraction else None
     cfg = tr.OpenLoopConfig(duration_s=duration, dt_s=1.0, slo_p99_s=8.0)
-    return d, tr.run_open_loop(d, clock, s, cfg)
+    return d, tr.run_open_loop(d, clock, s, cfg, remote_client=client)
 
 
 # every field of OpenLoopResult that the event stream decides (not the
@@ -206,6 +211,16 @@ def test_replay_is_decision_bit_identical():
     assert replay.decisions == live.decisions
     assert replay.admitted == live.admitted
     assert replay.p99_latency_s == live.p99_latency_s
+
+
+def test_remote_submissions_route_through_worker_client():
+    """Remote-marked arrivals go through ``remote.LocalWorkerClient``
+    into the same Driver and are admitted like the rest, alike in both
+    packages."""
+    _, res = both(3.0, seed=5, remote_fraction=0.5)
+    assert res.remote_submitted > 0
+    assert res.admitted > 0.7 * res.submitted
+    assert res.meets_slo
 
 
 def test_metrics_and_stats_surfaced():
