@@ -18,11 +18,16 @@ admission with the provisioning check
 (``kueue_tpu_torch.admissionchecks``); then the serving front
 (``kueue_tpu_torch.serving``), the MultiKueue federation
 (``kueue_tpu_torch.federation``, ``remote``) and supervised child
-processes (``kueue_tpu_torch.dist``), each ending in the per-cycle admit
-kernels:
+processes (``kueue_tpu_torch.dist``); then the kueuectl CLI and its
+admission daemon over a manifest store (``python -m
+kueue_tpu_torch.cli``), each ending in the per-cycle admit kernels:
 
 1. device: name, count and ``nvidia-smi`` name/power limit;
 2. build: nvcc of every kernel source (in parallel) into one library;
+   then the CPU arms start, each a child process on one torch thread
+   beside the card's phases (``CPU_ARMS``): phase 10's, 12's and 18's
+   runs on "cpu" and phase 24's apply (on the card) and CPU side, each
+   read where its phase checks it;
 3. kernels: each CUDA kernel against its plain version on the CPU over a
    seeded sweep (kueue_tpu_torch.testing.kernel_cases, burst_cases,
    fs_cases and avail_cases: kq_cq_avail's staged route at depth 1, 2,
@@ -54,8 +59,8 @@ kernels:
    cycles decided by it; then ``compute_all_drs`` on the final snapshot
    (drs_components launched) must equal the host DRS of every node,
    and again (9b) on two small clusters that borrow;
-10. the same fair-sharing run on "cpu", at full size: its decision digest
-   must equal the card's, and it launches no kernel;
+10. the same fair-sharing run on "cpu", at full size (its CPU arm): its
+   decision digest must equal the card's, and it launches no kernel;
 11. tas-4k (kueue_tpu_torch.scenarios.build_tas): 8 blocks x 16
    subblocks x 32 hosts of 8 GPUs, 32 CQs in 4 cohorts, 6,400 gang
    workloads, 60 per-cycle cycles on the card; fill_counts,
@@ -63,7 +68,8 @@ kernels:
    every branch of TASFlavorSnapshot._find_device taken, the host tree
    walk never;
 12. the same 60 cycles on "cpu" with the plain TAS programs, and with
-   the host tree walk (TASDeviceKernel off): both digests, which cover
+   the host tree walk (TASDeviceKernel off), in its CPU arm: both
+   digests, which cover
    every admission's topology domains and counts, equal the card's;
 3e. the TAS kernels against their plain versions over a seeded sweep
    (kueue_tpu_torch.testing.tas_cases: every profile and Mixed's
@@ -191,8 +197,8 @@ kernels:
    started, preempted jobs stopped with their templates restored, the
    webhook's refusals, fill_counts, best_fit_descend,
    split_across_roots, admit_scan and admit_scan_preempt launched, no
-   full collection, and the same run on "cpu" with an equal digest (the
-   feature gates restored after each);
+   full collection, and the same run on "cpu" (its CPU arm) with an
+   equal digest (the feature gates restored after each);
 19. the open loop at scripts/traffic_soak.py's width
    (``scenarios.build_traffic`` / ``traffic_stream`` / ``open_loop``):
    1,000 CQs in cohorts of 4, 4,000m cpu each, BEST_EFFORT_FIFO, Poisson
@@ -254,6 +260,32 @@ kernels:
    ``--stats-file`` shows a CUDA context, the library loaded (not
    built) and, for the shards, admit kernels launched; each child's
    start printed;
+24. the kueuectl file store at the perf scenario's cluster (cli-3k):
+   ``scenarios.cli_bench_docs`` writes 5 cohorts x 6 CQs and 3,000
+   workloads as manifests (``api.manifests``) after the build, loaded
+   by a ``python -m kueue_tpu_torch.cli apply -f`` child on the card
+   that phase 24's CPU arm starts; (a) ``cli.main([...,
+   "--device", "cuda", "schedule", "--cycles", "1000"])`` in this
+   process: admit_scan launched (admit_scan_preempt and
+   minimal_preemptions_batch printed), no host-fallback cycle, the
+   admitted list and ``scenarios.store_digest`` of the written store
+   (its workload manifests without ``lastTransitionTime``) printed;
+   (b) the same command on a copy of the applied store with ``--device
+   cpu`` (the CPU arm): the same output and digest; (c) ``cli state``
+   on the card lists every CQ with its usage; (d0) ``cli serve`` in
+   this process while another thread applies 100 more workloads (a
+   cohort of two CQs of their own): the store watcher restores them,
+   the daemon admits them, and every ``solver.dispatch`` and every
+   launch comes from the daemon's thread (the watcher's never); (d)
+   ``scenarios.cli_serve_sequence`` on a copy of (a)'s store on the card
+   (beside (c) and (d0)) and on a copy of (b)'s on the CPU (the CPU
+   arm): a ``serve`` leader child, a ``serve
+   --exit-when-drained`` child waiting for the lease, ``cli apply`` of
+   the 100 while the leader serves, SIGUSR2 until the leader's dump
+   lists them admitted, SIGTERM (write-back, lease released), the
+   waiter takes over, drains and exits 0; each child's seconds to
+   ready printed; the final store holds every admission and its digest
+   is the CPU's;
 3i. kq_gather_heads and kq_fs_merge_order against their plain versions
    on the calls captured in 16-16d and on one synthetic call each at
    north-star width (1,000 heads over 8 shards), and the per-shard admit
@@ -267,9 +299,10 @@ kernels:
 
 Launch counts are zeroed just before phases 4, 5, 7, 8, 9, 9b, 11, 13,
 14, 15, 15b, 15c, 16, 16b, 16c, 16d, 17, 18, 19 (its run and its
-search), 20, 21 (its arms on the card, and its wall arm), 22 and 23 and
-read just after each (23: this process's and, from their
-``--stats-file``, the children's).  The
+search), 20, 21 (its arms on the card, and its wall arm), 22, 23 and
+24 (its in-process schedule, and its in-process serve) and read just
+after each (23: this process's and, from their ``--stats-file``, the
+children's; 24: this process's, the children have no stats file).  The
 scenarios collect as the reference scripts do (builds frozen, drains
 with collection off): the measured north-star phases 5, 8, 9, 15, 15c,
 16b and 16c, tas-4k's phase 11, the job front door's phase 18 and
@@ -278,8 +311,8 @@ phases 19 and 20 must see no full collection
 ``scenarios.release()`` frees each phase's driver graph before the next
 phase builds.  A
 launch records no CUDA event: the device time of phases 4, 5, 7, 8, 9,
-11, 13, 15, 15c, 16, 16b, 16c, 16d, 17, 18, 19, 20, 21, 22 and 23 (this
-process only: the children are not profiled) (per kernel, the rest, the
+11, 13, 15, 15c, 16, 16b, 16c, 16d, 17, 18, 19, 20, 21, 22, 23 and 24's
+schedule (this process only: the children are not profiled) (per kernel, the rest, the
 busy union and its share of the wall) comes from torch.profiler's CUDA activity
 over the phase (``kueue_tpu_torch.profiling.DeviceClock``); a phase in
 which it sees nothing fails.  Prints a ``kernels`` JSON line (per
@@ -420,6 +453,9 @@ DIST = dict(cqs=8, shards=2, submitters=2, workers=2, per_step=4,
             kill_steps=8, fed_cqs=6, fed_remote_cqs=4, fed_traffic_steps=5,
             fed_pre_kill_steps=3, fed_post_kill_steps=7, proxy_reset=0.03,
             proxy_latency=0.05, ready_timeout_s=120.0, seed=2003)
+# phase 24: the file store at phase 6's size (PARITY_SCALE: 3,000
+# workloads); the daemon picks up this many more while it serves
+CLI_SERVE = 100
 README_REPLAY = ("76.8 virtual s; large/medium/small 0 / 33.2 / 54.1 s; "
                  "min CQ usage 98.7%")
 
@@ -1409,12 +1445,138 @@ class Launcher:
         self.proc.wait()
 
 
+# the CPU-only parity arms of phases 10, 12 and 18: the same scenario on
+# "cpu" as the phase holds against the card, run in a child process on
+# one torch thread from the build on, beside the card's phases, and read
+# where the phase checks it (format: NORTHSTAR, TAS_CYCLES)
+CPU_ARM_CODE = {
+    "10": """
+d, clock, total = scenarios.build_northstar_fs({n_cqs}, {n_wl}, device="cpu")
+r = scenarios.run_northstar_fs(d, clock, cycles={cycles})
+out = dict(total=total, cycles=r["cycles"], wall=r["wall"],
+           admitted=r["admitted"], skipped=r["skipped"],
+           fs_full_cycles=d.scheduler.solver.stats["fs_full_cycles"],
+           digest=scenarios.decision_digest(d, r["decisions"]))
+""",
+    "12": """
+out = {{}}
+for label, device_kernel in (("plain", True), ("host walk", False)):
+    with scenarios.tas_gates(device_kernel=device_kernel):
+        d, clock, runtimes = scenarios.build_tas(device="cpu")
+        with scenarios.TASBranches() as br:
+            r = scenarios.run_tas(d, clock, runtimes, cycles={tas_cycles})
+    out[label] = dict(cycles=r["cycles"], wall=r["wall"],
+                      admitted=r["admitted"], counts=dict(br.counts),
+                      digest=scenarios.tas_digest(d, r))
+    del d
+    scenarios.release()
+""",
+    "18": """
+with scenarios.restore_gates():
+    d, clock, mgr, plan = scenarios.build_jobs(device="cpu")
+    r = scenarios.run_jobs(d, clock, mgr, plan)
+out = dict(steps=r["steps"], wall=r["wall"], admitted=r["admitted"],
+           digest=scenarios.jobs_digest(d, r))
+""",
+    # phase 24's CPU side: the apply on the card (a CLI child, into a/),
+    # a copy of its store for (b) and applied.json for phase 24; (b) the
+    # schedule on "cpu"; then (d)'s sequence on "cpu" on a copy of (b)'s
+    # store (format: CLI_DIR, CLI_SERVE)
+    "24": """
+import contextlib, io, shutil, subprocess
+from kueue_tpu_torch import cli
+td = {td!r}
+cwd, env = scenarios.cli_env()
+t1 = time.perf_counter()
+r = subprocess.run(scenarios.cli_argv(td + "/a", "cuda", "apply", "-f",
+                                      td + "/bench.yaml"),
+                   cwd=cwd, env=env, capture_output=True, text=True)
+applied = dict(rc=r.returncode, apply_s=time.perf_counter() - t1,
+               err=r.stderr[-3000:], workloads=sum(
+                   doc["kind"] == "Workload"
+                   for doc in cli.Store(td + "/a").docs))
+shutil.copytree(td + "/a", td + "/b")
+with open(td + "/applied.tmp", "w") as fh:
+    json.dump(applied, fh)
+shutil.move(td + "/applied.tmp", td + "/applied.json")
+buf = io.StringIO()
+t1 = time.perf_counter()
+with contextlib.redirect_stdout(buf):
+    rc = cli.main(["--state-dir", td + "/b", "--device", "cpu", "schedule",
+                   "--cycles", "1000"])
+out = dict(schedule_rc=rc, schedule_s=time.perf_counter() - t1,
+           schedule_out=buf.getvalue(),
+           digest_b=scenarios.store_digest(td + "/b"))
+shutil.copytree(td + "/b", td + "/d_cpu")
+seq = scenarios.cli_serve_sequence(
+    td + "/d_cpu", td + "/serve.yaml", "cpu",
+    ["default/serve-" + str(i) for i in range({cli_serve})])
+out["seq"] = {{k: seq[k] for k in ("ready_s", "rc", "admitted_in_dump",
+                                   "digest", "ok")}}
+""",
+}
+CPU_ARMS: dict = {}
+CLI_DIR: list = []          # phase 24's manifests and stores
+
+
+def wait_for_json(path: str, timeout: float) -> dict:
+    """The JSON object a child writes to ``path`` (by rename, whole)."""
+    deadline = time.monotonic() + timeout
+    while not os.path.exists(path):
+        check(time.monotonic() < deadline, f"no {path} in {timeout}s")
+        time.sleep(0.1)
+    with open(path, encoding="utf-8") as fh:
+        return json.load(fh)
+
+
+class CpuArm:
+    """A phase's CPU arm in a child process: ``CPU_ARM_CODE[tag]`` on one
+    torch thread, its ``out`` printed as the last line with the child's
+    launch count (0: nothing runs on the card) and seconds."""
+
+    def __init__(self, tag: str):
+        here = os.path.dirname(os.path.abspath(__file__))
+        code = ("import json, time\nt0 = time.perf_counter()\n"
+                "import torch\ntorch.set_num_threads(1)\n"
+                "from kueue_tpu_torch import kernels, scenarios\n"
+                + CPU_ARM_CODE[tag].format(
+                    tas_cycles=TAS_CYCLES, td=CLI_DIR[0] if CLI_DIR else "",
+                    cli_serve=CLI_SERVE, **NORTHSTAR)
+                + "out['launches'] = sum(kernels.LAUNCHES.values())\n"
+                  "out['child_s'] = time.perf_counter() - t0\n"
+                  "print(json.dumps(out))\n")
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            [here] + [p for p in os.environ.get("PYTHONPATH", "").split(
+                os.pathsep) if p]))
+        self.tag = tag
+        # a session of its own: stop() ends the arm and every child of it
+        self.proc = subprocess.Popen([sys.executable, "-c", code], cwd=here,
+                                     env=env, stdout=subprocess.PIPE,
+                                     stderr=subprocess.PIPE, text=True,
+                                     start_new_session=True)
+
+    def result(self, timeout: float = 1200) -> dict:
+        out, err = self.proc.communicate(timeout=timeout)
+        check(self.proc.returncode == 0,
+              f"phase {self.tag}'s CPU arm exited {self.proc.returncode}: "
+              f"{err[-3000:]}")
+        return json.loads(out.strip().splitlines()[-1])
+
+    def stop(self) -> None:
+        import signal
+        if self.proc.poll() is None:
+            os.killpg(self.proc.pid, signal.SIGKILL)
+        self.proc.wait()
+
+
 def main() -> int:
     launcher = Launcher()   # while this process is still small
     try:
         return smoke(launcher)
     finally:
         launcher.close()
+        for arm in CPU_ARMS.values():
+            arm.stop()
 
 
 def smoke(launcher: Launcher) -> int:
@@ -1456,6 +1618,17 @@ def smoke(launcher: Launcher) -> int:
     log(f"[2 build] {kernels.BUILD['library']} in "
         f"{time.perf_counter() - t0:.2f}s")
     clock_offset0 = profiler_clock_offset()
+    import tempfile
+    CLI_DIR.append(tempfile.mkdtemp(prefix="chip_smoke_cli_"))
+    docs24 = scenarios.cli_bench_docs(PARITY_SCALE)
+    scenarios.write_manifests(f"{CLI_DIR[0]}/bench.yaml", docs24)
+    scenarios.write_manifests(f"{CLI_DIR[0]}/cluster.yaml", [
+        doc for doc in docs24 if doc["kind"] != "Workload"])
+    scenarios.write_manifests(f"{CLI_DIR[0]}/serve.yaml",
+                              scenarios.cli_serve_docs(CLI_SERVE))
+    del docs24
+    for tag in CPU_ARM_CODE:
+        CPU_ARMS[tag] = CpuArm(tag)
 
     # -- 3a. kernels against their plain versions: seeded sweep ------------
     stats = {k: dict(cases=0, mismatches=0, max_abs_err=0)
@@ -1729,20 +1902,15 @@ def smoke(launcher: Launcher) -> int:
     check(launches9b["drs_components"] == 2, launches9b)
     cap.uninstall()
 
-    # -- 10. the same fair-sharing run on the CPU ------------------------------
-    before = dict(kernels.LAUNCHES)
-    d, clock, total = scenarios.build_northstar_fs(
-        NORTHSTAR["n_cqs"], NORTHSTAR["n_wl"], device="cpu")
-    r10 = scenarios.run_northstar_fs(d, clock, cycles=NORTHSTAR["cycles"])
-    digest10 = scenarios.decision_digest(d, r10["decisions"])
-    log(f"[10 fs parity] cpu: {total} workloads, {r10['cycles']} cycles in "
-        f"{r10['wall']:.2f}s, admitted {r10['admitted']}, skipped "
-        f"{r10['skipped']}, fs_full_cycles "
-        f"{d.scheduler.solver.stats['fs_full_cycles']}, digest {digest10}")
-    check(digest10 == digest9, {"cuda": digest9, "cpu": digest10})
-    check(kernels.LAUNCHES == before, "the CPU run launched a kernel")
-    del d
-    scenarios.release()
+    # -- 10. the same fair-sharing run on the CPU (its child, since 2) -------
+    r10 = CPU_ARMS["10"].result()
+    log(f"[10 fs parity] cpu (a child on one thread beside phases 3-9, "
+        f"{r10['child_s']:.2f}s): {r10['total']} workloads, {r10['cycles']} "
+        f"cycles in {r10['wall']:.2f}s, admitted {r10['admitted']}, skipped "
+        f"{r10['skipped']}, fs_full_cycles {r10['fs_full_cycles']}, digest "
+        f"{r10['digest']}")
+    check(r10["digest"] == digest9, {"cuda": digest9, "cpu": r10["digest"]})
+    check(r10["launches"] == 0, "the CPU run launched a kernel")
 
     # -- 3d. the fair-sharing kernels on the calls captured in 9 and 9b ------
     for name in ("fs_admit_scan", "drs_components"):
@@ -1797,26 +1965,22 @@ def smoke(launcher: Launcher) -> int:
     scenarios.release()
 
     # -- 12. the same cycles on the CPU: plain programs, then the host walk --
-    before = dict(kernels.LAUNCHES)
+    # (its child, since 2)
+    r12 = CPU_ARMS["12"].result()
     for label, device_kernel in (("plain", True), ("host walk", False)):
-        with scenarios.tas_gates(device_kernel=device_kernel):
-            d, clock, runtimes = scenarios.build_tas(device="cpu")
-            with scenarios.TASBranches() as br:
-                r = scenarios.run_tas(d, clock, runtimes, cycles=TAS_CYCLES)
-        digest = scenarios.tas_digest(d, r)
-        log(f"[12 tas parity] cpu, {label}: {r['cycles']} cycles in "
-            f"{r['wall']:.2f}s, admitted {r['admitted']}, calls "
-            f"{json.dumps({k: br.counts[k] for k in br.CALLS})}, digest "
-            f"{digest}")
-        check(digest == digest11, {"cuda": digest11, label: digest})
+        r, counts = r12[label], r12[label]["counts"]
+        log(f"[12 tas parity] cpu, {label} (a child on one thread beside "
+            f"phases 3-11, {r12['child_s']:.2f}s for both): {r['cycles']} "
+            f"cycles in {r['wall']:.2f}s, admitted {r['admitted']}, calls "
+            f"{json.dumps({k: counts[k] for k in scenarios.TASBranches.CALLS})}"
+            f", digest {r['digest']}")
+        check(r["digest"] == digest11, {"cuda": digest11, label: r["digest"]})
         if device_kernel:
-            check(br.counts["scalar_walk"] == 0, br.counts)
+            check(counts["scalar_walk"] == 0, counts)
         else:
-            check(br.counts["scalar_walk"] > 0, br.counts)
-            check(all(br.counts[k] == 0 for k in TAS_KERNELS), br.counts)
-        del d
-        scenarios.release()
-    check(kernels.LAUNCHES == before, "a CPU run launched a kernel")
+            check(counts["scalar_walk"] > 0, counts)
+            check(all(counts[k] == 0 for k in TAS_KERNELS), counts)
+    check(r12["launches"] == 0, "a CPU run launched a kernel")
 
     # -- 3e. the TAS kernels: seeded sweep, global-memory sort, captured -----
     # the walked levels of the descent launches by the route they took
@@ -2461,17 +2625,12 @@ def smoke(launcher: Launcher) -> int:
     del d, mgr, plan, r18
     scenarios.release()
 
-    before = dict(kernels.LAUNCHES)
-    with scenarios.restore_gates():
-        d, clock, mgr, plan = scenarios.build_jobs(device="cpu")
-        r = scenarios.run_jobs(d, clock, mgr, plan)
-    digest = scenarios.jobs_digest(d, r)
-    log(f"[18 jobs parity] cpu: {r['steps']} steps in {r['wall']:.2f}s, "
-        f"admitted {r['admitted']}, digest {digest}")
-    check(digest == digest18, {"cuda": digest18, "cpu": digest})
-    check(kernels.LAUNCHES == before, "the CPU run launched a kernel")
-    del d, mgr, plan, r
-    scenarios.release()
+    r = CPU_ARMS["18"].result()     # its child, since 2
+    log(f"[18 jobs parity] cpu (a child on one thread beside phases 3-18, "
+        f"{r['child_s']:.2f}s): {r['steps']} steps in {r['wall']:.2f}s, "
+        f"admitted {r['admitted']}, digest {r['digest']}")
+    check(r["digest"] == digest18, {"cuda": digest18, "cpu": r["digest"]})
+    check(r["launches"] == 0, "the CPU run launched a kernel")
 
     # -- 19. the open loop at traffic_soak.py's width ------------------------
     from kueue_tpu_torch.traffic import find_sustainable_rate
@@ -2603,7 +2762,6 @@ def smoke(launcher: Launcher) -> int:
     check(digests20["cuda"] == digests20["cpu"], digests20)
 
     # -- 21. the admission service at traffic-1k's width --------------------
-    import tempfile
     import threading
     from kueue_tpu_torch.remote import state_digest
     m21 = scenarios.serving_modules("cuda")
@@ -2866,6 +3024,164 @@ def smoke(launcher: Launcher) -> int:
     del s23, f23
     scenarios.release()
 
+    # -- 24. the kueuectl file store on the card ------------------------------
+    # the apply and every CPU step ran in CPU_ARMS["24"] since phase 2
+    import contextlib
+    import io
+    import shutil
+    import threading
+    from kueue_tpu_torch import cli
+    td24 = CLI_DIR[0]
+    new24 = [f"default/serve-{i}" for i in range(CLI_SERVE)]
+    t24 = time.perf_counter()
+    applied24 = wait_for_json(f"{td24}/applied.json", 900)
+    check(applied24["rc"] == 0, applied24)
+    drivers24 = []
+    build24 = cli.build_driver
+
+    def keep_driver(store, device="cuda"):
+        drivers24.append(build24(store, device=device))
+        return drivers24[-1]
+
+    cli.build_driver = keep_driver
+    out24 = io.StringIO()
+    kernels.reset_counts()
+    try:
+        with DeviceClock() as dc24, LaunchThreads() as lt24, \
+                contextlib.redirect_stdout(out24):
+            t1 = time.perf_counter()
+            rc24 = cli.main(["--state-dir", f"{td24}/a", "--device", "cuda",
+                             "schedule", "--cycles", "1000"])
+            sched24_s = time.perf_counter() - t1
+    finally:
+        cli.build_driver = build24
+    launches24a = dict(kernels.LAUNCHES)
+    ss24 = drivers24[0].scheduler.solver.stats
+    text24 = out24.getvalue()
+    admitted24 = [ln.strip() for ln in text24.splitlines()[1:]]
+    digest24a = scenarios.store_digest(f"{td24}/a")
+    # (d) on the card: the daemon as children, on a copy of (a)'s store,
+    # while (c) and (d0) run here
+    seq24: dict = {}
+
+    def card_sequence():
+        try:
+            seq24["cuda"] = scenarios.cli_serve_sequence(
+                f"{td24}/d_cuda", f"{td24}/serve.yaml", "cuda", new24)
+        except BaseException as e:   # raised below, on this thread
+            seq24["cuda"] = e
+
+    t2 = time.perf_counter()
+    shutil.copytree(f"{td24}/a", f"{td24}/d_cuda")
+    kid24 = threading.Thread(target=card_sequence)
+    kid24.start()
+    log(f"[24 cli-3k] `python -m kueue_tpu_torch.cli apply -f` of the perf "
+        f"scenario's 5 cohorts x 6 CQs and {applied24['workloads']} "
+        f"workloads as manifests on the card {applied24['apply_s']:.2f}s "
+        f"(in CPU_ARMS['24'] since phase 2); (a) `cli --device cuda schedule "
+        f"--cycles 1000` in this process {sched24_s:.2f}s: rc {rc24}, "
+        f"{text24.splitlines()[0] if text24 else 'no output'} "
+        f"{json.dumps(admitted24)}, full_cycles {ss24['full_cycles']}, "
+        f"host_cycles {ss24['host_cycles']}, state.json digest {digest24a}; "
+        f"launching threads {len(lt24.idents)}; launches "
+        f"{json.dumps({k: v for k, v in launches24a.items() if v})} "
+        f"(admit_scan_preempt {launches24a['admit_scan_preempt']}, "
+        f"minimal_preemptions_batch "
+        f"{launches24a['minimal_preemptions_batch']}); "
+        f"{device_line('24', dc24, sched24_s, launches24a)}")
+    check(rc24 == 0, text24[-3000:])
+    check(launches24a["admit_scan"] > 0, launches24a)
+    check(ss24["host_cycles"] == 0, ss24)
+    check(len(admitted24) > 0, text24)
+    # (c) `cli state` on the card: every CQ with its usage
+    out24 = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out24):
+        rc = cli.main(["--state-dir", f"{td24}/a", "--device", "cuda",
+                       "state"])
+    dump24 = out24.getvalue().splitlines()
+    usage24 = dump24[dump24.index("-- cache usage --") + 1:
+                     dump24.index("-- admitted workloads --")]
+    cqs24 = [f"cq-{c}-{q}" for c in range(scenarios.N_COHORTS)
+             for q in range(scenarios.CQS_PER_COHORT)]
+    listed24 = {ln.split(":")[0].strip() for ln in usage24}
+    used24 = {ln.split(":")[0].strip() for ln in usage24
+              if not ln.endswith("{}")}
+    log(f"[24 cli state] rc {rc} in {time.perf_counter() - t0:.2f}s: "
+        f"{len(listed24)} of {len(cqs24)} CQs listed with their usage, "
+        f"{len(used24)} using quota; {usage24[0].strip()} ...")
+    check(rc == 0 and listed24 == set(cqs24), usage24)
+    # (d0) `cli serve` in this process: the store watcher's thread never
+    # decides a cycle or launches; the daemon's thread does both
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = cli.main(["--state-dir", f"{td24}/s", "--device", "cuda",
+                       "apply", "-f", f"{td24}/cluster.yaml"])
+    check(rc == 0, "apply of the cluster")
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    with LaunchThreads() as lt24s, contextlib.redirect_stdout(io.StringIO()):
+        s24 = scenarios.cli_serve_in_process(f"{td24}/s",
+                                             f"{td24}/serve.yaml", "cuda",
+                                             new24)
+    serve24_s = time.perf_counter() - t0
+    launches24s = dict(kernels.LAUNCHES)
+    log(f"[24 cli serve in-process] the watcher applied {CLI_SERVE} "
+        f"workloads and the daemon admitted them in {serve24_s:.2f}s: rc "
+        f"{s24['rc']}, error {s24['error']!r}, dispatching threads "
+        f"{len(s24['dispatches'])} (the daemon's only "
+        f"{set(s24['dispatches']) == {s24['serve_thread']}}), launching "
+        f"threads {len(lt24s.idents)} (the daemon's only "
+        f"{set(lt24s.idents) == {s24['serve_thread']}}); launches "
+        f"{json.dumps({k: v for k, v in launches24s.items() if v})}")
+    check(s24["rc"] == 0 and s24["error"] is None, s24["error"])
+    check(set(s24["dispatches"]) == {s24["serve_thread"]}, s24["dispatches"])
+    check(set(lt24s.idents) == {s24["serve_thread"]}, dict(lt24s.idents))
+    check(launches24s["admit_scan"] > 0, launches24s)
+    del s24, drivers24
+    kid24.join()
+    seq24_s = time.perf_counter() - t2
+    if isinstance(seq24["cuda"], BaseException):
+        raise seq24["cuda"]
+    c24 = seq24["cuda"]
+    cpu24 = CPU_ARMS["24"].result()
+    with open(f"{td24}/d_cuda/{cli.STATE_FILE}", encoding="utf-8") as fh:
+        held24 = {f"{doc['metadata'].get('namespace', 'default')}/"
+                  f"{doc['metadata']['name']}" for doc in json.load(fh)
+                  if doc["kind"] == "Workload"
+                  and (doc.get("status") or {}).get("admission")}
+    log(f"[24 cli serve] `cli serve` leader and `serve --exit-when-drained` "
+        f"waiter as children on a copy of (a)'s store, {seq24_s:.2f}s with "
+        f"(c) and (d0) beside: card seconds {json.dumps(c24['ready_s'])} "
+        f"(leader and waiter: spawn to ready; apply: the child's run; "
+        f"admitted_in_dump: after it; the rest from the SIGTERM), exit "
+        f"codes {c24['rc']}, the leader's SIGUSR2 dump listed "
+        f"{c24['admitted_in_dump']}/{CLI_SERVE} applied workloads admitted, "
+        f"last lines {json.dumps(c24['leader_out'][-1:])} / "
+        f"{json.dumps(c24['waiter_out'][-1:])}; final store: {len(held24)} "
+        f"holding quota, digest {c24['digest']}")
+    log(f"[24 cli dump] {json.dumps(c24['dump'].splitlines()[:8])}")
+    log(f"[24 cli cpu] CPU_ARMS['24'] ({cpu24['child_s']:.2f}s beside "
+        f"phases 3-24): (b) the same schedule with --device cpu on a copy "
+        f"of the applied store {cpu24['schedule_s']:.2f}s: rc "
+        f"{cpu24['schedule_rc']}, output equal {cpu24['schedule_out'] == text24}"
+        f", digest {cpu24['digest_b']} (card {digest24a}); (d) the same "
+        f"sequence on --device cpu on a copy of (b)'s store: seconds "
+        f"{json.dumps(cpu24['seq']['ready_s'])}, exit codes "
+        f"{cpu24['seq']['rc']}, dump listed "
+        f"{cpu24['seq']['admitted_in_dump']}/{CLI_SERVE}, digest "
+        f"{cpu24['seq']['digest']} (card {c24['digest']}); phase 24 "
+        f"{time.perf_counter() - t24:.2f}s")
+    check(cpu24["schedule_rc"] == 0 and cpu24["schedule_out"] == text24,
+          (text24[-2000:], cpu24["schedule_out"][-2000:]))
+    check(cpu24["digest_b"] == digest24a, (digest24a, cpu24["digest_b"]))
+    check(c24["ok"] and cpu24["seq"]["ok"], (c24["rc"], cpu24["seq"]["rc"]))
+    check(held24 == set(admitted24) | set(new24), sorted(held24)[:5])
+    check(c24["digest"] == cpu24["seq"]["digest"],
+          (c24["digest"], cpu24["seq"]["digest"]))
+    launches24 = summed([launches24a, launches24s])
+    shutil.rmtree(td24, ignore_errors=True)
+    scenarios.release()
+
     # -- 3i. the mesh kernels and the per-shard scans against plain ---------
     mesh_phases = ("bench_mesh", "northstar_mesh", "northstar_fs_mesh",
                    "dryrun")
@@ -2928,7 +3244,7 @@ def smoke(launcher: Launcher) -> int:
                 "16": launches16, "16b": launches16b, "16c": launches16c,
                 "16d": launches16d, "17": launches17, "18": launches18,
                 "19": launches19, "20": launches20, "21": launches21,
-                "22": launches22, "23": launches23}
+                "22": launches22, "23": launches23, "24": launches24}
     rows = []
     for name in kernels.KERNELS:
         phase = {"admit_scan_forests": "northstar",

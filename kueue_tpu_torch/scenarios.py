@@ -63,6 +63,11 @@ the north-star shape, driven per cycle through ``Driver.schedule_once``.
   ``dist_kill_federation_worker``): the admission service, the
   MultiKueue federation and supervised child processes on the port's
   Driver; the first two take either package's modules.
+- ``bench_objects``, ``cli_bench_docs``/``cli_serve_docs``/
+  ``write_manifests``/``store_digest`` and ``cli_serve_sequence``/
+  ``cli_serve_in_process``: the perf scenario as a kueuectl manifest
+  store (``cli.py``), and its daemon handing the lease over as child
+  processes, or serving in this process while another thread applies.
 
 Every workload is generated from the scenario's parameters alone, so two
 runs (two devices, or this package and the JAX package) see the same
@@ -195,29 +200,38 @@ def build_bench(scale: float = 1.0, device: str = "cuda",
     with shards_env(shards):
         d = Driver(clock=clock, device=device,
                    solver_backend=solver_backend)
-    d.apply_resource_flavor(ResourceFlavor(name="default"))
+    flavor, queues, waves, total = bench_objects(scale)
+    d.apply_resource_flavor(flavor)
+    for cq, lq in queues:
+        d.apply_cluster_queue(cq)
+        d.apply_local_queue(lq)
+    freeze_heap()
+    return d, clock, total, waves
+
+
+def bench_objects(scale: float = 1.0):
+    """The perf scenario's objects at ``scale`` → (flavor, [(cq, lq)],
+    waves, total): what ``build_bench`` applies and creates."""
     total = 0
+    queues = []
     waves: dict[str, list[Workload]] = {c[0]: [] for c in CLASSES}
     for c in range(N_COHORTS):
         for q in range(CQS_PER_COHORT):
             name = f"cq-{c}-{q}"
-            d.apply_cluster_queue(_preempting_cq(name, f"cohort-{c}", {
-                "cpu": ResourceQuota(nominal=20 * UNIT,
-                                     borrowing_limit=100 * UNIT)}))
-            d.apply_local_queue(LocalQueue(name=f"lq-{c}-{q}",
-                                           cluster_queue=name))
-            i = 0
+            queues.append((
+                _preempting_cq(name, f"cohort-{c}", {
+                    "cpu": ResourceQuota(nominal=20 * UNIT,
+                                         borrowing_limit=100 * UNIT)}),
+                LocalQueue(name=f"lq-{c}-{q}", cluster_queue=name)))
             for cls, count, units, prio in CLASSES:
                 for k in range(max(1, int(count * scale))):
-                    i += 1
                     total += 1
                     waves[cls].append(Workload(
                         name=f"{cls}-{c}-{q}-{k}", queue_name=f"lq-{c}-{q}",
                         priority=prio, creation_time=float(total),
                         pod_sets=[PodSet(name="main", count=1,
                                          requests={"cpu": units * UNIT})]))
-    freeze_heap()
-    return d, clock, total, waves
+    return ResourceFlavor(name="default"), queues, waves, total
 
 
 def _admission_record(d: Driver, key: str) -> list:
@@ -2670,3 +2684,340 @@ def dist_kill_federation_worker(cfg: dict, seed: int, td: str,
         "ok": (bool(killed) and parity and settled and duplicated == 0
                and resyncs >= 1),
     }
+
+
+# -- the kueuectl file store (cli.py) ----------------------------------------
+
+def cli_bench_docs(scale: float = 0.2) -> list:
+    """The perf scenario's cluster and workloads at ``scale`` as manifests
+    (``api.manifests.to_manifest``; each ClusterQueue's preemption policy,
+    which the codec does not encode, added to its spec): the flavor, the
+    30 ClusterQueues with their LocalQueues, then every workload in
+    creation order."""
+    from .api import manifests
+    flavor, queues, waves, _ = bench_objects(scale)
+    docs = [manifests.to_manifest(flavor)]
+    for cq, lq in queues:
+        doc = manifests.to_manifest(cq)
+        doc["spec"]["preemption"] = {
+            "reclaimWithinCohort": cq.preemption.reclaim_within_cohort.value,
+            "withinClusterQueue": cq.preemption.within_cluster_queue.value}
+        docs += [doc, manifests.to_manifest(lq)]
+    wls = sorted((w for ws in waves.values() for w in ws),
+                 key=lambda w: w.creation_time)
+    return docs + [manifests.to_manifest(w) for w in wls]
+
+
+def cli_serve_docs(n: int = 100, first: int = 1_000_000) -> list:
+    """What the daemon picks up while it serves: a cohort of its own with
+    two ClusterQueues of ``n // 2`` units of cpu each, their LocalQueues
+    and ``n`` one-unit workloads between them, created after every
+    workload of ``cli_bench_docs``.  Each fits, so each is admitted, two
+    heads of one cohort a cycle (an admit scan, not the solver's
+    one-head shortcut)."""
+    from .api import manifests
+    docs = []
+    for q in range(2):
+        docs += [manifests.to_manifest(ClusterQueue(
+            name=f"cq-serve-{q}", cohort="cohort-serve",
+            resource_groups=[ResourceGroup(
+                covered_resources=["cpu"], flavors=[FlavorQuotas(
+                    name="default", resources={"cpu": ResourceQuota(
+                        nominal=n // 2 * UNIT)})])])),
+            manifests.to_manifest(LocalQueue(
+                name=f"lq-serve-{q}", cluster_queue=f"cq-serve-{q}"))]
+    return docs + [
+        manifests.to_manifest(Workload(
+            name=f"serve-{i}", queue_name=f"lq-serve-{i % 2}", priority=50,
+            creation_time=float(first + i),
+            pod_sets=[PodSet(name="main", count=1,
+                             requests={"cpu": UNIT})]))
+        for i in range(n)]
+
+
+def write_manifests(path: str, docs: list) -> str:
+    """``docs`` as one multi-document file for ``cli apply -f`` (JSON
+    documents, which YAML reads, between ``---`` lines)."""
+    with open(path, "w", encoding="utf-8") as fh:
+        fh.write("\n---\n".join(json.dumps(d) for d in docs) + "\n")
+    return path
+
+
+def store_digest(state_dir: str) -> str:
+    """A digest of a store's workload manifests without their conditions'
+    ``lastTransitionTime`` (the Driver's wall clock sets it): their spec,
+    admissions and conditions, in name order."""
+    import os
+    from .cli import STATE_FILE
+    with open(os.path.join(state_dir, STATE_FILE), encoding="utf-8") as fh:
+        docs = json.load(fh)
+    wls = []
+    for doc in docs:
+        if doc.get("kind") != "Workload":
+            continue
+        doc = json.loads(json.dumps(doc))
+        for c in (doc.get("status") or {}).get("conditions", []):
+            c.pop("lastTransitionTime", None)
+        wls.append(doc)
+    wls.sort(key=lambda d: (d["metadata"].get("namespace", "default"),
+                            d["metadata"]["name"]))
+    blob = json.dumps(wls, sort_keys=True).encode()
+    return hashlib.sha256(blob).hexdigest()[:16]
+
+
+def cli_argv(state_dir: str, device: str, *args) -> list:
+    """``python -m kueue_tpu_torch.cli --state-dir ... --device ...``."""
+    import sys
+    return [sys.executable, "-m", "kueue_tpu_torch.cli", "--state-dir",
+            str(state_dir), "--device", device, *args]
+
+
+def cli_env() -> tuple:
+    """(cwd, environment) for a CLI child: the checkout that holds this
+    package, first on the child's path."""
+    import os
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    path = os.environ.get("PYTHONPATH", "")
+    return root, dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [root] + [p for p in path.split(os.pathsep) if p]))
+
+
+class _Child:
+    """A CLI child whose stdout and stderr lines are read as they come."""
+
+    def __init__(self, argv, cwd, env):
+        import subprocess
+        import threading
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(argv, cwd=cwd, env=env, text=True,
+                                     stdout=subprocess.PIPE,
+                                     stderr=subprocess.PIPE)
+        self.out: list = []
+        self.err: list = []
+        self.out_closed = False
+        self._cv = threading.Condition()
+        for pipe, lines in ((self.proc.stdout, self.out),
+                            (self.proc.stderr, self.err)):
+            threading.Thread(target=self._read, args=(pipe, lines),
+                             daemon=True).start()
+
+    def _read(self, pipe, lines) -> None:
+        for line in pipe:
+            with self._cv:
+                lines.append((time.perf_counter() - self.t0,
+                              line.rstrip("\n")))
+                self._cv.notify_all()
+        with self._cv:
+            if lines is self.out:
+                self.out_closed = True
+            self._cv.notify_all()
+
+    def wait_line(self, prefix: str, timeout: float) -> float:
+        """Seconds from spawn to the first stdout line that starts with
+        ``prefix``; raises when stdout closes or the time is up first."""
+        deadline = time.monotonic() + timeout
+        with self._cv:
+            while True:
+                for t, line in self.out:
+                    if line.startswith(prefix):
+                        return t
+                left = deadline - time.monotonic()
+                if self.out_closed or left <= 0:
+                    raise RuntimeError(f"no {prefix!r} from the child "
+                                       f"(exit {self.proc.poll()}): "
+                                       f"{self.tail()}")
+                self._cv.wait(min(left, 0.2))
+
+    def tail(self, n: int = 8) -> str:
+        return " | ".join(line for _, line in (self.out + self.err)[-n:])
+
+    def stop(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+        self.proc.wait()
+
+
+def _last_dump(lines: list):
+    """(text, admitted keys) of the last complete ``dump_state`` in a
+    child's stderr lines, or None before one is complete."""
+    text = [line for _, line in lines]
+    starts = [i for i, line in enumerate(text)
+              if line == "=== kueue-tpu state dump ==="]
+    for i in reversed(starts):
+        body = text[i:]
+        if "-- events --" in body and body.index("-- events --") + 1 < \
+                len(body):
+            a = body.index("-- admitted workloads --")
+            b = body.index("-- in-flight cycle --")
+            return "\n".join(body[:body.index("-- events --") + 2]), \
+                {line.strip() for line in body[a + 1:b]}
+    return None
+
+
+def cli_serve_sequence(state_dir: str, extra: str, device: str,
+                       new_keys, timeout: float = 180.0) -> dict:
+    """The file-store daemon handing over, each step a CLI child on
+    ``device``: a leader ``serve --poll-interval 0.1`` on the store, a
+    second ``serve --exit-when-drained --poll-interval 0.1`` that waits
+    for the lease; ``apply -f extra`` while the leader serves, SIGUSR2
+    until the leader's dump lists ``new_keys`` admitted (its store
+    watcher picked them up), SIGTERM (the leader writes back and
+    releases the lease); the waiter takes over, drains and exits.  The
+    leader runs without ``--exit-when-drained``, which would end it
+    before the apply.  Returns the seconds of each step (``ready_s``:
+    the leader and the waiter from spawn to ready, the apply child's run,
+    the wait for the dump after it, and from the SIGTERM the leader's
+    exit, the waiter's takeover and its exit), the exit codes, the
+    leader's dump and ``store_digest`` of the result."""
+    import signal
+    import subprocess
+    from .leaderelection import FileLease
+    cwd, env = cli_env()
+    lock = FileLease(state_dir).path
+    t0 = time.perf_counter()
+    kids = []
+    try:
+        leader = _Child(cli_argv(state_dir, device, "serve",
+                                 "--poll-interval", "0.1"), cwd, env)
+        kids.append(leader)
+        # the waiter starts once the leader holds the lease
+        deadline = time.monotonic() + timeout
+        while True:
+            try:
+                with open(lock, encoding="utf-8") as fh:
+                    if fh.read().strip() == str(leader.proc.pid):
+                        break
+            except OSError:
+                pass
+            if leader.proc.poll() is not None or \
+                    time.monotonic() > deadline:
+                raise RuntimeError(f"leader took no lease: {leader.tail()}")
+            time.sleep(0.05)
+        waiter = _Child(cli_argv(state_dir, device, "serve",
+                                 "--exit-when-drained", "--poll-interval",
+                                 "0.1"), cwd, env)
+        kids.append(waiter)
+        ready = {"leader": leader.wait_line("serving from", timeout),
+                 "waiter": waiter.wait_line("waiting for leadership",
+                                            timeout)}
+        t1 = time.perf_counter()
+        r = subprocess.run(cli_argv(state_dir, device, "apply", "-f", extra),
+                           cwd=cwd, env=env, capture_output=True, text=True,
+                           timeout=timeout)
+        ready["apply"] = time.perf_counter() - t1
+        if r.returncode != 0:
+            raise RuntimeError(f"apply exited {r.returncode}: "
+                               f"{r.stderr[-2000:]}")
+        t1 = time.perf_counter()
+        want = set(new_keys)
+        dump = None
+        while dump is None or not want <= dump[1]:
+            if time.monotonic() > deadline or leader.proc.poll() is not None:
+                raise RuntimeError(f"the leader's dump never listed the "
+                                   f"applied workloads: {leader.tail()}")
+            leader.proc.send_signal(signal.SIGUSR2)
+            time.sleep(0.25)
+            with leader._cv:
+                dump = _last_dump(leader.err)
+        ready["admitted_in_dump"] = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        leader.proc.send_signal(signal.SIGTERM)
+        rc_leader = leader.proc.wait(timeout)
+        ready["leader_exit"] = time.perf_counter() - t1
+        ready["takeover"] = waiter.wait_line("serving from", timeout) - (
+            t1 - waiter.t0)
+        rc_waiter = waiter.proc.wait(timeout)
+        ready["waiter_exit"] = time.perf_counter() - t1
+    finally:
+        for k in kids:
+            k.stop()
+    return {"ready_s": {k: round(v, 3) for k, v in ready.items()},
+            "rc": {"leader": rc_leader, "waiter": rc_waiter},
+            "dump": dump[0], "admitted_in_dump": len(want & dump[1]),
+            "leader_out": [line for _, line in leader.out],
+            "waiter_out": [line for _, line in waiter.out],
+            "wall": time.perf_counter() - t0,
+            "digest": store_digest(state_dir),
+            "ok": rc_leader == 0 and rc_waiter == 0 and want <= dump[1]}
+
+
+def cli_serve_in_process(state_dir: str, extra: str, device: str,
+                         new_keys, timeout: float = 120.0) -> dict:
+    """``cli serve --poll-interval 0.05`` on the calling thread, and from
+    another thread, once it serves, ``cli apply -f extra``; when the
+    daemon's Driver holds ``new_keys`` admitted (its store watcher
+    restored them, its cycles admitted them) that thread sets the
+    daemon's stop event, as its SIGTERM handler would, and the daemon
+    writes back and returns.  Every call of the daemon's
+    ``solver.dispatch`` counts to the thread that made it.  Returns the
+    daemon's Driver, its thread, those counts and the apply thread's
+    error (None when it saw every key admitted)."""
+    import signal
+    import threading
+    from . import cli
+    serve_thread = threading.get_ident()
+    built: dict = {}
+    dispatches: Counter = Counter()
+    orig_build = cli.build_driver
+
+    def build(store, device: str = "cuda"):
+        d = orig_build(store, device=device)
+        if threading.get_ident() == serve_thread and "driver" not in built:
+            built["driver"] = d
+            run, dispatch = d.run, d.scheduler.solver.dispatch
+
+            def run_recorded(stop, **kw):
+                built["stop"] = stop
+                return run(stop, **kw)
+
+            def dispatch_recorded(*a, **kw):
+                dispatches[threading.get_ident()] += 1
+                return dispatch(*a, **kw)
+
+            d.run = run_recorded
+            d.scheduler.solver.dispatch = dispatch_recorded
+        return d
+
+    err: list = []
+
+    def apply_then_stop():
+        deadline = time.monotonic() + timeout
+        try:
+            while "stop" not in built:
+                if time.monotonic() > deadline:
+                    raise TimeoutError("the daemon never started serving")
+                time.sleep(0.02)
+            rc = cli.main(["--state-dir", state_dir, "--device", device,
+                           "apply", "-f", extra])
+            if rc != 0:
+                raise RuntimeError(f"apply exited {rc}")
+            d = built["driver"]
+            while not set(new_keys) <= set(d.admitted_keys()):
+                if time.monotonic() > deadline:
+                    raise TimeoutError("the applied workloads were never "
+                                       "admitted")
+                time.sleep(0.02)
+        except BaseException as e:
+            err.append(e)
+        finally:
+            if "stop" in built:
+                built["stop"].set()
+
+    saved = {s: signal.getsignal(s)
+             for s in (signal.SIGINT, signal.SIGTERM, signal.SIGUSR2)}
+    cli.build_driver = build
+    helper = threading.Thread(target=apply_then_stop, daemon=True)
+    helper.start()
+    try:
+        rc = cli.main(["--state-dir", state_dir, "--device", device,
+                       "serve", "--poll-interval", "0.05"])
+    finally:
+        cli.build_driver = orig_build
+        if threading.current_thread() is threading.main_thread():
+            for s, h in saved.items():     # cmd_serve installed its own
+                signal.signal(s, h)
+        built.setdefault("stop", threading.Event()).set()
+        helper.join(timeout)
+    return {"rc": rc, "driver": built.get("driver"),
+            "serve_thread": serve_thread, "dispatches": dict(dispatches),
+            "error": err[0] if err else None}

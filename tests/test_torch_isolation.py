@@ -46,6 +46,7 @@ VERBATIM = (
     "serving/__init__.py", "serving/ingest.py", "serving/service.py",
     "remote.py", "visibility.py", "federation/__init__.py",
     "dist/__init__.py", "dist/proxy.py",
+    "leaderelection.py", "debugger.py",
 )
 # copies that begin with the original file and only append to it
 APPENDED = ("ops/packing.py",)
@@ -54,7 +55,11 @@ EDITED = ("controller/driver.py", "ops/preemption_solver.py", "ops/burst.py",
           "cache/tas_snapshot.py", "cache/tas_cache.py", "perf/harness.py",
           "federation/sim.py", "federation/procs.py", "dist/serving.py",
           "dist/worker.py", "dist/supervisor.py", "dist/child.py",
-          "admissionchecks/multikueue.py")
+          "admissionchecks/multikueue.py", "cli.py",
+          "analysis/__init__.py", "analysis/core.py", "analysis/purity.py",
+          "analysis/dtypes.py", "analysis/chaos_sites.py",
+          "analysis/env_flags.py", "analysis/metrics_doc.py",
+          "analysis/wal_order.py")
 
 
 def _read(path):
@@ -97,7 +102,7 @@ def test_every_port_module_is_accounted_for():
            "ops/fs_scan.py", "ops/fairsharing_kernel.py",
            "ops/tas_kernel.py", "profiling.py", "kernels/__init__.py", "scenarios.py",
            "testing.py", "parallel/__init__.py", "parallel/sharded.py",
-           "probe.py", "native/__init__.py"}
+           "probe.py", "native/__init__.py", "analysis/__main__.py"}
     rels = {os.path.relpath(p, PORT) for p in _port_files()}
     assert rels == set(VERBATIM) | set(APPENDED) | set(EDITED) | own
 
@@ -192,6 +197,36 @@ def test_serving_and_remote_modules_in_a_fresh_process():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
     assert out.stdout.strip().endswith("ok")
+
+
+@pytest.mark.parametrize("module,argv", [
+    ("kueue_tpu_torch.cli", ["--help"]),
+    ("kueue_tpu_torch.analysis", ["--json"]),
+])
+def test_cli_and_lint_in_a_fresh_process(module, argv):
+    """``python -m kueue_tpu_torch.cli --help`` and ``python -m
+    kueue_tpu_torch.analysis --json`` load neither jax nor kueue_tpu; the
+    lint loads no torch and no numpy either."""
+    code = (
+        "import io, contextlib, runpy, sys\n"
+        f"sys.argv = [{module!r}] + {argv!r}\n"
+        "buf = io.StringIO()\n"
+        "with contextlib.redirect_stdout(buf):\n"
+        "    try:\n"
+        f"        runpy.run_module({module!r}, run_name='__main__')\n"
+        "    except SystemExit as e:\n"
+        "        assert not e.code, (e.code, buf.getvalue()[-2000:])\n"
+        "assert buf.getvalue(), 'no output'\n"
+        "print(sorted({m.split('.')[0] for m in sys.modules} & "
+        "{'jax', 'jaxlib', 'kueue_tpu', 'torch', 'numpy'}))\n")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    loaded = set(ast.literal_eval(out.stdout.strip().splitlines()[-1]))
+    assert not loaded & {"jax", "jaxlib", "kueue_tpu"}, loaded
+    if module.endswith("analysis"):
+        assert not loaded, loaded
 
 
 def test_runtime_modules_in_a_fresh_process():
