@@ -20,14 +20,17 @@ admission with the provisioning check
 (``kueue_tpu_torch.federation``, ``remote``) and supervised child
 processes (``kueue_tpu_torch.dist``); then the kueuectl CLI and its
 admission daemon over a manifest store (``python -m
-kueue_tpu_torch.cli``), each ending in the per-cycle admit kernels:
+kueue_tpu_torch.cli``); then the north-star entry point's twin (``python
+-m kueue_tpu_torch.northstar``) on the mixed fleet and through the
+fill-then-trickle, each ending in the per-cycle admit kernels or the
+fused burst:
 
 1. device: name, count and ``nvidia-smi`` name/power limit;
 2. build: nvcc of every kernel source (in parallel) into one library;
    then the CPU arms start, each a child process on one torch thread
-   beside the card's phases (``CPU_ARMS``): phase 10's, 12's and 18's
-   runs on "cpu" and phase 24's apply (on the card) and CPU side, each
-   read where its phase checks it;
+   beside the card's phases (``CPU_ARMS``): phase 10's, 12's, 18's,
+   25's and 26's runs on "cpu" and phase 24's apply (on the card) and
+   CPU side, each read where its phase checks it;
 3. kernels: each CUDA kernel against its plain version on the CPU over a
    seeded sweep (kueue_tpu_torch.testing.kernel_cases, burst_cases,
    fs_cases and avail_cases: kq_cq_avail's staged route at depth 1, 2,
@@ -121,8 +124,10 @@ kueue_tpu_torch.cli``), each ending in the per-cycle admit kernels:
    (testing.preempt_route_cases: cohorts of five, nested forests, depth
    17, F = 12, one forest, the cross-forest case under joined tables),
    admit_scan_forests over testing.FOREST_SHAPES (a forest with heads
-   past max_forest_wl among them) and burst_cycles on a window and on
-   one forest of every CQ, each with shared memory and with none allowed
+   past max_forest_wl among them) and burst_cycles on a window, on the
+   mixed fleet's window (4 slots x 3 resources, F = 12, resumes and both
+   fungibility policies) and on one forest of every CQ, each with shared
+   memory and with none allowed
    — both routes of the four kernels taken and counted per call; and
    minimal_preemptions_batch over testing.search_route_cases (S = 13 with
    padding searches between real ones, K = 1,024, F = 40, a tree past
@@ -286,6 +291,37 @@ kueue_tpu_torch.cli``), each ending in the per-cycle admit kernels:
    waiter takes over, drains and exits 0; each child's seconds to
    ready printed; the final store holds every admission and its digest
    is the CPU's;
+25. (its card arms, 26's and 3l run in one child process on the card,
+   started before phase 16 and read here: ``CARD_ARMS``) the north-star
+   twin's mixed fleet at full width (northstar-hetero-1k:
+   ``python -m kueue_tpu_torch.northstar``'s ``NS_HETERO`` arms,
+   ``--ab-hetero``): 1,000 CQs in cohorts of 5, each over 4 flavors x 3
+   resources with the whenCanBorrow x whenCanPreempt matrix cycled,
+   100,000 workloads, 30 cycles with the 1,000-gang wave at cycle 10 —
+   the per-cycle device solver on the card, the fused burst on the card,
+   the burst on a virtual mesh of 4 shards of the card, and the host-walk
+   oracle on "cpu" (its CPU arm): one digest over the four arms' per-cycle
+   decisions (``scenarios.cycle_record``), the twin's ``hetero`` block
+   with its decision identity and zero host fallbacks, every fallback and
+   ``burst_dirty_*`` counter 0 (the sharded arm's too), resume and
+   walk-stop heads > 0, preemptions and skips in every arm, and
+   admit_scan_forests (or admit_scan), admit_scan_preempt,
+   minimal_preemptions_batch, burst_cycles and kq_reduce_dflags launched;
+   p50 / p99 per arm printed;
+26. the twin's fill-then-trickle at full width (northstar-trickle-1k:
+   ``NS_PACK``, ``--ab-pack`` with its 6 trickle rounds): the delta-pack
+   serial, full-pack serial and pipelined arms on the card
+   (``--device``: no host arm) with one digest and ``pack_compare``'s
+   decision identity, no delta pack in the full-pack arm;
+   the trickle's ``delta_pack_s`` / ``burst_pack_s`` printed (with 100
+   workloads a CQ the backlog stays, every CQ is journal-dirty at every
+   trickle boundary and all 6 repack in full, as in the JAX script);
+   then the delta-pack serial arm at 1,000 CQs and 10,000 workloads (the
+   backlog drained before the fill) on the card and on "cpu" (its CPU
+   arm): delta packs and reused rows, equal digests and pack counters;
+3l. the kernels on the calls captured in phases 25 and 26 (F = 12 and
+   the mixed fleet's burst windows among them) against their plain
+   versions, in the same child — exact, counted in the kernels line;
 3i. kq_gather_heads and kq_fs_merge_order against their plain versions
    on the calls captured in 16-16d and on one synthetic call each at
    north-star width (1,000 heads over 8 shards), and the per-shard admit
@@ -299,8 +335,9 @@ kueue_tpu_torch.cli``), each ending in the per-cycle admit kernels:
 
 Launch counts are zeroed just before phases 4, 5, 7, 8, 9, 9b, 11, 13,
 14, 15, 15b, 15c, 16, 16b, 16c, 16d, 17, 18, 19 (its run and its
-search), 20, 21 (its arms on the card, and its wall arm), 22, 23 and
-24 (its in-process schedule, and its in-process serve) and read just
+search), 20, 21 (its arms on the card, and its wall arm), 22, 23, 24
+(its in-process schedule, and its in-process serve), 25 (its three card
+arms, each also counted alone) and 26 and read just
 after each (23: this process's and, from their ``--stats-file``, the
 children's; 24: this process's, the children have no stats file).  The
 scenarios collect as the reference scripts do (builds frozen, drains
@@ -311,8 +348,9 @@ phases 19 and 20 must see no full collection
 ``scenarios.release()`` frees each phase's driver graph before the next
 phase builds.  A
 launch records no CUDA event: the device time of phases 4, 5, 7, 8, 9,
-11, 13, 15, 15c, 16, 16b, 16c, 16d, 17, 18, 19, 20, 21, 22, 23 and 24's
-schedule (this process only: the children are not profiled) (per kernel, the rest, the
+11, 13, 15, 15c, 16, 16b, 16c, 16d, 17, 18, 19, 20, 21, 22, 23, 24's
+schedule, 25's card arms and 26 (this process only: the children are
+not profiled) (per kernel, the rest, the
 busy union and its share of the wall) comes from torch.profiler's CUDA activity
 over the phase (``kueue_tpu_torch.profiling.DeviceClock``); a phase in
 which it sees nothing fails.  Prints a ``kernels`` JSON line (per
@@ -456,6 +494,19 @@ DIST = dict(cqs=8, shards=2, submitters=2, workers=2, per_step=4,
 # phase 24: the file store at phase 6's size (PARITY_SCALE: 3,000
 # workloads); the daemon picks up this many more while it serves
 CLI_SERVE = 100
+# phases 25 and 26: the north-star twin (python -m kueue_tpu_torch.northstar)
+# at full width; the mixed fleet's host-walk oracle and the trickle's card
+# against CPU check (100 CQs) run in CPU_ARMS
+NS_HETERO = ["--burst", "--ab-hetero", "--flavors", "4", "--resources", "3",
+             "--ab-shards", "4", "--burst-backend", "accel", "--trials", "1"]
+# (--device: the card arms only); the delta packs at 1,000 CQs with the
+# backlog drained (10 workloads a CQ), card against CPU: with 100 a CQ
+# every CQ's inadmissible backlog dirties its journal each cycle and every
+# trickle boundary repacks in full, in the JAX script too
+NS_PACK = ["--burst", "--ab-pack", "--trials", "1", "--burst-backend",
+           "accel", "--device"]
+NS_PACK_PARITY = ["--cqs", "1000", "--wl", "10000", "--trickle", "6",
+                  "--no-pipeline", "--trials", "1"]
 README_REPLAY = ("76.8 virtual s; large/medium/small 0 / 33.2 / 54.1 s; "
                  "min CQ usage 98.7%")
 
@@ -712,7 +763,9 @@ def on_card(args):
 
 
 def plain_kw(kw):
-    return {k: v for k, v in kw.items()
+    """The keyword arguments of the plain version: no CUDA-only table, and
+    tensors on the CPU (the sharded burst's dflags row among them)."""
+    return {k: v.cpu() if hasattr(v, "cpu") else v for k, v in kw.items()
             if k not in ("node_table", "device")}
 
 
@@ -1445,10 +1498,11 @@ class Launcher:
         self.proc.wait()
 
 
-# the CPU-only parity arms of phases 10, 12 and 18: the same scenario on
-# "cpu" as the phase holds against the card, run in a child process on
-# one torch thread from the build on, beside the card's phases, and read
-# where the phase checks it (format: NORTHSTAR, TAS_CYCLES)
+# the CPU-only parity arms of phases 10, 12, 18, 25 and 26: the same
+# scenario on "cpu" as the phase holds against the card, run in a child
+# process on one torch thread from the build on, beside the card's
+# phases, and read where the phase checks it (format: NORTHSTAR,
+# TAS_CYCLES)
 CPU_ARM_CODE = {
     "10": """
 d, clock, total = scenarios.build_northstar_fs({n_cqs}, {n_wl}, device="cpu")
@@ -1514,8 +1568,112 @@ seq = scenarios.cli_serve_sequence(
 out["seq"] = {{k: seq[k] for k in ("ready_s", "rc", "admitted_in_dump",
                                    "digest", "ok")}}
 """,
+    # phase 25's host-walk oracle (the twin's run_path with the host
+    # solver) and phase 26's delta-pack serial arm at 1,000 CQs, on "cpu"
+    # (format: NS_HETERO, NS_PACK_PARITY)
+    "25": """
+from kueue_tpu_torch import northstar
+args = northstar.parse_args({ns_hetero!r} + ["--torch-device", "cpu"])
+rec = []
+t1 = time.perf_counter()
+o = northstar.run_path(args, False, rec)
+out = dict(out=o, digest=rec[0]["digest"], arm_s=time.perf_counter() - t1)
+""",
+    "26": """
+from kueue_tpu_torch import northstar
+args = northstar.parse_args({ns_parity!r} + ["--torch-device", "cpu"])
+rec = []
+o = northstar.run_burst_path(args, "cpu", rec)
+out = dict(digest=rec[0]["digest"], admitted=o["admitted"],
+           trickle=o["trickle"])
+""",
+}
+# phases 25 and 26 on the card in a child process started before phase 16,
+# beside phases 16-24: the twin's three --ab-hetero card arms, its
+# --ab-pack arms and the card side of 26's card-against-CPU check, each
+# with its launches and its profiler reading, then the calls captured in
+# them against the plain versions (3l) (format: NS_HETERO, NS_PACK,
+# NS_PACK_PARITY)
+CARD_ARM_CODE = {
+    "25-26": """
+import contextlib, io
+import chip_smoke as cs
+from kueue_tpu_torch import northstar
+from kueue_tpu_torch.parallel import sharded
+from kueue_tpu_torch.profiling import DeviceClock
+kernels.load()
+stats = dict((k, dict(cases=0, mismatches=0, max_abs_err=0))
+             for k in kernels.KERNELS)
+cap = cs.Capture()
+quiet = io.StringIO()
+out = dict()
+args = northstar.parse_args({ns_hetero!r} + ["--torch-device", "cuda:0"])
+rec = []
+runs, walls, arm_launches = dict(), dict(), dict()
+cs.install_capture(cap)
+cs.install_shard_capture(cap)
+cap.phase = "northstar_hetero"
+kernels.reset_counts()
+t1 = time.perf_counter()
+with DeviceClock() as dc, contextlib.redirect_stderr(quiet):
+    with sharded.virtual_mesh("cuda:0", args.ab_shards):
+        for arm in ("in_kernel", "burst", "sharded"):
+            before = dict(kernels.LAUNCHES)
+            args.shards = args.ab_shards if arm == "sharded" else 0
+            t2 = time.perf_counter()
+            runs[arm] = [northstar.run_path(args, True, rec)
+                         if arm == "in_kernel" else
+                         northstar.run_burst_path(args, "accel", rec)]
+            walls[arm] = time.perf_counter() - t2
+            arm_launches[arm] = dict(
+                (k, kernels.LAUNCHES[k] - before[k]) for k in kernels.KERNELS
+                if kernels.LAUNCHES[k] != before[k])
+            scenarios.release()
+        args.shards = 0
+        mesh = northstar.mesh_info(args.ab_shards, "cuda:0", True)
+wall = time.perf_counter() - t1
+launches = dict(kernels.LAUNCHES)
+cap.uninstall()
+out["25"] = dict(runs=runs, walls=walls, arm_launches=arm_launches,
+                 launches=launches, mesh=mesh, wall=wall,
+                 digests=dict((e["path"], e["digest"]) for e in rec),
+                 device=cs.device_line("25", dc, wall, launches))
+args = northstar.parse_args({ns_pack!r} + ["--torch-device", "cuda:0"])
+rec = []
+cs.install_capture(cap)
+cap.phase = "northstar_trickle"
+kernels.reset_counts()
+t1 = time.perf_counter()
+with DeviceClock() as dc, contextlib.redirect_stderr(quiet):
+    tail = northstar.run(args, rec)
+wall = time.perf_counter() - t1
+launches = dict(kernels.LAUNCHES)
+cap.uninstall()
+scenarios.release()
+out["26"] = dict(tail=tail, launches=launches, wall=wall,
+                 digests=dict((e["path"], e["digest"]) for e in rec),
+                 device=cs.device_line("26", dc, wall, launches))
+args = northstar.parse_args({ns_parity!r} + ["--torch-device", "cuda:0"])
+rec = []
+kernels.reset_counts()
+t1 = time.perf_counter()
+with contextlib.redirect_stderr(quiet):
+    r = northstar.run_burst_path(args, "accel", rec)
+scenarios.release()
+out["26p"] = dict(admitted=r["admitted"], trickle=r["trickle"],
+                  digest=rec[0]["digest"], wall=time.perf_counter() - t1,
+                  launches=dict(kernels.LAUNCHES))
+n = dict()
+for phase in ("northstar_hetero", "northstar_trickle"):
+    for name in kernels.KERNELS:
+        for a, kw in cap.calls.get((phase, name), []):
+            cs.compare(name, a, kw, stats)
+            n[name] = n.get(name, 0) + 1
+out["3l"] = dict(captured=n, stats=dict((k, stats[k]) for k in n))
+""",
 }
 CPU_ARMS: dict = {}
+CARD_ARMS: dict = {}
 CLI_DIR: list = []          # phase 24's manifests and stores
 
 
@@ -1529,19 +1687,21 @@ def wait_for_json(path: str, timeout: float) -> dict:
         return json.load(fh)
 
 
-class CpuArm:
-    """A phase's CPU arm in a child process: ``CPU_ARM_CODE[tag]`` on one
-    torch thread, its ``out`` printed as the last line with the child's
-    launch count (0: nothing runs on the card) and seconds."""
+class ChildArm:
+    """A phase's arm in a child process: ``code[tag]`` (a CPU arm's
+    ``CPU_ARM_CODE``, or the card arms' ``CARD_ARM_CODE``) on one torch
+    thread, its ``out`` printed as the last line with the child's launch
+    count (0 for a CPU arm: nothing runs on the card) and seconds."""
 
-    def __init__(self, tag: str):
+    def __init__(self, tag: str, code: dict):
         here = os.path.dirname(os.path.abspath(__file__))
         code = ("import json, time\nt0 = time.perf_counter()\n"
                 "import torch\ntorch.set_num_threads(1)\n"
                 "from kueue_tpu_torch import kernels, scenarios\n"
-                + CPU_ARM_CODE[tag].format(
+                + code[tag].format(
                     tas_cycles=TAS_CYCLES, td=CLI_DIR[0] if CLI_DIR else "",
-                    cli_serve=CLI_SERVE, **NORTHSTAR)
+                    cli_serve=CLI_SERVE, ns_hetero=NS_HETERO,
+                    ns_pack=NS_PACK, ns_parity=NS_PACK_PARITY, **NORTHSTAR)
                 + "out['launches'] = sum(kernels.LAUNCHES.values())\n"
                   "out['child_s'] = time.perf_counter() - t0\n"
                   "print(json.dumps(out))\n")
@@ -1558,7 +1718,7 @@ class CpuArm:
     def result(self, timeout: float = 1200) -> dict:
         out, err = self.proc.communicate(timeout=timeout)
         check(self.proc.returncode == 0,
-              f"phase {self.tag}'s CPU arm exited {self.proc.returncode}: "
+              f"phase {self.tag}'s arm exited {self.proc.returncode}: "
               f"{err[-3000:]}")
         return json.loads(out.strip().splitlines()[-1])
 
@@ -1575,7 +1735,7 @@ def main() -> int:
         return smoke(launcher)
     finally:
         launcher.close()
-        for arm in CPU_ARMS.values():
+        for arm in list(CPU_ARMS.values()) + list(CARD_ARMS.values()):
             arm.stop()
 
 
@@ -1628,7 +1788,7 @@ def smoke(launcher: Launcher) -> int:
                               scenarios.cli_serve_docs(CLI_SERVE))
     del docs24
     for tag in CPU_ARM_CODE:
-        CPU_ARMS[tag] = CpuArm(tag)
+        CPU_ARMS[tag] = ChildArm(tag, CPU_ARM_CODE)
 
     # -- 3a. kernels against their plain versions: seeded sweep ------------
     stats = {k: dict(cases=0, mismatches=0, max_abs_err=0)
@@ -2142,8 +2302,10 @@ def smoke(launcher: Launcher) -> int:
     # the forest-parallel flat scan and the burst on both routes: the
     # flat scan's layouts (testing.flat_scan_cases: one forest past a
     # block's shared memory among them) with and without the forest
-    # tables, a burst window and one forest of every CQ, with shared
-    # memory and with none allowed (every block on its global route)
+    # tables, a burst window, the mixed fleet's window (4 slots x 3
+    # resources, resumes, both fungibility policies) and one forest of
+    # every CQ, with shared memory and with none allowed (every block on
+    # its global route)
     saved = (kernels.FLAT_SMEM, kernels.BURST_STATE_SMEM)
     try:
         for smem in (saved, (0, 0)):
@@ -2162,9 +2324,10 @@ def smoke(launcher: Launcher) -> int:
                 compare("admit_scan_preempt", on_card(arrays), dict(
                     depth=depth, forest_of_node=torch.from_numpy(fon).cuda(),
                     n_forests=nf), stats)
-            for _, arrays, kw in (next(testing.burst_cases(0)),
-                                  ("one_forest",
-                                   *testing.burst_one_forest(0))):
+            burst3h = [c for c in testing.burst_cases(0)
+                       if c[0] in ("base", "mixed-fleet")]
+            for _, arrays, kw in burst3h + [("one_forest",
+                                             *testing.burst_one_forest(0))]:
                 compare("burst_cycles", [
                     torch.from_numpy(a).cuda() if isinstance(a, np.ndarray)
                     else int(a) for a in arrays], kw, stats)
@@ -2376,6 +2539,9 @@ def smoke(launcher: Launcher) -> int:
         check(stats[name]["mismatches"] == 0, (name, stats[name]))
     log(f"[3g sharded-burst kernels, seeded + {n_captured} captured] "
         f"{json.dumps({k: stats[k] for k in SHARD_KERNELS})}")
+
+    # phases 25 and 26 on the card, beside phases 16-24 (CARD_ARM_CODE)
+    CARD_ARMS["25-26"] = ChildArm("25-26", CARD_ARM_CODE)
 
     # -- 16. the perf scenario through the per-cycle mesh ------------------
     install_mesh_capture(cap)
@@ -3182,6 +3348,132 @@ def smoke(launcher: Launcher) -> int:
     shutil.rmtree(td24, ignore_errors=True)
     scenarios.release()
 
+    # -- 25. the north-star twin: the mixed fleet, four arms ---------------
+    # the card arms ran in CARD_ARMS["25-26"] since phase 16, the host-walk
+    # oracle in CPU_ARMS["25"] since phase 2
+    from kueue_tpu_torch import northstar
+    t25 = time.perf_counter()
+    card = CARD_ARMS["25-26"].result()
+    c25 = card["25"]
+    host25 = CPU_ARMS["25"].result()
+    args25 = northstar.parse_args(NS_HETERO + ["--torch-device", "cuda:0"])
+    runs25 = dict(c25["runs"], host=[host25["out"]])
+    part25, hetero25 = northstar.hetero_block(args25, runs25)
+    tail25 = northstar.tail_of(args25, part25, c25["mesh"], hetero=hetero25)
+    launches25 = c25["launches"]
+    digests25 = dict(c25["digests"], **{"host (cpu)": host25["digest"]})
+    for arm, r in runs25.items():
+        where = (f"CPU_ARMS[25], {host25['child_s']:.2f}s beside phases 3-25"
+                 if arm == "host" else "CARD_ARMS[25-26], beside phases 16-24")
+        log(f"[25 northstar-hetero-1k] {arm} arm ({r[0]['path']}, {where}): "
+            f"{c25['walls'].get(arm, host25['arm_s']):.2f}s with its build, "
+            f"{r[0]['cycles_run']} cycles, p50 {r[0]['p50_ms']}ms p99 "
+            f"{r[0]['p99_ms']}ms, admitted {r[0]['admitted']}, preempted "
+            f"{r[0]['preempted']}, skipped {r[0]['skipped']}, workloads "
+            f"{r[0]['workloads']}; launches "
+            f"{json.dumps(c25['arm_launches'].get(arm, {}))}")
+    fb25 = hetero25["fallbacks"]
+    dirty25 = {k: v for k, v in runs25["sharded"][0]["burst_stats"].items()
+               if k.startswith("burst_dirty")}
+    log(f"[25 northstar-hetero-1k] {NS_HETERO}: {args25.cqs} CQs x "
+        f"{args25.flavors} flavors x {args25.resources} resources, "
+        f"{args25.wl} workloads, {args25.cycles} cycles; digests "
+        f"{json.dumps(digests25)}; hetero: identical "
+        f"{hetero25['decisions_identical_across_arms']}, zero host "
+        f"fallbacks {hetero25['zero_host_fallbacks']}, fallbacks "
+        f"{json.dumps(fb25)}, resume_heads {hetero25['resume_heads']}, "
+        f"walk_stop_heads {hetero25['walk_stop_heads']}, sharded dirty "
+        f"{json.dumps(dirty25)}; tail value {tail25['value']} "
+        f"({tail25['best_solver_path']}), hard paths "
+        f"{tail25['hard_paths_exercised']}, mesh {json.dumps(c25['mesh'])}; "
+        f"card arms {c25['wall']:.2f}s; {c25['device']}; waited "
+        f"{time.perf_counter() - t25:.2f}s here")
+    check(len(set(digests25.values())) == 1, digests25)
+    check(hetero25["decisions_identical_across_arms"], hetero25)
+    check(hetero25["zero_host_fallbacks"], fb25)
+    check(all(fb25[k] == 0 for k in fb25 if k != "scalar_reasons"), fb25)
+    check(all(v == 0 for v in dirty25.values()), dirty25)
+    check(hetero25["resume_heads"] > 0 and hetero25["walk_stop_heads"] > 0,
+          hetero25)
+    check(tail25["hard_paths_exercised"], "phase 25: no preemption or skip")
+    check(all(r[0]["cycles_run"] == args25.cycles for r in runs25.values()),
+          {k: r[0]["cycles_run"] for k, r in runs25.items()})
+    check(launches25["admit_scan_forests"] + launches25["admit_scan"] > 0,
+          launches25)
+    for k in ("admit_scan_preempt", "minimal_preemptions_batch",
+              "burst_cycles", "kq_reduce_dflags"):
+        check(launches25[k] > 0, (k, launches25))
+
+    # -- 26. the north-star twin: fill, then the trickle's delta packs -----
+    c26 = card["26"]
+    tail26 = c26["tail"]
+    args26 = northstar.parse_args(NS_PACK)
+    launches26 = c26["launches"]
+    arms26 = {r: tail26[r] for r in ("burst-accel", "burst-accel-serial",
+                                     "burst-accel-serial-fullpack")}
+    for path, r in arms26.items():
+        tr = r["trickle"]
+        log(f"[26 northstar-trickle-1k] {path}: p50 {r['p50_ms']}ms p99 "
+            f"{r['p99_ms']}ms, admitted {r['admitted']}, preempted "
+            f"{r['preempted']}, skipped {r['skipped']}, {r['cycles_run']} "
+            f"cycles (main {args26.cycles}, the fill, {tr['rounds']} "
+            f"trickle rounds); trickle delta_pack_s "
+            f"{tr['delta_pack_s']} burst_pack_s {tr['burst_pack_s']}, packs "
+            f"{tr['burst_packs']} (delta {tr['burst_delta_packs']}, full "
+            f"{tr['burst_full_packs']}), rows reused {tr['rows_reused']} "
+            f"repacked {tr['rows_repacked']}; boundary "
+            f"{boundary_report(r['burst_stats'])}")
+    log(f"[26 northstar-trickle-1k] {NS_PACK} (CARD_ARMS[25-26]): "
+        f"{c26['wall']:.2f}s; digests {json.dumps(c26['digests'])}; "
+        f"pack_compare {json.dumps(tail26['pack_compare'])}; launches "
+        f"{json.dumps({k: v for k, v in launches26.items() if v})}; "
+        f"{c26['device']}")
+    check(tail26["pack_compare"]["decisions_identical"],
+          tail26["pack_compare"])
+    check(len(c26["digests"]) == 3 and len(set(c26["digests"].values())) == 1,
+          c26["digests"])
+    full26 = arms26["burst-accel-serial-fullpack"]
+    check(full26["burst_stats"]["burst_delta_packs"] == 0
+          and full26["trickle"]["burst_delta_packs"] == 0, full26["trickle"])
+    check(all(r["trickle"]["rounds"] == 6 for r in arms26.values()), arms26)
+    check(launches26["burst_cycles"] > 0, launches26)
+    # the delta packs at north-star width, card against CPU: the delta-pack
+    # serial arm at 1,000 CQs, the backlog drained before the trickle
+    p26 = card["26p"]
+    cpu26 = CPU_ARMS["26"].result()
+    log(f"[26 trickle parity] {NS_PACK_PARITY}: card (CARD_ARMS[25-26], "
+        f"{p26['wall']:.2f}s) {p26['admitted']} admitted, trickle "
+        f"{json.dumps(p26['trickle'])}, launches "
+        f"{json.dumps({k: v for k, v in p26['launches'].items() if v})}, "
+        f"digest {p26['digest']}; CPU_ARMS[26] ({cpu26['child_s']:.2f}s): "
+        f"{cpu26['admitted']} admitted, digest {cpu26['digest']}; card "
+        f"arms' child {card['child_s']:.2f}s")
+    counts26 = ("burst_packs", "burst_full_packs", "burst_delta_packs",
+                "rows_reused", "rows_repacked", "admitted", "rounds")
+    check(p26["digest"] == cpu26["digest"], (p26["digest"], cpu26["digest"]))
+    check(all(cpu26["trickle"][k] == p26["trickle"][k] for k in counts26),
+          (cpu26["trickle"], p26["trickle"]))
+    check(p26["trickle"]["burst_delta_packs"] > 0
+          and p26["trickle"]["rows_reused"] > 0, p26["trickle"])
+    check(p26["launches"]["burst_cycles"] > 0, p26["launches"])
+
+    # -- 3l. the kernels on the calls captured in phases 25 and 26 ---------
+    # compared in the card arms' child; counted here with the others
+    c3l = card["3l"]
+    for name, s_ in c3l["stats"].items():
+        m = stats[name]
+        m["cases"] += s_["cases"]
+        m["mismatches"] += s_["mismatches"]
+        m["max_abs_err"] = max(m["max_abs_err"], s_["max_abs_err"])
+        for route, n in s_.get("routes", {}).items():
+            m.setdefault("routes", {})[route] = (
+                m.get("routes", {}).get(route, 0) + n)
+        check(s_["mismatches"] == 0, (name, s_))
+    check(c3l["captured"].get("burst_cycles")
+          and c3l["captured"].get("admit_scan_preempt"), c3l["captured"])
+    log(f"[3l kernels, captured 25-26 {json.dumps(c3l['captured'])}] "
+        f"{json.dumps(c3l['stats'])}")
+
     # -- 3i. the mesh kernels and the per-shard scans against plain ---------
     mesh_phases = ("bench_mesh", "northstar_mesh", "northstar_fs_mesh",
                    "dryrun")
@@ -3244,7 +3536,8 @@ def smoke(launcher: Launcher) -> int:
                 "16": launches16, "16b": launches16b, "16c": launches16c,
                 "16d": launches16d, "17": launches17, "18": launches18,
                 "19": launches19, "20": launches20, "21": launches21,
-                "22": launches22, "23": launches23, "24": launches24}
+                "22": launches22, "23": launches23, "24": launches24,
+                "25": launches25, "26": launches26}
     rows = []
     for name in kernels.KERNELS:
         phase = {"admit_scan_forests": "northstar",

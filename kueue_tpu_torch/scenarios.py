@@ -244,7 +244,7 @@ def _admission_record(d: Driver, key: str) -> list:
         for a in adm.pod_set_assignments)]
 
 
-def _finish_due(d: Driver, running: list, cycle: int) -> tuple[list, int]:
+def finish_due(d: Driver, running: list, cycle: int) -> tuple[list, int]:
     finished = 0
     still = []
     for finish_at, key in running:
@@ -287,7 +287,7 @@ def run_bench(d: Driver, clock: VirtualClock, total: int, waves,
                           for k in sorted(stats.admitted)])
         for key in stats.admitted:
             running.append((cycle + runtime_cycles, key))
-        running, n = _finish_due(d, running, cycle)
+        running, n = finish_due(d, running, cycle)
         finished += n
         if cycle > total * 4 + 1000:
             break
@@ -366,7 +366,7 @@ def run_northstar(d: Driver, clock: VirtualClock, preemptor_wave,
                           for k in sorted(stats.admitted)])
         for key in stats.admitted:
             running.append((cycle + runtime, key))
-        running, _ = _finish_due(d, running, cycle)
+        running, _ = finish_due(d, running, cycle)
     return dict(wall=time.perf_counter() - t0, cycles=cycles,
                 cycle_times=cycle_times, admitted=admitted,
                 preempted=preempted, decisions=decisions)
@@ -444,7 +444,7 @@ def run_northstar_fs(d, clock: VirtualClock, cycles: int = 30,
         decisions.append([_admission_record(d, k) for k in stats.admitted])
         for key in stats.admitted:
             running.append((cycle + runtime, key))
-        running, _ = _finish_due(d, running, cycle)
+        running, _ = finish_due(d, running, cycle)
     return dict(wall=time.perf_counter() - t0, cycles=cycles,
                 cycle_times=cycle_times, admitted=admitted,
                 skipped=skipped, decisions=decisions)
@@ -461,6 +461,20 @@ def decision_digest(d: Driver, decisions=None) -> str:
     return h.hexdigest()
 
 
+def cycle_record(d: Driver, stats) -> list:
+    """One applied cycle's decisions, read right after it: each
+    admission's record (key, CQ, flavors of each pod set), the
+    preempted targets and the skipped heads, each in key order."""
+    return [[_admission_record(d, k) for k in sorted(stats.admitted)],
+            sorted(stats.preempted_targets), sorted(stats.skipped)]
+
+
+def records_digest(records: list) -> str:
+    """sha256 of a run's per-cycle ``cycle_record``s: equal for two
+    drains (per cycle or burst, card or CPU) that decided alike."""
+    return hashlib.sha256(json.dumps(records).encode()).hexdigest()
+
+
 def percentile(times: list, q: float) -> float:
     s = sorted(times)
     return s[min(len(s) - 1, int(len(s) * q))] if s else 0.0
@@ -470,7 +484,7 @@ def percentile(times: list, q: float) -> float:
 # The fused burst path (Driver.schedule_burst)
 # ----------------------------------------------------------------------
 
-def _carry_finishes(d: Driver, all_stats: list, runtime: int) -> dict:
+def carry_finishes(d: Driver, all_stats: list, runtime: int) -> dict:
     """Finish schedule (offset from the next cycle → keys) of admissions
     from earlier calls that still hold quota."""
     base = len(all_stats)
@@ -530,7 +544,7 @@ def drain_bench_burst(d: Driver, clock: VirtualClock, total: int, waves,
         base = len(all_stats)
         target = max(base + 1,
                      next_wave if next_wave is not None else base + 64)
-        ext = _carry_finishes(d, all_stats, runtime_cycles)
+        ext = carry_finishes(d, all_stats, runtime_cycles)
         last_t = time.perf_counter()
         stats = d.schedule_burst(target - base, runtime=runtime_cycles,
                                  external_finishes=ext, on_cycle=on_cycle,
@@ -587,7 +601,7 @@ def northstar_burst(d: Driver, clock: VirtualClock, preemptor_wave,
             injected = True
         target = cycles if injected else inject_at
         base = len(all_stats)
-        ext = _carry_finishes(d, all_stats, runtime)
+        ext = carry_finishes(d, all_stats, runtime)
         last_t = time.perf_counter()
         stats = d.schedule_burst(target - base, runtime=runtime,
                                  external_finishes=ext, on_cycle=on_cycle,
@@ -900,7 +914,7 @@ def run_tas(d, clock: VirtualClock, runtimes: dict, cycles: int = 60) -> dict:
                           for k in sorted(stats.admitted)])
         for key in stats.admitted:
             running.append((cycle + runtimes[key.split("/")[-1]], key))
-        running, _ = _finish_due(d, running, cycle)
+        running, _ = finish_due(d, running, cycle)
         events_at.append(len(d.events))
     return dict(wall=time.perf_counter() - t0, cycles=cycles,
                 cycle_times=cycle_times, admitted=admitted,
@@ -2063,7 +2077,7 @@ def run_provisioning(d, clock, ctrl, total: int, waves, revoke,
             done += state == "Rejected"
         decisions.append([[_admission_record(d, k)
                            for k in sorted(stats.admitted)], list(log)])
-        running, n = _finish_due(d, running, cycle)
+        running, n = finish_due(d, running, cycle)
         done += n
     finished = sum(d.workloads[k].is_finished for k in keys)
     rejected = sum(not d.workloads[k].is_active for k in keys)

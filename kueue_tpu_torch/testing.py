@@ -562,7 +562,8 @@ INF_I32 = 2**31 - 1
 def burst_cases(seed: int = 0):
     """The standard burst sweep: ``(label, args, kw)`` windows of
     ``burst_synthetic`` at several shapes (multi-flavor, two resources,
-    runtime 0, ties, a deeper forest) and the probe shape of
+    runtime 0, ties, a deeper forest, the mixed fleet's 4 slots x 3
+    resources) and the probe shape of
     ``ops.burst.burst_probe``."""
     from .ops.burst import burst_probe_args
     rng = np.random.default_rng(seed)
@@ -573,6 +574,9 @@ def burst_cases(seed: int = 0):
         ("ties", dict(ties=True, C=8, per=4)),
         ("deep", dict(deep=True, C=16, per=3, M=8)),
         ("wide", dict(C=30, per=6, M=64, K=4)),
+        # the mixed fleet's shape: 4 flavor slots x 3 resources (F = 12),
+        # whenCanBorrow / whenCanPreempt and mid-list resumes per CQ
+        ("mixed-fleet", dict(S=4, R=3, C=20, per=5, M=16)),
     ]
     for label, kw in shapes:
         args, size = burst_synthetic(rng, **kw)

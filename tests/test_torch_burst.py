@@ -61,10 +61,17 @@ def assert_same(ref, out, label=""):
 
 
 @pytest.mark.parametrize("label", ["base", "flavors", "two-res", "ties",
-                                   "deep", "wide", "probe"])
+                                   "deep", "wide", "mixed-fleet", "probe"])
 def test_synthetic_windows(label):
     cases = {lb: (a, kw) for lb, a, kw in tt.burst_cases(0)}
     args, kw = cases[label]
+    if label == "mixed-fleet":
+        # 4 slots x 3 resources, resumes mid-list, both policies mixed
+        names = dict(zip(tburst.ARG_NAMES, args))
+        assert names["slot_fr"].shape[1:] == (4, 3)
+        assert names["resume0"].max() > 0
+        for k in ("cq_wcb_borrow", "cq_wcp_preempt"):
+            assert 0 < names[k].sum() < len(names[k]), k
     ref = jburst.burst_cycles(*args, **kw)
     dec = assert_same(ref, tburst.burst_cycles(*to_torch(args), **kw), label)
     if label in ("base", "two-res"):

@@ -4,6 +4,7 @@ byte (except the listed ones), and its Driver runs on the card by
 default — raising, never falling back, when there is none."""
 
 import ast
+import json
 import os
 import subprocess
 import sys
@@ -102,7 +103,8 @@ def test_every_port_module_is_accounted_for():
            "ops/fs_scan.py", "ops/fairsharing_kernel.py",
            "ops/tas_kernel.py", "profiling.py", "kernels/__init__.py", "scenarios.py",
            "testing.py", "parallel/__init__.py", "parallel/sharded.py",
-           "probe.py", "native/__init__.py", "analysis/__main__.py"}
+           "probe.py", "northstar.py", "native/__init__.py",
+           "analysis/__main__.py"}
     rels = {os.path.relpath(p, PORT) for p in _port_files()}
     assert rels == set(VERBATIM) | set(APPENDED) | set(EDITED) | own
 
@@ -540,6 +542,45 @@ def test_solve_cycle_runs_plain_on_cpu_tensors():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA GPU"):
             scenarios.entry()
+
+
+def test_northstar_twin_in_a_fresh_process():
+    """``python -m kueue_tpu_torch.northstar`` (the port's own twin of
+    scripts/northstar_e2e.py) at ``--quick --torch-device cpu`` loads no
+    jax, no kueue_tpu and no module of ``scripts``, and prints its JSON
+    tail last; without a GPU and without ``--torch-device cpu`` it
+    raises."""
+    code = (
+        "import json, runpy, sys\n"
+        "import kueue_tpu_torch.northstar\n"
+        "sys.argv = ['northstar', '--quick', '--device', '--cycles', '4',\n"
+        "            '--torch-device', 'cpu']\n"
+        "try:\n"
+        "    runpy.run_module('kueue_tpu_torch.northstar', run_name='__main__')\n"
+        "except SystemExit as e:\n"
+        "    assert not e.code, e.code\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'kueue_tpu', 'scripts') or 'northstar_e2e' in m)\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    lines = out.stdout.strip().splitlines()
+    assert lines[-1] == "ok"
+    tail = json.loads(lines[-2])
+    assert tail["metric"] == "northstar_e2e_cycle_p99"
+    assert tail["device"]["cycles_run"] == 4
+    # the port's solver measures no accelerator round trip (ROADMAP)
+    assert "accel_rtt_ms" not in tail["device"]
+    if not torch.cuda.is_available():
+        out = subprocess.run(
+            [sys.executable, "-m", "kueue_tpu_torch.northstar", "--quick"],
+            cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+        assert out.returncode != 0
+        assert "no CUDA GPU" in out.stderr
+        assert not out.stdout.strip()
 
 
 def test_probe_in_a_fresh_process():
