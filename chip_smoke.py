@@ -22,15 +22,18 @@ processes (``kueue_tpu_torch.dist``); then the kueuectl CLI and its
 admission daemon over a manifest store (``python -m
 kueue_tpu_torch.cli``); then the north-star entry point's twin (``python
 -m kueue_tpu_torch.northstar``) on the mixed fleet and through the
-fill-then-trickle, each ending in the per-cycle admit kernels or the
+fill-then-trickle; then the twins of the chaos, OBS and scale soaks
+(``python -m kueue_tpu_torch.chaos_soak`` / ``obs_soak`` /
+``scale_soak``), each ending in the per-cycle admit kernels or the
 fused burst:
 
 1. device: name, count and ``nvidia-smi`` name/power limit;
 2. build: nvcc of every kernel source (in parallel) into one library;
    then the CPU arms start, each a child process on one torch thread
    beside the card's phases (``CPU_ARMS``): phase 10's, 12's, 18's,
-   25's and 26's runs on "cpu" and phase 24's apply (on the card) and
-   CPU side, each read where its phase checks it;
+   25's, 26's, 27's, 28's and 29's runs on "cpu" and phase 24's apply
+   (on the card) and CPU side, each read where its phase checks it; and
+   phases 27-29's card child (``CARD_ARMS["27-29"]``);
 3. kernels: each CUDA kernel against its plain version on the CPU over a
    seeded sweep (kueue_tpu_torch.testing.kernel_cases, burst_cases,
    fs_cases and avail_cases: kq_cq_avail's staged route at depth 1, 2,
@@ -322,6 +325,38 @@ fused burst:
 3l. the kernels on the calls captured in phases 25 and 26 (F = 12 and
    the mixed fleet's burst windows among them) against their plain
    versions, in the same child — exact, counted in the kernels line;
+27. (27-29 run in one child process on the card started after the
+   build, beside phases 3-26, and are read here: ``CARD_ARMS``) the
+   chaos twin at its script's defaults (chaos-1k: ``python -m
+   kueue_tpu_torch.chaos_soak``'s ``run``: 1,000 CQs in cohorts of 4,
+   seed 1009, ``--devices 8`` on a virtual mesh of the card): 7 of 7
+   scenarios run and bit-identical to their fault-free controls (a kill
+   and ``Driver.recover_from`` at a cycle boundary and mid-admit, a crash
+   inside a fused burst window, a forced speculation divergence, the
+   8 → 4 → 1 shard-loss cascade with 2 degradations, 1 serial fallback
+   and 1 shard at the end, pack-journal corruption, a partitioned
+   MultiKueue transport), the tail clean under the port's copy of the
+   CHAOS checks (``perf.validate``), and burst_cycles, an admit kernel
+   and kq_reduce_dflags launched; then the seven scenarios at 100 CQs on
+   the card and on "cpu" (its CPU arm): 7 of 7 each and equal control
+   and faulted state digests;
+28. the OBS twin at its defaults (obs-16: ``obs_soak``'s ``run``: 4
+   cohorts x 4 CQs, 24 workloads a LocalQueue, 16 cycles, 12 reps, the
+   device solver on the card, without the profiler): decisions identical
+   between the traced and untraced Drivers and across reps, the traced
+   p50 within 1.05 x the untraced, the six host phases in the span
+   roster, the flight-recorder, SIGUSR2 and Chrome-trace dumps, the OBS
+   checks, and an admit kernel launched; then one lockstep pair on the
+   card and on "cpu" (its CPU arm): equal per-cycle decision digests;
+29. the scale twin's ``--quick`` (scale-quick: sizes 1,000 / 4,000, 4
+   pack boundaries, 4 end-to-end arms a size, an 8,000-CQ ceiling with 8
+   preempting cohorts, the host-pool A/B at 4,000 CQs, a 100,000-workload
+   soak at 4,000 CQs, a 2,000-op pool curve): byte-identical planes and
+   one decision digest over the four arms at every size, the pool arms'
+   decisions identical, the soak completed, burst_cycles launched, and
+   the SCALE_r19 checks, all but the pooled host plane's >= 2x gate,
+   whose verdict is printed with the core count; then the stream arm at
+   1,000 CQs on "cpu" (its CPU arm): the card's decision digest;
 3i. kq_gather_heads and kq_fs_merge_order against their plain versions
    on the calls captured in 16-16d and on one synthetic call each at
    north-star width (1,000 heads over 8 shards), and the per-shard admit
@@ -337,7 +372,7 @@ Launch counts are zeroed just before phases 4, 5, 7, 8, 9, 9b, 11, 13,
 14, 15, 15b, 15c, 16, 16b, 16c, 16d, 17, 18, 19 (its run and its
 search), 20, 21 (its arms on the card, and its wall arm), 22, 23, 24
 (its in-process schedule, and its in-process serve), 25 (its three card
-arms, each also counted alone) and 26 and read just
+arms, each also counted alone), 26, 27, 28 and 29 and read just
 after each (23: this process's and, from their ``--stats-file``, the
 children's; 24: this process's, the children have no stats file).  The
 scenarios collect as the reference scripts do (builds frozen, drains
@@ -349,8 +384,8 @@ phases 19 and 20 must see no full collection
 phase builds.  A
 launch records no CUDA event: the device time of phases 4, 5, 7, 8, 9,
 11, 13, 15, 15c, 16, 16b, 16c, 16d, 17, 18, 19, 20, 21, 22, 23, 24's
-schedule, 25's card arms and 26 (this process only: the children are
-not profiled) (per kernel, the rest, the
+schedule, 25's card arms, 26, 27 and 29 (this process and the card
+children: the CPU arms and phase 23's children are not profiled) (per kernel, the rest, the
 busy union and its share of the wall) comes from torch.profiler's CUDA activity
 over the phase (``kueue_tpu_torch.profiling.DeviceClock``); a phase in
 which it sees nothing fails.  Prints a ``kernels`` JSON line (per
@@ -507,6 +542,22 @@ NS_PACK = ["--burst", "--ab-pack", "--trials", "1", "--burst-backend",
            "accel", "--device"]
 NS_PACK_PARITY = ["--cqs", "1000", "--wl", "10000", "--trickle", "6",
                   "--no-pipeline", "--trials", "1"]
+# phases 27-29: the soak twins at their scripts' defaults (chaos_soak:
+# 1,000 CQs in cohorts of 4, --devices 8, seed 1009; obs_soak: 4 x 4 CQs,
+# 24 a LocalQueue, 16 cycles, 12 reps; scale_soak --quick: sizes 1,000 /
+# 4,000, an 8,000-CQ ceiling, a 100,000-workload soak); card against CPU:
+# the seven chaos scenarios at 100 CQs, obs's lockstep pair, and scale's
+# stream arm at 1,000 CQs (the script's --rounds 3 and seed 1307)
+CHAOS_ARGS: list = []
+CHAOS_PARITY = ["--cqs", "100"]
+CHAOS_SCENARIOS = 7
+OBS_ARGS: list = []
+OBS_PAIR = dict(cycles=16, runtime=2, shape=(4, 4, 24))
+SCALE_ARGS = ["--quick"]
+SCALE_PARITY = dict(n=1000, rounds=3, seed=1307)
+# the SCALE_r19 check that holds the pooled host plane to >= 2x when the
+# host has the cores, a timing gate both packages miss on 8 cores
+POOL_GATE = "'host_pool.apply_pack_speedup'="
 README_REPLAY = ("76.8 virtual s; large/medium/small 0 / 33.2 / 54.1 s; "
                  "min CQ usage 98.7%")
 
@@ -1587,6 +1638,33 @@ o = northstar.run_burst_path(args, "cpu", rec)
 out = dict(digest=rec[0]["digest"], admitted=o["admitted"],
            trickle=o["trickle"])
 """,
+    # phases 27-29's CPU sides: the chaos scenarios at 100 CQs, obs's
+    # lockstep pair and scale's stream arm at 1,000 CQs, on "cpu" (format:
+    # CHAOS_PARITY, OBS_PAIR, SCALE_PARITY)
+    "27": """
+from kueue_tpu_torch import chaos_soak
+import contextlib, io
+with contextlib.redirect_stderr(io.StringIO()):
+    tail = chaos_soak.run(chaos_soak.parser().parse_args(
+        {chaos_parity!r} + ["--torch-device", "cpu"]))
+out = dict(stable=tail["scenarios_stable"], total=tail["scenarios_total"],
+           digests=dict((n, s_.get("state_digest"))
+                        for n, s_ in tail["scenarios"].items()))
+""",
+    "28": """
+from kueue_tpu_torch import obs_soak
+p = obs_soak.run_pair({obs_cycles}, {obs_runtime}, {obs_shape!r}, "cpu")
+out = dict(digests=p["digests"], admitted=p["admitted"])
+""",
+    "29": """
+from kueue_tpu_torch import scale_soak
+import contextlib, io
+with contextlib.redirect_stderr(io.StringIO()):
+    e = scale_soak.e2e_arm("stream", {scale_n}, {scale_rounds}, {scale_n},
+                           {scale_seed}, per_cq=4, device="cpu")
+out = dict(digest=scenarios.records_digest(e["decisions"]),
+           n_cycles=e["n_cycles"])
+""",
 }
 # phases 25 and 26 on the card in a child process started before phase 16,
 # beside phases 16-24: the twin's three --ab-hetero card arms, its
@@ -1672,6 +1750,71 @@ for phase in ("northstar_hetero", "northstar_trickle"):
 out["3l"] = dict(captured=n, stats=dict((k, stats[k]) for k in n))
 """,
 }
+# phases 27-29 on the card in a child process started after the build,
+# beside phases 3-26: the three soak twins through their entry points'
+# ``run``, each with its launches (27 and 29 also with the profiler's
+# reading; 28's overhead A/B runs without it), and the card sides of their
+# card-against-CPU checks (format: CHAOS_ARGS, CHAOS_PARITY, OBS_ARGS,
+# OBS_PAIR, SCALE_ARGS)
+CARD_ARM_CODE["27-29"] = """
+import contextlib, io
+import chip_smoke as cs
+from kueue_tpu_torch import chaos_soak, obs_soak, scale_soak
+from kueue_tpu_torch.perf.validate import validate_tail
+from kueue_tpu_torch.profiling import DeviceClock
+kernels.load()
+quiet = io.StringIO()
+out = dict()
+args = chaos_soak.parser().parse_args({chaos_args!r} + ["--torch-device",
+                                                       "cuda:0"])
+kernels.reset_counts()
+t1 = time.perf_counter()
+with DeviceClock() as dc, contextlib.redirect_stderr(quiet):
+    tail = chaos_soak.run(args)
+wall = time.perf_counter() - t1
+launches = dict(kernels.LAUNCHES)
+scenarios.release()
+out["27"] = dict(tail=tail, launches=launches, wall=wall,
+                 problems=validate_tail(tail, "CHAOS_r09.json"),
+                 device=cs.device_line("27", dc, wall, launches))
+t1 = time.perf_counter()
+with contextlib.redirect_stderr(quiet):
+    tail = chaos_soak.run(chaos_soak.parser().parse_args(
+        {chaos_parity!r} + ["--torch-device", "cuda:0"]))
+scenarios.release()
+out["27p"] = dict(stable=tail["scenarios_stable"],
+                  total=tail["scenarios_total"],
+                  digests=dict((n, s_.get("state_digest"))
+                               for n, s_ in tail["scenarios"].items()),
+                  wall=time.perf_counter() - t1)
+args = obs_soak.parser().parse_args({obs_args!r} + ["--torch-device",
+                                                   "cuda:0"])
+kernels.reset_counts()
+t1 = time.perf_counter()
+with contextlib.redirect_stderr(quiet):
+    tail, ok = obs_soak.run(args)
+wall = time.perf_counter() - t1
+launches = dict(kernels.LAUNCHES)
+p = obs_soak.run_pair({obs_cycles}, {obs_runtime}, {obs_shape!r}, "cuda:0")
+scenarios.release()
+out["28"] = dict(tail=tail, ok=ok, launches=launches, wall=wall,
+                 problems=validate_tail(tail, "OBS_r16.json"),
+                 pair=dict(digests=p["digests"], admitted=p["admitted"]))
+args = scale_soak.parser().parse_args({scale_args!r} + ["--torch-device",
+                                                       "cuda:0"])
+record = dict()
+kernels.reset_counts()
+t1 = time.perf_counter()
+with DeviceClock() as dc, contextlib.redirect_stderr(quiet):
+    tail, ok = scale_soak.run(args, record)
+wall = time.perf_counter() - t1
+launches = dict(kernels.LAUNCHES)
+scenarios.release()
+out["29"] = dict(tail=tail, ok=ok, launches=launches, wall=wall,
+                 record=dict((str(k), v) for k, v in record.items()),
+                 problems=validate_tail(tail, "SCALE_r19.json"),
+                 device=cs.device_line("29", dc, wall, launches))
+"""
 CPU_ARMS: dict = {}
 CARD_ARMS: dict = {}
 CLI_DIR: list = []          # phase 24's manifests and stores
@@ -1701,7 +1844,14 @@ class ChildArm:
                 + code[tag].format(
                     tas_cycles=TAS_CYCLES, td=CLI_DIR[0] if CLI_DIR else "",
                     cli_serve=CLI_SERVE, ns_hetero=NS_HETERO,
-                    ns_pack=NS_PACK, ns_parity=NS_PACK_PARITY, **NORTHSTAR)
+                    ns_pack=NS_PACK, ns_parity=NS_PACK_PARITY,
+                    chaos_args=CHAOS_ARGS, chaos_parity=CHAOS_PARITY,
+                    obs_args=OBS_ARGS, obs_cycles=OBS_PAIR["cycles"],
+                    obs_runtime=OBS_PAIR["runtime"],
+                    obs_shape=OBS_PAIR["shape"], scale_args=SCALE_ARGS,
+                    scale_n=SCALE_PARITY["n"],
+                    scale_rounds=SCALE_PARITY["rounds"],
+                    scale_seed=SCALE_PARITY["seed"], **NORTHSTAR)
                 + "out['launches'] = sum(kernels.LAUNCHES.values())\n"
                   "out['child_s'] = time.perf_counter() - t0\n"
                   "print(json.dumps(out))\n")
@@ -1789,6 +1939,8 @@ def smoke(launcher: Launcher) -> int:
     del docs24
     for tag in CPU_ARM_CODE:
         CPU_ARMS[tag] = ChildArm(tag, CPU_ARM_CODE)
+    # phases 27-29 on the card, beside phases 3-26 (CARD_ARM_CODE)
+    CARD_ARMS["27-29"] = ChildArm("27-29", CARD_ARM_CODE)
 
     # -- 3a. kernels against their plain versions: seeded sweep ------------
     stats = {k: dict(cases=0, mismatches=0, max_abs_err=0)
@@ -3474,6 +3626,136 @@ def smoke(launcher: Launcher) -> int:
     log(f"[3l kernels, captured 25-26 {json.dumps(c3l['captured'])}] "
         f"{json.dumps(c3l['stats'])}")
 
+    # -- 27. the chaos twin at 1,000 CQs: crash, recover, degrade ----------
+    # the card arms ran in CARD_ARMS["27-29"] since phase 2
+    t27 = time.perf_counter()
+    soak = CARD_ARMS["27-29"].result()
+    c27 = soak["27"]
+    tail27 = c27["tail"]
+    launches27 = c27["launches"]
+    for name, r in tail27["scenarios"].items():
+        log(f"[27 chaos-1k] {name}: stable {r.get('decisions_stable')}, "
+            f"{r.get('wall_s')}s, "
+            + json.dumps({k: v for k, v in r.items()
+                          if k not in ("chaos", "decisions_stable",
+                                       "wall_s")}))
+    cascade = tail27["scenarios"].get("shard_cascade_8_4_1", {})
+    log(f"[27 chaos-1k] {CHAOS_ARGS} (CARD_ARMS[27-29], {c27['wall']:.2f}s): "
+        f"{tail27['cqs']} CQs, seed {tail27['seed']}, "
+        f"{tail27['scenarios_stable']}/{tail27['scenarios_total']} stable, "
+        f"mesh {json.dumps(tail27['mesh'])}; validator "
+        f"{json.dumps(c27['problems'])}; launches "
+        f"{json.dumps({k: v for k, v in launches27.items() if v})}; "
+        f"{c27['device']}; waited {time.perf_counter() - t27:.2f}s here")
+    check(tail27["scenarios_total"] == CHAOS_SCENARIOS
+          and tail27["scenarios_stable"] == CHAOS_SCENARIOS
+          and tail27["all_stable"],
+          {n: r.get("failures") or r.get("reason")
+           for n, r in tail27["scenarios"].items()})
+    check(not any(r.get("skipped") for r in tail27["scenarios"].values()),
+          "phase 27: a scenario was skipped")
+    check((cascade.get("degradations"), cascade.get("serial_fallbacks"),
+           cascade.get("final_shards")) == (2, 1, 1), cascade)
+    check(c27["problems"] == [], c27["problems"])
+    check(launches27["burst_cycles"] > 0
+          and launches27["kq_reduce_dflags"] > 0
+          and any(launches27[k] for k in ADMIT_KERNELS), launches27)
+    p27 = soak["27p"]
+    cpu27 = CPU_ARMS["27"].result()
+    log(f"[27 chaos parity] {CHAOS_PARITY}: card (CARD_ARMS[27-29], "
+        f"{p27['wall']:.2f}s) {p27['stable']}/{p27['total']} stable, digests "
+        f"{json.dumps(p27['digests'])}; CPU_ARMS[27] "
+        f"({cpu27['child_s']:.2f}s) {cpu27['stable']}/{cpu27['total']}")
+    check(p27["stable"] == p27["total"] == CHAOS_SCENARIOS
+          and cpu27["stable"] == cpu27["total"] == CHAOS_SCENARIOS,
+          (p27["stable"], cpu27["stable"]))
+    check(p27["digests"] == cpu27["digests"],
+          (p27["digests"], cpu27["digests"]))
+
+    # -- 28. the OBS twin: traced and untraced Drivers in lockstep ----------
+    c28 = soak["28"]
+    tail28 = c28["tail"]
+    launches28 = c28["launches"]
+    ov28 = tail28["overhead"]
+    log(f"[28 obs-16] {OBS_ARGS} (CARD_ARMS[27-29], {c28['wall']:.2f}s): "
+        f"{tail28['cqs']} CQs, {tail28['cycles']} cycles x {tail28['reps']} "
+        f"reps; decisions identical {tail28['decisions_identical']}; "
+        f"traced p50 {ov28['traced_p50_ms']:.4f}ms untraced p50 "
+        f"{ov28['untraced_p50_ms']:.4f}ms ratio {ov28['ratio']:.4f}; spans "
+        f"{json.dumps({k: v['count'] for k, v in tail28['spans'].items()})}"
+        f", missing {tail28['spans_missing_host_phases']}; dumps "
+        f"{json.dumps(tail28['dumps'])}; validator "
+        f"{json.dumps(c28['problems'])}; launches "
+        f"{json.dumps({k: v for k, v in launches28.items() if v})}")
+    check(tail28["decisions_identical"], "phase 28: decisions diverged")
+    check(ov28["ratio"] <= 1.05, ov28)
+    check(not tail28["spans_missing_host_phases"]
+          and {"cycle", "cycle.snapshot", "cycle.nominate", "cycle.admit",
+               "wal.append", "wal.commit"} <= set(tail28["spans"]),
+          tail28["spans"].keys())
+    check(tail28["dumps"]["flightrecorder_ok"]
+          and tail28["dumps"]["sigusr2_ok"]
+          and tail28["dumps"]["chrome_trace_events"] > 0, tail28["dumps"])
+    check(c28["ok"] and c28["problems"] == [], c28["problems"])
+    check(any(launches28[k] for k in ADMIT_KERNELS), launches28)
+    cpu28 = CPU_ARMS["28"].result()
+    log(f"[28 obs parity] {OBS_PAIR}: card and CPU_ARMS[28] "
+        f"({cpu28['child_s']:.2f}s) per-cycle digests equal "
+        f"{c28['pair']['digests'] == cpu28['digests']}, admitted "
+        f"{len(cpu28['admitted']['traced'])}")
+    check(c28["pair"]["digests"] == cpu28["digests"]
+          and c28["pair"]["admitted"] == cpu28["admitted"],
+          (c28["pair"]["digests"], cpu28["digests"]))
+
+    # -- 29. the scale twin --quick: curve, arms, ceiling, pool, soak -------
+    c29 = soak["29"]
+    tail29 = c29["tail"]
+    launches29 = c29["launches"]
+    rec29 = c29["record"]
+    for pt in tail29["curve"]:
+        log(f"[29 scale-quick] {pt['cqs']} CQs: rows {pt['rows']} live "
+            f"{pt['live_rows']} row-backed {pt['rows_row_backed']}, pack "
+            f"stream {pt['pack_ms_stream']}ms rebuild "
+            f"{pt['pack_ms_rebuild']}ms, planes identical "
+            f"{pt['planes_identical']}, cycle wall {pt['cycle_wall_ms']}ms "
+            f"(rebuild {pt['cycle_wall_ms_rebuild']}ms, classic "
+            f"{pt['cycle_wall_ms_classic']}ms), host apply "
+            f"{pt['host_apply_ms']}ms, bytes_h2d_e2e {pt['bytes_h2d_e2e']}; "
+            f"arm digests " + json.dumps(
+                {a: rec29[str((pt["cqs"], a))] for a in (
+                    "stream", "rebuild", "nobulk", "classic")}))
+    ce29, hp29, sk29 = tail29["ceiling"], tail29["host_pool"], tail29["soak"]
+    gate29 = [e for e in c29["problems"] if POOL_GATE in e]
+    log(f"[29 scale-quick] {SCALE_ARGS} (CARD_ARMS[27-29], "
+        f"{c29['wall']:.2f}s): ceiling {json.dumps(ce29)}; host pool "
+        f"serial {hp29['apply_pack_ms_serial']}ms pooled "
+        f"{hp29['apply_pack_ms_pooled']}ms ({hp29['apply_pack_speedup']}x, "
+        f"{hp29['workers']} workers, {hp29['cores_available']} cores): "
+        f"pool gate {'missed: ' + gate29[0] if gate29 else 'held'}; soak "
+        f"{sk29['created']} created {sk29['admitted']} admitted in "
+        f"{sk29['wall_s']}s ({sk29['workloads_per_s']}/s, peak rss "
+        f"{sk29['peak_rss_mb']}MB); parity {json.dumps(tail29['parity'])}; "
+        f"launches {json.dumps({k: v for k, v in launches29.items() if v})}; "
+        f"{c29['device']}")
+    check(c29["ok"], tail29["parity"])
+    check(all(tail29["parity"].values()), tail29["parity"])
+    for pt in tail29["curve"]:
+        check(pt["planes_identical"] and len({rec29[str((pt["cqs"], a))]
+              for a in ("stream", "rebuild", "nobulk", "classic")}) == 1,
+              (pt["cqs"], rec29))
+    check(rec29[str(("pool", 0))] == rec29[str(("pool", hp29["workers"]))],
+          rec29)
+    check(sk29["completed"], sk29)
+    check([e for e in c29["problems"] if POOL_GATE not in e] == [],
+          c29["problems"])
+    check(launches29["burst_cycles"] > 0, launches29)
+    cpu29 = CPU_ARMS["29"].result()
+    card29 = rec29[str((SCALE_PARITY["n"], "stream"))]
+    log(f"[29 scale parity] the stream arm at {SCALE_PARITY}: card {card29}, "
+        f"CPU_ARMS[29] ({cpu29['child_s']:.2f}s) {cpu29['digest']}; card "
+        f"arms' child {soak['child_s']:.2f}s")
+    check(card29 == cpu29["digest"], (card29, cpu29["digest"]))
+
     # -- 3i. the mesh kernels and the per-shard scans against plain ---------
     mesh_phases = ("bench_mesh", "northstar_mesh", "northstar_fs_mesh",
                    "dryrun")
@@ -3537,7 +3819,8 @@ def smoke(launcher: Launcher) -> int:
                 "16d": launches16d, "17": launches17, "18": launches18,
                 "19": launches19, "20": launches20, "21": launches21,
                 "22": launches22, "23": launches23, "24": launches24,
-                "25": launches25, "26": launches26}
+                "25": launches25, "26": launches26, "27": launches27,
+                "28": launches28, "29": launches29}
     rows = []
     for name in kernels.KERNELS:
         phase = {"admit_scan_forests": "northstar",

@@ -51,6 +51,11 @@ the north-star shape, driven per cycle through ``Driver.schedule_once``.
 - ``traffic_spec``/``build_traffic``/``traffic_stream``/``open_loop``/
   ``traffic_probe``: scripts/traffic_soak.py's open loop (its cluster,
   arrival marks, ``rate_seed`` and ``probe``) over ``traffic/``.
+- ``soak_cluster``/``soak_workload``: the soak scripts' cluster (CQs in
+  cohorts of 4, 4,000m cpu each, BEST_EFFORT_FIFO; optionally the first
+  cohorts preempting) and their single-pod workload, shared by the
+  traffic open loop and the chaos, OBS and scale soak twins
+  (``chaos_soak``, ``obs_soak``, ``scale_soak``).
 - ``provisioning_spec``/``build_provisioning``/``run_provisioning``: the
   perf scenario with a provisioning admission check on every CQ, a
   ``ProvisioningController`` over a seeded capacity backend
@@ -87,6 +92,7 @@ import functools
 import gc
 import hashlib
 import json
+import sys
 import time
 from collections import Counter
 
@@ -1821,30 +1827,52 @@ TRAFFIC_RUNTIMES_S = (2.0, 4.0)   # mean 3 s; 2 concurrent 1500m slots a CQ
 
 
 def traffic_spec(t, d, n_cqs: int) -> None:
-    """Populate driver ``d`` (of either package, ``t`` its api.types
-    module) with scripts/traffic_soak.py ``build``'s cluster: CQs in
-    cohorts of 4, 4,000m cpu nominal each, BEST_EFFORT_FIFO, a
-    LocalQueue ``lq-<i>`` each.  Applied inside ``Driver.bulk_apply``:
-    one settle on exit instead of one per ClusterQueue (1,000 CQs build
-    in 0.06 s instead of 3 s on a CPU here; the same cluster, the same
-    decisions)."""
+    """scripts/traffic_soak.py ``build``'s cluster (``soak_cluster``) on
+    driver ``d`` (of either package, ``t`` its api.types module)."""
+    soak_cluster(t, d, n_cqs)
+
+
+def soak_cluster(t, d, n_cqs: int, preempt_cohorts: int = 0) -> None:
+    """The soak scripts' cluster on driver ``d`` (of either package, ``t``
+    its api.types module): CQs ``cq-<i>`` in cohorts of 4, 4,000m cpu
+    nominal each, BEST_EFFORT_FIFO, a LocalQueue ``lq-<i>`` each
+    (traffic_soak.py and chaos_soak.py ``build``; scale_soak.py ``build``
+    with the first ``preempt_cohorts`` cohorts reclaiming within the
+    cohort and preempting lower priorities), applied in one
+    ``Driver.bulk_apply``: one settle on exit instead of one per
+    ClusterQueue, the same cluster and the same decisions."""
+    pol_pre = t.PreemptionPolicy(
+        reclaim_within_cohort=t.ReclaimWithinCohort.ANY,
+        within_cluster_queue=t.WithinClusterQueue.LOWER_PRIORITY)
     with d.bulk_apply():
-        _traffic_cluster(t, d, n_cqs)
+        d.apply_resource_flavor(t.ResourceFlavor(name="default"))
+        for q in range(n_cqs):
+            name = f"cq-{q}"
+            d.apply_cluster_queue(t.ClusterQueue(
+                name=name, cohort=f"co-{q // 4}",
+                queueing_strategy=t.QueueingStrategy.BEST_EFFORT_FIFO,
+                preemption=(pol_pre if q // 4 < preempt_cohorts
+                            else t.PreemptionPolicy()),
+                resource_groups=[t.ResourceGroup(
+                    covered_resources=["cpu"],
+                    flavors=[t.FlavorQuotas(name="default", resources={
+                        "cpu": t.ResourceQuota(nominal=4000)})])]))
+            d.apply_local_queue(t.LocalQueue(name=f"lq-{q}",
+                                             cluster_queue=name))
 
 
-def _traffic_cluster(t, d, n_cqs: int) -> None:
-    d.apply_resource_flavor(t.ResourceFlavor(name="default"))
-    for q in range(n_cqs):
-        name = f"cq-{q}"
-        d.apply_cluster_queue(t.ClusterQueue(
-            name=name, cohort=f"co-{q // 4}",
-            queueing_strategy=t.QueueingStrategy.BEST_EFFORT_FIFO,
-            preemption=t.PreemptionPolicy(),
-            resource_groups=[t.ResourceGroup(
-                covered_resources=["cpu"],
-                flavors=[t.FlavorQuotas(name="default", resources={
-                    "cpu": t.ResourceQuota(nominal=4000)})])]))
-        d.apply_local_queue(t.LocalQueue(name=f"lq-{q}", cluster_queue=name))
+def soak_workload(name: str, lq: str, cpu: int, prio: int = 0,
+                  t: float = 0.0) -> Workload:
+    """One single-pod workload of ``cpu`` milli-cpu created at ``t`` (the
+    soak scripts' ``mk``)."""
+    return Workload(name=name, queue_name=lq, priority=prio, creation_time=t,
+                    pod_sets=[PodSet(name="main", count=1,
+                                     requests={"cpu": cpu})])
+
+
+def log(msg: str) -> None:
+    """A progress line on stderr (the soak scripts' ``log``)."""
+    print(msg, file=sys.stderr, flush=True)
 
 
 def traffic_capacity(n_cqs: int) -> float:

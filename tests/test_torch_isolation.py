@@ -104,7 +104,8 @@ def test_every_port_module_is_accounted_for():
            "ops/tas_kernel.py", "profiling.py", "kernels/__init__.py", "scenarios.py",
            "testing.py", "parallel/__init__.py", "parallel/sharded.py",
            "probe.py", "northstar.py", "native/__init__.py",
-           "analysis/__main__.py"}
+           "analysis/__main__.py", "chaos_soak.py", "obs_soak.py",
+           "scale_soak.py", "perf/validate.py"}
     rels = {os.path.relpath(p, PORT) for p in _port_files()}
     assert rels == set(VERBATIM) | set(APPENDED) | set(EDITED) | own
 
@@ -577,6 +578,64 @@ def test_northstar_twin_in_a_fresh_process():
     if not torch.cuda.is_available():
         out = subprocess.run(
             [sys.executable, "-m", "kueue_tpu_torch.northstar", "--quick"],
+            cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+        assert out.returncode != 0
+        assert "no CUDA GPU" in out.stderr
+        assert not out.stdout.strip()
+
+
+SOAK_TWINS = {
+    "chaos_soak": (["--quick", "--only", "boundary_crash,shard_cascade_8_4_1"],
+                   "chaos_soak_decision_parity"),
+    "obs_soak": (["--cycles", "4", "--reps", "1"],
+                 "obs_tracing_overhead_ratio"),
+    "scale_soak": (["--quick", "--sizes", "16", "--ceiling-cqs", "32",
+                    "--preempt-cohorts", "2", "--soak-workloads", "100",
+                    "--rounds", "1", "--pool-rounds", "1"],
+                   "active_cqs_at_ceiling_under_row_budget"),
+}
+
+
+@pytest.mark.parametrize("module", sorted(SOAK_TWINS))
+def test_soak_twin_in_a_fresh_process(module):
+    """``python -m kueue_tpu_torch.<chaos|obs|scale>_soak`` (the port's
+    twins of scripts/*_soak.py) at a small size with ``--torch-device
+    cpu`` load no jax, no kueue_tpu and no module of ``scripts``, and
+    print their JSON tail last; without a GPU and without
+    ``--torch-device cpu`` they raise before printing anything.  (The obs
+    twin exits 1 when its overhead ratio passes 1.05, a timing gate not
+    held here.)"""
+    argv, metric = SOAK_TWINS[module]
+    code = (
+        "import runpy, sys\n"
+        f"sys.argv = [{module!r}] + {argv!r} + ['--torch-device', 'cpu']\n"
+        "try:\n"
+        f"    runpy.run_module('kueue_tpu_torch.{module}', "
+        "run_name='__main__')\n"
+        "except SystemExit as e:\n"
+        f"    assert not e.code or {module == 'obs_soak'}, e.code\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'kueue_tpu', 'scripts') or m.endswith('_soak')"
+        " and not m.startswith('kueue_tpu_torch.'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    lines = out.stdout.strip().splitlines()
+    assert lines[-1] == "ok"
+    tail = json.loads(lines[-2])
+    assert tail["metric"] == metric
+    if module == "chaos_soak":
+        assert tail["scenarios_stable"] == tail["scenarios_total"] == 2
+    elif module == "obs_soak":
+        assert tail["decisions_identical"] is True
+    else:
+        assert all(tail["parity"].values())
+    if not torch.cuda.is_available():
+        out = subprocess.run(
+            [sys.executable, "-m", f"kueue_tpu_torch.{module}"] + argv,
             cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
         assert out.returncode != 0
         assert "no CUDA GPU" in out.stderr
