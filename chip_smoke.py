@@ -24,16 +24,18 @@ kueue_tpu_torch.cli``); then the north-star entry point's twin (``python
 -m kueue_tpu_torch.northstar``) on the mixed fleet and through the
 fill-then-trickle; then the twins of the chaos, OBS and scale soaks
 (``python -m kueue_tpu_torch.chaos_soak`` / ``obs_soak`` /
-``scale_soak``), each ending in the per-cycle admit kernels or the
-fused burst:
+``scale_soak``) and of the traffic, serving and federation soaks
+(``traffic_soak`` / ``serve_soak`` / ``federation_soak``), each ending
+in the per-cycle admit kernels or the fused burst:
 
 1. device: name, count and ``nvidia-smi`` name/power limit;
 2. build: nvcc of every kernel source (in parallel) into one library;
    then the CPU arms start, each a child process on one torch thread
    beside the card's phases (``CPU_ARMS``): phase 10's, 12's, 18's,
-   25's, 26's, 27's, 28's and 29's runs on "cpu" and phase 24's apply
-   (on the card) and CPU side, each read where its phase checks it; and
-   phases 27-29's card child (``CARD_ARMS["27-29"]``);
+   25's, 26's, 27's, 28's, 29's and 30-32's runs on "cpu" and phase
+   24's apply (on the card) and CPU side, each read where its phase
+   checks it; and phases 27-29's and 30-32's card children
+   (``CARD_ARMS["27-29"]``, ``CARD_ARMS["30-32"]``);
 3. kernels: each CUDA kernel against its plain version on the CPU over a
    seeded sweep (kueue_tpu_torch.testing.kernel_cases, burst_cases,
    fs_cases and avail_cases: kq_cq_avail's staged route at depth 1, 2,
@@ -357,6 +359,24 @@ fused burst:
    the SCALE_r19 checks, all but the pooled host plane's >= 2x gate,
    whose verdict is printed with the core count; then the stream arm at
    1,000 CQs on "cpu" (its CPU arm): the card's decision digest;
+30. the traffic twin's ``--quick`` (traffic-quick: ``python -m
+   kueue_tpu_torch.traffic_soak``'s ``run``, 16 CQs, the 3-rung ladder
+   and 2 search steps for the serial arm and the sharded arm on 8
+   virtual shards of the card, the replay, the snapshot, storm and
+   remote probes): the replay bit-identical, serial and sharded
+   decisions equal, the TRAFFIC checks (``perf.validate``, the r16+ obs
+   block included), an admit kernel and kq_gather_heads launched; what
+   it decided (every curve point but its walls, the counters, each
+   probe's decision digest) equal to the same run on "cpu" (the CPU arm
+   of 30-32);
+31. the serving twin's ``--quick`` (serve-quick: 8 CQs; the parity, kill
+   / restart, SIGTERM drain and 6 s wall arms): every arm ok (the wall
+   arm's p99 within its SLO and K adapted), the SERVE checks, an admit
+   kernel launched; the parity, kill and drain arms equal to "cpu"'s;
+32. the federation twin's ``--quick`` (fed-quick: 16 CQs, 4 workers, 80
+   events): 4 of 4 scenarios converged, no double admission, the FED
+   checks, an admit kernel launched; every scenario's verdict, counters
+   and control / faulted digests equal to "cpu"'s;
 3i. kq_gather_heads and kq_fs_merge_order against their plain versions
    on the calls captured in 16-16d and on one synthetic call each at
    north-star width (1,000 heads over 8 shards), and the per-shard admit
@@ -372,8 +392,8 @@ Launch counts are zeroed just before phases 4, 5, 7, 8, 9, 9b, 11, 13,
 14, 15, 15b, 15c, 16, 16b, 16c, 16d, 17, 18, 19 (its run and its
 search), 20, 21 (its arms on the card, and its wall arm), 22, 23, 24
 (its in-process schedule, and its in-process serve), 25 (its three card
-arms, each also counted alone), 26, 27, 28 and 29 and read just
-after each (23: this process's and, from their ``--stats-file``, the
+arms, each also counted alone), 26, 27, 28, 29, 30, 31 and 32 and
+read just after each (23: this process's and, from their ``--stats-file``, the
 children's; 24: this process's, the children have no stats file).  The
 scenarios collect as the reference scripts do (builds frozen, drains
 with collection off): the measured north-star phases 5, 8, 9, 15, 15c,
@@ -384,8 +404,8 @@ phases 19 and 20 must see no full collection
 phase builds.  A
 launch records no CUDA event: the device time of phases 4, 5, 7, 8, 9,
 11, 13, 15, 15c, 16, 16b, 16c, 16d, 17, 18, 19, 20, 21, 22, 23, 24's
-schedule, 25's card arms, 26, 27 and 29 (this process and the card
-children: the CPU arms and phase 23's children are not profiled) (per kernel, the rest, the
+schedule, 25's card arms, 26, 27, 29, 30, 31 and 32 (this process and
+the card children: the CPU arms and phase 23's children are not profiled) (per kernel, the rest, the
 busy union and its share of the wall) comes from torch.profiler's CUDA activity
 over the phase (``kueue_tpu_torch.profiling.DeviceClock``); a phase in
 which it sees nothing fails.  Prints a ``kernels`` JSON line (per
@@ -555,6 +575,14 @@ OBS_ARGS: list = []
 OBS_PAIR = dict(cycles=16, runtime=2, shape=(4, 4, 24))
 SCALE_ARGS = ["--quick"]
 SCALE_PARITY = dict(n=1000, rounds=3, seed=1307)
+# phases 30-32: the traffic, serve and federation twins at their scripts'
+# --quick sizes (traffic_soak: 16 CQs, the 3-rung ladder and 2 search
+# steps an arm, the sharded arm on 8 virtual shards; serve_soak: 8 CQs, a
+# 6 s wall arm; federation_soak: 16 CQs, 4 workers, 80 events), each on
+# the card and on "cpu" (their CPU arm), whose decisions must agree
+TRAFFIC_ARGS = ["--quick"]
+SERVE_ARGS = ["--quick"]
+FED_ARGS = ["--quick"]
 # the SCALE_r19 check that holds the pooled host plane to >= 2x when the
 # host has the cores, a timing gate both packages miss on 8 cores
 POOL_GATE = "'host_pool.apply_pack_speedup'="
@@ -1665,6 +1693,24 @@ with contextlib.redirect_stderr(io.StringIO()):
 out = dict(digest=scenarios.records_digest(e["decisions"]),
            n_cycles=e["n_cycles"])
 """,
+    # phases 30-32's CPU sides: the three twins at --quick on "cpu", what
+    # each decided (format: TRAFFIC_ARGS, SERVE_ARGS, FED_ARGS)
+    "30-32": """
+from kueue_tpu_torch import federation_soak, serve_soak, traffic_soak
+import contextlib, io
+out = dict()
+for tag, mod, argv in (("30", traffic_soak, {traffic_args!r}),
+                       ("31", serve_soak, {serve_args!r}),
+                       ("32", federation_soak, {fed_args!r})):
+    args = mod.parser().parse_args(argv + ["--torch-device", "cpu"])
+    record = dict()
+    with contextlib.redirect_stderr(io.StringIO()):
+        tail = (mod.run(args, record) if mod is traffic_soak
+                else mod.run(args))
+    scenarios.release()
+    out[tag] = dict(decided=mod.decided(tail),
+                    record=dict((str(k), v) for k, v in record.items()))
+""",
 }
 # phases 25 and 26 on the card in a child process started before phase 16,
 # beside phases 16-24: the twin's three --ab-hetero card arms, its
@@ -1815,6 +1861,40 @@ out["29"] = dict(tail=tail, ok=ok, launches=launches, wall=wall,
                  problems=validate_tail(tail, "SCALE_r19.json"),
                  device=cs.device_line("29", dc, wall, launches))
 """
+# phases 30-32 on the card in a child process started after the build,
+# beside phases 3-29: the traffic, serve and federation twins through
+# their entry points' ``run`` at --quick, each with its launches, the
+# profiler's reading, what it decided and the port's copy of its kind's
+# checks (format: TRAFFIC_ARGS, SERVE_ARGS, FED_ARGS)
+CARD_ARM_CODE["30-32"] = """
+import contextlib, io
+import chip_smoke as cs
+from kueue_tpu_torch import federation_soak, serve_soak, traffic_soak
+from kueue_tpu_torch.perf.validate import validate_tail
+from kueue_tpu_torch.profiling import DeviceClock
+kernels.load()
+quiet = io.StringIO()
+out = dict()
+for tag, mod, argv, name in (
+        ("30", traffic_soak, {traffic_args!r}, "TRAFFIC_r21.json"),
+        ("31", serve_soak, {serve_args!r}, "SERVE_r21.json"),
+        ("32", federation_soak, {fed_args!r}, "FED_r21.json")):
+    args = mod.parser().parse_args(argv + ["--torch-device", "cuda:0"])
+    record = dict()
+    kernels.reset_counts()
+    t1 = time.perf_counter()
+    with DeviceClock() as dc, contextlib.redirect_stderr(quiet):
+        tail = (mod.run(args, record) if mod is traffic_soak
+                else mod.run(args))
+    wall = time.perf_counter() - t1
+    launches = dict(kernels.LAUNCHES)
+    scenarios.release()
+    out[tag] = dict(tail=tail, decided=mod.decided(tail),
+                    record=dict((str(k), v) for k, v in record.items()),
+                    launches=launches, wall=wall,
+                    problems=validate_tail(tail, name),
+                    device=cs.device_line(tag, dc, wall, launches))
+"""
 CPU_ARMS: dict = {}
 CARD_ARMS: dict = {}
 CLI_DIR: list = []          # phase 24's manifests and stores
@@ -1851,7 +1931,9 @@ class ChildArm:
                     obs_shape=OBS_PAIR["shape"], scale_args=SCALE_ARGS,
                     scale_n=SCALE_PARITY["n"],
                     scale_rounds=SCALE_PARITY["rounds"],
-                    scale_seed=SCALE_PARITY["seed"], **NORTHSTAR)
+                    scale_seed=SCALE_PARITY["seed"],
+                    traffic_args=TRAFFIC_ARGS, serve_args=SERVE_ARGS,
+                    fed_args=FED_ARGS, **NORTHSTAR)
                 + "out['launches'] = sum(kernels.LAUNCHES.values())\n"
                   "out['child_s'] = time.perf_counter() - t0\n"
                   "print(json.dumps(out))\n")
@@ -1939,8 +2021,9 @@ def smoke(launcher: Launcher) -> int:
     del docs24
     for tag in CPU_ARM_CODE:
         CPU_ARMS[tag] = ChildArm(tag, CPU_ARM_CODE)
-    # phases 27-29 on the card, beside phases 3-26 (CARD_ARM_CODE)
+    # phases 27-29 and 30-32 on the card, beside phases 3-26 (CARD_ARM_CODE)
     CARD_ARMS["27-29"] = ChildArm("27-29", CARD_ARM_CODE)
+    CARD_ARMS["30-32"] = ChildArm("30-32", CARD_ARM_CODE)
 
     # -- 3a. kernels against their plain versions: seeded sweep ------------
     stats = {k: dict(cases=0, mismatches=0, max_abs_err=0)
@@ -3756,6 +3839,97 @@ def smoke(launcher: Launcher) -> int:
         f"arms' child {soak['child_s']:.2f}s")
     check(card29 == cpu29["digest"], (card29, cpu29["digest"]))
 
+    # -- 30-32. the traffic, serve and federation twins at --quick ---------
+    # the card arms ran in CARD_ARMS["30-32"] since phase 2, their CPU
+    # sides in CPU_ARMS["30-32"]
+    t30 = time.perf_counter()
+    twins = CARD_ARMS["30-32"].result()
+    cpu30 = CPU_ARMS["30-32"].result()
+    c30 = twins["30"]
+    tail30 = c30["tail"]
+    launches30 = c30["launches"]
+    for arm, a in tail30["arms"].items():
+        log(f"[30 traffic-quick] {arm}: sustainable "
+            f"{a['sustainable_rate_per_s']}/s, curve (rate, submitted, "
+            f"admitted, end depth, virtual p99 s, cycle wall p50 ms) "
+            + json.dumps([[e["rate_per_s"], e["submitted"], e["admitted"],
+                           e["end_depth"], e["p99_latency_s"],
+                           e["cycle_wall_p50_ms"]] for e in a["curve"]]))
+    log(f"[30 traffic-quick] {TRAFFIC_ARGS} (CARD_ARMS[30-32], "
+        f"{c30['wall']:.2f}s): {tail30['cqs']} CQs, replay identical "
+        f"{tail30['replay_identical']}, serial = shards "
+        f"{tail30['serial_shard_decisions_match']}, mesh "
+        f"{json.dumps(tail30['mesh'])}; storm "
+        f"{json.dumps(tail30['storm_probe'])}; remote "
+        f"{json.dumps(tail30['remote_probe'])}; validator "
+        f"{json.dumps(c30['problems'])}; launches "
+        f"{json.dumps({k: v for k, v in launches30.items() if v})}; "
+        f"{c30['device']}; card = CPU_ARMS[30-32] "
+        f"{c30['decided'] == cpu30['30']['decided']} (decided), "
+        f"{c30['record'] == cpu30['30']['record']} ({len(c30['record'])} "
+        f"probe digests); waited {time.perf_counter() - t30:.2f}s here")
+    check(tail30["replay_identical"]
+          and tail30["serial_shard_decisions_match"],
+          "phase 30: the replay or the sharded arm diverged")
+    check(tail30["mesh"].get("virtual") and tail30["mesh"]["shards"] == 8,
+          tail30["mesh"])
+    check(c30["problems"] == [], c30["problems"])
+    check(any(launches30[k] for k in ADMIT_KERNELS)
+          and launches30["kq_gather_heads"] > 0, launches30)
+    check(c30["decided"] == cpu30["30"]["decided"],
+          "phase 30: card and CPU decided differently")
+    check(c30["record"] == cpu30["30"]["record"], (
+        c30["record"], cpu30["30"]["record"]))
+    c31 = twins["31"]
+    tail31 = c31["tail"]
+    launches31 = c31["launches"]
+    w31 = tail31["wall"]
+    kill31 = {k: v for k, v in tail31["kill_restart"].items()
+              if k != "scenarios"}
+    log(f"[31 serve-quick] {SERVE_ARGS} (CARD_ARMS[30-32], "
+        f"{c31['wall']:.2f}s): {tail31['cqs']} CQs; parity "
+        f"{json.dumps(tail31['parity'])}; kill {json.dumps(kill31)}; "
+        f"drain {json.dumps(tail31['drain'])}; wall "
+        f"{w31['admissions_per_s']:.2f} admissions/s ({w31['admitted']} of "
+        f"{w31['submitted']}), held {w31['slo']['held']}, K "
+        f"{w31['slo']['k_values']}, window p99 s "
+        f"{[round(w['p99_s'], 4) for w in w31['slo']['windows']]}; "
+        f"validator {json.dumps(c31['problems'])}; launches "
+        f"{json.dumps({k: v for k, v in launches31.items() if v})}; "
+        f"{c31['device']}; card = CPU_ARMS[30-32] "
+        f"{c31['decided'] == cpu30['31']['decided']}")
+    check(tail31["all_ok"], {k: tail31.get(k) for k in (
+        "parity", "kill_restart", "drain")})
+    check(c31["problems"] == [], c31["problems"])
+    check(any(launches31[k] for k in ADMIT_KERNELS), launches31)
+    check(c31["decided"] == cpu30["31"]["decided"],
+          (c31["decided"], cpu30["31"]["decided"]))
+    c32 = twins["32"]
+    tail32 = c32["tail"]
+    launches32 = c32["launches"]
+    for name, r in tail32["scenarios"].items():
+        log(f"[32 fed-quick] {name}: stable {r['decisions_stable']}, "
+            f"{r['wall_s']}s, parity {r.get('parity')}, double "
+            f"{r.get('double_admissions')}, digests "
+            f"{json.dumps(r.get('state_digest'))}, counters "
+            f"{json.dumps(r.get('counters'))}")
+    log(f"[32 fed-quick] {FED_ARGS} (CARD_ARMS[30-32], {c32['wall']:.2f}s): "
+        f"{tail32['cqs']} CQs, {tail32['workers']} workers, "
+        f"{tail32['events']} events, {tail32['scenarios_stable']}/"
+        f"{tail32['scenarios_total']} converged; validator "
+        f"{json.dumps(c32['problems'])}; launches "
+        f"{json.dumps({k: v for k, v in launches32.items() if v})}; "
+        f"{c32['device']}; card = CPU_ARMS[30-32] "
+        f"{c32['decided'] == cpu30['32']['decided']}; twins' card child "
+        f"{twins['child_s']:.2f}s, CPU child {cpu30['child_s']:.2f}s")
+    check(tail32["all_stable"] and tail32["scenarios_total"] == 4,
+          {n: r.get("failures") for n, r in tail32["scenarios"].items()})
+    check(tail32["double_admissions_total"] == 0, tail32)
+    check(c32["problems"] == [], c32["problems"])
+    check(any(launches32[k] for k in ADMIT_KERNELS), launches32)
+    check(c32["decided"] == cpu30["32"]["decided"],
+          (c32["decided"], cpu30["32"]["decided"]))
+
     # -- 3i. the mesh kernels and the per-shard scans against plain ---------
     mesh_phases = ("bench_mesh", "northstar_mesh", "northstar_fs_mesh",
                    "dryrun")
@@ -3820,7 +3994,8 @@ def smoke(launcher: Launcher) -> int:
                 "19": launches19, "20": launches20, "21": launches21,
                 "22": launches22, "23": launches23, "24": launches24,
                 "25": launches25, "26": launches26, "27": launches27,
-                "28": launches28, "29": launches29}
+                "28": launches28, "29": launches29, "30": launches30,
+                "31": launches31, "32": launches32}
     rows = []
     for name in kernels.KERNELS:
         phase = {"admit_scan_forests": "northstar",

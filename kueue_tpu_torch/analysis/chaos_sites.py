@@ -35,11 +35,10 @@ _TEST_NAMES = "test_torch_"      # the port's tests, tests/test_torch_*.py
 _DOC_SITE_RE = re.compile(r"^``([a-z_][a-z0-9_.]*)``", re.MULTILINE)
 
 
-def _literal_site_args(tree: ast.Module, attrs: tuple[str, ...]):
+def _literal_site_args(index, attrs: tuple[str, ...]):
     """(site, lineno) for every ``*.<attr>("literal", ...)`` call."""
-    for node in ast.walk(tree):
-        if (isinstance(node, ast.Call)
-                and isinstance(node.func, ast.Attribute)
+    for node in index.of(ast.Call):
+        if (isinstance(node.func, ast.Attribute)
                 and node.func.attr in attrs
                 and node.args
                 and isinstance(node.args[0], ast.Constant)
@@ -61,7 +60,7 @@ def run(files: list[ParsedFile], ctx: Context) -> list[Finding]:
     for pf in files:
         if pf.path.endswith(_INJECTOR_SUFFIX):
             continue
-        for site, line in _literal_site_args(pf.tree,
+        for site, line in _literal_site_args(pf.index,
                                              ("crashpoint", "hit")):
             threaded.setdefault(site, (pf.path, line))
 
@@ -71,7 +70,7 @@ def run(files: list[ParsedFile], ctx: Context) -> list[Finding]:
         arm_files.append(ParsedFile.from_source(_SMOKE, ctx.text(_SMOKE)))
     arm_files += ctx.parse_dir("tests", _TEST_NAMES)
     for pf in arm_files:
-        for site, line in _literal_site_args(pf.tree, ("arm",)):
+        for site, line in _literal_site_args(pf.index, ("arm",)):
             armed.setdefault(site, (pf.path, line))
 
     out: list[Finding] = []

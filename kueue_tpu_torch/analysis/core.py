@@ -15,11 +15,18 @@ Design notes:
   cheap enough to run as a tier-1 test.
 - The default scan is the port: ``kueue_tpu_torch/``, ``chip_smoke.py``
   and ``kernel_ab.py`` (``DEFAULT_PATHS``).
+- Each parsed module is walked once, at parse time, into a
+  :class:`NodeIndex` (its nodes by type, each node's parent and
+  children, each def's own nodes) that every pass reads instead of
+  walking the tree again.  :class:`WalkIndex` answers the same queries
+  by walking the tree each time: the plain version the index is held
+  against (``tests/test_torch_analysis.py``).
 """
 
 from __future__ import annotations
 
 import ast
+import gc
 import json
 import os
 from dataclasses import dataclass, field
@@ -59,6 +66,140 @@ class Finding:
                 "message": self.message, "key": self.key}
 
 
+class NodeIndex:
+    """One walk of a module's tree, shared by the passes.
+
+    ``order`` holds its nodes in ``ast.walk`` order, all but the shared
+    operator and expression-context singletons (``Load``, ``Add``, ...),
+    which no pass asks for; ``of(*types)`` the nodes of those types in
+    that order; ``parent`` / ``children`` each node's; ``walk(node)`` a
+    subtree's nodes in that order (a def's own nodes, kept once asked
+    for); ``functions()`` the module's defs as :func:`index_functions`
+    gives them; ``memo`` a pass's per-module results."""
+
+    def __init__(self, tree: ast.AST):
+        order = [tree]
+        children: dict = {}
+        by_type: dict = {}
+        node_t, leaves, skip, empty = ast.AST, _LEAVES, _SINGLETONS, ()
+        for node in order:           # the list grows as the walk goes
+            t = type(node)
+            nodes = by_type.get(t)
+            if nodes is None:
+                nodes = by_type[t] = []
+            nodes.append(node)
+            if t in leaves:
+                children[node] = empty
+                continue
+            kids = []
+            # a parsed node's __dict__ holds its _fields in order, then
+            # its position attributes (ints)
+            for v in node.__dict__.values():
+                if type(v) is list:
+                    if v:
+                        kids += [x for x in v if isinstance(x, node_t)
+                                 and not isinstance(x, skip)]
+                elif isinstance(v, node_t) and not isinstance(v, skip):
+                    kids.append(v)
+            children[node] = kids
+            if kids:
+                order += kids
+        self.tree = tree
+        self.order = order
+        self._children = children
+        self._by_type = by_type
+        self._parent: Optional[dict] = None
+        self._walks: dict = {}
+        self._functions: Optional[dict] = None
+        self.memo: dict = {}
+
+    def of(self, *types) -> list:
+        if len(types) == 1:
+            return self._by_type.get(types[0], [])
+        ts = set(types)
+        return [n for n in self.order if type(n) in ts]
+
+    def parent(self, node: ast.AST) -> Optional[ast.AST]:
+        if self._parent is None:
+            self._parent = {k: n for n, kids in self._children.items()
+                            for k in kids}
+        return self._parent.get(node)
+
+    def children(self, node: ast.AST) -> list:
+        return self._children[node]
+
+    def walk(self, node: ast.AST) -> list:
+        out = self._walks.get(node)
+        if out is None:
+            out = [node]
+            i = 0
+            while i < len(out):
+                out.extend(self._children[out[i]])
+                i += 1
+            self._walks[node] = out
+        return out
+
+    def functions(self) -> dict:
+        if self._functions is None:
+            self._functions = _functions(self.tree, self.children, True)
+        return self._functions
+
+
+#: shared singletons of the parsed tree, never indexed
+_SINGLETONS = (ast.expr_context, ast.boolop, ast.operator, ast.unaryop,
+               ast.cmpop)
+#: node types with no child but those singletons
+_LEAVES = frozenset((ast.Name, ast.Constant, ast.Pass, ast.Break,
+                     ast.Continue, ast.alias))
+
+
+class WalkIndex:
+    """:class:`NodeIndex`'s queries answered by walking the tree again
+    at every call (no node, walk or memo is shared)."""
+
+    def __init__(self, tree: ast.AST):
+        self.tree = tree
+
+    @property
+    def order(self) -> list:
+        return list(ast.walk(self.tree))
+
+    @property
+    def memo(self) -> dict:
+        return {}
+
+    def of(self, *types) -> list:
+        return [n for n in ast.walk(self.tree) if isinstance(n, types)]
+
+    def parent(self, node: ast.AST) -> Optional[ast.AST]:
+        for p in ast.walk(self.tree):
+            if any(c is node for c in ast.iter_child_nodes(p)):
+                return p
+        return None
+
+    def children(self, node: ast.AST) -> list:
+        return list(ast.iter_child_nodes(node))
+
+    def walk(self, node: ast.AST) -> list:
+        return list(ast.walk(node))
+
+    def functions(self) -> dict:
+        return _functions(self.tree, self.children, False)
+
+
+#: the index ``index_of`` builds (``WalkIndex`` walks at every query)
+INDEX = NodeIndex
+
+
+def index_of(tree: ast.AST):
+    """The module's index, built on first use and kept on the tree."""
+    idx = tree.__dict__.get("_node_index")
+    if type(idx) is not INDEX:
+        idx = INDEX(tree)
+        tree._node_index = idx
+    return idx
+
+
 @dataclass
 class ParsedFile:
     path: str                    # repo-relative posix path
@@ -67,8 +208,14 @@ class ParsedFile:
 
     @classmethod
     def from_source(cls, path: str, source: str) -> "ParsedFile":
-        return cls(path=path, source=source,
-                   tree=ast.parse(source, filename=path))
+        pf = cls(path=path, source=source,
+                 tree=ast.parse(source, filename=path))
+        index_of(pf.tree)
+        return pf
+
+    @property
+    def index(self):
+        return index_of(self.tree)
 
 
 class Context:
@@ -169,11 +316,19 @@ def run_all(root: str, paths: Optional[Iterable[str]] = None,
             ctx: Optional[Context] = None) -> list[Finding]:
     if paths is None:
         paths = DEFAULT_PATHS
-    files = collect_files(root, paths)
-    ctx = ctx or Context(root)
-    findings: list[Finding] = []
-    for p in (passes if passes is not None else all_passes()):
-        findings.extend(p.run(files, ctx))
+    # every tree lives to the end of the run: collecting while they are
+    # built would only rescan them
+    collecting = gc.isenabled()
+    gc.disable()
+    try:
+        files = collect_files(root, paths)
+        ctx = ctx or Context(root)
+        findings: list[Finding] = []
+        for p in (passes if passes is not None else all_passes()):
+            findings.extend(p.run(files, ctx))
+    finally:
+        if collecting:
+            gc.enable()
     findings.sort(key=lambda f: (f.path, f.line, f.rule, f.code))
     return findings
 
@@ -231,12 +386,18 @@ class FuncInfo:
     parent: Optional[str] = None
 
 
-def index_functions(tree: ast.Module) -> dict[str, FuncInfo]:
-    """qualname -> FuncInfo for every (nested) def in the module."""
+#: the nodes a def or a class can stand in or under (defs are statements)
+_STMT_HOLDERS = (ast.stmt, ast.excepthandler, ast.match_case)
+
+
+def _functions(tree: ast.AST, children, stmts_only: bool
+               ) -> dict[str, FuncInfo]:
+    """qualname -> FuncInfo for every (nested) def, in source pre-order;
+    ``stmts_only`` descends into statements only, where every def is."""
     out: dict[str, FuncInfo] = {}
 
     def walk(node: ast.AST, prefix: str):
-        for child in ast.iter_child_nodes(node):
+        for child in children(node):
             if isinstance(child, (ast.FunctionDef, ast.AsyncFunctionDef)):
                 qn = f"{prefix}{child.name}" if prefix else child.name
                 out[qn] = FuncInfo(qn, child, prefix.rstrip(".") or None)
@@ -244,8 +405,13 @@ def index_functions(tree: ast.Module) -> dict[str, FuncInfo]:
             elif isinstance(child, ast.ClassDef):
                 walk(child, (prefix + child.name + ".") if prefix
                      else child.name + ".")
-            else:
+            elif not stmts_only or isinstance(child, _STMT_HOLDERS):
                 walk(child, prefix)
 
     walk(tree, "")
     return out
+
+
+def index_functions(tree: ast.Module) -> dict[str, FuncInfo]:
+    """qualname -> FuncInfo for every (nested) def in the module."""
+    return index_of(tree).functions()

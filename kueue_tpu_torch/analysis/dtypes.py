@@ -31,7 +31,7 @@ from __future__ import annotations
 import ast
 from typing import Optional
 
-from .core import Context, Finding, ParsedFile, dotted, index_functions
+from .core import Context, Finding, ParsedFile, dotted
 
 RULE = "dtype"
 
@@ -78,18 +78,17 @@ _TORCH_ALIASES = {"long": "int64", "int": "int32", "short": "int16",
                   "half": "float16"}
 
 
-def _aliases_of(tree: ast.Module, names: tuple) -> set[str]:
+def _aliases_of(index, names: tuple) -> set[str]:
     out = set()
-    for node in ast.walk(tree):
-        if isinstance(node, ast.Import):
-            for a in node.names:
-                if a.name in names:
-                    out.add(a.asname or a.name.split(".")[0])
+    for node in index.of(ast.Import):
+        for a in node.names:
+            if a.name in names:
+                out.add(a.asname or a.name.split(".")[0])
     return out
 
 
-def _np_aliases(tree: ast.Module) -> set[str]:
-    return _aliases_of(tree, ("numpy", "jax.numpy"))
+def _np_aliases(index) -> set[str]:
+    return _aliases_of(index, ("numpy", "jax.numpy"))
 
 
 def _dtype_str(node: Optional[ast.AST], torch_names=(),
@@ -116,11 +115,15 @@ def _dtype_str(node: Optional[ast.AST], torch_names=(),
     return None
 
 
-def _bindings(body: list) -> dict:
+def _bindings(index, scope: ast.AST) -> dict:
     """Name -> expression for the simple and tuple assignments of one
-    scope's own statements (nested defs excluded)."""
+    scope's own statements (nested defs excluded), kept in the index's
+    ``memo`` once found."""
+    memo = index.memo
+    if ("bindings", scope) in memo:
+        return memo["bindings", scope]
     out: dict = {}
-    stack = list(body)
+    stack = list(scope.body)
     while stack:
         node = stack.pop(0)
         if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef,
@@ -135,19 +138,20 @@ def _bindings(body: list) -> dict:
                 for te, ve in zip(t.elts, v.elts):
                     if isinstance(te, ast.Name):
                         out[te.id] = ve
-        stack.extend(ast.iter_child_nodes(node))
+        stack.extend(index.children(node))
+    memo["bindings", scope] = out
     return out
 
 
-def _aliases_at(tree: ast.Module, funcs, lineno: int) -> dict:
+def _aliases_at(index, funcs, lineno: int) -> dict:
     """The bindings visible at a line: the module's, then each enclosing
     def's, inner ones last (they shadow)."""
-    out = _bindings(tree.body)
+    out = dict(_bindings(index, index.tree))
     scopes = [info.node for info in funcs.values()
               if info.node.lineno <= lineno
               <= getattr(info.node, "end_lineno", info.node.lineno)]
     for n in sorted(scopes, key=lambda n: n.lineno):
-        out.update(_bindings(n.body))
+        out.update(_bindings(index, n))
     return out
 
 
@@ -177,19 +181,20 @@ def run(files: list[ParsedFile], ctx: Context) -> list[Finding]:
     for pf in files:
         if not pf.path.endswith(_SCOPE_SUFFIXES):
             continue
-        np_names = _np_aliases(pf.tree)
-        torch_names = _aliases_of(pf.tree, ("torch",))
-        funcs = index_functions(pf.tree)
+        index = pf.index
+        np_names = _np_aliases(index)
+        torch_names = _aliases_of(index, ("torch",))
+        funcs = index.functions()
 
         def dtype_of(node, at):
             return _dtype_str(node, torch_names,
-                              _aliases_at(pf.tree, funcs, at.lineno))
+                              _aliases_at(index, funcs, at.lineno))
 
         def emit(code, node, msg):
             out.append(Finding(RULE, code, pf.path, node.lineno,
                                _enclosing(funcs, node.lineno), msg))
 
-        for node in ast.walk(pf.tree):
+        for node in index.of(ast.Call, ast.Assign):
             # --- creation calls -------------------------------------
             if isinstance(node, ast.Call):
                 d = dotted(node.func)

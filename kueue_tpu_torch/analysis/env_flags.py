@@ -39,15 +39,14 @@ def _registry(ctx: Context) -> set[str]:
     return set(ENV_FLAGS)
 
 
-def _os_aliases(tree: ast.Module) -> set[str]:
+def _os_aliases(index) -> set[str]:
     """Names the ``os`` module is bound to in this file (``os``,
     ``import os as _os``, ...)."""
     out = {"os"}
-    for node in ast.walk(tree):
-        if isinstance(node, ast.Import):
-            for a in node.names:
-                if a.name == "os":
-                    out.add(a.asname or "os")
+    for node in index.of(ast.Import):
+        for a in node.names:
+            if a.name == "os":
+                out.add(a.asname or "os")
     return out
 
 
@@ -89,8 +88,8 @@ def run(files: list[ParsedFile], ctx: Context) -> list[Finding]:
 
     for pf in files:
         is_registry_impl = pf.path.endswith(_REGISTRY_FILE)
-        os_names = _os_aliases(pf.tree)
-        for node in ast.walk(pf.tree):
+        os_names = _os_aliases(pf.index)
+        for node in pf.index.of(ast.Call, ast.Subscript, ast.Constant):
             read = _env_read(node, os_names)
             if read is not None and not is_registry_impl:
                 line, lit = read

@@ -43,9 +43,7 @@ _SCAN_PREFIXES = ("kueue_tpu_torch/metrics.py", "kueue_tpu_torch/obs/")
 
 def _registry_names(pf: ParsedFile) -> tuple[set, Finding | None]:
     """Series names from the ``_SERIES_DEFS`` literal, or a finding."""
-    for node in ast.walk(pf.tree):
-        if not isinstance(node, ast.Assign):
-            continue
+    for node in pf.index.of(ast.Assign):
         targets = [t.id for t in node.targets if isinstance(t, ast.Name)]
         if "_SERIES_DEFS" not in targets:
             continue
@@ -101,7 +99,7 @@ def run(files: list[ParsedFile], ctx: Context) -> list[Finding]:
     for pf in files:
         if not pf.path.startswith(_SCAN_PREFIXES):
             continue
-        for node in ast.walk(pf.tree):
+        for node in pf.index.of(ast.Constant, ast.BinOp, ast.JoinedStr):
             if (isinstance(node, ast.Constant)
                     and isinstance(node.value, str)
                     and _SERIES_RE.match(node.value)

@@ -41,8 +41,7 @@ from __future__ import annotations
 
 import ast
 
-from .core import Context, Finding, FuncInfo, ParsedFile, dotted, \
-    index_functions
+from .core import Context, Finding, FuncInfo, ParsedFile, dotted, index_of
 
 RULE = "purity"
 
@@ -63,11 +62,11 @@ def _in_scope(path: str) -> bool:
     return path.startswith(_SCOPE_PREFIXES)
 
 
-def _module_imports(tree: ast.Module):
+def _module_imports(index):
     """(module alias -> module name, from-imported name -> module)."""
     mod_alias: dict[str, str] = {}
     from_name: dict[str, str] = {}
-    for node in ast.walk(tree):
+    for node in index.of(ast.Import, ast.ImportFrom):
         if isinstance(node, ast.Import):
             for a in node.names:
                 mod_alias[a.asname or a.name.split(".")[0]] = a.name
@@ -78,18 +77,19 @@ def _module_imports(tree: ast.Module):
     return mod_alias, from_name
 
 
-def _simple_calls(node: ast.AST) -> set[str]:
-    return {c.func.id for c in ast.walk(node)
+def _simple_calls(index, node: ast.AST) -> set[str]:
+    return {c.func.id for c in index.walk(node)
             if isinstance(c, ast.Call) and isinstance(c.func, ast.Name)}
 
 
 def launchers(tree: ast.Module) -> set[str]:
     """Defs of the launchers' module whose intra-module calls reach
     ``_launch`` (the build stops excluded)."""
-    funcs = index_functions(tree)
+    index = index_of(tree)
+    funcs = index.functions()
     calls = {qn.split(".")[-1]: set() for qn in funcs}
     for qn, info in funcs.items():
-        calls[qn.split(".")[-1]] |= _simple_calls(info.node)
+        calls[qn.split(".")[-1]] |= _simple_calls(index, info.node)
     reach = {_LAUNCH}
     changed = True
     while changed:
@@ -102,12 +102,12 @@ def launchers(tree: ast.Module) -> set[str]:
     return reach - {_LAUNCH}
 
 
-def _calls_a_launcher(info: FuncInfo, wrappers: set[str],
+def _calls_a_launcher(index, info: FuncInfo, wrappers: set[str],
                       mod_alias: dict[str, str],
                       from_name: dict[str, str]) -> bool:
     """True when the def calls ``kernels.<launcher>(...)`` or a launcher
     imported from the kernels module by name."""
-    for c in ast.walk(info.node):
+    for c in index.walk(info.node):
         if not isinstance(c, ast.Call):
             continue
         d = dotted(c.func)
@@ -130,7 +130,7 @@ def _entry_names(pf: ParsedFile, wrappers: set[str],
                  from_name: dict[str, str]) -> set[str]:
     """Simple names of the launch-path entries of one module."""
     roots: set[str] = set()
-    funcs = index_functions(pf.tree)
+    funcs = pf.index.functions()
     is_launchers = pf.path.endswith(_LAUNCHERS_FILE)
     for qn, info in funcs.items():
         name = qn.split(".")[-1]
@@ -138,15 +138,16 @@ def _entry_names(pf: ParsedFile, wrappers: set[str],
             roots.add(name)
         elif name.endswith("_plain"):
             roots.add(name)
-        elif _calls_a_launcher(info, wrappers, mod_alias, from_name):
+        elif _calls_a_launcher(pf.index, info, wrappers, mod_alias,
+                               from_name):
             roots.add(name)
     return roots
 
 
-def _reachable(tree: ast.Module, roots: set[str]) -> dict[str, FuncInfo]:
+def _reachable(index, roots: set[str]) -> dict[str, FuncInfo]:
     """Launch-path scope: defs reachable from the entry names via
     simple-name calls within this module, short of the build stops."""
-    funcs = index_functions(tree)
+    funcs = index.functions()
     by_simple: dict[str, list[FuncInfo]] = {}
     for info in funcs.values():
         by_simple.setdefault(info.qualname.split(".")[-1], []).append(info)
@@ -159,7 +160,7 @@ def _reachable(tree: ast.Module, roots: set[str]) -> dict[str, FuncInfo]:
             if info.qualname in seen:
                 continue
             seen[info.qualname] = info
-            for callee in _simple_calls(info.node):
+            for callee in _simple_calls(index, info.node):
                 if callee not in seen and callee not in BUILD_STOPS:
                     frontier.append(callee)
     return seen
@@ -217,17 +218,17 @@ def _check_kernel(pf: ParsedFile, info: FuncInfo, mod_alias: dict[str, str],
         out.append(Finding(RULE, code, pf.path, node.lineno,
                            info.qualname, msg))
 
+    nodes = pf.index.walk(info.node)
     # locals of this def shadow module globals for the mutation check
-    local_names = {a.arg for a in ast.walk(info.node)
-                   if isinstance(a, ast.arg)}
-    for n in ast.walk(info.node):
+    local_names = {a.arg for a in nodes if isinstance(a, ast.arg)}
+    for n in nodes:
         if isinstance(n, (ast.Assign, ast.AnnAssign, ast.AugAssign)):
             ts = n.targets if isinstance(n, ast.Assign) else [n.target]
             for t in ts:
                 if isinstance(t, ast.Name):
                     local_names.add(t.id)
 
-    for node in ast.walk(info.node):
+    for node in nodes:
         if isinstance(node, ast.Global):
             emit("global-mutation", node,
                  f"`global {', '.join(node.names)}` in a launch path "
@@ -286,12 +287,12 @@ def run(files: list[ParsedFile], ctx: Context) -> list[Finding]:
     for pf in files:
         if not _in_scope(pf.path):
             continue
-        mod_alias, from_name = _module_imports(pf.tree)
+        mod_alias, from_name = _module_imports(pf.index)
         roots = _entry_names(pf, wrappers, mod_alias, from_name)
         if not roots:
             continue
         module_names = _module_level_names(pf.tree)
-        for info in _reachable(pf.tree, roots).values():
+        for info in _reachable(pf.index, roots).values():
             _check_kernel(pf, info, mod_alias, from_name, module_names, out)
     # a nested def reachable both via its parent's subtree and by name
     # would double-report: keep the first finding per site

@@ -31,7 +31,7 @@ from __future__ import annotations
 import ast
 from dataclasses import dataclass, field
 
-from .core import Context, Finding, ParsedFile, dotted, index_functions
+from .core import Context, Finding, ParsedFile, dotted
 
 RULE = "wal-order"
 
@@ -63,13 +63,13 @@ def _mutation_kind(node: ast.AST):
     return None
 
 
-def _append_kind(node: ast.AST):
+def _append_kind(index, node: ast.AST):
     """(kind, lineno) if this is ``*.log(_journal.<kind>_op(...))``."""
     if not (isinstance(node, ast.Call)
             and isinstance(node.func, ast.Attribute)
             and node.func.attr == "log"):
         return None
-    for arg in ast.walk(node):
+    for arg in index.walk(node):
         if isinstance(arg, ast.Call):
             d = dotted(arg.func)
             tail = d.split(".")[-1] if d else ""
@@ -98,13 +98,13 @@ class _FuncEvents:
     mutations: dict = field(default_factory=dict)  # kind -> [lineno]
 
 
-def _collect(node: ast.AST) -> _FuncEvents:
+def _collect(index, node: ast.AST) -> _FuncEvents:
     ev = _FuncEvents()
-    for n in ast.walk(node):
+    for n in index.walk(node):
         m = _mutation_kind(n)
         if m:
             ev.mutations.setdefault(m[0], []).append(m[1])
-        a = _append_kind(n)
+        a = _append_kind(index, n)
         if a:
             ev.appends.setdefault(a[0], []).append(a[1])
         c = _chaos_site(n)
@@ -119,12 +119,12 @@ def run(files: list[ParsedFile], ctx: Context) -> list[Finding]:
     for pf in files:
         if not pf.path.endswith(_SCOPE_SUFFIX):
             continue
-        funcs = index_functions(pf.tree)
+        funcs = pf.index.functions()
         file_appends: set[str] = set()
         file_mutations: set[str] = set()
 
         for info in funcs.values():
-            ev = _collect(info.node)
+            ev = _collect(pf.index, info.node)
             file_appends.update(ev.appends)
             file_mutations.update(ev.mutations)
             if not ev.appends and not ev.chaos:

@@ -1,8 +1,8 @@
 """The port's copy of ``scripts/validate_artifacts.py``'s checks of the
-soak tails it writes (``CHAOS_*``, ``OBS_*``, ``SCALE_*``): the chip
-smoke run holds the twins' tails to them without importing ``scripts/``,
-and ``tests/test_torch_soak_checks`` holds each function here equal to
-the script's, line for line.
+soak tails it writes (``CHAOS_*``, ``OBS_*``, ``SCALE_*``, ``TRAFFIC_*``,
+``FED_*``, ``SERVE_*``): the chip smoke run holds the twins' tails to
+them without importing ``scripts/``, and ``tests/test_torch_soak_checks``
+holds each function here equal to the script's, line for line.
 
 ``validate_tail(tail, name)`` runs the checks ``validate`` runs on a file
 of that ``name`` holding ``tail`` → the list of violations.
@@ -536,11 +536,207 @@ def _check_obs(d, path, out):
 
 
 
+def _check_traffic(d, path, out):
+    """TRAFFIC_* open-loop artifacts (scripts/traffic_soak.py): the
+    arrival-process parameters, the SLO, per-arm sustainable-rate
+    results with per-rate latency curves (histograms included), the
+    interleaved same-box control arm, the replay verdict, and the
+    incremental-snapshot host-cost counters."""
+    slo = d.get("slo")
+    if not isinstance(slo, dict) \
+            or not isinstance(slo.get("p99_latency_s"), (int, float)):
+        _err(out, path, "'slo' must carry numeric 'p99_latency_s'")
+    arrival = d.get("arrival")
+    if not isinstance(arrival, dict):
+        _err(out, path, "'arrival' must be an object")
+    else:
+        if not isinstance(arrival.get("process"), str):
+            _err(out, path, "'arrival.process' must be a string")
+        if not isinstance(arrival.get("seed"), int):
+            _err(out, path, "'arrival.seed' must be an int")
+    arms = d.get("arms")
+    if not isinstance(arms, dict) or not arms:
+        _err(out, path, "'arms' must be a non-empty object")
+    else:
+        for name, a in arms.items():
+            if not isinstance(a, dict):
+                _err(out, path, f"arm '{name}' must be an object")
+                continue
+            if not isinstance(a.get("sustainable_rate_per_s"),
+                              (int, float)):
+                _err(out, path, f"arm '{name}' missing numeric "
+                     "'sustainable_rate_per_s'")
+            curve = a.get("curve")
+            if not isinstance(curve, list) or len(curve) < 2:
+                _err(out, path, f"arm '{name}' needs a 'curve' list "
+                     "with >= 2 rates")
+                continue
+            for e in curve:
+                if not isinstance(e, dict):
+                    _err(out, path, f"arm '{name}' curve entries must "
+                         "be objects")
+                    break
+                for k in ("rate_per_s", "p50_latency_s",
+                          "p99_latency_s", "admissions_per_s"):
+                    if not isinstance(e.get(k), (int, float)):
+                        _err(out, path, f"arm '{name}' curve entry "
+                             f"missing numeric '{k}'")
+                if not isinstance(e.get("latency_hist"), list):
+                    _err(out, path, f"arm '{name}' curve entry missing "
+                         "'latency_hist' list")
+    control = d.get("control")
+    if not isinstance(control, dict) \
+            or control.get("interleaved") is not True:
+        _err(out, path, "'control' must be an object with "
+             "interleaved=true (same-box environment-drift arm)")
+    if not isinstance(d.get("replay_identical"), bool):
+        _err(out, path, "missing bool 'replay_identical'")
+    if not isinstance(d.get("snapshot_counters"), dict):
+        _err(out, path, "missing 'snapshot_counters' object")
+
+
+def _check_fed(d, path, out):
+    """FED_* federation-soak artifacts (scripts/federation_soak.py):
+    a real federation (>= 4 worker clusters), every fault scenario
+    carrying a parity verdict against its fault-free control, zero
+    double-admissions anywhere, and strict scenarios proving
+    bit-identical post-recovery state via matching digests.  The
+    generic scenario-table consistency (all_stable vs the per-scenario
+    verdicts) is _check_chaos's job — the 'scenarios' key routes every
+    FED artifact through it as well."""
+    workers = d.get("workers")
+    if not isinstance(workers, int) or workers < 4:
+        _err(out, path, f"'workers'={workers}: the federation soak "
+             "needs >= 4 worker clusters")
+    scenarios = d.get("scenarios")
+    if not isinstance(scenarios, dict) or len(scenarios) < 4:
+        _err(out, path, "needs >= 4 fault scenarios")
+        scenarios = {}
+    dbl_total = 0
+    for name, s in scenarios.items():
+        if not isinstance(s, dict):
+            continue
+        parity = s.get("parity")
+        if parity not in ("strict", "outcome"):
+            _err(out, path, f"scenario '{name}': 'parity' must be "
+                 f"'strict' or 'outcome' (got {parity!r})")
+        dbl = s.get("double_admissions")
+        if not isinstance(dbl, int):
+            _err(out, path, f"scenario '{name}' missing int "
+                 "'double_admissions'")
+        else:
+            dbl_total += dbl
+            if dbl != 0:
+                _err(out, path, f"scenario '{name}': "
+                     f"{dbl} double-admissions")
+        digest = s.get("state_digest")
+        if not isinstance(digest, dict) \
+                or not isinstance(digest.get("control"), str) \
+                or not isinstance(digest.get("faulted"), str):
+            _err(out, path, f"scenario '{name}' missing "
+                 "'state_digest' {control, faulted}")
+        elif (parity == "strict" and s.get("decisions_stable")
+                and digest["control"] != digest["faulted"]):
+            _err(out, path, f"scenario '{name}': claims strict parity "
+                 "but the control/faulted digests differ")
+    if d.get("double_admissions_total") != dbl_total:
+        _err(out, path, "'double_admissions_total'="
+             f"{d.get('double_admissions_total')} but scenarios sum "
+             f"to {dbl_total}")
+    if not isinstance(d.get("elapsed_s"), (int, float)):
+        _err(out, path, "missing numeric 'elapsed_s'")
+
+
+def _check_serve(d, path, out):
+    """SERVE_* serving-soak artifacts (scripts/serve_soak.py): a
+    wall-clock soak holding the p99 admission-latency SLO across a
+    diurnal swing with the burst window K adapted online, kill/restart
+    arms converging bit-identically to an unkilled control with zero
+    accepted submissions lost and zero admissions duplicated, a clean
+    SIGTERM drain with the WAL flushed, and decision parity between the
+    service path and the batch open-loop runner."""
+    wall = d.get("wall")
+    if not isinstance(wall, dict):
+        _err(out, path, "missing 'wall' block")
+        wall = {}
+    if wall.get("wall_clock") is not True:
+        _err(out, path, "'wall.wall_clock' must be true (the serving "
+             "soak is a real wall-clock run)")
+    for k in ("duration_s", "admissions_per_s"):
+        if not isinstance(wall.get(k), (int, float)):
+            _err(out, path, f"missing numeric 'wall.{k}'")
+    slo = wall.get("slo")
+    if not isinstance(slo, dict):
+        _err(out, path, "missing 'wall.slo' block")
+        slo = {}
+    if not isinstance(slo.get("p99_target_s"), (int, float)):
+        _err(out, path, "missing numeric 'wall.slo.p99_target_s'")
+    if slo.get("held") is not True:
+        _err(out, path, "'wall.slo.held' must be true: the service "
+             "must hold the p99 SLO across the load swing")
+    windows = slo.get("windows")
+    if not isinstance(windows, list) or len(windows) < 2:
+        _err(out, path, "'wall.slo.windows' needs >= 2 windows "
+             "(the SLO must hold across a swing, not one average)")
+    else:
+        for i, w in enumerate(windows):
+            if not isinstance(w, dict) \
+                    or not isinstance(w.get("p99_s"), (int, float)):
+                _err(out, path, f"window {i} missing numeric 'p99_s'")
+    if slo.get("k_adapted") is not True:
+        _err(out, path, "'wall.slo.k_adapted' must be true: the burst "
+             "window K must actually move with the load swing")
+    kill = d.get("kill_restart")
+    if not isinstance(kill, dict):
+        _err(out, path, "missing 'kill_restart' block")
+        kill = {}
+    if kill.get("lost_accepted_submissions") != 0:
+        _err(out, path, "'kill_restart.lost_accepted_submissions'="
+             f"{kill.get('lost_accepted_submissions')}: restart must "
+             "lose zero accepted submissions")
+    if kill.get("duplicated_admissions") != 0:
+        _err(out, path, "'kill_restart.duplicated_admissions'="
+             f"{kill.get('duplicated_admissions')}: restart must "
+             "duplicate zero admissions")
+    if kill.get("decisions_identical") is not True:
+        _err(out, path, "'kill_restart.decisions_identical' must be "
+             "true against the unkilled control")
+    if kill.get("digests_match") is not True:
+        _err(out, path, "'kill_restart.digests_match' must be true "
+             "against the unkilled control")
+    scen = kill.get("scenarios")
+    if not isinstance(scen, dict) or len(scen) < 2:
+        _err(out, path, "'kill_restart.scenarios' needs >= 2 kill "
+             "sites (cycle boundary and ingest path)")
+    drain = d.get("drain")
+    if not isinstance(drain, dict):
+        _err(out, path, "missing 'drain' block")
+        drain = {}
+    if drain.get("clean") is not True:
+        _err(out, path, "'drain.clean' must be true: SIGTERM must "
+             "drain and exit clean")
+    if not isinstance(drain.get("wal_flushed"), bool):
+        _err(out, path, "missing bool 'drain.wal_flushed'")
+    elif not drain["wal_flushed"]:
+        _err(out, path, "'drain.wal_flushed' must be true")
+    parity = d.get("parity")
+    if not isinstance(parity, dict):
+        _err(out, path, "missing 'parity' block")
+        parity = {}
+    if parity.get("decisions_identical") is not True:
+        _err(out, path, "'parity.decisions_identical' must be true: "
+             "service-path decisions must be bit-identical to the "
+             "batch open-loop runner")
+    if not isinstance(d.get("elapsed_s"), (int, float)):
+        _err(out, path, "missing numeric 'elapsed_s'")
+
+
 def validate_tail(d: dict, name: str) -> list[str]:
     """``validate_artifacts.validate`` of a file ``name`` holding ``d``,
-    for the CHAOS_ / OBS_ / SCALE_ kinds: the common checks, each kind's
-    (by name or by shape, as ``validate`` dispatches), and the strict
-    prefixes' metric and value."""
+    for the CHAOS_ / OBS_ / SCALE_ / TRAFFIC_ / FED_ / SERVE_ kinds: the
+    common checks, each kind's (by name or by shape, as ``validate``
+    dispatches), the obs block of a TRAFFIC_ / FED_ r16+ record, and the
+    strict prefixes' metric and value."""
     out: list[str] = []
     path = name
     if not _check_common(d, path, out):
@@ -548,10 +744,24 @@ def validate_tail(d: dict, name: str) -> list[str]:
     base = os.path.basename(path).upper()
     if base.startswith("CHAOS_") or "scenarios" in d:
         _check_chaos(d, path, out)
+    if base.startswith("TRAFFIC_") or "arms" in d:
+        _check_traffic(d, path, out)
     if base.startswith("SCALE_") or ("soak" in d and "parity" in d):
         _check_scale(d, path, out)
+    if base.startswith("FED_") or "double_admissions_total" in d:
+        _check_fed(d, path, out)
     if base.startswith("OBS_") or "overhead" in d:
         _check_obs(d, path, out)
-    if base.startswith(("CHAOS_", "SCALE_", "OBS_")):
+    if base.startswith("SERVE_") or ("kill_restart" in d and "wall" in d):
+        _check_serve(d, path, out)
+    rnd = re.match(r"(?:NORTHSTAR|TRAFFIC|FED)_R(\d+)", base)
+    if rnd and int(rnd.group(1)) >= 16:
+        if "obs" not in d:
+            _err(out, path, f"{base.split('_')[0]}_r16+ artifacts must "
+                 "carry an 'obs' block")
+        else:
+            _check_obs_block(d["obs"], path, out)
+    if base.startswith(("CHAOS_", "TRAFFIC_", "SCALE_", "FED_", "OBS_",
+                        "SERVE_")):
         _check_metric_value(d, path, out)
     return out

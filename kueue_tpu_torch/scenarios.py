@@ -63,8 +63,9 @@ the north-star shape, driven per cycle through ``Driver.schedule_once``.
   rejected; either package's Driver.
 - ``serving_modules`` and the arms of scripts/serve_soak.py
   (``serve_loop``, ``serve_open_loop``, ``serve_killable``,
-  ``serve_wall``), federation_soak.py (``fed_arm``) and dist_soak.py
-  (``dist_kill_front_end_shard``, ``start_fed_workers`` +
+  ``serve_wall``; ``thread_target`` runs a service thread on its
+  builder's device and stream), federation_soak.py (``fed_arm``) and
+  dist_soak.py (``dist_kill_front_end_shard``, ``start_fed_workers`` +
   ``dist_kill_federation_worker``): the admission service, the
   MultiKueue federation and supervised child processes on the port's
   Driver; the first two take either package's modules.
@@ -1881,15 +1882,16 @@ def traffic_capacity(n_cqs: int) -> float:
     return n_cqs * 2 / (sum(TRAFFIC_RUNTIMES_S) / len(TRAFFIC_RUNTIMES_S))
 
 
-def traffic_marks(n_cqs: int):
+def traffic_marks(n_cqs: int, remote_fraction: float = 0.0):
     """What each arrival looks like (traffic_soak.py ``spec_for``):
     1,500m, priorities 0 / 10 / 20, runtimes 2 or 4 s, 2% cancels and
-    2% priority churn."""
+    2% priority churn; ``remote_fraction`` of them sent to a worker."""
     from .traffic import TrafficSpec
     return TrafficSpec(n_cqs=n_cqs, cpu_choices=(1500,),
                        priorities=(0, 10, 20),
                        runtime_choices_s=TRAFFIC_RUNTIMES_S,
-                       cancel_fraction=0.02, churn_fraction=0.02)
+                       cancel_fraction=0.02, churn_fraction=0.02,
+                       remote_fraction=remote_fraction)
 
 
 def rate_seed(base: int, rate: float) -> int:
@@ -1908,25 +1910,28 @@ def build_traffic(n_cqs: int = 1000, device: str = "cuda"):
     return d, clock
 
 
-def traffic_stream(n_cqs: int, rate: float, seed: int, events=None):
+def traffic_stream(n_cqs: int, rate: float, seed: int, events=None,
+                   process=None, remote_fraction: float = 0.0):
     """traffic_soak.py ``probe``'s stream: Poisson arrivals at ``rate``
-    with ``traffic_marks``, seeded by ``seed`` — or the recorded
-    ``events`` through a ``ReplayStream``."""
+    (or ``process``'s) with ``traffic_marks``, seeded by ``seed`` — or
+    the recorded ``events`` through a ``ReplayStream``."""
     from .traffic import ArrivalStream, PoissonProcess, ReplayStream
     if events is not None:
         return ReplayStream(events)
-    return ArrivalStream(PoissonProcess(rate, seed=seed),
-                         traffic_marks(n_cqs), seed=seed)
+    return ArrivalStream(process or PoissonProcess(rate, seed=seed),
+                         traffic_marks(n_cqs, remote_fraction), seed=seed)
 
 
 @measured
 def open_loop(d, clock, stream, duration_s: float = 30.0,
-              slo_p99_s: float = 8.0, wall_budget_s: float | None = None):
-    """``traffic.run_open_loop`` at dt = 1 s → its OpenLoopResult."""
+              slo_p99_s: float = 8.0, wall_budget_s: float | None = None,
+              remote_client=None):
+    """``traffic.run_open_loop`` at dt = 1 s (remote-flagged submissions
+    to ``remote_client``) → its OpenLoopResult."""
     from .traffic import OpenLoopConfig, run_open_loop
     return run_open_loop(d, clock, stream, OpenLoopConfig(
         duration_s=duration_s, dt_s=1.0, slo_p99_s=slo_p99_s,
-        wall_budget_s=wall_budget_s))
+        wall_budget_s=wall_budget_s), remote_client=remote_client)
 
 
 def traffic_probe(n_cqs: int, rate: float, *, seed: int,
@@ -2249,13 +2254,14 @@ def serve_open_loop(m, n_cqs: int, events, cycles: int,
 @measured
 def serve_killable(m, n_cqs: int, events, cycles: int, td: str, tag: str,
                    kill_site=None, kill_at: int = 0,
-                   dt: float = 1.0) -> dict:
-    """serve_soak.py ``run_killable`` over ``events`` batched a step: a
-    service with its CycleWAL and ingest journal on disk in ``td``; with
-    ``kill_site`` armed at its ``kill_at``-th hit the run crashes,
-    recovers (``recover_service`` from the store, the WAL and the
-    journal), resubmits the interrupted batch (idempotent tokens) and
-    goes on → dict(driver, service, decisions, crashed)."""
+                   dt: float = 1.0, batches=None, submit=None) -> dict:
+    """serve_soak.py ``run_killable`` over ``events`` batched a step (or
+    over ``batches``, a list a step, each item given to ``submit(svc,
+    item)``): a service with its CycleWAL and ingest journal on disk in
+    ``td``; with ``kill_site`` armed at its ``kill_at``-th hit the run
+    crashes, recovers (``recover_service`` from the store, the WAL and
+    the journal), resubmits the interrupted batch (idempotent tokens)
+    and goes on → dict(driver, service, decisions, crashed)."""
     import os
     clock = VirtualClock()
     d = serve_driver(m, n_cqs, clock)
@@ -2268,13 +2274,15 @@ def serve_killable(m, n_cqs: int, events, cycles: int, td: str, tag: str,
     if kill_site is not None:
         m.chaos.install(m.chaos.ChaosInjector(seed=1000 + kill_at)).arm(
             kill_site, at=kill_at)
-    batches = _by_step(events, cycles, dt)
+    if batches is None:
+        batches = _by_step(events, cycles, dt)
+    submit = submit or _submit_event
     decisions, crashed, s = [], None, 0
     try:
         while s < len(batches):
             try:
                 for ev in batches[s]:
-                    _submit_event(svc, ev)
+                    submit(svc, ev)
                 decisions.extend(svc.step()["decisions"])
                 s += 1
             except m.chaos.InjectedCrash as e:
@@ -2328,14 +2336,34 @@ def _pctile(xs, q: float) -> float:
     return s[min(len(s) - 1, max(0, math.ceil(q * len(s)) - 1))]
 
 
+def thread_target(fn, device):
+    """``fn`` for another thread to run on the calling thread's CUDA
+    device and current stream: a Driver's kernels launch on the current
+    stream of the thread that runs its cycles, so a service thread
+    launches where the Driver's builder queued its uploads (``fn`` as
+    it is off the card)."""
+    import torch
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return fn
+    stream = torch.cuda.current_stream(dev)
+
+    @functools.wraps(fn)
+    def run(*args, **kw):
+        with torch.cuda.device(stream.device), torch.cuda.stream(stream):
+            return fn(*args, **kw)
+    return run
+
+
 def serve_wall(cfg: dict, seed: int, td: str, device: str = "cuda") -> dict:
     """serve_soak.py ``arm_wall``: ``AdmissionService.serve`` on a
-    service thread in wall-clock time, ``cfg['wall_submitters']``
+    service thread (on this thread's device and stream,
+    ``thread_target``) in wall-clock time, ``cfg['wall_submitters']``
     submitter threads replaying ``serve_wall_schedule`` at its pace, the
     tail admitted, then a graceful drain; per-window p99 admission
-    latency against ``cfg['slo_p99_s']`` and the K values chosen.  The
-    result also names the service thread (``service_thread``, its
-    ident)."""
+    latency against ``cfg['slo_p99_s']``, mean arrival rate and the K
+    values chosen.  The result also names the service thread
+    (``service_thread``, its ident)."""
     import os
     import threading
     from .serving import AdmissionService, ServiceConfig
@@ -2351,7 +2379,8 @@ def serve_wall(cfg: dict, seed: int, td: str, device: str = "cuda") -> dict:
         k_max=cfg["k_max"], ewma_halflife_s=2.0), wal=wal)
     events = serve_wall_schedule(cfg, seed)
     stop = threading.Event()
-    server = threading.Thread(target=svc.serve, args=(stop,), daemon=True)
+    server = threading.Thread(target=thread_target(svc.serve, device),
+                              args=(stop,), daemon=True)
     server.start()
     t_start = time.perf_counter()
     n_threads = cfg["wall_submitters"]
@@ -2380,8 +2409,12 @@ def serve_wall(cfg: dict, seed: int, td: str, device: str = "cuda") -> dict:
         lo, hi = w * w_len, (w + 1) * w_len
         lats = [lat for (t, lat) in svc.latency_log if lo <= t < hi]
         ks = [s["k"] for s in svc.telemetry if lo <= s["t_wall"] < hi]
+        rates = [s["ewma_rate"] for s in svc.telemetry
+                 if lo <= s["t_wall"] < hi]
         windows.append({"t0_s": lo, "samples": len(lats),
                         "p99_s": _pctile(lats, 0.99),
+                        "rate_per_s": (sum(rates) / len(rates)
+                                       if rates else 0.0),
                         "k_max": max(ks) if ks else 0})
     active = [w for w in windows if w["samples"] > 0]
     stats = svc.stats()

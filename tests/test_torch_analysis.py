@@ -13,7 +13,10 @@ package's (kueue_tpu/analysis/).
 - **dtype** reads torch creators and the launchers' ``_check`` calls;
 - **the port's tree** has zero unsuppressed findings, no stale entry,
   a reason for every entry, a baseline smaller than the first full run,
-  and ``python -m kueue_tpu_torch.analysis --json`` within the budget.
+  and ``python -m kueue_tpu_torch.analysis --json`` within the budget;
+- **the shared node index** (``core.NodeIndex``, one walk a module)
+  gives every pass the findings it gives when each query walks the tree
+  again (``core.WalkIndex``), on the fixtures and on the port's tree.
 """
 
 from __future__ import annotations
@@ -24,6 +27,9 @@ import os
 import subprocess
 import sys
 import textwrap
+import time
+
+import pytest
 
 from kueue_tpu.analysis import Context as RefContext
 from kueue_tpu.analysis import ParsedFile as RefParsedFile
@@ -41,8 +47,10 @@ from kueue_tpu_torch.analysis import (
 )
 from kueue_tpu_torch.analysis import (
     chaos_sites,
+    core,
     dtypes,
     env_flags,
+    metrics_doc,
     purity,
     wal_order,
 )
@@ -646,3 +654,184 @@ def test_cli_json_output_and_budget():
     assert report["findings"] == [] and report["stale_baseline"] == []
     assert report["total_findings"] == report["baseline_entries"]
     assert report["elapsed_s"] < 10.0, "the lint must stay tier-1 fast"
+
+
+# ---------------------------------------------------------------------------
+# the shared node index against a walk at every query
+# ---------------------------------------------------------------------------
+
+_WAL_DRIFT = """
+    class Driver:
+        def _apply_admission(self, wl):
+            self.workloads[wl.key] = wl
+            self._wal.log(_journal.admit_op(wl))
+
+        def _evict(self, wl):
+            self._wal.log(_journal.evict_op(wl.key))
+            set_evicted_condition(wl, "r", "m", 0.0)
+            _chaos.ACTIVE.crashpoint("wal.evict")
+
+        def finish(self, wl):
+            set_finished_condition(wl, "t", "m", 0.0)
+"""
+
+_ENV_READS = """
+    import os
+    import os as _os
+
+    def f():
+        a = os.environ.get("KUEUE_TPU_FOO", "1")
+        b = _os.environ.get("KUEUE_TPU_BAR", "0")
+        c = os.environ["KUEUE_TPU_FOO"]
+        d = os.getenv("KUEUE_TPU_FOO")
+        e = "KUEUE_TPU_TYPO"
+        os.environ["KUEUE_TPU_FOO"] = "1"
+        return a, b, c, d, e
+"""
+
+_SYNCS = """
+    import os
+    import random
+    import time
+
+    import numpy as np
+
+    from ..kernels import admit_scan
+
+    _CACHE = {}
+
+
+    def route(x, t):
+        global _CACHE
+        if os.environ.get("DEBUG"):
+            print(x)
+        a = x.cpu()
+        c = float(t) + int(x.numel())
+        d = random.random() + np.random.rand()
+        return admit_scan(x, 1), a, c, d, bool(x.any())
+
+
+    def admit_scan_plain(x, depth):
+        def inner(v):
+            return v.item(), time.time()
+        return [inner(v) for v in x.tolist()]
+"""
+
+#: pass -> (module, files, extra sources, registered flags), the fixtures
+#: above with findings of every code each pass has
+_INDEX_CASES = {
+    "purity": (purity, [
+        ("kueue_tpu_torch/kernels/__init__.py", _LAUNCHERS.replace(
+            "        n = int(x.shape[0]) + len(x.shape)\n",
+            "        n = int(x.shape[0]) + len(x.shape)\n"
+            "        w = x.sum().item()\n"
+            "        LAUNCHES[\"admit_scan\"] += 1\n")),
+        ("kueue_tpu_torch/parallel/fake.py", _SYNCS)], {}, None),
+    "dtype": (dtypes, [
+        ("kueue_tpu_torch/kernels/__init__.py", _TORCH_CASES),
+        ("kueue_tpu_torch/ops/stream_pack.py", """
+            import numpy as np
+
+            _ROW_PLANES = {
+                "wl_req": (0, np.int64, "R"),
+                "mystery": (0, np.int32, None),
+            }
+            TIGHTEN_PLANES = ("wl_req", "vec_ok", "no_such_plane")
+
+            def views(arena, C, M):
+                a = np.zeros(C).astype(int)
+                arena.ensure("wl_prio", (C, M), np.int16, 0)
+                arena.ensure("u_cq0", (C, 4), np.int32, 0)
+                return a
+        """)], {}, None),
+    "wal-order": (wal_order, [
+        ("kueue_tpu_torch/controller/driver.py", _WAL_DRIFT)], {}, None),
+    "chaos-sites": (chaos_sites, [
+        ("kueue_tpu_torch/chaos/injector.py", _INJECTOR_DOC),
+        ("kueue_tpu_torch/driver.py", """
+            def f(inj):
+                inj.crashpoint("cycle.start")
+                inj.crashpoint("secret.site")
+        """)], {"tests/test_torch_x.py": """
+            def test_y(inj):
+                inj.arm("cycle.start", at=1)
+                inj.arm("tpyo.site", at=1)
+        """}, None),
+    "env-flags": (env_flags, [("kueue_tpu_torch/mod.py", _ENV_READS)],
+                  {"README.md": """
+            ## Environment flags
+
+            | `KUEUE_TPU_FOO` | bool | `1` | Foo. |
+            | `KUEUE_TPU_GHOST` | int | `0` | Gone. |
+        """}, _FLAGS),
+    "metrics-doc": (metrics_doc, [
+        ("kueue_tpu_torch/metrics.py", """
+            _SERIES_DEFS = [("kueue_a_total", "counter")]
+
+            def emit(x):
+                return "kueue_" + x, f"kueue_{x}_total", "kueue_b_total"
+        """),
+        ("kueue_tpu_torch/obs/spans.py", 'S = "kueue_c_seconds"\n')],
+        {"README.md": "## Metrics\n\n| `kueue_ghost` | g |\n"}, None),
+}
+
+
+def _findings(case, tmp_path) -> list:
+    mod, files, extra, flags = case
+    ctx = Context(str(tmp_path), env_flags=flags, extra_sources={
+        k: textwrap.dedent(v) for k, v in extra.items()})
+    return [f.to_json() for f in mod.run([pf(p, s) for p, s in files], ctx)]
+
+
+@pytest.mark.parametrize("name", sorted(_INDEX_CASES))
+def test_pass_finds_the_same_with_and_without_the_index(
+        monkeypatch, tmp_path, name):
+    """Each pass over its fixtures: the same findings, in the same order,
+    from the shared index as from a fresh walk at every query."""
+    indexed = _findings(_INDEX_CASES[name], tmp_path)
+    assert indexed and all(f["rule"] == name for f in indexed)
+    monkeypatch.setattr(core, "INDEX", core.WalkIndex)
+    assert _findings(_INDEX_CASES[name], tmp_path) == indexed
+
+
+def test_node_index_answers_as_the_walk():
+    """The index's nodes, parents, children, def walks and defs are the
+    walk's, the shared operator and context singletons left out."""
+    src = textwrap.dedent(_LAUNCHERS) + textwrap.dedent(_SYNCS) \
+        + textwrap.dedent(_TORCH_CASES)
+    tree = ast.parse(src)
+    idx, ref = core.NodeIndex(tree), core.WalkIndex(tree)
+
+    def kept(nodes):
+        return [n for n in nodes if not isinstance(n, core._SINGLETONS)]
+
+    assert idx.order == kept(ref.order)
+    for types in ((ast.Call,), (ast.Import, ast.ImportFrom),
+                  (ast.Call, ast.Subscript, ast.Constant)):
+        assert idx.of(*types) == ref.of(*types)
+    for node in idx.order[::7]:
+        assert idx.parent(node) is ref.parent(node)
+        assert list(idx.children(node)) == kept(ref.children(node))
+    funcs, ref_funcs = idx.functions(), ref.functions()
+    assert list(funcs) == list(ref_funcs) and "launcher.inner" in funcs
+    for qn, info in funcs.items():
+        assert info.node is ref_funcs[qn].node
+        assert idx.walk(info.node) == kept(ref.walk(info.node))
+    assert idx.parent(tree) is None
+
+
+def test_the_ports_tree_with_and_without_the_index(monkeypatch, capsys):
+    """The whole lint over the port: the same findings either way, each
+    grandfathered; prints both walls (not asserted)."""
+    t0 = time.perf_counter()
+    indexed = run_all(ROOT)
+    t1 = time.perf_counter()
+    monkeypatch.setattr(core, "INDEX", core.WalkIndex)
+    walked = run_all(ROOT)
+    t2 = time.perf_counter()
+    assert [f.to_json() for f in walked] == [f.to_json() for f in indexed]
+    keys = {e["key"] for e in load_baseline(BASELINE_PATH)["entries"]}
+    assert {f.key for f in indexed} == keys
+    with capsys.disabled():
+        print(f"\nlint over the port: {t1 - t0:.2f} s with the shared "
+              f"index, {t2 - t1:.2f} s walking at every query")

@@ -105,7 +105,8 @@ def test_every_port_module_is_accounted_for():
            "testing.py", "parallel/__init__.py", "parallel/sharded.py",
            "probe.py", "northstar.py", "native/__init__.py",
            "analysis/__main__.py", "chaos_soak.py", "obs_soak.py",
-           "scale_soak.py", "perf/validate.py"}
+           "scale_soak.py", "perf/validate.py", "traffic_soak.py",
+           "serve_soak.py", "federation_soak.py"}
     rels = {os.path.relpath(p, PORT) for p in _port_files()}
     assert rels == set(VERBATIM) | set(APPENDED) | set(EDITED) | own
 
@@ -593,13 +594,19 @@ SOAK_TWINS = {
                     "--preempt-cohorts", "2", "--soak-workloads", "100",
                     "--rounds", "1", "--pool-rounds", "1"],
                    "active_cqs_at_ceiling_under_row_budget"),
+    "traffic_soak": (["--quick", "--shards", "2"],
+                     "open_loop_sustainable_admissions_per_s"),
+    "serve_soak": (["--quick"], "serve_soak_wall_admissions_per_s"),
+    "federation_soak": (["--quick", "--only", "worker_crash_mid_sync"],
+                        "federation_soak_recovery_parity"),
 }
 
 
 @pytest.mark.parametrize("module", sorted(SOAK_TWINS))
 def test_soak_twin_in_a_fresh_process(module):
-    """``python -m kueue_tpu_torch.<chaos|obs|scale>_soak`` (the port's
-    twins of scripts/*_soak.py) at a small size with ``--torch-device
+    """``python -m kueue_tpu_torch.<chaos|obs|scale|traffic|serve|
+    federation>_soak`` (the port's twins of scripts/*_soak.py; traffic's
+    sharded arm on a virtual mesh of 2) at a small size with ``--torch-device
     cpu`` load no jax, no kueue_tpu and no module of ``scripts``, and
     print their JSON tail last; without a GPU and without
     ``--torch-device cpu`` they raise before printing anything.  (The obs
@@ -631,8 +638,18 @@ def test_soak_twin_in_a_fresh_process(module):
         assert tail["scenarios_stable"] == tail["scenarios_total"] == 2
     elif module == "obs_soak":
         assert tail["decisions_identical"] is True
-    else:
+    elif module == "scale_soak":
         assert all(tail["parity"].values())
+    elif module == "traffic_soak":
+        assert tail["replay_identical"] is True
+        assert tail["serial_shard_decisions_match"] is True
+        assert tail["mesh"]["virtual"] is True
+    elif module == "serve_soak":
+        assert tail["parity"]["decisions_identical"] is True
+        assert tail["kill_restart"]["digests_match"] is True
+        assert tail["drain"]["clean"] is True
+    else:
+        assert tail["scenarios_stable"] == tail["scenarios_total"] == 1
     if not torch.cuda.is_available():
         out = subprocess.run(
             [sys.executable, "-m", f"kueue_tpu_torch.{module}"] + argv,

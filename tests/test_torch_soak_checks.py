@@ -2,8 +2,8 @@
 ``scripts/validate_artifacts.py`` that the chip smoke run applies to the
 soak twins' tails, stays the script's: each copied function is the
 script's line for line, and ``validate_tail`` gives ``validate``'s
-verdict on the repo's CHAOS / OBS / SCALE records and on broken copies
-of them."""
+verdict on the repo's CHAOS / OBS / SCALE / TRAFFIC / FED / SERVE
+records and on broken copies of them."""
 
 from __future__ import annotations
 
@@ -20,9 +20,11 @@ from kueue_tpu_torch.perf import validate as port
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 COPIED = ("_err", "_check_common", "_check_chaos", "_check_metric_value",
           "_check_scale", "_check_scale_r18", "_check_scale_r19",
-          "_check_obs_block", "_check_obs")
+          "_check_obs_block", "_check_obs", "_check_traffic", "_check_fed",
+          "_check_serve")
 RECORDS = ("CHAOS_r09.json", "OBS_r16.json", "SCALE_r13.json",
-           "SCALE_r18.json", "SCALE_r20.json")
+           "SCALE_r18.json", "SCALE_r20.json", "TRAFFIC_r11.json",
+           "FED_r15.json", "SERVE_r17.json")
 
 
 @pytest.fixture(scope="module")
@@ -48,7 +50,13 @@ def test_obs_host_phases_are_the_scripts(ref):
 def _broken(d: dict) -> dict:
     """A copy with one check of its kind broken."""
     d = copy.deepcopy(d)
-    if "scenarios" in d:
+    if "double_admissions_total" in d:
+        d["double_admissions_total"] += 1
+    elif "arms" in d:
+        d["replay_identical"] = None
+    elif "kill_restart" in d:
+        d["kill_restart"]["duplicated_admissions"] = 1
+    elif "scenarios" in d:
         d["scenarios_stable"] += 1
     elif "overhead" in d:
         d["overhead"]["ratio"] = 1.5
