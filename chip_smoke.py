@@ -24,18 +24,21 @@ kueue_tpu_torch.cli``); then the north-star entry point's twin (``python
 -m kueue_tpu_torch.northstar``) on the mixed fleet and through the
 fill-then-trickle; then the twins of the chaos, OBS and scale soaks
 (``python -m kueue_tpu_torch.chaos_soak`` / ``obs_soak`` /
-``scale_soak``) and of the traffic, serving and federation soaks
-(``traffic_soak`` / ``serve_soak`` / ``federation_soak``), each ending
-in the per-cycle admit kernels or the fused burst:
+``scale_soak``), of the traffic, serving and federation soaks
+(``traffic_soak`` / ``serve_soak`` / ``federation_soak``) and of the
+distributed soak and the roofline (``dist_soak`` / ``accel_roofline``),
+each ending in the per-cycle admit kernels or the fused burst:
 
 1. device: name, count and ``nvidia-smi`` name/power limit;
 2. build: nvcc of every kernel source (in parallel) into one library;
    then the CPU arms start, each a child process on one torch thread
    beside the card's phases (``CPU_ARMS``): phase 10's, 12's, 18's,
-   25's, 26's, 27's, 28's, 29's and 30-32's runs on "cpu" and phase
-   24's apply (on the card) and CPU side, each read where its phase
-   checks it; and phases 27-29's and 30-32's card children
-   (``CARD_ARMS["27-29"]``, ``CARD_ARMS["30-32"]``);
+   20's and 22's parity runs, 25's, 26's, 27's, 28's, 29's, 30-32's and
+   33's runs on "cpu" and
+   phase 24's apply (on the card) and CPU side, each read where its
+   phase checks it (33's from phase 16 on); and phases 27-29's and
+   30-32's card children (``CARD_ARMS["27-29"]``, ``CARD_ARMS["30-32"]``;
+   ``CARD_ARMS["33"]`` from phase 16 on);
 3. kernels: each CUDA kernel against its plain version on the CPU over a
    seeded sweep (kueue_tpu_torch.testing.kernel_cases, burst_cases,
    fs_cases and avail_cases: kq_cq_avail's staged route at depth 1, 2,
@@ -377,6 +380,35 @@ in the per-cycle admit kernels or the fused burst:
    events): 4 of 4 scenarios converged, no double admission, the FED
    checks, an admit kernel launched; every scenario's verdict, counters
    and control / faulted digests equal to "cpu"'s;
+33. the dist twin's ``--quick`` (dist-quick: ``python -m
+   kueue_tpu_torch.dist_soak``'s ``run`` in its own card child started
+   before phase 16, beside 16-32 (not from the build: its processes'
+   load skewed phase 28's overhead A/B and its 1.05 gate): 2 shard, 2
+   submitter and 2 worker processes, 4 kill steps of 3 a submitter,
+   blasts of 16 and 32 a submitter; six arms, 20 child processes):
+   ``all_ok``, the DIST checks (``perf.validate``),
+   every child's argv ``-m kueue_tpu_torch.dist.child`` (none naming a
+   JAX module), shards and workers on ``--device cuda:0`` and
+   submitters on none, every shard's ``--stats-file`` showing a CUDA
+   context and admit kernels launched, every worker that launched one a
+   context (a worker opens it at its first launch: the socket arm's
+   never steps, a restarted one may have nothing left to admit; each
+   child's context and launches printed); the saturation rounds (wall-clock) and each child's start
+   printed, not compared; what it decided (``dist_soak.decided``: each
+   kill arm's admissions, dedupe, crash and its exit code, verdicts,
+   the socket arm's proxy and client counts, the kill log; the
+   federation arm's counts hang on a 2 s client timeout and are only
+   printed) equal to the same run on "cpu" (its CPU arm);
+34. the roofline twin's ``--quick`` (roofline-quick: ``python -m
+   kueue_tpu_torch.accel_roofline``'s ``run`` in this process after
+   every arm has ended, so no arm competes for the host; not profiled:
+   the profiler's host cost would enter the walls): the round trip of
+   ``x + 1`` and of a 4 MB ``sum``, ``admit_scan`` /
+   ``admit_scan_forests`` at W = 1,024 / 8,192 on the card, on the plain
+   versions and the native loop, ``burst_cycles`` at 1,000 x 128, K = 16
+   / 64: every card output's digest equal to the plain version's on
+   the host (tolerance 0), the native loop's too; the tunnel block, each
+   row and the crossover printed;
 3i. kq_gather_heads and kq_fs_merge_order against their plain versions
    on the calls captured in 16-16d and on one synthetic call each at
    north-star width (1,000 heads over 8 shards), and the per-shard admit
@@ -392,9 +424,10 @@ Launch counts are zeroed just before phases 4, 5, 7, 8, 9, 9b, 11, 13,
 14, 15, 15b, 15c, 16, 16b, 16c, 16d, 17, 18, 19 (its run and its
 search), 20, 21 (its arms on the card, and its wall arm), 22, 23, 24
 (its in-process schedule, and its in-process serve), 25 (its three card
-arms, each also counted alone), 26, 27, 28, 29, 30, 31 and 32 and
-read just after each (23: this process's and, from their ``--stats-file``, the
-children's; 24: this process's, the children have no stats file).  The
+arms, each also counted alone), 26, 27, 28, 29, 30, 31, 32, 33 and 34
+and read just after each (23 and 33: the process's and, from their
+``--stats-file``, the children's; 24: this process's, the children have
+no stats file).  The
 scenarios collect as the reference scripts do (builds frozen, drains
 with collection off): the measured north-star phases 5, 8, 9, 15, 15c,
 16b and 16c, tas-4k's phase 11, the job front door's phase 18 and
@@ -404,8 +437,9 @@ phases 19 and 20 must see no full collection
 phase builds.  A
 launch records no CUDA event: the device time of phases 4, 5, 7, 8, 9,
 11, 13, 15, 15c, 16, 16b, 16c, 16d, 17, 18, 19, 20, 21, 22, 23, 24's
-schedule, 25's card arms, 26, 27, 29, 30, 31 and 32 (this process and
-the card children: the CPU arms and phase 23's children are not profiled) (per kernel, the rest, the
+schedule, 25's card arms, 26, 27, 29, 30, 31, 32 and 33 (this process
+and the card children: the CPU arms and phases 23's and 33's children
+are not profiled) (per kernel, the rest, the
 busy union and its share of the wall) comes from torch.profiler's CUDA activity
 over the phase (``kueue_tpu_torch.profiling.DeviceClock``); a phase in
 which it sees nothing fails.  Prints a ``kernels`` JSON line (per
@@ -583,6 +617,13 @@ SCALE_PARITY = dict(n=1000, rounds=3, seed=1307)
 TRAFFIC_ARGS = ["--quick"]
 SERVE_ARGS = ["--quick"]
 FED_ARGS = ["--quick"]
+# phases 33-34: the dist and roofline twins at their scripts' --quick
+# (dist_soak: 2 shards, 2 submitters, 2 workers, 4 kill steps of 3 a
+# submitter, blasts of 16 / 32; accel_roofline: W = 1,024 / 8,192, the
+# north-star burst at K = 16 / 64, 3 reps); the dist twin on the card and
+# on "cpu" (its CPU arm), whose decisions must agree
+DIST_ARGS = ["--quick"]
+ROOF_ARGS = ["--quick"]
 # the SCALE_r19 check that holds the pooled host plane to >= 2x when the
 # host has the cores, a timing gate both packages miss on 8 cores
 POOL_GATE = "'host_pool.apply_pack_speedup'="
@@ -1577,8 +1618,8 @@ class Launcher:
         self.proc.wait()
 
 
-# the CPU-only parity arms of phases 10, 12, 18, 25 and 26: the same
-# scenario on "cpu" as the phase holds against the card, run in a child
+# the CPU-only parity arms of phases 10, 12, 18, 20, 22, 25 and 26: the
+# same scenario on "cpu" as the phase holds against the card, run in a child
 # process on one torch thread from the build on, beside the card's
 # phases, and read where the phase checks it (format: NORTHSTAR,
 # TAS_CYCLES)
@@ -1710,6 +1751,40 @@ for tag, mod, argv in (("30", traffic_soak, {traffic_args!r}),
     scenarios.release()
     out[tag] = dict(decided=mod.decided(tail),
                     record=dict((str(k), v) for k, v in record.items()))
+""",
+    # phases 20's and 22's CPU sides: the provisioning drain at 3,000
+    # workloads and the federation control at 1,000 events on "cpu", each
+    # with its digest (format: PARITY_SCALE, FED, FED_PARITY_EVENTS)
+    "20-22": """
+import tempfile
+out = dict()
+d, clock, ctrl, total, waves, revoke = scenarios.build_provisioning(
+    {parity_scale}, device="cpu")
+r = scenarios.run_provisioning(d, clock, ctrl, total, waves, revoke)
+out["20"] = dict(total=total, cycles=r["cycles"], wall=r["wall"],
+                 admitted=r["admitted"], finished=r["finished"],
+                 rejected=r["rejected"], digest=scenarios.decision_digest(
+                     d, [r["decisions"], r["requests"], r["reached"]]))
+del d, ctrl, waves, revoke, r
+scenarios.release()
+m = scenarios.serving_modules("cpu")
+t1 = time.perf_counter()
+sim, ok = scenarios.fed_arm(dict({fed!r}, events={fed_parity_events}),
+                            {fed_seed}, tempfile.mkdtemp(), m=m)
+out["22"] = dict(steps=sim.step_no, settled=ok, s=time.perf_counter() - t1,
+                 digest=m.fed.global_digest(sim))
+""",
+    # phase 33's CPU side: the dist twin at --quick with every child on
+    # "cpu", what it decided (format: DIST_ARGS)
+    "33": """
+from kueue_tpu_torch import dist_soak
+import contextlib, io
+rec = dict()
+with contextlib.redirect_stderr(io.StringIO()):
+    tail = dist_soak.run(dist_soak.parser().parse_args(
+        {dist_args!r} + ["--torch-device", "cpu"]), rec)
+out = dict(decided=dist_soak.decided(tail), all_ok=tail["all_ok"],
+           problems=dist_soak.check(rec))
 """,
 }
 # phases 25 and 26 on the card in a child process started before phase 16,
@@ -1895,6 +1970,39 @@ for tag, mod, argv, name in (
                     problems=validate_tail(tail, name),
                     device=cs.device_line(tag, dc, wall, launches))
 """
+# phase 33 on the card in a child process started before phase 16, beside
+# phases 16-32: the dist twin through its entry point's ``run`` at --quick,
+# its children started from this child, with its launches and the
+# profiler's reading (this child's: the controls and the federation
+# manager), every child's argv and ``--stats-file`` report, what it
+# decided and the port's copy of the DIST checks (format: DIST_ARGS)
+CARD_ARM_CODE["33"] = """
+import contextlib, io
+import chip_smoke as cs
+from kueue_tpu_torch import dist_soak
+from kueue_tpu_torch.perf.validate import validate_tail
+from kueue_tpu_torch.profiling import DeviceClock
+kernels.load()
+rec = dict()
+args = dist_soak.parser().parse_args({dist_args!r} + ["--torch-device",
+                                                     "cuda:0"])
+kernels.reset_counts()
+t1 = time.perf_counter()
+with DeviceClock() as dc, contextlib.redirect_stderr(io.StringIO()):
+    tail = dist_soak.run(args, rec)
+wall = time.perf_counter() - t1
+launches = dict(kernels.LAUNCHES)
+out = dict()
+out["33"] = dict(
+    tail=tail, decided=dist_soak.decided(tail),
+    children=dist_soak.children(tail, rec),
+    argvs=[a for r in rec.values() for a in r["argvs"]],
+    kids=dict((arm + "/" + n, st) for arm, r in rec.items()
+              for n, st in r["child_stats"].items()),
+    problems=validate_tail(tail, "DIST_r22.json") + dist_soak.check(rec),
+    launches=launches, wall=wall,
+    device=cs.device_line("33", dc, wall, launches))
+"""
 CPU_ARMS: dict = {}
 CARD_ARMS: dict = {}
 CLI_DIR: list = []          # phase 24's manifests and stores
@@ -1933,7 +2041,10 @@ class ChildArm:
                     scale_rounds=SCALE_PARITY["rounds"],
                     scale_seed=SCALE_PARITY["seed"],
                     traffic_args=TRAFFIC_ARGS, serve_args=SERVE_ARGS,
-                    fed_args=FED_ARGS, **NORTHSTAR)
+                    fed_args=FED_ARGS, dist_args=DIST_ARGS,
+                    parity_scale=PARITY_SCALE, fed=FED,
+                    fed_parity_events=FED_PARITY_EVENTS,
+                    fed_seed=FED["seed"], **NORTHSTAR)
                 + "out['launches'] = sum(kernels.LAUNCHES.values())\n"
                   "out['child_s'] = time.perf_counter() - t0\n"
                   "print(json.dumps(out))\n")
@@ -2020,8 +2131,10 @@ def smoke(launcher: Launcher) -> int:
                               scenarios.cli_serve_docs(CLI_SERVE))
     del docs24
     for tag in CPU_ARM_CODE:
-        CPU_ARMS[tag] = ChildArm(tag, CPU_ARM_CODE)
-    # phases 27-29 and 30-32 on the card, beside phases 3-26 (CARD_ARM_CODE)
+        if tag != "33":
+            CPU_ARMS[tag] = ChildArm(tag, CPU_ARM_CODE)
+    # phases 27-29 and 30-32 on the card, beside phases 3-26
+    # (CARD_ARM_CODE)
     CARD_ARMS["27-29"] = ChildArm("27-29", CARD_ARM_CODE)
     CARD_ARMS["30-32"] = ChildArm("30-32", CARD_ARM_CODE)
 
@@ -2777,6 +2890,12 @@ def smoke(launcher: Launcher) -> int:
 
     # phases 25 and 26 on the card, beside phases 16-24 (CARD_ARM_CODE)
     CARD_ARMS["25-26"] = ChildArm("25-26", CARD_ARM_CODE)
+    # phase 33's card and CPU children from here on: their forty-odd
+    # processes started with the build loaded the host under phase 28's
+    # traced / untraced A/B in CARD_ARMS["27-29"], whose p50 ratio has a
+    # 1.05 gate
+    CARD_ARMS["33"] = ChildArm("33", CARD_ARM_CODE)
+    CPU_ARMS["33"] = ChildArm("33", CPU_ARM_CODE)
 
     # -- 16. the perf scenario through the per-cycle mesh ------------------
     install_mesh_capture(cap)
@@ -3147,20 +3266,25 @@ def smoke(launcher: Launcher) -> int:
     check(ss["host_cycles"] == 0, ss)
     check(gc20.n == 0, f"phase 20: {gc20.line()}")
     del d, ctrl, waves, revoke, r20
-    digests20 = {}
-    for device in ("cuda", "cpu"):
-        d, clock, ctrl, total, waves, revoke = scenarios.build_provisioning(
-            PARITY_SCALE, device=device)
-        r = scenarios.run_provisioning(d, clock, ctrl, total, waves, revoke)
-        digests20[device] = scenarios.decision_digest(
-            d, [r["decisions"], r["requests"], r["reached"]])
-        log(f"[20 provisioning parity] {device}: {total} workloads, "
-            f"{r['cycles']} cycles in {r['wall']:.2f}s, admitted "
-            f"{r['admitted']}, finished {r['finished']}, rejected "
-            f"{r['rejected']}, digest {digests20[device]}")
-        del d, ctrl, waves, revoke, r
+    # the CPU side ran in CPU_ARMS["20-22"] since phase 2
+    cpu2022 = CPU_ARMS["20-22"].result()
+    d, clock, ctrl, total, waves, revoke = scenarios.build_provisioning(
+        PARITY_SCALE, device="cuda")
+    r = scenarios.run_provisioning(d, clock, ctrl, total, waves, revoke)
+    r20p = dict(total=total, digest=scenarios.decision_digest(
+        d, [r["decisions"], r["requests"], r["reached"]]), **{
+            k: r[k] for k in ("cycles", "wall", "admitted", "finished",
+                              "rejected")})
+    del d, ctrl, waves, revoke, r
     scenarios.release()
-    check(digests20["cuda"] == digests20["cpu"], digests20)
+    for device, rp in (("cuda", r20p), ("cpu (CPU_ARMS[20-22])",
+                                        cpu2022["20"])):
+        log(f"[20 provisioning parity] {device}: {rp['total']} workloads, "
+            f"{rp['cycles']} cycles in {rp['wall']:.2f}s, admitted "
+            f"{rp['admitted']}, finished {rp['finished']}, rejected "
+            f"{rp['rejected']}, digest {rp['digest']}")
+    check(r20p["digest"] == cpu2022["20"]["digest"],
+          (r20p["digest"], cpu2022["20"]["digest"]))
 
     # -- 21. the admission service at traffic-1k's width --------------------
     import threading
@@ -3320,16 +3444,20 @@ def smoke(launcher: Launcher) -> int:
     check(sum(launches22[k] for k in ADMIT_KERNELS) > 0, launches22)
     del ctl22, crash22
     cut22 = dict(FED, events=FED_PARITY_EVENTS)
-    digests22 = {}
-    for device in ("cuda", "cpu"):
-        t1 = time.perf_counter()
-        sim, ok = scenarios.fed_arm(cut22, FED["seed"], f"{td22}/{device}",
-                                    m=scenarios.serving_modules(device))
-        digests22[device] = m21.fed.global_digest(sim)
-        log(f"[22 fed parity] {device}: {FED_PARITY_EVENTS} events, "
-            f"{sim.step_no} steps in {time.perf_counter() - t1:.2f}s, "
-            f"settled {ok}, global digest {digests22[device]}")
-        del sim
+    t1 = time.perf_counter()
+    sim, ok = scenarios.fed_arm(cut22, FED["seed"], f"{td22}/cuda",
+                                m=scenarios.serving_modules("cuda"))
+    digests22 = {"cuda": m21.fed.global_digest(sim),
+                 "cpu": cpu2022["22"]["digest"]}
+    log(f"[22 fed parity] cuda: {FED_PARITY_EVENTS} events, "
+        f"{sim.step_no} steps in {time.perf_counter() - t1:.2f}s, "
+        f"settled {ok}, global digest {digests22['cuda']}")
+    log(f"[22 fed parity] cpu (CPU_ARMS[20-22]): {FED_PARITY_EVENTS} "
+        f"events, {cpu2022['22']['steps']} steps in "
+        f"{cpu2022['22']['s']:.2f}s, settled {cpu2022['22']['settled']}, "
+        f"global digest {digests22['cpu']}")
+    check(ok and cpu2022["22"]["settled"], (ok, cpu2022["22"]))
+    del sim
     check(digests22["cuda"] == digests22["cpu"], digests22)
     scenarios.release()
 
@@ -3930,6 +4058,100 @@ def smoke(launcher: Launcher) -> int:
     check(c32["decided"] == cpu30["32"]["decided"],
           (c32["decided"], cpu30["32"]["decided"]))
 
+    # -- 33. the dist twin --quick: processes, kills, wire faults ----------
+    # the card side ran in CARD_ARMS["33"] since phase 2 (its children
+    # started from that child), the CPU side in CPU_ARMS["33"]
+    t33 = time.perf_counter()
+    card33 = CARD_ARMS["33"].result()
+    c33 = card33["33"]
+    cpu33 = CPU_ARMS["33"].result()
+    tail33 = c33["tail"]
+    sat33 = tail33["saturation"]
+    launches33p = c33["launches"]
+    kids33 = c33["kids"]
+    launches33c = summed([st and st["launches"] for st in kids33.values()])
+    argvs33 = c33["argvs"]
+    jax_argv33 = [a for a in argvs33 if any(
+        x == "kueue_tpu" or x.startswith("kueue_tpu.") for x in a)]
+    not_port33 = [a for a in argvs33
+                  if a[1:3] != ["-m", "kueue_tpu_torch.dist.child"]]
+    # a child opens its context at its first launch: every shard launches,
+    # a worker may not (the socket arm's never steps; a restarted one with
+    # nothing left to admit never launches)
+    launched33 = {n: st for n, st in kids33.items()
+                  if st and sum(st["launches"].values())}
+    for arm, b in tail33["kills"].items():
+        log(f"[33 dist-quick] {arm}: " + json.dumps(b))
+    log(f"[33 dist-quick] {DIST_ARGS} (CARD_ARMS[33], {c33['wall']:.2f}s, "
+        f"the tail's own {tail33['elapsed_s']:.2f}s): saturation "
+        f"(wall-clock, not compared) ceiling "
+        f"{sat33['ceiling_admissions_per_s']:.2f} admissions/s, rounds "
+        f"(n, accepted, drain steps, s, admissions/s) "
+        + json.dumps([[r["n_per_submitter"], r["accepted"],
+                       r["drain_steps"], round(r["elapsed_s"], 4),
+                       round(r["admissions_per_s"], 2)]
+                      for r in sat33["rounds"]])
+        + f"; socket faults {json.dumps(tail33['socket_faults'])}; by "
+        f"role {json.dumps(tail33['dist']['by_role'])}; kill log "
+        f"{tail33['dist']['kill_log']}; child start (spawn to ready, s), "
+        f"CUDA context, launches, build s by arm "
+        f"{json.dumps(c33['children'])}; argvs {len(argvs33)}, naming the "
+        f"JAX package {len(jax_argv33)}, not the port's child "
+        f"{len(not_port33)}; validator and children "
+        f"{json.dumps(c33['problems'])}; launches in the children "
+        f"{json.dumps({k: v for k, v in launches33c.items() if v})}, in "
+        f"the card child (the controls and the manager) "
+        f"{json.dumps({k: v for k, v in launches33p.items() if v})}; "
+        f"{c33['device']}; card = CPU_ARMS[33] "
+        f"{c33['decided'] == cpu33['decided']} (CPU all_ok "
+        f"{cpu33['all_ok']}); card child {card33['child_s']:.2f}s, CPU "
+        f"child {cpu33['child_s']:.2f}s; waited "
+        f"{time.perf_counter() - t33:.2f}s here")
+    check(tail33["all_ok"], {k: tail33[k] for k in ("kills",
+                                                     "socket_faults")})
+    check(c33["problems"] == [], c33["problems"])
+    check(not jax_argv33 and not not_port33, (jax_argv33, not_port33))
+    check(all(st["cuda_initialized"] for st in launched33.values())
+          and all(n in launched33 for n in kids33 if "/shard" in n), kids33)
+    check(all(sum(st["launches"][k] for k in ADMIT_KERNELS) > 0
+              for n, st in kids33.items() if "/shard" in n), kids33)
+    check(cpu33["all_ok"] and cpu33["problems"] == [], cpu33)
+    check(c33["decided"] == cpu33["decided"],
+          (c33["decided"], cpu33["decided"]))
+    launches33 = summed([launches33p, launches33c])
+
+    # -- 34. the roofline twin --quick: dispatch, readback, scan, burst -----
+    # in this process once every arm has ended: no arm competes for the
+    # host, and no profiler runs (its host cost would enter the walls)
+    from kueue_tpu_torch import accel_roofline
+    from kueue_tpu_torch.perf.validate import validate_tail
+    busy34 = [tag for tag, arm in {**CPU_ARMS, **CARD_ARMS}.items()
+              if arm.proc.poll() is None]
+    args34 = accel_roofline.parser().parse_args(ROOF_ARGS + [
+        "--torch-device", "cuda"])
+    rec34 = {}
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stderr(io.StringIO()):
+        tail34 = accel_roofline.run(args34, rec34)
+    wall34 = time.perf_counter() - t0
+    launches34 = dict(kernels.LAUNCHES)
+    problems34 = (accel_roofline.check(rec34)
+                  + validate_tail(tail34, "ROOFLINE_r22.json"))
+    on_card34 = sorted(k for k in rec34 if k.startswith("accel:"))
+    for r in tail34["per_dispatch_admit_scan"] + tail34["fused_burst"]:
+        log(f"[34 roofline-quick] {json.dumps(r)}")
+    log(f"[34 roofline-quick] {ROOF_ARGS} ({wall34:.2f}s; arms still "
+        f"running {busy34}): tunnel {json.dumps(tail34['tunnel'])}; "
+        f"crossover {json.dumps(tail34['crossover'])}; {len(on_card34)} "
+        f"card outputs, each equal to the plain version's on the host: "
+        f"{not problems34} {json.dumps(problems34)}; launches "
+        f"{json.dumps({k: v for k, v in launches34.items() if v})}")
+    check(not problems34, problems34)
+    check(len(on_card34) == 6, on_card34)   # 2 W x 2 scans, 2 K
+    check(all(launches34[k] > 0 for k in ("admit_scan", "admit_scan_forests",
+                                           "burst_cycles")), launches34)
+
     # -- 3i. the mesh kernels and the per-shard scans against plain ---------
     mesh_phases = ("bench_mesh", "northstar_mesh", "northstar_fs_mesh",
                    "dryrun")
@@ -3995,7 +4217,8 @@ def smoke(launcher: Launcher) -> int:
                 "22": launches22, "23": launches23, "24": launches24,
                 "25": launches25, "26": launches26, "27": launches27,
                 "28": launches28, "29": launches29, "30": launches30,
-                "31": launches31, "32": launches32}
+                "31": launches31, "32": launches32, "33": launches33,
+                "34": launches34}
     rows = []
     for name in kernels.KERNELS:
         phase = {"admit_scan_forests": "northstar",

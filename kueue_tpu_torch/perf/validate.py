@@ -1,8 +1,9 @@
 """The port's copy of ``scripts/validate_artifacts.py``'s checks of the
 soak tails it writes (``CHAOS_*``, ``OBS_*``, ``SCALE_*``, ``TRAFFIC_*``,
-``FED_*``, ``SERVE_*``): the chip smoke run holds the twins' tails to
-them without importing ``scripts/``, and ``tests/test_torch_soak_checks``
-holds each function here equal to the script's, line for line.
+``FED_*``, ``SERVE_*``, ``DIST_*``): the chip smoke run holds the twins'
+tails to them without importing ``scripts/``, and
+``tests/test_torch_soak_checks`` holds each function here equal to the
+script's, line for line.
 
 ``validate_tail(tail, name)`` runs the checks ``validate`` runs on a file
 of that ``name`` holding ``tail`` → the list of violations.
@@ -731,9 +732,76 @@ def _check_serve(d, path, out):
         _err(out, path, "missing numeric 'elapsed_s'")
 
 
+def _check_dist(d, path, out):
+    """DIST_* distributed-soak artifacts (scripts/dist_soak.py): a
+    wall-clock saturation search across >= 2 submitter and >= 2 shard
+    processes, four process-kill arms (submitter, front-end shard,
+    service mid-cycle, federation worker) each recovering with zero
+    lost and zero duplicated admissions and decisions bit-identical
+    to a single-process control, plus socket-fault classification."""
+    sat = d.get("saturation")
+    if not isinstance(sat, dict):
+        _err(out, path, "missing 'saturation' block")
+        sat = {}
+    if sat.get("wall_clock") is not True:
+        _err(out, path, "'saturation.wall_clock' must be true (the "
+             "ceiling is a measured wall-clock rate)")
+    ceiling = sat.get("ceiling_admissions_per_s")
+    if not isinstance(ceiling, (int, float)) or ceiling <= 0:
+        _err(out, path, "missing positive numeric "
+             "'saturation.ceiling_admissions_per_s'")
+    for k in ("submitter_procs", "shard_procs"):
+        v = sat.get(k)
+        if not isinstance(v, int) or v < 2:
+            _err(out, path, f"'saturation.{k}'={v}: the distributed "
+                 "soak needs >= 2 real processes per role")
+    if not isinstance(sat.get("rounds"), list) or not sat["rounds"]:
+        _err(out, path, "'saturation.rounds' must be a non-empty list "
+             "(the search must show its measurements)")
+    kills = d.get("kills")
+    if not isinstance(kills, dict):
+        _err(out, path, "missing 'kills' block")
+        kills = {}
+    for arm in ("submitter", "front_end_shard", "service_mid_cycle",
+                "federation_worker"):
+        k = kills.get(arm)
+        if not isinstance(k, dict):
+            _err(out, path, f"missing 'kills.{arm}' arm")
+            continue
+        if k.get("parity") is not True:
+            _err(out, path, f"'kills.{arm}.parity' must be true "
+                 "against the single-process control")
+        if k.get("decisions_identical") is not True:
+            _err(out, path, f"'kills.{arm}.decisions_identical' must "
+                 "be true: recovery must be bit-identical")
+        if k.get("lost") != 0:
+            _err(out, path, f"'kills.{arm}.lost'={k.get('lost')}: "
+                 "a killed process must lose zero admissions")
+        if k.get("duplicated") != 0:
+            _err(out, path, f"'kills.{arm}.duplicated'="
+                 f"{k.get('duplicated')}: a killed process must "
+                 "duplicate zero admissions")
+    sock = d.get("socket_faults")
+    if not isinstance(sock, dict):
+        _err(out, path, "missing 'socket_faults' block")
+    elif sock.get("ok") is not True:
+        _err(out, path, "'socket_faults.ok' must be true: the client "
+             "must classify and survive every wire fault")
+    dist = d.get("dist")
+    if not isinstance(dist, dict):
+        _err(out, path, "missing 'dist' block (supervisor report)")
+    elif not dist.get("kill_log"):
+        _err(out, path, "'dist.kill_log' is empty: the kill arms must "
+             "record real SIGKILLs")
+    if not isinstance(d.get("elapsed_s"), (int, float)):
+        _err(out, path, "missing numeric 'elapsed_s'")
+
+
 def validate_tail(d: dict, name: str) -> list[str]:
     """``validate_artifacts.validate`` of a file ``name`` holding ``d``,
-    for the CHAOS_ / OBS_ / SCALE_ / TRAFFIC_ / FED_ / SERVE_ kinds: the
+    for the CHAOS_ / OBS_ / SCALE_ / TRAFFIC_ / FED_ / SERVE_ / DIST_
+    kinds (any other name, ``ROOFLINE_`` among them, gets the common
+    checks only, as in ``validate``): the
     common checks, each kind's (by name or by shape, as ``validate``
     dispatches), the obs block of a TRAFFIC_ / FED_ r16+ record, and the
     strict prefixes' metric and value."""
@@ -754,6 +822,8 @@ def validate_tail(d: dict, name: str) -> list[str]:
         _check_obs(d, path, out)
     if base.startswith("SERVE_") or ("kill_restart" in d and "wall" in d):
         _check_serve(d, path, out)
+    if base.startswith("DIST_") or ("kills" in d and "saturation" in d):
+        _check_dist(d, path, out)
     rnd = re.match(r"(?:NORTHSTAR|TRAFFIC|FED)_R(\d+)", base)
     if rnd and int(rnd.group(1)) >= 16:
         if "obs" not in d:
@@ -762,6 +832,6 @@ def validate_tail(d: dict, name: str) -> list[str]:
         else:
             _check_obs_block(d["obs"], path, out)
     if base.startswith(("CHAOS_", "TRAFFIC_", "SCALE_", "FED_", "OBS_",
-                        "SERVE_")):
+                        "SERVE_", "DIST_")):
         _check_metric_value(d, path, out)
     return out

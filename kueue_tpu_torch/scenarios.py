@@ -65,10 +65,13 @@ the north-star shape, driven per cycle through ``Driver.schedule_once``.
   (``serve_loop``, ``serve_open_loop``, ``serve_killable``,
   ``serve_wall``; ``thread_target`` runs a service thread on its
   builder's device and stream), federation_soak.py (``fed_arm``) and
-  dist_soak.py (``dist_kill_front_end_shard``, ``start_fed_workers`` +
-  ``dist_kill_federation_worker``): the admission service, the
-  MultiKueue federation and supervised child processes on the port's
-  Driver; the first two take either package's modules.
+  dist_soak.py (``dist_saturation``, ``dist_kill_front_end_shard``,
+  ``dist_kill_submitter``, ``dist_kill_service_mid_cycle``,
+  ``start_fed_workers`` + ``dist_kill_federation_worker``,
+  ``dist_socket_faults``, over ``DistRun`` and ``Lockstep``): the
+  admission service, the MultiKueue federation and supervised child
+  processes on the port's Driver; the first two take either package's
+  modules.
 - ``bench_objects``, ``cli_bench_docs``/``cli_serve_docs``/
   ``write_manifests``/``store_digest`` and ``cli_serve_sequence``/
   ``cli_serve_in_process``: the perf scenario as a kueuectl manifest
@@ -2473,14 +2476,23 @@ def fed_double_admissions(sim) -> int:
 # -- supervised processes (scripts/dist_soak.py) ------------------------
 
 def _shard_argv(tmp: str, shard_id: int, n_cqs: int, device: str,
-                recover=False, resume_cycle=0, port=0):
+                recover=False, resume_cycle=0, port=0, crash_site="",
+                crash_at=0):
     from .dist.supervisor import child_argv
     pf = f"{tmp}/shard{shard_id}.port"
-    return child_argv(
-        "shard", shard_id=shard_id, n_cqs=n_cqs, state_dir=str(tmp),
-        port_file=pf, recover=recover, resume_cycle=resume_cycle,
-        port=port, device=device,
-        stats_file=f"{tmp}/shard{shard_id}.stats"), pf
+    kw = dict(shard_id=shard_id, n_cqs=n_cqs, state_dir=str(tmp),
+              port_file=pf, recover=recover, resume_cycle=resume_cycle,
+              port=port, device=device,
+              stats_file=f"{tmp}/shard{shard_id}.stats")
+    if crash_site:
+        kw.update(crash_site=crash_site, crash_at=crash_at)
+    return child_argv("shard", **kw), pf
+
+
+def _cmd(mp, line: str) -> str:
+    mp.proc.stdin.write(line + "\n")
+    mp.proc.stdin.flush()
+    return mp.proc.stdout.readline().strip()
 
 
 def _cmd_all(subs, line: str) -> list:
@@ -2508,6 +2520,30 @@ def _ctl_submit(svc, step, n_sub, per_step, n_cqs):
                        count=b["count"], token=b["token"])
 
 
+def _loss_dup(dist_keys: list, ctl_keys: list) -> tuple:
+    """dist_soak.py ``_loss_dup``: multiset compare of every admission
+    key of an arm → (keys the control admitted and the processes lost,
+    keys the processes admitted more often than the control)."""
+    d, c = Counter(dist_keys), Counter(ctl_keys)
+    return sum((c - d).values()), sum((d - c).values())
+
+
+def _merge_reports(reports: dict) -> dict:
+    """dist_soak.py ``_merge_reports``: the per-arm supervisor reports
+    summed into the tail's ``dist`` block (spawns / kills / restarts by
+    role, the kill log tagged by arm)."""
+    by_role: dict = {}
+    kill_log = []
+    for arm, rep in reports.items():
+        for role, st in rep["by_role"].items():
+            per = by_role.setdefault(
+                role, {"spawns": 0, "kills": 0, "restarts": 0})
+            for k, v in st.items():
+                per[k] += v
+        kill_log.extend(f"{arm}:{name}" for name in rep["kill_log"])
+    return {"by_role": by_role, "kill_log": kill_log, "per_arm": reports}
+
+
 def child_stats(path: str):
     """What a child wrote to its ``--stats-file`` after its last step
     (None before the first)."""
@@ -2516,6 +2552,179 @@ def child_stats(path: str):
         return None
     with open(path, encoding="utf-8") as fh:
         return json.load(fh)
+
+
+class DistRun:
+    """The children of one dist_soak.py arm under one seeded
+    ``ProcessSupervisor``: every child started through ``child_argv``
+    (shards and workers with ``device`` and a ``--stats-file``), its
+    argv kept in ``argvs`` and its start (spawn to ready, s) in
+    ``starts``."""
+
+    def __init__(self, cfg: dict, seed: int, tmp: str, device: str):
+        import os
+
+        from .dist.supervisor import ProcessSupervisor
+        os.makedirs(tmp, exist_ok=True)
+        self.cfg, self.tmp, self.device = cfg, tmp, device
+        self.sup = ProcessSupervisor(seed=seed)
+        self.argvs: list = []
+        self.starts: dict = {}
+
+    def shards(self, n: int, **kw) -> list:
+        """Spawn ``n`` shard processes (``kw``: ``crash_site`` /
+        ``crash_at``) and wait until each answers ``/readyz``."""
+        out = []
+        t0 = time.perf_counter()
+        for s in range(n):
+            argv, pf = _shard_argv(self.tmp, s, self.cfg["cqs"],
+                                   self.device, **kw)
+            self.argvs.append(argv)
+            out.append(self.sup.spawn(f"shard{s}", "shard", argv,
+                                      port_file=pf))
+        for mp in out:
+            self.sup.wait_ready(mp, timeout=self.cfg["ready_timeout_s"])
+            self.starts[mp.name] = time.perf_counter() - t0
+        return out
+
+    def submitter(self, j: int, ports: list):
+        """Spawn submitter ``j`` of ``cfg['submitters']`` over the shard
+        ``ports`` and wait for its ready line."""
+        from .dist.supervisor import child_argv
+        cfg = self.cfg
+        argv = child_argv(
+            "submitter", submitter_id=j, n_submitters=cfg["submitters"],
+            per_step=cfg["per_step"], n_cqs=cfg["cqs"],
+            shard_ports=",".join(map(str, ports)))
+        self.argvs.append(argv)
+        mp = self.sup.spawn(f"sub{j}", "submitter", argv, pipe_stdio=True)
+        if mp.proc.stdout.readline().strip() != "ready":
+            raise RuntimeError(f"sub{j}: no ready line")
+        return mp
+
+    def front_end(self):
+        """``cfg['shards']`` shard processes and ``cfg['submitters']``
+        submitter processes → (shards, clients, submitters)."""
+        from .dist.serving import ShardClient
+        shards = self.shards(self.cfg["shards"])
+        ports = [mp.port for mp in shards]
+        subs = [self.submitter(j, ports)
+                for j in range(self.cfg["submitters"])]
+        return shards, [ShardClient(p) for p in ports], subs
+
+    def restart_shard(self, shard_id: int, **kw):
+        """Rebuild shard ``shard_id`` from its journals (``kw``:
+        ``resume_cycle``, ``port``) and wait until it is ready."""
+        argv, _ = _shard_argv(self.tmp, shard_id, self.cfg["cqs"],
+                              self.device, recover=True, **kw)
+        self.argvs.append(argv)
+        t0 = time.perf_counter()
+        self.sup.restart(f"shard{shard_id}", argv=argv,
+                         timeout=self.cfg["ready_timeout_s"])
+        self.starts[f"shard{shard_id} restart"] = time.perf_counter() - t0
+
+    def extras(self, names) -> dict:
+        """What every arm returns beside the script's keys: each child's
+        start, the last ``--stats-file`` report of each of ``names``,
+        every argv and the supervisor's report."""
+        return {"starts_s": self.starts,
+                "child_stats": {n: child_stats(f"{self.tmp}/{n}.stats")
+                                for n in names},
+                "argvs": self.argvs, "report": self.sup.report()}
+
+
+class Lockstep:
+    """dist_soak.py ``_lockstep`` with its key lists: one barrier sends
+    ``step S`` to every submitter, replays the step into the in-process
+    control, steps every shard and keeps both sides' admission keys
+    (``keep``, also for a barrier driven another way)."""
+
+    def __init__(self, run: DistRun, subs: list, clients: list):
+        self.run, self.subs, self.clients = run, subs, clients
+        self.ctl = _dist_control(run.tmp, run.cfg["cqs"], run.device)
+        self.dist_keys: list = []
+        self.ctl_keys: list = []
+        self.per_step_ok: list = []
+
+    def __call__(self, step: int) -> None:
+        cfg = self.run.cfg
+        _cmd_all(self.subs, f"step {step}")
+        _ctl_submit(self.ctl, step, len(self.subs), cfg["per_step"],
+                    cfg["cqs"])
+        got = []
+        for c in self.clients:
+            for dec in c.step(retry_deadline_s=15.0)["decisions"]:
+                got.extend(dec)
+        self.keep(got, [k for dec in self.ctl.step()["decisions"]
+                        for k in dec])
+
+    def keep(self, got: list, want: list) -> None:
+        self.dist_keys.extend(got)
+        self.ctl_keys.extend(want)
+        self.per_step_ok.append(sorted(got) == sorted(want))
+
+    def verdict(self) -> dict:
+        lost, duplicated = _loss_dup(self.dist_keys, self.ctl_keys)
+        identical = all(self.per_step_ok)
+        return {"steps": len(self.per_step_ok),
+                "admissions": len(self.ctl_keys),
+                "decisions_identical": identical, "parity": identical,
+                "lost": lost, "duplicated": duplicated}
+
+
+def dist_saturation(cfg: dict, seed: int, td: str,
+                    device: str = "cuda") -> dict:
+    """dist_soak.py ``arm_saturation``: every submitter process blasts
+    rounds of uniquely named submissions, the shards on ``device`` drain
+    each round through real ``/admin/step`` cycles, and the round
+    doubles until the wall-clock admissions/s stops rising by 5%."""
+    run = DistRun(cfg, seed, f"{td}/sat", device)
+    rounds = []
+    try:
+        shards, clients, subs = run.front_end()
+        n = cfg["sat_base"]
+        best = 0.0
+        for r in range(cfg["sat_max_rounds"]):
+            t0 = time.monotonic()
+            replies = _cmd_all(subs, f"blast {n}")
+            accepted = sum(int(rep.split()[2]) for rep in replies)
+            steps = 0
+            while steps < cfg["sat_drain_cap"]:
+                stats = [c.svc_stats() for c in clients]
+                if (sum(s["admitted"] for s in stats)
+                        >= sum(s["accepted"] for s in stats)):
+                    break
+                for c in clients:
+                    c.step(retry_deadline_s=15.0)
+                steps += 1
+            elapsed = time.monotonic() - t0
+            stats = [c.svc_stats() for c in clients]
+            drained = (sum(s["admitted"] for s in stats)
+                       == sum(s["accepted"] for s in stats))
+            rate = accepted / elapsed if elapsed > 0 else 0.0
+            rounds.append({"n_per_submitter": n, "accepted": accepted,
+                           "drain_steps": steps, "elapsed_s": elapsed,
+                           "admissions_per_s": rate, "drained": drained})
+            log(f"  saturation round {r}: n={n} adm/s={rate:.1f} "
+                f"drain_steps={steps}")
+            if not drained or (best > 0 and rate < best * 1.05):
+                break
+            best = max(best, rate)
+            n *= 2
+        depths = {str(i): c.svc_stats()["ingest_depth"]
+                  for i, c in enumerate(clients)}
+        extras = run.extras(mp.name for mp in shards)
+    finally:
+        run.sup.terminate_all()
+    ceiling = max((r["admissions_per_s"] for r in rounds), default=0.0)
+    return {
+        "wall_clock": True, "rounds": rounds,
+        "ceiling_admissions_per_s": ceiling,
+        "submitter_procs": cfg["submitters"], "shard_procs": cfg["shards"],
+        "shard_depths": depths,
+        "ok": ceiling > 0 and all(r["drained"] for r in rounds),
+        **extras,
+    }
 
 
 def dist_kill_front_end_shard(cfg: dict, seed: int, td: str,
@@ -2530,108 +2739,149 @@ def dist_kill_front_end_shard(cfg: dict, seed: int, td: str,
     is called after the first barrier, while every child runs.  Also
     returns each shard's start (spawn to ready, s), its last
     ``--stats-file`` report and every child's argv."""
-    import os
-
     from .chaos import injector as chaos
-    from .dist.serving import ShardClient
-    from .dist.supervisor import ProcessSupervisor, child_argv
-    tmp = f"{td}/kshard"
-    os.makedirs(tmp, exist_ok=True)
-    sup = ProcessSupervisor(seed=seed)
-    dist_keys, ctl_keys, per_step_ok, starts = [], [], [], {}
-    argvs, seen = [], None
+    run = DistRun(cfg, seed, f"{td}/kshard", device)
+    seen = None
     try:
-        shards = []
-        t0 = time.perf_counter()
-        for s in range(cfg["shards"]):
-            argv, pf = _shard_argv(tmp, s, cfg["cqs"], device)
-            argvs.append(argv)
-            shards.append(sup.spawn(f"shard{s}", "shard", argv,
-                                    port_file=pf))
-        for mp in shards:
-            sup.wait_ready(mp, timeout=cfg["ready_timeout_s"])
-            starts[mp.name] = time.perf_counter() - t0
+        shards, clients, subs = run.front_end()
         ports = [mp.port for mp in shards]
-        clients = [ShardClient(p) for p in ports]
-        subs = []
-        for j in range(cfg["submitters"]):
-            argv = child_argv(
-                "submitter", submitter_id=j,
-                n_submitters=cfg["submitters"], per_step=cfg["per_step"],
-                n_cqs=cfg["cqs"], shard_ports=",".join(map(str, ports)))
-            argvs.append(argv)
-            mp = sup.spawn(f"sub{j}", "submitter", argv, pipe_stdio=True)
-            if mp.proc.stdout.readline().strip() != "ready":
-                raise RuntimeError(f"sub{j}: no ready line")
-            subs.append(mp)
-        ctl_svc = _dist_control(tmp, cfg["cqs"], device)
-
-        def lockstep(step):
-            _cmd_all(subs, f"step {step}")
-            _ctl_submit(ctl_svc, step, len(subs), cfg["per_step"],
-                        cfg["cqs"])
-            got = []
-            for c in clients:
-                for dec in c.step(retry_deadline_s=15.0)["decisions"]:
-                    got.extend(dec)
-            want = [k for dec in ctl_svc.step()["decisions"] for k in dec]
-            dist_keys.extend(got)
-            ctl_keys.extend(want)
-            per_step_ok.append(sorted(got) == sorted(want))
-
+        lockstep = Lockstep(run, subs, clients)
         half = cfg["kill_steps"] // 2
         for s in range(half):
             lockstep(s)
             if s == 0 and while_running is not None:
-                seen = while_running(sup)
+                seen = while_running(run.sup)
         inj = chaos.ChaosInjector(seed=seed)
         inj.arm("dist.kill", at=1, payload="shard0")
         chaos.install(inj)
-        killed = sup.maybe_kill("shard0")
+        killed = run.sup.maybe_kill("shard0")
         chaos.clear()
-        argv, _ = _shard_argv(tmp, 0, cfg["cqs"], device, recover=True,
-                              resume_cycle=half, port=ports[0])
-        argvs.append(argv)
-        t0 = time.perf_counter()
-        sup.restart("shard0", argv=argv, timeout=cfg["ready_timeout_s"])
-        starts["shard0 restart"] = time.perf_counter() - t0
+        run.restart_shard(0, resume_cycle=half, port=ports[0])
         same_port = shards[0].port == ports[0]
+        # the whole delivered schedule again; every replay dedupes
         replies = _cmd_all(subs, f"resync {half}")
         deduped = sum(int(r.split()[2]) for r in replies)
         expected = len(subs) * half * cfg["per_step"]
         for s in range(half, cfg["kill_steps"]):
             lockstep(s)
-        stats = {mp.name: child_stats(f"{tmp}/{mp.name}.stats")
-                 for mp in shards}
-        rep = sup.report()
+        extras = run.extras(mp.name for mp in shards)
     finally:
         chaos.clear()
-        sup.terminate_all()
-    c_ctl, c_dist = Counter(ctl_keys), Counter(dist_keys)
-    lost, duplicated = (sum((c_ctl - c_dist).values()),
-                        sum((c_dist - c_ctl).values()))
-    identical = all(per_step_ok)
+        run.sup.terminate_all()
+    v = lockstep.verdict()
     return {
-        "killed": bool(killed), "same_port": same_port,
-        "steps": cfg["kill_steps"], "admissions": len(ctl_keys),
-        "decisions_identical": identical, "lost": lost,
-        "duplicated": duplicated,
+        "killed": bool(killed), "same_port": same_port, **v,
         "dedupe": {"replayed": deduped, "expected": expected},
-        "starts_s": starts, "child_stats": stats, "argvs": argvs,
-        "while_running": seen, "report": rep,
-        "ok": (bool(killed) and same_port and identical and lost == 0
-               and duplicated == 0 and deduped == expected),
+        "restarts": extras["report"]["by_role"]["shard"]["restarts"],
+        "while_running": seen, **extras,
+        "ok": (bool(killed) and same_port and v["decisions_identical"]
+               and v["lost"] == 0 and v["duplicated"] == 0
+               and deduped == expected),
+    }
+
+
+def dist_kill_submitter(cfg: dict, seed: int, td: str,
+                        device: str = "cuda") -> dict:
+    """dist_soak.py ``arm_kill_submitter``: the processes of
+    ``dist_kill_front_end_shard``; sub0 SIGKILLed at the half and
+    respawned with the same identity, whose replay of its schedule from
+    zero dedupes at the shards."""
+    from .chaos import injector as chaos
+    run = DistRun(cfg, seed, f"{td}/ksub", device)
+    try:
+        shards, clients, subs = run.front_end()
+        ports = [mp.port for mp in shards]
+        lockstep = Lockstep(run, subs, clients)
+        half = cfg["kill_steps"] // 2
+        for s in range(half):
+            lockstep(s)
+        inj = chaos.ChaosInjector(seed=seed)
+        inj.arm("dist.kill", at=1, payload="sub0")
+        chaos.install(inj)
+        killed = run.sup.maybe_kill("sub0")
+        chaos.clear()
+        # the SAME identity (submitter 0 of N): the schedule it replays
+        # must be the one it owned
+        subs[0] = run.submitter(0, ports)
+        deduped = int(_cmd(subs[0], f"resync {half}").split()[2])
+        expected = half * cfg["per_step"]
+        for s in range(half, cfg["kill_steps"]):
+            lockstep(s)
+        extras = run.extras(mp.name for mp in shards)
+    finally:
+        chaos.clear()
+        run.sup.terminate_all()
+    v = lockstep.verdict()
+    return {
+        "killed": bool(killed), **v,
+        "dedupe": {"replayed": deduped, "expected": expected},
+        "restarts": extras["report"]["by_role"]["submitter"]["kills"],
+        **extras,
+        "ok": (bool(killed) and v["decisions_identical"] and v["lost"] == 0
+               and v["duplicated"] == 0 and deduped == expected),
+    }
+
+
+def dist_kill_service_mid_cycle(cfg: dict, seed: int, td: str,
+                                device: str = "cuda") -> dict:
+    """dist_soak.py ``arm_kill_service_mid_cycle``: one shard process on
+    ``device`` with ``--crash-site svc.cycle --crash-at 2`` dies inside
+    ``/admin/step`` (``os._exit(17)``, no cleanup); it is rebuilt from
+    its journals on its port and the step re-issued.  The death is
+    awaited up to ``cfg['ready_timeout_s']``: a child that hangs instead
+    of exiting leaves ``crash_exit`` None and fails the arm."""
+    import subprocess
+
+    from .dist.serving import ShardClient, step_payloads
+    run = DistRun(cfg, seed, f"{td}/ksvc", device)
+    crashes, crash_exit = 0, None
+    try:
+        mp, = run.shards(1, crash_site="svc.cycle", crash_at=2)
+        port = mp.port
+        client = ShardClient(port)
+        lockstep = Lockstep(run, [], [client])
+        for s in range(cfg["kill_steps"]):
+            for b in step_payloads(s, 0, 1, cfg["per_step"], cfg["cqs"]):
+                client.submit(b, retry_deadline_s=5.0)
+            _ctl_submit(lockstep.ctl, s, 1, cfg["per_step"], cfg["cqs"])
+            try:
+                st = client.step()
+            except Exception:
+                try:
+                    mp.proc.wait(timeout=cfg["ready_timeout_s"])
+                    crash_exit = mp.proc.returncode
+                except subprocess.TimeoutExpired:
+                    crash_exit = None
+                crashes += 1
+                run.restart_shard(0, resume_cycle=s, port=port)
+                st = client.step(retry_deadline_s=10.0)
+            lockstep.keep([k for dec in st["decisions"] for k in dec],
+                          [k for dec in lockstep.ctl.step()["decisions"]
+                           for k in dec])
+        extras = run.extras(["shard0"])
+    finally:
+        run.sup.terminate_all()
+    v = lockstep.verdict()
+    return {
+        "crashes": crashes, "crash_exit": crash_exit, **v,
+        "restarts": extras["report"]["by_role"]["shard"]["restarts"],
+        **extras,
+        "ok": (crashes == 1 and crash_exit == 17
+               and v["decisions_identical"] and v["lost"] == 0
+               and v["duplicated"] == 0),
     }
 
 
 def _fed_worker_argv(tmp: str, cfg: dict, device: str, name: str,
-                     recover=False, resume_t=None, port=0):
+                     recover=False, resume_t=None, port=0, remote_cqs=None):
     from .dist.supervisor import child_argv
     pf = f"{tmp}/{name}.port"
     return child_argv(
-        "worker", name=name, remote_cqs=cfg["fed_remote_cqs"],
-        state_dir=tmp, port_file=pf, recover=recover, resume_t=resume_t,
-        port=port, device=device, stats_file=f"{tmp}/{name}.stats"), pf
+        "worker", name=name,
+        remote_cqs=cfg["fed_remote_cqs"] if remote_cqs is None
+        else remote_cqs, state_dir=tmp, port_file=pf, recover=recover,
+        resume_t=resume_t, port=port, device=device,
+        stats_file=f"{tmp}/{name}.stats"), pf
 
 
 def start_fed_workers(cfg: dict, seed: int, td: str,
@@ -2677,7 +2927,8 @@ def dist_kill_federation_worker(cfg: dict, seed: int, td: str,
     ``device`` against an in-process ``FederationSim`` control on
     ``device``; w0 SIGKILLed after ``fed_pre_kill_steps`` and rebuilt
     from its journals on its port.  Every digest must equal the
-    control's."""
+    control's.  The manager's ``stats`` read the clients' RPC counters
+    and the supervisor's, as the script feeds them."""
     from .chaos import injector as chaos
     from .dist.proxy import FaultPlan, SocketFaultProxy
     from .federation.procs import ProcFederation, fed_traffic
@@ -2736,10 +2987,19 @@ def dist_kill_federation_worker(cfg: dict, seed: int, td: str,
                             for n in urls)
         manager_parity = dg["manager"] == state_digest(ctl.manager)
         settled = fed.settled() and ctl.settled()
-        resyncs = fed.client_stats()["w0"]["epoch_resyncs"]
+        cl_stats = fed.client_stats()
+        resyncs = cl_stats["w0"]["epoch_resyncs"]
         proxy = Counter()
         for px in proxies:
             proxy.update(px.stats)
+        # the distributed counters through Driver.stats, as the script
+        # samples its kueue_dist_* / kueue_rpc_* series
+        fed.manager.rpc_clients = list(fed.clients.values())
+        fed.manager.dist_stats = {"by_role": sup.stats,
+                                  "proxy": dict(proxy), "shard_depths": {}}
+        mstats = fed.manager.stats
+        unfinished = sum(1 for wl in fed.manager.workloads.values()
+                         if not wl.is_finished)
         duplicated = len(fed.violations) + len(ctl.violations)
         stats = {n: child_stats(f"{tmp}/{n}.stats") for n in workers}
         rep = sup.report()
@@ -2750,14 +3010,95 @@ def dist_kill_federation_worker(cfg: dict, seed: int, td: str,
         sup.terminate_all()
     parity = manager_parity and worker_parity
     return {
-        "killed": bool(killed), "manager_parity": manager_parity,
-        "worker_parity": worker_parity, "settled": settled,
+        "killed": bool(killed), "steps": pre + cfg["fed_post_kill_steps"],
+        "manager_parity": manager_parity, "worker_parity": worker_parity,
+        "decisions_identical": parity, "parity": parity,
+        "settled": settled, "lost": 0 if settled else unfinished,
         "duplicated": duplicated, "epoch_resyncs": resyncs,
-        "proxy": dict(proxy), "digests": dg, "starts_s": starts,
-        "child_stats": stats, "argvs": argvs, "report": rep,
+        "client_stats": cl_stats, "proxy": dict(proxy),
+        "restarts": rep["by_role"]["worker"]["restarts"],
+        "metrics": {"rpc": mstats.get("rpc"), "dist": mstats.get("dist")},
+        "digests": dg, "starts_s": starts, "child_stats": stats,
+        "argvs": argvs, "report": rep,
         "manager": fed.manager, "control": ctl,
         "ok": (bool(killed) and parity and settled and duplicated == 0
                and resyncs >= 1),
+    }
+
+
+def dist_socket_faults(cfg: dict, seed: int, td: str,
+                       device: str = "cuda") -> dict:
+    """dist_soak.py ``arm_socket_faults``: one worker process on
+    ``device`` behind a ``SocketFaultProxy`` with a reset, a truncation,
+    a latency and a blackhole armed at its 2nd / 4th / 6th / 8th
+    connection; ten ``admin_status`` calls must survive them, counted
+    apart, and a client of a dead port must see connect-refused."""
+    import os
+    import socket
+
+    from .chaos import injector as chaos
+    from .dist.proxy import SocketFaultProxy
+    from .dist.supervisor import ProcessSupervisor
+    from .remote import ConnectionLost, HttpWorkerClient
+    tmp = f"{td}/sock"
+    os.makedirs(tmp, exist_ok=True)
+    sup = ProcessSupervisor(seed=seed)
+    px = None
+    try:
+        argv, pf = _fed_worker_argv(tmp, cfg, device, "w0", remote_cqs=2)
+        t0 = time.perf_counter()
+        mp = sup.spawn("w0", "worker", argv, port_file=pf)
+        sup.wait_ready(mp, timeout=cfg["ready_timeout_s"])
+        starts = {"w0": time.perf_counter() - t0}
+        inj = chaos.ChaosInjector(seed=seed)
+        inj.arm("dist.proxy_fault", at=2, action="reset")
+        inj.arm("dist.proxy_fault", at=4, action="truncate", payload=16)
+        inj.arm("dist.proxy_fault", at=6, action="latency", payload=0.2)
+        inj.arm("dist.proxy_fault", at=8, action="blackhole")
+        chaos.install(inj)
+        px = SocketFaultProxy(mp.port, seed=seed)
+        px.start()
+        cl = HttpWorkerClient(px.base_url, timeout=1.0, retries=4,
+                              backoff_base=0.01, backoff_max=0.05,
+                              deadline_s=10.0)
+        for _ in range(10):
+            cl.admin_status()   # retries absorb every armed fault
+        survived = True
+        chaos.clear()
+        # nothing listening: pure connect-refused classification
+        s = socket.socket()
+        s.bind(("127.0.0.1", 0))
+        dead_port = s.getsockname()[1]
+        s.close()
+        cl2 = HttpWorkerClient(f"http://127.0.0.1:{dead_port}",
+                               timeout=1.0, retries=2, backoff_base=0.01,
+                               backoff_max=0.02, deadline_s=5.0)
+        refused_kind = None
+        try:
+            cl2.admin_status()
+        except ConnectionLost as e:
+            refused_kind = e.kind
+        stats = {"w0": child_stats(f"{tmp}/w0.stats")}
+        rep = sup.report()
+    finally:
+        chaos.clear()
+        if px is not None:
+            px.stop()
+        sup.terminate_all()
+    ok = (survived and px.stats["resets"] == 1
+          and px.stats["truncations"] == 1
+          and px.stats["latencies"] == 1
+          and px.stats["blackholes"] == 1
+          and cl.stats["midbody_retries"] >= 1
+          and cl.stats["retries"] >= 3
+          and refused_kind == "refused"
+          and cl2.stats["refused_retries"] == 2)
+    return {
+        "proxy": dict(px.stats), "client": dict(cl.stats),
+        "refused_kind": refused_kind,
+        "refused_retries": cl2.stats["refused_retries"],
+        "ok": ok, "starts_s": starts, "child_stats": stats,
+        "argvs": [argv], "report": rep,
     }
 
 

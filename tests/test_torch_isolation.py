@@ -106,7 +106,8 @@ def test_every_port_module_is_accounted_for():
            "probe.py", "northstar.py", "native/__init__.py",
            "analysis/__main__.py", "chaos_soak.py", "obs_soak.py",
            "scale_soak.py", "perf/validate.py", "traffic_soak.py",
-           "serve_soak.py", "federation_soak.py"}
+           "serve_soak.py", "federation_soak.py", "dist_soak.py",
+           "accel_roofline.py"}
     rels = {os.path.relpath(p, PORT) for p in _port_files()}
     assert rels == set(VERBATIM) | set(APPENDED) | set(EDITED) | own
 
@@ -599,19 +600,22 @@ SOAK_TWINS = {
     "serve_soak": (["--quick"], "serve_soak_wall_admissions_per_s"),
     "federation_soak": (["--quick", "--only", "worker_crash_mid_sync"],
                         "federation_soak_recovery_parity"),
+    "dist_soak": (["--quick"], "dist_soak_saturation_admissions_per_s"),
+    "accel_roofline": (["--quick"], "accel_roofline"),
 }
 
 
 @pytest.mark.parametrize("module", sorted(SOAK_TWINS))
-def test_soak_twin_in_a_fresh_process(module):
+def test_soak_twin_in_a_fresh_process(module, tmp_path):
     """``python -m kueue_tpu_torch.<chaos|obs|scale|traffic|serve|
-    federation>_soak`` (the port's twins of scripts/*_soak.py; traffic's
-    sharded arm on a virtual mesh of 2) at a small size with ``--torch-device
-    cpu`` load no jax, no kueue_tpu and no module of ``scripts``, and
-    print their JSON tail last; without a GPU and without
-    ``--torch-device cpu`` they raise before printing anything.  (The obs
-    twin exits 1 when its overhead ratio passes 1.05, a timing gate not
-    held here.)"""
+    federation|dist>_soak`` and ``accel_roofline`` (the port's twins of
+    scripts/*_soak.py and accel_roofline.py; traffic's sharded arm on a
+    virtual mesh of 2; dist's children too) at a small size with
+    ``--torch-device cpu`` load no jax, no kueue_tpu and no module of
+    ``scripts``, print their JSON tail last and write no file where they
+    run; without a GPU and without ``--torch-device cpu`` they raise
+    before printing anything.  (The obs twin exits 1 when its overhead
+    ratio passes 1.05, a timing gate not held here.)"""
     argv, metric = SOAK_TWINS[module]
     code = (
         "import runpy, sys\n"
@@ -626,15 +630,25 @@ def test_soak_twin_in_a_fresh_process(module):
         " and not m.startswith('kueue_tpu_torch.'))\n"
         "assert not bad, bad\n"
         "print('ok')\n")
-    env = dict(os.environ, PYTHONPATH=ROOT)
-    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
-                         capture_output=True, text=True, timeout=300)
+    # one torch thread, as the test workers have: the plain versions'
+    # small ops gain nothing from more, and several twins run at once
+    env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
+    out = subprocess.run([sys.executable, "-c", code], cwd=tmp_path,
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
+    assert os.listdir(tmp_path) == []
     lines = out.stdout.strip().splitlines()
     assert lines[-1] == "ok"
     tail = json.loads(lines[-2])
     assert tail["metric"] == metric
-    if module == "chaos_soak":
+    if module == "dist_soak":
+        assert tail["all_ok"] is True
+        assert tail["kills"]["service_mid_cycle"]["crash_exit"] == 17
+    elif module == "accel_roofline":
+        assert tail["accel_platform"] is None
+        assert "crossover" not in tail and "tunnel" not in tail
+    elif module == "chaos_soak":
         assert tail["scenarios_stable"] == tail["scenarios_total"] == 2
     elif module == "obs_soak":
         assert tail["decisions_identical"] is True

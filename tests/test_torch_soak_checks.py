@@ -2,8 +2,8 @@
 ``scripts/validate_artifacts.py`` that the chip smoke run applies to the
 soak twins' tails, stays the script's: each copied function is the
 script's line for line, and ``validate_tail`` gives ``validate``'s
-verdict on the repo's CHAOS / OBS / SCALE / TRAFFIC / FED / SERVE
-records and on broken copies of them."""
+verdict on the repo's CHAOS / OBS / SCALE / TRAFFIC / FED / SERVE /
+DIST records and on broken copies of them."""
 
 from __future__ import annotations
 
@@ -21,10 +21,10 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 COPIED = ("_err", "_check_common", "_check_chaos", "_check_metric_value",
           "_check_scale", "_check_scale_r18", "_check_scale_r19",
           "_check_obs_block", "_check_obs", "_check_traffic", "_check_fed",
-          "_check_serve")
+          "_check_serve", "_check_dist")
 RECORDS = ("CHAOS_r09.json", "OBS_r16.json", "SCALE_r13.json",
            "SCALE_r18.json", "SCALE_r20.json", "TRAFFIC_r11.json",
-           "FED_r15.json", "SERVE_r17.json")
+           "FED_r15.json", "SERVE_r17.json", "DIST_r20.json")
 
 
 @pytest.fixture(scope="module")
@@ -54,6 +54,8 @@ def _broken(d: dict) -> dict:
         d["double_admissions_total"] += 1
     elif "arms" in d:
         d["replay_identical"] = None
+    elif "kills" in d:
+        d["kills"]["submitter"]["lost"] = 1
     elif "kill_restart" in d:
         d["kill_restart"]["duplicated_admissions"] = 1
     elif "scenarios" in d:

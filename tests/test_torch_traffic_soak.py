@@ -113,11 +113,13 @@ def test_helpers_are_the_scripts():
         ref.curve_entry)
 
 
-@pytest.mark.parametrize("cqs,frac", [(128, 1.2), (512, 1.5)])
+@pytest.mark.parametrize("cqs,frac", [(128, 1.2), (512, 1.5), (1000, 1.5)])
 def test_probe_past_saturation_matches_the_script(cqs, frac):
     """One serial probe past the quota ceiling at a wider cluster, 30
     virtual s with no wall budget: the script's per-cycle decisions, bit
-    for bit, and its counters."""
+    for bit, and its counters.  At 1,000 CQs and 1,000/s (seed 9,109)
+    both give 23,343 admitted and an end depth of 5,101, where
+    TRAFFIC_r11.json, written by an older script, has 23,344 and 5,099."""
     ref = _load("traffic_soak_under_test", "scripts/traffic_soak.py")
     rate = round(ref.capacity_estimate(cqs) * frac, 1)
     cfg = dict(cqs=cqs, duration_s=30.0, slo_p99_s=8.0, wall_budget_s=None)
@@ -129,6 +131,9 @@ def test_probe_past_saturation_matches_the_script(cqs, frac):
         want.submitted, want.admitted, want.end_depth, want.max_depth)
     assert got.latency_hist == want.latency_hist
     assert got.end_depth > 0   # past the ceiling: a backlog is left
+    if cqs == 1000:
+        assert (seed, got.submitted, got.admitted, got.end_depth) == (
+            9109, 28789, 23343, 5101)
 
 
 @pytest.mark.parametrize("arm", ["serial", "shards_8"])
