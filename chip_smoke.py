@@ -27,7 +27,12 @@ fill-then-trickle; then the twins of the chaos, OBS and scale soaks
 ``scale_soak``), of the traffic, serving and federation soaks
 (``traffic_soak`` / ``serve_soak`` / ``federation_soak``) and of the
 distributed soak and the roofline (``dist_soak`` / ``accel_roofline``),
-each ending in the per-cycle admit kernels or the fused burst:
+each ending in the per-cycle admit kernels or the fused burst; then the
+solver's router (``CycleSolver(backend="auto")``: its warm-up,
+``kq_add_one``'s round trip and the persisted table).  On a card
+"auto" launches the card's kernels at every dispatch, so every phase
+runs the default backend; the run's sidecars go to a fresh temporary
+``KUEUE_TPU_COMPILE_CACHE``, removed at the end:
 
 1. device: name, count and ``nvidia-smi`` name/power limit;
 2. build: nvcc of every kernel source (in parallel) into one library;
@@ -47,7 +52,8 @@ each ending in the per-cycle admit kernels or the fused burst:
    target lies in another forest, testing.preempt_tables) and over the
    inputs captured from the first calls of phases
    4, 5, 7, 8, 9 and 9b (for the burst also up to two windows with a
-   preempting head) —
+   preempting head) and of the warm-ups before 4 and 5 (kept apart:
+   the kernels line times the phases' own calls) —
    exact equality (tolerance 0: every output is bool or int32, the
    burst's carry included);
 4. the reference perf scenario: 5 cohorts x 6 CQs, 15,000 workloads in
@@ -409,6 +415,25 @@ each ending in the per-cycle admit kernels or the fused burst:
    / 64: every card output's digest equal to the plain version's on
    the host (tolerance 0), the native loop's too; the tunnel block, each
    row and the crossover printed;
+35. the router ((a)-(c) in a card child started before phase 16,
+   beside 16-33: walls not clean; read before 34): (a) the north-star
+   cluster (1,000 CQs in cohorts of 5, 100,000 workloads) on a card
+   Driver under "auto" in that fresh process, then ``warmup(..., 1000)``
+   on a cache directory of its own: the warm-up's seconds apart from
+   the library's load (and phase 2's build), the round trip, the table
+   (ms by route, the measured fastest and the route taken per kind, W
+   and forest bucket: the card in every bucket), no native failure, one
+   sidecar written, ``kq_add_one`` launched; (b) a second cold process
+   on that directory: the table loaded, its keys the same; (c) the
+   sidecar's schema made stale: rejected and measured again; the CPU
+   arm drains perf-15k on "cpu" under the calibrated "auto" (the plain
+   versions against the native loop), phase 4's digest; (d) after 34,
+   in this process with no arm running and no profiler: perf-15k and
+   phase 5's north-star shape under "auto", "accel" and "native", each
+   warmed up: the routes (cuda, cpu, native, no_fit, singleton; cpu 0
+   everywhere, native only under "native", "auto"'s equal to
+   "accel"'s), cycle p50 / p99, and one decision digest a shape with
+   phase 4's (and the CPU arm's) or phase 5's;
 3i. kq_gather_heads and kq_fs_merge_order against their plain versions
    on the calls captured in 16-16d and on one synthetic call each at
    north-star width (1,000 heads over 8 shards), and the per-shard admit
@@ -424,7 +449,8 @@ Launch counts are zeroed just before phases 4, 5, 7, 8, 9, 9b, 11, 13,
 14, 15, 15b, 15c, 16, 16b, 16c, 16d, 17, 18, 19 (its run and its
 search), 20, 21 (its arms on the card, and its wall arm), 22, 23, 24
 (its in-process schedule, and its in-process serve), 25 (its three card
-arms, each also counted alone), 26, 27, 28, 29, 30, 31, 32, 33 and 34
+arms, each also counted alone), 26, 27, 28, 29, 30, 31, 32, 33, 34 and
+35 (its cold warm-up, and each drain of (d))
 and read just after each (23 and 33: the process's and, from their
 ``--stats-file``, the children's; 24: this process's, the children have
 no stats file).  The
@@ -496,6 +522,7 @@ TPU_KERNEL = {   # the jitted JAX program each kernel replaces
     "kq_reduce_dflags": "kueue_tpu/ops/burst.py:789",
     "kq_gather_heads": "kueue_tpu/parallel/sharded.py:90",
     "kq_fs_merge_order": "kueue_tpu/parallel/sharded.py:137",
+    "kq_add_one": "kueue_tpu/ops/solver.py:367",
 }
 SOURCE = {
     "admit_scan": "kueue_tpu_torch/kernels/admit_scan.cu",
@@ -516,6 +543,7 @@ SOURCE = {
     "kq_reduce_dflags": "kueue_tpu_torch/kernels/scatter_rows.cu",
     "kq_gather_heads": "kueue_tpu_torch/kernels/mesh_gather.cu",
     "kq_fs_merge_order": "kueue_tpu_torch/kernels/mesh_gather.cu",
+    "kq_add_one": "kueue_tpu_torch/kernels/probe.cu",
 }
 TAS_KERNELS = ("fill_counts", "best_fit_descend", "split_across_roots")
 BENCH_WORKLOADS = 15_000
@@ -627,6 +655,12 @@ ROOF_ARGS = ["--quick"]
 # the SCALE_r19 check that holds the pooled host plane to >= 2x when the
 # host has the cores, a timing gate both packages miss on 8 cores
 POOL_GATE = "'host_pool.apply_pack_speedup'="
+# phase 35: the router, its warm-up and its sidecar (a card child from
+# phase 16 on, its CPU side in CPU_ARMS): the north-star cluster cold, a
+# second cold process, a stale sidecar; then, with no arm running,
+# perf-15k and the north-star shape under each backend ("auto" stays on
+# the card; "native" the C++ loop the table measured)
+CALIB_BACKENDS = ("auto", "accel", "native")
 README_REPLAY = ("76.8 virtual s; large/medium/small 0 / 33.2 / 54.1 s; "
                  "min CQ usage 98.7%")
 
@@ -832,9 +866,11 @@ def install_tas_capture(cap: Capture) -> None:
 
 def plain_fns():
     from kueue_tpu_torch.ops import (burst, cycle, fairsharing_kernel,
-                                     fs_scan, preemption_kernel, tas_kernel)
+                                     fs_scan, preemption_kernel, rtt,
+                                     tas_kernel)
     from kueue_tpu_torch.parallel import sharded
     return {
+        "kq_add_one": rtt.add_one_plain,
         "kq_scatter_rows": sharded.scatter_rows_plain,
         "kq_reduce_dflags": sharded.reduce_dflags_plain,
         "kq_gather_heads": sharded.gather_src_plain,
@@ -1088,7 +1124,7 @@ def op_count(name, args, kw) -> int:
         n = [int(h.shape[0]) for h in args[1]]
         steps = max(n, default=0).bit_length()
         return sum(n) * (8 + 4 * (len(n) - 1) * steps)
-    if name == "kq_reduce_dflags":
+    if name in ("kq_reduce_dflags", "kq_add_one"):
         return args[0].numel()                     # one add per input
     if name in PHASE1:
         return phase1_op_count(name, args, kw)
@@ -1198,9 +1234,9 @@ def library_call(name, args):
     over the flag window for the reduction, per plane ``index_copy_`` of
     the concatenated blocks into a filled row for the head gather (the
     maps read back from the source map and concatenated once, outside
-    the timing), and for the cycle order a stable ``torch.argsort`` of
+    the timing), for the cycle order a stable ``torch.argsort`` of
     the composed key (built once, outside the timing, as the gather's
-    maps)."""
+    maps), and ``torch.add(x, 1)`` for the round-trip probe."""
     import torch
     if name == "kq_scatter_rows":
         # the rows and values as views of the packed buffer
@@ -1226,6 +1262,9 @@ def library_call(name, args):
     if name == "kq_cycle_order":
         key = cycle_order_key(*args)
         return lambda: torch.argsort(key, stable=True)
+    if name == "kq_add_one":
+        x = args[0]
+        return lambda: torch.add(x, 1)
     return None
 
 
@@ -1582,6 +1621,107 @@ def burst_line(tag, d, r, launches) -> None:
         f"{json.dumps(launches)}")
 
 
+def calibrated_warmup(n_cqs: int, n_wl: int):
+    """Phase 35 (a) and (b): the north-star cluster on a card Driver
+    under the calibrated "auto", then its warm-up, timed apart from the
+    kernel library's load (``scenarios.warmup_record``), with the
+    launches it made and the sidecars in the cache directory →
+    (record, driver)."""
+    from kueue_tpu_torch import compilecache, kernels, scenarios
+    d, _, _, _ = scenarios.build_northstar(n_cqs, n_wl, device="cuda")
+    kernels.reset_counts()
+    rec = scenarios.warmup_record(d, n_cqs)
+    rec["launches"] = dict(kernels.LAUNCHES)
+    rec["sidecars"] = sorted(f for f in os.listdir(compilecache.enable())
+                             if f.startswith("calibration-"))
+    return rec, d
+
+
+def phase35_card(n_cqs: int, n_wl: int) -> dict:
+    """Phase 35's card side, in a card child: (a) the cold warm-up in
+    this fresh process, on a cache directory of its own; (b) a second
+    cold process on that directory; (c) the sidecar's schema made stale,
+    then a new solver's warm-up on (a)'s snapshot."""
+    import tempfile
+    from kueue_tpu_torch import compilecache, scenarios
+    from kueue_tpu_torch.ops.solver import CALIB_SCHEMA, CycleSolver
+    from kueue_tpu_torch.features import env_value
+    os.environ["KUEUE_TPU_COMPILE_CACHE"] = tempfile.mkdtemp(
+        prefix="phase35_", dir=env_value("KUEUE_TPU_COMPILE_CACHE"))
+    out = {}
+    a, d = calibrated_warmup(n_cqs, n_wl)
+    out["a"] = a
+    here = os.path.dirname(os.path.abspath(__file__))
+    code = ("import json, chip_smoke as cs\n"
+            f"print(json.dumps(cs.calibrated_warmup({n_cqs}, {n_wl})[0]))\n")
+    # one torch thread, as the arm that starts it
+    env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=os.pathsep.join(
+        [here] + [p for p in os.environ.get("PYTHONPATH", "").split(
+            os.pathsep) if p]))
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-c", code], cwd=here, env=env,
+                       capture_output=True, text=True, timeout=900)
+    check(r.returncode == 0,
+          f"phase 35 (b) exited {r.returncode}: {r.stderr[-3000:]}")
+    out["b"] = dict(json.loads(r.stdout.strip().splitlines()[-1]),
+                    process_s=time.perf_counter() - t0)
+    check(len(a["sidecars"]) == 1, a["sidecars"])
+    path = os.path.join(compilecache.enable(), a["sidecars"][0])
+    with open(path, encoding="utf-8") as fh:
+        data = json.load(fh)
+    data["schema"] = CALIB_SCHEMA - 1
+    with open(path, "w", encoding="utf-8") as fh:
+        json.dump(data, fh)
+    s = CycleSolver(device="cuda")
+    t0 = time.perf_counter()
+    s.warmup(d.cache.snapshot(), n_cqs)
+    with open(path, encoding="utf-8") as fh:
+        rewritten = json.load(fh)["schema"]
+    out["c"] = dict(warmup_s=time.perf_counter() - t0,
+                    rewritten_schema=rewritten,
+                    **{k: s.stats[k] for k in scenarios.CALIBRATION_STATS})
+    return out
+
+
+def phase35_drains(bench_workloads: int, n_cqs: int, n_wl: int,
+                   cycles: int) -> dict:
+    """Phase 35 (d), in this process with no arm running and no profiler
+    (clean walls): perf-15k drained and the north-star shape run per
+    cycle (phase 5's) under each of ``CALIB_BACKENDS``, each warmed up
+    first → {shape: {backend: record}}."""
+    from kueue_tpu_torch import kernels, scenarios
+    out = {}
+    for shape in ("perf-15k", "northstar"):
+        out[shape] = {}
+        for backend in CALIB_BACKENDS:
+            if shape == "perf-15k":
+                d, clock, total, waves = scenarios.build_bench(
+                    bench_workloads / 15_000, device="cuda",
+                    solver_backend=backend)
+                heads = len(d.cache.cluster_queue_names())
+            else:
+                d, clock, total, waves = scenarios.build_northstar(
+                    n_cqs, n_wl, device="cuda", solver_backend=backend)
+                heads = n_cqs
+            w = scenarios.warmup_record(d, heads)
+            kernels.reset_counts()
+            r = (scenarios.run_bench(d, clock, total, waves)
+                 if shape == "perf-15k" else
+                 scenarios.run_northstar(d, clock, waves, cycles=cycles))
+            out[shape][backend] = dict(
+                warmup=w, routes=scenarios.route_counts(d.scheduler.solver),
+                finished=r.get("finished"), admitted=r.get("admitted"),
+                preempted=r.get("preempted"), total=total, cycles=r["cycles"],
+                wall=r["wall"],
+                p50_ms=scenarios.percentile(r["cycle_times"], 0.5) * 1e3,
+                p99_ms=scenarios.percentile(r["cycle_times"], 0.99) * 1e3,
+                digest=scenarios.decision_digest(d, r["decisions"]),
+                launches=dict(kernels.LAUNCHES))
+            del d, waves
+            scenarios.release()
+    return out
+
+
 class Launcher:
     """A small process, started before this one imports torch, that runs
     one command for it.  A child's ``ru_maxrss`` starts from the resident
@@ -1773,6 +1913,18 @@ sim, ok = scenarios.fed_arm(dict({fed!r}, events={fed_parity_events}),
                             {fed_seed}, tempfile.mkdtemp(), m=m)
 out["22"] = dict(steps=sim.step_no, settled=ok, s=time.perf_counter() - t1,
                  digest=m.fed.global_digest(sim))
+""",
+    # phase 35's CPU side: the perf scenario on "cpu" under the
+    # calibrated "auto" (the plain versions against the native loop),
+    # warmed up first (format: BENCH_WORKLOADS)
+    "35": """
+d, clock, total, waves = scenarios.build_bench({bench_workloads} / 15_000,
+                                               device="cpu")
+w = scenarios.warmup_record(d, len(d.cache.cluster_queue_names()))
+r = scenarios.run_bench(d, clock, total, waves)
+out = dict(digest=scenarios.decision_digest(d, r["decisions"]),
+           finished=r["finished"], wall=r["wall"], warmup=w,
+           routes=scenarios.route_counts(d.scheduler.solver))
 """,
     # phase 33's CPU side: the dist twin at --quick with every child on
     # "cpu", what it decided (format: DIST_ARGS)
@@ -2003,8 +2155,17 @@ out["33"] = dict(
     launches=launches, wall=wall,
     device=cs.device_line("33", dc, wall, launches))
 """
+# phase 35 (a)-(c) on the card in a child process started before phase
+# 16, beside phases 16-33 (walls not clean): phase35_card (format:
+# NORTHSTAR)
+CARD_ARM_CODE["35"] = """
+import chip_smoke as cs
+out = dict()
+out["35"] = cs.phase35_card({n_cqs}, {n_wl})
+"""
 CPU_ARMS: dict = {}
 CARD_ARMS: dict = {}
+CACHE_DIR: list = []        # the run's KUEUE_TPU_COMPILE_CACHE
 CLI_DIR: list = []          # phase 24's manifests and stores
 
 
@@ -2044,7 +2205,8 @@ class ChildArm:
                     fed_args=FED_ARGS, dist_args=DIST_ARGS,
                     parity_scale=PARITY_SCALE, fed=FED,
                     fed_parity_events=FED_PARITY_EVENTS,
-                    fed_seed=FED["seed"], **NORTHSTAR)
+                    fed_seed=FED["seed"], bench_workloads=BENCH_WORKLOADS,
+                    **NORTHSTAR)
                 + "out['launches'] = sum(kernels.LAUNCHES.values())\n"
                   "out['child_s'] = time.perf_counter() - t0\n"
                   "print(json.dumps(out))\n")
@@ -2080,6 +2242,9 @@ def main() -> int:
         launcher.close()
         for arm in list(CPU_ARMS.values()) + list(CARD_ARMS.values()):
             arm.stop()
+        import shutil
+        for d in CACHE_DIR:
+            shutil.rmtree(d, ignore_errors=True)
 
 
 def smoke(launcher: Launcher) -> int:
@@ -2093,6 +2258,11 @@ def smoke(launcher: Launcher) -> int:
               "False)", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    # the router's sidecars of this run only, in every process it starts:
+    # one left by an earlier run would make a cold warm-up load
+    import tempfile
+    CACHE_DIR.append(tempfile.mkdtemp(prefix="chip_smoke_calibration_"))
+    os.environ["KUEUE_TPU_COMPILE_CACHE"] = CACHE_DIR[0]
     try:
         import numpy as np
         from kueue_tpu_torch import kernels, scenarios, testing
@@ -2121,7 +2291,6 @@ def smoke(launcher: Launcher) -> int:
     log(f"[2 build] {kernels.BUILD['library']} in "
         f"{time.perf_counter() - t0:.2f}s")
     clock_offset0 = profiler_clock_offset()
-    import tempfile
     CLI_DIR.append(tempfile.mkdtemp(prefix="chip_smoke_cli_"))
     docs24 = scenarios.cli_bench_docs(PARITY_SCALE)
     scenarios.write_manifests(f"{CLI_DIR[0]}/bench.yaml", docs24)
@@ -2131,7 +2300,7 @@ def smoke(launcher: Launcher) -> int:
                               scenarios.cli_serve_docs(CLI_SERVE))
     del docs24
     for tag in CPU_ARM_CODE:
-        if tag != "33":
+        if tag not in ("33", "35"):
             CPU_ARMS[tag] = ChildArm(tag, CPU_ARM_CODE)
     # phases 27-29 and 30-32 on the card, beside phases 3-26
     # (CARD_ARM_CODE)
@@ -2167,11 +2336,13 @@ def smoke(launcher: Launcher) -> int:
     install_capture(cap)
 
     # -- 4. the reference perf scenario, full size ---------------------------
-    cap.phase = "bench"
     d, clock, total, waves = scenarios.build_bench(
         BENCH_WORKLOADS / 15_000, device="cuda")
+    # warm-up's launches are kept apart from the path's (3b holds them)
+    cap.phase = "warmup"
     d.scheduler.solver.warmup(d.cache.snapshot(),
                               len(d.cache.cluster_queue_names()))
+    cap.phase = "bench"
     kernels.reset_counts()
     with DeviceClock() as dc4:
         r = scenarios.run_bench(d, clock, total, waves)
@@ -2200,11 +2371,12 @@ def smoke(launcher: Launcher) -> int:
     scenarios.release()
 
     # -- 5. the north-star shape, per cycle ---------------------------------
-    cap.phase = "northstar"
     t0 = time.perf_counter()
     d, clock, total, wave = scenarios.build_northstar(
         NORTHSTAR["n_cqs"], NORTHSTAR["n_wl"], device="cuda")
+    cap.phase = "warmup"
     d.scheduler.solver.warmup(d.cache.snapshot(), NORTHSTAR["n_cqs"])
+    cap.phase = "northstar"
     build_s = time.perf_counter() - t0
     kernels.reset_counts()
     with DeviceClock() as dc5, GCWatch() as gc5:
@@ -2252,11 +2424,12 @@ def smoke(launcher: Launcher) -> int:
 
     # -- 7. the perf scenario through the fused burst -------------------------
     install_capture(cap)
-    cap.phase = "bench_burst"
     d, clock, total, waves = scenarios.build_bench(
         BENCH_WORKLOADS / 15_000, device="cuda")
+    cap.phase = "warmup"
     d.scheduler.solver.warmup(d.cache.snapshot(),
                               len(d.cache.cluster_queue_names()))
+    cap.phase = "bench_burst"
     kernels.reset_counts()
     with DeviceClock() as dc7:
         r7 = scenarios.drain_bench_burst(d, clock, total, waves)
@@ -2295,11 +2468,12 @@ def smoke(launcher: Launcher) -> int:
 
     # -- 8. the north-star shape through the fused burst ---------------------
     install_capture(cap)
-    cap.phase = "northstar_burst"
     t0 = time.perf_counter()
     d, clock, total, wave = scenarios.build_northstar(
         NORTHSTAR["n_cqs"], NORTHSTAR["n_wl"], device="cuda")
+    cap.phase = "warmup"
     d.scheduler.solver.warmup(d.cache.snapshot(), NORTHSTAR["n_cqs"])
+    cap.phase = "northstar_burst"
     build_s = time.perf_counter() - t0
     gc.collect()      # phases 8 and 15 start from a collected heap
     kernels.reset_counts()
@@ -2896,6 +3070,9 @@ def smoke(launcher: Launcher) -> int:
     # 1.05 gate
     CARD_ARMS["33"] = ChildArm("33", CARD_ARM_CODE)
     CPU_ARMS["33"] = ChildArm("33", CPU_ARM_CODE)
+    # phase 35's from here on too, for the same reason
+    CARD_ARMS["35"] = ChildArm("35", CARD_ARM_CODE)
+    CPU_ARMS["35"] = ChildArm("35", CPU_ARM_CODE)
 
     # -- 16. the perf scenario through the per-cycle mesh ------------------
     install_mesh_capture(cap)
@@ -4120,6 +4297,68 @@ def smoke(launcher: Launcher) -> int:
           (c33["decided"], cpu33["decided"]))
     launches33 = summed([launches33p, launches33c])
 
+    # -- 35. the router: cold, second cold, stale --------------------------
+    # the card side ran in CARD_ARMS["35"] from phase 16 on, beside phases
+    # 16-33 (walls not clean), the CPU side in CPU_ARMS["35"]; (d) runs
+    # after 34, with no arm left
+    t35 = time.perf_counter()
+    card35 = CARD_ARMS["35"].result()
+    c35 = card35["35"]
+    cpu35 = CPU_ARMS["35"].result()
+    a35, b35, stale35 = c35["a"], c35["b"], c35["c"]
+
+    def table_keys(rec):
+        return [(r["kind"], r["W"], r["key_len"], sorted(r["ms"]))
+                for r in rec["table"]]
+
+    def winners(rec):
+        return dict(Counter(f"{r['kind']}:{r['fastest']}"
+                            for r in rec["table"]))
+    log(f"[35 router] (a) cold, north-star {NORTHSTAR['n_cqs']} CQs x "
+        f"{NORTHSTAR['n_wl']} workloads, \"auto\": warm-up "
+        f"{a35['warmup_s']:.3f}s, the library's load {a35['load_s']:.3f}s "
+        f"apart (built in phase 2 in {kernels.BUILD['seconds']:.2f}s), "
+        f"rtt {a35['rtt_ms']:.4f}ms, native_calibration_failures "
+        f"{a35['native_calibration_failures']}, calibration_loaded "
+        f"{a35['calibration_loaded']}, sidecars {a35['sidecars']}, "
+        f"measured fastest {json.dumps(winners(a35))}, routed "
+        f"{json.dumps(dict(Counter(r['route'] for r in a35['table'])))}, "
+        f"launches "
+        f"{json.dumps({k: v for k, v in a35['launches'].items() if v})}")
+    log("[35 router] (a) table (ms by route, fastest, routed) "
+        + json.dumps([[r["kind"], r["W"], r["key_len"],
+                       {k: round(v, 4) for k, v in r["ms"].items()},
+                       r["fastest"], r["route"]] for r in a35["table"]]))
+    log(f"[35 router] (b) second cold process: warm-up "
+        f"{b35['warmup_s']:.3f}s (load {b35['load_s']:.3f}s apart; the "
+        f"process {b35['process_s']:.2f}s with its build of the cluster), "
+        f"calibration_loaded {b35['calibration_loaded']}, the same keys "
+        f"{table_keys(b35) == table_keys(a35)}, rtt {b35['rtt_ms']:.4f}ms")
+    log(f"[35 router] (c) stale schema: calibration_rejected "
+        f"{stale35['calibration_rejected']}, loaded "
+        f"{stale35['calibration_loaded']}, re-measured in "
+        f"{stale35['warmup_s']:.3f}s and written with schema "
+        f"{stale35['rewritten_schema']}; the CPU arm's perf-15k under "
+        f"\"auto\": routes {json.dumps(cpu35['routes'])} "
+        f"({cpu35['wall']:.2f}s), digest {cpu35['digest']}; card child "
+        f"{card35['child_s']:.2f}s, CPU child {cpu35['child_s']:.2f}s; "
+        f"waited {time.perf_counter() - t35:.2f}s here")
+    check(a35["native_calibration_failures"] == 0, a35)
+    check(a35["calibration_loaded"] == 0 and len(a35["sidecars"]) == 1, a35)
+    check(a35["rtt_ms"] is not None and a35["launches"]["kq_add_one"] > 0,
+          a35["launches"])
+    # "auto" on a card routes every bucket to the card, whatever it measured
+    check({r["route"] for r in a35["table"]} == {"cuda"}, a35["table"])
+    check(b35["calibration_loaded"] == 1 and b35["calibration_rejected"] == 0,
+          b35)
+    check(table_keys(b35) == table_keys(a35), (table_keys(b35),
+                                               table_keys(a35)))
+    check(stale35["calibration_rejected"] == 1
+          and stale35["calibration_loaded"] == 0, stale35)
+    check(cpu35["finished"] == BENCH_WORKLOADS
+          and cpu35["warmup"]["native_calibration_failures"] == 0, cpu35)
+    check(cpu35["digest"] == digest4, (cpu35["digest"], digest4))
+
     # -- 34. the roofline twin --quick: dispatch, readback, scan, burst -----
     # in this process once every arm has ended: no arm competes for the
     # host, and no profiler runs (its host cost would enter the walls)
@@ -4151,6 +4390,54 @@ def smoke(launcher: Launcher) -> int:
     check(len(on_card34) == 6, on_card34)   # 2 W x 2 scans, 2 K
     check(all(launches34[k] > 0 for k in ("admit_scan", "admit_scan_forests",
                                            "burst_cycles")), launches34)
+
+    # -- 35 (d). perf-15k and the north-star shape under each backend ------
+    # in this process after 34, no arm running and no profiler: clean walls
+    busy35 = [tag for tag, arm in {**CPU_ARMS, **CARD_ARMS}.items()
+              if arm.proc.poll() is None]
+    t0 = time.perf_counter()
+    d35 = phase35_drains(BENCH_WORKLOADS, NORTHSTAR["n_cqs"],
+                         NORTHSTAR["n_wl"], NORTHSTAR["cycles"])
+    launches35 = summed([a35["launches"]] + [
+        r["launches"] for by in d35.values() for r in by.values()])
+    for shape, by in d35.items():
+        for backend, r in by.items():
+            log(f"[35 router] (d) {shape} \"{backend}\": "
+                f"{r['finished'] if shape == 'perf-15k' else r['admitted']}"
+                f"{' finished' if shape == 'perf-15k' else ' admitted'} of "
+                f"{r['total']} in {r['cycles']} cycles, {r['wall']:.2f}s, "
+                f"cycle p50 {r['p50_ms']:.3f}ms p99 {r['p99_ms']:.3f}ms, "
+                f"routes {json.dumps(r['routes'])}, warm-up "
+                f"{r['warmup']['warmup_s']:.3f}s, measured fastest "
+                f"{json.dumps(winners(r['warmup']))}, digest {r['digest']}; "
+                f"launches "
+                f"{json.dumps({k: v for k, v in r['launches'].items() if v})}")
+    digests35 = {
+        "perf-15k": {**{b: r["digest"] for b, r in d35["perf-15k"].items()},
+                     "phase 4": digest4, "CPU_ARMS[35]": cpu35["digest"]},
+        "northstar": {**{b: r["digest"]
+                         for b, r in d35["northstar"].items()},
+                      "phase 5": digest5}}
+    log(f"[35 router] (d) ({time.perf_counter() - t0:.2f}s; arms still "
+        f"running {busy35}; unprofiled) digests {json.dumps(digests35)}")
+    for shape, by in d35.items():
+        check(len(set(digests35[shape].values())) == 1, digests35[shape])
+        for backend, r in by.items():
+            # the plain versions never serve a dispatch with a card, and
+            # "auto" keeps every scan on it
+            check(r["routes"]["cpu"] == 0, (shape, backend, r["routes"]))
+            check((r["routes"]["native"] > 0) == (backend == "native"),
+                  (shape, backend, r["routes"]))
+            check(r["warmup"]["native_calibration_failures"] == 0,
+                  r["warmup"])
+        check(by["auto"]["routes"] == by["accel"]["routes"],
+              (by["auto"]["routes"], by["accel"]["routes"]))
+    check(all(r["finished"] == r["total"] == BENCH_WORKLOADS
+              for r in d35["perf-15k"].values()), d35["perf-15k"])
+    check(d35["perf-15k"]["auto"]["launches"]["admit_scan"] > 0
+          and d35["northstar"]["auto"]["launches"]["admit_scan_forests"] > 0,
+          (d35["perf-15k"]["auto"]["launches"],
+           d35["northstar"]["auto"]["launches"]))
 
     # -- 3i. the mesh kernels and the per-shard scans against plain ---------
     mesh_phases = ("bench_mesh", "northstar_mesh", "northstar_fs_mesh",
@@ -4218,10 +4505,24 @@ def smoke(launcher: Launcher) -> int:
                 "25": launches25, "26": launches26, "27": launches27,
                 "28": launches28, "29": launches29, "30": launches30,
                 "31": launches31, "32": launches32, "33": launches33,
-                "34": launches34}
+                "34": launches34, "35": launches35}
+    # the round-trip probe at the shape warm-up gives it, eight int32:
+    # the probe's values, then seeded ones with both int32 limits (the
+    # add wraps, as the plain version's)
+    from kueue_tpu_torch.ops import rtt
+    probe_args = [torch.from_numpy(rtt.PROBE).cuda()]
+    compare("kq_add_one", probe_args, {}, stats)
+    seeded = np.random.default_rng(23).integers(
+        -2**31, 2**31, 8, dtype=np.int64).astype(np.int32)
+    seeded[:2] = (2**31 - 1, -2**31)
+    compare("kq_add_one", [torch.from_numpy(seeded).cuda()], {}, stats)
+    check(stats["kq_add_one"]["cases"] == 2, stats["kq_add_one"])
+    check(stats["kq_add_one"]["mismatches"] == 0, stats["kq_add_one"])
+    cap.calls[("rtt", "kq_add_one")] = [(probe_args, {})]
     rows = []
     for name in kernels.KERNELS:
         phase = {"admit_scan_forests": "northstar",
+                 "kq_add_one": "rtt",
                  "burst_cycles": "northstar_burst",
                  "fs_admit_scan": "northstar_fs",
                  "drs_components": "northstar_fs",
@@ -4243,7 +4544,8 @@ def smoke(launcher: Launcher) -> int:
                     else calls[0] if name in ("drs_components",
                                               "fill_counts",
                                               "split_across_roots",
-                                              "kq_reduce_dflags")
+                                              "kq_reduce_dflags",
+                                              "kq_add_one")
                     else largest(calls))
         t = time_kernel(name, args, kw)
         launches = {"northstar": launches5, "bench": launches4,
@@ -4252,10 +4554,14 @@ def smoke(launcher: Launcher) -> int:
                     "probe": launches13, "northstar_sharded": launches15,
                     "northstar_resident": launches15w,
                     "northstar_mesh": launches16b,
-                    "northstar_fs_mesh": launches16c}[phase][name]
+                    "northstar_fs_mesh": launches16c,
+                    "rtt": a35["launches"]}[phase][name]
         extra = {}
         if name in ROUTED:
             extra["timed_route"] = route_of(name)
+        if name == "kq_add_one":
+            extra["timed_shape"] = dict(n=int(args[0].shape[0]))
+            extra["round_trip_ms"] = a35["rtt_ms"]
         if name == "kq_scatter_rows":
             rows_t = sharded.unpack_scatter_rows(*args)[0]
             extra["timed_shape"] = dict(

@@ -52,6 +52,7 @@ import torch
 from . import native
 from .ops.burst import burst_probe
 from .ops.cycle import admit_scan, admit_scan_forests
+from .ops.rtt import PROBE, add_one
 from .ops.solver import resolve_device
 from .probe import _upload
 from .scenarios import log
@@ -110,9 +111,9 @@ def _ms(seconds: float) -> float:
 
 
 def measure_rtt(dev, reps: int) -> dict:
-    one = np.zeros(8, np.int32)
-    rtt, _ = _median_time(lambda: torch.from_numpy(one).to(dev) + 1, reps,
-                          warm=2)
+    # the solver's probe (ops/rtt.py): kq_add_one on the card
+    rtt, _ = _median_time(lambda: add_one(torch.from_numpy(PROBE).to(dev)),
+                          reps, warm=2)
     big = np.zeros(1_000_000, np.int32)      # 4 MB
     t4mb, _ = _median_time(lambda: torch.from_numpy(big).to(dev).sum(),
                            reps, warm=1)

@@ -93,13 +93,15 @@ class Driver:
                  solver_backend: str = "auto"):
         self.clock = clock
         self.device = str(device)
-        # "native": the C++ classify and admit loop (ops/solver.py);
-        # "auto" or the Driver's own device: the device kernels
-        if solver_backend not in ("auto", "native", self.device,
+        # the solver's routes (ops/solver.py choose_route): "auto" (the
+        # calibrated router on a CPU Driver, the device's kernels on a
+        # card), "accel" or the Driver's own device its kernels at every
+        # dispatch, "native" the C++ classify and admit loop
+        if solver_backend not in ("auto", "accel", "native", self.device,
                                   self.device.split(":")[0]):
             raise ValueError(
-                f"solver_backend {solver_backend!r}: 'auto', 'native' or "
-                f"the Driver's device ({self.device!r})")
+                f"solver_backend {solver_backend!r}: 'auto', 'accel', "
+                f"'native' or the Driver's device ({self.device!r})")
         self.wait_for_pods_ready = wait_for_pods_ready or WaitForPodsReadyConfig()
         ordering = Ordering(
             pods_ready_requeuing_timestamp=self.wait_for_pods_ready.requeuing_timestamp)
@@ -121,8 +123,7 @@ class Driver:
         if use_device_solver:
             from ..ops.solver import CycleSolver
             self.scheduler.solver = CycleSolver(
-                ordering, device=device,
-                backend="native" if solver_backend == "native" else "auto")
+                ordering, device=device, backend=solver_backend)
             # KUEUE_TPU_SHARDS > 1: the per-cycle scans run over a (wl, cq)
             # mesh of the Driver's devices (schedule_burst shards the
             # fused burst on its own, BurstSolver.set_shards); fewer

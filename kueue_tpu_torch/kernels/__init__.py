@@ -40,11 +40,11 @@ KERNELS = ("admit_scan", "admit_scan_preempt", "admit_scan_forests",
            "drs_components", "fill_counts", "best_fit_descend",
            "split_across_roots", "kq_cq_avail", "kq_classify_heads",
            "kq_cycle_order", "kq_scatter_rows", "kq_reduce_dflags",
-           "kq_gather_heads", "kq_fs_merge_order")
+           "kq_gather_heads", "kq_fs_merge_order", "kq_add_one")
 SOURCES = ("admit_scan.cu", "admit_scan_preempt.cu", "admit_scan_forests.cu",
            "minimal_preemptions.cu", "burst_cycles.cu", "fs_admit_scan.cu",
            "drs_components.cu", "tas_fill_counts.cu", "tas_descend.cu",
-           "solve_cycle.cu", "scatter_rows.cu", "mesh_gather.cu")
+           "solve_cycle.cu", "scatter_rows.cu", "mesh_gather.cu", "probe.cu")
 HEADERS = ("quota.cuh", "admit_entry.cuh", "flat_forest.cuh", "tas.cuh")
 MAX_THREADS = 1024
 SMEM_LIMIT = 227 * 1024  # dynamic shared memory a block may use on H100
@@ -71,6 +71,7 @@ SYMBOLS = {
     "kq_reduce_dflags_kernel": "kq_reduce_dflags",
     "kq_gather_heads_kernel": "kq_gather_heads",
     "kq_fs_merge_order_kernel": "kq_fs_merge_order",
+    "kq_add_one_kernel": "kq_add_one",
 }
 LAUNCHES: dict[str, int] = dict.fromkeys(KERNELS, 0)
 BUILD: dict = {"seconds": None, "library": None}
@@ -130,6 +131,17 @@ def build(force: bool = False) -> Path:
     return lib
 
 
+def source_digest() -> str:
+    """sha1 of every source and header the library is built from: a
+    measurement taken with other kernels is not this build's."""
+    import hashlib
+    h = hashlib.sha1()
+    for f in SOURCES + HEADERS:
+        h.update(f.encode())
+        h.update((_SRC_DIR / f).read_bytes())
+    return h.hexdigest()
+
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _ARGTYPES = {
@@ -150,6 +162,7 @@ _ARGTYPES = {
     "kq_reduce_dflags": [_P, _P, _I, _I, _P],
     "kq_gather_heads": [_P, _I, _P, _I, _I, _I, ctypes.c_uint, _P],
     "kq_fs_merge_order": [_P, _P, _P],
+    "kq_add_one": [_P, _P, _I, _P],
 }
 
 
@@ -1376,3 +1389,21 @@ def kq_fs_merge_order(winners, head_of, W: int):
     _array_launch("kq_fs_merge_order", load().kq_fs_merge_order,
                   [*winners, *head_of, scratch, order], [len(n), W, *n])
     return order
+
+
+# -- the router's round-trip probe ------------------------------------------
+
+def kq_add_one(x):
+    """CUDA ``x + 1`` on int32 [n] (kernels/probe.cu), wrapping as XLA's
+    add; arguments as ``ops.rtt.add_one_plain``.  The solver's warm-up
+    times its upload, launch and readback (``ops.rtt.round_trip``)."""
+    dev = x.device
+    if dev.type != "cuda":
+        raise ValueError(f"x on {dev}: the kernels need CUDA tensors")
+    n = x.shape[0] if x.dim() == 1 else -1
+    _check("x", x, torch.int32, (n,), dev)
+    out = torch.empty_like(x)
+    if n == 0:
+        return out
+    _launch("kq_add_one", load().kq_add_one, _ptr(x), _ptr(out), n)
+    return out

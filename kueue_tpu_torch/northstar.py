@@ -559,6 +559,9 @@ def run_path(args, use_device: bool, record: list | None = None) -> dict:
         out["elapsed_s"] = round(time.perf_counter() - t_run0, 1)
     if solver is not None:
         out["solver_stats"] = dict(solver.stats)
+        # the warm-up's kq_add_one round trip; on the CPU there is none
+        if solver.rtt_s is not None:
+            out["accel_rtt_ms"] = round(solver.rtt_s * 1e3, 1)
         print(f"stats: {solver.stats}", file=sys.stderr)
     _keep(record, out["path"], decisions)
     return out

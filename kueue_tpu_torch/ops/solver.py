@@ -40,6 +40,20 @@ only; other policies and resumed walks take ``classify_np``, counted in
 heads in the compiled C++ core (``kueue_tpu_torch/native``, host numpy);
 cycles with preempting heads keep the device's ``admit_scan_preempt``.
 
+The route of each admit scan (``choose_route``) follows ``backend``:
+"auto" (the default) and "accel" launch on the solver's device at every
+dispatch, the card's kernels on "cuda"; "native" as above.  On a CPU
+solver, "cpu" (the device's name) is "accel", and a calibrated "auto"
+picks, per (kernel, W, max_forest_wl) bucket, the faster of the plain
+version and the C++ admit loop as ``warmup`` measured them (flat and
+forest scans only).  On a card "auto" never leaves it: the warm-up's
+table there is a measurement (``fastest_route`` names each bucket's
+winner), and the C++ loop runs only when asked for by name.
+``warmup`` also measures the round trip of ``kq_add_one`` (``rtt_s``),
+launches every kernel once at each shape rung the run can reach, and
+persists the table as a sidecar (``compilecache``) that a later process
+with the same fingerprint loads instead of measuring.
+
 ``set_mesh(mesh)`` (a ``parallel.sharded.CycleMesh``; the Driver sets
 one under ``KUEUE_TPU_SHARDS=n``) routes every admit scan and
 fair-sharing scan that a shortcut does not prove unnecessary through the
@@ -53,6 +67,8 @@ its own mesh (``ops.burst.BurstSolver.set_shards``).
 
 from __future__ import annotations
 
+import hashlib
+import time
 from dataclasses import dataclass, field
 from typing import Optional
 
@@ -151,7 +167,7 @@ class DispatchHandle:
     overlap_skip: Optional[np.ndarray] = None
     fit_mask: Optional[np.ndarray] = None  # [W] bool: vector + scalar fits
     route: str = ""   # "cuda" | "cpu" | "sharded" | "native" | "no_fit"
-                      # | "singleton"
+                      # | "singleton" (the route of a scan: choose_route)
     errors: list = field(default_factory=list)  # admit_scan_preempt's
                       # error words, read by ``fetch``
 
@@ -160,6 +176,90 @@ class DispatchHandle:
 _STATIC_PLANES = ("subtree_quota", "guaranteed", "borrow_cap",
                   "has_borrow_limit", "parent", "nominal_cq",
                   "nominal_plus_blimit_cq", "forest_of_node")
+
+
+# Calibration sidecar schema: bump whenever the table's key layout or
+# the measurement protocol changes, so a sidecar written by an older
+# build is rejected (re-measured) instead of mis-routing cycles.
+CALIB_SCHEMA = 1
+
+# the admit scans the router may send to the C++ loop
+_NATIVE_KINDS = ("flat", "forest")
+
+
+def fastest_route(calibration: dict, device_type: str, kind: str, W: int,
+                  mfw: Optional[int]) -> str:
+    """The measured faster of the device's kernel (``device_type``) and
+    the C++ admit loop ("native") for one flat or forest bucket; the
+    device when the bucket has no native entry.
+
+    ``calibration`` is ``{(route, kind, W, key_len): seconds}`` as
+    ``CycleSolver.warmup`` fills it; ``mfw`` the forest scan's bucket
+    (None for the flat scan).  A forest bucket past the warm-up's ladder
+    takes the largest time recorded for the route's forest scans at W
+    (the JAX solver's dispatch, kueue_tpu/ops/solver.py:1056-1062)."""
+    key_len = mfw if mfw is not None else W
+
+    def lookup(route):
+        t = calibration.get((route, kind, W, key_len))
+        if t is None and kind == "forest":
+            t = max((v for k, v in calibration.items()
+                     if k[:3] == (route, "forest", W)), default=None)
+        return t
+
+    t_nat = lookup("native")
+    if t_nat is None:
+        return device_type
+    t_dev = lookup(device_type)
+    return "native" if t_dev is None or t_nat < t_dev else device_type
+
+
+def choose_route(calibration: dict, device_type: str, backend: str,
+                 kind: str, W: int, mfw: Optional[int]) -> str:
+    """The route of one scan dispatch: "native" (the C++ admit loop) or
+    the type of the solver's device ("cuda" for the card's kernels,
+    "cpu" for the plain versions on a CPU solver).
+
+    ``kind`` is "flat", "forest", "preempt" (a cycle with preempting
+    heads) or "fs".  Preempt and fair-sharing scans run on the device
+    under every backend; "native" takes the flat and forest scans.
+    "auto" on a CPU solver takes ``fastest_route``'s pick (the JAX
+    router's on a CPU-only JAX); on a card it stays on the card, so the
+    work never moves to the host while the device is a card."""
+    if kind not in _NATIVE_KINDS or backend == "accel":
+        return device_type
+    if backend == "native":
+        return "native"
+    if device_type != "cpu":
+        return device_type
+    return fastest_route(calibration, device_type, kind, W, mfw)
+
+
+def resolve_backend(backend: str, device: torch.device) -> str:
+    """The solver's backend: "auto", "accel" or "native", with the
+    device's own name ("cuda", "cuda:0", "cpu" on a CPU solver) an alias
+    of "accel"; anything else raises."""
+    if backend in CycleSolver.BACKENDS:
+        return backend
+    if backend in (device.type, str(device)):
+        return "accel"
+    raise ValueError(f"backend {backend!r}: one of {CycleSolver.BACKENDS} "
+                     f"or the device's name ({device.type!r})")
+
+
+# warm-up's repetitions of every timed route: the median of three, so one
+# slow call cannot decide a bucket (the median of two is their mean)
+_REPS = 3
+
+
+def _median_wall(fn, reps: int) -> float:
+    """The median wall seconds of ``reps`` calls of ``fn``."""
+    walls = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        walls.append(time.perf_counter() - t0)
+    return float(np.median(walls))
 
 
 def resolve_device(device) -> torch.device:
@@ -181,19 +281,17 @@ def resolve_device(device) -> torch.device:
 class CycleSolver:
     """Batched solver for the admission cycle on one device.
 
-    Every dispatch on "cuda" launches a hand-written CUDA kernel;
-    "cpu" runs the same function's plain PyTorch version.  Identical
-    decisions on both."""
+    Every dispatch on "cuda" launches a hand-written CUDA kernel; "cpu"
+    runs the same function's plain PyTorch version, "native" the C++
+    admit loop.  Identical decisions on every route."""
 
-    BACKENDS = ("auto", "native")
+    BACKENDS = ("auto", "accel", "native")
 
     def __init__(self, ordering: Ordering | None = None,
                  device: str = "cuda", backend: str = "auto"):
-        if backend not in self.BACKENDS:
-            raise ValueError(f"backend {backend!r}: one of {self.BACKENDS}")
         self.ordering = ordering or Ordering()
         self.device = resolve_device(device)
-        self.backend = backend
+        self.backend = resolve_backend(backend, self.device)
         # Disjoint cycle counters: every cycle with heads lands in exactly
         # one of full/classify/host (the scheduler increments them).
         self.stats = {
@@ -211,9 +309,13 @@ class CycleSolver:
             "cpu_dispatches": 0,      # plain PyTorch scan on the CPU
             "native_dispatches": 0,   # admit loop in the C++ core
             "native_ff_fallbacks": 0,  # native classify → classify_np
+            "native_calibration_failures": 0,  # warm-up's native timing
             "skipped_dispatches": 0,  # no fit head -> scan provably no-op
             "singleton_dispatches": 0,  # <=1 entry/forest -> no contention
             "structure_rebuilds": 0,
+            "calibration_loaded": 0,    # router table read from a sidecar
+            "calibration_rejected": 0,  # sidecar of another schema or
+                                        # fingerprint: measured again
             "scalar_heads": 0,        # heads classified by the host walk
             # flavor-walk telemetry (heterogeneous fast path):
             "scalar_reasons": {},     # {reason: count} for scalar heads
@@ -229,6 +331,10 @@ class CycleSolver:
         # fair-sharing scans run forest-sharded over it (set_mesh)
         self.mesh = None
         self._sharded_fns: dict = {}
+        # measured per-route admit-scan wall times, filled by warmup:
+        # {(route, kind, W, key_len): seconds}
+        self.calibration: dict[tuple, float] = {}
+        self.rtt_s: Optional[float] = None  # kq_add_one's round trip
 
     # -- device planes -------------------------------------------------
 
@@ -260,6 +366,20 @@ class CycleSolver:
     def _to_device(self, *arrays) -> list:
         return [torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
                 for a in arrays]
+
+    def _scan_args(self, st: PackedStructure, *per_cycle) -> tuple:
+        """The 16 leading arguments of the admit scans on the solver's
+        device: the cycle's (usage0, wl_cq, dec_fr, dec_amt, fit_mask,
+        res_fr, res_amt, res_mask, res_borrows) uploaded, the statics
+        cached."""
+        planes = self._device_planes(st)
+        (usage0, wl_cq, dec_fr, dec_amt, fit, res_fr, res_amt, rmask,
+         res_borrows) = self._to_device(*per_cycle)
+        return (usage0, planes["subtree_quota"], planes["guaranteed"],
+                planes["borrow_cap"], planes["has_borrow_limit"],
+                planes["parent"], planes["nominal_cq"],
+                planes["nominal_plus_blimit_cq"], wl_cq, dec_fr, dec_amt,
+                fit, res_fr, res_amt, rmask, res_borrows)
 
     def _collect_kernel_stats(self) -> None:
         if self.device.type != "cuda":
@@ -311,13 +431,222 @@ class CycleSolver:
         return cached[1]
 
     def warmup(self, snapshot: Snapshot, max_heads: int) -> None:
-        """One-time setup outside the hot loop: on "cuda", build (when
-        stale) and load the kernel library; upload the structure's static
-        planes.  No scheduling state is touched."""
+        """One-time setup outside the hot loop (the JAX solver's warmup,
+        kueue_tpu/ops/solver.py:352-589): on "cuda", build (when stale)
+        and load the kernel library and time ``kq_add_one``'s round trip
+        (``rtt_s``); upload the structure's static planes; then, for every
+        head-count bucket up to ``max_heads``, launch the device's admit
+        scans and record their steady-state wall time (upload, launch,
+        readback; the median of 3 reps on every route), time
+        the C++ admit loop beside them under "auto", and launch the
+        padded-K, preempt (T, MT) and search (S, K) rungs once each, so
+        that no live cycle pays a first launch.  A sidecar with
+        this fingerprint (``compilecache``) replaces the measurement;
+        the launches still run.  Shapes only: no scheduling state is
+        touched."""
+        from .. import compilecache
         if self.device.type == "cuda":
             from .. import kernels
+            from .rtt import round_trip_s
             kernels.load()
-        self._device_planes(self._structure_for(snapshot, []))
+            self.rtt_s = round_trip_s(self.device)
+        st = self._structure_for(snapshot, [])
+        fp_src = self._fingerprint(st, max_heads)
+        calib_name = ("calibration-"
+                      f"{hashlib.sha1(fp_src.encode()).hexdigest()[:16]}.json")
+        loaded = compilecache.load_json(calib_name)
+        if loaded is not None and (
+                loaded.get("schema") != CALIB_SCHEMA
+                or loaded.get("fingerprint") != fp_src):
+            # a sidecar from another build, card or structure (or a hash
+            # collision) would route by numbers measured elsewhere
+            self.stats["calibration_rejected"] = 1
+            loaded = None
+        measure = loaded is None
+        if not measure:
+            self.calibration.update(
+                {tuple(k): v for k, v in loaded.get("calibration", [])})
+            self.stats["calibration_loaded"] = 1
+        W = 8
+        while True:
+            self._warm_bucket(st, W, measure)
+            if W >= _bucket(max_heads):
+                break
+            W *= 2
+        self._warm_search(st, max_heads)
+        if measure:
+            compilecache.save_json(calib_name, {
+                "schema": CALIB_SCHEMA, "fingerprint": fp_src,
+                "calibration": [[list(k), v]
+                                for k, v in self.calibration.items()]})
+
+    def _fingerprint(self, st: PackedStructure, max_heads: int) -> str:
+        """What a calibration was measured on: the torch build, the card,
+        the kernel and native sources, the backend and the structure's
+        shape."""
+        from .. import kernels, native
+        with open(native._SRC, "rb") as f:
+            native_src = hashlib.sha1(f.read()).hexdigest()
+        name = (torch.cuda.get_device_name(self.device)
+                if self.device.type == "cuda" else "cpu")
+        N, F = st.subtree_quota.shape
+        C, S, R = st.slot_fr.shape
+        return repr((torch.__version__, torch.version.cuda, name,
+                     kernels.source_digest(), native_src, self.backend,
+                     N, F, C, S, R, st.depth, st.n_forests,
+                     _bucket(max_heads)))
+
+    def _warm_bucket(self, st: PackedStructure, W: int,
+                     measure: bool) -> None:
+        """One head-count bucket of ``warmup``.  The routes are timed on
+        a worst-case sample, every head fitting with all R decision
+        pairs valid: the kernels skip work an empty sample lacks (the
+        flat scan's blocks without heads), so an empty one would favour
+        the card, as a sparse one favoured the native loop in the JAX
+        solver."""
+        N, F = st.subtree_quota.shape
+        R = st.slot_fr.shape[2]
+        n_cq = len(st.cq_names)
+        busy = (np.zeros((N, F), np.int32),
+                (np.arange(W) % max(n_cq, 1)).astype(np.int32),
+                np.tile((np.arange(R) % F).astype(np.int32), (W, 1)),
+                np.ones((W, R), np.int32), np.ones(W, bool),
+                np.full((W, R), -1, np.int32), np.zeros((W, R), np.int32),
+                np.zeros(W, bool), np.zeros(W, bool))
+        order = np.arange(W, dtype=np.int32)
+        # forest scan lengths for this bucket: 4 .. bucket(max CQs per
+        # forest); None when the flat scan is the one dispatched
+        mfw_ladder = None
+        if self._forests_apply(W, st.n_forests):
+            per_forest = np.bincount(st.forest_of_node[:n_cq],
+                                     minlength=st.n_forests)
+            top = _bucket(int(per_forest.max()), minimum=4)
+            mfw_ladder, mfw = [], 4
+            while True:
+                mfw_ladder.append(mfw)
+                if mfw >= top:
+                    break
+                mfw *= 2
+        route = self.device.type
+        reps = _REPS if measure else 1
+        for mfw in mfw_ladder or [None]:
+            dt = _median_wall(
+                lambda: self._launch_scan(st, busy, order, mfw), reps)
+            if measure:
+                kind = "flat" if mfw is None else "forest"
+                self.calibration[(route, kind, W, mfw or W)] = dt
+        if measure and self.backend == "auto":
+            self._time_native(st, W, busy, order, mfw_ladder)
+
+        # the first padded-K rung (scalar heads with more decision pairs
+        # than R, _build_pair_tensors) and every (T, MT) rung of the
+        # preempt scan this head count can reach, on the JAX solver's
+        # empty sample; only the smallest rung's time is recorded
+        empty = (busy[0], np.full(W, -1, np.int32),
+                 np.full((W, R), -1, np.int32), np.zeros((W, R), np.int32),
+                 np.zeros(W, bool), np.full((W, R), -1, np.int32),
+                 np.zeros((W, R), np.int32), np.zeros(W, bool),
+                 np.zeros(W, bool))
+        Kpad = _bucket(R + 1, minimum=R if R >= 8 else 8)
+        wide = (np.full((W, Kpad), -1, np.int32),
+                np.zeros((W, Kpad), np.int32))
+        padded = empty[:2] + wide + empty[4:5] + wide + empty[7:]
+        t_top = coarse_bucket(4 * W, T_LADDER)
+        self._launch_scan(st, padded, order, None)
+        for T in [t for t in T_LADDER if t <= t_top]:
+            for MT in MT_LADDER if T == T_LADDER[0] else MT_LADDER[:1]:
+                timed = measure and (T, MT) == (T_LADDER[0], MT_LADDER[0])
+                dt = _median_wall(
+                    lambda: self._launch_preempt_rung(st, empty, order, T,
+                                                      MT),
+                    reps if timed else 1)
+                if timed:
+                    self.calibration[(route, "preempt", W, W)] = dt
+
+    def _launch_scan(self, st: PackedStructure, per_cycle: tuple,
+                     order: np.ndarray, mfw: Optional[int]) -> None:
+        """Upload one sample, launch the flat (``mfw`` None) or forest
+        scan, read the decisions back."""
+        args = self._scan_args(st, *per_cycle)
+        t_order = self._to_device(order)[0]
+        fon = self._device_planes(st)["forest_of_node"]
+        if mfw is None:
+            out = admit_scan(*args, t_order, depth=st.depth,
+                             forest_of_node=fon, n_forests=st.n_forests)
+        else:
+            out = admit_scan_forests(*args, t_order, fon, depth=st.depth,
+                                     n_forests=st.n_forests,
+                                     max_forest_wl=mfw)
+        out.cpu()
+
+    def _launch_preempt_rung(self, st: PackedStructure, per_cycle: tuple,
+                             order: np.ndarray, T: int, MT: int) -> None:
+        """The preempt scan at one (T, MT) rung, no head preempting, read
+        back."""
+        W = order.shape[0]
+        F = st.subtree_quota.shape[1]
+        R = per_cycle[2].shape[1]
+        args = self._scan_args(st, *per_cycle)
+        out = admit_scan_preempt(
+            *args, *self._to_device(
+                np.zeros(W, bool), np.full((W, R), -1, np.int32),
+                np.zeros((W, R), np.int32), np.full((W, MT), -1, np.int32),
+                np.zeros(T, np.int32), np.zeros((T, F), np.int32), order),
+            depth=st.depth,
+            forest_of_node=self._device_planes(st)["forest_of_node"],
+            n_forests=st.n_forests)
+        for t in out:
+            t.cpu()
+
+    def _time_native(self, st: PackedStructure, W: int, busy: tuple,
+                     order: np.ndarray, mfw_ladder) -> None:
+        """The C++ admit loop on the worst-case sample, in the same table
+        (its time does not depend on the forest bucket).  A failure is
+        counted in ``native_calibration_failures``; the bucket then has
+        no native entry and runs on the device."""
+        from .. import native
+        try:
+            if not native.available():
+                return
+            statics = [getattr(st, k) for k in _STATIC_PLANES[:7]]
+            dt = _median_wall(lambda: native.admit_scan_raw(
+                busy[0], *statics, *busy[1:], order), _REPS)
+        except Exception:
+            self.stats["native_calibration_failures"] += 1
+            return
+        for mfw in mfw_ladder or [None]:
+            kind = "flat" if mfw is None else "forest"
+            self.calibration[("native", kind, W, mfw or W)] = dt
+
+    def _warm_search(self, st: PackedStructure, max_heads: int) -> None:
+        """Launch the batched preemption search once at every (S, K) rung
+        a run of this size can reach (S <= 2 searches a head; K past the
+        second rung is rare enough to pay its first launch live)."""
+        from .preemption_kernel import minimal_preemptions_batch
+        from .preemption_solver import K_LADDER, S_LADDER, _ForestPlanes
+        try:
+            planes = _ForestPlanes(st)
+        except ValueError:
+            return
+        st._preempt_planes = planes
+        NL, F = planes.NL, st.subtree_quota.shape[1]
+        s_top = coarse_bucket(2 * max_heads, S_LADDER)
+        for S in [s for s in S_LADDER if s <= s_top]:
+            for K in K_LADDER[:2]:
+                out = minimal_preemptions_batch(*self._to_device(
+                    np.zeros((S, NL, F), np.int32),
+                    np.zeros((S, NL, F), np.int32),
+                    np.zeros((S, NL, F), np.int32),
+                    np.full((S, NL, F), 2**30, np.int32),
+                    np.zeros((S, NL, F), bool),
+                    np.full((S, NL), -1, np.int32),
+                    np.full(S, -1, np.int32), np.zeros((S, F), np.int32),
+                    np.zeros((S, F), bool), np.full((S, K), -1, np.int32),
+                    np.zeros((S, K, F), np.int32), np.zeros((S, K), bool),
+                    np.zeros((S, K), bool), np.zeros(S, bool),
+                    np.zeros(S, bool)), depth=st.depth)
+                for t in out:
+                    t.cpu()
 
     # -- structure cache -----------------------------------------------
 
@@ -697,9 +1026,11 @@ class CycleSolver:
           reserves requeue anyway;
         - ≤1 entry per cohort forest (and no preempt entry) → zero
           within-cycle contention, every fit head keeps its fit.
-        Otherwise one kernel is launched on the solver's device (the
-        CUDA kernel on "cuda", the plain version on "cpu"); the host
-        overlaps per-head work until ``fetch``."""
+        Otherwise the scan runs on the route ``choose_route`` picks: one
+        kernel launched on the solver's device (the CUDA kernel on
+        "cuda", the plain version on "cpu"), or the C++ admit loop,
+        synchronously; the host overlaps per-head work with a launch
+        until ``fetch``."""
         packed = cls.packed
         st = packed.structure
         W = packed.wl_cq.shape[0]
@@ -750,7 +1081,11 @@ class CycleSolver:
                  st.nominal_cq, st.nominal_plus_blimit_cq, packed.wl_cq,
                  dec_fr, dec_amt, fit_mask, res_fr, res_amt, rmask,
                  res_borrows), (pmask, pre_fr, pre_amt))
-        if self.backend == "native" and not has_preempt:
+        kind = ("preempt" if has_preempt
+                else "flat" if mfw is None else "forest")
+        route = choose_route(self.calibration, self.device.type,
+                             self.backend, kind, W, mfw)
+        if route == "native":
             # the C++ core runs the admit loop synchronously on the host
             # (cycles with preempting heads keep the device scan)
             from .. import native
@@ -765,18 +1100,12 @@ class CycleSolver:
         kernel = ("admit_scan_preempt" if has_preempt
                   else "admit_scan" if mfw is None else "admit_scan_forests")
         statics = self._device_planes(st)
-        (usage0, wl_cq, t_dec_fr, t_dec_amt, t_fit, t_res_fr, t_res_amt,
-         t_rmask, t_res_borrows, t_order) = self._to_device(
-            packed.usage0, packed.wl_cq, dec_fr, dec_amt, fit_mask, res_fr,
-            res_amt, rmask, res_borrows, order)
-        args = (usage0, statics["subtree_quota"], statics["guaranteed"],
-                statics["borrow_cap"], statics["has_borrow_limit"],
-                statics["parent"], statics["nominal_cq"],
-                statics["nominal_plus_blimit_cq"], wl_cq, t_dec_fr,
-                t_dec_amt, t_fit, t_res_fr, t_res_amt, t_rmask,
-                t_res_borrows)
-        handle.route = self.device.type
-        self.stats[f"{self.device.type}_dispatches"] += 1
+        args = self._scan_args(st, packed.usage0, packed.wl_cq, dec_fr,
+                               dec_amt, fit_mask, res_fr, res_amt, rmask,
+                               res_borrows)
+        t_order = self._to_device(order)[0]
+        handle.route = route
+        self.stats[f"{route}_dispatches"] += 1
         from ..profiling import annotation
         with annotation(f"admit_scan:{kernel}"):
             if has_preempt:

@@ -308,13 +308,14 @@ def run_bench(d: Driver, clock: VirtualClock, total: int, waves,
 
 def build_northstar(n_cqs: int = 1000, n_wl: int = 100_000,
                     device: str = "cuda", cqs_per_cohort: int = 5,
-                    shards: int = 0):
+                    shards: int = 0, solver_backend: str = "auto"):
     """1,000 CQs in cohorts of 5 with ``n_wl`` pending workloads →
-    (driver, clock, total, preemptor_wave); ``shards`` as
-    ``build_bench``'s."""
+    (driver, clock, total, preemptor_wave); ``shards`` and
+    ``solver_backend`` as ``build_bench``'s."""
     clock = VirtualClock()
     with shards_env(shards):
-        d = Driver(clock=clock, device=device)
+        d = Driver(clock=clock, device=device,
+                   solver_backend=solver_backend)
     d.apply_resource_flavor(ResourceFlavor(name="default"))
     per_cq = max(1, n_wl // n_cqs)
     for i in range(n_cqs):
@@ -349,6 +350,61 @@ def build_northstar(n_cqs: int = 1000, n_wl: int = 100_000,
 
     freeze_heap()
     return d, clock, total, preemptor_wave
+
+
+def calibration_table(solver) -> list:
+    """The router's table by bucket: each (kind, W, key_len) with its
+    routes' ms, the measured fastest (``ops.solver.fastest_route``; the
+    device for the preempt rows) and the route ``ops.solver.choose_route``
+    takes there."""
+    from .ops.solver import choose_route, fastest_route
+    rows = {}
+    for (route, kind, W, key_len), t in solver.calibration.items():
+        rows.setdefault((kind, W, key_len), {})[route] = t * 1e3
+    dev = solver.device.type
+    out = []
+    for (kind, W, key_len), ms in sorted(rows.items()):
+        mfw = key_len if kind == "forest" else None
+        out.append(dict(
+            kind=kind, W=W, key_len=key_len, ms=ms,
+            fastest=fastest_route(solver.calibration, dev, kind, W, mfw),
+            route=choose_route(solver.calibration, dev, solver.backend,
+                               kind, W, mfw)))
+    return out
+
+
+CALIBRATION_STATS = ("calibration_loaded", "calibration_rejected",
+                     "native_calibration_failures")
+
+
+def warmup_record(d: Driver, max_heads: int) -> dict:
+    """``CycleSolver.warmup`` on the Driver's snapshot, timed apart from
+    the kernel library's load (its build, when stale, in
+    ``build_s``): the seconds, the round trip, the table
+    (``calibration_table``) and the calibration counters."""
+    from . import kernels
+    s = d.scheduler.solver
+    load_s = None
+    if s.device.type == "cuda":
+        t0 = time.perf_counter()
+        kernels.load()
+        load_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    s.warmup(d.cache.snapshot(), max_heads)
+    return dict(warmup_s=time.perf_counter() - t0, load_s=load_s,
+                build_s=kernels.BUILD["seconds"],
+                rtt_ms=None if s.rtt_s is None else s.rtt_s * 1e3,
+                table=calibration_table(s),
+                **{k: s.stats[k] for k in CALIBRATION_STATS})
+
+
+def route_counts(solver) -> dict:
+    """The dispatches of a drain by route (``DispatchHandle.route``)."""
+    return dict(cuda=solver.stats["cuda_dispatches"],
+                cpu=solver.stats["cpu_dispatches"],
+                native=solver.stats["native_dispatches"],
+                no_fit=solver.stats["skipped_dispatches"],
+                singleton=solver.stats["singleton_dispatches"])
 
 
 @measured

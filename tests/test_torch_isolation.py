@@ -107,7 +107,7 @@ def test_every_port_module_is_accounted_for():
            "analysis/__main__.py", "chaos_soak.py", "obs_soak.py",
            "scale_soak.py", "perf/validate.py", "traffic_soak.py",
            "serve_soak.py", "federation_soak.py", "dist_soak.py",
-           "accel_roofline.py"}
+           "accel_roofline.py", "compilecache.py", "ops/rtt.py"}
     rels = {os.path.relpath(p, PORT) for p in _port_files()}
     assert rels == set(VERBATIM) | set(APPENDED) | set(EDITED) | own
 
@@ -253,6 +253,38 @@ def test_runtime_modules_in_a_fresh_process():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
     assert out.stdout.strip().endswith("ok")
+
+
+def test_calibrated_warmup_in_a_fresh_process(tmp_path):
+    """The router's warm-up (measure, persist, reload) and a cycle under
+    the calibrated "auto" load neither jax nor kueue_tpu, and the
+    sidecar lands in KUEUE_TPU_COMPILE_CACHE."""
+    code = (
+        "import sys\n"
+        "from kueue_tpu_torch import compilecache, scenarios\n"
+        "from kueue_tpu_torch.ops.solver import CycleSolver\n"
+        "d, c, total, waves = scenarios.build_bench(0.01, device='cpu')\n"
+        "s = d.scheduler.solver\n"
+        "s.warmup(d.cache.snapshot(), 30)\n"
+        "assert s.stats['native_calibration_failures'] == 0, s.stats\n"
+        "again = CycleSolver(device='cpu')\n"
+        "again.warmup(d.cache.snapshot(), 30)\n"
+        "assert again.stats['calibration_loaded'] == 1, again.stats\n"
+        "r = scenarios.run_bench(d, c, total, waves)\n"
+        "assert r['finished'] == total, r\n"
+        "assert compilecache.enable() == sys.argv[1]\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'kueue_tpu'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=ROOT,
+               KUEUE_TPU_COMPILE_CACHE=str(tmp_path))
+    out = subprocess.run([sys.executable, "-c", code, str(tmp_path)],
+                         cwd=ROOT, env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.strip().endswith("ok")
+    assert [f for f in os.listdir(tmp_path) if f.startswith("calibration-")]
 
 
 def test_driver_defaults_to_the_card():
@@ -547,7 +579,7 @@ def test_solve_cycle_runs_plain_on_cpu_tensors():
             scenarios.entry()
 
 
-def test_northstar_twin_in_a_fresh_process():
+def test_northstar_twin_in_a_fresh_process(tmp_path):
     """``python -m kueue_tpu_torch.northstar`` (the port's own twin of
     scripts/northstar_e2e.py) at ``--quick --torch-device cpu`` loads no
     jax, no kueue_tpu and no module of ``scripts``, and prints its JSON
@@ -566,7 +598,9 @@ def test_northstar_twin_in_a_fresh_process():
         "('jax', 'jaxlib', 'kueue_tpu', 'scripts') or 'northstar_e2e' in m)\n"
         "assert not bad, bad\n"
         "print('ok')\n")
-    env = dict(os.environ, PYTHONPATH=ROOT)
+    # the warm-up's router sidecar in the test's own directory
+    env = dict(os.environ, PYTHONPATH=ROOT,
+               KUEUE_TPU_COMPILE_CACHE=str(tmp_path))
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
@@ -575,7 +609,7 @@ def test_northstar_twin_in_a_fresh_process():
     tail = json.loads(lines[-2])
     assert tail["metric"] == "northstar_e2e_cycle_p99"
     assert tail["device"]["cycles_run"] == 4
-    # the port's solver measures no accelerator round trip (ROADMAP)
+    # the solver measures kq_add_one's round trip only on a card
     assert "accel_rtt_ms" not in tail["device"]
     if not torch.cuda.is_available():
         out = subprocess.run(

@@ -919,3 +919,27 @@ def test_cuda_merge_order_by_rank_matches_plain(W, S):
         got = kernels.kq_fs_merge_order(tuple(w.cuda() for w in cpu[0]),
                                         tuple(h.cuda() for h in cpu[1]), W)
         assert got.dtype == want.dtype and torch.equal(got.cpu(), want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [8, 1000, 100_000])
+def test_cuda_add_one_matches_plain(n):
+    """kq_add_one, the router's round-trip probe, against ``x + 1`` on
+    the probe's eight values and on seeded values that wrap at the int32
+    limits; one launch a call, and the probe's round trip on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernels have no CPU mode")
+    from kueue_tpu_torch import kernels
+    from kueue_tpu_torch.ops import rtt
+    rng = np.random.default_rng(n)
+    x = rng.integers(-2**31, 2**31, n, dtype=np.int64).astype(np.int32)
+    x[:2] = (2**31 - 1, -2**31)
+    for a in (rtt.PROBE, x):
+        want = rtt.add_one_plain(torch.from_numpy(a))
+        before = kernels.LAUNCHES["kq_add_one"]
+        got = rtt.add_one(torch.from_numpy(a).cuda())
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["kq_add_one"] == before + 1
+        assert got.dtype == want.dtype and torch.equal(got.cpu(), want)
+    assert (rtt.round_trip("cuda") == rtt.PROBE + 1).all()
+    assert rtt.round_trip_s("cuda") > 0

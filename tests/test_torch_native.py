@@ -163,9 +163,11 @@ def test_native_driver_matches_jax_native_driver(seed, preemption):
 def test_driver_backend_values():
     from kueue_tpu_torch.controller.driver import Driver
     assert Driver(device="cpu").scheduler.solver.backend == "auto"
-    assert Driver(device="cpu", solver_backend="cpu").scheduler.solver \
-        .backend == "auto"
-    for bad in ("accel", "cuda", "device"):
+    for name, backend in (("accel", "accel"), ("cpu", "accel"),
+                          ("native", "native")):
+        assert Driver(device="cpu", solver_backend=name).scheduler.solver \
+            .backend == backend
+    for bad in ("cuda", "device"):
         with pytest.raises(ValueError, match="solver_backend"):
             Driver(device="cpu", solver_backend=bad)
 

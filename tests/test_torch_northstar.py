@@ -27,6 +27,7 @@ import sys
 import pytest
 import torch
 
+from kueue_tpu_torch import compilecache
 from kueue_tpu_torch import northstar as tns
 from kueue_tpu_torch import scenarios
 
@@ -55,11 +56,14 @@ def ref():
 
 
 @pytest.fixture(autouse=True)
-def env(monkeypatch):
+def env(monkeypatch, tmp_path):
     """Both scripts write KUEUE_BURST_DELTA_PACK; the test restores it,
-    and KUEUE_TPU_SHARDS stays unset."""
+    and KUEUE_TPU_SHARDS stays unset.  The twin's warm-ups keep their
+    router sidecars in the test's own directory, so that no run loads a
+    table an earlier one left."""
     monkeypatch.setenv("KUEUE_BURST_DELTA_PACK", "1")
     monkeypatch.delenv("KUEUE_TPU_SHARDS", raising=False)
+    monkeypatch.setattr(compilecache, "_enabled_dir", str(tmp_path))
 
 
 def _json(x):
